@@ -1,0 +1,334 @@
+"""Ragged batching + paged KV cache management.
+
+Capability analogue of the reference's inference-v2 ragged stack
+(``inference/v2/ragged/`` — ``DSStateManager`` ragged_manager.py:19,
+``RaggedBatchWrapper`` ragged_wrapper.py:31, ``BlockedKVCache``
+kv_cache.py:40, ``BlockedAllocator`` blocked_allocator.py:11): sequences own
+chains of fixed-size KV blocks from a shared pool, so memory scales with
+tokens actually generated, and prefill/decode tokens from many requests batch
+into one ragged forward.
+
+The "ragged" batch is a fixed (max_tokens,) token buffer + per-sequence
+block tables padded to ``max_blocks_per_seq`` — the paged-attention kernels
+index KV through the block table.
+
+Port note: this is host-only numpy code, kept as a letter-for-letter copy of
+``deepspeed_tpu/inference/v2/ragged.py`` (importing that module would import
+``deepspeed_tpu/__init__.py`` and with it JAX).  The parity test
+``tests/test_torch_ragged.py`` holds the two copies to identical behaviour.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+class BlockedAllocator:
+    """Reference-counted free-list allocator over a fixed pool of KV blocks
+    (reference: ``blocked_allocator.py:11``).
+
+    ``allocate`` hands out blocks with refcount 1; ``free`` decrements and
+    returns a block to the pool only when its last owner releases it —
+    the substrate for cross-request block sharing (prefix cache: one KV
+    block in many block tables).  A ``free`` of a block whose refcount is
+    already 0 raises instead of silently corrupting the pool (the old
+    free list extended unconditionally, so a double-free made the same
+    block allocatable twice)."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks <= 0:
+            raise ValueError("num_blocks must be positive")
+        self._free: List[int] = list(range(num_blocks))
+        self._refs: List[int] = [0] * num_blocks
+        self.num_blocks = num_blocks
+        #: blocks whose bytes were demoted off-device by the paging tier
+        #: (``inference/v2/paging.py``) — they hold no pool id, but they
+        #: are part of the resident KV footprint, so the consistency check
+        #: extends to ``free + evictable + pinned + demoted == total +
+        #: demoted`` (see ``PrefixCache.check_consistency``)
+        self.demoted = 0
+
+    def note_demote(self) -> None:
+        """A device block's bytes moved to the host/spill tier (the block
+        id itself was freed separately)."""
+        self.demoted += 1
+
+    def note_promote(self) -> None:
+        """A demoted block's bytes came back on-device (or were dropped)."""
+        if self.demoted <= 0:
+            raise AssertionError("promote with no demoted blocks tracked")
+        self.demoted -= 1
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def allocate(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise MemoryError(
+                f"KV cache exhausted: requested {n} blocks, {len(self._free)} free")
+        out = self._free[:n]
+        del self._free[:n]
+        for b in out:
+            self._refs[b] = 1
+        return out
+
+    def incref(self, block: int) -> None:
+        """Add an owner to a live (allocated) block — shared-prefix use."""
+        if not (0 <= block < self.num_blocks):
+            raise ValueError(f"invalid block id {block}")
+        if self._refs[block] <= 0:
+            raise ValueError(f"incref on free block {block}")
+        self._refs[block] += 1
+
+    def refcount(self, block: int) -> int:
+        if not (0 <= block < self.num_blocks):
+            raise ValueError(f"invalid block id {block}")
+        return self._refs[block]
+
+    def free(self, blocks: List[int]) -> None:
+        for b in blocks:
+            if not (0 <= b < self.num_blocks):
+                raise ValueError(f"invalid block id {b}")
+        for b in blocks:
+            if self._refs[b] <= 0:
+                raise ValueError(
+                    f"double-free of block {b} (refcount already 0)")
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                self._free.append(b)
+
+    def check_consistency(self) -> None:
+        """Pool invariants: no duplicate free entries, every free block has
+        refcount 0, and free + referenced partitions the pool exactly."""
+        if len(self._free) != len(set(self._free)):
+            raise AssertionError("duplicate block ids in the free list")
+        for b in self._free:
+            if self._refs[b] != 0:
+                raise AssertionError(
+                    f"free block {b} has refcount {self._refs[b]}")
+        live = sum(1 for r in self._refs if r > 0)
+        if live + len(self._free) != self.num_blocks:
+            raise AssertionError(
+                f"pool accounting broken: {live} live + "
+                f"{len(self._free)} free != {self.num_blocks} total")
+        if self.demoted < 0:
+            raise AssertionError(f"negative demoted count {self.demoted}")
+
+
+@dataclasses.dataclass
+class SequenceDescriptor:
+    """Reference: ``sequence_descriptor.py`` — one tracked request."""
+
+    uid: int
+    tokens: List[int]
+    blocks: List[int] = dataclasses.field(default_factory=list)
+    seen_tokens: int = 0  # tokens already in KV cache
+    max_new_tokens: int = 128
+    generated: int = 0
+    done: bool = False
+    in_decode: bool = False  # finished prefill (steady-state fast path)
+    #: per-request sampling temperature; None inherits the step-level
+    #: scalar (the pre-disaggregation deployment-wide knob)
+    temperature: Optional[float] = None
+    #: per-request sampling seed — rows with the same seed in one batch
+    #: still draw independently (the row index is folded in on device)
+    seed: int = 0
+    #: device adapter-stack slot this request's rows read their LoRA
+    #: factors from (serving/adapters.py assigns slots; 0 is the reserved
+    #: null slot whose factors are all-zero, so base-only requests add an
+    #: exact-zero delta and stay bit-identical to an adapterless engine)
+    adapter_slot: int = 0
+
+    @property
+    def cur_len(self) -> int:
+        return len(self.tokens)
+
+
+class KVCacheManager:
+    """Paged KV cache bookkeeping (host side).
+
+    The device-side cache is a (layers, num_blocks, block_size, kv_heads,
+    head_dim) array; this manager owns the allocator and per-sequence block
+    tables (reference ``BlockedKVCache``)."""
+
+    def __init__(self, num_blocks: int, block_size: int, max_blocks_per_seq: int):
+        self.allocator = BlockedAllocator(num_blocks)
+        self.block_size = block_size
+        self.max_blocks_per_seq = max_blocks_per_seq
+        # attached by the engine when the prefix cache is enabled; lets
+        # capacity checks reclaim unreferenced cached blocks under pressure
+        self.prefix_cache = None
+
+    def blocks_needed(self, seq: SequenceDescriptor, new_tokens: int) -> int:
+        total = seq.seen_tokens + new_tokens
+        have = len(seq.blocks)
+        need = -(-total // self.block_size)  # ceil
+        return max(0, need - have)
+
+    def ensure_capacity(self, seq: SequenceDescriptor, new_tokens: int) -> bool:
+        need = self.blocks_needed(seq, new_tokens)
+        if len(seq.blocks) + need > self.max_blocks_per_seq:
+            return False
+        short = need - self.allocator.free_blocks
+        if short > 0 and self.prefix_cache is not None:
+            self.prefix_cache.evict(short)
+        if need > self.allocator.free_blocks:
+            return False
+        if need:
+            seq.blocks.extend(self.allocator.allocate(need))
+        return True
+
+    def release(self, seq: SequenceDescriptor) -> None:
+        self.allocator.free(seq.blocks)
+        seq.blocks = []
+
+
+@dataclasses.dataclass
+class RaggedBatch:
+    """One scheduled forward (reference ``RaggedBatchWrapper``): flattened
+    tokens from every participating sequence + metadata the kernels need,
+    padded to static shapes."""
+
+    token_ids: np.ndarray  # (max_tokens,) int32
+    position_ids: np.ndarray  # (max_tokens,) int32 — position within its seq
+    seq_index: np.ndarray  # (max_tokens,) int32 — row in the block table
+    block_tables: np.ndarray  # (max_seqs, max_blocks_per_seq) int32
+    context_lens: np.ndarray  # (max_seqs,) int32 — tokens in cache AFTER this step
+    logits_rows: np.ndarray  # (max_seqs,) int32 — flat index of each seq's last token
+    chunk_start: np.ndarray  # (max_seqs,) int32 — abs pos of row's first token
+    chunk_len: np.ndarray  # (max_seqs,) int32 — tokens scheduled for the row
+    num_tokens: int
+    num_seqs: int
+    uids: List[int]
+
+
+class DecodeStateTable:
+    """Persistent SoA state for the pure-decode steady state.
+
+    The reference walks ``SequenceDescriptor`` lists in the host loop every
+    step (and so did we — VERDICT weak #7). Here decode bookkeeping lives in
+    row-indexed numpy arrays updated with vectorized ops: dispatch inputs
+    are THE arrays (no per-step rebuild), post-step updates touch Python
+    only for sequences that just completed. Token history accumulates in a
+    preallocated array and flushes into ``seq.tokens`` at retire."""
+
+    def __init__(self, max_seqs: int, max_blocks_per_seq: int,
+                 max_ctx: int):
+        self.max_seqs = max_seqs
+        self.block_tables = np.zeros((max_seqs, max_blocks_per_seq), np.int32)
+        self.ctx = np.zeros(max_seqs, np.int32)  # tokens already in cache
+        self.next_tok = np.zeros(max_seqs, np.int32)  # next input token
+        self.gen = np.zeros(max_seqs, np.int32)
+        self.budget = np.zeros(max_seqs, np.int32)
+        # lifetime KV reservation end: prompt + max_new_tokens.  Speculative
+        # steps write k tokens past ctx; writes at pos >= limit must park in
+        # the scratch block (the block table has no entry for them).
+        self.limit = np.zeros(max_seqs, np.int32)
+        self.active = np.zeros(max_seqs, bool)
+        # per-row sampling state: temp < 0 means "inherit the step-level
+        # scalar temperature" (requests that never set one)
+        self.temp = np.full(max_seqs, -1.0, np.float32)
+        self.seed = np.zeros(max_seqs, np.int32)
+        # per-row adapter-stack slot (0 = null adapter, exact-zero delta)
+        self.adapter = np.zeros(max_seqs, np.int32)
+        self.hist = np.zeros((max_seqs, max_ctx), np.int32)
+        self.hist_len = np.zeros(max_seqs, np.int32)
+        self.row_of: Dict[int, int] = {}
+        self.seq_at: Dict[int, SequenceDescriptor] = {}
+        self._free = list(range(max_seqs - 1, -1, -1))
+
+    def admit(self, seq: SequenceDescriptor) -> int:
+        row = self._free.pop()
+        self.row_of[seq.uid] = row
+        self.seq_at[row] = seq
+        self.active[row] = True
+        bt = self.block_tables[row]
+        bt[:] = 0
+        bt[:len(seq.blocks)] = seq.blocks
+        self.budget[row] = seq.max_new_tokens
+        self.limit[row] = seq.cur_len + seq.max_new_tokens
+        self.temp[row] = -1.0 if seq.temperature is None else seq.temperature
+        self.seed[row] = np.int32(np.uint32(seq.seed & 0xFFFFFFFF))
+        self.adapter[row] = seq.adapter_slot
+        self.hist_len[row] = 0
+        self.sync(seq)
+        return row
+
+    def sync(self, seq: SequenceDescriptor) -> None:
+        """Refresh a row from its descriptor (after host-side prefill
+        bookkeeping; the decode fast path never needs this)."""
+        row = self.row_of[seq.uid]
+        self.ctx[row] = seq.seen_tokens
+        if seq.seen_tokens < seq.cur_len:
+            self.next_tok[row] = seq.tokens[seq.seen_tokens]
+        self.gen[row] = seq.generated
+
+    def flush_tokens(self, seq: SequenceDescriptor) -> None:
+        """Append the row's accumulated decode history to ``seq.tokens``."""
+        row = self.row_of[seq.uid]
+        n = int(self.hist_len[row])
+        if n:
+            seq.tokens.extend(self.hist[row, :n].tolist())
+            seq.generated = int(self.gen[row])
+            seq.seen_tokens = int(self.ctx[row])
+            self.hist_len[row] = 0
+
+    def retire(self, seq: SequenceDescriptor) -> None:
+        self.flush_tokens(seq)
+        row = self.row_of.pop(seq.uid)
+        del self.seq_at[row]
+        self.active[row] = False
+        self.ctx[row] = 0
+        self.next_tok[row] = 0
+        self.gen[row] = 0
+        self.limit[row] = 0
+        self.temp[row] = -1.0
+        self.seed[row] = 0
+        self.adapter[row] = 0
+        self.hist_len[row] = 0
+        self._free.append(row)
+
+
+class RaggedBatchBuilder:
+    def __init__(self, max_tokens: int, max_seqs: int, max_blocks_per_seq: int):
+        self.max_tokens = max_tokens
+        self.max_seqs = max_seqs
+        self.max_blocks_per_seq = max_blocks_per_seq
+
+    def build(self, seqs: List[Tuple[SequenceDescriptor, int]]) -> RaggedBatch:
+        """seqs: (descriptor, n_new_tokens) pairs already capacity-checked."""
+        if len(seqs) > self.max_seqs:
+            raise ValueError(f"{len(seqs)} sequences > max_seqs {self.max_seqs}")
+        token_ids = np.zeros(self.max_tokens, np.int32)
+        position_ids = np.zeros(self.max_tokens, np.int32)
+        seq_index = np.full(self.max_tokens, -1, np.int32)
+        block_tables = np.zeros((self.max_seqs, self.max_blocks_per_seq), np.int32)
+        context_lens = np.zeros(self.max_seqs, np.int32)
+        logits_rows = np.zeros(self.max_seqs, np.int32)
+        chunk_start = np.zeros(self.max_seqs, np.int32)
+        chunk_len = np.zeros(self.max_seqs, np.int32)
+        uids = []
+        cursor = 0
+        for row, (seq, n_new) in enumerate(seqs):
+            start = seq.seen_tokens
+            new_tokens = seq.tokens[start:start + n_new]
+            if cursor + len(new_tokens) > self.max_tokens:
+                raise ValueError("ragged batch token budget exceeded")
+            sl = slice(cursor, cursor + len(new_tokens))
+            token_ids[sl] = new_tokens
+            position_ids[sl] = np.arange(start, start + len(new_tokens))
+            seq_index[sl] = row
+            block_tables[row, :len(seq.blocks)] = seq.blocks
+            context_lens[row] = start + len(new_tokens)
+            logits_rows[row] = cursor + len(new_tokens) - 1
+            chunk_start[row] = start
+            chunk_len[row] = len(new_tokens)
+            cursor += len(new_tokens)
+            uids.append(seq.uid)
+        return RaggedBatch(token_ids, position_ids, seq_index, block_tables,
+                           context_lens, logits_rows, chunk_start, chunk_len,
+                           cursor, len(seqs), uids)

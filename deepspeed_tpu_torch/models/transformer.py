@@ -1,0 +1,364 @@
+"""Decoder-only transformer, LLaMA path — the port of
+``deepspeed_tpu/models/transformer.py``.
+
+Parameters keep the reference's pytree layout as nested dicts of tensors,
+with per-layer weights stacked on a leading ``layers`` axis (``(L, ...)``),
+so :func:`params_from_jax` is a leaf-for-leaf conversion and the engine
+walks the stack with a Python loop where the reference ``lax.scan``-s it.
+
+Weights live in the compute dtype: the reference's ``_lin`` casts its f32
+master weights to the compute dtype on every call; the port casts once at
+load (:func:`init_params` draws straight into it, :func:`params_from_jax`
+converts), which gives the same numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..accelerator import resolve_device
+
+# the dtypes the paged-attention kernels take
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Field for field the reference's ``TransformerConfig``, so presets
+    and overrides carry over unchanged.  The port serves the dense LLaMA
+    path; other switches are refused where they would be used."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 512
+    intermediate_size: int = 1408
+    num_layers: int = 4
+    num_heads: int = 8
+    num_kv_heads: Optional[int] = None  # None => MHA; < num_heads => GQA
+    head_dim_override: Optional[int] = None
+    max_seq_len: int = 2048
+    norm: str = "rmsnorm"  # rmsnorm | layernorm | gemma_rmsnorm
+    activation: str = "silu"  # silu => SwiGLU; gelu; gelu_exact; relu
+    gated_mlp: bool = False
+    embed_scale_by_sqrt_dim: bool = False
+    position: str = "rope"  # rope | learned | alibi
+    tie_embeddings: bool = True
+    embed_norm: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    parallel_residual: bool = False
+    partial_rotary_factor: float = 1.0
+    sliding_window: int = 0
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_routing: str = "capacity"
+    moe_use_residual: bool = False
+    dtype: str = "bfloat16"  # compute dtype
+    param_dtype: str = "float32"  # the reference's master-weight dtype
+    attn_impl: str = "xla"
+    remat_policy: str = "nothing_saveable"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.hidden_size // self.num_heads
+
+    @property
+    def is_gated_mlp(self) -> bool:
+        return self.gated_mlp or self.activation == "silu"
+
+    @property
+    def rot_dim(self) -> int:
+        """Rotated head dims (partial rotary rounds down to even)."""
+        return int(self.head_dim * self.partial_rotary_factor) // 2 * 2
+
+    def num_params(self, include_embed: bool = True) -> int:
+        h, f, v, L = (self.hidden_size, self.intermediate_size,
+                      self.vocab_size, self.num_layers)
+        kvh = self.kv_heads * self.head_dim
+        qh = self.num_heads * self.head_dim
+        per_layer = h * qh + 2 * h * kvh + qh * h
+        n_mlp = 3 * h * f if self.is_gated_mlp else 2 * h * f
+        if self.num_experts > 0:
+            n_mlp = n_mlp * self.num_experts + h * self.num_experts
+        per_layer += n_mlp + 2 * h
+        total = L * per_layer + h
+        if include_embed:
+            total += v * h if self.tie_embeddings else 2 * v * h
+            if self.position == "learned":
+                total += self.max_seq_len * h
+        return total
+
+
+# ---------------------------------------------------------------------------
+# presets (copied letter for letter from the reference)
+# ---------------------------------------------------------------------------
+
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "gpt2-125m": dict(vocab_size=50257, hidden_size=768, intermediate_size=3072,
+                      num_layers=12, num_heads=12, max_seq_len=1024, norm="layernorm",
+                      activation="gelu", position="learned", tie_embeddings=True),
+    "llama3-8b": dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                      num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=8192,
+                      rope_theta=500000.0),
+    "llama3-70b": dict(vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+                       num_layers=80, num_heads=64, num_kv_heads=8, max_seq_len=8192,
+                       rope_theta=500000.0),
+    "mixtral-8x7b": dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                         num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=32768,
+                         num_experts=8, moe_top_k=2),
+    "mistral-7b": dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                       num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=32768,
+                       sliding_window=4096, attn_impl="flash"),
+    "tiny": dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+                 num_heads=4, max_seq_len=128),
+    "tiny-moe": dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+                     num_heads=4, max_seq_len=128, num_experts=4, moe_top_k=2),
+    "tiny-prmoe": dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                       num_layers=2, num_heads=4, max_seq_len=128,
+                       num_experts=4, moe_top_k=2, moe_use_residual=True),
+}
+
+
+def get_config(name: str, **overrides) -> TransformerConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown model preset {name!r}; have {sorted(PRESETS)}")
+    kw = dict(PRESETS[name])
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def _check_servable(cfg: TransformerConfig) -> None:
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers (num_experts > 0) are not ported yet; they arrive "
+            "with the MoE slice (ROADMAP.md queue A, multi-GPU / MoE)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device: Any = "cuda", dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, Any]:
+    """Random parameters in the reference's layout, drawn from
+    ``generator`` straight into ``dtype`` (default: the compute dtype) on
+    ``device`` — an 8B model never exists in f32 on the card.  The
+    generator must live on ``device``.  Torch and JAX draw different
+    numbers from one seed: parity tests convert the reference's weights
+    with :func:`params_from_jax` instead."""
+    _check_servable(cfg)
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.kv_heads
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=dev, dtype=dt)
+        return w.mul_(1.0 / math.sqrt(fan_in))
+
+    def norm_w(shape):
+        # gemma's (1+w) norm is identity at w=0; plain rmsnorm at w=1
+        fill = 0.0 if cfg.norm == "gemma_rmsnorm" else 1.0
+        return torch.full(shape, fill, device=dev, dtype=dt)
+
+    layer: Dict[str, Any] = {
+        "attn": {
+            "wq": dense((L, h, nh * hd), h),
+            "wk": dense((L, h, nkv * hd), h),
+            "wv": dense((L, h, nkv * hd), h),
+            "wo": dense((L, nh * hd, h), nh * hd),
+        },
+        "ln1": {"scale": norm_w((L, h))},
+        "ln2": {"scale": norm_w((L, h))},
+    }
+    if cfg.norm == "layernorm":
+        layer["ln1"]["bias"] = torch.zeros((L, h), device=dev, dtype=dt)
+        layer["ln2"]["bias"] = torch.zeros((L, h), device=dev, dtype=dt)
+    mlp = {"w_in": dense((L, h, f), h), "w_out": dense((L, f, h), f)}
+    if cfg.is_gated_mlp:
+        mlp["w_gate"] = dense((L, h, f), h)
+    layer["mlp"] = mlp
+    params: Dict[str, Any] = {
+        "embed": {"tokens": dense((cfg.vocab_size, h), h)},
+        "layers": layer,
+        "final_norm": {"scale": norm_w((h,))},
+    }
+    if cfg.norm == "layernorm":
+        params["final_norm"]["bias"] = torch.zeros((h,), device=dev, dtype=dt)
+    if cfg.position == "learned":
+        params["embed"]["position"] = dense((cfg.max_seq_len, h), h)
+    if cfg.embed_norm:
+        params["embed_norm"] = {
+            "scale": torch.ones((h,), device=dev, dtype=dt),
+            "bias": torch.zeros((h,), device=dev, dtype=dt)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense((h, cfg.vocab_size), h)}
+    return params
+
+
+def _leaf_to_torch(leaf, device: torch.device, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    if not (hasattr(leaf, "shape") and hasattr(leaf, "dtype")):
+        raise NotImplementedError(
+            f"parameter leaf of type {type(leaf).__name__} is not a plain "
+            "array: quantized and LoRA weights arrive with the quantization "
+            "and adapter slices")
+    arr = np.ascontiguousarray(np.asarray(leaf))
+    if not arr.flags.writeable:  # torch tensors must own writable memory
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
+                    device: Any = "cuda", dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, Any]:
+    """The reference's parameter pytree (nested dicts of arrays: numpy, or
+    anything ``np.asarray`` reads) as the port's parameters: the same
+    nested layout, each leaf a tensor in ``dtype`` (default: the compute
+    dtype) on ``device``."""
+    _check_servable(cfg)
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf_to_torch(node, dev, dt)
+
+    return conv(tree)
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+
+def _norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
+          eps: float) -> torch.Tensor:
+    """The reference's ``_norm``: the variance is taken in f32, the rescale
+    happens in ``x``'s dtype, in the same order (that order decides the
+    bf16 rounding)."""
+    if kind == "rmsnorm":
+        var = x.float().square().mean(-1, keepdim=True)
+        y = x * torch.rsqrt(var + eps).to(x.dtype)
+        return y * p["scale"].to(x.dtype)
+    if kind == "gemma_rmsnorm":
+        var = x.float().square().mean(-1, keepdim=True)
+        y = x * torch.rsqrt(var + eps).to(x.dtype)
+        return y * (1.0 + p["scale"].to(x.dtype))
+    mean = x.mean(-1, keepdim=True)
+    var = x.float().var(-1, keepdim=True, unbiased=False).to(x.dtype)
+    y = (x - mean) * torch.rsqrt(var + eps).to(x.dtype)
+    return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+
+
+def rope_table(seq_len: int, head_dim: int, theta: float,
+               device: Any = "cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(seq_len, head_dim/2) cos and sin tables in f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (S, R/2).  Rotates INTERLEAVED pairs
+    (even, odd) of the head dim — the reference's layout, not the
+    half-split one of HF's LLaMA.  Dims past ``R`` (partial rotary) pass
+    through unchanged."""
+    rot = 2 * cos.shape[-1]
+    xr = x[..., :rot]
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    c = cos[None, :, None, :].to(x.dtype)
+    s = sin[None, :, None, :].to(x.dtype)
+    o1 = x1 * c - x2 * s
+    o2 = x2 * c + x1 * s
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    if rot == x.shape[-1]:
+        return out
+    return torch.cat([out, x[..., rot:]], dim=-1)
+
+
+def embed_tokens(params, token_ids: torch.Tensor, cfg: TransformerConfig,
+                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token lookup, gemma sqrt(d) normalizer, learned positions, bloom
+    embedding layernorm — the reference's shared embedding preamble."""
+    dt = torch_dtype(cfg.dtype)
+    x = params["embed"]["tokens"].to(dt)[token_ids]
+    if cfg.embed_scale_by_sqrt_dim:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dt)
+    if cfg.position == "learned":
+        if position_ids is None:
+            position_ids = torch.arange(token_ids.shape[-1],
+                                        device=token_ids.device)
+        x = x + params["embed"]["position"].to(dt)[position_ids]
+    if cfg.embed_norm:
+        x = _norm(x, params["embed_norm"], "layernorm", cfg.norm_eps)
+    return x
+
+
+def _lin(x: torch.Tensor, p: Dict[str, Any], w_key: str, b_key: str
+         ) -> torch.Tensor:
+    w = p[w_key]
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            f"{w_key} is a {type(w).__name__}: quantized and LoRA weights "
+            "arrive with the quantization and adapter slices")
+    y = x @ w.to(x.dtype)
+    if b_key in p:
+        y = y + p[b_key].to(x.dtype)
+    return y
+
+
+def apply_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "gelu_exact":
+        return F.gelu(x, approximate="none")
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "silu":
+        return F.silu(x)
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def _mlp_block(x: torch.Tensor, p: Dict[str, Any], cfg: TransformerConfig
+               ) -> torch.Tensor:
+    if cfg.is_gated_mlp:
+        gate = apply_activation(_lin(x, p, "w_gate", "b_gate"), cfg.activation)
+        return _lin(gate * _lin(x, p, "w_in", "b_in"), p, "w_out", "b_out")
+    mid = apply_activation(_lin(x, p, "w_in", "b_in"), cfg.activation)
+    return _lin(mid, p, "w_out", "b_out")
+
+
+def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
+    def take(node):
+        if isinstance(node, dict):
+            return {k: take(v) for k, v in node.items()}
+        return node[i]
+    return take(params["layers"])

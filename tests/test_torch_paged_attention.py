@@ -1,0 +1,138 @@
+"""Parity: the port's paged attention (``deepspeed_tpu_torch.ops.hopper``)
+against the JAX package's Pallas kernels (run in interpret mode on the CPU,
+as the JAX package's own tests run them).
+
+On CPU tensors the port's wrappers run their plain PyTorch versions; the
+same numpy-seeded inputs go through both packages in f32 and must agree to
+1e-5.  The CUDA kernels themselves are held against the plain versions on
+a GPU by ``tests/test_torch_gpu.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.pallas import paged_attention as jpa
+from deepspeed_tpu_torch.ops.hopper import build
+from deepspeed_tpu_torch.ops.hopper import paged_attention as tpa
+
+ATOL = 1e-5  # f32 both sides; only the summation order differs
+
+
+def _paged(rng, S, H, KV, D, BS, NB, MB):
+    k = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    v = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    bt = rng.permutation(NB)[: S * MB].reshape(S, MB).astype(np.int32)
+    return k, v, bt
+
+
+def _decode_case(seed, H, KV, D=16, BS=8):
+    rng = np.random.default_rng(seed)
+    S, NB, MB = 5, 32, 4
+    k, v, bt = _paged(rng, S, H, KV, D, BS, NB, MB)
+    q = rng.standard_normal((S, H, D)).astype(np.float32)
+    ctx = np.array([5, 0, 17, 32, 1], np.int32)  # incl. ctx=0, full chain
+    return q, k, v, bt, ctx
+
+
+def _prefill_case(seed, H, KV, D=16, BS=8):
+    rng = np.random.default_rng(seed)
+    S, NB, MB, Qp = 4, 32, 6, 32
+    k, v, bt = _paged(rng, S, H, KV, D, BS, NB, MB)
+    q = rng.standard_normal((S, Qp, H, D)).astype(np.float32)
+    # starts off the block grid; lens with padding rows, an inactive second
+    # tile (len <= 16 with tq = 16), a zero-length row and a full one
+    start = np.array([0, 5, 13, 3], np.int32)
+    length = np.array([32, 11, 0, 20], np.int32)
+    return q, k, v, bt, start, length
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1)],
+                         ids=["mha", "gqa2", "gqa4"])
+def test_decode_plain_matches_pallas(H, KV):
+    q, k, v, bt, ctx = _decode_case(0, H, KV)
+    want = np.asarray(jpa.paged_decode_attention(*map(jnp.asarray,
+                                                      (q, k, v, bt, ctx))))
+    tpa.reset_counts()
+    got = tpa.paged_decode_attention(*_t(q, k, v, bt, ctx)).numpy()
+    assert tpa.PLAIN_CALLS["decode_attention_plain"] == 1
+    assert tpa.LAUNCHES["paged_decode_attention"] == 0
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert not np.any(got[1])  # ctx = 0 row is exactly zero
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1)],
+                         ids=["mha", "gqa2", "gqa4"])
+def test_prefill_plain_matches_pallas(H, KV):
+    q, k, v, bt, start, length = _prefill_case(1, H, KV)
+    want = np.asarray(jpa.paged_prefill_attention(
+        *map(jnp.asarray, (q, k, v, bt, start, length))))
+    tpa.reset_counts()
+    got = tpa.paged_prefill_attention(*_t(q, k, v, bt, start, length)).numpy()
+    assert tpa.PLAIN_CALLS["prefill_attention_plain"] == 1
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    for s, n in enumerate(length):
+        assert not np.any(got[s, n:])  # padding rows and inactive tiles
+    assert np.isfinite(got).all()
+
+
+def test_prefill_single_row_equals_decode():
+    """A one-row chunk at position p is a decode step with ctx = p + 1."""
+    q, k, v, bt, ctx = _decode_case(2, 4, 2)
+    ctx = np.maximum(ctx, 1)
+    qp = q[:, None]  # (S, 1, H, D)
+    pre = tpa.paged_prefill_attention(*_t(qp, k, v, bt, ctx - 1,
+                                          np.ones_like(ctx)))
+    dec = tpa.paged_decode_attention(*_t(q, k, v, bt, ctx))
+    np.testing.assert_allclose(pre[:, 0].numpy(), dec.numpy(), atol=ATOL,
+                               rtol=0)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros((2, 4, 64), dtype=torch.float16)
+    kc = torch.zeros((8, 16, 2, 64), dtype=torch.float16)
+    ints = {"block_tables": torch.zeros((2, 4), dtype=torch.int32)}
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tpa._check_common(q, kc, kc, ints, 4, 64)
+    q, kc = q.float(), kc.float()
+    with pytest.raises(ValueError, match="head dim"):
+        tpa._check_common(q[..., :48], kc[..., :48], kc[..., :48], ints, 4, 48)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        tpa._check_common(q, kc[:, :, :1].repeat(1, 1, 3, 1),
+                          kc[:, :, :1].repeat(1, 1, 3, 1), ints, 4, 64)
+    with pytest.raises(TypeError, match="int32"):
+        tpa._check_common(q, kc, kc, {"block_tables": ints[
+            "block_tables"].long()}, 4, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa._check_common(q, kc, kc, {"block_tables": torch.zeros(
+            (4, 2), dtype=torch.int32).T}, 4, 64)
+    assert tpa._check_common(q, kc, kc, ints, 4, 64) == (8, 16, 2)
+
+
+def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR
+    assert path.parts[-3:-1] == ("build", "torch_kernels")
+    assert build.SOURCE.is_file()
+    # a build failure raises; nothing falls back
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build.os.path, "isfile",
+                        lambda p: False)
+    monkeypatch.setattr(build, "_LIB", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load()
+
+
+def test_kernel_source_names_what_it_replaces():
+    src = build.SOURCE.read_text()
+    assert "_decode_kernel" in src and "_prefill_kernel" in src
+    assert 'extern "C" int ds_paged_decode' in src
+    assert 'extern "C" int ds_paged_prefill' in src
