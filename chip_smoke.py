@@ -17,8 +17,19 @@ In order it prints:
    then burst decode), checking tokens, finiteness, kernel launch counts
    and determinism; and a small f32 model served on the card and on the
    CPU, whose greedy tokens must agree;
-5. a JSON line with every kernel's numbers;
-6. last, ``{"ok": true, "device": {...}}``.
+5. each flash-attention kernel (forward, dK/dV, dQ) against its plain
+   PyTorch version at the training shape (B=4, S=2048, H=32, KV=8, D=128,
+   causal): in bf16 and in f32, max abs error and kernel / plain / library
+   (SDPA forward; SDPA backward for dK/dV and dQ together) / bound times;
+6. training: ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
+   llama3-8b at full width with its depth cut to 8 layers (bf16
+   parameters, f32 AdamW state, flash attention, tiled loss), 2 warm-up
+   and 5 timed steps on one fixed batch: tokens/s, step ms, MFU, peak
+   memory, finite and falling loss, and exact flash launch counts; then a
+   small f32 model trained 3 steps on the card and on the CPU, whose
+   losses and parameters must agree;
+7. a JSON line with every kernel's numbers;
+8. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -53,6 +65,16 @@ NEW_TOKENS = 32
 TOL_BF16 = (1e-4, 1e-2)
 TOL_F32 = (1e-4, 0.0)
 TOL_LOGITS_F32 = 1e-3  # small f32 model: card vs CPU first-step logits
+# flash dq/dk/dv against their plain versions: each element sums over up to
+# S * H/KV = 8192 rows, in another order on each side, so the f32 limit is
+# relative to the tensor's largest magnitude; one dropped 64-key or
+# 64-row tile moves a gradient row by a few percent of its size, far past
+# this.  bf16 adds one output ulp per element (rtol 1e-2).
+GRAD_REL = 1e-4
+# flash training shape (bench.py's micro-batch and sequence, llama3-8b heads)
+FB, FS = 4, 2048
+TRAIN_LAYERS, TRAIN_WARMUP, TRAIN_STEPS, TILE = 8, 2, 5, 512
+TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
 # H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -299,10 +321,13 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
         rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"paged_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
+              "other": 0.0}
     for ms, _, name in rows:
         if "paged_" in name:
             groups["paged_attention"] += ms
+        elif "flash_" in name:
+            groups["flash_attention"] += ms
         elif any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma")):
             groups["gemm"] += ms
         else:
@@ -432,11 +457,269 @@ def small_model_agreement(torch) -> dict:
     return {"logits_max_abs_diff": diff, "requests": len(prompts)}
 
 
+def compare_grad(out, ref, f32: bool, what: str) -> float:
+    """Max abs error of a gradient against its plain version; fails unless
+    every element is within GRAD_REL * max|ref| (+ 1e-2 |ref| in bf16)."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    atol = GRAD_REL * ref.abs().max().item()
+    rtol = 0.0 if f32 else 1e-2
+    over = (diff - atol - rtol * ref.abs()).max().item()
+    if not math.isfinite(err) or over > 0:
+        fail(f"{what} disagrees with its plain version: max abs err {err}, "
+             f"past |k - p| <= {atol:.3e} + {rtol} |p| by {over}")
+    return err
+
+
+def check_flash(torch, fa, flush) -> list:
+    """B1-B3 against their plain versions at the training shape, bf16 then
+    f32, with kernel / plain / SDPA / bound times of the bf16 run."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = rnd(FB, FS, H, D), rnd(FB, FS, KV, D), rnd(FB, FS, KV, D), \
+        rnd(FB, FS, H, D)
+    mask = fa.AttnMask(causal=True)
+    scale = 1.0 / math.sqrt(D)
+    errs = {}
+    for f32 in (False, True):
+        args = [t.float() if f32 else t for t in (q, k, v, do)]
+        qa, ka, va, da = args
+        o, lse = fa.flash_fwd(qa, ka, va, mask, scale)
+        o_p, lse_p = fa.flash_fwd_plain(qa, ka, va, mask, scale)
+        torch.cuda.synchronize()
+        tag = "f32" if f32 else "bf16"
+        e_o = compare(o, o_p, TOL_F32 if f32 else TOL_BF16,
+                      f"flash_fwd o ({tag})")
+        e_l = compare(lse, lse_p, TOL_F32, f"flash_fwd lse ({tag})")
+        delta = fa.attention_delta(da, o_p)
+        dk, dv = fa.flash_bwd_dkdv(qa, ka, va, da, lse_p, delta, mask, scale)
+        dk_p, dv_p = fa.flash_bwd_dkdv_plain(qa, ka, va, da, lse_p, delta,
+                                             mask, scale)
+        dq = fa.flash_bwd_dq(qa, ka, va, da, lse_p, delta, mask, scale)
+        dq_p = fa.flash_bwd_dq_plain(qa, ka, va, da, lse_p, delta, mask,
+                                     scale)
+        torch.cuda.synchronize()
+        errs[tag] = {
+            "flash_fwd": max(e_o, e_l),
+            "flash_bwd_dkdv": max(
+                compare_grad(dk, dk_p, f32, f"flash_bwd_dkdv dk ({tag})"),
+                compare_grad(dv, dv_p, f32, f"flash_bwd_dkdv dv ({tag})")),
+            "flash_bwd_dq": compare_grad(dq, dq_p, f32,
+                                         f"flash_bwd_dq dq ({tag})")}
+        del o, o_p, dk, dv, dk_p, dv_p, dq, dq_p
+    # the timed backward runs take the bf16 forward's lse and delta
+    o, lse = fa.flash_fwd_plain(q, k, v, mask, scale)
+    delta = fa.attention_delta(do, o)
+    del o
+
+    # yardstick: SDPA on (B, H, S, D), causal, GQA; its backward computes
+    # dq, dk and dv in one call, the work of B2 and B3 together
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    out = sdpa()
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+
+    lib_fwd = time_ms(sdpa, torch, flush)
+    lib_bwd = time_ms(sdpa_bwd, torch, flush)
+    pairs = FS * (FS + 1) // 2  # kept (row, key) pairs per (b, h), causal
+    el = 2  # bf16 bytes
+    qb = FB * FS * H * D * el
+    kvb = FB * FS * KV * D * el
+    rowb = FB * H * FS * 4  # one f32 per (b, h, row): lse or delta
+    work = {  # bytes each function must move, operations it must do
+        "flash_fwd": (qb + 2 * kvb + qb + rowb, 4 * FB * H * D * pairs),
+        "flash_bwd_dkdv": (2 * qb + 2 * kvb + 2 * rowb + 2 * kvb,
+                           8 * FB * H * D * pairs),
+        "flash_bwd_dq": (2 * qb + 2 * kvb + 2 * rowb + qb,
+                         6 * FB * H * D * pairs),
+    }
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, mask, scale),
+                      lambda: fa.flash_fwd_plain(q, k, v, mask, scale),
+                      lib_fwd),
+        "flash_bwd_dkdv": (
+            lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, scale),
+            lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, mask,
+                                            scale), lib_bwd),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, mask, scale),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, mask,
+                                          scale), lib_bwd),
+    }
+    rows = []
+    for name, (kernel, plain, lib_ms) in calls.items():
+        b_ms, b_by = bound(*work[name])
+        rows.append({"name": name, "max_abs_err": errs["bf16"][name],
+                     "max_abs_err_f32": errs["f32"][name],
+                     "ms": time_ms(kernel, torch, flush, iters=10),
+                     "plain_ms": time_ms(plain, torch, flush, iters=5,
+                                         warmup=1),
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+    return rows
+
+
+def run_training(torch, fa, profile: bool) -> dict:
+    """bench.py's training step on the port: llama3-8b at full width, depth
+    cut to TRAIN_LAYERS, bf16 parameters, AdamW, flash attention, tiled
+    loss; TRAIN_WARMUP + TRAIN_STEPS steps on one fixed batch.  With
+    ``profile``, one more step runs under ``torch.profiler``."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("llama3-8b", num_layers=TRAIN_LAYERS,
+                         param_dtype="bfloat16", attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=tfm.param_dtype(cfg))
+
+    def loss_fn(p, batch, rng):
+        return tiled_loss_fn(p, batch, cfg, tile_size=TILE)
+
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=loss_fn, params=params), config={
+            "train_micro_batch_size_per_gpu": FB,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+            "zero_optimization": {"stage": 0},
+            "steps_per_print": 10_000})
+    del params  # the engine trains its own copy
+    torch.cuda.empty_cache()
+    batch = {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(engine.train_batch_size, FS)).astype(
+            np.int32)}
+    placed = engine.place_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    metrics = []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if step == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        metrics.append(engine.train_batch(placed))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches, plain = dict(fa.LAUNCHES), dict(fa.PLAIN_CALLS)
+    losses = [m["loss"] for m in metrics]
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dq": L * steps}
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training: the loss did not fall on a fixed batch: {losses}")
+    if launches != want:
+        fail(f"training: flash launches {launches}, want {want} "
+             f"(2L forward with the remat recompute, L each backward)")
+    if any(plain.values()):
+        fail(f"training: a plain attention version ran: {plain}")
+    dt = (t2 - t1) / TRAIN_STEPS
+    tokens_per_step = engine.train_batch_size * (FS - 1)
+    # bench.py's count: 6 N (no embedding) + attention, per token
+    flops_per_token = 6 * cfg.num_params(include_embed=False) \
+        + 12 * cfg.num_layers * cfg.hidden_size * FS
+    tps = tokens_per_step / dt
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    peak = get_accelerator().peak_tflops("bfloat16") * 1e12
+    out = {"model": "llama3-8b", "layers": L, "params": cfg.num_params(),
+           "micro_batch": FB, "seq": FS, "losses": losses,
+           "warmup_s": t1 - t0, "step_ms": dt * 1e3, "tokens_per_s": tps,
+           "mfu": tps * flops_per_token / peak,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_step": {
+               k: n // steps for k, n in launches.items()}}
+    if profile:
+        from torch.profiler import ProfilerActivity
+
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.train_batch(placed)
+            torch.cuda.synchronize()
+        out["profile"] = device_breakdown(torch, prof, dt)
+    del engine, placed, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_training_agreement(torch, fa) -> dict:
+    """A small llama-shaped f32 model (head dim 64, GQA, flash attention)
+    trained 3 steps on the card (kernels) and on the CPU (plain versions)
+    from the same weights: losses within TOL_TRAIN relative, final
+    parameters within TOL_TRAIN."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.runtime.optimizers import leaves
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
+                         num_heads=4, num_kv_heads=2, dtype="float32",
+                         param_dtype="float32", attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
+        4, cfg.max_seq_len)).astype(np.int32)} for _ in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+                p, b, cfg, tile_size=64), params=params), config={
+                "train_micro_batch_size_per_gpu": 4,
+                # bench.py's lr: Adam's first steps move each weight by
+                # ~lr * g / |g|, so where |g| is near eps the card's and the
+                # CPU's f32 rounding of g shows up in proportion to lr
+                "optimizer": {"type": "adamw", "params": {
+                    "lr": 1e-4, "weight_decay": 0.01}},
+                "gradient_clipping": 1.0, "steps_per_print": 10_000},
+            device=dev)
+        fa.reset_counts()
+        losses = [engine.train_batch(b)["loss"] for b in batches]
+        if dev == "cuda" and (not all(fa.LAUNCHES.values())
+                              or any(fa.PLAIN_CALLS.values())):
+            fail(f"small training: the card run did not go through the "
+                 f"kernels: {fa.LAUNCHES} {fa.PLAIN_CALLS}")
+        out[dev] = (losses, [p.detach().cpu() for p in leaves(engine.params)])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][0],
+                                                       out["cpu"][0]))
+    param_diff = max((a - b).abs().max().item() for a, b in zip(
+        out["cuda"][1], out["cpu"][1]))
+    if not loss_rel <= TOL_TRAIN or not param_diff <= TOL_TRAIN:
+        fail(f"small training: card vs CPU losses differ by {loss_rel} "
+             f"(relative), parameters by {param_diff}")
+    return {"losses_cuda": out["cuda"][0], "losses_cpu": out["cpu"][0],
+            "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_diff}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace a third engine run's phases with "
-                    "torch.profiler and print where the device time goes")
+                    help="trace a third engine run's phases and one more "
+                    "training step with torch.profiler and print where the "
+                    "device time goes")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
 
@@ -446,6 +729,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
     try:
         from deepspeed_tpu_torch.ops.hopper import build
+        from deepspeed_tpu_torch.ops.hopper import flash_attention as fa
         from deepspeed_tpu_torch.ops.hopper import paged_attention as pa
     except ImportError as e:
         fail(f"run from the root of the repository ({e})")
@@ -482,22 +766,52 @@ def main() -> None:
     print("engine: " + json.dumps(engine))
     small = small_model_agreement(torch)
     print("small model card vs CPU: " + json.dumps(small))
-    result = {"card": card, "torch": torch.__version__, "engine": engine,
-              "small_model": small}
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    source = "deepspeed_tpu_torch/csrc/paged_attention.cu"
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flash = check_flash(torch, fa, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in flash:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e} (bf16), "
+              f"{k['max_abs_err_f32']:.3e} (f32; o/lse limit {TOL_F32}, "
+              f"grads {GRAD_REL} of max) kernel_ms {k['ms']:.4f} plain_ms "
+              f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
+              f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    training = run_training(torch, fa, args.profile)
+    launches.update(training["launches"])
+    print("training: " + json.dumps(training))
+    small_train = small_training_agreement(torch, fa)
+    print("small training card vs CPU: " + json.dumps(small_train))
+    result = {"card": card, "torch": torch.__version__, "engine": engine,
+              "small_model": small, "training": training,
+              "small_training": small_train}
+
+    sources = {"paged_decode_attention": "paged_attention.cu",
+               "paged_prefill_attention": "paged_attention.cu",
+               "flash_fwd": "flash_attention.cu",
+               "flash_bwd_dkdv": "flash_attention.cu",
+               "flash_bwd_dq": "flash_attention.cu"}
     replaces = {"paged_decode_attention":
                 "deepspeed_tpu/ops/pallas/paged_attention.py:77",
                 "paged_prefill_attention":
-                "deepspeed_tpu/ops/pallas/paged_attention.py:255"}
+                "deepspeed_tpu/ops/pallas/paged_attention.py:255",
+                "flash_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:155",
+                "flash_bwd_dkdv":
+                "deepspeed_tpu/ops/pallas/flash_attention.py:307",
+                "flash_bwd_dq":
+                "deepspeed_tpu/ops/pallas/flash_attention.py:361"}
     line = {"kernels": [
-        {"name": k["name"], "route": "cuda", "source": source,
+        {"name": k["name"], "route": "cuda",
+         "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
          "replaces": replaces[k["name"]], "status": "ok",
          "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
          "max_abs_err_f32": k["max_abs_err_f32"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        for k in kernels]}
+        for k in kernels + flash]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

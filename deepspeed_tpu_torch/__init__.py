@@ -14,6 +14,23 @@ nor anything of ``deepspeed_tpu``.  Slice 1 covers the v2 serving engine:
     uid = eng.put(prompt_tokens, max_new_tokens=32)
     tokens = eng.generate_all()[uid]
 
+Slice 2 adds the training step:
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("llama3-8b", num_layers=8, param_dtype="bfloat16",
+                         attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             dtype=tfm.param_dtype(cfg))
+    spec = ModelSpec(loss_fn=lambda p, b, rng: tiled_loss_fn(p, b, cfg, 512),
+                     params=params)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=spec, config={
+        "train_micro_batch_size_per_gpu": 4,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-4}}})
+    metrics = engine.train_batch({"input_ids": tokens})  # (4, S) int
+
 Importing the package builds nothing and imports neither ``triton`` nor the
 CUDA kernels; those are built from ``csrc/`` at their first launch.
 """
@@ -21,6 +38,7 @@ CUDA kernels; those are built from ``csrc/`` at their first launch.
 from __future__ import annotations
 
 import importlib
+from typing import Any, Dict, Tuple, Union
 
 __version__ = "0.1.0"
 
@@ -30,11 +48,39 @@ _LAZY = {
     "InferenceEngineV2": ("deepspeed_tpu_torch.inference.v2.engine",
                           "InferenceEngineV2"),
     "V2Config": ("deepspeed_tpu_torch.inference.v2.engine", "V2Config"),
+    "ModelSpec": ("deepspeed_tpu_torch.runtime.engine", "ModelSpec"),
+    "TrainingEngine": ("deepspeed_tpu_torch.runtime.engine",
+                       "TrainingEngine"),
     "get_accelerator": ("deepspeed_tpu_torch.accelerator", "get_accelerator"),
     "resolve_device": ("deepspeed_tpu_torch.accelerator", "resolve_device"),
 }
 
-__all__ = ["__version__", *_LAZY]
+__all__ = ["__version__", "initialize", *_LAZY]
+
+
+def initialize(model: Any = None,
+               config: Union[str, Dict, Any, None] = None,
+               config_params: Union[str, Dict, None] = None,
+               model_params: Any = None, param_axes: Any = None,
+               loss_fn: Any = None, device: Any = "cuda"
+               ) -> Tuple[Any, Any, None, Any]:
+    """Create a training engine (reference: ``deepspeed_tpu.initialize``).
+    Returns ``(engine, optimizer, None, lr_schedule)``.  ``model`` is a
+    :class:`~deepspeed_tpu_torch.runtime.engine.ModelSpec`, or pass
+    ``loss_fn`` and ``model_params``.  The engine runs on the card unless
+    ``device="cpu"`` is asked for."""
+    from .runtime.config import load_config
+    from .runtime.engine import ModelSpec, TrainingEngine
+
+    cfg = load_config(config if config is not None else config_params)
+    if not isinstance(model, ModelSpec):
+        if loss_fn is None or model_params is None:
+            raise ValueError(
+                "pass model=ModelSpec(...) or loss_fn= and model_params=")
+        model = ModelSpec(loss_fn=loss_fn, params=model_params,
+                          param_axes=param_axes)
+    engine = TrainingEngine(model, cfg, device=device)
+    return engine, engine.optimizer, None, engine.lr_schedule
 
 
 def __getattr__(name: str):

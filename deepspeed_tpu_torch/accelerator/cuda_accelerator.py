@@ -1,14 +1,17 @@
 """CUDA accelerator: the port's counterpart of
 ``deepspeed_tpu/accelerator/tpu_accelerator.py``.
 
-Kept to what the serving slice uses (device name, device count,
-synchronize); the wider accelerator surface arrives with the training
-slice.
+Kept to what the serving and training slices use: device name and count,
+synchronize, and the bf16 peak that MFU is taken against.
 """
 
 from __future__ import annotations
 
 import torch
+
+# dense tensor-core peaks of an NVIDIA H100 SXM, TFLOP/s (NVIDIA's data
+# sheet, without sparsity, at the 700 W power limit)
+H100_SXM_PEAK_TFLOPS = {"bfloat16": 989.0, "float16": 989.0}
 
 
 class CudaAccelerator:
@@ -27,3 +30,11 @@ class CudaAccelerator:
 
     def synchronize(self, device=None) -> None:
         torch.cuda.synchronize(device)
+
+    def peak_tflops(self, dtype: str = "bfloat16") -> float:
+        """The card's dense peak for ``dtype``: the H100 SXM data sheet's
+        figure (the only card this port is built for)."""
+        if dtype not in H100_SXM_PEAK_TFLOPS:
+            raise ValueError(f"no peak for dtype {dtype!r}; have "
+                             f"{sorted(H100_SXM_PEAK_TFLOPS)}")
+        return H100_SXM_PEAK_TFLOPS[dtype]

@@ -3,20 +3,22 @@
 
 Parameters keep the reference's pytree layout as nested dicts of tensors,
 with per-layer weights stacked on a leading ``layers`` axis (``(L, ...)``),
-so :func:`params_from_jax` is a leaf-for-leaf conversion and the engine
-walks the stack with a Python loop where the reference ``lax.scan``-s it.
+so :func:`params_from_jax` is a leaf-for-leaf conversion and the layer
+stack is walked with a Python loop where the reference ``lax.scan``-s it.
 
-Weights live in the compute dtype: the reference's ``_lin`` casts its f32
-master weights to the compute dtype on every call; the port casts once at
-load (:func:`init_params` draws straight into it, :func:`params_from_jax`
-converts), which gives the same numbers.
+Weights may live in any dtype: ``_lin`` casts them to the compute dtype on
+every call, as the reference does.  Serving loads them straight into the
+compute dtype (:func:`init_params` draws into it, :func:`params_from_jax`
+converts), which gives the same numbers; training keeps them in
+``cfg.param_dtype`` (``init_params(..., dtype=param_dtype(cfg))``), so the
+gradients of :func:`loss_fn` arrive in that dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +34,11 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def param_dtype(cfg: "TransformerConfig") -> torch.dtype:
+    """The dtype the training path keeps parameters in."""
+    return torch_dtype(cfg.param_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -362,3 +369,221 @@ def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
             return {k: take(v) for k, v in node.items()}
         return node[i]
     return take(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def alibi_slopes(n_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes (the reference's ``alibi_slopes``)."""
+    p2 = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(p2) - 3)))
+    slopes = [base ** (i + 1) for i in range(p2)]
+    if p2 != n_heads:
+        extra = 2.0 ** (-(2.0 ** -(math.log2(2 * p2) - 3)))
+        slopes += [extra ** (i + 1) for i in range(0, 2 * (n_heads - p2), 2)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def alibi_bias(n_heads: int, seq_len: int, device: Any = "cpu"
+               ) -> torch.Tensor:
+    """(H, 1, S) additive logit bias: slope * key position."""
+    return (alibi_slopes(n_heads).to(device)[:, None, None]
+            * torch.arange(seq_len, dtype=torch.float32,
+                           device=device)[None, None, :])
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's einsum attention (B, S, H, D), GQA-aware: logits in
+    the inputs' dtype, softmax in f32, probabilities back in the inputs'
+    dtype.  ``bias`` broadcasts onto the (B, H, S, T) logits."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * (1.0 / math.sqrt(D))
+    logits = logits.float()
+    if bias is not None:
+        logits = logits + bias.float()
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        logits = logits.masked_fill(~mask, -1e30)
+    if segment_ids is not None:
+        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        logits = logits.masked_fill(~seg, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def resolve_attention(impl: str) -> AttentionFn:
+    """The attention implementation by name: ``xla`` (einsum reference,
+    any shape) or ``flash`` (the CUDA flash kernels,
+    ``ops/hopper/flash_attention.py``)."""
+    if impl == "xla":
+        return xla_attention
+    if impl == "flash":
+        from ..ops.hopper.flash_attention import flash_attention
+
+        return flash_attention
+    if impl in ("ulysses", "ring"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is sequence parallelism across GPUs; it "
+            "arrives with the multi-GPU item (ROADMAP.md A13)")
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def _attention_block(x, p, cfg: TransformerConfig, cos, sin,
+                     attn_fn: AttentionFn) -> torch.Tensor:
+    B, S, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    q = _lin(x, p, "wq", "bq").reshape(B, S, nh, hd)
+    k = _lin(x, p, "wk", "bk").reshape(B, S, nkv, hd)
+    v = _lin(x, p, "wv", "bv").reshape(B, S, nkv, hd)
+    if cfg.position == "rope":
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if cfg.position == "alibi":
+        o = attn_fn(q, k, v, causal=True,
+                    bias=alibi_bias(nh, S, x.device)[None])
+    else:
+        o = attn_fn(q, k, v, causal=True)
+    return _lin(o.reshape(B, S, nh * hd), p, "wo", "bo")
+
+
+def _remat_policy(name: str) -> bool:
+    """Whether each layer is checkpointed: ``nothing_saveable`` recomputes
+    the whole layer in backward (``torch.utils.checkpoint`` around it, as
+    ``jax.checkpoint`` wraps the scanned body), ``everything`` saves all
+    activations.  The reference's named-save policies are refused."""
+    if name == "nothing_saveable":
+        return True
+    if name == "everything":
+        return False
+    if name in ("dots_saveable", "dots_with_no_batch_dims_saveable",
+                "save_attn", "save_attn_mlp"):
+        raise NotImplementedError(
+            f"remat_policy={name!r} saves named activations; the named "
+            "policies arrive with the rest of the training engine "
+            "(ROADMAP.md A12); use 'nothing_saveable' or 'everything'")
+    raise ValueError(f"unknown remat policy {name!r}")
+
+
+def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
+                   cfg: TransformerConfig,
+                   attn_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+    """tokens (B, S) int → final hidden states (B, S, hidden) after the
+    final norm, in the compute dtype."""
+    _check_servable(cfg)
+    if cfg.position == "alibi" and cfg.attn_impl != "xla":
+        raise ValueError("position='alibi' requires attn_impl='xla'")
+    if attn_fn is None:
+        attn_fn = resolve_attention(cfg.attn_impl)
+        if cfg.sliding_window > 0:
+            if cfg.attn_impl != "flash":
+                raise ValueError("sliding_window requires attn_impl='flash'")
+            window, base_fn = cfg.sliding_window, attn_fn
+            attn_fn = lambda *a, **kw: base_fn(*a, window=window, **kw)  # noqa: E731
+    tokens = tokens.long()
+    S = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg)
+    cos = sin = None
+    if cfg.position == "rope":
+        cos, sin = rope_table(S, cfg.rot_dim, cfg.rope_theta, x.device)
+
+    def layer(h, lp):
+        a_in = _norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+        attn_out = _attention_block(a_in, lp["attn"], cfg, cos, sin, attn_fn)
+        if cfg.parallel_residual:
+            m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+            return h + attn_out + _mlp_block(m_in, lp["mlp"], cfg)
+        h = h + attn_out
+        m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+        return h + _mlp_block(m_in, lp["mlp"], cfg)
+
+    remat = _remat_policy(cfg.remat_policy)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(layer, x, lp,
+                                                  use_reentrant=False)
+        else:
+            x = layer(x, lp)
+    return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+
+
+def lm_head(params: Dict[str, Any], cfg: TransformerConfig,
+            dtype: torch.dtype) -> Tuple[torch.Tensor, bool, Any]:
+    """(weight in ``dtype``, whether it is the tied (V, H) embedding, bias
+    or None) of the language-model head."""
+    if cfg.tie_embeddings:
+        return params["embed"]["tokens"].to(dtype), True, None
+    return (params["lm_head"]["w"].to(dtype), False,
+            params["lm_head"].get("b"))
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor,
+            cfg: TransformerConfig,
+            attn_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V) in the compute dtype."""
+    dt = torch_dtype(cfg.dtype)
+    x = forward_hidden(params, tokens, cfg, attn_fn=attn_fn)
+    w, tied, b = lm_head(params, cfg, dt)
+    logits = x @ (w.T if tied else w)
+    if b is not None:
+        logits = logits + b.to(dt)
+    return logits
+
+
+def shift_labels(batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Next-token (labels, mask) from a batch, shifting in place (the final
+    position is padded with 0 and masked); honours explicit ``labels`` and
+    ``loss_mask``."""
+    tokens = batch["input_ids"]
+    mask = batch.get("loss_mask")
+    if "labels" in batch:
+        return batch["labels"], mask
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    shift = torch.cat([torch.ones_like(tokens[:, 1:]),
+                       torch.zeros_like(tokens[:, :1])], 1).float()
+    return labels, (shift if mask is None else mask * shift)
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-position (nll, correct) in f32 from logits of any dtype."""
+    logits = logits.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    correct = (logits.argmax(-1) == labels).float()
+    return nll, correct
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: TransformerConfig, attn_fn: Optional[AttentionFn] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal-LM cross entropy.  batch: ``{'input_ids': (B, S)}``; optional
+    ``labels`` (the shift happens here when absent) and ``loss_mask``."""
+    labels, mask = shift_labels(batch)
+    logits = forward(params, batch["input_ids"], cfg, attn_fn=attn_fn)
+    nll, correct = cross_entropy_sums(logits, labels)
+    if mask is None:
+        loss, acc = nll.mean(), correct.mean()
+        denom = torch.tensor(float(nll.numel()), device=nll.device)
+    else:
+        mask = mask.float()
+        denom = mask.sum().clamp(min=1.0)
+        loss = (nll * mask).sum() / denom
+        acc = (correct * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}

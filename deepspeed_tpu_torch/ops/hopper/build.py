@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-``deepspeed_tpu_torch/csrc/paged_attention.cu`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into a shared library with a plain C interface, which
-the wrappers load with ``ctypes`` (pointers and the stream pass as
-``c_void_p``; every C entry returns ``cudaGetLastError()``).  Nothing
-includes PyTorch's headers, so a build takes seconds, not minutes.
+Every source in ``deepspeed_tpu_torch/csrc`` (:data:`SOURCES`) is compiled
+by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which the wrappers load with ``ctypes`` (pointers and the stream
+pass as ``c_void_p``; every C entry returns ``cudaGetLastError()``).
+Nothing includes PyTorch's headers, so a build takes seconds, not minutes.
 
-The build happens at first use, from the checkout's source only, into
+The build happens at first use, from the checkout's sources only, into
 ``build/torch_kernels/`` at the root of the checkout (git-ignored).  The
-library's file name carries a digest of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+library's file name carries a digest of every source and the flags, so an
+edited source is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -21,21 +22,31 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
+                             CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 # the C entry points: name -> ctypes argtypes
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRIES = {
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ENTRIES: Dict[str, list] = {
     "ds_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     "ds_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P],
+    # dtype, q, k, v, seg, bm, o, lse, B, S, Skv, H, KV, D, causal, window,
+    # bq, bk, nkb, scale, stream
+    "ds_flash_fwd": [_I] + [_P] * 7 + [_I] * 11 + [_F, _P],
+    # dtype, q, k, v, do, lse, delta, seg, bm, dk, dv, (11 ints), scale, stream
+    "ds_flash_bwd_dkdv": [_I] + [_P] * 10 + [_I] * 11 + [_F, _P],
+    # dtype, q, k, v, do, lse, delta, seg, bm, dq, (11 ints), scale, stream
+    "ds_flash_bwd_dq": [_I] + [_P] * 9 + [_I] * 11 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -53,9 +64,11 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libpaged_attention-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"libds_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Tuple[float, str]:
@@ -66,19 +79,39 @@ def build() -> Tuple[float, str]:
     out = library_path()
     if out.exists():
         return 0.0, ""
+    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA kernel build failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half
-    return secs, proc.stdout
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        log = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{log}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (nvcc exit {proc.returncode})")
+    try:
+        if not failed:
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                                   *map(str, objs)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append(f"== link\n{link.stdout}")
+            if link.returncode != 0:
+                failed.append(f"link (nvcc exit {link.returncode})")
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("CUDA kernel build failed: "
+                               + ", ".join(failed) + "\n" + "\n".join(logs))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return time.perf_counter() - t0, "\n".join(logs)
 
 
 def load() -> ctypes.CDLL:

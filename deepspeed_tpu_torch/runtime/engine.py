@@ -1,0 +1,281 @@
+"""The training engine, single device, ZeRO stage 0 — the port of
+``deepspeed_tpu/runtime/engine.py``.
+
+One ``train_batch`` runs the reference's step (``engine.py:775-844``,
+``:1039-1143``) eagerly: for each of the ``gas`` micro-batches, the loss
+and its gradients (cast to f32 and summed), then the mean over ``gas``,
+the global norm of those f32 gradients, optional clipping
+(``gradient_clipping``) and the Adam/AdamW update with the lr
+``schedule(step - skipped)``.  Parameters stay in their own dtype (the
+model's ``param_dtype``); optimizer moments are f32.  The update runs in
+place: the engine owns copies of the caller's parameters (``engine.params``)
+and keeps no reference to the caller's tensors, which never change.
+
+``train_batch`` returns :class:`LazyMetrics` — ``loss``, ``accuracy``,
+``tokens``, ``grad_norm``, ``loss_scale`` (1.0), ``lr``, ``overflow``
+(0.0) — which stay on the device until first read, so a training loop that
+does not read them never waits for the card.
+
+Data parallelism, ZeRO 1-3, offload, fp16 loss scaling, 1-bit and
+quantized gradients, PEFT and checkpoints are later items of ROADMAP.md;
+the config refuses them out loud.
+"""
+
+from __future__ import annotations
+
+import collections.abc
+import dataclasses
+import logging
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..accelerator import get_accelerator, resolve_device
+from .config import DeepSpeedTPUConfig, ResolvedBatchConfig
+from .config_utils import ConfigError
+from .lr_schedules import create_scheduler
+from .optimizers import (clip_by_global_norm, create_optimizer,
+                         default_weight_decay_mask, global_norm, leaves)
+
+logger = logging.getLogger(__name__)
+
+LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+class LazyMetrics(collections.abc.Mapping):
+    """Per-step metrics whose device-to-host copy waits for the first read;
+    a read copies them all at once (one sync) as plain floats.  A Mapping,
+    not a dict: ``dict(m)`` and ``{**m}`` read through it."""
+
+    def __init__(self, device_metrics: Dict[str, torch.Tensor]):
+        self._dev: Optional[Dict[str, torch.Tensor]] = device_metrics
+        self._host: Dict[str, float] = {}
+
+    def _materialize(self) -> Dict[str, float]:
+        if self._dev is not None:
+            keys = list(self._dev)
+            vals = torch.stack([self._dev[k].detach().float().reshape(())
+                                for k in keys]).tolist()
+            self._host = dict(zip(keys, vals))
+            self._dev = None
+        return self._host
+
+    def __getitem__(self, k):
+        return self._materialize()[k]
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __len__(self):
+        return len(self._materialize())
+
+    def __repr__(self):
+        return repr(self._materialize())
+
+    def __reduce__(self):  # pickle as a plain dict
+        return (dict, (self._materialize(),))
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    """What the engine needs from a model.
+
+    ``loss_fn(params, batch, rng) -> (loss, metrics)`` with MEAN semantics
+    over the batch; ``params`` a nested dict of tensors; ``rng`` is a
+    ``torch.Generator`` on the engine's device, seeded per step.
+    ``param_axes`` is accepted for the reference's signature and unused on
+    one device."""
+
+    loss_fn: LossFn
+    params: Any
+    param_axes: Any = None
+    eval_fn: Optional[LossFn] = None
+    flops_per_token: Optional[float] = None
+
+
+@dataclasses.dataclass
+class PlacedBatch:
+    """A batch already reshaped to ``(gas, micro, ...)`` on the device."""
+
+    placed: Dict[str, torch.Tensor]
+
+
+def _map(tree: Any, fn: Callable) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+class TrainingEngine:
+    """Reference: ``DeepSpeedEngine`` / the JAX package's
+    ``TrainingEngine``, on one GPU (or the CPU when asked)."""
+
+    def __init__(self, model: ModelSpec, config: DeepSpeedTPUConfig,
+                 device: Any = "cuda"):
+        config.check_supported()
+        self.config = config
+        self.device = resolve_device(device)
+        self.accelerator = get_accelerator()
+        self.batch_config: ResolvedBatchConfig = \
+            config.resolve_batch_config(1)
+
+        # the engine owns its parameters: fresh copies on its device
+        self.params = _map(model.params, lambda p: p.detach().to(
+            self.device, copy=True).requires_grad_(True))
+        self._leaves: List[torch.Tensor] = leaves(self.params)
+        # keep the spec without the caller's tensors, so that a caller who
+        # drops them frees their memory (an 8B model's 4.5 GB on the card)
+        self.model = dataclasses.replace(model, params=None)
+
+        base_lr = config.optimizer.params.get("lr", 1e-3)
+        self.lr_schedule = create_scheduler(config.scheduler, base_lr=base_lr)
+        wd_mask = None
+        if config.optimizer.params.get("weight_decay", 0.0):
+            wd_mask = leaves(default_weight_decay_mask(self.params))
+        self.optimizer = create_optimizer(config.optimizer, self.lr_schedule,
+                                          wd_mask)
+        self.optimizer.init(self._leaves)
+        self.step_count = 0
+        self.skipped_steps = 0
+        self.global_steps = 0
+        logger.info("engine ready: zero_stage=0 device=%s batch=%d micro=%d "
+                    "gas=%d", self.device, self.train_batch_size,
+                    self.train_micro_batch_size_per_device,
+                    self.gradient_accumulation_steps)
+
+    # ------------------------------------------------------------------
+    # data placement
+    # ------------------------------------------------------------------
+
+    def _place(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        gas = self.batch_config.gradient_accumulation_steps
+        tb = self.batch_config.train_batch_size
+
+        def place(x):
+            t = torch.as_tensor(np.asarray(x)) if not isinstance(
+                x, torch.Tensor) else x
+            if t.shape[0] != tb:
+                raise ConfigError(f"batch leading dim {t.shape[0]} != "
+                                  f"train_batch_size {tb}")
+            t = t.reshape((gas, tb // gas) + tuple(t.shape[1:]))
+            return t.to(self.device, non_blocking=True)
+
+        return {k: place(v) for k, v in batch.items()}
+
+    def place_batch(self, batch: Dict[str, Any]) -> PlacedBatch:
+        """Copy a host batch to the device now and return a
+        :class:`PlacedBatch` that ``train_batch`` takes as it is."""
+        if "lr_scale" in batch:
+            raise NotImplementedError(
+                "variable-batch lr_scale arrives with the data pipeline "
+                "(ROADMAP.md A14)")
+        return PlacedBatch(self._place(batch))
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+
+    def _step_rng(self) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.config.seed * 1_000_003 + self.step_count)
+                        % (2 ** 63))
+        return gen
+
+    def train_batch(self, batch: Any) -> LazyMetrics:
+        """One global-batch step: forward, backward, update."""
+        if not isinstance(batch, PlacedBatch):
+            batch = self.place_batch(batch)
+        placed = batch.placed
+        gas = self.batch_config.gradient_accumulation_steps
+        rng = self._step_rng()
+        grads: Optional[List[torch.Tensor]] = None
+        msum: Dict[str, torch.Tensor] = {}
+        for i in range(gas):
+            mb = {k: v[i] for k, v in placed.items()}
+            loss, metrics = self.model.loss_fn(self.params, mb, rng)
+            g = torch.autograd.grad(loss, self._leaves, allow_unused=True)
+            g = [torch.zeros_like(p, dtype=torch.float32) if gi is None
+                 else gi.float() for gi, p in zip(g, self._leaves)]
+            if grads is None:
+                grads = g
+            else:
+                for a, b in zip(grads, g):
+                    a.add_(b)
+            for k, m in metrics.items():
+                m = torch.as_tensor(m, device=self.device).detach().float()
+                msum[k] = msum[k] + m if k in msum else m
+        with torch.no_grad():
+            if gas > 1:
+                for g in grads:
+                    g.div_(float(gas))
+            metrics = {k: m / gas for k, m in msum.items()}
+            grad_norm = global_norm(grads)
+            clip = self.config.gradient_clipping
+            if clip and clip > 0:
+                clip_by_global_norm(grads, grad_norm, clip)
+            lr = self.lr_schedule(self.step_count - self.skipped_steps)
+            self.optimizer.step(self._leaves, grads)
+        del grads
+        self.step_count += 1
+        self.global_steps += 1
+        dev = self.device
+        metrics["grad_norm"] = grad_norm
+        metrics["loss_scale"] = torch.ones((), device=dev)
+        metrics["lr"] = torch.full((), float(lr), device=dev)
+        metrics["overflow"] = torch.zeros((), device=dev)
+        out = LazyMetrics(metrics)
+        every = self.config.steps_per_print
+        if every and self.global_steps % every == 0:
+            logger.info("step=%d loss=%.4f lr=%.2e grad_norm=%.3f",
+                        self.global_steps, out["loss"], out["lr"],
+                        out["grad_norm"])
+        return out
+
+    def eval_batch(self, batch: Any) -> Dict[str, float]:
+        """The loss function's metrics over the whole batch, no update."""
+        placed = batch.placed if isinstance(batch, PlacedBatch) \
+            else self._place(batch)
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in placed.items()}
+        loss_fn = self.model.eval_fn or self.model.loss_fn
+        with torch.no_grad():
+            _, metrics = loss_fn(self.params, flat, self._step_rng())
+        return dict(LazyMetrics(dict(metrics)))
+
+    # -- state accessors (reference: engine property surface) -----------
+
+    @property
+    def train_batch_size(self) -> int:
+        return self.batch_config.train_batch_size
+
+    @property
+    def train_micro_batch_size_per_device(self) -> int:
+        return self.batch_config.micro_batch_size_per_device
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return self.batch_config.gradient_accumulation_steps
+
+    def get_lr(self) -> float:
+        return float(self.lr_schedule(self.step_count - self.skipped_steps))
+
+    def get_global_step(self) -> int:
+        return self.step_count
+
+    def get_loss_scale(self) -> float:
+        return 1.0
+
+    # -- checkpointing ---------------------------------------------------
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None) -> str:
+        raise NotImplementedError(
+            "checkpoints arrive with the rest of the training engine "
+            "(ROADMAP.md A12)")
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        **kwargs) -> Any:
+        raise NotImplementedError(
+            "checkpoints arrive with the rest of the training engine "
+            "(ROADMAP.md A12)")

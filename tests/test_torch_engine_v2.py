@@ -248,14 +248,18 @@ def test_admission_and_cancel(model):
 
 
 def test_port_imports_no_jax():
-    """The port and a CPU engine run never import JAX or the JAX package."""
+    """The port, a CPU engine run and a CPU training step never import JAX,
+    the JAX package, pydantic or optax."""
     code = textwrap.dedent("""
         import sys
+        import numpy as np
         import torch
         import deepspeed_tpu_torch
         from deepspeed_tpu_torch.inference.v2.engine import (
             InferenceEngineV2, V2Config)
         from deepspeed_tpu_torch.models import transformer as tfm
+        from deepspeed_tpu_torch.runtime.engine import ModelSpec
+        from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
         cfg = tfm.get_config("tiny", dtype="float32", num_kv_heads=2)
         params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                                  device="cpu")
@@ -265,8 +269,20 @@ def test_port_imports_no_jax():
         uid = eng.put(list(range(1, 21)), max_new_tokens=5)
         out = eng.generate_all(burst=4)[uid]
         assert len(out) == 25, out
+        tcfg = tfm.get_config("tiny", dtype="float32", num_kv_heads=2,
+                              attn_impl="flash")
+        spec = ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+            p, b, tcfg, tile_size=8), params=params)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=spec, config={
+            "train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
+            device="cpu")
+        ids = np.random.default_rng(0).integers(0, 256, (2, 16))
+        loss = engine.train_batch({"input_ids": ids})["loss"]
+        assert np.isfinite(loss), loss
         bad = [m for m in sys.modules
-               if m == "jax" or m.startswith(("jax.", "deepspeed_tpu."))
+               if m == "jax" or m.startswith(("jax.", "deepspeed_tpu.",
+                                              "pydantic", "optax"))
                or m in ("deepspeed_tpu", "triton")]
         assert not bad, bad
         print("clean")

@@ -13,6 +13,7 @@ import torch
 
 from deepspeed_tpu_torch.inference.v2 import engine as te
 from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
 from deepspeed_tpu_torch.ops.hopper import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +111,133 @@ def test_engine_on_gpu_matches_cpu(cuda_device):
                                        "prefill_attention_plain": 0}
             assert all(n > 0 for n in tpa.LAUNCHES.values())
     assert out[0] == out[1]
+
+
+# flash attention: the mask options of one small case each, (S, H, KV)
+# chosen so that tiles are ragged (S not a multiple of 64) and the GQA
+# group splits a block's 64 query vectors unevenly (H/KV = 3)
+FLASH_CASES = {
+    "causal": dict(S=200, H=8, KV=2, mask=dict(causal=True)),
+    "full": dict(S=130, H=4, KV=4, mask=dict(causal=False)),
+    "window": dict(S=200, H=6, KV=2, mask=dict(causal=True, window=37)),
+    "segments": dict(S=150, H=8, KV=8, mask=dict(causal=True,
+                                                   segments=(40, 90))),
+    "block_mask": dict(S=192, H=8, KV=1, mask=dict(causal=False,
+                                                     block=(32, 48))),
+}
+
+
+def _flash_inputs(seed, B, S, H, KV, D, dtype, device, mask):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), \
+        rnd(B, S, H, D)
+    seg = bm = None
+    bq = bk = 1024
+    if "segments" in mask:
+        ends = torch.tensor(mask["segments"], device=device)
+        seg = torch.bucketize(torch.arange(S, device=device), ends,
+                              right=True).to(torch.int32)
+        seg = seg[None].repeat(B, 1).contiguous()
+    if "block" in mask:
+        bq, bk = mask["block"]
+        nq, nk = -(-S // bq), -(-S // bk)
+        bm = (torch.rand((nq, nk), generator=gen, device=device) < 0.5) \
+            .to(torch.int32)
+        bm[1] = 0  # rows 32..63 see nothing: o = 0, lse = -inf
+        bm[0, 0] = 1
+    am = tfa.AttnMask(mask.get("causal", True), mask.get("window", 0), seg,
+                      bm, bq, bk)
+    return q, k, v, do, am
+
+
+def _close(got, want, dtype, what):
+    """f32: summation order only, 1e-4 of the tensor's largest magnitude
+    (dq/dk/dv sum over up to S * H/KV rows); bf16: one output ulp (2**-7
+    of an element's size) on top of that."""
+    want = want.float()
+    scale = max(want.abs().max().item(), 1.0)
+    rtol = 0.0 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, atol=1e-4 * scale,
+                               rtol=rtol, msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_device, dtype, D, case):
+    c = FLASH_CASES[case]
+    q, k, v, do, am = _flash_inputs(0, 2, c["S"], c["H"], c["KV"], D, dtype,
+                                    cuda_device, c["mask"])
+    scale = 1.0 / D ** 0.5
+    tfa.reset_counts()
+    o, lse = tfa.flash_fwd(q, k, v, am, scale)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, am, scale)
+    _close(o, o_p, dtype, "o")
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
+    if case == "block_mask":
+        assert torch.isinf(lse[:, :, 32:64]).all() and not o[:, 32:64].any()
+    delta = tfa.attention_delta(do, o_p)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, lse_p, delta, am, scale)
+    dk_p, dv_p = tfa.flash_bwd_dkdv_plain(q, k, v, do, lse_p, delta, am,
+                                          scale)
+    _close(dk, dk_p, dtype, "dk")
+    _close(dv, dv_p, dtype, "dv")
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse_p, delta, am, scale)
+    _close(dq, tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, am, scale),
+           dtype, "dq")
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                            "flash_bwd_dq": 1}
+
+
+def test_flash_autograd_on_gpu_matches_cpu(cuda_device):
+    """The public op's gradients through the kernels equal those through
+    the plain versions on the CPU (f32, GQA, causal, ragged S), also when
+    ``torch.utils.checkpoint`` re-runs the forward."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=gen) for s in
+               ((2, 100, 8, 64), (2, 100, 2, 64), (2, 100, 2, 64)))
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = torch.utils.checkpoint.checkpoint(
+            lambda a, b, c: tfa.flash_attention(a, b, c) ** 2, *leaves,
+            use_reentrant=False)
+        out.sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, h in zip(*grads):
+        torch.testing.assert_close(g, h, atol=1e-4 * h.abs().max().item(),
+                                   rtol=0)
+
+
+def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
+    q, k, v, do, am = _flash_inputs(1, 1, 64, 4, 2, 64, torch.float16,
+                                    cuda_device, {})
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa.flash_fwd(q, k, v, am, 0.125)
+    q, k, v = q.float(), k.float(), v.float()
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                      v[..., :32].contiguous(), am, 0.125)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        tfa.flash_fwd(q[:, :, :3].contiguous(), k, v, am, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd(q.transpose(1, 2).transpose(1, 2)[:, ::2], k[:, ::2],
+                      v[:, ::2], am, 0.125)
+    with pytest.raises(TypeError, match="int32"):
+        tfa.flash_fwd(q, k, v, am._replace(segment_ids=torch.zeros(
+            (1, 64), dtype=torch.int64, device=cuda_device)), 0.125)
+    with pytest.raises(NotImplementedError, match="evoformer"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=torch.zeros(1))
+    with pytest.raises(ValueError, match="f32"):
+        tfa.flash_bwd_dq(q, k, v, q, torch.zeros((1, 4, 64),
+                                                  device=cuda_device,
+                                                  dtype=torch.bfloat16),
+                         torch.zeros((1, 4, 64), device=cuda_device), am,
+                         0.125)

@@ -118,7 +118,19 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
     path = build.library_path()
     assert path.parent == build.BUILD_DIR
     assert path.parts[-3:-1] == ("build", "torch_kernels")
-    assert build.SOURCE.is_file()
+    assert [s.name for s in build.SOURCES] == ["paged_attention.cu",
+                                               "flash_attention.cu"]
+    assert all(s.is_file() for s in build.SOURCES)
+    # a change to either source gives another library name
+    for i, src in enumerate(build.SOURCES):
+        copy = tmp_path / src.name
+        copy.write_bytes(src.read_bytes() + b"// edited\n")
+        sources = list(build.SOURCES)
+        sources[i] = copy
+        monkeypatch.setattr(build, "SOURCES", tuple(sources))
+        assert build.library_path().name != path.name
+        monkeypatch.undo()
+    assert build.library_path() == path
     # a build failure raises; nothing falls back
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -132,7 +144,13 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_source_names_what_it_replaces():
-    src = build.SOURCE.read_text()
-    assert "_decode_kernel" in src and "_prefill_kernel" in src
-    assert 'extern "C" int ds_paged_decode' in src
-    assert 'extern "C" int ds_paged_prefill' in src
+    paged, flash = (s.read_text() for s in build.SOURCES)
+    assert "_decode_kernel" in paged and "_prefill_kernel" in paged
+    assert 'extern "C" int ds_paged_decode' in paged
+    assert 'extern "C" int ds_paged_prefill' in paged
+    assert "deepspeed_tpu/ops/pallas/flash_attention.py" in flash
+    for name in ("_fwd_kernel", "_bwd_dkdv_kernel", "_bwd_dq_kernel"):
+        assert name in flash
+    for entry in ("ds_flash_fwd", "ds_flash_bwd_dkdv", "ds_flash_bwd_dq"):
+        assert f'extern "C" int {entry}' in flash
+        assert entry in build._ENTRIES
