@@ -28,8 +28,19 @@ In order it prints:
    memory, finite and falling loss, and exact flash launch counts; then a
    small f32 model trained 3 steps on the card and on the CPU, whose
    losses and parameters must agree;
-7. a JSON line with every kernel's numbers;
-8. last, ``{"ok": true, "device": {...}}``.
+7. the mixed GEMM (W8A16 / W4A16 / W6A16) and W8A8 kernels against their
+   plain versions at llama3-8b's four projection shapes, at M = 8 (a decode
+   body) and M = 256 (a mixed step), in bf16 and f32: max abs error and
+   kernel / plain / library (bf16 ``torch.matmul`` by the dequantized
+   weight) / bound times;
+8. quantized serving: the engine of 4. with ``quantize_bits=8`` (cold and
+   warm), then 4 and 6, at full width and depth: tokens, finiteness,
+   ``mixed_gemm`` launches = 7 x paged launches with no plain or envelope
+   call, determinism, tokens/s and memory; the seven projections of one
+   quantized layer through ``int8_gemm``; and the small f32 model of 4.
+   quantized at each width, card against CPU;
+9. a JSON line with every kernel's numbers;
+10. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -75,9 +86,32 @@ GRAD_REL = 1e-4
 FB, FS = 4, 2048
 TRAIN_LAYERS, TRAIN_WARMUP, TRAIN_STEPS, TILE = 8, 2, 5, 512
 TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
-# H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate
+# mixed GEMM: llama3-8b's projection shapes (K, N) and rows per call
+GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+               "w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
+GEMM_MS = (8, 256)  # a decode body at max_seqs=8, a mixed step's 256 tokens
+GEMM_JSON = ("w_gate/w_in", 8)  # the shape and M of the kernels JSON line
+QUANT_GROUP = 256
+PROJECTIONS = 7  # wq, wk, wv, wo, w_gate, w_in, w_out per layer
+# mixed GEMM in f32: kernel and plain both sum the same exact bf16 products
+# in f32, K = 4096 or 14336 terms per output, in another order; the tensor
+# cores' accumulation also truncates where IEEE addition rounds, so the
+# difference grows with K (on an H100 80GB HBM3 at 700 W, unsplit: 2.5e-5 of
+# the largest output at K = 4096, 8.8e-5 at K = 14336): 5e-4 of the
+# largest output.  One dropped 256-row group of 56 moves outputs by ~13% of
+# their size, far past this
+GEMM_F32_REL = 5e-4
+# small quantized f32 model, card vs CPU: the mixed GEMM rounds every
+# activation to bf16 (the reference's numerics), so a last-bit f32
+# difference upstream can move an activation by one bf16 ulp (2**-8 of its
+# size); on the CPU alone, summing the GEMMs in f64 instead of f32 moves the
+# first step's logits (max ~3.3) by 3.6e-3, and an H100 measured 4.8e-3
+# card vs CPU.  Greedy tokens must still be identical
+TOL_LOGITS_QUANT = 2e-2
+# H100 SXM data sheet: HBM3 rate and dense bf16 / int8 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 
 def fail(msg: str) -> None:
@@ -96,12 +130,16 @@ def card_line() -> str:
 def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``iters`` runs, CUDA events
     around each run, with the 50 MB L2 flushed before each one (in the
-    engine a layer's KV is cold: 31 other layers ran since)."""
+    engine a layer's KV is cold: 31 other layers ran since).  The device
+    then spins for ~0.5 ms, so that ``fn``'s launches are queued before it
+    reaches the start event and the host's launch cost stays out of the
+    time."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -134,9 +172,9 @@ def check_f32(torch, kernel, plain, args, what: str) -> float:
     return compare(out, ref, TOL_F32, f"{what} (f32)")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -284,12 +322,14 @@ def serve(torch, eng, prompts, trace=None) -> dict:
     phase = trace or contextlib.nullcontext
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps, probes = 0, []
+    steps, probes, first = 0, [], None
     with phase() as prof_prefill:
         while eng.num_waiting or eng._prefilling:
             eng.step()
             steps += 1
             probes.append(bool(torch.isfinite(eng.last_logits).all().item()))
+            if first is None:
+                first = eng.last_logits.clone()
         torch.cuda.synchronize()
     t1 = time.perf_counter()
     emitted = sum(len(s.tokens) for s in eng.running.values()) \
@@ -299,7 +339,8 @@ def serve(torch, eng, prompts, trace=None) -> dict:
         torch.cuda.synchronize()
     t2 = time.perf_counter()
     return {"uids": uids, "results": results, "mixed_steps": steps,
-            "probes_finite": probes, "prefill_s": t1 - t0,
+            "probes_finite": probes, "first_logits": first,
+            "prefill_s": t1 - t0,
             "prefill_emitted": emitted, "decode_s": t2 - t1,
             "profiles": (prof_prefill, prof_decode)}
 
@@ -321,10 +362,12 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
         rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    groups = {"paged_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
-              "other": 0.0}
+    groups = {"paged_attention": 0.0, "flash_attention": 0.0,
+              "mixed_gemm": 0.0, "gemm": 0.0, "other": 0.0}
     for ms, _, name in rows:
-        if "paged_" in name:
+        if "mixed_gemm" in name or "int8_gemm" in name:
+            groups["mixed_gemm"] += ms
+        elif "paged_" in name:
             groups["paged_attention"] += ms
         elif "flash_" in name:
             groups["flash_attention"] += ms
@@ -421,10 +464,11 @@ def run_engine(torch, pa, profile: bool) -> dict:
     return out
 
 
-def small_model_agreement(torch) -> dict:
+def small_model_agreement(torch, bits: int = 0) -> dict:
     """A small llama-shaped f32 model (head dim 64, GQA) served on the card
-    (kernels) and on the CPU (plain versions) from the same weights: the
-    first mixed step's logits agree within TOL_LOGITS_F32 and every greedy
+    (kernels) and on the CPU (plain versions) from the same weights,
+    quantized to ``bits`` when non-zero: the first mixed step's logits agree
+    within TOL_LOGITS_F32 (TOL_LOGITS_QUANT when quantized) and every greedy
     token matches."""
     import numpy as np
 
@@ -437,7 +481,8 @@ def small_model_agreement(torch) -> dict:
     params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
     v2 = V2Config(max_tokens_per_step=32, max_seqs=4, block_size=16,
-                  num_blocks=64, max_blocks_per_seq=8, dtype="float32")
+                  num_blocks=64, max_blocks_per_seq=8, dtype="float32",
+                  quantize_bits=bits)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (5, 40, 17, 70)]
@@ -450,20 +495,24 @@ def small_model_agreement(torch) -> dict:
         res = eng.generate_all(burst=4)
         out[dev] = (first, [res[u] for u in uids])
     diff = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
-    if not diff <= TOL_LOGITS_F32:
-        fail(f"small model: card vs CPU logits differ by {diff}")
+    tag = f"small model (quantize_bits={bits})" if bits else "small model"
+    if not diff <= (TOL_LOGITS_QUANT if bits else TOL_LOGITS_F32):
+        fail(f"{tag}: card vs CPU logits differ by {diff}")
     if out["cuda"][1] != out["cpu"][1]:
-        fail("small model: greedy tokens on the card differ from the CPU's")
-    return {"logits_max_abs_diff": diff, "requests": len(prompts)}
+        fail(f"{tag}: greedy tokens on the card differ from the CPU's")
+    return {"quantize_bits": bits, "logits_max_abs_diff": diff,
+            "requests": len(prompts)}
 
 
-def compare_grad(out, ref, f32: bool, what: str) -> float:
-    """Max abs error of a gradient against its plain version; fails unless
-    every element is within GRAD_REL * max|ref| (+ 1e-2 |ref| in bf16)."""
+def compare_grad(out, ref, f32: bool, what: str, rel: float = GRAD_REL
+                 ) -> float:
+    """Max abs error of a gradient (or another sum over many terms) against
+    its plain version; fails unless every element is within rel * max|ref|
+    (+ 1e-2 |ref| in bf16)."""
     ref = ref.float()
     diff = (out.float() - ref).abs()
     err = diff.max().item()
-    atol = GRAD_REL * ref.abs().max().item()
+    atol = rel * ref.abs().max().item()
     rtol = 0.0 if f32 else 1e-2
     over = (diff - atol - rtol * ref.abs()).max().item()
     if not math.isfinite(err) or over > 0:
@@ -714,6 +763,254 @@ def small_training_agreement(torch, fa) -> dict:
             "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_diff}
 
 
+# ---------------------------------------------------------------------------
+# quantized serving: mixed GEMM (B6) and W8A8 (B7)
+# ---------------------------------------------------------------------------
+
+GEMM_KERNELS = {"mixed_gemm_int8": 8, "mixed_gemm_int4": 4,
+                "mixed_gemm_fp6": 6, "int8_gemm": 8}
+
+
+def check_mixed_gemm(torch, mg, flush) -> list:
+    """B6 (bits 8, 4, 6) and B7 against their plain versions at llama3-8b's
+    projection shapes, M = 8 and 256, group 256: bf16 x per element within
+    TOL_BF16, f32 x within GEMM_F32_REL of the largest output; kernel /
+    plain / library / bound ms of the bf16 call.  The library call is one
+    bf16 ``torch.matmul`` of x by the dequantized bf16 weight (the
+    dequantization excluded): the stock path the kernel replaces."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for shape_name, (K, N) in GEMM_SHAPES.items():
+        w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+        for name, bits in GEMM_KERNELS.items():
+            qw = mg.quantize_gemm_weight(w, bits=bits, group=QUANT_GROUP)
+            if not mg.mixed_gemm_on_kernel_path(qw):
+                fail(f"{name} {shape_name}: off the reference's kernel path")
+            w_lib = mg.dequantize_gemm_weight(qw).to(torch.bfloat16)
+            code_bytes = qw.codes.numel() + qw.scales.numel() * 4
+            for M in GEMM_MS:
+                x = torch.randn((M, K), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                errs = {}
+                for xd in (x, x.float()):
+                    if name == "int8_gemm":
+                        xc, xs = mg.quantize_activations_rowwise(
+                            xd, QUANT_GROUP)
+                        out = mg.int8_gemm_quantized(xc, xs, qw, xd.dtype)
+                        ref = mg.int8_gemm_quantized_plain(xc, xs, qw,
+                                                           xd.dtype)
+                    else:
+                        out, ref = mg.mixed_gemm(xd, qw), \
+                            mg.mixed_gemm_plain(xd, qw)
+                    torch.cuda.synchronize()
+                    what = f"{name} {shape_name} M={M}"
+                    if xd.dtype == torch.bfloat16:
+                        errs["bf16"] = compare(out, ref, TOL_BF16,
+                                               f"{what} (bf16)")
+                    else:
+                        errs["f32"] = compare_grad(out, ref, True,
+                                                   f"{what} (f32)",
+                                                   rel=GEMM_F32_REL)
+                if name == "int8_gemm":
+                    xc, xs = mg.quantize_activations_rowwise(x, QUANT_GROUP)
+
+                    def kernel():
+                        return mg.int8_gemm_quantized(xc, xs, qw, x.dtype)
+
+                    def plain():
+                        return mg.int8_gemm_quantized_plain(xc, xs, qw,
+                                                            x.dtype)
+
+                    in_bytes = M * K + xs.numel() * 4  # int8 codes, scales
+                    peak = INT8_OPS_PER_S
+                else:
+                    def kernel():
+                        return mg.mixed_gemm(x, qw)
+
+                    def plain():
+                        return mg.mixed_gemm_plain(x, qw)
+
+                    in_bytes = M * K * 2
+                    peak = BF16_FLOPS_PER_S
+                b_ms, b_by = bound(code_bytes + in_bytes + M * N * 2,
+                                   2 * M * K * N, peak)
+                rows.append({
+                    "name": name, "shape": shape_name, "K": K, "N": N,
+                    "M": M, "max_abs_err": errs["bf16"],
+                    "max_abs_err_f32": errs["f32"],
+                    "ms": time_ms(kernel, torch, flush),
+                    "plain_ms": time_ms(plain, torch, flush, iters=5,
+                                        warmup=1),
+                    "library_ms": time_ms(lambda: torch.matmul(x, w_lib),
+                                          torch, flush),
+                    "bound_ms": b_ms, "bound_by": b_by})
+            del qw, w_lib
+        del w
+    return rows
+
+
+def int8_gemm_path(torch, mg, params) -> dict:
+    """``int8_gemm`` as a caller uses it: the seven projections of layer 0
+    of a bits=8 quantized llama3-8b, each at M = 8 and 256, bf16 x.  The
+    output must be finite and int8-grade against x @ dequant(W): mean
+    relative error below 5% (the reference's own check)."""
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    layer = tfm.layer_params(params, 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    mg.reset_counts()
+    worst = 0.0
+    for part, keys in (("attn", ("wq", "wk", "wv", "wo")),
+                       ("mlp", ("w_gate", "w_in", "w_out"))):
+        for key in keys:
+            qw = layer[part][key]
+            for M in GEMM_MS:
+                x = torch.randn((M, qw.k_features), generator=gen,
+                                device="cuda", dtype=torch.bfloat16)
+                out = mg.int8_gemm(x, qw)
+                exact = x.float() @ mg.dequantize_gemm_weight(qw)
+                if not torch.isfinite(out).all().item():
+                    fail(f"int8_gemm {key} M={M}: output not finite")
+                rel = ((out.float() - exact).abs().mean()
+                       / exact.abs().mean()).item()
+                if not rel < 0.05:
+                    fail(f"int8_gemm {key} M={M}: mean relative error {rel}")
+                worst = max(worst, rel)
+    launches = mg.LAUNCHES["int8_gemm"]
+    if launches != 2 * PROJECTIONS or any(mg.PLAIN_CALLS.values()) \
+            or any(mg.DEQUANT_CALLS.values()):
+        fail(f"int8_gemm path: {mg.LAUNCHES} {mg.PLAIN_CALLS} "
+             f"{mg.DEQUANT_CALLS}, want {2 * PROJECTIONS} kernel launches")
+    return {"launches": launches, "worst_mean_rel_err": worst}
+
+
+def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
+    """The engine phase's model, V2Config, prompts and new tokens, served
+    quantized: W8A16 cold and warm (and, with ``profile``, traced), then
+    W4A16 and W6A16, each engine freed before the next is built."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.quantization import quantized_bytes
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.get_config("llama3-8b")
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+
+    def v2(bits):
+        return V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
+                        num_blocks=NB, max_blocks_per_seq=MB,
+                        dtype="bfloat16", quantize_bits=bits,
+                        quantize_group=QUANT_GROUP)
+
+    # the bf16 engine's first mixed step, for the W8A16 logits delta
+    eng = InferenceEngineV2(cfg, params, v2(0))
+    for p in prompts:
+        eng.put(p, max_new_tokens=NEW_TOKENS)
+    eng.step()
+    bf16_logits = eng.last_logits.clone()
+    del eng
+    torch.cuda.empty_cache()
+
+    def trace():
+        from torch.profiler import ProfilerActivity
+        return torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+
+    out = {"model": "llama3-8b", "layers": cfg.num_layers,
+           "group": QUANT_GROUP}
+    prompt_tokens = sum(PROMPT_LENS)
+    for bits in (8, 4, 6):
+        kernel = {8: "mixed_gemm_int8", 4: "mixed_gemm_int4",
+                  6: "mixed_gemm_fp6"}[bits]
+        n_runs = (3 if profile else 2) if bits == 8 else 1
+        runs = []
+        for attempt in range(n_runs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = InferenceEngineV2(cfg, params, v2(bits))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            pa.reset_counts()
+            mg.reset_counts()
+            run = serve(torch, eng, prompts, trace if attempt == 2 else None)
+            run.update(build_s=build_s, launches=dict(pa.LAUNCHES),
+                       mixed=dict(mg.LAUNCHES), plain=dict(mg.PLAIN_CALLS),
+                       dequant=dict(mg.DEQUANT_CALLS),
+                       attn_plain=dict(pa.PLAIN_CALLS),
+                       qbytes=quantized_bytes(eng.params),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if bits == 8 and attempt == 0:
+                run["int8_gemm_path"] = int8_gemm_path(torch, mg,
+                                                       eng.params)
+            runs.append(run)
+            del eng
+            torch.cuda.empty_cache()
+        tag = f"quantized engine (quantize_bits={bits})"
+        for run in runs:
+            paged = sum(run["launches"].values())
+            if run["mixed"][kernel] != PROJECTIONS * paged or paged == 0:
+                fail(f"{tag}: {kernel} launched {run['mixed'][kernel]} "
+                     f"times for {paged} paged-attention launches, want "
+                     f"{PROJECTIONS} per paged launch")
+            if any(run["plain"].values()) or any(run["dequant"].values()) \
+                    or any(run["attn_plain"].values()):
+                fail(f"{tag}: a plain or dequantize path ran: {run['plain']}"
+                     f" {run['dequant']} {run['attn_plain']}")
+            if not run["probes_finite"] or not all(run["probes_finite"]):
+                fail(f"{tag}: a mixed step's logits were not finite")
+            for uid, prompt in zip(run["uids"], prompts):
+                toks = run["results"][uid]
+                new = toks[len(prompt):]
+                if toks[:len(prompt)] != prompt or len(new) != NEW_TOKENS:
+                    fail(f"{tag}: request {uid}: {len(new)} new tokens")
+                if not all(0 <= t < cfg.vocab_size for t in new):
+                    fail(f"{tag}: request {uid}: token outside the vocab")
+        if bits == 8:
+            first = [runs[0]["results"][u][len(p):]
+                     for u, p in zip(runs[0]["uids"], prompts)]
+            second = [runs[1]["results"][u][len(p):]
+                      for u, p in zip(runs[1]["uids"], prompts)]
+            if second != first:
+                fail(f"{tag}: the warm run gave other tokens than the cold")
+
+        def rates(r):
+            decode_tokens = len(prompts) * NEW_TOKENS - r["prefill_emitted"]
+            return {"build_s": r["build_s"], "mixed_steps": r["mixed_steps"],
+                    "prefill_s": r["prefill_s"],
+                    "prefill_tokens_per_s": prompt_tokens / r["prefill_s"],
+                    "decode_s": r["decode_s"],
+                    "decode_tokens_per_s": decode_tokens / r["decode_s"],
+                    "peak_mem_gb": r["peak_gb"]}
+
+        res = {"runs": [rates(r) for r in runs[:2]],
+               "launches": {kernel: runs[0]["mixed"][kernel],
+                            **runs[0]["launches"]},
+               "quantized_bytes": runs[0]["qbytes"]}
+        if bits == 8:
+            res["first_step_max_abs_dlogits_vs_bf16"] = (
+                runs[0]["first_logits"] - bf16_logits).abs().max().item()
+            res["int8_gemm_path"] = runs[0]["int8_gemm_path"]
+            if profile:
+                r, warm = runs[2], runs[1]
+                res["profile"] = {
+                    "prefill": device_breakdown(torch, r["profiles"][0],
+                                                warm["prefill_s"]),
+                    "decode": device_breakdown(torch, r["profiles"][1],
+                                               warm["decode_s"])}
+        out[f"w{bits}a16"] = res
+        del runs
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -730,6 +1027,7 @@ def main() -> None:
     try:
         from deepspeed_tpu_torch.ops.hopper import build
         from deepspeed_tpu_torch.ops.hopper import flash_attention as fa
+        from deepspeed_tpu_torch.ops.hopper import mixed_gemm as mg
         from deepspeed_tpu_torch.ops.hopper import paged_attention as pa
     except ImportError as e:
         fail(f"run from the root of the repository ({e})")
@@ -785,15 +1083,41 @@ def main() -> None:
     print("training: " + json.dumps(training))
     small_train = small_training_agreement(torch, fa)
     print("small training card vs CPU: " + json.dumps(small_train))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gemm = check_mixed_gemm(torch, mg, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in gemm:
+        print(f"{k['name']} {k['shape']} (K={k['K']}, N={k['N']}) M={k['M']}:"
+              f" max_abs_err {k['max_abs_err']:.3e} (bf16, limit atol+rtol "
+              f"{TOL_BF16}), {k['max_abs_err_f32']:.3e} (f32, limit "
+              f"{GEMM_F32_REL} of max) kernel_ms {k['ms']:.4f} plain_ms "
+              f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
+              f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    quant = run_quantized_engine(torch, pa, mg, args.profile)
+    print("quantized engine: " + json.dumps(quant))
+    small_quant = [small_model_agreement(torch, bits) for bits in (8, 4, 6)]
+    print("small quantized model card vs CPU: " + json.dumps(small_quant))
+    launches.update({
+        "mixed_gemm_int8": quant["w8a16"]["launches"]["mixed_gemm_int8"],
+        "mixed_gemm_int4": quant["w4a16"]["launches"]["mixed_gemm_int4"],
+        "mixed_gemm_fp6": quant["w6a16"]["launches"]["mixed_gemm_fp6"],
+        "int8_gemm": quant["w8a16"]["int8_gemm_path"]["launches"]})
     result = {"card": card, "torch": torch.__version__, "engine": engine,
               "small_model": small, "training": training,
-              "small_training": small_train}
+              "small_training": small_train, "mixed_gemm": gemm,
+              "quantized_engine": quant, "small_quantized": small_quant}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
                "flash_fwd": "flash_attention.cu",
                "flash_bwd_dkdv": "flash_attention.cu",
-               "flash_bwd_dq": "flash_attention.cu"}
+               "flash_bwd_dq": "flash_attention.cu",
+               **{name: "mixed_gemm.cu" for name in GEMM_KERNELS}}
     replaces = {"paged_decode_attention":
                 "deepspeed_tpu/ops/pallas/paged_attention.py:77",
                 "paged_prefill_attention":
@@ -802,7 +1126,11 @@ def main() -> None:
                 "flash_bwd_dkdv":
                 "deepspeed_tpu/ops/pallas/flash_attention.py:307",
                 "flash_bwd_dq":
-                "deepspeed_tpu/ops/pallas/flash_attention.py:361"}
+                "deepspeed_tpu/ops/pallas/flash_attention.py:361",
+                **{name: "deepspeed_tpu/ops/pallas/mixed_gemm.py:184"
+                   for name in GEMM_KERNELS if name != "int8_gemm"},
+                "int8_gemm": "deepspeed_tpu/ops/pallas/mixed_gemm.py:253"}
+    at_shape = [k for k in gemm if (k["shape"], k["M"]) == GEMM_JSON]
     line = {"kernels": [
         {"name": k["name"], "route": "cuda",
          "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
@@ -811,7 +1139,7 @@ def main() -> None:
          "max_abs_err_f32": k["max_abs_err_f32"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        for k in kernels + flash]}
+        for k in kernels + flash + at_shape]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

@@ -14,6 +14,12 @@ nor anything of ``deepspeed_tpu``.  Slice 1 covers the v2 serving engine:
     uid = eng.put(prompt_tokens, max_new_tokens=32)
     tokens = eng.generate_all()[uid]
 
+Slice 3 serves the same engine weight-quantized (W8A16; ``quantize_bits``
+4 and 6 give W4A16 and W6A16): the projections are quantized where the
+weights lie, and only their codes and scales go to the card:
+
+    eng = InferenceEngineV2(cfg, params, V2Config(quantize_bits=8))
+
 Slice 2 adds the training step:
 
     import deepspeed_tpu_torch

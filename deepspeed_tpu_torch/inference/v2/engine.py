@@ -22,9 +22,14 @@ What changes against the reference:
   sampled row draws with a ``torch.Generator`` seeded from (step key,
   request seed, row): per-seed deterministic, not JAX's bits.
 
-Prefix caching, host paging, the cold store, speculation, quantized bases
-and adapter slots are refused with ``NotImplementedError`` naming the later
-slice (``ROADMAP.md``) that brings them; so are MoE and ALiBi models.  The
+``V2Config(quantize_bits=8 | 6 | 4)`` serves a weight-quantized model
+(W8A16 / W6A16 / W4A16): the raw weights are quantized first, slice by
+slice where they lie (``inference/quantization.py``), and every projection
+then runs the mixed GEMM kernel (``ops/hopper/mixed_gemm.py``).
+
+Prefix caching, host paging, the cold store, speculation and adapter slots
+are refused with ``NotImplementedError`` naming the later slice
+(``ROADMAP.md``) that brings them; so are MoE and ALiBi models.  The
 tracer span and flight-recorder append that the reference's ``step()``
 makes wait for the observability slice.
 """
@@ -40,8 +45,10 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models import transformer as tfm
+from ...ops.hopper.mixed_gemm import QuantizedWeight
 from ...ops.hopper.paged_attention import (paged_decode_attention,
                                            paged_prefill_attention)
+from ..quantization import quantize_on_host
 from .ragged import (DecodeStateTable, KVCacheManager, RaggedBatch,
                      RaggedBatchBuilder, SequenceDescriptor)
 
@@ -90,7 +97,6 @@ _LATER = {
     "kv_promote_ahead": "A3 (host paging)",
     "kv_coldstore_dir": "A4 (cold store)",
     "spec_mode": "A5 (speculative decoding)",
-    "quantize_bits": "A6 (quantized serving)",
     "adapter_slots": "A7 (multi-tenant adapters)",
 }
 
@@ -307,12 +313,16 @@ def decode_body(params, caches, token_ids: torch.Tensor,
 
 
 def _cast_tree(node, device: torch.device, dtype: torch.dtype):
+    """Every tensor of the tree on ``device`` in ``dtype``; a
+    :class:`QuantizedWeight` moves with its codes and scales uncast."""
     if isinstance(node, dict):
         return {k: _cast_tree(v, device, dtype) for k, v in node.items()}
+    if isinstance(node, QuantizedWeight):
+        return node.to(device)
     if not isinstance(node, torch.Tensor):
         raise NotImplementedError(
-            f"parameter leaf of type {type(node).__name__}: quantized and "
-            "LoRA weights arrive with the quantization and adapter slices")
+            f"parameter leaf of type {type(node).__name__}: LoRA weights "
+            "arrive with the adapter slice (ROADMAP.md A7)")
     return node.to(device=device, dtype=dtype)
 
 
@@ -341,6 +351,11 @@ class InferenceEngineV2:
         _check_config(self.cfg)
         self.model_cfg = dataclasses.replace(model_config, dtype=self.cfg.dtype)
         dt = tfm.torch_dtype(self.cfg.dtype)
+        if self.cfg.quantize_bits:
+            # quantize the caller's raw weights before any cast, as the
+            # reference does, so the codes and scales are its own
+            params = quantize_on_host(params, self.cfg.quantize_bits,
+                                      self.cfg.quantize_group, self.device)
         # cast once at load (the reference casts master weights per call)
         self.params = _cast_tree(params, self.device, dt)
         # one block reserved as write-scratch for padded tokens

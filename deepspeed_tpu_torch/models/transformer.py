@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..accelerator import resolve_device
+from ..ops.hopper.mixed_gemm import (QuantizedWeight, mixed_gemm,
+                                     mixed_gemm_frozen)
 
 # the dtypes the paged-attention kernels take
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -221,13 +223,17 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-def _leaf_to_torch(leaf, device: torch.device, dtype: torch.dtype
-                   ) -> torch.Tensor:
+_QW_FIELDS = ("codes", "scales", "bits", "group", "k")
+
+
+def _leaf_to_torch(leaf, device: torch.device,
+                   dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """One array as a tensor on ``device``, cast to ``dtype`` (None: kept)."""
     if not (hasattr(leaf, "shape") and hasattr(leaf, "dtype")):
         raise NotImplementedError(
             f"parameter leaf of type {type(leaf).__name__} is not a plain "
-            "array: quantized and LoRA weights arrive with the quantization "
-            "and adapter slices")
+            "array: LoRA weights arrive with the adapter slice (ROADMAP.md "
+            "A7)")
     arr = np.ascontiguousarray(np.asarray(leaf))
     if not arr.flags.writeable:  # torch tensors must own writable memory
         arr = arr.copy()
@@ -244,7 +250,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     """The reference's parameter pytree (nested dicts of arrays: numpy, or
     anything ``np.asarray`` reads) as the port's parameters: the same
     nested layout, each leaf a tensor in ``dtype`` (default: the compute
-    dtype) on ``device``."""
+    dtype) on ``device``.  A quantized node of the reference (recognised by
+    its fields ``codes, scales, bits, group, k``) becomes a
+    :class:`QuantizedWeight` whose codes and scales keep their dtypes."""
     _check_servable(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
@@ -252,6 +260,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if all(hasattr(node, f) for f in _QW_FIELDS):
+            return QuantizedWeight(_leaf_to_torch(node.codes, dev, None),
+                                   _leaf_to_torch(node.scales, dev, None),
+                                   int(node.bits), int(node.group),
+                                   int(node.k))
         return _leaf_to_torch(node, dev, dt)
 
     return conv(tree)
@@ -331,11 +344,16 @@ def embed_tokens(params, token_ids: torch.Tensor, cfg: TransformerConfig,
 def _lin(x: torch.Tensor, p: Dict[str, Any], w_key: str, b_key: str
          ) -> torch.Tensor:
     w = p[w_key]
-    if not isinstance(w, torch.Tensor):
+    if isinstance(w, QuantizedWeight):  # W8A16/W4A16/W6A16 mixed GEMM
+        # the autograd wrapper only where a gradient can flow
+        y = mixed_gemm_frozen(x, w) if torch.is_grad_enabled() \
+            else mixed_gemm(x, w)
+    elif isinstance(w, torch.Tensor):
+        y = x @ w.to(x.dtype)
+    else:
         raise NotImplementedError(
-            f"{w_key} is a {type(w).__name__}: quantized and LoRA weights "
-            "arrive with the quantization and adapter slices")
-    y = x @ w.to(x.dtype)
+            f"{w_key} is a {type(w).__name__}: LoRA weights arrive with the "
+            "adapter slice (ROADMAP.md A7)")
     if b_key in p:
         y = y + p[b_key].to(x.dtype)
     return y
@@ -363,7 +381,8 @@ def _mlp_block(x: torch.Tensor, p: Dict[str, Any], cfg: TransformerConfig
 
 
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
+    """Layer ``i``'s slice of the stacked ``params["layers"]`` (views; a
+    :class:`QuantizedWeight` slices its codes and scales)."""
     def take(node):
         if isinstance(node, dict):
             return {k: take(v) for k, v in node.items()}

@@ -26,7 +26,8 @@ from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
-                             CSRC / "flash_attention.cu")
+                             CSRC / "flash_attention.cu",
+                             CSRC / "mixed_gemm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,6 +48,12 @@ _ENTRIES: Dict[str, list] = {
     "ds_flash_bwd_dkdv": [_I] + [_P] * 10 + [_I] * 11 + [_F, _P],
     # dtype, q, k, v, do, lse, delta, seg, bm, dq, (11 ints), scale, stream
     "ds_flash_bwd_dq": [_I] + [_P] * 9 + [_I] * 11 + [_F, _P],
+    # dtype, bits, x, codes, scales, out, workspace, M, N, K, group, splits,
+    # stream
+    "ds_mixed_gemm": [_I, _I] + [_P] * 5 + [_I] * 5 + [_P],
+    # dtype, x codes, x scales (K/group, M), w codes, w scales, out, M, N, K,
+    # group, stream
+    "ds_int8_gemm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

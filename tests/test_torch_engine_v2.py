@@ -203,8 +203,7 @@ def test_default_device_is_the_card(monkeypatch, model):
     ("enable_prefix_cache", True), ("kv_host_pool_mb", 64),
     ("kv_host_pool_bytes", 4096), ("kv_spill_dir", "spill"),
     ("kv_promote_ahead", True), ("kv_coldstore_dir", "cold"),
-    ("spec_mode", "self_draft"), ("quantize_bits", 8),
-    ("adapter_slots", 4)])
+    ("spec_mode", "self_draft"), ("adapter_slots", 4)])
 def test_unported_features_refused(model, field, value):
     _, _, tcfg, tparams = model
     cfg = te.V2Config(**{**V2_KW, field: value})
@@ -248,8 +247,8 @@ def test_admission_and_cancel(model):
 
 
 def test_port_imports_no_jax():
-    """The port, a CPU engine run and a CPU training step never import JAX,
-    the JAX package, pydantic or optax."""
+    """The port, a CPU engine run (plain and W8A16), int8_gemm and a CPU
+    training step never import JAX, the JAX package, pydantic or optax."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -260,15 +259,22 @@ def test_port_imports_no_jax():
         from deepspeed_tpu_torch.models import transformer as tfm
         from deepspeed_tpu_torch.runtime.engine import ModelSpec
         from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+        from deepspeed_tpu_torch.inference.quantization import quantized_bytes
+        from deepspeed_tpu_torch.ops.hopper import mixed_gemm as mg
         cfg = tfm.get_config("tiny", dtype="float32", num_kv_heads=2)
         params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                                  device="cpu")
-        eng = InferenceEngineV2(cfg, params, V2Config(
-            max_tokens_per_step=16, max_seqs=4, block_size=8, num_blocks=64,
-            max_blocks_per_seq=8, dtype="float32"), device="cpu")
-        uid = eng.put(list(range(1, 21)), max_new_tokens=5)
-        out = eng.generate_all(burst=4)[uid]
-        assert len(out) == 25, out
+        for bits in (0, 8):
+            eng = InferenceEngineV2(cfg, params, V2Config(
+                max_tokens_per_step=16, max_seqs=4, block_size=8,
+                num_blocks=64, max_blocks_per_seq=8, dtype="float32",
+                quantize_bits=bits), device="cpu")
+            uid = eng.put(list(range(1, 21)), max_new_tokens=5)
+            out = eng.generate_all(burst=4)[uid]
+            assert len(out) == 25, out
+        assert quantized_bytes(eng.params)["quantized"] > 0
+        qw = mg.quantize_gemm_weight(torch.ones(256, 128))
+        assert mg.int8_gemm(torch.ones(2, 256), qw).shape == (2, 128)
         tcfg = tfm.get_config("tiny", dtype="float32", num_kv_heads=2,
                               attn_impl="flash")
         spec = ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(

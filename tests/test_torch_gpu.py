@@ -14,6 +14,7 @@ import torch
 from deepspeed_tpu_torch.inference.v2 import engine as te
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
+from deepspeed_tpu_torch.ops.hopper import mixed_gemm as tmg
 from deepspeed_tpu_torch.ops.hopper import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
@@ -241,3 +242,136 @@ def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
                                                   dtype=torch.bfloat16),
                          torch.zeros((1, 4, 64), device=cuda_device), am,
                          0.125)
+
+
+# mixed GEMM: (K, group) with an odd group count; N = 96 leaves a ragged
+# column tile; M spans the decode tile (M <= 16) and the larger one, ragged
+MG_K, MG_GROUP = 768, 256
+
+
+def _mixed_inputs(seed, M, K, N, bits, dtype, device, group=MG_GROUP):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=device).to(dtype)
+    w = torch.randn((K, N), generator=gen, device=device) / K ** 0.5
+    return x, tmg.quantize_gemm_weight(w, bits=bits, group=group)
+
+
+def _mixed_close(got, want, dtype, what):
+    """Both sides sum the same exact bf16 products in f32: f32 output,
+    summation order only (1e-5 of the largest output; one dropped 256-row
+    group moves outputs by ~50% of their size); bf16 output, one output ulp
+    (2**-7 of an element's size) on top."""
+    want = want.float()
+    rtol = 0.0 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item(), msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [1, 8, 37, 256])
+@pytest.mark.parametrize("bits", [8, 4, 6])
+def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
+    for N in (96, 1024):
+        x, qw = _mixed_inputs(M + N, M, MG_K, N, bits, dtype, cuda_device)
+        tmg.reset_counts()
+        got = tmg.mixed_gemm(x, qw)
+        want = tmg.mixed_gemm_plain(x, qw)
+        assert got.dtype == dtype and got.shape == (M, N)
+        _mixed_close(got, want, dtype, f"bits={bits} M={M} N={N}")
+        assert tmg.LAUNCHES[tmg._KERNEL_NAMES[bits]] == 1
+        assert tmg.DEQUANT_CALLS["mixed_gemm"] == 0
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+@pytest.mark.parametrize("M", [8, 256])
+def test_mixed_gemm_split_k_matches_plain(cuda_device, monkeypatch, M,
+                                          splits):
+    """Seven K-groups shared by 1, 3 (2 + 2 + 3) or 7 splits, both kernels
+    (decode rows and the ldmatrix kernel): the partial sums add up."""
+    monkeypatch.setattr(tmg, "mixed_gemm_splits", lambda *a: splits)
+    for bits in (8, 4, 6):
+        x, qw = _mixed_inputs(splits + bits, M, 7 * MG_GROUP, 1024, bits,
+                              torch.bfloat16, cuda_device)
+        _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
+                     torch.bfloat16, f"bits={bits} splits={splits}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits,K,N", [(8, 99, 33), (4, 200, 50),
+                                      (6, 96, 40)],
+                         ids=["int8_k99", "int4_k200", "fp6_k96"])
+def test_mixed_gemm_unaligned_shapes_match_plain(cuda_device, bits, K, N,
+                                                 dtype):
+    """One group of K rows (group == K, so the reference's kernel path):
+    rows and columns not 16-byte aligned, a partial last K tile."""
+    for M in (5, 40):
+        x, qw = _mixed_inputs(K + M, M, K, N, bits, dtype, cuda_device)
+        assert tmg.mixed_gemm_on_kernel_path(qw) and qw.group == K
+        _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
+                     dtype, f"bits={bits} K={K} M={M}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [1, 8, 37, 256])
+def test_int8_gemm_matches_plain_exactly(cuda_device, M, dtype):
+    """The kernel sums each group's int8 products exactly and rescales
+    with the plain version's unfused f32 operations, in its order: the two
+    agree to the bit."""
+    for N in (96, 1024):
+        x, qw = _mixed_inputs(M + N + 1, M, MG_K, N, 8, dtype, cuda_device)
+        tmg.reset_counts()
+        got = tmg.int8_gemm(x, qw)
+        torch.testing.assert_close(got, tmg.int8_gemm_plain(x, qw), atol=0,
+                                   rtol=0)
+        assert tmg.LAUNCHES["int8_gemm"] == 1
+
+
+def test_mixed_gemm_wrappers_raise_on_cuda_input_they_do_not_take(
+        cuda_device):
+    x, qw = _mixed_inputs(0, 8, 512, 128, 4, torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tmg.mixed_gemm(x.half(), qw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmg.mixed_gemm(x.t().contiguous().t(), qw)
+    with pytest.raises(TypeError, match="codes"):
+        tmg.mixed_gemm(x, tmg.QuantizedWeight(qw.codes.view(torch.uint8),
+                                              qw.scales, 4, 256, 512))
+    with pytest.raises(ValueError, match="x K=256"):
+        tmg.mixed_gemm(x[:, :256].contiguous(), qw)
+    with pytest.raises(ValueError, match="bits must be"):
+        tmg.mixed_gemm(x, tmg.QuantizedWeight(qw.codes, qw.scales, 5, 256,
+                                              512))
+    _, qw8 = _mixed_inputs(1, 8, 512, 128, 8, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmg.int8_gemm(x.t().contiguous().t(), qw8)
+    with pytest.raises(ValueError, match="bits=8"):
+        tmg.int8_gemm(x, qw)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 6])
+def test_quantized_engine_on_gpu_matches_cpu(cuda_device, bits):
+    """A small quantized f32 model served through the mixed GEMM kernel and
+    through its plain version on the CPU gives the same greedy tokens."""
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, dtype="float32")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    v2 = te.V2Config(max_tokens_per_step=16, max_seqs=4, block_size=8,
+                     num_blocks=64, max_blocks_per_seq=8, dtype="float32",
+                     quantize_bits=bits)
+    prompts = [list(range(1, 6)), list(range(10, 50))]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        eng = te.InferenceEngineV2(cfg, params, v2, device=dev)
+        uids = [eng.put(p, max_new_tokens=8) for p in prompts]
+        tmg.reset_counts()
+        res = eng.generate_all(burst=4)
+        out.append([res[u] for u in uids])
+        if dev != "cpu":
+            assert sum(tmg.LAUNCHES.values()) > 0
+            assert not any(tmg.PLAIN_CALLS.values())
+            assert not any(tmg.DEQUANT_CALLS.values())
+    assert out[0] == out[1]

@@ -1,0 +1,238 @@
+"""Parity: the port's quantizer and mixed GEMMs (``deepspeed_tpu_torch/ops/
+quantizer.py``, ``ops/hopper/mixed_gemm.py``, ``inference/quantization.py``)
+against the JAX package's, on numpy-seeded inputs.
+
+* Quantization is bit-exact: codes, scales, the true K and the shrunken
+  group of ``quantize_gemm_weight`` equal the reference's for bits 8, 4 and 6
+  and for K in {256, 200, 99, 130} (aligned, shrinking and odd cases), as do
+  ``dequantize_gemm_weight`` and ``quantize_activations_rowwise``.
+* ``mixed_gemm`` (the kernel's plain version on the CPU) against the
+  reference's Pallas kernel in interpret mode: on its kernel path within
+  1e-5 of max|ref| (f32 sums of the same exact bf16 products in another
+  order); off it, the same dequantize formula within 1e-6 of max|ref|.
+* ``int8_gemm`` within 1e-6 of max|ref|, on and off its envelope.
+* ``mixed_gemm_frozen``'s dx against ``jax.grad`` through the reference's.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.inference import quantization as jq
+from deepspeed_tpu.models import transformer as jt
+from deepspeed_tpu.ops import quantizer as jqz
+from deepspeed_tpu.ops.pallas import mixed_gemm as jm
+from deepspeed_tpu_torch.inference import quantization as tq
+from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.ops import quantizer as tqz
+from deepspeed_tpu_torch.ops.hopper import mixed_gemm as tm
+
+
+def _rand(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _both(w, bits, group=256):
+    return (jm.quantize_gemm_weight(jnp.asarray(w), bits=bits, group=group),
+            tm.quantize_gemm_weight(torch.from_numpy(w), bits=bits,
+                                    group=group))
+
+
+def _rel_err(got, want):
+    want = np.asarray(want, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - want).max()
+                 / np.abs(want).max())
+
+
+@pytest.mark.parametrize("bits", [8, 4, 6])
+@pytest.mark.parametrize("K", [256, 200, 99, 130])
+def test_quantize_gemm_weight_bit_exact(bits, K):
+    w = _rand(K + bits, K, 96)
+    w[:, 5] = 0.0  # an all-zero column takes scale 1
+    jw, tw = _both(w, bits)
+    assert (tw.bits, tw.group, tw.k) == (jw.bits, jw.group, jw.k)
+    assert tw.codes.numpy().dtype == np.asarray(jw.codes).dtype
+    np.testing.assert_array_equal(tw.codes.numpy(), np.asarray(jw.codes))
+    np.testing.assert_array_equal(tw.scales.numpy(), np.asarray(jw.scales))
+    np.testing.assert_array_equal(tm.dequantize_gemm_weight(tw).numpy(),
+                                  np.asarray(jm.dequantize_gemm_weight(jw)))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 6])
+def test_stacked_quantize_bit_exact(bits):
+    w = _rand(1, 3, 128, 64)
+    jw, tw = _both(w, bits, group=64)
+    np.testing.assert_array_equal(tw.codes.numpy(), np.asarray(jw.codes))
+    np.testing.assert_array_equal(tw.scales.numpy(), np.asarray(jw.scales))
+    layer = tw[1]
+    assert tuple(layer.codes.shape) == tuple(jw.codes.shape[1:])
+    assert (layer.bits, layer.group, layer.k) == (bits, 64, 128)
+
+
+def test_quantize_activations_rowwise_bit_exact():
+    x = _rand(2, 9, 512)
+    x[3, :256] = 0.0  # an all-zero (row, group) takes scale 1
+    jc, js = jm.quantize_activations_rowwise(jnp.asarray(x), 256)
+    tc, ts = tm.quantize_activations_rowwise(torch.from_numpy(x), 256)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_int4_pack_round_trip_exact():
+    rng = np.random.default_rng(3)
+    lo = rng.integers(-8, 8, size=(64, 33)).astype(np.int8)
+    hi = rng.integers(-8, 8, size=(64, 33)).astype(np.int8)
+    packed = tqz.pack_int4(torch.from_numpy(lo), torch.from_numpy(hi))
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(jqz.pack_int4(jnp.asarray(lo),
+                                                 jnp.asarray(hi))))
+    got_lo, got_hi = tqz.unpack_int4(packed)
+    np.testing.assert_array_equal(got_lo.numpy(), lo)
+    np.testing.assert_array_equal(got_hi.numpy(), hi)
+
+
+def test_fp6_pack_and_minifloat_round_trip_exact():
+    codes = np.random.default_rng(4).integers(0, 64, size=(5, 48))
+    packed = tqz.pack_fp6(torch.from_numpy(codes))
+    assert packed.dtype == torch.uint8 and packed.shape == (5, 36)
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(jqz.pack_fp6(jnp.asarray(codes))))
+    np.testing.assert_array_equal(tqz.unpack_fp6(packed).numpy(), codes)
+    # every code decodes as the reference decodes it, and encodes back
+    all_codes = torch.arange(64)
+    vals = tqz.minifloat_decode(all_codes, 3, 2)
+    np.testing.assert_array_equal(
+        vals.numpy(), np.asarray(jqz.minifloat_decode(jnp.arange(64), 3, 2)))
+    back = tqz.minifloat_encode(vals, 3, 2)
+    nonzero = vals != 0  # +0 and -0 both encode as +0
+    assert torch.equal(back[nonzero], all_codes[nonzero].to(torch.int32))
+    assert tqz.minifloat_max(3, 2) == jqz.minifloat_max(3, 2) == 28.0
+    x = _rand(5, 1000) * 10
+    np.testing.assert_array_equal(
+        tqz.minifloat_encode(torch.from_numpy(x), 3, 2).numpy(),
+        np.asarray(jqz.minifloat_encode(jnp.asarray(x), 3, 2)))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 6])
+@pytest.mark.parametrize("shape", [(64, 256, 256), (8, 512, 384),
+                                   (300, 256, 256)],
+                         ids=["64x256x256", "8x512x384", "ragged_m300"])
+def test_mixed_gemm_matches_reference_kernel(bits, shape):
+    M, K, N = shape
+    x = _rand(10, M, K)
+    jw, tw = _both(_rand(11, K, N), bits)
+    assert tm.mixed_gemm_on_kernel_path(tw)
+    tm.reset_counts()
+    got = tm.mixed_gemm(torch.from_numpy(x), tw)
+    assert tm.PLAIN_CALLS["mixed_gemm_plain"] == 1
+    assert tm.DEQUANT_CALLS["mixed_gemm"] == 0
+    want = jm.mixed_gemm(jnp.asarray(x), jw)
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want) < 1e-5
+
+
+@pytest.mark.parametrize("bits,K,N,group", [
+    (8, 98, 33, 49),    # group 49: neither a multiple of 128 nor K
+    (4, 99, 33, 256),   # odd K: the group shrinks to 99, odd for int4
+    (6, 130, 128, 130),  # K % 4 != 0 for fp6
+    (6, 200, 128, 256),  # the group shrinks to 200, not a multiple of 32
+    (8, 256, 300, 256),  # N = 300 has no 128-multiple tile
+], ids=["int8_group49", "int4_oddk", "fp6_k130", "fp6_k200", "n300"])
+def test_mixed_gemm_off_envelope_matches_reference(bits, K, N, group):
+    x = _rand(12, 7, K)
+    jw, tw = _both(_rand(13, K, N), bits, group)
+    assert not tm.mixed_gemm_on_kernel_path(tw)
+    tm.reset_counts()
+    got = tm.mixed_gemm(torch.from_numpy(x), tw)
+    assert tm.DEQUANT_CALLS["mixed_gemm"] == 1
+    assert tm.PLAIN_CALLS["mixed_gemm_plain"] == 0
+    assert _rel_err(got.numpy(), jm.mixed_gemm(jnp.asarray(x), jw)) < 1e-6
+
+
+def test_mixed_gemm_lead_dims_and_refusals():
+    x = _rand(14, 2, 3, 256)
+    _, tw = _both(_rand(15, 256, 128), 8)
+    got = tm.mixed_gemm(torch.from_numpy(x), tw)
+    assert got.shape == (2, 3, 128)
+    flat = tm.mixed_gemm(torch.from_numpy(x.reshape(6, 256)), tw)
+    torch.testing.assert_close(got.reshape(6, 128), flat, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="x K=128"):
+        tm.mixed_gemm(torch.from_numpy(x[..., :128].copy()), tw)
+    stacked = tm.quantize_gemm_weight(torch.from_numpy(_rand(16, 2, 256, 128)))
+    with pytest.raises(ValueError, match="per-layer"):
+        tm.mixed_gemm(torch.from_numpy(x), stacked)
+    with pytest.raises(ValueError, match="4, 6 or 8"):
+        tm.quantize_gemm_weight(torch.zeros(256, 128), bits=5)
+    with pytest.raises(ValueError, match="true K"):
+        tm.QuantizedWeight(tw.codes, tw.scales, 4, 256)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 6])
+def test_frozen_gemm_grad_matches_reference(bits):
+    x = _rand(17, 16, 256)
+    g = _rand(18, 16, 128)
+    jw, tw = _both(_rand(19, 256, 128), bits, group=128)
+    want = jax.grad(lambda xx: jnp.sum(jm.mixed_gemm_frozen(xx, jw)
+                                       * jnp.asarray(g)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    (tm.mixed_gemm_frozen(xt, tw) * torch.from_numpy(g)).sum().backward()
+    assert _rel_err(xt.grad.numpy(), want) < 1e-6
+    assert tw.codes.grad is None
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 256), (8, 512, 384),
+                                   (4, 130, 128)],
+                         ids=["64x256x256", "8x512x384", "off_k130"])
+def test_int8_gemm_matches_reference(shape):
+    M, K, N = shape
+    x = _rand(20, M, K)
+    jw, tw = _both(_rand(21, K, N), 8, group=256)
+    on = tm.int8_gemm_on_kernel_path(tw)
+    assert on == (K % 256 == 0)
+    tm.reset_counts()
+    got = tm.int8_gemm(torch.from_numpy(x), tw)
+    assert tm.PLAIN_CALLS["int8_gemm_plain"] == int(on)
+    assert tm.DEQUANT_CALLS["int8_gemm"] == int(not on)
+    assert _rel_err(got.numpy(), jm.int8_gemm(jnp.asarray(x), jw)) < 1e-6
+
+
+def test_int8_gemm_refuses_other_bits():
+    _, tw = _both(_rand(22, 130, 128), 4, group=130)
+    with pytest.raises(ValueError, match="bits=8"):
+        tm.int8_gemm(torch.zeros(4, 130), tw)
+
+
+def test_params_from_jax_carries_quantized_weights():
+    """A reference tree already quantized by its quantize_model_params
+    converts to QuantizedWeight leaves with the same codes and scales per
+    layer slice; the port's own quantize_model_params of the raw weights
+    gives the same codes."""
+    cfg = jt.get_config("tiny", dtype="float32", num_kv_heads=2)
+    raw = jt.init_params(jax.random.PRNGKey(0), cfg)
+    tcfg = tt.get_config("tiny", dtype="float32", num_kv_heads=2)
+    for bits in (8, 4, 6):
+        qtree = jq.quantize_model_params(raw, bits=bits, group=256)
+        conv = tt.params_from_jax(jax.tree_util.tree_map(np.asarray, qtree),
+                                  tcfg, device="cpu")
+        ours = tq.quantize_model_params(tt.params_from_jax(
+            jax.tree_util.tree_map(np.asarray, raw), tcfg, device="cpu"),
+            bits=bits, group=256)
+        for part, key in (("attn", "wq"), ("attn", "wk"), ("mlp", "w_out")):
+            ref = qtree["layers"][part][key]
+            for tree in (conv, ours):
+                w = tree["layers"][part][key]
+                assert isinstance(w, tm.QuantizedWeight)
+                assert (w.bits, w.group, w.k) == (ref.bits, ref.group, ref.k)
+                assert w.scales.dtype == torch.float32
+                for i in range(cfg.num_layers):
+                    layer = tt.layer_params(tree, i)[part][key]
+                    np.testing.assert_array_equal(
+                        layer.codes.numpy(), np.asarray(ref.codes[i]))
+                    np.testing.assert_array_equal(
+                        layer.scales.numpy(), np.asarray(ref.scales[i]))
+        assert conv["embed"]["tokens"].dtype == torch.float32
+        acct, ref_acct = tq.quantized_bytes(conv), jq.quantized_bytes(qtree)
+        assert acct == ref_acct and acct["quantized"] > 0

@@ -119,9 +119,10 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert path.parent == build.BUILD_DIR
     assert path.parts[-3:-1] == ("build", "torch_kernels")
     assert [s.name for s in build.SOURCES] == ["paged_attention.cu",
-                                               "flash_attention.cu"]
+                                               "flash_attention.cu",
+                                               "mixed_gemm.cu"]
     assert all(s.is_file() for s in build.SOURCES)
-    # a change to either source gives another library name
+    # a change to any source gives another library name
     for i, src in enumerate(build.SOURCES):
         copy = tmp_path / src.name
         copy.write_bytes(src.read_bytes() + b"// edited\n")
@@ -144,7 +145,7 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_source_names_what_it_replaces():
-    paged, flash = (s.read_text() for s in build.SOURCES)
+    paged, flash, mixed = (s.read_text() for s in build.SOURCES)
     assert "_decode_kernel" in paged and "_prefill_kernel" in paged
     assert 'extern "C" int ds_paged_decode' in paged
     assert 'extern "C" int ds_paged_prefill' in paged
@@ -153,4 +154,10 @@ def test_kernel_source_names_what_it_replaces():
         assert name in flash
     for entry in ("ds_flash_fwd", "ds_flash_bwd_dkdv", "ds_flash_bwd_dq"):
         assert f'extern "C" int {entry}' in flash
+        assert entry in build._ENTRIES
+    assert "deepspeed_tpu/ops/pallas/mixed_gemm.py" in mixed
+    for name in ("_mixed_gemm_kernel", "_int8_gemm_kernel"):
+        assert name in mixed
+    for entry in ("ds_mixed_gemm", "ds_int8_gemm"):
+        assert f'extern "C" int {entry}' in mixed
         assert entry in build._ENTRIES
