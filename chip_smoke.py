@@ -39,8 +39,26 @@ In order it prints:
    call, determinism, tokens/s and memory; the seven projections of one
    quantized layer through ``int8_gemm``; and the small f32 model of 4.
    quantized at each width, card against CPU;
-9. a JSON line with every kernel's numbers;
-10. last, ``{"ok": true, "device": {...}}``.
+9. the grouped matmul (dropless MoE) kernel against its plain version at
+   Mixtral-8x7B's expert shapes (E = 8, (K, N) = (4096, 14336) and
+   (14336, 4096)), for a decode body's 16 assignments and a 256-token
+   mixed step's 512, forward and on transposed weights (the backward's
+   dlhs), in bf16 and f32: max abs error and kernel / plain / library
+   (``torch._grouped_mm``) / bound times;
+10. dropless MoE serving: the engine of 4. on Mixtral-8x7B at full width
+   with its depth cut to 16 of 32 layers (bf16 weights from a seed),
+   cold and warm: tokens, grouped-GEMM launches = 3 x paged launches, no
+   plain call, no host sync inside a decode body, tokens/s, peak memory
+   and engine build time; then a small f32 MoE model served card against
+   CPU (dropless and capacity routing) and trained 3 steps card against
+   CPU (dropless: the grouped GEMM forward and on transposed weights);
+11. fused AdamW against its plain version on one llama3-8b layer's
+   parameter count (two steps, weight decay): max abs error and kernel /
+   plain / library (``torch.optim.AdamW(fused=True)``) / bound times; then
+   ``fused_adamw_tree`` over the small model's parameters, one launch per
+   call;
+12. a JSON line with every kernel's numbers;
+13. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -108,10 +126,29 @@ GEMM_F32_REL = 5e-4
 # first step's logits (max ~3.3) by 3.6e-3, and an H100 measured 4.8e-3
 # card vs CPU.  Greedy tokens must still be identical
 TOL_LOGITS_QUANT = 2e-2
+# dropless MoE: Mixtral-8x7B's experts, (K, N) of each grouped GEMM, and
+# assignments per call (a decode body's 8 rows x top-2, a 256-token mixed
+# step's 512); serving cut to MOE_LAYERS of 32 layers (92.9 GB of experts
+# at full depth; 16 layers hold 46.4 GB)
+MOE_E = 8
+MOE_SHAPES = {"w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
+MOE_T = (16, 512)
+MOE_JSON = ("w_gate/w_in", 16)  # the shape and T of the kernels JSON line
+MOE_LAYERS = 16
+# grouped matmul in f32: CUDA-core sums of up to 14336 terms in another
+# order than the plain version's: 1e-4 of the largest output
+GMM_F32_REL = 1e-4
+# fused AdamW: one llama3-8b layer's parameters (not a multiple of the
+# reference's 65536 block); every f32 operation rounds once on both sides,
+# only b ** step may differ by an ulp: 1e-6 of each tensor's largest element
+ADAM_N = 218_112_000
+ADAM_REL = 1e-6
+ADAM_HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1)
 # H100 SXM data sheet: HBM3 rate and dense bf16 / int8 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -363,10 +400,13 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     groups = {"paged_attention": 0.0, "flash_attention": 0.0,
-              "mixed_gemm": 0.0, "gemm": 0.0, "other": 0.0}
+              "mixed_gemm": 0.0, "grouped_matmul": 0.0, "gemm": 0.0,
+              "other": 0.0}
     for ms, _, name in rows:
         if "mixed_gemm" in name or "int8_gemm" in name:
             groups["mixed_gemm"] += ms
+        elif "grouped_matmul" in name:
+            groups["grouped_matmul"] += ms
         elif "paged_" in name:
             groups["paged_attention"] += ms
         elif "flash_" in name:
@@ -464,20 +504,23 @@ def run_engine(torch, pa, profile: bool) -> dict:
     return out
 
 
-def small_model_agreement(torch, bits: int = 0) -> dict:
-    """A small llama-shaped f32 model (head dim 64, GQA) served on the card
-    (kernels) and on the CPU (plain versions) from the same weights,
-    quantized to ``bits`` when non-zero: the first mixed step's logits agree
-    within TOL_LOGITS_F32 (TOL_LOGITS_QUANT when quantized) and every greedy
-    token matches."""
+def small_model_agreement(torch, bits: int = 0, cfg=None,
+                          kernel=None) -> dict:
+    """A small llama-shaped f32 model (head dim 64, GQA; ``cfg`` when
+    given) served on the card (kernels) and on the CPU (plain versions)
+    from the same weights, quantized to ``bits`` when non-zero: the first
+    mixed step's logits agree within TOL_LOGITS_F32 (TOL_LOGITS_QUANT when
+    quantized) and every greedy token matches.  ``kernel``: a kernel module
+    whose launches the card run must show, with no plain call."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
                                                          V2Config)
     from deepspeed_tpu_torch.models import transformer as tfm
 
-    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
-                         num_heads=4, num_kv_heads=2, dtype="float32")
+    cfg = cfg or tfm.get_config("tiny", hidden_size=256,
+                                intermediate_size=512, num_heads=4,
+                                num_kv_heads=2, dtype="float32")
     params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
     v2 = V2Config(max_tokens_per_step=32, max_seqs=4, block_size=16,
@@ -487,15 +530,22 @@ def small_model_agreement(torch, bits: int = 0) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (5, 40, 17, 70)]
     out = {}
+    tag = f"small model (quantize_bits={bits})" if bits else "small model"
     for dev in ("cuda", "cpu"):
         eng = InferenceEngineV2(cfg, params, v2, device=dev)
         uids = [eng.put(p, max_new_tokens=12) for p in prompts]
+        if kernel is not None:
+            kernel.reset_counts()
         eng.step()
         first = eng.last_logits.cpu()
         res = eng.generate_all(burst=4)
         out[dev] = (first, [res[u] for u in uids])
+        if kernel is not None and dev == "cuda" and (
+                not all(kernel.LAUNCHES.values())
+                or any(kernel.PLAIN_CALLS.values())):
+            fail(f"{tag}: the card run did not go through the kernel: "
+                 f"{kernel.LAUNCHES} {kernel.PLAIN_CALLS}")
     diff = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
-    tag = f"small model (quantize_bits={bits})" if bits else "small model"
     if not diff <= (TOL_LOGITS_QUANT if bits else TOL_LOGITS_F32):
         fail(f"{tag}: card vs CPU logits differ by {diff}")
     if out["cuda"][1] != out["cpu"][1]:
@@ -711,11 +761,12 @@ def run_training(torch, fa, profile: bool) -> dict:
     return out
 
 
-def small_training_agreement(torch, fa) -> dict:
-    """A small llama-shaped f32 model (head dim 64, GQA, flash attention)
-    trained 3 steps on the card (kernels) and on the CPU (plain versions)
-    from the same weights: losses within TOL_TRAIN relative, final
-    parameters within TOL_TRAIN."""
+def small_training_agreement(torch, fa, cfg=None, kernels=None) -> dict:
+    """A small llama-shaped f32 model (head dim 64, GQA, flash attention;
+    ``cfg`` when given) trained 3 steps on the card (kernels) and on the
+    CPU (plain versions) from the same weights: losses within TOL_TRAIN
+    relative, final parameters within TOL_TRAIN.  ``kernels``: more kernel
+    modules whose launches the card run must show, with no plain call."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -724,9 +775,11 @@ def small_training_agreement(torch, fa) -> dict:
     from deepspeed_tpu_torch.runtime.optimizers import leaves
     from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
 
-    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
-                         num_heads=4, num_kv_heads=2, dtype="float32",
-                         param_dtype="float32", attn_impl="flash")
+    cfg = cfg or tfm.get_config("tiny", hidden_size=256,
+                                intermediate_size=512, num_heads=4,
+                                num_kv_heads=2, dtype="float32",
+                                param_dtype="float32", attn_impl="flash")
+    mods = [fa, *(kernels or ())]
     params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(SEED)
@@ -745,12 +798,14 @@ def small_training_agreement(torch, fa) -> dict:
                     "lr": 1e-4, "weight_decay": 0.01}},
                 "gradient_clipping": 1.0, "steps_per_print": 10_000},
             device=dev)
-        fa.reset_counts()
+        for mod in mods:
+            mod.reset_counts()
         losses = [engine.train_batch(b)["loss"] for b in batches]
-        if dev == "cuda" and (not all(fa.LAUNCHES.values())
-                              or any(fa.PLAIN_CALLS.values())):
+        if dev == "cuda" and any(not all(m.LAUNCHES.values())
+                                 or any(m.PLAIN_CALLS.values())
+                                 for m in mods):
             fail(f"small training: the card run did not go through the "
-                 f"kernels: {fa.LAUNCHES} {fa.PLAIN_CALLS}")
+                 f"kernels: {[(m.LAUNCHES, m.PLAIN_CALLS) for m in mods]}")
         out[dev] = (losses, [p.detach().cpu() for p in leaves(engine.params)])
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][0],
                                                        out["cpu"][0]))
@@ -1011,12 +1066,367 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dropless MoE: grouped matmul (B8), Mixtral serving; fused AdamW (B9)
+# ---------------------------------------------------------------------------
+
+
+def grouped_inputs(torch, gm, K: int, N: int, T: int, gen, dtype):
+    """Seeded top-2 routing of T assignments over MOE_E experts, planned
+    into the tile-aligned layout with the dropless block's own m-tile; lhs
+    (M_pad, K) with random real rows and zero padding rows, as the block
+    scatters them; rhs (E, K, N)."""
+    from deepspeed_tpu_torch.moe.dropless import default_tile_m
+
+    tile_m = default_tile_m(T, MOE_E)
+    ef = torch.randint(0, MOE_E, (T,), generator=gen, device="cuda")
+    pos, tg, sizes, M_pad, used = gm.tile_aligned_layout(
+        ef, MOE_E, T, tile_m, with_used_tiles=True)
+    lhs = torch.zeros((M_pad, K), device="cuda", dtype=dtype)
+    lhs[pos.long()] = torch.randn((T, K), generator=gen, device="cuda",
+                                  dtype=dtype)
+    rhs = torch.randn((MOE_E, K, N), generator=gen, device="cuda",
+                      dtype=dtype).mul_(1.0 / math.sqrt(K))
+    touched = int((torch.bincount(ef, minlength=MOE_E) > 0).sum().item())
+    return lhs, rhs, tg, sizes, used, tile_m, pos, touched
+
+
+def library_grouped_mm(torch, lhs, rhs, sizes):
+    """One PyTorch call computing the same grouped product on the same
+    padded rows: ``torch._grouped_mm`` with each group's end row as its
+    offset where the installed torch has it (and takes these shapes), else
+    a loop of ``torch.matmul`` over the experts.  Returns (name, fn)."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    bounds = [0] + offs.tolist()
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            out = torch._grouped_mm(lhs, rhs, offs=offs)
+            torch.cuda.synchronize()
+            if out.shape == (lhs.shape[0], rhs.shape[2]):
+                return "torch._grouped_mm", lambda: torch._grouped_mm(
+                    lhs, rhs, offs=offs)
+        except (RuntimeError, TypeError, ValueError) as e:
+            print(f"  torch._grouped_mm refused these shapes: "
+                  f"{str(e).splitlines()[0][:160]}")
+
+    def loop():
+        return torch.cat([lhs[a:b] @ rhs[e] for e, (a, b) in
+                          enumerate(zip(bounds[:-1], bounds[1:]))])
+    return "matmul loop over experts", loop
+
+
+def check_grouped_matmul(torch, gm, flush) -> list:
+    """B8 against its plain version at Mixtral's expert shapes, for T = 16
+    and 512 assignments: forward and on transposed weights (dlhs), bf16
+    per element within TOL_BF16, f32 within GMM_F32_REL of the largest
+    output; the all-padding tail must be zeros.  Kernel / plain / library /
+    bound ms of the bf16 forward.  Bound: the touched experts' weights, the
+    real lhs rows and the real output rows once, against 2 T K N flops."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = []
+    for shape_name, (K, N) in MOE_SHAPES.items():
+        for T in MOE_T:
+            lhs, rhs, tg, sizes, used, tile_m, pos, touched = grouped_inputs(
+                torch, gm, K, N, T, gen, torch.bfloat16)
+            # dlhs's g: random rows where the forward's output is real
+            g = torch.zeros((lhs.shape[0], N), device="cuda",
+                            dtype=torch.bfloat16)
+            g[pos.long()] = torch.randn((T, N), generator=gen, device="cuda",
+                                        dtype=torch.bfloat16)
+            tail = int(used.item()) * tile_m
+            errs = {}
+            for f32 in (False, True):
+                a, w, gg = ((t.float() for t in (lhs, rhs, g)) if f32
+                            else (lhs, rhs, g))
+                tag = f"grouped_matmul {shape_name} T={T}"
+                outs = {
+                    "fwd": (gm.grouped_matmul(a, w, tg, sizes, tile_m=tile_m,
+                                              num_used_tiles=used),
+                            gm.grouped_matmul_plain(a, w, tg, tile_m)),
+                    "dlhs": (gm.grouped_matmul(gg, w, tg, sizes,
+                                               tile_m=tile_m,
+                                               num_used_tiles=used,
+                                               rhs_transposed=True),
+                             gm.grouped_matmul_plain(gg, w, tg, tile_m,
+                                                     rhs_transposed=True))}
+                torch.cuda.synchronize()
+                for part, (out, ref) in outs.items():
+                    what = f"{tag} {part} ({'f32' if f32 else 'bf16'})"
+                    if out[tail:].abs().max().item() != 0.0:
+                        fail(f"{what}: the all-padding tiles are not zero")
+                    errs[(part, f32)] = (
+                        compare_grad(out, ref, True, what, rel=GMM_F32_REL)
+                        if f32 else compare(out, ref, TOL_BF16, what))
+                del a, w, gg, outs
+            lib_name, library = library_grouped_mm(torch, lhs, rhs, sizes)
+            nbytes = touched * K * N * 2 + T * K * 2 + T * N * 2
+            b_ms, b_by = bound(nbytes, 2 * T * K * N)
+            rows.append({
+                "name": "grouped_matmul", "shape": shape_name, "K": K,
+                "N": N, "T": T, "tile_m": tile_m, "M_pad": lhs.shape[0],
+                "used_tiles": int(used.item()), "experts_touched": touched,
+                "max_abs_err": errs[("fwd", False)],
+                "max_abs_err_f32": errs[("fwd", True)],
+                "max_abs_err_dlhs": errs[("dlhs", False)],
+                "max_abs_err_dlhs_f32": errs[("dlhs", True)],
+                "ms": time_ms(lambda: gm.grouped_matmul(
+                    lhs, rhs, tg, sizes, tile_m=tile_m,
+                    num_used_tiles=used), torch, flush),
+                "dlhs_ms": time_ms(lambda: gm.grouped_matmul(
+                    g, rhs, tg, sizes, tile_m=tile_m, num_used_tiles=used,
+                    rhs_transposed=True), torch, flush),
+                "plain_ms": time_ms(lambda: gm.grouped_matmul_plain(
+                    lhs, rhs, tg, tile_m), torch, flush, iters=5, warmup=1),
+                "library": lib_name,
+                "library_ms": time_ms(library, torch, flush),
+                "bound_ms": b_ms, "bound_by": b_by})
+            del lhs, rhs, g
+            torch.cuda.empty_cache()
+    return rows
+
+
+def decode_body_syncs(torch, eng) -> str:
+    """Run one decode body of ``eng`` (every request in decode) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation that waits
+    for the device from inside the body raises.  The inputs are placed
+    before, as the engine places them."""
+    tok, pos, bt, ctx = eng._table_inputs()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = eng._decode(tok, pos, bt, ctx)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all().item():
+        return "decode body logits not finite"
+    return ""
+
+
+def run_moe_engine(torch, pa, gm, profile: bool) -> dict:
+    """Dropless Mixtral-8x7B, full width, MOE_LAYERS of 32 layers, bf16
+    weights drawn on the card, served with the bf16 phase's V2Config,
+    prompt lengths and new tokens (ids below Mixtral's vocabulary): cold
+    and warm (and, with ``profile``, traced).  Then one decode body runs
+    under the sync check."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.get_config("mixtral-8x7b", moe_routing="dropless",
+                         num_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    v2 = V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
+                  num_blocks=NB, max_blocks_per_seq=MB, dtype="bfloat16")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+
+    def trace():
+        from torch.profiler import ProfilerActivity
+        return torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+
+    tag = "dropless Mixtral engine"
+    runs = []
+    for attempt in range(3 if profile else 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = InferenceEngineV2(cfg, params, v2)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pa.reset_counts()
+        gm.reset_counts()
+        run = serve(torch, eng, prompts, trace if attempt == 2 else None)
+        run.update(build_s=build_s, launches=dict(pa.LAUNCHES),
+                   gmm=dict(gm.LAUNCHES), gmm_plain=dict(gm.PLAIN_CALLS),
+                   attn_plain=dict(pa.PLAIN_CALLS),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs.append(run)
+        del eng
+        torch.cuda.empty_cache()
+    for run in runs:
+        paged = sum(run["launches"].values())
+        if paged == 0 or run["gmm"]["grouped_matmul"] != 3 * paged:
+            fail(f"{tag}: grouped_matmul launched "
+                 f"{run['gmm']['grouped_matmul']} times for {paged} "
+                 f"paged-attention launches, want 3 per paged launch")
+        if any(run["gmm_plain"].values()) or any(run["attn_plain"].values()):
+            fail(f"{tag}: a plain version ran: {run['gmm_plain']} "
+                 f"{run['attn_plain']}")
+        if not run["probes_finite"] or not all(run["probes_finite"]):
+            fail(f"{tag}: a mixed step's logits were not finite")
+        for uid, prompt in zip(run["uids"], prompts):
+            toks = run["results"][uid]
+            new = toks[len(prompt):]
+            if toks[:len(prompt)] != prompt or len(new) != NEW_TOKENS:
+                fail(f"{tag}: request {uid}: {len(new)} new tokens")
+            if not all(0 <= t < cfg.vocab_size for t in new):
+                fail(f"{tag}: request {uid}: token outside the vocab")
+    first = [runs[0]["results"][u][len(p):]
+             for u, p in zip(runs[0]["uids"], prompts)]
+    second = [runs[1]["results"][u][len(p):]
+              for u, p in zip(runs[1]["uids"], prompts)]
+    if second != first:
+        fail(f"{tag}: the warm run gave other tokens than the cold")
+
+    # one decode body, every request in decode, under the sync check
+    eng = InferenceEngineV2(cfg, params, v2)
+    for p in prompts:
+        eng.put(p, max_new_tokens=NEW_TOKENS)
+    while eng.num_waiting or eng._prefilling:
+        eng.step()
+    sync = decode_body_syncs(torch, eng)
+    if sync:
+        fail(f"{tag}: a decode body waited for the device: {sync}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompt_tokens = sum(PROMPT_LENS)
+
+    def rates(r):
+        decode_tokens = len(prompts) * NEW_TOKENS - r["prefill_emitted"]
+        return {"build_s": r["build_s"], "mixed_steps": r["mixed_steps"],
+                "prefill_s": r["prefill_s"],
+                "prefill_tokens_per_s": prompt_tokens / r["prefill_s"],
+                "decode_s": r["decode_s"], "decode_tokens": decode_tokens,
+                "decode_tokens_per_s": decode_tokens / r["decode_s"],
+                "peak_mem_gb": r["peak_gb"]}
+
+    out = {"model": "mixtral-8x7b", "moe_routing": "dropless",
+           "layers": cfg.num_layers, "params": cfg.num_params(),
+           "param_gb": param_gb, "init_s": init_s,
+           "prompt_tokens": prompt_tokens,
+           "cold": rates(runs[0]), "warm": rates(runs[1]),
+           "launches": {**runs[0]["gmm"], **runs[0]["launches"]},
+           "decode_body_host_syncs": 0}
+    if profile:
+        r, warm = runs[2], runs[1]
+        out["profile"] = {
+            "prefill": device_breakdown(torch, r["profiles"][0],
+                                        warm["prefill_s"]),
+            "decode": device_breakdown(torch, r["profiles"][1],
+                                       warm["decode_s"])}
+    return out
+
+
+def small_moe_cfg(tfm, routing: str, **kw):
+    """A small f32 MoE model in the tiny-moe family: head dim 64, GQA."""
+    return tfm.get_config("tiny-moe", hidden_size=256, intermediate_size=512,
+                          num_heads=4, num_kv_heads=2, dtype="float32",
+                          moe_routing=routing, **kw)
+
+
+def check_fused_adam(torch, fo, flush) -> dict:
+    """B9 against its plain version on ADAM_N f32 parameters, two steps
+    with weight decay, each side from its own outputs: p, m and v within
+    ADAM_REL of each tensor's largest element.  Kernel / plain / library
+    (``torch.optim.AdamW(fused=True)`` on the same flat tensor: decay
+    folded as p (1 - lr wd) and eps outside sqrt(v)/sqrt(bc2), the same
+    update algebraically, not bit for bit) / bound ms of one step: 28 bytes
+    per element (read p, g, m, v; write p, m, v) at 3.35 TB/s."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n = ADAM_N
+    p = torch.randn(n, generator=gen, device="cuda")
+    m = torch.zeros(n, device="cuda")
+    v = torch.zeros(n, device="cuda")
+    k_state = p_state = (p, m, v)
+    for step in (1, 2):
+        g = torch.randn(n, generator=gen, device="cuda")
+        st = torch.tensor(step, dtype=torch.int32, device="cuda")
+        k_state = fo.fused_adamw_flat(*k_state[:1], g, *k_state[1:], st,
+                                      **ADAM_HYPER)
+        p_state = fo.adamw_plain(*p_state[:1], g, *p_state[1:], st,
+                                 **ADAM_HYPER)
+    torch.cuda.synchronize()
+    errs = [compare_grad(a, b, True, f"fused_adamw {name}", rel=ADAM_REL)
+            for name, a, b in zip("pmv", k_state, p_state)]
+    del p_state
+    pk, mk, vk = k_state
+    st = torch.tensor(3, dtype=torch.int32, device="cuda")
+    out = {"name": "fused_adamw", "n": n, "max_abs_err": max(errs),
+           "max_abs_err_f32": max(errs),
+           "ms": time_ms(lambda: fo.fused_adamw_flat(
+               pk, g, mk, vk, st, **ADAM_HYPER), torch, flush),
+           "plain_ms": time_ms(lambda: fo.adamw_plain(
+               pk, g, mk, vk, st, **ADAM_HYPER), torch, flush, iters=5,
+               warmup=1)}
+    param = torch.nn.Parameter(pk.clone())
+    param.grad = g
+    opt = torch.optim.AdamW([param], lr=ADAM_HYPER["lr"],
+                            betas=(ADAM_HYPER["b1"], ADAM_HYPER["b2"]),
+                            eps=ADAM_HYPER["eps"],
+                            weight_decay=ADAM_HYPER["weight_decay"],
+                            fused=True)
+    out["library_ms"] = time_ms(opt.step, torch, flush)
+    out["bound_ms"], out["bound_by"] = bound(28 * n, 18 * n, F32_FLOPS_PER_S)
+    del param, opt, k_state, pk, mk, vk, g, p, m, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_adam_tree_path(torch, fo, tfm) -> dict:
+    """``fused_adamw_tree`` as a caller uses it: the small MoE model's
+    parameters, 3 steps on the card, each one kernel launch, against the
+    same steps on the CPU (plain version): parameters within ADAM_REL of
+    each leaf's largest element."""
+    params = tfm.init_params(small_moe_cfg(tfm, "dropless"),
+                             torch.Generator().manual_seed(SEED),
+                             device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED + 7)
+
+    def tree_map(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        return fn(tree)
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in flat(v)]
+        return [tree]
+
+    grads = [tree_map(lambda x: torch.randn(x.shape, generator=gen), params)
+             for _ in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ps = tree_map(lambda x: x.to(dev), params)
+        state = fo.init_fused_adam_state(ps)
+        fo.reset_counts()
+        for g in grads:
+            ps, state = fo.fused_adamw_tree(
+                ps, tree_map(lambda x: x.to(dev), g), state, **ADAM_HYPER)
+        out[dev] = ([x.cpu() for x in flat(ps)], dict(fo.LAUNCHES),
+                    dict(fo.PLAIN_CALLS))
+    _, launches, plain = out["cuda"]
+    if launches != {"fused_adamw": len(grads)} or any(plain.values()):
+        fail(f"fused_adamw_tree: {launches} {plain}, want one launch per "
+             f"call for {len(grads)} calls")
+    worst = max(compare_grad(a, b, True, "fused_adamw_tree", rel=ADAM_REL)
+                for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    return {"launches": launches["fused_adamw"], "calls": len(grads),
+            "leaves": len(out["cpu"][0]),
+            "elements": sum(x.numel() for x in out["cpu"][0]),
+            "param_max_abs_diff": worst}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace a third engine run's phases and one more "
-                    "training step with torch.profiler and print where the "
-                    "device time goes")
+                    help="trace a third run's phases of the bf16, W8A16 and "
+                    "dropless MoE engines and one more training step with "
+                    "torch.profiler and print where the device time goes")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
 
@@ -1025,8 +1435,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
     try:
+        from deepspeed_tpu_torch.models import transformer as tfm
+        from deepspeed_tpu_torch.ops import fused_optimizers as fo
         from deepspeed_tpu_torch.ops.hopper import build
         from deepspeed_tpu_torch.ops.hopper import flash_attention as fa
+        from deepspeed_tpu_torch.ops.hopper import grouped_matmul as gm
         from deepspeed_tpu_torch.ops.hopper import mixed_gemm as mg
         from deepspeed_tpu_torch.ops.hopper import paged_attention as pa
     except ImportError as e:
@@ -1107,17 +1520,69 @@ def main() -> None:
         "mixed_gemm_int4": quant["w4a16"]["launches"]["mixed_gemm_int4"],
         "mixed_gemm_fp6": quant["w6a16"]["launches"]["mixed_gemm_fp6"],
         "int8_gemm": quant["w8a16"]["int8_gemm_path"]["launches"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gmm = check_grouped_matmul(torch, gm, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in gmm:
+        print(f"grouped_matmul {k['shape']} (K={k['K']}, N={k['N']}) "
+              f"T={k['T']} tile_m={k['tile_m']}: max_abs_err "
+              f"{k['max_abs_err']:.3e} / dlhs {k['max_abs_err_dlhs']:.3e} "
+              f"(bf16, limit atol+rtol {TOL_BF16}), "
+              f"{k['max_abs_err_f32']:.3e} / {k['max_abs_err_dlhs_f32']:.3e}"
+              f" (f32, limit {GMM_F32_REL} of max) kernel_ms {k['ms']:.4f} "
+              f"dlhs_ms {k['dlhs_ms']:.4f} plain_ms {k['plain_ms']:.4f} "
+              f"library_ms {k['library_ms']:.4f} ({k['library']}) "
+              f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    moe = run_moe_engine(torch, pa, gm, args.profile)
+    print("dropless MoE engine: " + json.dumps(moe))
+    small_moe = [small_model_agreement(
+        torch, cfg=small_moe_cfg(tfm, routing),
+        kernel=gm if routing == "dropless" else None)
+        for routing in ("dropless", "capacity")]
+    print("small MoE model card vs CPU (dropless, capacity): "
+          + json.dumps(small_moe))
+    small_moe_train = small_training_agreement(
+        torch, fa, cfg=small_moe_cfg(tfm, "dropless", param_dtype="float32",
+                                     attn_impl="flash"), kernels=[gm])
+    print("small MoE training card vs CPU: " + json.dumps(small_moe_train))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    adam = check_fused_adam(torch, fo, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fused_adamw n={adam['n']}: max_abs_err {adam['max_abs_err']:.3e}"
+          f" (f32, limit {ADAM_REL} of max) kernel_ms {adam['ms']:.4f} "
+          f"plain_ms {adam['plain_ms']:.4f} library_ms "
+          f"{adam['library_ms']:.4f} (torch.optim.AdamW fused) bound_ms "
+          f"{adam['bound_ms']:.5f} ({adam['bound_by']})")
+    adam_tree = fused_adam_tree_path(torch, fo, tfm)
+    print("fused_adamw_tree: " + json.dumps(adam_tree))
+    launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
+                     "fused_adamw": adam_tree["launches"]})
     result = {"card": card, "torch": torch.__version__, "engine": engine,
               "small_model": small, "training": training,
               "small_training": small_train, "mixed_gemm": gemm,
-              "quantized_engine": quant, "small_quantized": small_quant}
+              "quantized_engine": quant, "small_quantized": small_quant,
+              "grouped_matmul": gmm, "moe_engine": moe,
+              "small_moe": small_moe, "small_moe_training": small_moe_train,
+              "fused_adamw": adam, "fused_adamw_tree": adam_tree}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
                "flash_fwd": "flash_attention.cu",
                "flash_bwd_dkdv": "flash_attention.cu",
                "flash_bwd_dq": "flash_attention.cu",
-               **{name: "mixed_gemm.cu" for name in GEMM_KERNELS}}
+               **{name: "mixed_gemm.cu" for name in GEMM_KERNELS},
+               "grouped_matmul": "grouped_matmul.cu",
+               "fused_adamw": "fused_adam.cu"}
     replaces = {"paged_decode_attention":
                 "deepspeed_tpu/ops/pallas/paged_attention.py:77",
                 "paged_prefill_attention":
@@ -1129,8 +1594,12 @@ def main() -> None:
                 "deepspeed_tpu/ops/pallas/flash_attention.py:361",
                 **{name: "deepspeed_tpu/ops/pallas/mixed_gemm.py:184"
                    for name in GEMM_KERNELS if name != "int8_gemm"},
-                "int8_gemm": "deepspeed_tpu/ops/pallas/mixed_gemm.py:253"}
+                "int8_gemm": "deepspeed_tpu/ops/pallas/mixed_gemm.py:253",
+                "grouped_matmul":
+                "deepspeed_tpu/ops/pallas/grouped_matmul.py:47",
+                "fused_adamw": "deepspeed_tpu/ops/fused_optimizers.py:31"}
     at_shape = [k for k in gemm if (k["shape"], k["M"]) == GEMM_JSON]
+    at_shape += [k for k in gmm if (k["shape"], k["T"]) == MOE_JSON]
     line = {"kernels": [
         {"name": k["name"], "route": "cuda",
          "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
@@ -1139,7 +1608,7 @@ def main() -> None:
          "max_abs_err_f32": k["max_abs_err_f32"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        for k in kernels + flash + at_shape]}
+        for k in kernels + flash + at_shape + [adam]]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

@@ -20,6 +20,15 @@ weights lie, and only their codes and scales go to the card:
 
     eng = InferenceEngineV2(cfg, params, V2Config(quantize_bits=8))
 
+Slice 4 serves MoE models on one device (capacity, dropless and PR-MoE
+routing, ``moe/``); with ``moe_routing="dropless"`` each layer's experts
+run as three grouped GEMMs (``ops/hopper/grouped_matmul.py``), and
+``ops/fused_optimizers.py`` holds the fused AdamW entries:
+
+    cfg = tfm.get_config("mixtral-8x7b", moe_routing="dropless", num_layers=16)
+    params = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    eng = InferenceEngineV2(cfg, params, V2Config())
+
 Slice 2 adds the training step:
 
     import deepspeed_tpu_torch

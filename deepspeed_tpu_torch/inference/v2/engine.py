@@ -27,9 +27,15 @@ What changes against the reference:
 slice where they lie (``inference/quantization.py``), and every projection
 then runs the mixed GEMM kernel (``ops/hopper/mixed_gemm.py``).
 
+MoE models (``num_experts > 0``) run ``moe/layer.dense_moe_block`` in each
+layer's feed-forward half, over all the step's rows; with
+``moe_routing='dropless'`` that is three grouped GEMMs per layer
+(``ops/hopper/grouped_matmul.py``).  Expert-choice routing is refused, as
+the reference refuses it (non-causal).
+
 Prefix caching, host paging, the cold store, speculation and adapter slots
 are refused with ``NotImplementedError`` naming the later slice
-(``ROADMAP.md``) that brings them; so are MoE and ALiBi models.  The
+(``ROADMAP.md``) that brings them; so are ALiBi models.  The
 tracer span and flight-recorder append that the reference's ``step()``
 makes wait for the observability slice.
 """
@@ -215,7 +221,10 @@ def _layer(x, lp, k_cache, v_cache, q_rope, attend, cfg, write_at):
     attn_out = tfm._lin(o.reshape(T, nh * hd), lp["attn"], "wo", "bo")
     m_src = x if cfg.parallel_residual else x + attn_out
     m_in = tfm._norm(m_src, lp["ln2"], cfg.norm, cfg.norm_eps)
-    mlp_out = tfm._mlp_block(m_in, lp["mlp"], cfg)
+    # MoE layers route every one of the T rows, padding and inactive rows
+    # included, as the reference does: capacity routing drops tokens by
+    # their position among exactly these rows
+    mlp_out = tfm.ffn_block(m_in[None], lp, cfg)[0]
     return (x + attn_out + mlp_out) if cfg.parallel_residual \
         else (m_src + mlp_out)
 
@@ -312,18 +321,25 @@ def decode_body(params, caches, token_ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _cast_tree(node, device: torch.device, dtype: torch.dtype):
-    """Every tensor of the tree on ``device`` in ``dtype``; a
-    :class:`QuantizedWeight` moves with its codes and scales uncast."""
+# leaves the reference reads in f32 whatever the compute dtype
+# (``x.astype(f32) @ p["router"].astype(f32)``, PR-MoE's ``coef``)
+_F32_LEAVES = ("router", "coef")
+
+
+def _cast_tree(node, device: torch.device, dtype: torch.dtype, key=None):
+    """Every tensor of the tree on ``device`` in ``dtype`` (the MoE router
+    and PR-MoE coefficient in f32); a :class:`QuantizedWeight` moves with
+    its codes and scales uncast."""
     if isinstance(node, dict):
-        return {k: _cast_tree(v, device, dtype) for k, v in node.items()}
+        return {k: _cast_tree(v, device, dtype, k) for k, v in node.items()}
     if isinstance(node, QuantizedWeight):
         return node.to(device)
     if not isinstance(node, torch.Tensor):
         raise NotImplementedError(
             f"parameter leaf of type {type(node).__name__}: LoRA weights "
             "arrive with the adapter slice (ROADMAP.md A7)")
-    return node.to(device=device, dtype=dtype)
+    return node.to(device=device,
+                   dtype=torch.float32 if key in _F32_LEAVES else dtype)
 
 
 class InferenceEngineV2:
@@ -338,10 +354,13 @@ class InferenceEngineV2:
     def __init__(self, model_config: tfm.TransformerConfig, params: Any,
                  config: Optional[V2Config] = None, device: Any = "cuda"):
         self.device = resolve_device(device)
-        if getattr(model_config, "num_experts", 0) > 0:
-            raise NotImplementedError(
-                "MoE models (num_experts > 0) are not ported yet; they "
-                "arrive with the MoE slice (ROADMAP.md queue A)")
+        if (getattr(model_config, "num_experts", 0) > 0 and
+                getattr(model_config, "moe_routing", "capacity")
+                == "expert_choice"):
+            raise ValueError(
+                "expert_choice routing is non-causal — continuous-batching "
+                "decode with it would route across unrelated requests; "
+                "serve with moe_routing='capacity' or 'dropless'")
         if getattr(model_config, "position", "rope") == "alibi":
             raise NotImplementedError(
                 "v2's paged attention takes no additive logit bias — ALiBi "

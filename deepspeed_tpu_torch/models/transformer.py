@@ -46,8 +46,8 @@ def param_dtype(cfg: "TransformerConfig") -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Field for field the reference's ``TransformerConfig``, so presets
-    and overrides carry over unchanged.  The port serves the dense LLaMA
-    path; other switches are refused where they would be used."""
+    and overrides carry over unchanged.  The port runs the LLaMA path,
+    dense or MoE; other switches are refused where they would be used."""
 
     vocab_size: int = 32000
     hidden_size: int = 512
@@ -78,6 +78,13 @@ class TransformerConfig:
     param_dtype: str = "float32"  # the reference's master-weight dtype
     attn_impl: str = "xla"
     remat_policy: str = "nothing_saveable"
+
+    def __post_init__(self):
+        if self.gated_mlp and self.num_experts > 0 and \
+                self.activation != "silu":
+            raise ValueError(
+                "gated_mlp with a non-silu activation is not wired for MoE "
+                "expert blocks (they hardcode silu gating)")
 
     @property
     def kv_heads(self) -> int:
@@ -152,13 +159,6 @@ def get_config(name: str, **overrides) -> TransformerConfig:
     return TransformerConfig(**kw)
 
 
-def _check_servable(cfg: TransformerConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers (num_experts > 0) are not ported yet; they arrive "
-            "with the MoE slice (ROADMAP.md queue A, multi-GPU / MoE)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -173,7 +173,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     generator must live on ``device``.  Torch and JAX draw different
     numbers from one seed: parity tests convert the reference's weights
     with :func:`params_from_jax` instead."""
-    _check_servable(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -182,6 +181,14 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=generator, device=dev, dtype=dt)
         return w.mul_(1.0 / math.sqrt(fan_in))
+
+    def stacked(shape, fan_in):
+        # one layer at a time, straight into dt: at Mixtral's width a
+        # whole (L, E, h, f) expert stack is 15 GB in bf16
+        w = torch.empty(shape, device=dev, dtype=dt)
+        for i in range(shape[0]):
+            w[i].normal_(generator=generator).mul_(1.0 / math.sqrt(fan_in))
+        return w
 
     def norm_w(shape):
         # gemma's (1+w) norm is identity at w=0; plain rmsnorm at w=1
@@ -201,10 +208,26 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     if cfg.norm == "layernorm":
         layer["ln1"]["bias"] = torch.zeros((L, h), device=dev, dtype=dt)
         layer["ln2"]["bias"] = torch.zeros((L, h), device=dev, dtype=dt)
-    mlp = {"w_in": dense((L, h, f), h), "w_out": dense((L, f, h), f)}
-    if cfg.is_gated_mlp:
-        mlp["w_gate"] = dense((L, h, f), h)
-    layer["mlp"] = mlp
+    if cfg.num_experts > 0:  # the reference's moe subtree and layout
+        E = cfg.num_experts
+        moe = {"router": dense((L, h, E), h),
+               "w_in": stacked((L, E, h, f), h),
+               "w_gate": stacked((L, E, h, f), h),
+               "w_out": stacked((L, E, f, h), f)}
+        if cfg.activation != "silu":
+            del moe["w_gate"]
+        if cfg.moe_use_residual:  # PR-MoE shared expert + mixing coefficient
+            moe["res_w_in"] = dense((L, h, f), h)
+            moe["res_w_out"] = dense((L, f, h), f)
+            if cfg.activation == "silu":
+                moe["res_w_gate"] = dense((L, h, f), h)
+            moe["coef"] = dense((L, h, 2), h)
+        layer["moe"] = moe
+    else:
+        mlp = {"w_in": dense((L, h, f), h), "w_out": dense((L, f, h), f)}
+        if cfg.is_gated_mlp:
+            mlp["w_gate"] = dense((L, h, f), h)
+        layer["mlp"] = mlp
     params: Dict[str, Any] = {
         "embed": {"tokens": dense((cfg.vocab_size, h), h)},
         "layers": layer,
@@ -253,7 +276,6 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     dtype) on ``device``.  A quantized node of the reference (recognised by
     its fields ``codes, scales, bits, group, k``) becomes a
     :class:`QuantizedWeight` whose codes and scales keep their dtypes."""
-    _check_servable(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
 
@@ -380,6 +402,20 @@ def _mlp_block(x: torch.Tensor, p: Dict[str, Any], cfg: TransformerConfig
     return _lin(mid, p, "w_out", "b_out")
 
 
+def ffn_block(x: torch.Tensor, lp: Dict[str, Any], cfg: TransformerConfig,
+              moe_fn: Optional[Callable] = None) -> torch.Tensor:
+    """A layer's feed-forward half on x (B, S, H): the MoE block of
+    ``moe/layer.py`` (router losses discarded, as the reference's forward
+    does) when ``cfg.num_experts > 0``, else the dense MLP."""
+    if cfg.num_experts > 0:
+        if moe_fn is None:
+            from ..moe.layer import dense_moe_block
+
+            moe_fn = dense_moe_block
+        return moe_fn(x, lp["moe"], cfg)
+    return _mlp_block(x, lp["mlp"], cfg)
+
+
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s slice of the stacked ``params["layers"]`` (views; a
     :class:`QuantizedWeight` slices its codes and scales)."""
@@ -499,10 +535,11 @@ def _remat_policy(name: str) -> bool:
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                    cfg: TransformerConfig,
-                   attn_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+                   attn_fn: Optional[AttentionFn] = None,
+                   moe_fn: Optional[Callable] = None) -> torch.Tensor:
     """tokens (B, S) int → final hidden states (B, S, hidden) after the
-    final norm, in the compute dtype."""
-    _check_servable(cfg)
+    final norm, in the compute dtype.  ``moe_fn(x, moe_params, cfg)``
+    replaces ``moe/layer.dense_moe_block`` in MoE layers."""
     if cfg.position == "alibi" and cfg.attn_impl != "xla":
         raise ValueError("position='alibi' requires attn_impl='xla'")
     if attn_fn is None:
@@ -524,10 +561,10 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
         attn_out = _attention_block(a_in, lp["attn"], cfg, cos, sin, attn_fn)
         if cfg.parallel_residual:
             m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-            return h + attn_out + _mlp_block(m_in, lp["mlp"], cfg)
+            return h + attn_out + ffn_block(m_in, lp, cfg, moe_fn)
         h = h + attn_out
         m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-        return h + _mlp_block(m_in, lp["mlp"], cfg)
+        return h + ffn_block(m_in, lp, cfg, moe_fn)
 
     remat = _remat_policy(cfg.remat_policy)
     for i in range(cfg.num_layers):
@@ -552,10 +589,11 @@ def lm_head(params: Dict[str, Any], cfg: TransformerConfig,
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
             cfg: TransformerConfig,
-            attn_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+            attn_fn: Optional[AttentionFn] = None,
+            moe_fn: Optional[Callable] = None) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V) in the compute dtype."""
     dt = torch_dtype(cfg.dtype)
-    x = forward_hidden(params, tokens, cfg, attn_fn=attn_fn)
+    x = forward_hidden(params, tokens, cfg, attn_fn=attn_fn, moe_fn=moe_fn)
     w, tied, b = lm_head(params, cfg, dt)
     logits = x @ (w.T if tied else w)
     if b is not None:

@@ -27,7 +27,9 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
                              CSRC / "flash_attention.cu",
-                             CSRC / "mixed_gemm.cu")
+                             CSRC / "mixed_gemm.cu",
+                             CSRC / "grouped_matmul.cu",
+                             CSRC / "fused_adam.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,6 +38,7 @@ LINK_FLAGS = ("-shared",)
 
 # the C entry points: name -> ctypes argtypes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _ENTRIES: Dict[str, list] = {
     "ds_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
@@ -54,6 +57,12 @@ _ENTRIES: Dict[str, list] = {
     # dtype, x codes, x scales (K/group, M), w codes, w scales, out, M, N, K,
     # group, stream
     "ds_int8_gemm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # dtype, lhs, rhs, tile_group, used tiles, out, M, N, K, E, tile_m, bm,
+    # transposed, stream
+    "ds_grouped_matmul": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    # p dtype, g dtype, p, g, m, v, step, p out, m out, v out, n, lr, b1,
+    # b2, 1 - b1, 1 - b2, eps, weight decay, stream
+    "ds_fused_adamw": [_I, _I] + [_P] * 8 + [_L] + [_F] * 7 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -220,9 +220,14 @@ def test_v2config_fields_match_reference():
 
 
 def test_moe_and_alibi_refused(model):
+    """MoE models are served (tests/test_torch_moe.py) except with
+    expert-choice routing, which the reference refuses too (non-causal);
+    ALiBi models wait for the v1 engine."""
     _, _, _, tparams = model
-    for name, kw in (("tiny-moe", {}), ("tiny", {"position": "alibi"})):
-        with pytest.raises(NotImplementedError):
+    for name, kw, err in (
+            ("tiny-moe", {"moe_routing": "expert_choice"}, ValueError),
+            ("tiny", {"position": "alibi"}, NotImplementedError)):
+        with pytest.raises(err):
             te.InferenceEngineV2(tt.get_config(name, dtype="float32", **kw),
                                  tparams, te.V2Config(**V2_KW), device="cpu")
 
@@ -247,8 +252,9 @@ def test_admission_and_cancel(model):
 
 
 def test_port_imports_no_jax():
-    """The port, a CPU engine run (plain and W8A16), int8_gemm and a CPU
-    training step never import JAX, the JAX package, pydantic or optax."""
+    """The port, a CPU engine run (plain, W8A16 and dropless MoE),
+    int8_gemm, a CPU training step and a fused AdamW update never import
+    JAX, the JAX package, pydantic or optax."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -286,6 +292,18 @@ def test_port_imports_no_jax():
         ids = np.random.default_rng(0).integers(0, 256, (2, 16))
         loss = engine.train_batch({"input_ids": ids})["loss"]
         assert np.isfinite(loss), loss
+        from deepspeed_tpu_torch.ops import fused_optimizers as fo
+        mcfg = tfm.get_config("tiny-moe", dtype="float32",
+                              moe_routing="dropless")
+        meng = InferenceEngineV2(mcfg, tfm.init_params(
+            mcfg, torch.Generator().manual_seed(0), device="cpu"),
+            V2Config(max_tokens_per_step=16, max_seqs=4, block_size=8,
+                     num_blocks=64, max_blocks_per_seq=8, dtype="float32"),
+            device="cpu")
+        uid = meng.put(list(range(1, 21)), max_new_tokens=5)
+        assert len(meng.generate_all(burst=4)[uid]) == 25
+        state = fo.init_fused_adam_state(params)
+        fo.fused_adamw_tree(params, params, state, lr=1e-3)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "deepspeed_tpu.",
                                               "pydantic", "optax"))

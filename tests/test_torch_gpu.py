@@ -13,7 +13,11 @@ import torch
 
 from deepspeed_tpu_torch.inference.v2 import engine as te
 from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.moe import dropless as tdl
+from deepspeed_tpu_torch.moe import layer as tml
+from deepspeed_tpu_torch.ops import fused_optimizers as tfo
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
+from deepspeed_tpu_torch.ops.hopper import grouped_matmul as tgm
 from deepspeed_tpu_torch.ops.hopper import mixed_gemm as tmg
 from deepspeed_tpu_torch.ops.hopper import paged_attention as tpa
 
@@ -375,3 +379,177 @@ def test_quantized_engine_on_gpu_matches_cpu(cuda_device, bits):
             assert not any(tmg.PLAIN_CALLS.values())
             assert not any(tmg.DEQUANT_CALLS.values())
     assert out[0] == out[1]
+
+
+# grouped matmul: a layout of T assignments over E experts (one expert left
+# empty) with its all-padding tail; K and N off the 64-wide tiles
+def _gmm_problem(seed, T, E, K, N, tile_m, dtype, device, transposed=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ef = torch.randint(0, E, (T,), generator=gen, device=device)
+    ef[ef == 1] = 0
+    pos, tgroup, sizes, M_pad, used = tgm.tile_aligned_layout(
+        ef, E, T, tile_m, with_used_tiles=True)
+    lhs = torch.zeros((M_pad, K), device=device, dtype=dtype)
+    lhs[pos.long()] = torch.randn((T, K), generator=gen,
+                                  device=device).to(dtype)
+    shape = (E, N, K) if transposed else (E, K, N)
+    rhs = (torch.randn(shape, generator=gen, device=device)
+           / K ** 0.5).to(dtype)
+    return lhs, rhs, tgroup, sizes, used
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("tile_m", [16, 64, 48])
+@pytest.mark.parametrize("transposed", [False, True], ids=["nk", "kn_t"])
+def test_grouped_matmul_matches_plain(cuda_device, dtype, tile_m,
+                                      transposed):
+    """Every tile against the plain version; the tiles past the used count
+    are zeros written without reading weights (their rows are zero)."""
+    for T, K, N in ((16, 200, 136), (300, 512, 72)):
+        lhs, rhs, tgroup, sizes, used = _gmm_problem(
+            T + tile_m, T, 4, K, N, tile_m, dtype, cuda_device, transposed)
+        tgm.reset_counts()
+        got = tgm.grouped_matmul(lhs, rhs, tgroup, sizes, tile_m=tile_m,
+                                 num_used_tiles=used,
+                                 rhs_transposed=transposed)
+        want = tgm.grouped_matmul_plain(lhs, rhs, tgroup, tile_m,
+                                        rhs_transposed=transposed)
+        assert got.dtype == dtype and got.shape == want.shape
+        _mixed_close(got, want, dtype, f"T={T} tile_m={tile_m}")
+        assert not got[int(used.item()) * tile_m:].any()
+        assert tgm.LAUNCHES == {"grouped_matmul": 1}
+        # without a used count every tile is computed: the same numbers
+        torch.testing.assert_close(
+            tgm.grouped_matmul(lhs, rhs, tgroup, sizes, tile_m=tile_m,
+                               rhs_transposed=transposed), got,
+            rtol=0, atol=0)
+
+
+def test_grouped_matmul_wrapper_raises_on_cuda_input_it_does_not_take(
+        cuda_device):
+    lhs, rhs, tgroup, sizes, _ = _gmm_problem(0, 16, 4, 64, 64, 16,
+                                              torch.bfloat16, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tgm.grouped_matmul(lhs.half(), rhs.half(), tgroup, sizes, tile_m=16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tgm.grouped_matmul(lhs[:, :60].contiguous(),
+                           rhs[:, :60].contiguous(), tgroup, sizes,
+                           tile_m=16)
+    with pytest.raises(ValueError, match="int32"):
+        tgm.grouped_matmul(lhs, rhs, tgroup.long(), sizes, tile_m=16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tgm.grouped_matmul(lhs, rhs, torch.cat([tgroup, tgroup]), sizes,
+                           tile_m=8)
+
+
+@pytest.mark.parametrize("routing", ["dropless", "capacity"])
+def test_moe_block_and_grads_on_gpu_match_cpu(cuda_device, routing):
+    """tiny-moe's MoE block forward and backward, f32: on the card the
+    grouped GEMM runs forward and, on the transposed weights, for dlhs."""
+    cfg = tt.get_config("tiny-moe", dtype="float32", moe_routing=routing)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    lp = tt.layer_params(params, 0)["moe"]
+    x = torch.randn((2, 24, 64), generator=torch.Generator().manual_seed(1))
+    out = []
+    for dev in (cuda_device, "cpu"):
+        p = {k: v.to(dev).requires_grad_() for k, v in lp.items()}
+        xd = x.to(dev).requires_grad_()
+        tgm.reset_counts()
+        y, aux, z = tml.moe_block_with_losses(xd, p, cfg)
+        (y.square().sum() + aux + z).backward()
+        if dev != "cpu" and routing == "dropless":
+            assert tgm.LAUNCHES == {"grouped_matmul": 6}  # 3 fwd, 3 dlhs
+            assert tgm.PLAIN_CALLS == {"grouped_matmul_plain": 0}
+        out.append([y.detach().cpu(), xd.grad.cpu()]
+                   + [p[k].grad.cpu() for k in sorted(p)])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("routing", ["dropless", "capacity"])
+def test_moe_engine_on_gpu_matches_cpu(cuda_device, routing):
+    cfg = tt.get_config("tiny-moe", hidden_size=256, intermediate_size=512,
+                        num_kv_heads=2, dtype="float32", moe_routing=routing)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    v2 = te.V2Config(max_tokens_per_step=16, max_seqs=4, block_size=8,
+                     num_blocks=64, max_blocks_per_seq=8, dtype="float32")
+    prompts = [list(range(1, 6)), list(range(10, 50))]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        eng = te.InferenceEngineV2(cfg, params, v2, device=dev)
+        uids = [eng.put(p, max_new_tokens=8) for p in prompts]
+        tgm.reset_counts()
+        res = eng.generate_all(burst=4)
+        out.append([res[u] for u in uids])
+        if dev != "cpu" and routing == "dropless":
+            assert tgm.LAUNCHES["grouped_matmul"] > 0
+            assert tgm.PLAIN_CALLS == {"grouped_matmul_plain": 0}
+    assert out[0] == out[1]
+
+
+def test_dropless_decode_makes_no_host_sync(cuda_device):
+    cfg = tt.get_config("tiny-moe", dtype="bfloat16", moe_routing="dropless")
+    params = tt.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    lp = tt.layer_params(params, 0)["moe"]
+    x = torch.randn((1, 8, 64), device=cuda_device, dtype=torch.bfloat16)
+    tdl.dropless_moe_block_with_losses(x, lp, cfg)  # build, first launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _, _ = tdl.dropless_moe_block_with_losses(x, lp, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,offset", [(1, 0), (4099, 0), (70001, 1)],
+                         ids=["one", "ragged", "misaligned"])
+def test_fused_adamw_matches_plain(cuda_device, p_dtype, g_dtype, n,
+                                   offset):
+    """Both sides round every f32 operation once in the same order: within
+    1e-6 of each tensor's largest element (b ** step may differ by an ulp
+    between powf and torch's pow).  An offset of one element makes the
+    pointers misaligned for 16-byte loads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+
+    def rnd(dtype, scale=1.0):
+        t = torch.randn(n + offset, generator=gen, device=cuda_device)
+        return (t.abs() * scale if scale < 1 else t).to(dtype)[offset:]
+
+    p, g = rnd(p_dtype), rnd(g_dtype)
+    m, v = rnd(torch.float32), rnd(torch.float32, 0.1)
+    step = torch.tensor(3, dtype=torch.int32, device=cuda_device)
+    tfo.reset_counts()
+    got = tfo.fused_adamw_flat(p, g, m, v, step, lr=1e-2, weight_decay=0.1)
+    want = tfo.adamw_plain(p, g, m, v, step, lr=1e-2, weight_decay=0.1)
+    assert tfo.LAUNCHES == {"fused_adamw": 1}
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=1e-6 * b.float().abs().max().item())
+
+
+def test_fused_adamw_tree_one_launch(cuda_device):
+    cfg = tt.get_config("tiny-moe", dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device,
+        dtype=torch.float32)
+    state = tfo.init_fused_adam_state(params)
+    tfo.reset_counts()
+    new, state = tfo.fused_adamw_tree(params, params, state, lr=1e-3)
+    new, state = tfo.fused_adamw_tree(new, params, state, lr=1e-3)
+    assert tfo.LAUNCHES == {"fused_adamw": 2}
+    assert tfo.PLAIN_CALLS == {"adamw_plain": 0}
+    assert int(state.step) == 2
+    assert new.keys() == params.keys()
+    w, w0 = new["layers"]["moe"]["w_in"], params["layers"]["moe"]["w_in"]
+    assert w.shape == w0.shape and torch.isfinite(w).all()
+    assert not torch.equal(w, w0)

@@ -120,7 +120,9 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert path.parts[-3:-1] == ("build", "torch_kernels")
     assert [s.name for s in build.SOURCES] == ["paged_attention.cu",
                                                "flash_attention.cu",
-                                               "mixed_gemm.cu"]
+                                               "mixed_gemm.cu",
+                                               "grouped_matmul.cu",
+                                               "fused_adam.cu"]
     assert all(s.is_file() for s in build.SOURCES)
     # a change to any source gives another library name
     for i, src in enumerate(build.SOURCES):
@@ -145,7 +147,8 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_source_names_what_it_replaces():
-    paged, flash, mixed = (s.read_text() for s in build.SOURCES)
+    paged, flash, mixed, grouped, adam = (s.read_text()
+                                          for s in build.SOURCES)
     assert "_decode_kernel" in paged and "_prefill_kernel" in paged
     assert 'extern "C" int ds_paged_decode' in paged
     assert 'extern "C" int ds_paged_prefill' in paged
@@ -160,4 +163,12 @@ def test_kernel_source_names_what_it_replaces():
         assert name in mixed
     for entry in ("ds_mixed_gemm", "ds_int8_gemm"):
         assert f'extern "C" int {entry}' in mixed
+        assert entry in build._ENTRIES
+    for src, ref, name, entry in (
+            (grouped, "deepspeed_tpu/ops/pallas/grouped_matmul.py",
+             "_gmm_kernel", "ds_grouped_matmul"),
+            (adam, "deepspeed_tpu/ops/fused_optimizers.py", "_adam_kernel",
+             "ds_fused_adamw")):
+        assert ref in src and name in src
+        assert f'extern "C" int {entry}' in src
         assert entry in build._ENTRIES

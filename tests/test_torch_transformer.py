@@ -14,6 +14,7 @@ import torch
 
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.moe.sharded_moe import sharded_moe_block
 
 ATOL = 1e-5
 
@@ -143,9 +144,11 @@ def test_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tt.init_params(cfg, torch.Generator())  # default device is the card
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_params(tt.get_config("tiny-moe"), torch.Generator(),
-                       device="cpu")
+    # MoE layers run on one device (tests/test_torch_moe.py); the
+    # expert-parallel all-to-all waits for the multi-GPU item
+    with pytest.raises(NotImplementedError, match="A13"):
+        sharded_moe_block(torch.zeros(1, 2, 64), {}, tt.get_config(
+            "tiny-moe"))
     # quantized weights are served now (tests/test_torch_mixed_gemm.py);
     # LoRA weights still wait for the adapter slice
     with pytest.raises(NotImplementedError, match="LoRA"):
