@@ -19,8 +19,9 @@ In order it prints:
    CPU, whose greedy tokens must agree;
 5. each flash-attention kernel (forward, dK/dV, dQ) against its plain
    PyTorch version at the training shape (B=4, S=2048, H=32, KV=8, D=128,
-   causal): in bf16 and in f32, max abs error and kernel / plain / library
-   (SDPA forward; SDPA backward for dK/dV and dQ together) / bound times;
+   causal): in bf16 and in f32, max abs error (and in bf16 how far inside
+   its limit the worst element lies) and kernel / plain / library (SDPA
+   forward; SDPA backward for dK/dV and dQ together) / bound times;
 6. training: ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
    llama3-8b at full width with its depth cut to 8 layers (bf16
    parameters, f32 AdamW state, flash attention, tiled loss), 2 warm-up
@@ -71,6 +72,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -164,6 +166,21 @@ def card_line() -> str:
     return out[0]
 
 
+def kernel_name(line: str) -> str:
+    """The kernel's name and template arguments in a ptxas line that names
+    its mangled entry function, as ``flash_fwd_tc_kernelILi128E``."""
+    found = re.search(r"_ZN(\w+)", line)
+    if not found:
+        return line.strip()
+    rest, name = found.group(1), ""
+    while rest[:1].isdigit():  # length-prefixed nested names
+        digits = re.match(r"\d+", rest).group()
+        n = int(digits)
+        name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    args = re.match(r"I\w*?E(?=E)", rest)
+    return name + (args.group() if args else "")
+
+
 def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``iters`` runs, CUDA events
     around each run, with the 50 MB L2 flushed before each one (in the
@@ -187,14 +204,21 @@ def time_ms(fn, torch, flush, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def excess(out, ref, atol: float, rtol: float):
+    """``(max |out - ref|, max(|out - ref| - atol - rtol |ref|))``: the
+    error, and how far the worst element lies past its limit (negative:
+    inside it)."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    return (diff.max().item(),
+            (diff - atol - rtol * ref.abs()).max().item())
+
+
 def compare(out, ref, tol, what: str) -> float:
     """Max abs error of ``out`` against ``ref``; fails unless every element
     is within ``atol + rtol * |ref|``."""
     atol, rtol = tol
-    ref = ref.float()
-    diff = (out.float() - ref).abs()
-    err = diff.max().item()
-    over = (diff - atol - rtol * ref.abs()).max().item()
+    err, over = excess(out, ref, atol, rtol)
     if not math.isfinite(err) or over > 0:
         fail(f"{what} disagrees with its plain version: max abs err {err}, "
              f"past |k - p| <= {atol} + {rtol} |p| by {over}")
@@ -554,17 +578,19 @@ def small_model_agreement(torch, bits: int = 0, cfg=None,
             "requests": len(prompts)}
 
 
+def grad_tol(ref, f32: bool, rel: float = GRAD_REL):
+    """(atol, rtol) of a gradient: rel of its largest element, plus one
+    output ulp (1e-2 |ref|) in bf16."""
+    return rel * ref.float().abs().max().item(), 0.0 if f32 else 1e-2
+
+
 def compare_grad(out, ref, f32: bool, what: str, rel: float = GRAD_REL
                  ) -> float:
     """Max abs error of a gradient (or another sum over many terms) against
     its plain version; fails unless every element is within rel * max|ref|
     (+ 1e-2 |ref| in bf16)."""
-    ref = ref.float()
-    diff = (out.float() - ref).abs()
-    err = diff.max().item()
-    atol = rel * ref.abs().max().item()
-    rtol = 0.0 if f32 else 1e-2
-    over = (diff - atol - rtol * ref.abs()).max().item()
+    atol, rtol = grad_tol(ref, f32, rel)
+    err, over = excess(out, ref, atol, rtol)
     if not math.isfinite(err) or over > 0:
         fail(f"{what} disagrees with its plain version: max abs err {err}, "
              f"past |k - p| <= {atol:.3e} + {rtol} |p| by {over}")
@@ -605,6 +631,14 @@ def check_flash(torch, fa, flush) -> list:
         dq_p = fa.flash_bwd_dq_plain(qa, ka, va, da, lse_p, delta, mask,
                                      scale)
         torch.cuda.synchronize()
+        if not f32:  # how far inside its limits each bf16 kernel lies
+            margins = {
+                "flash_fwd": max(excess(o, o_p, *TOL_BF16)[1],
+                                 excess(lse, lse_p, *TOL_F32)[1]),
+                "flash_bwd_dkdv": max(
+                    excess(dk, dk_p, *grad_tol(dk_p, False))[1],
+                    excess(dv, dv_p, *grad_tol(dv_p, False))[1]),
+                "flash_bwd_dq": excess(dq, dq_p, *grad_tol(dq_p, False))[1]}
         errs[tag] = {
             "flash_fwd": max(e_o, e_l),
             "flash_bwd_dkdv": max(
@@ -665,6 +699,7 @@ def check_flash(torch, fa, flush) -> list:
         b_ms, b_by = bound(*work[name])
         rows.append({"name": name, "max_abs_err": errs["bf16"][name],
                      "max_abs_err_f32": errs["f32"][name],
+                     "margin_bf16": margins[name],
                      "ms": time_ms(kernel, torch, flush, iters=10),
                      "plain_ms": time_ms(plain, torch, flush, iters=5,
                                          warmup=1),
@@ -1457,9 +1492,12 @@ def main() -> None:
 
     secs, log = build.build()
     print(f"build: {secs:.2f} s")
+    kernel = ""
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {kernel}: {line.strip()}")
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [check_decode(torch, pa, flush), check_prefill(torch, pa, flush)]
@@ -1486,7 +1524,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     for k in flash:
-        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e} (bf16), "
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e} (bf16, "
+              f"{k['margin_bf16']:.3e} past its limit), "
               f"{k['max_abs_err_f32']:.3e} (f32; o/lse limit {TOL_F32}, "
               f"grads {GRAD_REL} of max) kernel_ms {k['ms']:.4f} plain_ms "
               f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
@@ -1568,7 +1607,7 @@ def main() -> None:
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
                      "fused_adamw": adam_tree["launches"]})
     result = {"card": card, "torch": torch.__version__, "engine": engine,
-              "small_model": small, "training": training,
+              "small_model": small, "flash": flash, "training": training,
               "small_training": small_train, "mixed_gemm": gemm,
               "quantized_engine": quant, "small_quantized": small_quant,
               "grouped_matmul": gmm, "moe_engine": moe,

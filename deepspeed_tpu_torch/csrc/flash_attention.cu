@@ -3,53 +3,102 @@
 // kernels: q, o, dq, do (B, S, H, D); k, v, dk, dv (B, Skv, KV, D) with
 // H % KV == 0; lse and delta (B, H, S) f32.
 //
-//   flash_fwd_kernel   replaces deepspeed_tpu/ops/pallas/flash_attention.py
-//                      _fwd_kernel: online-softmax o and f32 lse.  A row with
-//                      no kept key writes o = 0 and lse = -inf.
-//   flash_dkdv_kernel  replaces flash_attention.py _bwd_dkdv_kernel: dK and
-//                      dV per kv tile, summed over every query row of every
-//                      head of the tile's GQA group.
-//   flash_dq_kernel    replaces flash_attention.py _bwd_dq_kernel: dQ.
+// Which kernel serves which call (the dispatch is on dtype, in the C entry
+// points below; it is not a fallback: each dtype has exactly one kernel).
+// All replace kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 //
-// The backward recomputes p = exp(s - lse) and ds = p (dp - delta) scale,
-// with delta = rowsum(dO * O) computed by the caller, as _flash_bwd does.
-// Masks, all composable, as the Pallas kernels apply them: causal (key <=
-// row); a window > 0 keeps keys in (row - window, row] whether or not causal
-// is set; segment ids (B, S) int32 keep equal ids; a block table (nqb, nkb)
-// int32 keeps (row, key) iff table[row / bq][key / bk] != 0.  Keys >= Skv and
-// rows >= S (the ragged edge) are masked here, so any S works.  A masked
-// element gets p = 0 without ever computing exp(s - lse), so a fully masked
-// row (lse = -inf) contributes nothing instead of inf * 0.
+//   flash_fwd_tc_kernel   bf16 forward, on the tensor cores: replaces
+//                         _fwd_kernel (online-softmax o and f32 lse).
+//   flash_dkdv_tc_kernel  bf16 dK/dV, on the tensor cores: replaces
+//                         _bwd_dkdv_kernel (dK and dV per kv tile, summed
+//                         over every query row of every head of the tile's
+//                         GQA group).
+//   flash_fwd_kernel,     f32 forward and dK/dV, and dQ in both dtypes
+//   flash_dkdv_kernel,    (flash_dq_kernel replaces _bwd_dq_kernel): CUDA-core
+//   flash_dq_kernel       f32 FMAs from f32 shared-memory tiles.
 //
-// Work split.  A block owns 64 "query vectors": a contiguous range of the
+// A row with no kept key writes o = 0 and lse = -inf.  The backward
+// recomputes p = exp(s - lse) and ds = p (dp - delta) scale, with delta =
+// rowsum(dO * O) computed by the caller, as _flash_bwd does.  Masks, all
+// composable, as the Pallas kernels apply them: causal (key <= row); a
+// window > 0 keeps keys in (row - window, row] whether or not causal is set;
+// segment ids (B, S) int32 keep equal ids; a block table (nqb, nkb) int32
+// keeps (row, key) iff table[row / bq][key / bk] != 0.  Keys >= Skv and rows
+// >= S (the ragged edge) are masked here, so any S works.  A masked element
+// gets p = 0 without ever computing exp(s - lse), so a fully masked row
+// (lse = -inf) contributes nothing instead of inf * 0.
+//
+// Work split.  A block owns a contiguous range of "query vectors": the
 // flattened (row, head-in-group) index of one (batch, kv head), so the H/KV
-// query heads of a kv head share every K/V tile the block loads (the
-// decode kernel's trick in paged_attention.cu).  The forward and dQ kernels
-// walk the kv tiles of their band; the dK/dV kernel owns 64 keys of one kv
-// head and walks the query vectors of its band, accumulating dk and dv in
-// registers, so no atomics are needed (the reference's own schedule).  The
-// causal/window band bounds both loops, and a tile whose block-table entries
-// are all 0 is skipped whole.
+// query heads of a kv head share every K/V tile the block loads (the decode
+// kernel's trick in paged_attention.cu).  The forward and dQ kernels walk
+// the 64-key tiles of their band; the dK/dV kernels own 64 keys of one kv
+// head and walk the query vectors of their band, accumulating dk and dv in
+// registers, so no atomics are needed (the reference's own schedule).
 //
 // Bounds on an H100 SXM at the training shape (B=4, S=2048, H=32, KV=8,
 // D=128, causal): the forward does 4 D flops per kept (row, key) pair of
-// each head, dK/dV 8 D and dQ 6 D, ~0.14, 0.28 and 0.21 TFLOP against
-// ~67 MB of q/k/v/o moved: far above the card's ~295 flops/byte ridge, so
-// all three are bound by operations (0.14 ms, 0.28 ms and 0.21 ms at the
-// 989 TFLOP/s bf16 tensor-core rate).  These first kernels compute on the
-// CUDA cores in f32 (67 TFLOP/s peak), so they stay well above that bound:
-// each thread keeps a 4 x 4 score tile and a 4 x (D/16) output tile in
-// registers and reads f32 operands from shared memory whose rows are padded
-// to D + 1 floats (conflict-free column reads).  wgmma/TMA tiles are later
-// work.
+// each head, dK/dV 8 D and dQ 6 D, ~0.14, 0.28 and 0.21 TFLOP against ~67 MB
+// of q/k/v/o moved: far above the card's ~295 flops/byte ridge, so all
+// three are bound by operations (0.14 ms, 0.28 ms and 0.21 ms at the 989
+// TFLOP/s bf16 tensor-core rate).
+//
+// The bf16 kernels' design, against that bound:
+//   * Every product is mma.sync.m16n8k16 bf16 -> f32.  Forward: a block
+//     owns 128 query vectors, 8 warps of 16, one block per SM (~226
+//     registers a thread; two 4-warp blocks per SM ran slower, each
+//     loading its own K/V); Q is read once into registers (ldmatrix),
+//     S = Q K^T takes K by plain ldmatrix from a [key][d] tile, and
+//     O += P V takes P straight from S's accumulators, repacked in
+//     registers as A fragments, and V by ldmatrix.trans.  dK/dV: a block
+//     owns 64 keys, 4 warps of 16, two blocks per SM, with the keys as the
+//     M dimension: S^T = K Q^T and dP^T = V dO^T over a 64-vector stage
+//     leave P^T and dS^T in accumulators, which feed dV += P^T dO and
+//     dK += dS^T Q as A fragments; K and V stay in shared memory, Q and dO
+//     are read by ldmatrix (.trans for dV/dK).  dK, dV, P^T and dS^T fill
+//     the 255 registers, with a few spilled words.
+//   * Precision as in the reference, which keeps p and ds in f32: q, k, v
+//     and dO are bf16 already, so their products are exact in f32; p and ds
+//     are computed in f32 and split into hi = bf16(x), lo = bf16(x - hi),
+//     two mma each into the same f32 accumulator, which keeps x to ~2^-17
+//     of its size.  Rounding p or ds to bf16 alone breaks the per-element
+//     limits of chip_smoke.py (tests/test_torch_flash_precision.py emulates
+//     both).  So the kernels do 6 D flops per kept pair in the forward and
+//     12 D in dK/dV, not 4 D and 8 D; the bound above counts the function's
+//     work, not the kernel's.  The online-softmax state, o = acc / l and
+//     lse stay f32; exp runs as ex2.approx on log2e-scaled logits.
+//   * K/V (forward) and Q/dO with their rows' lse and delta (dK/dV) come
+//     through a 2-stage cp.async ring (16-byte copies, each thread's
+//     pointers computed once): the next tile's loads are in flight while
+//     the current one computes, one barrier per tile.  Tiles stay bf16 in
+//     shared memory with rows padded by 16 bytes (D + 8 elements), so the
+//     8 rows an ldmatrix reads hit 8 different bank groups.
+//   * Masks by tile: each (vectors x keys) tile is classified once per
+//     block as empty (skipped, never loaded), full (no element mask) or
+//     partial (keep() per element); only the band's edge, ragged ends,
+//     segment ids and mixed block-table tiles are partial.  The full and
+//     partial softmax are separate instantiations (softmax_step<MASK>,
+//     probs_t<MASK>): a per-element branch inside the unrolled loop split
+//     it into basic blocks that the compiler could not interleave, which
+//     cost most of the forward's time.
+//   * Causal blocks differ in work by up to S/64x, so the heaviest launch
+//     first: forward blocks in descending query order, dK/dV blocks in
+//     ascending key order.
+// The f32 kernels (and dQ) compute on the CUDA cores: each thread keeps a
+// 4 x 4 score tile and a 4 x (D/16) output tile in registers and reads f32
+// operands from shared memory whose rows are padded to D + 1 floats.
 //
 // Every C entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() after its launch.
+// and returns cudaGetLastError() after its launch.  The bf16 kernels read
+// 16-byte chunks: the wrapper checks that q, k, v and dO are 16-byte
+// aligned (D is a multiple of 8).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -504,6 +553,667 @@ flash_dq_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdWarps = 8;                // forward: 16 query vectors per warp,
+constexpr int kFwdVecs = 16 * kFwdWarps;    // 128 per block, one block per SM
+constexpr int kBwdWarps = 4;                // dK/dV: 16 keys per warp,
+constexpr int kBwdKeys = 16 * kBwdWarps;    // 64 per block
+constexpr int kBwdVecs = 64;                // query vectors per dK/dV stage
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// bytes per bf16 shared-memory row of D elements: D + 8, so that the 8 rows
+// an ldmatrix reads (16 bytes each) start 16 bytes apart modulo 128
+template <int D>
+constexpr int tc_row() { return (D + 8) * 2; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// not volatile: a pure function of its operands, so the compiler may
+// interleave independent products with the fragment loads around them
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi) as packed pairs (x0 in the
+// low half, the lower column of an A fragment)
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16_pair(h);
+  lo = bf16_pair(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// the A fragments (hi and lo) of k-step kk of a 16 x 64 accumulator tile
+// acc[8][4] (rows gr, gr + 8; columns 8j + 2tq, +1 of n-tile j)
+template <int NT>
+__device__ __forceinline__ void a_split(const float (&acc)[NT][4], int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_pair(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
+  split_pair(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
+  split_pair(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
+  split_pair(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// C[16 x 8 NT] += A[16 x 16] . B^T, B a [n][k] bf16 shared tile (rows
+// n0.., stride ROW bytes): plain ldmatrix gives the col-major B fragments.
+// All fragments are loaded before the products, so no mma waits on a load.
+template <int NT, int ROW>
+__device__ __forceinline__ void mma_bt(float (&c)[NT][4], const uint32_t (&a)[4],
+                                       const uint8_t* b, int n0, int k0, int lane) {
+  uint32_t r[NT / 2][4];
+#pragma unroll
+  for (int jj = 0; jj < NT / 2; ++jj) {
+    const int n = n0 + jj * 16 + (lane & 7) + ((lane >> 4) << 3);
+    const int k = k0 + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(r[jj], b + n * ROW + k * 2);
+  }
+#pragma unroll
+  for (int jj = 0; jj < NT / 2; ++jj) {
+    mma_bf16(c[2 * jj], a, r[jj][0], r[jj][1]);
+    mma_bf16(c[2 * jj + 1], a, r[jj][2], r[jj][3]);
+  }
+}
+
+// C[16 x D] += (hi + lo)[16 x 16] . B, B a [k][n] bf16 shared tile whose
+// rows k0..k0+15 are read with ldmatrix.trans.  In groups of 8 n-tiles:
+// the group's fragments first, then its hi products, then its lo products,
+// so the two products into one accumulator are 8 apart.
+template <int D, int ROW>
+__device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4], const uint8_t* b, int k0,
+                                            int lane) {
+  constexpr int G = 4;  // ldmatrix.x4 per group: 8 n-tiles
+  static_assert((D / 16) % G == 0, "D is 64 or 128");
+#pragma unroll
+  for (int g = 0; g < D / 16; g += G) {
+    uint32_t r[G][4];
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      const int k = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int n = (g + jj) * 16 + (lane >> 4) * 8;
+      ldmatrix_x4_trans(r[jj], b + k * ROW + n * 2);
+    }
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      mma_bf16(c[2 * (g + jj)], hi, r[jj][0], r[jj][1]);
+      mma_bf16(c[2 * (g + jj) + 1], hi, r[jj][2], r[jj][3]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      mma_bf16(c[2 * (g + jj)], lo, r[jj][0], r[jj][1]);
+      mma_bf16(c[2 * (g + jj) + 1], lo, r[jj][2], r[jj][3]);
+    }
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx: within 2 ulp of the
+// rounded result; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 16 bytes of a bf16 row into shared memory, or zeros where the row is
+// absent (past S or Skv)
+__device__ __forceinline__ void chunk16(uint8_t* dst, const __nv_bfloat16* src) {
+  if (src != nullptr)
+    cp_async16(dst, src);
+  else
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+}
+
+// Copies of bf16 rows into padded shared tiles: thread t moves the 16-byte
+// chunk t % (D/8) of rows t / (D/8), + R, + 2R, ..., so its column and
+// pointers are computed once.
+template <int D, int THREADS>
+struct RowCopy {
+  static constexpr int CH = D / 8, R = THREADS / CH;
+  static_assert(THREADS % CH == 0, "whole rows per pass");
+  int row0, col;
+  __device__ RowCopy() : row0(threadIdx.x / CH), col((threadIdx.x % CH) * 8) {}
+
+  // keys [c0, c0 + N) of one (batch, kv head) of k and v (B, Skv, KV, D)
+  // into [N][ROW] tiles; zeros past Skv
+  template <int ROW, int N>
+  __device__ __forceinline__ void keys(uint8_t* ks, uint8_t* vs, const __nv_bfloat16* k,
+                                       const __nv_bfloat16* v, const Problem& p, int b,
+                                       int kvh, int c0) const {
+    static_assert(N % R == 0, "whole passes");
+    const size_t step = (size_t)p.KV * D;
+    const size_t at = ((size_t)b * p.Skv * p.KV + kvh) * D + col;
+#pragma unroll
+    for (int i = 0; i < N / R; ++i) {
+      const int c = c0 + row0 + i * R;
+      const int o = (row0 + i * R) * ROW + col * 2;
+      const size_t off = at + (size_t)c * step;
+      chunk16(ks + o, c < p.Skv ? k + off : nullptr);
+      chunk16(vs + o, c < p.Skv ? v + off : nullptr);
+    }
+  }
+
+  // N query vectors from flattened index base of one (batch, kv head) of a
+  // (and b2 when given), (B, S, H, D), into [N][ROW] tiles; zeros past S
+  template <int ROW, int N>
+  __device__ __forceinline__ void vectors(uint8_t* da, const __nv_bfloat16* a, uint8_t* db,
+                                          const __nv_bfloat16* b2, const Problem& p, int b,
+                                          int kvh, int base) const {
+    static_assert(N % R == 0, "whole passes");
+#pragma unroll
+    for (int i = 0; i < N / R; ++i) {
+      const int vi = row0 + i * R, gi = base + vi;
+      const int r = gi / p.group;
+      const size_t at =
+          (((size_t)b * p.S + r) * p.H + kvh * p.group + (gi - r * p.group)) * D + col;
+      const int o = vi * ROW + col * 2;
+      chunk16(da + o, r < p.S ? a + at : nullptr);
+      if (b2 != nullptr) chunk16(db + o, r < p.S ? b2 + at : nullptr);
+    }
+  }
+};
+
+enum TileState { kEmpty = 0, kFull = 1, kPartial = 2 };
+
+// How rows [r_lo, r_hi] meet keys [c_lo, c_lo + nkeys): kEmpty when no
+// (row, key) pair is kept, kFull when every pair is kept (no element mask
+// needed), else kPartial.  `rows_whole`: every query vector of the tile is a
+// real row (none past S).  Call from every thread of the block with the same
+// arguments: the block table is read cooperatively.
+__device__ int tile_state(const Problem& p, int r_lo, int r_hi, int c_lo, int nkeys,
+                          bool rows_whole) {
+  const int c_hi = min(c_lo + nkeys, p.Skv) - 1;
+  bool any, all;
+  if (p.window > 0) {
+    any = c_lo <= r_hi && c_hi > r_lo - p.window;
+    all = c_hi <= r_lo && c_lo > r_hi - p.window;
+  } else if (p.causal) {
+    any = c_lo <= r_hi;
+    all = c_hi <= r_lo;
+  } else {
+    any = all = true;
+  }
+  all = all && rows_whole && c_lo + nkeys <= p.Skv && p.seg == nullptr;
+  if (p.bm != nullptr && any) {
+    const int i0 = r_lo / p.bq, i1 = r_hi / p.bq;
+    const int j0 = c_lo / p.bk, j1 = c_hi / p.bk;
+    const int nj = j1 - j0 + 1, n = (i1 - i0 + 1) * nj;
+    int found = 0, missing = 0;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const int live = p.bm[(i0 + t / nj) * p.nkb + j0 + t % nj] != 0;
+      found |= live;
+      missing |= !live;
+    }
+    any = __syncthreads_or(found) != 0;
+    all = all && __syncthreads_or(missing) == 0;
+  }
+  return !any ? kEmpty : all ? kFull : kPartial;
+}
+
+// the rows [r_lo, r_hi] of n query vectors from flattened index base
+__device__ __forceinline__ void vector_rows(const Problem& p, int base, int n, int& r_lo,
+                                            int& r_hi) {
+  r_lo = base / p.group;
+  r_hi = min(p.S - 1, (base + n - 1) / p.group);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward: 1-D grid of ceil(S * group / 128) * KV * B blocks, the
+// query blocks in descending order (the causal band's heaviest first)
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdTc {
+  static constexpr int kRow = tc_row<D>();
+  static constexpr int kThreads = 32 * kFwdWarps;
+  static constexpr int kQBytes = kFwdVecs * kRow;
+  static constexpr int kKvBytes = kTile * kRow;      // one K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;   // K then V
+  static constexpr int kSmem = kQBytes + 2 * kStageBytes + 2 * kTile * (int)sizeof(int);
+};
+
+// One online-softmax step of a warp's 16 x 64 tile, in the log2 domain: s
+// holds Q K^T and becomes p; m (the rows' running max), l (this thread's
+// share of the row sums) and acc are rescaled.  MASK (a partial tile):
+// keep() per element, and a masked element is -inf and gets p = 0 without
+// an exp.  A row with nothing kept yet keeps m = -inf and p = 0.
+template <bool MASK, int D>
+__device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&acc)[D / 8][4], float sl2,
+                                             const Problem& p, const int (&row)[2],
+                                             const int (&qseg)[2], const int* kseg, int c0,
+                                             int tq) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * sl2;
+      if constexpr (MASK) {
+        const int jc = j * 8 + 2 * tq + (e & 1);
+        if (!keep(p, row[e >> 1], c0 + jc, qseg[e >> 1], kseg[jc])) x = -INFINITY;
+      }
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = exp2_approx(m[h] - m_use[h]);  // 0 while m = -inf
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[j][e];
+      const float pv = (MASK && x == -INFINITY) ? 0.f : exp2_approx(x - m_use[e >> 1]);
+      s[j][e] = pv;
+      sum[e >> 1] += pv;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+  using L = FwdTc<D>;
+  extern __shared__ __align__(16) uint8_t tc_smem[];  // bytes, not the f32 kernels' smem
+  uint8_t* q_s = tc_smem;
+  uint8_t* kv_s = tc_smem + L::kQBytes;  // 2 stages of [K | V]
+  int* kseg_s = reinterpret_cast<int*>(kv_s + 2 * L::kStageBytes);  // [2][64]
+
+  const int nqb = gridDim.x / (p.B * p.KV);
+  const int bh = blockIdx.x % (p.B * p.KV);
+  const int b = bh / p.KV, kvh = bh % p.KV;
+  const int base = (nqb - 1 - (int)(blockIdx.x / (p.B * p.KV))) * kFwdVecs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+
+  // this thread's two rows (gr and gr + 8 of its warp's 16 vectors)
+  int row[2], head[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gi = base + warp * 16 + gr + 8 * h;
+    const int r = gi / p.group;
+    row[h] = r < p.S ? r : -1;
+    head[h] = kvh * p.group + (gi - r * p.group);
+    qseg[h] = (r < p.S && p.seg != nullptr) ? p.seg[(size_t)b * p.S + r] : 0;
+  }
+
+  int r_lo, r_hi;
+  vector_rows(p, base, kFwdVecs, r_lo, r_hi);
+  const bool rows_whole = base + kFwdVecs <= p.S * p.group;
+  int kt_lo, kt_hi;
+  kv_range(p, r_lo, r_hi, kt_lo, kt_hi);
+
+  const RowCopy<D, L::kThreads> copy;
+  auto load_kv = [&](int kt, int st) {
+    uint8_t* ks = kv_s + st * L::kStageBytes;
+    copy.template keys<L::kRow, kTile>(ks, ks + L::kKvBytes, k, v, p, b, kvh, kt * kTile);
+    if (p.seg != nullptr && threadIdx.x < kTile) {
+      const int c = kt * kTile + threadIdx.x;
+      kseg_s[st * kTile + threadIdx.x] = c < p.Skv ? p.seg[(size_t)b * p.S + c] : 0;
+    }
+  };
+  // the first live tile at or after kt, and its state
+  auto next_live = [&](int kt, int& state) {
+    for (; kt <= kt_hi; ++kt) {
+      state = tile_state(p, r_lo, r_hi, kt * kTile, kTile, rows_whole);
+      if (state != kEmpty) break;
+    }
+    return kt;
+  };
+
+  // Q of the block's vectors and the first K/V tile; Q then lives in
+  // registers as A fragments for the whole walk
+  copy.template vectors<L::kRow, kFwdVecs>(q_s, q, nullptr, nullptr, p, b, kvh, base);
+  int cur_state = kEmpty, nxt_state = kEmpty;
+  int cur = next_live(kt_lo, cur_state);
+  if (cur <= kt_hi) load_kv(cur, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * L::kRow + (kk * 16 + (lane >> 4) * 8) * 2);
+
+  float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+  int nxt = cur <= kt_hi ? next_live(cur + 1, nxt_state) : kt_hi + 1;
+  int st = 0;
+  while (cur <= kt_hi) {
+    if (nxt <= kt_hi) load_kv(nxt, st ^ 1);  // in flight while this tile computes
+    cp_async_commit();
+    const uint8_t* ks = kv_s + st * L::kStageBytes;
+    const uint8_t* vs = ks + L::kKvBytes;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) mma_bt<8, L::kRow>(s, qf[kk], ks, 0, kk * 16, lane);
+
+    if (cur_state == kPartial)
+      softmax_step<true, D>(s, m, l, acc, sl2, p, row, qseg, kseg_s + st * kTile, cur * kTile, tq);
+    else
+      softmax_step<false, D>(s, m, l, acc, sl2, p, row, qseg, nullptr, 0, tq);
+
+    // O += (P_hi + P_lo) V
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      a_split(s, kk, hi, lo);
+      mma_split_b<D, L::kRow>(acc, hi, lo, vs, kk * 16, lane);
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // the next tile is in; every warp is done with this one
+    cur = nxt;
+    cur_state = nxt_state;
+    st ^= 1;
+    if (cur <= kt_hi) nxt = next_live(cur + 1, nxt_state);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = quad_sum(l[h]);
+    if (row[h] < 0) continue;
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+    __nv_bfloat16* orow = o + (((size_t)b * p.S + row[h]) * p.H + head[h]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    if (tq == 0)
+      lse[((size_t)b * p.H + head[h]) * p.S + row[h]] =
+          lt > 0.f ? m[h] * kLn2 + logf(lt) : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK / dV: 1-D grid of ceil(Skv / 64) * KV * B blocks, the key blocks
+// in ascending order (the causal band's heaviest first)
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkdvTc {
+  static constexpr int kRow = tc_row<D>();
+  static constexpr int kThreads = 32 * kBwdWarps;
+  static constexpr int kKeyBytes = kBwdKeys * kRow;  // K or V
+  static constexpr int kVecBytes = kBwdVecs * kRow;  // a stage's Q or dO
+  // a stage: Q, dO, then lse, delta, row and segment per vector
+  static constexpr int kStageBytes = 2 * kVecBytes + 4 * kBwdVecs * 4;
+  static constexpr int kSmem = 2 * kKeyBytes + 2 * kStageBytes;
+  static_assert(kBwdVecs <= kThreads, "one thread per vector's lse and delta");
+};
+
+// P^T of a warp's 16 keys x 8 NT vectors: exp2(s^T scale log2e - lse
+// log2e) in f32.  MASK (a partial tile): keep() per element; a masked
+// element gets p = 0 without an exp (its lse may be -inf).
+template <bool MASK, int NT>
+__device__ __forceinline__ void probs_t(float (&pt)[NT][4], float sl2, const Problem& p,
+                                        const int (&key)[2], const int (&kseg)[2],
+                                        const float* lse_t, const int* row_t,
+                                        const int* seg_t, int tq) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int vi = j * 8 + 2 * tq + (e & 1);
+      float pv = 0.f;
+      if (!MASK || keep(p, row_t[vi], key[e >> 1], seg_t[vi], kseg[e >> 1]))
+        pv = exp2_approx(pt[j][e] * sl2 - lse_t[vi] * kLog2e);
+      pt[j][e] = pv;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kBwdWarps, 8 / kBwdWarps)
+flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv) {
+  using L = DkdvTc<D>;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* k_s = tc_smem;
+  uint8_t* v_s = tc_smem + L::kKeyBytes;
+  uint8_t* stages = tc_smem + 2 * L::kKeyBytes;
+
+  const int bh = blockIdx.x % (p.B * p.KV);
+  const int b = bh / p.KV, kvh = bh % p.KV;
+  const int c0 = (blockIdx.x / (p.B * p.KV)) * kBwdKeys;
+  const int c1 = min(c0 + kBwdKeys, p.Skv) - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+
+  // this thread's two keys (gr and gr + 8 of its warp's 16) and segments
+  int key[2], kseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    key[h] = c0 + warp * 16 + gr + 8 * h;
+    kseg[h] = (p.seg != nullptr && key[h] < p.Skv) ? p.seg[(size_t)b * p.S + key[h]] : 0;
+  }
+
+  const RowCopy<D, L::kThreads> copy;
+  copy.template keys<L::kRow, kBwdKeys>(k_s, v_s, k, v, p, b, kvh, c0);
+
+  auto load_stage = [&](int ch, int st) {
+    uint8_t* q_t = stages + st * L::kStageBytes;
+    uint8_t* do_t = q_t + L::kVecBytes;
+    float* lse_t = reinterpret_cast<float*>(do_t + L::kVecBytes);
+    float* dl_t = lse_t + kBwdVecs;
+    int* row_t = reinterpret_cast<int*>(dl_t + kBwdVecs);
+    int* seg_t = row_t + kBwdVecs;
+    const int base = ch * kBwdVecs;
+    copy.template vectors<L::kRow, kBwdVecs>(q_t, q, do_t, dout, p, b, kvh, base);
+    if (threadIdx.x < kBwdVecs) {
+      const int vi = threadIdx.x, gi = base + vi;
+      const int r = gi / p.group;
+      if (r < p.S) {
+        const size_t at = ((size_t)b * p.H + kvh * p.group + (gi - r * p.group)) * p.S + r;
+        cp_async4(lse_t + vi, lse + at);
+        cp_async4(dl_t + vi, delta + at);
+        row_t[vi] = r;
+        seg_t[vi] = p.seg != nullptr ? p.seg[(size_t)b * p.S + r] : 0;
+      } else {  // padding: masked everywhere, zeros keep ds finite
+        lse_t[vi] = 0.f;
+        dl_t[vi] = 0.f;
+        row_t[vi] = -1;
+        seg_t[vi] = 0;
+      }
+    }
+  };
+
+  // the query vectors whose rows can see keys [c0, c1], in 64-vector stages
+  const int r_min = (p.causal || p.window > 0) ? c0 : 0;
+  const int r_max = p.window > 0 ? min(p.S - 1, c1 + p.window - 1) : p.S - 1;
+  const int ch_lo = r_min * p.group / kBwdVecs;
+  const int ch_hi = r_min <= r_max ? ((r_max + 1) * p.group - 1) / kBwdVecs : ch_lo - 1;
+  auto next_live = [&](int ch, int& state) {
+    for (; ch <= ch_hi; ++ch) {
+      int r_lo, r_hi;
+      vector_rows(p, ch * kBwdVecs, kBwdVecs, r_lo, r_hi);
+      state = tile_state(p, r_lo, r_hi, c0, kBwdKeys, (ch + 1) * kBwdVecs <= p.S * p.group);
+      if (state != kEmpty) break;
+    }
+    return ch;
+  };
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  int cur_state = kEmpty, nxt_state = kEmpty;
+  int cur = next_live(ch_lo, cur_state);
+  if (cur <= ch_hi) load_stage(cur, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  int nxt = cur <= ch_hi ? next_live(cur + 1, nxt_state) : ch_hi + 1;
+  int st = 0;
+  const float sl2 = p.scale * kLog2e;
+  // this warp's 16 keys of K and V, as ldmatrix A-fragment rows
+  const uint8_t* k_w = k_s + (warp * 16 + (lane & 15)) * L::kRow + (lane >> 4) * 16;
+  const uint8_t* v_w = v_s + (warp * 16 + (lane & 15)) * L::kRow + (lane >> 4) * 16;
+
+  while (cur <= ch_hi) {
+    if (nxt <= ch_hi) load_stage(nxt, st ^ 1);  // in flight while this stage computes
+    cp_async_commit();
+    const uint8_t* q_t = stages + st * L::kStageBytes;
+    const uint8_t* do_t = q_t + L::kVecBytes;
+    const float* lse_t = reinterpret_cast<const float*>(do_t + L::kVecBytes);
+    const float* dl_t = lse_t + kBwdVecs;
+    const int* row_t = reinterpret_cast<const int*>(dl_t + kBwdVecs);
+    const int* seg_t = row_t + kBwdVecs;
+
+    constexpr int NT = kBwdVecs / 8;
+    // P^T = exp(S^T scale - lse), S^T = K Q^T (keys x vectors)
+    float pt[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, k_w + kk * 32);
+      mma_bt<NT, L::kRow>(pt, a, q_t, 0, kk * 16, lane);
+    }
+    if (cur_state == kPartial)
+      probs_t<true, NT>(pt, sl2, p, key, kseg, lse_t, row_t, seg_t, tq);
+    else
+      probs_t<false, NT>(pt, sl2, p, key, kseg, lse_t, row_t, seg_t, tq);
+    // dV += (P^T_hi + P^T_lo) dO
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t hi[4], lo[4];
+      a_split(pt, kk, hi, lo);
+      mma_split_b<D, L::kRow>(dv_acc, hi, lo, do_t, kk * 16, lane);
+    }
+    // dS^T = P^T (dP^T - delta) scale, dP^T = V dO^T
+    float dst[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, v_w + kk * 32);
+      mma_bt<NT, L::kRow>(dst, a, do_t, 0, kk * 16, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int vi = j * 8 + 2 * tq + (e & 1);
+        dst[j][e] = pt[j][e] * (dst[j][e] - dl_t[vi]) * p.scale;
+      }
+    // dK += (dS^T_hi + dS^T_lo) Q
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t hi[4], lo[4];
+      a_split(dst, kk, hi, lo);
+      mma_split_b<D, L::kRow>(dk_acc, hi, lo, q_t, kk * 16, lane);
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // the next stage is in; every warp is done with this one
+    cur = nxt;
+    cur_state = nxt_state;
+    st ^= 1;
+    if (cur <= ch_hi) nxt = next_live(cur + 1, nxt_state);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= p.Skv) continue;
+    const size_t at = (((size_t)b * p.Skv + key[h]) * p.KV + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = j * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + d) =
+          __floats2bfloat162_rn(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + d) =
+          __floats2bfloat162_rn(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -516,17 +1226,54 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 constexpr size_t slab_floats(int D) { return (size_t)kTile * (D + 1); }
 constexpr size_t tile_floats() { return (size_t)kTile * kPLd; }
 
+template <int D>
+cudaError_t run_fwd_tc(const Problem& p, const void* q, const void* k, const void* v, void* o,
+                       float* lse, cudaStream_t st) {
+  using L = FwdTc<D>;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (((long long)p.S * p.group + kFwdVecs - 1) / kFwdVecs) * p.KV * p.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, L::kThreads, L::kSmem, st>>>(
+      p, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t run_fwd(const Problem& p, const void* q, const void* k, const void* v,
                     void* o, float* lse, cudaStream_t st) {
-  const size_t smem = (3 * slab_floats(D) + tile_floats()) * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run_fwd_tc<D>(p, q, k, v, o, lse, st);
+  } else {
+    const size_t smem = (3 * slab_floats(D) + tile_floats()) * sizeof(float);
+    auto kernel = flash_fwd_kernel<T, D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.S * p.group + kTile - 1) / kTile, p.KV, p.B);
+    kernel<<<grid, kThreads, smem, st>>>(p, static_cast<const T*>(q),
+                                         static_cast<const T*>(k),
+                                         static_cast<const T*>(v), static_cast<T*>(o), lse);
+    return cudaGetLastError();
+  }
+}
+
+template <int D>
+cudaError_t run_dkdv_tc(const Problem& p, const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* delta, void* dk,
+                        void* dv, cudaStream_t st) {
+  using L = DkdvTc<D>;
+  auto kernel = flash_dkdv_tc_kernel<D>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S * p.group + kTile - 1) / kTile, p.KV, p.B);
-  kernel<<<grid, kThreads, smem, st>>>(p, static_cast<const T*>(q),
-                                       static_cast<const T*>(k),
-                                       static_cast<const T*>(v), static_cast<T*>(o), lse);
+  const long long blocks = (((long long)p.Skv + kBwdKeys - 1) / kBwdKeys) * p.KV * p.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, L::kThreads, L::kSmem, st>>>(
+      p, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+      delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
   return cudaGetLastError();
 }
 
@@ -534,15 +1281,19 @@ template <typename T, int D>
 cudaError_t run_dkdv(const Problem& p, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dk, void* dv, cudaStream_t st) {
-  const size_t smem = (4 * slab_floats(D) + 2 * tile_floats()) * sizeof(float);
-  auto kernel = flash_dkdv_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Skv + kTile - 1) / kTile, p.KV, p.B);
-  kernel<<<grid, kThreads, smem, st>>>(
-      p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv));
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run_dkdv_tc<D>(p, q, k, v, dout, lse, delta, dk, dv, st);
+  } else {
+    const size_t smem = (4 * slab_floats(D) + 2 * tile_floats()) * sizeof(float);
+    auto kernel = flash_dkdv_kernel<T, D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Skv + kTile - 1) / kTile, p.KV, p.B);
+    kernel<<<grid, kThreads, smem, st>>>(
+        p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv));
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

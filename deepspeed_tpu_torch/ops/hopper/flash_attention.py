@@ -17,10 +17,12 @@ kernels pick their own tiles and mask the ragged edge themselves, so there
 is no fallback for shapes the reference cannot tile.  A row with no kept
 key gives o = 0 and lse = -inf.
 
-On CUDA tensors each wrapper checks dtype (bf16 or f32), shapes, devices
-and contiguity, launches its hand-written kernel from
-``csrc/flash_attention.cu`` on the current stream, and raises on anything
-the kernel does not take.  On CPU tensors it runs the plain PyTorch version
+On CUDA tensors each wrapper checks dtype (bf16 or f32), shapes, devices,
+contiguity and (bf16) 16-byte alignment, launches its hand-written kernel
+from ``csrc/flash_attention.cu`` on the current stream, and raises on
+anything the kernel does not take.  In bf16 the forward and dK/dV run on
+the tensor cores (p and ds split into bf16 hi/lo pairs, so they keep f32
+precision); f32, and dQ in both dtypes, run on the CUDA cores.  On CPU tensors it runs the plain PyTorch version
 (``flash_fwd_plain``, ``flash_bwd_dkdv_plain``, ``flash_bwd_dq_plain``),
 which is also the kernels' oracle on the card.
 """
@@ -205,6 +207,9 @@ def _check(q, k, v, mask: AttnMask, extra=()) -> Tuple[int, ...]:
         elif t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q {q.dtype}: the kernels "
                             "take one dtype")
+        elif t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the bf16 "
+                             "kernels copy 16-byte chunks")
     if tuple(dict(extra).get("do", q).shape) != tuple(q.shape):
         raise ValueError("do must have q's shape")
     return B, S, Skv, H, KV, D, nkb

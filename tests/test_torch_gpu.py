@@ -129,16 +129,31 @@ FLASH_CASES = {
                                                    segments=(40, 90))),
     "block_mask": dict(S=192, H=8, KV=1, mask=dict(causal=False,
                                                      block=(32, 48))),
+    # the bf16 tensor-core kernels' tile edges: 128 query vectors and 64
+    # keys per tile, so S and Skv off both grids, GQA groups of 1, 4 and 8,
+    # a window ending mid-tile, fully masked rows under a block table, and
+    # the training shape's heads at 2048 tokens
+    "ragged_kv": dict(S=1000, Skv=2048 + 17, H=8, KV=1,
+                      mask=dict(causal=False)),
+    "ragged_causal_g1": dict(S=1000, H=4, KV=4, mask=dict(causal=True)),
+    "window_mid_tile": dict(S=517, H=8, KV=2, mask=dict(causal=True,
+                                                         window=100)),
+    "block_mask_gqa": dict(S=600, H=8, KV=2, mask=dict(causal=True,
+                                                       block=(64, 128))),
+    "causal_2048": dict(S=2048, H=8, KV=2, mask=dict(causal=True)),
+    "segments_gqa": dict(S=300, H=8, KV=2, mask=dict(causal=True,
+                                                     segments=(100, 250))),
 }
 
 
-def _flash_inputs(seed, B, S, H, KV, D, dtype, device, mask):
+def _flash_inputs(seed, B, S, H, KV, D, dtype, device, mask, Skv=None):
     gen = torch.Generator(device=device).manual_seed(seed)
+    Skv = S if Skv is None else Skv
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
-    q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), \
+    q, k, v, do = rnd(B, S, H, D), rnd(B, Skv, KV, D), rnd(B, Skv, KV, D), \
         rnd(B, S, H, D)
     seg = bm = None
     bq = bk = 1024
@@ -149,10 +164,10 @@ def _flash_inputs(seed, B, S, H, KV, D, dtype, device, mask):
         seg = seg[None].repeat(B, 1).contiguous()
     if "block" in mask:
         bq, bk = mask["block"]
-        nq, nk = -(-S // bq), -(-S // bk)
+        nq, nk = -(-S // bq), -(-Skv // bk)
         bm = (torch.rand((nq, nk), generator=gen, device=device) < 0.5) \
             .to(torch.int32)
-        bm[1] = 0  # rows 32..63 see nothing: o = 0, lse = -inf
+        bm[1] = 0  # rows bq..2bq-1 see nothing: o = 0, lse = -inf
         bm[0, 0] = 1
     am = tfa.AttnMask(mask.get("causal", True), mask.get("window", 0), seg,
                       bm, bq, bk)
@@ -177,7 +192,7 @@ def _close(got, want, dtype, what):
 def test_flash_kernels_match_plain(cuda_device, dtype, D, case):
     c = FLASH_CASES[case]
     q, k, v, do, am = _flash_inputs(0, 2, c["S"], c["H"], c["KV"], D, dtype,
-                                    cuda_device, c["mask"])
+                                    cuda_device, c["mask"], c.get("Skv"))
     scale = 1.0 / D ** 0.5
     tfa.reset_counts()
     o, lse = tfa.flash_fwd(q, k, v, am, scale)
@@ -186,8 +201,10 @@ def test_flash_kernels_match_plain(cuda_device, dtype, D, case):
     assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
     fin = torch.isfinite(lse_p)
     torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=0)
-    if case == "block_mask":
-        assert torch.isinf(lse[:, :, 32:64]).all() and not o[:, 32:64].any()
+    if "block" in c["mask"]:
+        bq = c["mask"]["block"][0]
+        assert torch.isinf(lse[:, :, bq:2 * bq]).all()
+        assert not o[:, bq:2 * bq].any()
     delta = tfa.attention_delta(do, o_p)
     dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, lse_p, delta, am, scale)
     dk_p, dv_p = tfa.flash_bwd_dkdv_plain(q, k, v, do, lse_p, delta, am,
@@ -240,6 +257,12 @@ def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
             (1, 64), dtype=torch.int64, device=cuda_device)), 0.125)
     with pytest.raises(NotImplementedError, match="evoformer"):
         tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=torch.zeros(1))
+    # contiguous, but 2 bytes off the 16-byte grid the bf16 kernels copy
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd(buf[1:].view(q.shape), k.bfloat16(), v.bfloat16(), am,
+                      0.125)
     with pytest.raises(ValueError, match="f32"):
         tfa.flash_bwd_dq(q, k, v, q, torch.zeros((1, 4, 64),
                                                   device=cuda_device,
