@@ -11,7 +11,9 @@ In order it prints:
 3. each paged-attention kernel against its plain PyTorch version at
    llama3-8b attention shapes (H=32, KV=8, D=128, block 64): in bf16, max
    abs error and kernel / plain / library (SDPA) / bound times; then the
-   same inputs in f32, max abs error only;
+   same inputs in f32, max abs error only; decode also at contexts on its
+   split-KV edges (bf16 and f32) and once under
+   ``torch.cuda.set_sync_debug_mode("error")``;
 4. the engine: ``InferenceEngineV2`` at full llama3-8b width and depth with
    random bf16 weights from a seed, serving 8 requests (SplitFuse prefill,
    then burst decode), checking tokens, finiteness, kernel launch counts
@@ -268,6 +270,27 @@ def check_decode(torch, pa, flush) -> dict:
     err_f32 = check_f32(torch, pa.paged_decode_attention,
                         pa.decode_attention_plain, (q, kc, vc, bt, ctx),
                         "decode kernel")
+    # the split-KV edges: contexts at, one below and one past a split's
+    # end, a partial last split and the whole chain, in bf16 and f32
+    split = pa.decode_split(MB * BS)
+    edges = torch.tensor([0, 1, split - 1, split, split + 1, 1000,
+                          MB * BS - 1, MB * BS], dtype=torch.int32,
+                         device="cuda")
+    err_edges = compare(pa.paged_decode_attention(q, kc, vc, bt, edges),
+                        pa.decode_attention_plain(q, kc, vc, bt, edges),
+                        TOL_BF16, "decode kernel at split edges")
+    err_edges = max(err_edges, check_f32(
+        torch, pa.paged_decode_attention, pa.decode_attention_plain,
+        (q, kc, vc, bt, edges), "decode kernel at split edges"))
+    # a decode call waits on nothing (its splits follow from the shapes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.paged_decode_attention(q, kc, vc, bt, ctx)
+    except RuntimeError as e:
+        fail(f"decode kernel: the call waited for the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     # yardstick: one SDPA call over the same contexts, pre-gathered into
     # contiguous (S, KV, T, D) K/V with a padding mask (gather excluded;
     # the ctx=0 row attends to position 0 here)
@@ -296,7 +319,8 @@ def check_decode(torch, pa, flush) -> dict:
     b_ms, b_by = bound(nbytes, flops)
     return {
         "name": "paged_decode_attention", "max_abs_err": err,
-        "max_abs_err_f32": err_f32,
+        "max_abs_err_f32": err_f32, "split": split,
+        "max_abs_err_split_edges": err_edges,
         "ms": time_ms(lambda: pa.paged_decode_attention(q, kc, vc, bt, ctx),
                       torch, flush),
         "plain_ms": time_ms(lambda: pa.decode_attention_plain(
@@ -431,7 +455,7 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
             groups["mixed_gemm"] += ms
         elif "grouped_matmul" in name:
             groups["grouped_matmul"] += ms
-        elif "paged_" in name:
+        elif "paged_" in name or "decode_merge" in name:
             groups["paged_attention"] += ms
         elif "flash_" in name:
             groups["flash_attention"] += ms
@@ -439,8 +463,16 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
             groups["gemm"] += ms
         else:
             groups["other"] += ms
+    # the port's own kernels by name (the text before the template
+    # arguments), e.g. flash_dq_tc_kernel
+    port = {}
+    for ms, _, name in rows:
+        found = re.search(r"(\w+_kernel)<", name)
+        if found and "anonymous namespace" in name:
+            port[found.group(1)] = port.get(found.group(1), 0.0) + ms
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall_s * 1e3), "by_group_ms": groups,
+            "port_kernels_ms": port,
             "top": [[name[:70], ms, n] for ms, n, name in rows[:10]]}
 
 
@@ -1503,9 +1535,12 @@ def main() -> None:
     kernels = [check_decode(torch, pa, flush), check_prefill(torch, pa, flush)]
     del flush
     for k in kernels:
+        edges = (f"split {k['split']}, split edges max_abs_err "
+                 f"{k['max_abs_err_split_edges']:.3e}, "
+                 if "split" in k else "")
         print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e} "
               f"(bf16, limit atol+rtol {TOL_BF16}), "
-              f"{k['max_abs_err_f32']:.3e} (f32, limit {TOL_F32}) "
+              f"{k['max_abs_err_f32']:.3e} (f32, limit {TOL_F32}) {edges}"
               f"kernel_ms {k['ms']:.4f} plain_ms "
               f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
               f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")

@@ -13,9 +13,12 @@
 //                         _bwd_dkdv_kernel (dK and dV per kv tile, summed
 //                         over every query row of every head of the tile's
 //                         GQA group).
-//   flash_fwd_kernel,     f32 forward and dK/dV, and dQ in both dtypes
-//   flash_dkdv_kernel,    (flash_dq_kernel replaces _bwd_dq_kernel): CUDA-core
-//   flash_dq_kernel       f32 FMAs from f32 shared-memory tiles.
+//   flash_dq_tc_kernel    bf16 dQ, on the tensor cores: replaces
+//                         _bwd_dq_kernel (dQ per query block, summed over
+//                         every key tile of its band).
+//   flash_fwd_kernel,     f32 forward, dK/dV and dQ: CUDA-core f32 FMAs
+//   flash_dkdv_kernel,    from f32 shared-memory tiles.
+//   flash_dq_kernel
 //
 // A row with no kept key writes o = 0 and lse = -inf.  The backward
 // recomputes p = exp(s - lse) and ds = p (dp - delta) scale, with delta =
@@ -56,19 +59,26 @@
 //     leave P^T and dS^T in accumulators, which feed dV += P^T dO and
 //     dK += dS^T Q as A fragments; K and V stay in shared memory, Q and dO
 //     are read by ldmatrix (.trans for dV/dK).  dK, dV, P^T and dS^T fill
-//     the 255 registers, with a few spilled words.
+//     the 255 registers, with a few spilled words.  dQ: the forward's
+//     block (128 query vectors, 8 warps of 16, one block per SM) with Q
+//     and dO both held as A fragments; per 64-key tile, in two 32-key
+//     halves, S = Q K^T and dP = dO V^T, then dS = P (dP - delta) in
+//     place of S feeds dQ += dS K as A fragments, K by ldmatrix.trans.
+//     The halves keep S and dP at 16 registers each beside Q, dO (32
+//     each) and dQ (64).  The scale multiplies dQ once, at the store.
 //   * Precision as in the reference, which keeps p and ds in f32: q, k, v
 //     and dO are bf16 already, so their products are exact in f32; p and ds
 //     are computed in f32 and split into hi = bf16(x), lo = bf16(x - hi),
 //     two mma each into the same f32 accumulator, which keeps x to ~2^-17
 //     of its size.  Rounding p or ds to bf16 alone breaks the per-element
 //     limits of chip_smoke.py (tests/test_torch_flash_precision.py emulates
-//     both).  So the kernels do 6 D flops per kept pair in the forward and
-//     12 D in dK/dV, not 4 D and 8 D; the bound above counts the function's
+//     both).  So the kernels do 6 D flops per kept pair in the forward,
+//     12 D in dK/dV and 8 D in dQ, not 4 D, 8 D and 6 D; the bound above
+//     counts the function's
 //     work, not the kernel's.  The online-softmax state, o = acc / l and
 //     lse stay f32; exp runs as ex2.approx on log2e-scaled logits.
-//   * K/V (forward) and Q/dO with their rows' lse and delta (dK/dV) come
-//     through a 2-stage cp.async ring (16-byte copies, each thread's
+//   * K/V (forward, dQ) and Q/dO with their rows' lse and delta (dK/dV)
+//     come through a 2-stage cp.async ring (16-byte copies, each thread's
 //     pointers computed once): the next tile's loads are in flight while
 //     the current one computes, one barrier per tile.  Tiles stay bf16 in
 //     shared memory with rows padded by 16 bytes (D + 8 elements), so the
@@ -78,13 +88,13 @@
 //     partial (keep() per element); only the band's edge, ragged ends,
 //     segment ids and mixed block-table tiles are partial.  The full and
 //     partial softmax are separate instantiations (softmax_step<MASK>,
-//     probs_t<MASK>): a per-element branch inside the unrolled loop split
+//     probs_t<MASK>, ds_tile<MASK>): a per-element branch inside the unrolled loop split
 //     it into basic blocks that the compiler could not interleave, which
 //     cost most of the forward's time.
 //   * Causal blocks differ in work by up to S/64x, so the heaviest launch
-//     first: forward blocks in descending query order, dK/dV blocks in
-//     ascending key order.
-// The f32 kernels (and dQ) compute on the CUDA cores: each thread keeps a
+//     first: forward and dQ blocks in descending query order, dK/dV
+//     blocks in ascending key order.
+// The f32 kernels compute on the CUDA cores: each thread keeps a
 // 4 x 4 score tile and a 4 x (D/16) output tile in registers and reads f32
 // operands from shared memory whose rows are padded to D + 1 floats.
 //
@@ -107,23 +117,16 @@ constexpr int kTile = 64;      // query vectors per block, keys per kv tile
 constexpr int kPLd = kTile + 1;
 constexpr int kMaxSmem = 227 * 1024;
 
+// the CUDA-core kernels below run f32 only (bf16 has the tensor-core ones)
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>
 __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Problem {
   int B, S, Skv, H, KV, group;
@@ -812,9 +815,67 @@ __device__ __forceinline__ void vector_rows(const Problem& p, int base, int n, i
   r_hi = min(p.S - 1, (base + n - 1) / p.group);
 }
 
+// The bf16 forward's and dQ's block: kFwdVecs query vectors of one (batch,
+// kv head) from flattened index `base`, the blocks of a 1-D grid in
+// descending query order (the causal band's heaviest first), walking the
+// live 64-key tiles [kt_lo, kt_hi] of its band through a 2-stage ring.
+template <int D>
+struct QueryBlock {
+  static constexpr int kRow = tc_row<D>();
+  static constexpr int kKvBytes = kTile * kRow;  // one K or V tile
+  int b, kvh, base, r_lo, r_hi, kt_lo, kt_hi;
+  bool rows_whole;  // no vector of the block lies past S
+  RowCopy<D, 32 * kFwdWarps> copy;
+
+  __device__ explicit QueryBlock(const Problem& p) {
+    const int nqb = gridDim.x / (p.B * p.KV);
+    const int bh = blockIdx.x % (p.B * p.KV);
+    b = bh / p.KV;
+    kvh = bh % p.KV;
+    base = (nqb - 1 - (int)(blockIdx.x / (p.B * p.KV))) * kFwdVecs;
+    vector_rows(p, base, kFwdVecs, r_lo, r_hi);
+    rows_whole = base + kFwdVecs <= p.S * p.group;
+    kv_range(p, r_lo, r_hi, kt_lo, kt_hi);
+  }
+
+  // row (-1 past S), head and segment of this thread's two vectors: gr and
+  // gr + 8 of its warp's 16
+  __device__ void thread_rows(const Problem& p, int warp, int gr, int (&row)[2],
+                              int (&head)[2], int (&qseg)[2]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = base + warp * 16 + gr + 8 * h;
+      const int r = gi / p.group;
+      row[h] = r < p.S ? r : -1;
+      head[h] = kvh * p.group + (gi - r * p.group);
+      qseg[h] = (r < p.S && p.seg != nullptr) ? p.seg[(size_t)b * p.S + r] : 0;
+    }
+  }
+
+  // the first live tile at or after kt, and its state; call from every
+  // thread (tile_state votes)
+  __device__ int next_live(const Problem& p, int kt, int& state) const {
+    for (; kt <= kt_hi; ++kt) {
+      state = tile_state(p, r_lo, r_hi, kt * kTile, kTile, rows_whole);
+      if (state != kEmpty) break;
+    }
+    return kt;
+  }
+
+  // K and V of tile kt into a ring stage ([K | V]) and its key segments
+  // into kseg
+  __device__ void load_kv(const Problem& p, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                          uint8_t* stage, int* kseg, int kt) const {
+    copy.template keys<kRow, kTile>(stage, stage + kKvBytes, k, v, p, b, kvh, kt * kTile);
+    if (p.seg != nullptr && threadIdx.x < kTile) {
+      const int c = kt * kTile + threadIdx.x;
+      kseg[threadIdx.x] = c < p.Skv ? p.seg[(size_t)b * p.S + c] : 0;
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
-// bf16 forward: 1-D grid of ceil(S * group / 128) * KV * B blocks, the
-// query blocks in descending order (the causal band's heaviest first)
+// bf16 forward: 1-D grid of ceil(S * group / 128) * KV * B blocks
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdTc {
@@ -886,53 +947,22 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
   uint8_t* kv_s = tc_smem + L::kQBytes;  // 2 stages of [K | V]
   int* kseg_s = reinterpret_cast<int*>(kv_s + 2 * L::kStageBytes);  // [2][64]
 
-  const int nqb = gridDim.x / (p.B * p.KV);
-  const int bh = blockIdx.x % (p.B * p.KV);
-  const int b = bh / p.KV, kvh = bh % p.KV;
-  const int base = (nqb - 1 - (int)(blockIdx.x / (p.B * p.KV))) * kFwdVecs;
+  const QueryBlock<D> blk(p);
+  const int b = blk.b, kvh = blk.kvh, kt_hi = blk.kt_hi;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tq = lane & 3;
-
-  // this thread's two rows (gr and gr + 8 of its warp's 16 vectors)
   int row[2], head[2], qseg[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gi = base + warp * 16 + gr + 8 * h;
-    const int r = gi / p.group;
-    row[h] = r < p.S ? r : -1;
-    head[h] = kvh * p.group + (gi - r * p.group);
-    qseg[h] = (r < p.S && p.seg != nullptr) ? p.seg[(size_t)b * p.S + r] : 0;
-  }
-
-  int r_lo, r_hi;
-  vector_rows(p, base, kFwdVecs, r_lo, r_hi);
-  const bool rows_whole = base + kFwdVecs <= p.S * p.group;
-  int kt_lo, kt_hi;
-  kv_range(p, r_lo, r_hi, kt_lo, kt_hi);
-
-  const RowCopy<D, L::kThreads> copy;
+  blk.thread_rows(p, warp, gr, row, head, qseg);
   auto load_kv = [&](int kt, int st) {
-    uint8_t* ks = kv_s + st * L::kStageBytes;
-    copy.template keys<L::kRow, kTile>(ks, ks + L::kKvBytes, k, v, p, b, kvh, kt * kTile);
-    if (p.seg != nullptr && threadIdx.x < kTile) {
-      const int c = kt * kTile + threadIdx.x;
-      kseg_s[st * kTile + threadIdx.x] = c < p.Skv ? p.seg[(size_t)b * p.S + c] : 0;
-    }
+    blk.load_kv(p, k, v, kv_s + st * L::kStageBytes, kseg_s + st * kTile, kt);
   };
-  // the first live tile at or after kt, and its state
-  auto next_live = [&](int kt, int& state) {
-    for (; kt <= kt_hi; ++kt) {
-      state = tile_state(p, r_lo, r_hi, kt * kTile, kTile, rows_whole);
-      if (state != kEmpty) break;
-    }
-    return kt;
-  };
+  auto next_live = [&](int kt, int& state) { return blk.next_live(p, kt, state); };
 
   // Q of the block's vectors and the first K/V tile; Q then lives in
   // registers as A fragments for the whole walk
-  copy.template vectors<L::kRow, kFwdVecs>(q_s, q, nullptr, nullptr, p, b, kvh, base);
+  blk.copy.template vectors<L::kRow, kFwdVecs>(q_s, q, nullptr, nullptr, p, b, kvh, blk.base);
   int cur_state = kEmpty, nxt_state = kEmpty;
-  int cur = next_live(kt_lo, cur_state);
+  int cur = next_live(blk.kt_lo, cur_state);
   if (cur <= kt_hi) load_kv(cur, 0);
   cp_async_commit();
   cp_async_wait_all();
@@ -1214,6 +1244,162 @@ flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dQ: the forward's grid and blocks (QueryBlock).  Each block owns its
+// dQ rows: written once, no atomics.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DqTc {
+  static constexpr int kRow = tc_row<D>();
+  static constexpr int kThreads = 32 * kFwdWarps;
+  static constexpr int kVecBytes = kFwdVecs * kRow;  // Q or dO
+  static constexpr int kKvBytes = kTile * kRow;      // one K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;   // K then V
+  static constexpr int kSmem = 2 * kVecBytes + 2 * kStageBytes + 2 * kTile * (int)sizeof(int);
+};
+
+// keys per S and dP product: each 64-key tile runs as two 32-key halves, so
+// S and dP take 16 registers each beside Q, dO (32 each) and dQ (64)
+constexpr int kDqKeys = 32;
+
+// dS of a warp's 16 vectors x 8 NT keys, in place of S: p = exp2(s scale
+// log2e - lse log2e) in f32 and ds = p (dp - delta); the scale is applied
+// once, at the store.  MASK (a partial tile): keep() per element, and a
+// masked element gets ds = 0 without an exp (its row's lse may be -inf).
+template <bool MASK, int NT>
+__device__ __forceinline__ void ds_tile(float (&s)[NT][4], const float (&dp)[NT][4], float sl2,
+                                        const float (&lse2)[2], const float (&dl)[2],
+                                        const Problem& p, const int (&row)[2],
+                                        const int (&qseg)[2], const int* kseg, int c0, int tq) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float pv = 0.f;
+      if constexpr (MASK) {
+        const int jc = j * 8 + 2 * tq + (e & 1);
+        if (keep(p, row[h], c0 + jc, qseg[h], kseg[jc]))
+          pv = exp2_approx(s[j][e] * sl2 - lse2[h]);
+      } else {
+        pv = exp2_approx(s[j][e] * sl2 - lse2[h]);
+      }
+      s[j][e] = pv * (dp[j][e] - dl[h]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+flash_dq_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq) {
+  using L = DqTc<D>;
+  constexpr int NT = kDqKeys / 8;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* q_s = tc_smem;
+  uint8_t* do_s = q_s + L::kVecBytes;
+  uint8_t* kv_s = do_s + L::kVecBytes;  // 2 stages of [K | V]
+  int* kseg_s = reinterpret_cast<int*>(kv_s + 2 * L::kStageBytes);  // [2][64]
+
+  const QueryBlock<D> blk(p);
+  const int b = blk.b, kvh = blk.kvh, kt_hi = blk.kt_hi;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+
+  // this thread's two rows with their lse (log2 domain) and delta; padding
+  // rows get 0 (always masked)
+  int row[2], head[2], qseg[2];
+  blk.thread_rows(p, warp, gr, row, head, qseg);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t at = ((size_t)b * p.H + head[h]) * p.S + max(row[h], 0);
+    lse2[h] = row[h] >= 0 ? lse[at] * kLog2e : 0.f;
+    dl[h] = row[h] >= 0 ? delta[at] : 0.f;
+  }
+  auto load_kv = [&](int kt, int st) {
+    blk.load_kv(p, k, v, kv_s + st * L::kStageBytes, kseg_s + st * kTile, kt);
+  };
+  auto next_live = [&](int kt, int& state) { return blk.next_live(p, kt, state); };
+
+  // Q and dO of the block's vectors and the first K/V tile; Q and dO then
+  // live in registers as A fragments for the whole walk
+  blk.copy.template vectors<L::kRow, kFwdVecs>(q_s, q, do_s, dout, p, b, kvh, blk.base);
+  int cur_state = kEmpty, nxt_state = kEmpty;
+  int cur = next_live(blk.kt_lo, cur_state);
+  if (cur <= kt_hi) load_kv(cur, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4], df[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (warp * 16 + (lane & 15)) * L::kRow + (kk * 16 + (lane >> 4) * 8) * 2;
+    ldmatrix_x4(qf[kk], q_s + off);
+    ldmatrix_x4(df[kk], do_s + off);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+  int nxt = cur <= kt_hi ? next_live(cur + 1, nxt_state) : kt_hi + 1;
+  int st = 0;
+  while (cur <= kt_hi) {
+    if (nxt <= kt_hi) load_kv(nxt, st ^ 1);  // in flight while this tile computes
+    cp_async_commit();
+    const uint8_t* ks = kv_s + st * L::kStageBytes;
+    const uint8_t* vs = ks + L::kKvBytes;
+    const int* kseg = kseg_s + st * kTile;
+
+#pragma unroll
+    for (int n0 = 0; n0 < kTile; n0 += kDqKeys) {
+      // S = Q K^T and dP = dO V^T over keys n0 .. n0 + 31
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) mma_bt<NT, L::kRow>(s, qf[kk], ks, n0, kk * 16, lane);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) mma_bt<NT, L::kRow>(dp, df[kk], vs, n0, kk * 16, lane);
+      if (cur_state == kPartial)
+        ds_tile<true, NT>(s, dp, sl2, lse2, dl, p, row, qseg, kseg + n0, cur * kTile + n0, tq);
+      else
+        ds_tile<false, NT>(s, dp, sl2, lse2, dl, p, row, qseg, kseg + n0, cur * kTile + n0, tq);
+      // dQ += (dS_hi + dS_lo) K, K's rows n0 .. n0 + 31 by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        a_split(s, kk, hi, lo);
+        mma_split_b<D, L::kRow>(acc, hi, lo, ks, n0 + kk * 16, lane);
+      }
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // the next tile is in; every warp is done with this one
+    cur = nxt;
+    cur_state = nxt_state;
+    st ^= 1;
+    if (cur <= kt_hi) nxt = next_live(cur + 1, nxt_state);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] < 0) continue;
+    __nv_bfloat16* out = dq + (((size_t)b * p.S + row[h]) * p.H + head[h]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * h] * p.scale, acc[j][2 * h + 1] * p.scale);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -1296,19 +1482,41 @@ cudaError_t run_dkdv(const Problem& p, const void* q, const void* k, const void*
   }
 }
 
+template <int D>
+cudaError_t run_dq_tc(const Problem& p, const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta, void* dq,
+                      cudaStream_t st) {
+  using L = DqTc<D>;
+  auto kernel = flash_dq_tc_kernel<D>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (((long long)p.S * p.group + kFwdVecs - 1) / kFwdVecs) * p.KV * p.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, L::kThreads, L::kSmem, st>>>(
+      p, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+      delta, static_cast<__nv_bfloat16*>(dq));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t run_dq(const Problem& p, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta, void* dq,
                    cudaStream_t st) {
-  const size_t smem = (4 * slab_floats(D) + tile_floats()) * sizeof(float);
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.S * p.group + kTile - 1) / kTile, p.KV, p.B);
-  kernel<<<grid, kThreads, smem, st>>>(
-      p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq));
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run_dq_tc<D>(p, q, k, v, dout, lse, delta, dq, st);
+  } else {
+    const size_t smem = (4 * slab_floats(D) + tile_floats()) * sizeof(float);
+    auto kernel = flash_dq_kernel<T, D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.S * p.group + kTile - 1) / kTile, p.KV, p.B);
+    kernel<<<grid, kThreads, smem, st>>>(
+        p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq));
+    return cudaGetLastError();
+  }
 }
 
 Problem make_problem(int B, int S, int Skv, int H, int KV, int causal, int window,

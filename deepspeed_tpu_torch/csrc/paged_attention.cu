@@ -4,7 +4,7 @@
 // indexed through per-sequence block tables (S, max_blocks) int32:
 //
 //   paged_decode_kernel   replaces deepspeed_tpu/ops/pallas/paged_attention.py
-//                         _decode_kernel (entry paged_decode_attention).
+//   (+ decode_merge_kernel) _decode_kernel (entry paged_decode_attention).
 //                         One query token per sequence; context_lens include
 //                         the current token; ctx = 0 rows write zeros.
 //   paged_prefill_kernel  replaces paged_attention.py _prefill_kernel (entry
@@ -21,12 +21,21 @@
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   decode  reads each sequence's K and V once per kv head, 2*ctx*KV*D*2
-//           bytes, against 4*ctx*H*D flops: memory-bound by far.  One block
-//           per (sequence, kv head) streams the chain once and serves all
-//           H/KV query heads of that kv head from it, so K/V bytes are read
-//           once, not once per query head; each warp keeps U tokens' loads
-//           in flight.  Split-KV (more blocks per long sequence) is later
-//           work.
+//           bytes, against 4*ctx*H*D flops: memory-bound by far, and at a
+//           serving batch (8 sequences x 8 kv heads) one block per (sequence,
+//           kv head) would fill half the card's 132 SMs and wait on its
+//           longest chain.  So the chain is split (flash-decoding): one
+//           block per (sequence, kv head, split of `split` positions, 128 or
+//           more, fixed by the shapes MB * BS, never by context_lens), each
+//           streaming its positions once with whole 16-byte slot-row copies
+//           (cp.async, two tiles in flight) and serving all H/KV query
+//           heads of its kv head from them.  Splits past a row's context
+//           exit at once; a chain of one split writes its output directly,
+//           longer ones write f32 partials (m, l, acc) to a workspace the
+//           wrapper sizes from the shapes, and a second kernel merges them
+//           in split order (deterministic, no atomics).  Scores are a dot
+//           per (head, key) on the CUDA cores and one softmax update per
+//           tile: at the smoke's contexts the whole call is ~73 MFLOP.
 //   prefill at 256-row chunks does ~ctx flops per byte of K/V, above the
 //           card's ridge of ~295 flops/byte, so its bound is the tensor
 //           cores; this first kernel computes on the CUDA cores with shuffle
@@ -43,12 +52,15 @@
 
 namespace {
 
-constexpr int kDecodeThreads = 256;   // 8 warps
-constexpr int kDecodeUnroll = 4;      // tokens in flight per warp
+constexpr int kDecodeThreads = 128;   // 4 warps
 constexpr int kMaxGroup = 8;          // query heads per kv head (decode)
+constexpr int kMaxSplits = 32;        // split-KV blocks per chain (decode)
 constexpr int kPrefillThreads = 256;  // 32 query vectors x 8 lanes
 constexpr int kPrefillVecs = kPrefillThreads / 8;
 constexpr int kPrefillChunk = 16;     // kv positions per softmax update
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -92,11 +104,8 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
       unpack2(u.x, out + 8 * i); unpack2(u.y, out + 8 * i + 2);
       unpack2(u.z, out + 8 * i + 4); unpack2(u.w, out + 8 * i + 6);
     }
-  } else if constexpr (N == 4) {
-    uint2 u = *reinterpret_cast<const uint2*>(p);
-    unpack2(u.x, out); unpack2(u.y, out + 2);
   } else {
-    static_assert(N == 2, "bf16 vector width must be 2, 4 or 8k");
+    static_assert(N == 2, "bf16 vector width must be 2 or 8k");
     unpack2(*reinterpret_cast<const uint32_t*>(p), out);
   }
 }
@@ -115,111 +124,305 @@ __device__ __forceinline__ float octet_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's most recent copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// decode: grid (S, KV), kDecodeThreads threads.  Lane l of every warp owns
-// head dims [l*E, (l+1)*E) of each of the block's `group` query heads; warp w
-// takes positions [w*U, w*U+U), [w*U + NW*U, ...), ... of the chain with its
-// own online-softmax state, and the warps' states are merged at the end.
+// decode, split-KV (flash-decoding): a 1-D grid of S * KV * NS blocks, one
+// per (sequence, kv head, split of `split` positions), kDecodeThreads
+// threads.  A split walks its positions in tiles of kKeys through a 2-stage
+// cp.async ring of whole K and V slot rows (16-byte copies; both stages are
+// in flight from the start, and each refills as soon as it is used); per
+// tile:
+//   scores  each thread owns (head, key) pairs: a dot over D from the K
+//           row in shared memory and the pre-scaled q (log2 domain);
+//   softmax warp w owns heads w, w + 4: one max and one rescale per tile;
+//   P V     each thread owns a column pair of up to 4 heads' outputs.
+// A chain that fits one split writes its output here; longer chains write
+// each split's (m, l, acc) in f32 to the workspace, and decode_merge_kernel
+// combines them in split order.
 // ---------------------------------------------------------------------------
+template <typename T, int D>
+struct Decode {
+  static constexpr int kKeys = 128 / (int)sizeof(T);       // per tile: 64 bf16, 32 f32
+  static constexpr int kElems = 16 / (int)sizeof(T);       // per 16-byte chunk
+  static constexpr int kChunks = D / kElems;               // per K or V row
+  static constexpr int kRow = D * (int)sizeof(T) + 16;     // padded shared row, bytes
+  static constexpr int kTileBytes = kKeys * kRow;          // K or V of one tile
+  static constexpr int kStageBytes = 2 * kTileBytes;       // K then V
+  static constexpr int kPairs = D / 2;                     // output column pairs
+  static constexpr int kHeadStep = kDecodeThreads / kPairs;
+  static constexpr int kHeads = kMaxGroup / kHeadStep;     // heads per thread in P V
+  static constexpr int kWarps = kDecodeThreads / 32;
+  // stages, then q [8][D], p [8][kKeys], alpha [8], m [8], l [8] as f32
+  static constexpr int kSmem = 2 * kStageBytes + kMaxGroup * (D + kKeys + 3) * 4;
+  static_assert(kDecodeThreads % kChunks == 0 && kKeys % (kDecodeThreads / kChunks) == 0,
+                "whole rows per copy pass");
+  static_assert(kDecodeThreads % kPairs == 0 && kMaxGroup % kHeadStep == 0, "P V split");
+};
+
+// q[0..D) . row[0..D), row a T row in shared memory; kElems independent
+// sums, so the FMAs do not form one dependent chain
+template <typename T, int D>
+__device__ __forceinline__ float dot_row(const float* q, const uint8_t* row) {
+  constexpr int E = 16 / (int)sizeof(T);
+  float part[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) part[e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / E; ++c) {
+    float kf[E], qf[E];
+    load_vec<E>(reinterpret_cast<const T*>(row) + c * E, kf);
+    load_vec<E>(q + c * E, qf);
+#pragma unroll
+    for (int e = 0; e < E; ++e) part[e] = fmaf(qf[e], kf[e], part[e]);
+  }
+  float d = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) d += part[e];
+  return d;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                     const T* __restrict__ v_cache,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ context_lens, T* __restrict__ out,
-                    int H, int KV, int BS, int MB, float scale) {
-  constexpr int E = D / 32;
-  constexpr int NW = kDecodeThreads / 32;
-  constexpr int U = kDecodeUnroll;
-  extern __shared__ float smem[];  // [NW][group] m, [NW][group] l, [NW][group][D] acc
+                    float* __restrict__ ws, int S, int H, int KV, int BS, int MB,
+                    int split, float scale) {
+  using L = Decode<T, D>;
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  float* q_s = reinterpret_cast<float*>(dec_smem + 2 * L::kStageBytes);  // [8][D]
+  float* p_s = q_s + kMaxGroup * D;                                      // [8][kKeys]
+  float* alpha_s = p_s + kMaxGroup * L::kKeys;                           // [8]
+  float* m_s = alpha_s + kMaxGroup;
+  float* l_s = m_s + kMaxGroup;
 
-  const int s = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const int ns = (MB * BS + split - 1) / split;
+  const int sp = blockIdx.x % ns;
+  const int kvh = (blockIdx.x / ns) % KV;
+  const int s = blockIdx.x / (ns * KV);
   const int group = H / KV;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ctx = min(context_lens[s], MB * BS);
+  const int lo = sp * split;
   T* o = out + ((size_t)s * H + (size_t)kvh * group) * D;
-  if (ctx <= 0) {  // an inactive row: zeros, never NaN
-    for (int i = threadIdx.x; i < group * D; i += blockDim.x) o[i] = from_float<T>(0.f);
+  if (ctx <= 0) {  // an inactive row: zeros, never NaN, from the first split
+    if (sp == 0)
+      for (int i = tid; i < group * D; i += kDecodeThreads) o[i] = from_float<T>(0.f);
     return;
   }
+  if (lo >= ctx) return;  // past the context: nothing to add
+  const int hi = min(ctx, lo + split);
+  const int nsplit = (ctx + split - 1) / split;  // splits this row uses
 
-  float qr[kMaxGroup][E], acc[kMaxGroup][E], m[kMaxGroup], l[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) { qr[g][e] = 0.f; acc[g][e] = 0.f; }
-    if (g < group) {
-      load_vec<E>(q + ((size_t)s * H + (size_t)kvh * group + g) * D + lane * E, qr[g]);
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[g][e] *= scale;
-    }
-  }
-
+  // tile copies: thread t moves 16-byte chunk t % kChunks of rows t /
+  // kChunks, + R, + 2R, ...; rows past the split's end become zeros
+  constexpr int R = kDecodeThreads / L::kChunks;
+  const int row0 = tid / L::kChunks, col = (tid % L::kChunks) * L::kElems;
   const int* bt = block_tables + (size_t)s * MB;
-  const size_t slot_stride = (size_t)KV * D;  // between neighbouring slots of a block
-  for (int base = warp * U; base < ctx; base += NW * U) {
-    float kf[U][E], vf[U][E];
+  const size_t slot_stride = (size_t)KV * D;
+  auto load_tile = [&](int c0, int st) {
+    uint8_t* ks = dec_smem + st * L::kStageBytes;
+    uint8_t* vs = ks + L::kTileBytes;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = base + u;
-      if (p < ctx) {
-        const int j = p / BS;
-        const size_t row = ((size_t)bt[j] * BS + (p - j * BS)) * slot_stride +
-                           (size_t)kvh * D + lane * E;
-        load_vec<E>(k_cache + row, kf[u]);
-        load_vec<E>(v_cache + row, vf[u]);
+    for (int i = 0; i < L::kKeys / R; ++i) {
+      const int r = row0 + i * R, pos = c0 + r;
+      const int off = r * L::kRow + col * (int)sizeof(T);
+      if (pos < hi) {
+        const int j = pos / BS;
+        const size_t at =
+            ((size_t)bt[j] * BS + (pos - j * BS)) * slot_stride + (size_t)kvh * D + col;
+        cp_async16(ks + off, k_cache + at);
+        cp_async16(vs + off, v_cache + at);
+      } else {
+        *reinterpret_cast<uint4*>(ks + off) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(vs + off) = make_uint4(0, 0, 0, 0);
       }
     }
+  };
+
+  // softmax state of this warp's heads (warp, warp + kWarps), m replicated
+  // over the lanes, l a per-lane share; P V accumulators of this thread's
+  // column pair for heads hg, hg + kHeadStep, ...
+  constexpr int WH = kMaxGroup / L::kWarps;
+  float m[WH], l[WH];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (base + u >= ctx) break;  // warp-uniform
+  for (int i = 0; i < WH; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
+  const int hg = tid / L::kPairs, cp = tid % L::kPairs;
+  float acc[L::kHeads][2];
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g >= group) break;  // block-uniform
-        float d = 0.f;
+  for (int i = 0; i < L::kHeads; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  // one copy group per tile, the first two at once; q of the group's heads,
+  // scaled into the log2 domain, while they fly
+  load_tile(lo, 0);
+  cp_async_commit();
+  if (lo + L::kKeys < hi) load_tile(lo + L::kKeys, 1);
+  cp_async_commit();
+  const float qscale = scale * 1.4426950408889634f;
+  for (int i = tid; i < group * D; i += kDecodeThreads)
+    q_s[i] = to_float(q[((size_t)s * H + (size_t)kvh * group) * D + i]) * qscale;
+  int st = 0;
+  for (int c0 = lo; c0 < hi; c0 += L::kKeys, st ^= 1) {
+    cp_async_wait<1>();  // this tile's group is in (the next may be pending)
+    __syncthreads();
+    const uint8_t* ks = dec_smem + st * L::kStageBytes;
+    const uint8_t* vs = ks + L::kTileBytes;
+    const int nk = min(L::kKeys, hi - c0);  // >= 1
+
+    // scores, log2 domain; keys past the split's end are -inf
+    for (int e = tid; e < group * L::kKeys; e += kDecodeThreads) {
+      const int g = e / L::kKeys, j = e - g * L::kKeys;
+      p_s[e] = j < nk ? dot_row<T, D>(q_s + g * D, ks + j * L::kRow) : -INFINITY;
+    }
+    __syncthreads();
+
+    // one online-softmax update per head and tile; the tile holds a kept
+    // key, so its max and m_new are finite and alpha = 0 on the first tile
 #pragma unroll
-        for (int e = 0; e < E; ++e) d = fmaf(qr[g][e], kf[u][e], d);
-        d = warp_sum(d);
-        const float m_new = fmaxf(m[g], d);
-        const float alpha = expf(m[g] - m_new);  // m = -inf on the first token -> 0
-        const float p = expf(d - m_new);
-        l[g] = l[g] * alpha + p;
+    for (int i = 0; i < WH; ++i) {
+      const int g = warp + i * L::kWarps;
+      if (g >= group) break;  // warp-uniform
+      float x[L::kKeys / 32], mx = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e] * alpha);
-        m[g] = m_new;
+      for (int u = 0; u < L::kKeys / 32; ++u) {
+        x[u] = p_s[g * L::kKeys + lane + 32 * u];
+        mx = fmaxf(mx, x[u]);
+      }
+      const float m_new = fmaxf(m[i], warp_max(mx));
+      const float a = exp2f(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < L::kKeys / 32; ++u) {
+        const float pv = exp2f(x[u] - m_new);  // -inf -> 0
+        p_s[g * L::kKeys + lane + 32 * u] = pv;
+        ps += pv;
+      }
+      l[i] = l[i] * a + ps;
+      m[i] = m_new;
+      if (lane == 0) alpha_s[g] = a;
+    }
+    __syncthreads();
+
+    // acc = acc alpha + P V over the tile's rows (zeros past nk, p = 0)
+#pragma unroll
+    for (int i = 0; i < L::kHeads; ++i) {
+      const int g = hg + i * L::kHeadStep;
+      const float alpha = g < group ? alpha_s[g] : 0.f;
+      acc[i][0] *= alpha;
+      acc[i][1] *= alpha;
+    }
+    const int nk4 = (nk + 3) & ~3;
+    for (int j = 0; j < nk4; j += 4) {
+      float v2[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        load_vec<2>(reinterpret_cast<const T*>(vs + (j + u) * L::kRow) + 2 * cp, v2[u]);
+#pragma unroll
+      for (int i = 0; i < L::kHeads; ++i) {
+        const int g = hg + i * L::kHeadStep;
+        if (g >= group) break;  // warp-uniform
+        const float4 p4 = *reinterpret_cast<const float4*>(p_s + g * L::kKeys + j);
+        const float pp[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][0] = fmaf(pp[u], v2[u][0], acc[i][0]);
+          acc[i][1] = fmaf(pp[u], v2[u][1], acc[i][1]);
+        }
       }
     }
+    __syncthreads();  // everyone is done with this stage: refill it
+    if (c0 + 2 * L::kKeys < hi) load_tile(c0 + 2 * L::kKeys, st);
+    cp_async_commit();
   }
 
-  float* sm_m = smem;
-  float* sm_l = sm_m + NW * group;
-  float* sm_acc = sm_l + NW * group;
+  // each head's m and l: the warp's lanes sum their shares of l
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
+  for (int i = 0; i < WH; ++i) {
+    const int g = warp + i * L::kWarps;
     if (g >= group) break;
-    if (lane == 0) { sm_m[warp * group + g] = m[g]; sm_l[warp * group + g] = l[g]; }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[((size_t)warp * group + g) * D + lane * E + e] = acc[g][e];
+    const float lt = warp_sum(l[i]);
+    if (lane == 0) { m_s[g] = m[i]; l_s[g] = lt; }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
-    const int g = i / D, d = i - g * D;
-    float mx = -INFINITY;
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w * group + g]);
-    float den = 0.f, num = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float mw = sm_m[w * group + g];
-      if (mw == -INFINITY) continue;  // a warp that saw no position
-      const float c = expf(mw - mx);
-      den += c * sm_l[w * group + g];
-      num += c * sm_acc[((size_t)w * group + g) * D + d];
+  const size_t part = ((size_t)s * KV + kvh) * ns + sp;  // this split's workspace slot
+#pragma unroll
+  for (int i = 0; i < L::kHeads; ++i) {
+    const int g = hg + i * L::kHeadStep;
+    if (g >= group) break;
+    if (nsplit == 1) {  // the whole chain: the output itself
+      const float inv = 1.f / l_s[g];
+      o[(size_t)g * D + 2 * cp] = from_float<T>(acc[i][0] * inv);
+      o[(size_t)g * D + 2 * cp + 1] = from_float<T>(acc[i][1] * inv);
+    } else {
+      *reinterpret_cast<float2*>(ws + (part * group + g) * D + 2 * cp) =
+          make_float2(acc[i][0], acc[i][1]);
     }
-    o[(size_t)g * D + d] = from_float<T>(den > 0.f ? num / den : 0.f);
   }
+  if (nsplit > 1 && tid < group) {
+    float* ml = ws + (size_t)S * KV * ns * group * D + (part * group + tid) * 2;
+    ml[0] = m_s[tid];
+    ml[1] = l_s[tid];
+  }
+}
+
+// the splits of every chain longer than one split, merged in split order:
+// one block per (sequence, query head), D threads, one output element each;
+// out = sum_i 2^(m_i - M) acc_i / sum_i 2^(m_i - M) l_i
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+decode_merge_kernel(const int* __restrict__ context_lens, const float* __restrict__ ws,
+                    T* __restrict__ out, int S, int H, int KV, int BS, int MB, int split) {
+  __shared__ float m_s[kMaxSplits], l_s[kMaxSplits];
+  const int ns = (MB * BS + split - 1) / split;
+  const int group = H / KV;
+  const int g = blockIdx.x % group, kvh = (blockIdx.x / group) % KV;
+  const int s = blockIdx.x / (group * KV);
+  const int ctx = min(context_lens[s], MB * BS);
+  const int nsplit = (ctx + split - 1) / split;
+  if (nsplit <= 1) return;  // written by its only split (or zeros)
+  const size_t part0 = ((size_t)s * KV + kvh) * ns;
+  if (threadIdx.x < nsplit) {
+    const float* ml = ws + (size_t)S * KV * ns * group * D + ((part0 + threadIdx.x) * group + g) * 2;
+    m_s[threadIdx.x] = ml[0];
+    l_s[threadIdx.x] = ml[1];
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int i = 0; i < nsplit; ++i) mx = fmaxf(mx, m_s[i]);
+  const float* acc = ws + (part0 * group + g) * D + threadIdx.x;  // split i: + i group D
+  float num = 0.f, den = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < nsplit; ++i) {
+    const float c = exp2f(m_s[i] - mx);
+    den = fmaf(c, l_s[i], den);
+    num = fmaf(c, acc[(size_t)i * group * D], num);
+  }
+  out[((size_t)s * H + (size_t)kvh * group + g) * D + threadIdx.x] = from_float<T>(num / den);
 }
 
 // ---------------------------------------------------------------------------
@@ -375,17 +578,24 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const int* bt, const int* ctx, void* out, int S, int H,
-                          int KV, int BS, int MB, cudaStream_t stream) {
-  const int group = H / KV;
-  const size_t smem = (size_t)(kDecodeThreads / 32) * group * (D + 2) * sizeof(float);
+cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* bt,
+                          const int* ctx, void* out, float* ws, int S, int H, int KV, int BS,
+                          int MB, int split, cudaStream_t stream) {
+  using L = Decode<T, D>;
+  const int ns = (MB * BS + split - 1) / split;
+  if (split <= 0 || split % L::kKeys != 0 || ns > kMaxSplits || (ns > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
   auto kernel = paged_decode_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(S, KV), kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bt, ctx, static_cast<T*>(out), H, KV, BS, MB, 1.0f / sqrtf((float)D));
+  const float scale = 1.0f / sqrtf((float)D);
+  kernel<<<S * KV * ns, kDecodeThreads, L::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt, ctx,
+      static_cast<T*>(out), ws, S, H, KV, BS, MB, split, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || ns == 1) return err;
+  decode_merge_kernel<T, D><<<S * H, D, 0, stream>>>(
+      ctx, ws, static_cast<T*>(out), S, H, KV, BS, MB, split);
   return cudaGetLastError();
 }
 
@@ -412,15 +622,16 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
 // gives cudaErrorInvalidValue.  Returns a cudaError_t.
 extern "C" int ds_paged_decode(int dtype, const void* q, const void* k_cache,
                                const void* v_cache, const void* block_tables,
-                               const void* context_lens, void* out, int S, int H,
-                               int KV, int D, int BS, int MB, void* stream) {
+                               const void* context_lens, void* out, void* workspace, int S,
+                               int H, int KV, int D, int BS, int MB, int split, void* stream) {
   cudaGetLastError();  // a stale error must not be blamed on this launch
   if (S == 0) return cudaSuccess;
   const int* bt = static_cast<const int*>(block_tables);
   const int* ctx = static_cast<const int*>(context_lens);
+  float* ws = static_cast<float*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DS_DECODE(T, DD) \
-  return (int)launch_decode<T, DD>(q, k_cache, v_cache, bt, ctx, out, S, H, KV, BS, MB, st)
+  return (int)launch_decode<T, DD>(q, k_cache, v_cache, bt, ctx, out, ws, S, H, KV, BS, MB, split, st)
   if (dtype == 1) {
     if (D == 64) DS_DECODE(__nv_bfloat16, 64);
     if (D == 128) DS_DECODE(__nv_bfloat16, 128);

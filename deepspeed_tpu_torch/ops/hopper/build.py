@@ -40,8 +40,9 @@ LINK_FLAGS = ("-shared",)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _ENTRIES: Dict[str, list] = {
-    "ds_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P],
+    # dtype, q, k, v, block tables, context lens, out, workspace, S, H, KV,
+    # D, BS, MB, split, stream
+    "ds_paged_decode": [_I] + [_P] * 7 + [_I] * 7 + [_P],
     "ds_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P],
     # dtype, q, k, v, seg, bm, o, lse, B, S, Skv, H, KV, D, causal, window,

@@ -20,11 +20,15 @@ key gives o = 0 and lse = -inf.
 On CUDA tensors each wrapper checks dtype (bf16 or f32), shapes, devices,
 contiguity and (bf16) 16-byte alignment, launches its hand-written kernel
 from ``csrc/flash_attention.cu`` on the current stream, and raises on
-anything the kernel does not take.  In bf16 the forward and dK/dV run on
-the tensor cores (p and ds split into bf16 hi/lo pairs, so they keep f32
-precision); f32, and dQ in both dtypes, run on the CUDA cores.  On CPU tensors it runs the plain PyTorch version
-(``flash_fwd_plain``, ``flash_bwd_dkdv_plain``, ``flash_bwd_dq_plain``),
-which is also the kernels' oracle on the card.
+anything the kernel does not take.  In bf16 the forward, dK/dV and dQ run
+on the tensor cores (p and ds split into bf16 hi/lo pairs, so they keep
+f32 precision); f32 runs on the CUDA cores.  On CPU tensors it runs the
+plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_dkdv_plain``,
+``flash_bwd_dq_plain``), which is also the kernels' oracle on the card.
+The public :func:`flash_attention` copies a strided or (bf16) misaligned
+q, k, v or dO (a transposed tensor, a slice of a fused QKV projection)
+into the layout the wrappers take; the wrappers themselves still raise on
+such inputs.
 """
 
 from __future__ import annotations
@@ -310,10 +314,21 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the wrappers take it: itself when contiguous and, in bf16,
+    16-byte aligned; else a contiguous copy (a fresh allocation, so
+    aligned)."""
+    if t.is_contiguous() and (t.dtype != torch.bfloat16
+                              or t.data_ptr() % 16 == 0):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask: AttnMask, sm_scale: float):
+        q, k, v = kernel_layout(q), kernel_layout(k), kernel_layout(v)
         o, lse = flash_fwd(q, k, v, mask, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask, ctx.sm_scale = mask, sm_scale
@@ -322,7 +337,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
+        do = kernel_layout(do)
         delta = attention_delta(do, o)
         dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.mask,
                                 ctx.sm_scale)

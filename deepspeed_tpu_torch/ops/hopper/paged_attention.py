@@ -13,10 +13,15 @@ Each entry has the reference's signature and layouts:
   positions <= its own and < ``chunk_start[s] + chunk_len[s]``; rows
   >= ``chunk_len[s]`` give zeros.
 
-On CUDA tensors a wrapper checks dtype (bf16 or f32), shapes, devices and
-contiguity, launches its hand-written kernel from ``csrc/paged_attention.cu``
-on the current stream, and raises on anything the kernel does not take —
-it never falls back.  On CPU tensors it runs the plain PyTorch version
+On CUDA tensors a wrapper checks dtype (bf16 or f32), shapes, devices,
+contiguity and (caches) 16-byte alignment, launches its hand-written kernel
+from ``csrc/paged_attention.cu`` on the current stream, and raises on
+anything the kernel does not take — it never falls back.  Decode is
+split-KV: each chain is cut into splits of :func:`decode_split` positions
+(fixed by ``max_blocks * block_size``, never by ``context_lens``, so a
+call never waits on the device), one block each, merged in split order
+through an f32 workspace by a second kernel of the same call.  On CPU
+tensors a wrapper runs the plain PyTorch version
 (``decode_attention_plain`` / ``prefill_attention_plain``), which is also
 the kernels' oracle on the card.
 """
@@ -38,6 +43,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # the kernels' instantiations (csrc: ds_paged_*)
 _GROUPS = (1, 2, 4, 8)  # query heads per kv head (csrc: kMaxGroup)
 _MAX_SMEM = 227 * 1024
+_SPLIT_UNIT = 128  # decode split lengths are multiples of every tile (csrc)
+_MAX_SPLITS = 32   # decode splits per chain (csrc: kMaxSplits)
 
 
 def reset_counts() -> None:
@@ -107,6 +114,14 @@ def prefill_attention_plain(q, k_cache, v_cache, block_tables, chunk_start,
 # ---------------------------------------------------------------------------
 
 
+def decode_split(positions: int) -> int:
+    """Positions per split-KV block of a decode call whose chains hold
+    ``positions`` (= max_blocks * block_size): 128, or the least multiple of
+    128 that cuts a chain into at most 32 splits."""
+    per = -(-positions // _MAX_SPLITS)
+    return _SPLIT_UNIT * max(1, -(-per // _SPLIT_UNIT))
+
+
 def _check_common(q, k_cache, v_cache, int_args, H, D):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernels take bfloat16 or float32, "
@@ -135,6 +150,10 @@ def _check_common(q, k_cache, v_cache, int_args, H, D):
     for name, t in int_args.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernels "
+                             "copy 16-byte chunks of slot rows")
     return NB, BS, KV
 
 
@@ -161,13 +180,19 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens):
                          f"for S={S}, got {tuple(block_tables.shape)}, "
                          f"{tuple(context_lens.shape)}")
     MB = block_tables.shape[1]
+    split = decode_split(MB * BS)
+    splits = -(-MB * BS // split)
     out = torch.empty_like(q)
+    # each split's f32 (acc, m, l) per query head, when a chain can span
+    # more than one split
+    ws = torch.empty(S * H * splits * (D + 2), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
     lib = build.load()
     err = lib.ds_paged_decode(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(),
-        S, H, KV, D, BS, MB, _stream(q.device))
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        S, H, KV, D, BS, MB, split, _stream(q.device))
     build.check(lib, err, "paged_decode_attention launch")
     LAUNCHES["paged_decode_attention"] += 1
     return out

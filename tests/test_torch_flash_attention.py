@@ -177,3 +177,41 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
                             block_mask=np.ones((3, 2), np.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_fwd(q.to("meta"), kv.to("meta"), kv.to("meta"), mask, 0.1)
+
+
+def test_public_op_prepares_strided_and_misaligned_inputs():
+    """A transposed q, q/k/v sliced from a fused QKV projection and a bf16
+    q two bytes off the 16-byte grid: ``_check`` (the wrappers' own check
+    on the card) refuses each as it is and takes it after
+    ``kernel_layout``; the public op gives the same output and gradients as
+    on contiguous copies."""
+    B, S, H, KV, D = 2, 40, 4, 2, 64
+    rng = np.random.default_rng(5)
+    mask = tfa.AttnMask()
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * KV, D)).astype(np.float32))
+    q_t = torch.from_numpy(rng.standard_normal(
+        (B, H, S, D)).astype(np.float32)).transpose(1, 2)
+    buf = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)
+    q_mis = buf[1:].view(B, S, H, D)
+    q_mis.copy_(q_t)
+    views = {"transposed": (q_t, qkv[:, :, H:H + KV], qkv[:, :, H + KV:]),
+             "fused_qkv": tuple(qkv.split([H, KV, KV], dim=2)),
+             "misaligned_bf16": (q_mis, qkv[:, :, H:H + KV].bfloat16(),
+                                 qkv[:, :, H + KV:].bfloat16())}
+    for name, (q, k, v) in views.items():
+        with pytest.raises(ValueError, match="contiguous|16-byte aligned"):
+            tfa._check(q, k.contiguous(), v.contiguous(), mask)
+        ready = [tfa.kernel_layout(t) for t in (q, k, v)]
+        assert tfa._check(*ready, mask) == (B, S, S, H, KV, D, 0), name
+        assert [t.shape for t in ready] == [q.shape, k.shape, v.shape]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        copies = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        outs = []
+        for ins in (leaves, copies):
+            o = tfa.flash_attention(*ins)
+            o.float().square().sum().backward()
+            outs.append([o.detach()] + [t.grad for t in ins])
+        for a, b in zip(*outs):
+            assert a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -1,7 +1,7 @@
 """Precision of the bf16 flash kernels' arithmetic, emulated on the CPU.
 
-``csrc/flash_attention.cu`` runs the bf16 forward and dK/dV on the tensor
-cores: every product of two bf16 operands (exact in f32) is summed in f32,
+``csrc/flash_attention.cu`` runs the bf16 forward, dK/dV and dQ on the
+tensor cores: every product of two bf16 operands (exact in f32) is summed in f32,
 and the f32 probabilities p and gradients ds, which the reference keeps in
 f32, are split into ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` and fed to
 two products each.  This file emulates that arithmetic in plain torch at
@@ -9,9 +9,9 @@ the smoke's per-group training shape (S = 2048, G = 4 query heads per kv
 head, D = 128, causal, inputs rounded to bf16 as ``chip_smoke.check_flash``
 makes them) and holds o, lse, dK and dV to ``chip_smoke``'s own checks and
 limits (``TOL_BF16``, ``TOL_F32``, ``GRAD_REL``) against the port's plain
-versions, which the kernels meet on the card.  Rounding p and ds to bf16
-alone, without the lo half, fails those limits; that is why the kernels
-split.  The plain versions themselves agree with the Pallas kernels
+versions, which the kernels meet on the card; dQ likewise
+(``_emulate_dq``).  Rounding p and ds to bf16 alone, without the lo half,
+fails those limits; that is why the kernels split.  The plain versions themselves agree with the Pallas kernels
 (interpret mode) at a small size.
 """
 
@@ -103,6 +103,30 @@ def _emulate_dkdv(q, k, v, do, lse, delta, scale, split):
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def _emulate_dq(q, k, v, do, lse, delta, scale, split):
+    """The dQ kernel's arithmetic for one (batch, kv head): per 64-key
+    tile, p = exp2(s scale log2e - lse log2e) in f32, ds = p (dp - delta)
+    and dQ += ds K through the split, summed in f32; the scale multiplies
+    dQ once at the end.  Causal: a tile adds only to the rows that can see
+    it.  Returns dq (S, G, D) bf16."""
+    n = q.shape[0] * q.shape[1]
+    qf, dof = q.float().reshape(n, D), do.float().reshape(n, D)
+    lse2 = lse.T.reshape(n) * LOG2E  # vector order: (row, head)
+    dl = delta.T.reshape(n)
+    rows = torch.arange(n) // G
+    dq = torch.zeros(n, D)
+    for c0 in range(0, k.shape[0], TILE):
+        kt, vt = k[c0:c0 + TILE].float(), v[c0:c0 + TILE].float()
+        i0 = c0 * G  # the first vector whose row sees key c0
+        keep = torch.arange(c0, c0 + kt.shape[0])[None, :] <= rows[i0:, None]
+        p = torch.where(keep, torch.exp2((qf[i0:] @ kt.T) * (scale * LOG2E)
+                                         - lse2[i0:, None]), 0.0)
+        ds = p * ((dof[i0:] @ vt.T) - dl[i0:, None])
+        for part in _products(ds, split):
+            dq[i0:] += part @ kt
+    return (dq * scale).reshape(q.shape).to(torch.bfloat16)
+
+
 @pytest.fixture(scope="module")
 def training_group():
     """One (batch, kv head) of the training shape, its plain forward and
@@ -114,9 +138,10 @@ def training_group():
     delta = tfa.attention_delta(do, o_p)
     dk_p, dv_p = tfa.flash_bwd_dkdv_plain(q, k, v, do, lse_p, delta, mask,
                                           scale)
+    dq_p = tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, mask, scale)
     return dict(q=q[0], k=k[0, :, 0], v=v[0, :, 0], do=do[0], scale=scale,
                 o=o_p[0], lse=lse_p[0], delta=delta[0], dk=dk_p[0, :, 0],
-                dv=dv_p[0, :, 0])
+                dv=dv_p[0, :, 0], dq=dq_p[0])
 
 
 def _check_fwd(t, split):
@@ -125,11 +150,15 @@ def _check_fwd(t, split):
     chip_smoke.compare(lse, t["lse"], chip_smoke.TOL_F32, "emulated lse")
 
 
-def _check_dkdv(t, split, which):
-    dk, dv = _emulate_dkdv(t["q"], t["k"], t["v"], t["do"], t["lse"],
-                           t["delta"], t["scale"], split)
-    got, want = (dk, t["dk"]) if which == "dk" else (dv, t["dv"])
-    chip_smoke.compare_grad(got, want, False, f"emulated {which}")
+def _check_grad(t, split, which):
+    if which == "dq":
+        got = _emulate_dq(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                          t["delta"], t["scale"], split)
+    else:
+        dk, dv = _emulate_dkdv(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                               t["delta"], t["scale"], split)
+        got = dk if which == "dk" else dv
+    chip_smoke.compare_grad(got, t[which], False, f"emulated {which}")
 
 
 def test_hi_lo_split_forward_meets_the_smoke_limits(training_group):
@@ -138,7 +167,11 @@ def test_hi_lo_split_forward_meets_the_smoke_limits(training_group):
 
 @pytest.mark.parametrize("which", ["dk", "dv"])
 def test_hi_lo_split_dkdv_meets_the_smoke_limits(training_group, which):
-    _check_dkdv(training_group, True, which)
+    _check_grad(training_group, True, which)
+
+
+def test_hi_lo_split_dq_meets_the_smoke_limits(training_group):
+    _check_grad(training_group, True, "dq")
 
 
 def test_p_rounded_to_bf16_breaks_the_forward_limit(training_group):
@@ -147,11 +180,11 @@ def test_p_rounded_to_bf16_breaks_the_forward_limit(training_group):
         _check_fwd(training_group, split=False)
 
 
-@pytest.mark.parametrize("which", ["dk", "dv"])
+@pytest.mark.parametrize("which", ["dk", "dv", "dq"])
 def test_p_and_ds_rounded_to_bf16_break_the_gradient_limit(training_group,
                                                            which):
     with pytest.raises(SystemExit):
-        _check_dkdv(training_group, False, which)
+        _check_grad(training_group, False, which)
 
 
 def test_plain_versions_match_the_pallas_kernels():

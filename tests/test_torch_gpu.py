@@ -81,6 +81,53 @@ def test_kernels_match_plain(cuda_device, dtype, H, KV, D):
                             "paged_prefill_attention": 1}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,D", [(32, 8, 128), (8, 1, 64), (8, 8, 128)])
+def test_split_kv_decode_matches_plain(cuda_device, dtype, H, KV, D):
+    """Chains of 2048 positions (BS = 64, MB = 32: 16 splits of 128), at
+    contexts on the split edges, a partial last split and the whole chain:
+    one launch per call, ctx = 0 rows exactly zero."""
+    gen = torch.Generator(device=cuda_device).manual_seed(H + D)
+    S, BS, MB, NB = 9, 64, 32, 320
+    split = tpa.decode_split(MB * BS)
+    assert split == 128
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    kc, vc, q = rnd(NB, BS, KV, D), rnd(NB, BS, KV, D), rnd(S, H, D)
+    bt = torch.randperm(NB, generator=gen, device=cuda_device)[:S * MB] \
+        .reshape(S, MB).to(torch.int32)
+    ctx = torch.tensor([0, 1, split - 1, split, split + 1, 700, 1500,
+                        MB * BS - 1, MB * BS], dtype=torch.int32,
+                       device=cuda_device)
+    tpa.reset_counts()
+    got = tpa.paged_decode_attention(q, kc, vc, bt, ctx)
+    want = tpa.decode_attention_plain(q, kc, vc, bt, ctx)
+    atol, rtol = TOLERANCE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert not got[0].any()
+    assert tpa.LAUNCHES["paged_decode_attention"] == 1
+
+
+def test_decode_makes_no_host_sync(cuda_device):
+    """A decode call waits on nothing: its split count and workspace follow
+    from the shapes, never from context_lens."""
+    dec, _ = _inputs(2, 32, 8, 128, 16, torch.bfloat16, cuda_device)
+    tpa.paged_decode_attention(*dec)  # build, first launch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tpa.paged_decode_attention(*dec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(out.float(),
+                               tpa.decode_attention_plain(*dec).float(),
+                               atol=1e-4, rtol=1e-2)
+
+
 def test_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
     dec, pre = _inputs(1, 8, 2, 128, 16, torch.float16, cuda_device)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
@@ -236,6 +283,51 @@ def test_flash_autograd_on_gpu_matches_cpu(cuda_device):
     for g, h in zip(*grads):
         torch.testing.assert_close(g, h, atol=1e-4 * h.abs().max().item(),
                                    rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["transposed", "fused_qkv",
+                                    "misaligned"])
+def test_flash_attention_takes_strided_inputs(cuda_device, dtype, layout):
+    """The public op on views the wrappers refuse (a transposed q, q/k/v
+    sliced from a fused QKV projection, a q off the 16-byte grid): output
+    and gradients, of the views' shapes, equal those of contiguous copies
+    on the card and match the plain path on the CPU."""
+    B, S, H, KV, D = 2, 200, 8, 2, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    qkv = torch.randn((B, S, H + 2 * KV, D), generator=gen,
+                      device=cuda_device).to(dtype)
+    q, k, v = qkv.split([H, KV, KV], dim=2)
+    if layout == "transposed":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        k, v = k.contiguous(), v.contiguous()
+    elif layout == "misaligned":
+        buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda_device)
+        q = buf[1:].view(q.shape).copy_(q)
+        k, v = k.contiguous(), v.contiguous()
+    do = torch.randn((B, S, H, D), generator=gen, device=cuda_device) \
+        .to(dtype)
+    results = []
+    for dev, copy in ((cuda_device, False), (cuda_device, True),
+                      ("cpu", True)):
+        leaves = [(t.contiguous() if copy else t).detach().to(dev)
+                  .requires_grad_() for t in (q, k, v)]
+        if not copy:
+            assert leaves[0].stride() == q.stride()  # the view itself
+            assert leaves[0].data_ptr() == q.data_ptr()
+        tfa.reset_counts()
+        o = tfa.flash_attention(*leaves)
+        o.backward(do.to(dev))
+        if dev != "cpu":
+            assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                                    "flash_bwd_dq": 1}
+        results.append([o.detach().cpu()]
+                       + [t.grad.cpu() for t in leaves])
+    for name, got, same, want in zip(("o", "dq", "dk", "dv"), *results):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, same, atol=0, rtol=0)
+        _close(got, want, dtype, name)
 
 
 def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):

@@ -7,6 +7,8 @@ same numpy-seeded inputs go through both packages in f32 and must agree to
 1e-5.  The CUDA kernels themselves are held against the plain versions on
 a GPU by ``tests/test_torch_gpu.py``."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,6 +83,89 @@ def test_prefill_plain_matches_pallas(H, KV):
     assert np.isfinite(got).all()
 
 
+# keys per tile of the decode kernel (csrc/paged_attention.cu Decode::kKeys):
+# 32 in f32, 64 in bf16
+DECODE_TILES = (32, 64)
+
+
+def _emulate_split_decode(q, k_cache, v_cache, bt, ctx, split, tile):
+    """The split-KV decode kernels' arithmetic in plain torch, f32: per
+    (sequence, split of ``split`` positions) an online softmax over tiles of
+    ``tile`` keys in the log2 domain, one update per tile, for every kv
+    head at once; a chain of one split is normalised in place, a longer one
+    merged in split order with weights 2^(m_i - M) / sum_j 2^(m_j - M) l_j;
+    ctx = 0 gives zeros."""
+    S, H, D = q.shape
+    _, BS, KV, _ = k_cache.shape
+    T = bt.shape[1] * BS
+    k = k_cache[bt.long()].reshape(S, T, KV, D)
+    v = v_cache[bt.long()].reshape(S, T, KV, D)
+    qs = q.reshape(S, KV, H // KV, D) * (1.0 / math.log(2.0) / math.sqrt(D))
+    out = torch.zeros_like(qs)
+    for s in range(S):
+        c = min(int(ctx[s]), T)
+        parts = []
+        for lo in range(0, c, split):
+            hi = min(c, lo + split)
+            m = torch.full(qs.shape[1:3], -math.inf)
+            l = torch.zeros(qs.shape[1:3])
+            acc = torch.zeros(qs.shape[1:])
+            for c0 in range(lo, hi, tile):
+                end = min(hi, c0 + tile)
+                kt, vt = k[s, c0:end], v[s, c0:end]
+                x = torch.einsum("kgd,nkd->kgn", qs[s], kt)
+                m_new = torch.maximum(m, x.max(-1).values)
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(x - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("kgn,nkd->kgd", p,
+                                                            vt)
+                m = m_new
+            parts.append((m, l, acc))
+        if len(parts) == 1:
+            _, l, acc = parts[0]
+            out[s] = acc / l[..., None]
+        elif parts:
+            mx = torch.stack([m for m, _, _ in parts]).max(0).values
+            w = [torch.exp2(m - mx) for m, _, _ in parts]
+            den = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+            out[s] = sum((wi / den)[..., None] * a
+                         for wi, (_, _, a) in zip(w, parts))
+    return out.reshape(S, H, D)
+
+
+def test_decode_split_follows_the_shapes():
+    """128 positions a split, more only where a chain would need more than
+    32 splits; every split length is a multiple of both kernel tiles."""
+    assert [tpa.decode_split(n) for n in (8, 128, 2048, 4096, 4097, 32768)] \
+        == [128, 128, 128, 128, 256, 1024]
+    assert all(tpa.decode_split(n) % max(DECODE_TILES) == 0
+               for n in range(1, 9000, 97))
+
+
+@pytest.mark.parametrize("tile", DECODE_TILES)
+def test_split_kv_decode_matches_plain_and_pallas_on_split_edges(tile):
+    """Chains of 512 positions (BS = 8, MB = 64: four splits of 128), at
+    contexts on the split edges: 0, 1, split - 1, split, split + 1 and the
+    whole chain.  The emulated partials and merge agree with the plain
+    version and with the Pallas kernel (interpret mode) in f32."""
+    rng = np.random.default_rng(3)
+    S, H, KV, D, BS, NB, MB = 6, 4, 2, 16, 8, 400, 64
+    k, v, bt = _paged(rng, S, H, KV, D, BS, NB, MB)
+    q = rng.standard_normal((S, H, D)).astype(np.float32)
+    split = tpa.decode_split(MB * BS)
+    assert split == 128 and MB * BS // split == 4
+    ctx = np.array([0, 1, split - 1, split, split + 1, MB * BS], np.int32)
+    got = _emulate_split_decode(*_t(q, k, v, bt, ctx), split, tile).numpy()
+    plain = tpa.decode_attention_plain(*_t(q, k, v, bt, ctx)).numpy()
+    want = np.asarray(jpa.paged_decode_attention(*map(jnp.asarray,
+                                                      (q, k, v, bt, ctx))))
+    np.testing.assert_allclose(got, plain, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(plain, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert not np.any(got[0])
+
+
 def test_prefill_single_row_equals_decode():
     """A one-row chunk at position p is a decode step with ctx = p + 1."""
     q, k, v, bt, ctx = _decode_case(2, 4, 2)
@@ -111,6 +196,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         tpa._check_common(q, kc, kc, {"block_tables": torch.zeros(
             (4, 2), dtype=torch.int32).T}, 4, 64)
+    # contiguous, but 4 bytes off the 16-byte grid the kernels copy
+    off = torch.zeros(kc.numel() + 1)[1:].view(kc.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpa._check_common(q, off, kc, ints, 4, 64)
     assert tpa._check_common(q, kc, kc, ints, 4, 64) == (8, 16, 2)
 
 
