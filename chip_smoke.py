@@ -13,7 +13,8 @@ In order it prints:
    abs error and kernel / plain / library (SDPA) / bound times; then the
    same inputs in f32, max abs error only; decode also at contexts on its
    split-KV edges (bf16 and f32) and once under
-   ``torch.cuda.set_sync_debug_mode("error")``;
+   ``torch.cuda.set_sync_debug_mode("error")``; prefill also in bf16 on
+   pools of block size 16 and 128;
 4. the engine: ``InferenceEngineV2`` at full llama3-8b width and depth with
    random bf16 weights from a seed, serving 8 requests (SplitFuse prefill,
    then burst decode), checking tokens, finiteness, kernel launch counts
@@ -35,11 +36,13 @@ In order it prints:
    plain versions at llama3-8b's four projection shapes, at M = 8 (a decode
    body) and M = 256 (a mixed step), in bf16 and f32: max abs error and
    kernel / plain / library (bf16 ``torch.matmul`` by the dequantized
-   weight) / bound times;
+   weight) / bound times (M = 8 runs ``mixed_gemm_kernel``, M = 256
+   ``mixed_gemm_wgmma_kernel``);
 8. quantized serving: the engine of 4. with ``quantize_bits=8`` (cold and
    warm), then 4 and 6, at full width and depth: tokens, finiteness,
    ``mixed_gemm`` launches = 7 x paged launches with no plain or envelope
-   call, determinism, tokens/s and memory; the seven projections of one
+   call, ``mixed_gemm_wgmma_kernel`` launches = 7 x prefill launches,
+   determinism, tokens/s and memory; the seven projections of one
    quantized layer through ``int8_gemm``; and the small f32 model of 4.
    quantized at each width, card against CPU;
 9. the grouped matmul (dropless MoE) kernel against its plain version at
@@ -88,6 +91,7 @@ DECODE_CTX = [0, 1, 63, 64, 65, 700, 1500, 2048]
 PREFILL_QP = 256
 PREFILL_START = [0, 0, 17, 64, 100, 256, 700, 1000]
 PREFILL_LEN = [256, 0, 100, 256, 1, 255, 37, 200]
+PREFILL_BLOCKS = (16, 128)  # other pool block sizes the prefill check runs
 PROMPT_LENS = [17, 64, 130, 256, 300, 511, 700, 1000]
 NEW_TOKENS = 32
 # kernel vs plain, |kernel - plain| <= atol + rtol * |plain| per element.
@@ -112,7 +116,9 @@ TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                "w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
 GEMM_MS = (8, 256)  # a decode body at max_seqs=8, a mixed step's 256 tokens
-GEMM_JSON = ("w_gate/w_in", 8)  # the shape and M of the kernels JSON line
+# the shape and the M of the kernels JSON line's mixed-GEMM and W8A8 rows:
+# a decode body's rows (mixed_gemm_kernel) and a mixed step's (wgmma)
+GEMM_JSON = (("w_gate/w_in", 8), ("w_gate/w_in", 256))
 QUANT_GROUP = 256
 PROJECTIONS = 7  # wq, wk, wv, wo, w_gate, w_in, w_out per layer
 # mixed GEMM in f32: kernel and plain both sum the same exact bf16 products
@@ -241,14 +247,16 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_inputs(torch, S: int, gen):
-    """A (NB, BS, KV, D) bf16 K and V pool and S disjoint block chains."""
-    kc = torch.randn((NB, BS, KV, D), generator=gen, device="cuda",
+def paged_inputs(torch, S: int, gen, bs: int = BS):
+    """A bf16 K and V pool of block size ``bs`` holding NB * BS positions,
+    and S disjoint block chains of MB * BS positions each."""
+    nb, mb = NB * BS // bs, MB * BS // bs
+    kc = torch.randn((nb, bs, KV, D), generator=gen, device="cuda",
                      dtype=torch.bfloat16)
-    vc = torch.randn((NB, BS, KV, D), generator=gen, device="cuda",
+    vc = torch.randn((nb, bs, KV, D), generator=gen, device="cuda",
                      dtype=torch.bfloat16)
-    perm = torch.randperm(NB - 1, generator=gen, device="cuda")
-    bt = perm[: S * MB].reshape(S, MB).to(torch.int32).contiguous()
+    perm = torch.randperm(nb - 1, generator=gen, device="cuda")
+    bt = perm[: S * mb].reshape(S, mb).to(torch.int32).contiguous()
     return kc, vc, bt
 
 
@@ -350,6 +358,20 @@ def check_prefill(torch, pa, flush) -> dict:
     err_f32 = check_f32(torch, pa.paged_prefill_attention,
                         pa.prefill_attention_plain, (q, kc, vc, bt, cs, cl),
                         "prefill kernel")
+    # the bf16 kernel gathers its 64-key tiles through the block table:
+    # pools of smaller and larger blocks, the same queries and chunks
+    err_blocks = {}
+    for bs in PREFILL_BLOCKS:
+        kb, vb, btb = paged_inputs(torch, S, gen, bs)
+        out_b = pa.paged_prefill_attention(q, kb, vb, btb, cs, cl)
+        err_blocks[bs] = compare(
+            out_b, pa.prefill_attention_plain(q, kb, vb, btb, cs, cl),
+            TOL_BF16, f"prefill kernel, block size {bs}")
+        for s, n in enumerate(PREFILL_LEN):
+            if n < PREFILL_QP and out_b[s, n:].abs().max().item() != 0.0:
+                fail(f"prefill kernel, block size {bs}: padding rows of "
+                     f"sequence {s} not zero")
+        del kb, vb, btb, out_b
     # yardstick: one SDPA call over the same contexts pre-gathered into
     # contiguous K/V (gather excluded), with the causal + chunk-end mask;
     # padding rows attend to position 0 here
@@ -387,7 +409,7 @@ def check_prefill(torch, pa, flush) -> dict:
     b_ms, b_by = bound(nbytes, flops)
     return {
         "name": "paged_prefill_attention", "max_abs_err": err,
-        "max_abs_err_f32": err_f32,
+        "max_abs_err_f32": err_f32, "max_abs_err_block_sizes": err_blocks,
         "ms": time_ms(lambda: pa.paged_prefill_attention(
             q, kc, vc, bt, cs, cl), torch, flush),
         "plain_ms": time_ms(lambda: pa.prefill_attention_plain(
@@ -557,6 +579,10 @@ def run_engine(torch, pa, profile: bool) -> dict:
                                         warm["prefill_s"]),
             "decode": device_breakdown(torch, r["profiles"][1],
                                        warm["decode_s"])}
+        if "paged_prefill_tc_kernel" not in \
+                out["profile"]["prefill"]["port_kernels_ms"]:
+            fail("bf16 engine prefill: no paged_prefill_tc_kernel in the "
+                 "trace")
     return out
 
 
@@ -1063,7 +1089,8 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
             mg.reset_counts()
             run = serve(torch, eng, prompts, trace if attempt == 2 else None)
             run.update(build_s=build_s, launches=dict(pa.LAUNCHES),
-                       mixed=dict(mg.LAUNCHES), plain=dict(mg.PLAIN_CALLS),
+                       mixed=dict(mg.LAUNCHES), wgmma=dict(mg.WGMMA_LAUNCHES),
+                       plain=dict(mg.PLAIN_CALLS),
                        dequant=dict(mg.DEQUANT_CALLS),
                        attn_plain=dict(pa.PLAIN_CALLS),
                        qbytes=quantized_bytes(eng.params),
@@ -1081,6 +1108,13 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
                 fail(f"{tag}: {kernel} launched {run['mixed'][kernel]} "
                      f"times for {paged} paged-attention launches, want "
                      f"{PROJECTIONS} per paged launch")
+            # every mixed step has more than 16 rows: its projections run
+            # the wgmma kernel, one per prefill-attention launch
+            prefill = run["launches"]["paged_prefill_attention"]
+            if run["wgmma"][kernel] != PROJECTIONS * prefill or prefill == 0:
+                fail(f"{tag}: mixed_gemm_wgmma_kernel launched "
+                     f"{run['wgmma'][kernel]} times for {prefill} prefill "
+                     f"launches, want {PROJECTIONS} per prefill launch")
             if any(run["plain"].values()) or any(run["dequant"].values()) \
                     or any(run["attn_plain"].values()):
                 fail(f"{tag}: a plain or dequantize path ran: {run['plain']}"
@@ -1113,6 +1147,7 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
 
         res = {"runs": [rates(r) for r in runs[:2]],
                "launches": {kernel: runs[0]["mixed"][kernel],
+                            f"{kernel}_wgmma": runs[0]["wgmma"][kernel],
                             **runs[0]["launches"]},
                "quantized_bytes": runs[0]["qbytes"]}
         if bits == 8:
@@ -1126,6 +1161,10 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
                                                 warm["prefill_s"]),
                     "decode": device_breakdown(torch, r["profiles"][1],
                                                warm["decode_s"])}
+                if "mixed_gemm_wgmma_kernel" not in \
+                        res["profile"]["prefill"]["port_kernels_ms"]:
+                    fail(f"{tag}: no mixed_gemm_wgmma_kernel in the "
+                         "prefill trace")
         out[f"w{bits}a16"] = res
         del runs
     del params
@@ -1538,6 +1577,8 @@ def main() -> None:
         edges = (f"split {k['split']}, split edges max_abs_err "
                  f"{k['max_abs_err_split_edges']:.3e}, "
                  if "split" in k else "")
+        edges += "".join(f"block size {bs} max_abs_err {e:.3e}, " for bs, e
+                         in k.get("max_abs_err_block_sizes", {}).items())
         print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e} "
               f"(bf16, limit atol+rtol {TOL_BF16}), "
               f"{k['max_abs_err_f32']:.3e} (f32, limit {TOL_F32}) {edges}"
@@ -1589,11 +1630,20 @@ def main() -> None:
     print("quantized engine: " + json.dumps(quant))
     small_quant = [small_model_agreement(torch, bits) for bits in (8, 4, 6)]
     print("small quantized model card vs CPU: " + json.dumps(small_quant))
-    launches.update({
-        "mixed_gemm_int8": quant["w8a16"]["launches"]["mixed_gemm_int8"],
-        "mixed_gemm_int4": quant["w4a16"]["launches"]["mixed_gemm_int4"],
-        "mixed_gemm_fp6": quant["w6a16"]["launches"]["mixed_gemm_fp6"],
-        "int8_gemm": quant["w8a16"]["int8_gemm_path"]["launches"]})
+    # mixed-GEMM launches by row count: a decode body's M = 8 calls run
+    # mixed_gemm_kernel, a mixed step's (M > 16) mixed_gemm_wgmma_kernel;
+    # int8_gemm's own path runs M = 8 and 256 once per projection each
+    decode_m, step_m = GEMM_MS
+    gemm_launches = {}
+    for name, bits in GEMM_KERNELS.items():
+        if name == "int8_gemm":
+            continue
+        counts = quant[f"w{bits}a16"]["launches"]
+        gemm_launches[name, step_m] = counts[f"{name}_wgmma"]
+        gemm_launches[name, decode_m] = counts[name] - counts[f"{name}_wgmma"]
+    for M in GEMM_MS:
+        gemm_launches["int8_gemm", M] = \
+            quant["w8a16"]["int8_gemm_path"]["launches"] // len(GEMM_MS)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1672,17 +1722,22 @@ def main() -> None:
                 "grouped_matmul":
                 "deepspeed_tpu/ops/pallas/grouped_matmul.py:47",
                 "fused_adamw": "deepspeed_tpu/ops/fused_optimizers.py:31"}
-    at_shape = [k for k in gemm if (k["shape"], k["M"]) == GEMM_JSON]
+    at_shape = [k for k in gemm if (k["shape"], k["M"]) in GEMM_JSON]
     at_shape += [k for k in gmm if (k["shape"], k["T"]) == MOE_JSON]
-    line = {"kernels": [
-        {"name": k["name"], "route": "cuda",
-         "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
-         "replaces": replaces[k["name"]], "status": "ok",
-         "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
-         "max_abs_err_f32": k["max_abs_err_f32"],
-         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        for k in kernels + flash + at_shape + [adam]]}
+
+    def row(k):
+        return {"name": k["name"], "route": "cuda",
+                "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
+                "replaces": replaces[k["name"]], "status": "ok",
+                **({"M": k["M"]} if "M" in k else {}),
+                "launches": (gemm_launches[k["name"], k["M"]] if "M" in k
+                             else launches[k["name"]]),
+                "max_abs_err": k["max_abs_err"],
+                "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+
+    line = {"kernels": [row(k) for k in kernels + flash + at_shape + [adam]]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,7 +1,10 @@
 // Quantized-weight GEMMs for serving, written for Hopper (sm_90a).
 //
-//   mixed_gemm_kernel  replaces deepspeed_tpu/ops/pallas/mixed_gemm.py
-//                      _mixed_gemm_kernel (entry mixed_gemm):
+//   mixed_gemm_kernel,        replace deepspeed_tpu/ops/pallas/mixed_gemm.py
+//   mixed_gemm_wgmma_kernel,  _mixed_gemm_kernel (entry mixed_gemm):
+//   mixed_gemm_mma_kernel     M <= 16 rows, bf16 x at M > 16, f32 x at M >
+//                      16 (the dispatch is on M and dtype, not a fallback);
+//                      all three compute
 //                      y (M, N) = x (M, K) @ dequant(W).  Per K-group g, each
 //                      code becomes f32, is multiplied by the group's scale
 //                      scales[g, n] and rounded to bf16; x is rounded to bf16;
@@ -22,8 +25,9 @@
 //                      __fadd_rn), group by group: the plain version's
 //                      arithmetic to the bit.
 //
-// Both use the tensor cores through mma.sync (m16n8k16 bf16 -> f32 for the
-// mixed GEMM, m16n8k32 s8 -> s32 for W8A8).  bf16 x bf16 products are exact
+// They use the tensor cores: wgmma m64n64k16 bf16 -> f32 (bf16 x, M > 16),
+// mma.sync m16n8k16 bf16 -> f32 (the other mixed GEMMs) and m16n8k32 s8 ->
+// s32 (W8A8).  bf16 x bf16 products are exact
 // in f32, so against the plain version only the summation order differs
 // (the tensor cores' f32 accumulation truncates where IEEE addition rounds,
 // so the difference grows with K; see the tolerances of the callers).
@@ -37,8 +41,8 @@
 // What the mixed GEMM does about each:
 //   * every block owns a BM x BN output tile and walks K in BK-deep tiles (a
 //     tile never spans two groups, so it carries one scale row), with a ring
-//     of stages kept in flight by cp.async so that the code stream does not
-//     wait on one round trip per tile;
+//     of stages kept in flight so that the code stream does not wait on one
+//     round trip per tile;
 //   * split-K: when the output tiles alone cannot fill the card (a 4096-wide
 //     projection at decode has 32 of them for 132 SMs), blockIdx.z takes a
 //     contiguous share of the K-groups and writes f32 partial sums to a
@@ -47,22 +51,45 @@
 //     stage, each row of a code tile 128 contiguous bytes; the codes stay
 //     packed in shared memory and are dequantized straight into the mma B
 //     fragments in registers (each element by one thread, once);
-//   * larger M (mixed_gemm_mma_kernel): 128 x 128 tiles for 8 warps; each
-//     tile's codes are dequantized once, by the whole block, into a bf16
-//     tile in shared memory, which every warp reads with ldmatrix (x as
-//     well, converted to bf16 first when it is f32).
-// wgmma, TMA and a persistent schedule are later work.
+//   * bf16 x at M > 16 (mixed_gemm_wgmma_kernel): y^T = W^T x^T on wgmma,
+//     the dequantized weight as the A operand straight from registers.  A
+//     block owns 128 output columns (two consumer warpgroups of 64, each
+//     thread two adjacent columns, so one 16-bit load per code row feeds
+//     both) and all 256 rows of a mixed step (B = x^T, K-major in shared
+//     memory), so each code is read from memory once per GEMM and
+//     dequantized once, in registers, with no bf16 weight tile and no
+//     block-wide barrier between the dequantization and the tensor cores.
+//     A producer warpgroup fills a 4-stage ring through TMA (one thread,
+//     three copies a stage, 128-byte swizzled tiles that wgmma reads as
+//     they land) where rows are 16-byte aligned and K-tiles stay inside one
+//     group, else with its 128 threads' cp.async; stages pass between the
+//     producer and the consumers by mbarriers, and the two consumer
+//     warpgroups take turns at the tensor cores while the other one
+//     dequantizes.  At a 256-row mixed step the copies alone take ~2/3 of
+//     its time and the products without the dequantization ~4/5; what
+//     holds it is the dequantization, which a warpgroup does not overlap
+//     with its own products (int8 +20%, fp6 +75%; a second register set
+//     for A broke the results or was serialized by ptxas).  Each column
+//     block reads all of x, but skipping x's copies saves 3%.  A 128-row
+//     variant (more blocks, codes dequantized twice) and a 5-stage ring
+//     measured slower at three of llama3-8b's four shapes.  fp6 converts a
+//     code with two exact f32 products (fp6_times), not fp6_value;
+//   * f32 x at M > 16 (mixed_gemm_mma_kernel): 128 x 128 tiles for 8 warps;
+//     each tile's codes are dequantized once, by the whole block, into a
+//     bf16 tile in shared memory, which every warp reads with ldmatrix, x
+//     converted to bf16 the same way.
 //
 // Ragged M, N and K edges are masked here (rows >= M and columns >= N are
 // loaded as zeros and never stored; a group that BK does not divide ends in
 // a partial tile, zero-filled), so any M, any N and K = G * group work.
 // Loads whose source is not 16-byte aligned (odd N, odd K) go through
-// registers byte by byte; the rest by cp.async.
+// registers byte by byte; the rest by cp.async or TMA.
 //
 // Every C entry point launches on the caller's stream, allocates nothing
 // (the caller passes the split-K workspace), and returns cudaGetLastError()
 // after its launches.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in the driver
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +118,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// 16 bytes from global to shared memory: by cp.async when the source is
+// 16-byte aligned and all `valid` bytes are there, zeros when none is, else
+// byte by byte with zeros past `valid`
+__device__ __forceinline__ void copy16(uint8_t* dst, const uint8_t* src, bool aligned,
+                                       int valid) {
+  if (aligned && valid >= 16) {
+    cp_async16(dst, src);
+  } else if (valid <= 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  } else {
+#pragma unroll
+    for (int b = 0; b < 16; ++b) dst[b] = b < valid ? src[b] : 0;
+  }
+}
+
 // Copies a ROWS x ROW_BYTES tile (ROW_BYTES a multiple of 16) from global
 // memory, rows src_stride bytes apart, to shared memory, rows dst_stride
 // apart.  Row r >= valid_rows and byte c >= valid_bytes of a row are written
@@ -104,18 +146,8 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, int dst_stride, const ui
   const bool aligned = ((reinterpret_cast<uintptr_t>(src) | (uintptr_t)src_stride) & 15) == 0;
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += blockDim.x) {
     const int r = i / kPerRow, c = (i % kPerRow) * 16;
-    uint8_t* d = dst + r * dst_stride + c;
-    if (r >= valid_rows || c >= valid_bytes) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-      continue;
-    }
-    const uint8_t* s = src + r * src_stride + c;
-    if (aligned && c + 16 <= valid_bytes) {
-      cp_async16(d, s);
-    } else {
-#pragma unroll
-      for (int b = 0; b < 16; ++b) d[b] = c + b < valid_bytes ? s[b] : 0;
-    }
+    copy16(dst + r * dst_stride + c, src + r * src_stride + c, aligned,
+           r < valid_rows ? valid_bytes - c : 0);
   }
 }
 
@@ -473,46 +505,43 @@ __global__ void __launch_bounds__(TL::kThreads)
                         n0 + wn * (BN / TL::WN));
 }
 
-// Larger M: 128 x 128 tiles, 8 warps of 64 x 32, two blocks per SM; each
-// K-tile's codes are dequantized once into a bf16 tile in shared memory
-// ([k][n], read with ldmatrix.trans), x read with ldmatrix ([m][k], bf16).
-// (128 x 256 tiles of 64 x 64 warps, one block per SM, measured 10-17%
-// slower at llama3-8b's shapes.)
-template <typename XT, int BITS>
+// f32 x, M > 16: 128 x 128 tiles, 8 warps of 64 x 32, two blocks per SM;
+// each K-tile's codes are dequantized once, by the whole block, into a bf16
+// tile in shared memory ([k][n], read with ldmatrix.trans), and the staged
+// f32 x is rounded into a bf16 tile ([m][k], read with ldmatrix).  bf16 x
+// at M > 16 runs mixed_gemm_wgmma_kernel below; the dispatch is on dtype.
+template <int BITS>
 struct MmaSmem {
   static constexpr int BM = 128, BN = 128, BK = 64, WM = 2, WN = 4, STAGES = 3;
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
-  static constexpr int kXRow = BK * (int)sizeof(XT) + kPad;  // staged raw x
+  static constexpr int kXRow = BK * 4 + kPad;  // staged f32 x
   static constexpr int kCRows = BK * Pack<BITS>::num / Pack<BITS>::den;
   static constexpr int kCRow = BN + kPad;
   static constexpr int kStage = BM * kXRow + kCRows * kCRow + BN * 4;
   static constexpr int kWRow = (BN + 8) * 2;   // bf16 weight tile row: 272 bytes
   static constexpr int kXbRow = (BK + 8) * 2;  // bf16 x tile row: 144 bytes
-  static constexpr bool kXIsBf16 = sizeof(XT) == 2;
-  static constexpr int kBytes =
-      STAGES * kStage + BK * kWRow + (kXIsBf16 ? 0 : BM * kXbRow);
-  static_assert(!kXIsBf16 || kXRow == kXbRow, "bf16 x is read in place");
+  static constexpr int kBytes = STAGES * kStage + BK * kWRow + BM * kXbRow;
 };
 
-template <typename XT, int BITS>
-__global__ void __launch_bounds__(MmaSmem<XT, BITS>::kThreads)
-    mixed_gemm_mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-                          const float* __restrict__ scales, XT* __restrict__ out,
+template <int BITS>
+__global__ void __launch_bounds__(MmaSmem<BITS>::kThreads)
+    mixed_gemm_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
+                          const float* __restrict__ scales, float* __restrict__ out,
                           float* __restrict__ ws, int M, int N, int K, int group, int splits) {
-  using L = MmaSmem<XT, BITS>;
+  using L = MmaSmem<BITS>;
   constexpr int BM = L::BM, BN = L::BN, BK = L::BK, MT = L::MT, NT = L::NT;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* wtile = smem + L::STAGES * L::kStage;
-  uint8_t* xtile = wtile + BK * L::kWRow;  // f32 x only
+  uint8_t* xtile = wtile + BK * L::kWRow;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   int g_lo, g_hi;
   split_groups(K, group, splits, g_lo, g_hi);
   const int tiles = (g_hi - g_lo) * ((group + BK - 1) / BK);
   auto load = [&](int t) {
-    load_mixed_tile<XT, BITS, BM, BN, BK>(smem + (t % L::STAGES) * L::kStage, L::kXRow,
-                                          L::kCRow, x, codes, scales, M, N, K, group, m0, n0,
-                                          g_lo, t);
+    load_mixed_tile<float, BITS, BM, BN, BK>(smem + (t % L::STAGES) * L::kStage, L::kXRow,
+                                             L::kCRow, x, codes, scales, M, N, K, group, m0, n0,
+                                             g_lo, t);
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -547,23 +576,20 @@ __global__ void __launch_bounds__(MmaSmem<XT, BITS>::kThreads)
       Unit<BITS>::dequant(cs, L::kCRow, u, n, *reinterpret_cast<const float4*>(ss + n), wtile,
                           L::kWRow);
     }
-    if constexpr (!L::kXIsBf16) {
-      for (int p = threadIdx.x; p < BM * BK / 4; p += L::kThreads) {
-        const int m = p / (BK / 4), k = (p % (BK / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(st + m * L::kXRow + k * 4);
-        *reinterpret_cast<uint2*>(xtile + m * L::kXbRow + k * 2) =
-            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-      }
+    for (int p = threadIdx.x; p < BM * BK / 4; p += L::kThreads) {
+      const int m = p / (BK / 4), k = (p % (BK / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(st + m * L::kXRow + k * 4);
+      *reinterpret_cast<uint2*>(xtile + m * L::kXbRow + k * 2) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
     }
     __syncthreads();
-    const uint8_t* xa = L::kXIsBf16 ? st : xtile;
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
       uint32_t a[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const int r = wm * (BM / L::WM) + i * 16 + (lane & 15);
-        ldmatrix_x4(a[i], xa + r * L::kXbRow + (ks + (lane >> 4) * 8) * 2);
+        ldmatrix_x4(a[i], xtile + r * L::kXbRow + (ks + (lane >> 4) * 8) * 2);
       }
       uint32_t b[NT][2];
 #pragma unroll
@@ -584,8 +610,378 @@ __global__ void __launch_bounds__(MmaSmem<XT, BITS>::kThreads)
     }
   }
   cp_async_wait<0>();
-  store_acc<XT, MT, NT>(acc, out, ws, splits, M, N, m0 + wm * (BM / L::WM),
-                        n0 + wn * (BN / L::WN));
+  store_acc<float, MT, NT>(acc, out, ws, splits, M, N, m0 + wm * (BM / L::WM),
+                           n0 + wn * (BN / L::WN));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 x, M > 16: wgmma, with the weight dequantized into registers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// waits until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The accumulators are written by asynchronous wgmma: an empty asm that
+// reads and writes each keeps the compiler from moving their uses across
+// the wait.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The descriptor of a K-major bf16 wgmma operand in shared memory in the
+// 128-byte swizzle mode: rows of 64 elements (128 bytes), 8-row atoms 1024
+// bytes apart, the 16-byte chunk j of row r stored at chunk j ^ (r % 8) (as
+// TMA's 128-byte swizzle writes it; atoms 1024-byte aligned).  A k-step of
+// 16 elements inside the row starts 32 bytes further on.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// byte c of row r of a 128-byte-row tile in that swizzle mode
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// TMA: the box of `map` at (x0 inner, x1 outer) into shared memory, its
+// bytes counted on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x0), "r"(x1)
+      : "memory");
+}
+
+// one arrival on `bar` that also expects `bytes` more bytes of copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], bf16 -> f32: A from registers
+// (per warp the m16n8k16 A fragment of its 16 rows), B K-major in shared
+// memory.  Each thread holds D's rows gr, gr + 8 of its warp's 16 and
+// columns 8j + 2tq, +1 as d[4j .. 4j + 3] (the m16n8 layout, j < 8).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The dequantized bf16 pairs (k, k+1) (k even) of columns c (p0, scale
+// s.x) and c + 1 (p1, scale s.y), c even, of a staged code tile (128-byte
+// rows, swizzled: sw128): one 16-bit load per code row gives both columns.
+// Each value is code * scale in f32, rounded once to f32 and once to bf16,
+// as _mixed_gemm_kernel computes it.
+template <int BITS>
+__device__ __forceinline__ void w_pairs(const uint8_t* cs, int k, int c, float2 s, uint32_t& p0,
+                                        uint32_t& p1);
+
+template <>
+__device__ __forceinline__ void w_pairs<8>(const uint8_t* cs, int k, int c, float2 s,
+                                           uint32_t& p0, uint32_t& p1) {
+  const uint32_t u0 = *reinterpret_cast<const uint16_t*>(cs + sw128(k, c));
+  const uint32_t u1 = *reinterpret_cast<const uint16_t*>(cs + sw128(k + 1, c));
+  p0 = pack_bf16(__fmul_rn(sbyte(u0, 0), s.x), __fmul_rn(sbyte(u1, 0), s.x));
+  p1 = pack_bf16(__fmul_rn(sbyte(u0, 1), s.y), __fmul_rn(sbyte(u1, 1), s.y));
+}
+
+template <>
+__device__ __forceinline__ void w_pairs<4>(const uint8_t* cs, int k, int c, float2 s,
+                                           uint32_t& p0, uint32_t& p1) {
+  const uint32_t u = *reinterpret_cast<const uint16_t*>(cs + sw128(k >> 1, c));
+  const int b0 = (int8_t)(u & 255), b1 = (int8_t)(u >> 8);  // K-rows k (low), k+1 (high)
+  p0 = pack_bf16(__fmul_rn((float)(((b0 & 15) ^ 8) - 8), s.x), __fmul_rn((float)(b0 >> 4), s.x));
+  p1 = pack_bf16(__fmul_rn((float)(((b1 & 15) ^ 8) - 8), s.y), __fmul_rn((float)(b1 >> 4), s.y));
+}
+
+// fp6 code c times s: c's five magnitude bits placed at bit 21 of an f32
+// read as (1 + m/4) 2^(e - 127), or m 2^-128 when e = 0 (an f32
+// subnormal), so one exact product by 2^124 gives fp6_value(c); then one
+// rounded product by s, as fp6_value(c) * s
+__device__ __forceinline__ float fp6_times(uint32_t c, float s) {
+  const float v = __uint_as_float((c & 32) << 26 | (c & 31) << 21);
+  return __fmul_rn(__fmul_rn(v, 0x1p124f), s);
+}
+
+// fp6: K-rows 4q..4q+3 of a column are bits 0-5, 6-11, 12-17, 18-23 of its
+// code bytes (b0 | b1 << 8 | b2 << 16) at rows 3q..3q+2; the pair k, k+1
+// (k % 4 = 0 or 2) lies in the 16 bits of code rows 3q + r, 3q + r + 1,
+// r = (k % 4) / 2, from bit (k % 4) * 2
+template <>
+__device__ __forceinline__ void w_pairs<6>(const uint8_t* cs, int k, int c, float2 s,
+                                           uint32_t& p0, uint32_t& p1) {
+  const int r = (k >> 2) * 3 + ((k & 3) >> 1);
+  const uint32_t ua = *reinterpret_cast<const uint16_t*>(cs + sw128(r, c));
+  const uint32_t ub = *reinterpret_cast<const uint16_t*>(cs + sw128(r + 1, c));
+  const int sh = (k & 3) * 2;
+  const uint32_t v0 = (ua & 255) | (ub & 255) << 8, v1 = ua >> 8 | (ub & 0xff00);
+  p0 = pack_bf16(fp6_times(v0 >> sh, s.x), fp6_times(v0 >> (sh + 6), s.x));
+  p1 = pack_bf16(fp6_times(v1 >> sh, s.y), fp6_times(v1 >> (sh + 6), s.y));
+}
+
+// y^T = W^T x^T per block: BN = 128 output columns (two consumer
+// warpgroups of 64, the wgmma M) by BM = 64 NSUB rows of x (the wgmma N,
+// NSUB m64n64k16 products per 16-deep k-step), K in 64-deep tiles through
+// a ring of STAGES stages filled by a producer warpgroup.  A stage holds
+// the x tile (BM rows of 64 K-elements) and the code tile (kCRows rows of
+// BN codes), both as 128-byte rows in the 128-byte swizzle mode (sw128),
+// then the group's scale row.  Where the global layout allows it (TMA:
+// 16-byte aligned rows, K-tiles inside one group) one thread fills a stage
+// with three TMA copies; elsewhere the producer's 128 threads copy 16-byte
+// chunks into the same layout (cp.async, or bytes for unaligned rows).
+template <int BITS, int NSUB>
+struct WgSmem {
+  static constexpr int kConsumers = 2;  // warpgroups
+  static constexpr int BN = 64 * kConsumers, BM = 64 * NSUB, BK = 64, STAGES = 4;
+  static constexpr int kLag = 2;  // tiles the cp.async producer keeps in flight
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kXBytes = BM * BK * 2;
+  static constexpr int kCRows = BK * Pack<BITS>::num / Pack<BITS>::den;
+  static constexpr int kCBytes = kCRows * BN;
+  static constexpr int kTmaBytes = kXBytes + kCBytes + BN * 4;  // a stage's copies
+  static constexpr int kStage = (kTmaBytes + 1023) / 1024 * 1024;
+  // + full and empty barriers, + slack to align the ring to 1024 bytes
+  static constexpr int kBytes = STAGES * kStage + 2 * STAGES * 8 + 1024;
+  static_assert(BK * 2 == 128 && BN == 128 && kCRows % 16 == 0 && kLag < STAGES,
+                "128-byte rows");
+};
+
+template <int BITS, int NSUB>
+__global__ void __launch_bounds__(WgSmem<BITS, NSUB>::kThreads, 1)
+    mixed_gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                            const uint8_t* __restrict__ codes, const float* __restrict__ scales,
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M, int N,
+                            int K, int group, int splits, const __grid_constant__ CUtensorMap tm_x,
+                            const __grid_constant__ CUtensorMap tm_c,
+                            const __grid_constant__ CUtensorMap tm_s, int use_tma) {
+  using L = WgSmem<BITS, NSUB>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::STAGES * L::kStage);
+  uint64_t* empty = full + L::STAGES;
+  const int n0 = blockIdx.x * L::BN, m0 = blockIdx.y * L::BM;
+  const int rows = min(L::BM, M - m0);
+  int g_lo, g_hi;
+  split_groups(K, group, splits, g_lo, g_hi);
+  const int tpg = (group + L::BK - 1) / L::BK;  // K-tiles per group
+  const int tiles = (g_hi - g_lo) * tpg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // x rows past M stay zero in every stage (TMA writes its own zeros);
+  // full[s] counts the TMA thread or the producer's 128 threads, empty[s]
+  // the consumer warps
+  if (!use_tma)
+    for (int i = threadIdx.x; i < L::STAGES * (L::BM - rows) * 8; i += blockDim.x) {
+      const int st = i / ((L::BM - rows) * 8), r = i % ((L::BM - rows) * 8);
+      *reinterpret_cast<uint4*>(smem + st * L::kStage + (rows + r / 8) * 128 + (r % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], use_tma ? 1 : 128);
+      mbar_init(&empty[s], 4 * L::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();  // the zeros, for wgmma's reads
+  __syncthreads();
+
+  if (warp >= 4 * L::kConsumers) {
+    // producer: tile t into stage t % STAGES once the consumers released
+    // it; a stage is announced (full) when its copies have landed
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int p = threadIdx.x - 128 * L::kConsumers;
+    if (use_tma) {  // one thread: x, codes and scale row by TMA
+      if (p != 0) return;
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % L::STAGES;
+        if (t >= L::STAGES) mbar_wait(&empty[st], (t / L::STAGES - 1) & 1);
+        uint8_t* sp = smem + st * L::kStage;
+        const int g = g_lo + t / tpg, k0 = g * group + (t % tpg) * L::BK;
+        mbar_expect_tx(&full[st], L::kTmaBytes);
+        tma_load(sp, &tm_x, &full[st], k0, m0);
+        tma_load(sp + L::kXBytes, &tm_c, &full[st], n0, k0 * Pack<BITS>::num / Pack<BITS>::den);
+        tma_load(sp + L::kXBytes + L::kCBytes, &tm_s, &full[st], n0, g);
+      }
+      return;
+    }
+    // cp.async: thread p moves x chunks 2cc + (p & 1) of rows p / 2 + 64 j,
+    // code chunk p % 8 of code rows p / 8 + 16 i, and scale chunk p (p <
+    // 32): fixed for the whole walk, so no address needs a division
+    const long long xstride = (long long)K * 2;
+    const uint8_t* xrow = reinterpret_cast<const uint8_t*>(x + (long long)(m0 + (p >> 1)) * K);
+    const bool x_al = ((reinterpret_cast<uintptr_t>(x) | (uintptr_t)xstride) & 15) == 0;
+    const int ccol = (p & 7) * 16, cvalid = N - n0 - ccol;
+    const uint8_t* ccodes = codes + n0 + ccol;
+    const bool c_al = ((reinterpret_cast<uintptr_t>(codes) | (uintptr_t)N) & 15) == 0;
+    const uint8_t* cscales = reinterpret_cast<const uint8_t*>(scales + n0) + 16 * p;
+    const int svalid = (N - n0) * 4 - 16 * p;
+    const bool s_al = ((reinterpret_cast<uintptr_t>(scales) | (uintptr_t)N * 4) & 15) == 0;
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t % L::STAGES;
+      if (t >= L::STAGES) mbar_wait(&empty[st], (t / L::STAGES - 1) & 1);
+      uint8_t* sp = smem + st * L::kStage;
+      const int g = g_lo + t / tpg, kin = (t % tpg) * L::BK;
+      const int k0 = g * group + kin, vk = min(L::BK, group - kin);
+      const bool xa = x_al && (k0 & 7) == 0;
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) {
+        const int m = (p >> 1) + 64 * j;
+        if (m >= rows) break;
+#pragma unroll
+        for (int cc = 0; cc < L::BK / 16; ++cc) {
+          const int c = 2 * cc + (p & 1);
+          copy16(sp + sw128(m, 16 * c), xrow + 64 * j * xstride + (k0 + 8 * c) * 2, xa,
+                 (vk - 8 * c) * 2);
+        }
+      }
+      const long long crow = (long long)k0 * Pack<BITS>::num / Pack<BITS>::den;
+      const int vrows = vk * Pack<BITS>::num / Pack<BITS>::den;
+#pragma unroll
+      for (int i = 0; i < L::kCRows / 16; ++i) {
+        const int r = (p >> 3) + 16 * i;
+        copy16(sp + L::kXBytes + sw128(r, ccol), ccodes + (crow + r) * N, c_al,
+               r < vrows ? cvalid : 0);
+      }
+      if (p < L::BN / 4)
+        copy16(sp + L::kXBytes + L::kCBytes + 16 * p, cscales + (long long)g * N * 4, s_al,
+               svalid);
+      cp_async_commit();
+      if (t >= L::kLag) {
+        cp_async_wait<L::kLag>();
+        fence_proxy_async();
+        mbar_arrive(&full[(t - L::kLag) % L::STAGES]);
+      }
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    for (int t = max(0, tiles - L::kLag); t < tiles; ++t) mbar_arrive(&full[t % L::STAGES]);
+    return;
+  }
+
+  // consumers: warp wl of warpgroup wg owns the block's columns c0 = 64 wg +
+  // 16 wl + 2 gr and c0 + 1 as the A rows gr and gr + 8 of its 16, so one
+  // 16-bit load per code row gives both, and the stores write column pairs
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, wl = warp & 3, gr = lane >> 2, tq = lane & 3;
+  const int c0 = wg * 64 + wl * 16 + 2 * gr;
+  float d[NSUB][32];
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[sb][i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % L::STAGES;
+    mbar_wait(&full[st], (t / L::STAGES) & 1);
+    __syncwarp();
+    const uint8_t* sp = smem + st * L::kStage;
+    const uint8_t* cs = sp + L::kXBytes;
+    const float2 sc = *reinterpret_cast<const float2*>(cs + L::kCBytes + c0 * 4);
+    // A = W^T of the tile's four k-steps, dequantized into registers
+    uint32_t a[L::BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 16; ++kk) {
+      const int k = kk * 16 + 2 * tq;
+      w_pairs<BITS>(cs, k, c0, sc, a[kk][0], a[kk][1]);
+      w_pairs<BITS>(cs, k + 8, c0, sc, a[kk][2], a[kk][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 16; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < NSUB; ++sb)
+        wgmma_m64n64k16(d[sb], a[kk], sw128_desc(sp + 64 * 128 * sb + 32 * kk));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int sb = 0; sb < NSUB; ++sb) fence_acc(d[sb]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+  // d[sb][4j + h] and d[sb][4j + 2 + h] are columns c0, c0 + 1 of x row
+  // 64 sb + 8j + 2tq + h: to `out` when the K range is whole, else as f32
+  // partial sums to split blockIdx.z of `ws`
+  const int n = n0 + c0;
+  const bool pair = n + 1 < N && (N & 1) == 0;
+  float* part = ws + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * sb + 8 * j + 2 * tq + h;
+        if (m >= M || n >= N) continue;
+        const float v0 = d[sb][4 * j + h], v1 = d[sb][4 * j + 2 + h];
+        const long long at = (long long)m * N + n;
+        if (splits == 1) {
+          if (pair) {
+            *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            out[at] = __float2bfloat16(v0);
+            if (n + 1 < N) out[at + 1] = __float2bfloat16(v1);
+          }
+        } else if (pair) {
+          *reinterpret_cast<float2*>(part + at) = make_float2(v0, v1);
+        } else {
+          part[at] = v0;
+          if (n + 1 < N) part[at + 1] = v1;
+        }
+      }
 }
 
 // out = sum over the splits of ws, added in split order, in XT.
@@ -753,6 +1149,72 @@ using Int8Small = Tiling<16, 32, 128, 1, 4, 8>;
 using Int8Large = Tiling<64, 64, 64, 2, 2, 4>;
 constexpr int kSmallM = 16;
 
+// cuTensorMapEncodeTiled, looked up in the driver once (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) array whose rows are `pitch`
+// bytes apart, in boxes of box_rows x box_cols; elements past the array
+// read as zeros.
+bool tile_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t cols,
+              uint64_t rows, uint64_t pitch, uint32_t box_cols, uint32_t box_rows,
+              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_cols, box_rows}, steps[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA takes x, the codes and the scales when their rows are 16-byte
+// aligned and no K-tile spans two groups; other shapes are copied by the
+// producer's threads (an explicit choice by shape, the same result)
+template <int BITS, int NSUB>
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* codes, const float* scales,
+                         __nv_bfloat16* out, float* ws, int M, int N, int K, int group,
+                         int splits, cudaStream_t st) {
+  using L = WgSmem<BITS, NSUB>;
+  auto kernel = mixed_gemm_wgmma_kernel<BITS, NSUB>;
+  static cudaError_t attr = allow_smem(kernel, L::kBytes);  // once per instantiation
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tm_x{}, tm_c{}, tm_s{};
+  const bool use_tma =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(codes) |
+        reinterpret_cast<uintptr_t>(scales)) & 15) == 0 &&
+      K % 8 == 0 && N % 16 == 0 && group % L::BK == 0;
+  if (use_tma) {
+    const uint64_t code_rows = (uint64_t)K * Pack<BITS>::num / Pack<BITS>::den;
+    if (!tile_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, L::BK,
+                  L::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tile_map(&tm_c, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, code_rows, N, L::BN,
+                  L::kCRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tile_map(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, N, K / group,
+                  (uint64_t)N * 4, L::BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return cudaErrorInvalidValue;
+  }
+  const dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM, splits);
+  kernel<<<grid, L::kThreads, L::kBytes, st>>>(x, codes, scales, out, ws, M, N, K, group, splits,
+                                                tm_x, tm_c, tm_s, use_tma);
+  return cudaSuccess;
+}
+
 template <typename XT, int BITS>
 cudaError_t launch_mixed(const void* x, const void* codes, const void* scales, void* out,
                          float* ws, int M, int N, int K, int group, int splits,
@@ -769,9 +1231,14 @@ cudaError_t launch_mixed(const void* x, const void* codes, const void* scales, v
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM, splits);
     kernel<<<grid, TL::kThreads, smem, st>>>(xp, cp, sp, op, ws, M, N, K, group, splits);
-  } else {
-    using L = MmaSmem<XT, BITS>;
-    auto kernel = mixed_gemm_mma_kernel<XT, BITS>;
+  } else if constexpr (sizeof(XT) == 2) {  // bf16: wgmma, 128 or 256 rows per block
+    const cudaError_t attr =
+        M <= 128 ? launch_wgmma<BITS, 2>(xp, cp, sp, op, ws, M, N, K, group, splits, st)
+                 : launch_wgmma<BITS, 4>(xp, cp, sp, op, ws, M, N, K, group, splits, st);
+    if (attr != cudaSuccess) return attr;
+  } else {  // f32: mma.sync
+    using L = MmaSmem<BITS>;
+    auto kernel = mixed_gemm_mma_kernel<BITS>;
     static cudaError_t attr = allow_smem(kernel, L::kBytes);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM, splits);

@@ -7,14 +7,16 @@
 //   (+ decode_merge_kernel) _decode_kernel (entry paged_decode_attention).
 //                         One query token per sequence; context_lens include
 //                         the current token; ctx = 0 rows write zeros.
-//   paged_prefill_kernel  replaces paged_attention.py _prefill_kernel (entry
-//                         paged_prefill_attention).  Chunked prefill: row i
-//                         of sequence s sits at absolute position
-//                         chunk_start[s] + i and sees cache positions <= its
-//                         own and < chunk_start[s] + chunk_len[s]; rows
-//                         >= chunk_len[s] write zeros.
+//   paged_prefill_tc_kernel  replace paged_attention.py _prefill_kernel
+//   (bf16), paged_prefill_   (entry paged_prefill_attention).  Chunked
+//   kernel (f32)             prefill: row i of sequence s sits at absolute
+//                            position chunk_start[s] + i and sees cache
+//                            positions <= its own and < chunk_start[s] +
+//                            chunk_len[s]; rows >= chunk_len[s] write
+//                            zeros.  The dispatch is on dtype (each dtype
+//                            has exactly one kernel; not a fallback).
 //
-// Both accumulate in f32 with an online softmax scaled by 1/sqrt(D), take
+// All accumulate in f32 with an online softmax scaled by 1/sqrt(D), take
 // bf16 or f32 in and write the query's dtype.  Plain C entry points (bound
 // from Python with ctypes) launch on the caller's stream, allocate nothing,
 // and return cudaGetLastError() after the launch.
@@ -36,14 +38,31 @@
 //           in split order (deterministic, no atomics).  Scores are a dot
 //           per (head, key) on the CUDA cores and one softmax update per
 //           tile: at the smoke's contexts the whole call is ~73 MFLOP.
-//   prefill at 256-row chunks does ~ctx flops per byte of K/V, above the
-//           card's ridge of ~295 flops/byte, so its bound is the tensor
-//           cores; this first kernel computes on the CUDA cores with shuffle
-//           reductions and is far from that bound.  One block per (sequence,
-//           q tile, kv head) stages each K/V block of its kv head in shared
-//           memory (64 x 128 bf16 = 16 KB each) and reuses it for every
-//           query row and query head of the tile.  wgmma, TMA and
-//           double-buffered loads are later work.
+//   prefill at the smoke's chunks (8 sequences of up to 256 rows,
+//           contexts up to 1200) moves ~39 MB, q and o most of it, for ~7.1
+//           GFLOP: its least time is set by the bytes, 0.012 ms.  The
+//           kernel does ~13 GFLOP of mma.sync work (the split below) and is
+//           held back by the issue rate and latency of its products and by
+//           the partial tiles on the causal edge.
+//           paged_prefill_tc_kernel (bf16) is the flash forward of
+//           flash_attention.cu with paged K/V: a block owns 128 query
+//           vectors (row, head of the kv head's group) of one (sequence,
+//           kv head), 8 warps of 16, Q held in registers as mma.sync
+//           m16n8k16 A fragments, so a 256-row chunk reads its chain once
+//           per 128 vectors (Qp * group / 128 times).  It walks its
+//           band in 64-key tiles through a two-stage cp.async ring; each
+//           key row looks up its page in the block table, so a tile may
+//           span several pages or part of one, and neither the grid nor the
+//           shared memory depends on the block size.  S = Q K^T, an
+//           online softmax in the log2 domain (ex2.approx), then O += (P_hi
+//           + P_lo) V with P split into two bf16 halves (P rounded to bf16
+//           alone misses the smoke's bf16 limit at its prefill shape;
+//           tests/test_torch_paged_attention.py emulates both), V by
+//           ldmatrix.trans.  Tiles are classified once per block (full: no
+//           element mask; partial: the causal edge and the chunk end), and
+//           only partial tiles run the masked softmax.  f32 keeps
+//           paged_prefill_kernel: CUDA-core dot products over one staged
+//           K/V block per step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -426,26 +445,26 @@ decode_merge_kernel(const int* __restrict__ context_lens, const float* __restric
 }
 
 // ---------------------------------------------------------------------------
-// prefill: grid (S, ceil(Qp / tq), KV), kPrefillThreads threads, tq =
+// f32 prefill: grid (S, ceil(Qp / tq), KV), kPrefillThreads threads, tq =
 // kPrefillVecs / group query rows per tile.  Each aligned group of 8 lanes
 // owns one (row, head) query vector; lane `sub` of it holds head dims
-// c*64 + sub*8 + [0, 8) for c < D/64, so the 8 lanes read 128 contiguous
-// bytes of a staged bf16 K/V row per 16-byte load (no bank conflicts).
+// c*64 + sub*8 + [0, 8) for c < D/64, so the 8 lanes read 256 contiguous
+// bytes of a staged K/V row per pair of 16-byte loads.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kPrefillThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                     const T* __restrict__ v_cache,
+paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_cache,
+                     const float* __restrict__ v_cache,
                      const int* __restrict__ block_tables,
                      const int* __restrict__ chunk_start,
-                     const int* __restrict__ chunk_len, T* __restrict__ out,
+                     const int* __restrict__ chunk_len, float* __restrict__ out,
                      int Qp, int H, int KV, int BS, int MB, float scale) {
   constexpr int NCH = D / 64;
   constexpr int PER = 8 * NCH;  // head dims per lane
   constexpr int CH = kPrefillChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);  // [BS][D]
-  T* v_s = k_s + (size_t)BS * D;            // [BS][D]
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // [BS][D]
+  float* v_s = k_s + (size_t)BS * D;                // [BS][D]
 
   const int s = blockIdx.x;
   const int kvh = blockIdx.z;
@@ -460,14 +479,14 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const bool in_q = row < Qp;
   const int start = chunk_start[s];
   const int qlen = chunk_len[s];
-  T* o = out + (((size_t)s * Qp + row) * H + h) * D;
+  float* o = out + (((size_t)s * Qp + row) * H + h) * D;
 
   if (tile_lo >= qlen) {  // inactive tile (block-uniform): zeros
     if (in_q) {
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) o[c * 64 + sub * 8 + e] = from_float<T>(0.f);
+        for (int e = 0; e < 8; ++e) o[c * 64 + sub * 8 + e] = 0.f;
     }
     return;
   }
@@ -481,7 +500,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 #pragma unroll
   for (int i = 0; i < PER; ++i) { qr[i] = 0.f; acc[i] = 0.f; }
   if (in_q) {
-    const T* qp = q + (((size_t)s * Qp + row) * H + h) * D;
+    const float* qp = q + (((size_t)s * Qp + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       float t8[8];
@@ -493,7 +512,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   float m = -INFINITY, l = 0.f;
 
   const int* bt = block_tables + (size_t)s * MB;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int VEC = 4;  // elements per 16-byte copy
   const int row_vecs = D / VEC;
   for (int j = 0; j < nblocks; ++j) {
     const size_t blk = (size_t)bt[j];
@@ -562,7 +581,345 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        o[c * 64 + sub * 8 + e] = from_float<T>(acc[c * 8 + e] * inv);
+        o[c * 64 + sub * 8 + e] = acc[c * 8 + e] * inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 prefill on the tensor cores.  The helpers below are those of the
+// bf16 flash forward (csrc/flash_attention.cu), kept here so that each
+// source builds alone.
+// ---------------------------------------------------------------------------
+constexpr int kTcWarps = 8;               // 16 query vectors per warp
+constexpr int kTcVecs = 16 * kTcWarps;    // 128 per block, one block per SM
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcKeys = 64;               // keys per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// not volatile: a pure function of its operands, so the compiler may
+// interleave independent products with the fragment loads around them
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi) as packed pairs (x0 in the
+// low half, the lower column of an A fragment)
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16_pair(h);
+  lo = bf16_pair(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// the A fragments (hi and lo) of k-step kk of a 16 x 64 accumulator tile
+// acc[8][4] (rows gr, gr + 8; columns 8j + 2tq, +1 of n-tile j)
+__device__ __forceinline__ void a_split(const float (&acc)[8][4], int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_pair(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
+  split_pair(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
+  split_pair(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
+  split_pair(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// C[16 x 64] += A[16 x 16] . B^T, B a [n][k] bf16 shared tile (rows 0..63,
+// stride ROW bytes): plain ldmatrix gives the col-major B fragments.  All
+// fragments are loaded before the products, so no mma waits on a load.
+template <int ROW>
+__device__ __forceinline__ void mma_bt(float (&c)[8][4], const uint32_t (&a)[4],
+                                       const uint8_t* b, int k0, int lane) {
+  uint32_t r[4][4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int n = jj * 16 + (lane & 7) + ((lane >> 4) << 3);
+    const int k = k0 + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(r[jj], b + n * ROW + k * 2);
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    mma_bf16(c[2 * jj], a, r[jj][0], r[jj][1]);
+    mma_bf16(c[2 * jj + 1], a, r[jj][2], r[jj][3]);
+  }
+}
+
+// C[16 x D] += (hi + lo)[16 x 16] . B, B a [k][n] bf16 shared tile whose
+// rows k0..k0+15 are read with ldmatrix.trans.  In groups of 8 n-tiles:
+// the group's fragments first, then its hi products, then its lo products,
+// so the two products into one accumulator are 8 apart.
+template <int D, int ROW>
+__device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4], const uint8_t* b, int k0,
+                                            int lane) {
+  constexpr int G = 4;  // ldmatrix.x4 per group: 8 n-tiles
+  static_assert((D / 16) % G == 0, "D is 64 or 128");
+#pragma unroll
+  for (int g = 0; g < D / 16; g += G) {
+    uint32_t r[G][4];
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      const int k = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int n = (g + jj) * 16 + (lane >> 4) * 8;
+      ldmatrix_x4_trans(r[jj], b + k * ROW + n * 2);
+    }
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      mma_bf16(c[2 * (g + jj)], hi, r[jj][0], r[jj][1]);
+      mma_bf16(c[2 * (g + jj) + 1], hi, r[jj][2], r[jj][3]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      mma_bf16(c[2 * (g + jj)], lo, r[jj][0], r[jj][1]);
+      mma_bf16(c[2 * (g + jj) + 1], lo, r[jj][2], r[jj][3]);
+    }
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx: within 2 ulp of the
+// rounded result; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int D>
+struct PrefillTc {
+  static constexpr int kRow = (D + 8) * 2;  // bf16 row padded by 16 bytes: ldmatrix's 8
+                                            // rows hit 8 bank groups
+  static constexpr int kChunks = D / 8;     // 16-byte chunks per row
+  static constexpr int kPass = kTcThreads / kChunks;  // rows per copy pass
+  static constexpr int kQBytes = kTcVecs * kRow;
+  static constexpr int kKvBytes = kTcKeys * kRow;     // one K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;    // K then V
+  static constexpr int kSmem = kQBytes + 2 * kStageBytes;
+  static_assert(kTcKeys % kPass == 0 && kTcVecs % kPass == 0, "whole copy passes");
+};
+
+// One online-softmax step of a warp's 16 x 64 tile, in the log2 domain: s
+// holds Q K^T and becomes p; m (the rows' running max), l (this thread's
+// share of the row sums) and acc are rescaled.  MASK (a partial tile): key
+// c0 + j is kept for vector h iff it is <= lim[h] (-1: a vector with no
+// key), and a masked element is -inf and gets p = 0 without an exp.  A row
+// with nothing kept yet keeps m = -inf and p = 0.
+template <bool MASK, int D>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&acc)[D / 8][4], float sl2,
+                                             const int (&lim)[2], int c0, int tq) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * sl2;
+      if constexpr (MASK) {
+        if (c0 + j * 8 + 2 * tq + (e & 1) > lim[e >> 1]) x = -INFINITY;
+      }
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = exp2_approx(m[h] - m_use[h]);  // 0 while m = -inf
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[j][e];
+      const float pv = (MASK && x == -INFINITY) ? 0.f : exp2_approx(x - m_use[e >> 1]);
+      s[j][e] = pv;
+      sum[e >> 1] += pv;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+}
+
+// 1-D grid of S * KV * ceil(Qp * group / 128) blocks: block b owns the 128
+// query vectors (flattened (row, head-in-group), 16 per warp) of (sequence,
+// kv head) b % (S * KV), from vector base ((nvb - 1 - b / (S * KV)) * 128),
+// so the heaviest vector blocks of every sequence launch first.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k_cache,
+                        const __nv_bfloat16* __restrict__ v_cache,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ chunk_start,
+                        const int* __restrict__ chunk_len, __nv_bfloat16* __restrict__ out,
+                        int S, int Qp, int H, int KV, int BS, int MB, float scale) {
+  using L = PrefillTc<D>;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* q_s = tc_smem;
+  uint8_t* kv_s = tc_smem + L::kQBytes;  // 2 stages of [K | V]
+
+  const int group = H / KV;
+  const int nvb = (Qp * group + kTcVecs - 1) / kTcVecs;
+  const int s = (blockIdx.x % (S * KV)) / KV, kvh = blockIdx.x % KV;
+  const int base = (nvb - 1 - (int)(blockIdx.x / (S * KV))) * kTcVecs;
+  const int start = chunk_start[s], qlen = min(chunk_len[s], Qp);
+  const int r_lo = base / group, r_hi = min(Qp - 1, (base + kTcVecs - 1) / group);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  // keys past the chunk's end, or past the chain, do not exist
+  const int kv_end = min(start + qlen, MB * BS);
+
+  // this thread's two vectors, gr and gr + 8 of its warp's 16: row (>= Qp
+  // past the end), head, and lim, the last key each sees (-1: none)
+  int row[2], head[2], lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gi = base + warp * 16 + gr + 8 * h;
+    row[h] = gi / group;
+    head[h] = kvh * group + (gi - row[h] * group);
+    lim[h] = row[h] < qlen ? min(start + row[h], kv_end - 1) : -1;
+  }
+  float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // the block's band: tiles [0, kt_hi]; tiles below kt_full keep every
+  // (vector, key) pair (every vector a live row, every key at or before the
+  // first row's position and before the chunk's end).  A block whose first
+  // row is past the chunk (block-uniform) only writes zeros.
+  int kt_hi = -1, kt_full = 0;
+  if (r_lo < qlen) {
+    kt_hi = min(start + min(r_hi, qlen - 1), kv_end - 1) / kTcKeys;
+    if (r_hi < qlen && base + kTcVecs <= Qp * group)
+      kt_full = (min(start + r_lo, kv_end - 1) + 1) / kTcKeys;
+  }
+
+  if (kt_hi >= 0) {
+    // copies: thread t moves 16-byte chunk t % kChunks of rows t / kChunks,
+    // + kPass, ...; each K/V row through the block table, zeros past kv_end
+    const int row0 = tid / L::kChunks, col = (tid % L::kChunks) * 8;
+    const int* bt = block_tables + (size_t)s * MB;
+    const size_t slot = (size_t)KV * D;
+    auto load_kv = [&](int kt, int st) {
+      uint8_t* ks = kv_s + st * L::kStageBytes;
+      uint8_t* vs = ks + L::kKvBytes;
+#pragma unroll
+      for (int i = 0; i < kTcKeys / L::kPass; ++i) {
+        const int r = row0 + i * L::kPass, c = kt * kTcKeys + r;
+        const int o = r * L::kRow + col * 2;
+        if (c < kv_end) {
+          const int j = c / BS;
+          const size_t at = ((size_t)bt[j] * BS + (c - j * BS)) * slot + (size_t)kvh * D + col;
+          cp_async16(ks + o, k_cache + at);
+          cp_async16(vs + o, v_cache + at);
+        } else {
+          *reinterpret_cast<uint4*>(ks + o) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(vs + o) = make_uint4(0, 0, 0, 0);
+        }
+      }
+    };
+
+    // Q of the block's vectors (zeros past Qp) and the first K/V tile; Q
+    // then lives in registers as A fragments for the whole walk
+#pragma unroll
+    for (int i = 0; i < kTcVecs / L::kPass; ++i) {
+      const int vi = row0 + i * L::kPass, gi = base + vi, r = gi / group;
+      uint8_t* dst = q_s + vi * L::kRow + col * 2;
+      const size_t at = (((size_t)s * Qp + r) * H + kvh * group + (gi - r * group)) * D + col;
+      if (r < Qp)
+        cp_async16(dst, q + at);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+    load_kv(0, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    uint32_t qf[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * L::kRow + (kk * 16 + (lane >> 4) * 8) * 2);
+
+    const float sl2 = scale * kLog2e;
+    int st = 0;
+    for (int kt = 0; kt <= kt_hi; ++kt, st ^= 1) {
+      if (kt < kt_hi) load_kv(kt + 1, st ^ 1);  // in flight while this tile computes
+      cp_async_commit();
+      const uint8_t* ks = kv_s + st * L::kStageBytes;
+      const uint8_t* vs = ks + L::kKvBytes;
+
+      float sc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) mma_bt<L::kRow>(sc, qf[kk], ks, kk * 16, lane);
+
+      if (kt < kt_full)
+        softmax_tile<false, D>(sc, m, l, acc, sl2, lim, 0, tq);
+      else
+        softmax_tile<true, D>(sc, m, l, acc, sl2, lim, kt * kTcKeys, tq);
+
+      // O += (P_hi + P_lo) V
+#pragma unroll
+      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        a_split(sc, kk, hi, lo);
+        mma_split_b<D, L::kRow>(acc, hi, lo, vs, kk * 16, lane);
+      }
+
+      cp_async_wait<0>();
+      __syncthreads();  // the next tile is in; every warp is done with this one
+    }
+  }
+
+  // o = acc / l; vectors with no key (rows at or past chunk_len) write zeros
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = quad_sum(l[h]);
+    if (row[h] >= Qp) continue;
+    const float inv = (lim[h] >= 0 && lt > 0.f) ? 1.f / lt : 0.f;
+    __nv_bfloat16* orow = out + (((size_t)s * Qp + row[h]) * H + head[h]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
   }
 }
 
@@ -599,19 +956,36 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            const int* bt, const int* cs, const int* cl, void* out,
                            int S, int Qp, int H, int KV, int BS, int MB,
                            cudaStream_t stream) {
   const int tq = kPrefillVecs / (H / KV);
-  const size_t smem = 2 * (size_t)BS * D * sizeof(T);
-  auto kernel = paged_prefill_kernel<T, D>;
+  const size_t smem = 2 * (size_t)BS * D * sizeof(float);
+  auto kernel = paged_prefill_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(S, (Qp + tq - 1) / tq, KV), kPrefillThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bt, cs, cl, static_cast<T*>(out), Qp, H, KV, BS, MB, 1.0f / sqrtf((float)D));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bt, cs, cl, static_cast<float*>(out), Qp, H, KV, BS, MB,
+      1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_prefill_tc(const void* q, const void* k, const void* v, const int* bt,
+                              const int* cs, const int* cl, void* out, int S, int Qp, int H,
+                              int KV, int BS, int MB, cudaStream_t stream) {
+  using L = PrefillTc<D>;
+  auto kernel = paged_prefill_tc_kernel<D>;
+  cudaError_t err = allow_smem(kernel, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int nvb = (Qp * (H / KV) + kTcVecs - 1) / kTcVecs;
+  kernel<<<S * KV * nvb, kTcThreads, L::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bt, cs, cl, static_cast<__nv_bfloat16*>(out), S, Qp,
+      H, KV, BS, MB, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -655,17 +1029,20 @@ extern "C" int ds_paged_prefill(int dtype, const void* q, const void* k_cache,
   const int* cs = static_cast<const int*>(chunk_start);
   const int* cl = static_cast<const int*>(chunk_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_PREFILL(T, DD) \
-  return (int)launch_prefill<T, DD>(q, k_cache, v_cache, bt, cs, cl, out, S, Qp, H, KV, BS, MB, st)
-  if (dtype == 1) {
-    if (D == 64) DS_PREFILL(__nv_bfloat16, 64);
-    if (D == 128) DS_PREFILL(__nv_bfloat16, 128);
+#define DS_PREFILL(DD) \
+  return (int)launch_prefill<DD>(q, k_cache, v_cache, bt, cs, cl, out, S, Qp, H, KV, BS, MB, st)
+#define DS_PREFILL_TC(DD) \
+  return (int)launch_prefill_tc<DD>(q, k_cache, v_cache, bt, cs, cl, out, S, Qp, H, KV, BS, MB, st)
+  if (dtype == 1) {  // bf16: the tensor-core kernel
+    if (D == 64) DS_PREFILL_TC(64);
+    if (D == 128) DS_PREFILL_TC(128);
   }
-  if (dtype == 0) {
-    if (D == 64) DS_PREFILL(float, 64);
-    if (D == 128) DS_PREFILL(float, 128);
+  if (dtype == 0) {  // f32: the CUDA-core kernel
+    if (D == 64) DS_PREFILL(64);
+    if (D == 128) DS_PREFILL(128);
   }
 #undef DS_PREFILL
+#undef DS_PREFILL_TC
   return cudaErrorInvalidValue;
 }
 

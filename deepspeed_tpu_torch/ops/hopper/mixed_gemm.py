@@ -22,9 +22,12 @@ same test from the shapes before any launch and computes the same formula
 there, counted in :data:`DEQUANT_CALLS`: that is the reference's function
 for those shapes, not a fallback.  Inside the envelope, CUDA tensors launch
 the hand-written kernels of ``csrc/mixed_gemm.cu`` on the current stream
-(:data:`LAUNCHES`) or raise on what they do not take; CPU tensors run the
-plain versions (:func:`mixed_gemm_plain`, :func:`int8_gemm_plain`,
-:data:`PLAIN_CALLS`), which are also the kernels' oracle on the card.
+(:data:`LAUNCHES`) or raise on what they do not take: ``mixed_gemm_kernel``
+for M <= 16 rows, ``mixed_gemm_wgmma_kernel`` for bf16 x at M > 16
+(:data:`WGMMA_LAUNCHES`), ``mixed_gemm_mma_kernel`` for f32 x at M > 16.
+CPU tensors run the plain versions (:func:`mixed_gemm_plain`,
+:func:`int8_gemm_plain`, :data:`PLAIN_CALLS`), which are also the kernels'
+oracle on the card.
 
 The reference's TPU tile overrides and autotuner hook (``set_gemm_tiles``,
 ``clear_gemm_tiles``) choose TPU tiles only and change no result; they are
@@ -47,16 +50,21 @@ from . import build
 #: GEMM counts per code width (one template of one kernel each)
 LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0, "mixed_gemm_fp6": 0,
             "int8_gemm": 0}
+#: of those mixed-GEMM launches, the ones of ``mixed_gemm_wgmma_kernel``
+#: (bf16 x, M > 16), per code width
+WGMMA_LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0,
+                  "mixed_gemm_fp6": 0}
 #: calls of each plain version (the CPU path and the kernels' oracle)
 PLAIN_CALLS = {"mixed_gemm_plain": 0, "int8_gemm_plain": 0}
 #: calls outside the reference's kernel envelope (its dequantize formula)
 DEQUANT_CALLS = {"mixed_gemm": 0, "int8_gemm": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' output tiles and resident blocks per SM (csrc: MixedSmall for
-# M <= 16, MmaSmem above), for the split-K choice
+# the kernels' (rows, columns) per block and resident blocks per SM, for
+# the split-K choice (csrc): MixedSmall for M <= 16; above, WgSmem for bf16
+# x (128 rows up to M = 128, else 256) and MmaSmem for f32 x
 _SMALL_M = 16
-_SMALL_TILE, _LARGE_TILE = (16, 128, 2), (128, 128, 2)
+_SMALL_TILE, _MMA_TILE = (16, 128, 2), (128, 128, 2)
 _SM_COUNT: dict = {}
 _WORKSPACES: dict = {}  # (device, raw stream) -> f32 split-K workspace
 _KERNEL_NAMES = {8: "mixed_gemm_int8", 4: "mixed_gemm_int4",
@@ -65,7 +73,7 @@ _CODE_DTYPES = {8: torch.int8, 4: torch.int8, 6: torch.uint8}
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS, DEQUANT_CALLS):
+    for counts in (LAUNCHES, WGMMA_LAUNCHES, PLAIN_CALLS, DEQUANT_CALLS):
         for key in counts:
             counts[key] = 0
 
@@ -337,10 +345,20 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
     return True
 
 
-def mixed_gemm_splits(M: int, N: int, groups: int, sms: int) -> int:
+def _mixed_tile(M: int, bf16: bool):
+    """(rows, columns, blocks per SM) of the kernel that takes M rows."""
+    if M <= _SMALL_M:
+        return _SMALL_TILE
+    if not bf16:
+        return _MMA_TILE
+    return (128 if M <= 128 else 256), 128, 1
+
+
+def mixed_gemm_splits(M: int, N: int, groups: int, sms: int,
+                      bf16: bool = True) -> int:
     """How many K-splits the mixed GEMM kernel takes: enough for its output
     tiles to fill the card's resident blocks, at most one per group."""
-    bm, bn, per_sm = _SMALL_TILE if M <= _SMALL_M else _LARGE_TILE
+    bm, bn, per_sm = _mixed_tile(M, bf16)
     tiles = -(-M // bm) * -(-N // bn)
     return max(1, min(groups, per_sm * sms // tiles))
 
@@ -374,7 +392,9 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0 or N == 0:
         return out
-    splits = mixed_gemm_splits(M, N, K // qw.group, _sm_count(x2.device))
+    bf16 = x2.dtype == torch.bfloat16
+    splits = mixed_gemm_splits(M, N, K // qw.group, _sm_count(x2.device),
+                               bf16)
     stream = _stream(x2.device)
     lib = build.load()
     err = lib.ds_mixed_gemm(
@@ -384,6 +404,8 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
         M, N, K, qw.group, splits, stream)
     build.check(lib, err, "mixed_gemm launch")
     LAUNCHES[_KERNEL_NAMES[qw.bits]] += 1
+    if bf16 and M > _SMALL_M:
+        WGMMA_LAUNCHES[_KERNEL_NAMES[qw.bits]] += 1
     return out
 
 

@@ -20,8 +20,11 @@ anything the kernel does not take — it never falls back.  Decode is
 split-KV: each chain is cut into splits of :func:`decode_split` positions
 (fixed by ``max_blocks * block_size``, never by ``context_lens``, so a
 call never waits on the device), one block each, merged in split order
-through an f32 workspace by a second kernel of the same call.  On CPU
-tensors a wrapper runs the plain PyTorch version
+through an f32 workspace by a second kernel of the same call.  Prefill
+dispatches on dtype: bf16 runs ``paged_prefill_tc_kernel`` on the tensor
+cores (64-key tiles gathered through the block table, any block size),
+f32 the CUDA-core ``paged_prefill_kernel`` (one staged K/V block per
+step).  On CPU tensors a wrapper runs the plain PyTorch version
 (``decode_attention_plain`` / ``prefill_attention_plain``), which is also
 the kernels' oracle on the card.
 """
@@ -218,8 +221,10 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_start,
             or tuple(chunk_len.shape) != (S,):
         raise ValueError("block_tables must be (S, MB), chunk_start and "
                          f"chunk_len (S,) for S={S}")
+    # the f32 kernel stages one whole K and V block; the bf16 kernel walks
+    # 64-key tiles gathered through the block table, whatever the block size
     smem = 2 * BS * D * q.element_size()
-    if smem > _MAX_SMEM:
+    if q.dtype == torch.float32 and smem > _MAX_SMEM:
         raise ValueError(f"a K and a V block take {smem} bytes of shared "
                          f"memory, more than the {_MAX_SMEM} a block has")
     MB = block_tables.shape[1]

@@ -112,6 +112,43 @@ def test_split_kv_decode_matches_plain(cuda_device, dtype, H, KV, D):
     assert tpa.LAUNCHES["paged_decode_attention"] == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("BS", [8, 16, 64, 128])
+@pytest.mark.parametrize("H,KV,D", [(8, 8, 64), (8, 4, 128), (32, 8, 128),
+                                    (8, 1, 64)],
+                         ids=["group1", "group2", "group4", "group8"])
+def test_prefill_block_sizes_match_plain(cuda_device, dtype, BS, H, KV, D):
+    """Chains of 2048 positions at block sizes below, at and above the bf16
+    kernel's 64-key tile, 256-row chunks: a full chunk from 0, an empty
+    one, one row on a tile edge, chunks crossing tiles and pages from
+    starts off both grids, one ending at the chain's end.  One launch;
+    padding rows exactly zero."""
+    gen = torch.Generator(device=cuda_device).manual_seed(BS + H + D)
+    S, Qp, MB = 6, 256, 2048 // BS
+    NB = S * MB + 3
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    kc, vc, q = rnd(NB, BS, KV, D), rnd(NB, BS, KV, D), rnd(S, Qp, H, D)
+    bt = torch.randperm(NB, generator=gen, device=cuda_device)[:S * MB] \
+        .reshape(S, MB).to(torch.int32)
+    start = torch.tensor([0, 0, 63, 1000, 1792, 5], dtype=torch.int32,
+                         device=cuda_device)
+    length = torch.tensor([256, 0, 1, 200, 256, 129], dtype=torch.int32,
+                          device=cuda_device)
+    tpa.reset_counts()
+    got = tpa.paged_prefill_attention(q, kc, vc, bt, start, length)
+    want = tpa.prefill_attention_plain(q, kc, vc, bt, start, length)
+    atol, rtol = TOLERANCE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    for s, n in enumerate(length.tolist()):
+        assert not got[s, n:].any()
+    assert tpa.LAUNCHES["paged_prefill_attention"] == 1
+
+
 def test_decode_makes_no_host_sync(cuda_device):
     """A decode call waits on nothing: its split count and workspace follow
     from the shapes, never from context_lens."""
@@ -388,9 +425,12 @@ def _mixed_close(got, want, dtype, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("M", [1, 8, 37, 256])
+@pytest.mark.parametrize("M", [1, 8, 17, 37, 64, 255, 256, 300])
 @pytest.mark.parametrize("bits", [8, 4, 6])
 def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
+    """M <= 16 runs the decode kernel; bf16 x at M > 16 the wgmma kernel
+    (TMA copies; 128- and 256-row blocks, ragged last ones), f32 x at M >
+    16 the mma.sync kernel; N = 96 leaves a ragged column block."""
     for N in (96, 1024):
         x, qw = _mixed_inputs(M + N, M, MG_K, N, bits, dtype, cuda_device)
         tmg.reset_counts()
@@ -399,6 +439,8 @@ def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
         assert got.dtype == dtype and got.shape == (M, N)
         _mixed_close(got, want, dtype, f"bits={bits} M={M} N={N}")
         assert tmg.LAUNCHES[tmg._KERNEL_NAMES[bits]] == 1
+        assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(
+            dtype == torch.bfloat16 and M > 16)
         assert tmg.DEQUANT_CALLS["mixed_gemm"] == 0
 
 
@@ -406,30 +448,39 @@ def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
 @pytest.mark.parametrize("M", [8, 256])
 def test_mixed_gemm_split_k_matches_plain(cuda_device, monkeypatch, M,
                                           splits):
-    """Seven K-groups shared by 1, 3 (2 + 2 + 3) or 7 splits, both kernels
-    (decode rows and the ldmatrix kernel): the partial sums add up."""
+    """Seven K-groups shared by 1, 3 (2 + 2 + 3) or 7 splits, both bf16
+    kernels (decode rows and the wgmma kernel): the partial sums add up."""
     monkeypatch.setattr(tmg, "mixed_gemm_splits", lambda *a: splits)
     for bits in (8, 4, 6):
         x, qw = _mixed_inputs(splits + bits, M, 7 * MG_GROUP, 1024, bits,
                               torch.bfloat16, cuda_device)
+        tmg.reset_counts()
         _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
                      torch.bfloat16, f"bits={bits} splits={splits}")
+        assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(M > 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("bits,K,N", [(8, 99, 33), (4, 200, 50),
-                                      (6, 96, 40)],
-                         ids=["int8_k99", "int4_k200", "fp6_k96"])
+                                      (6, 96, 40), (8, 96, 64),
+                                      (4, 96, 64)],
+                         ids=["int8_k99", "int4_k200", "fp6_k96", "int8_k96",
+                              "int4_k96"])
 def test_mixed_gemm_unaligned_shapes_match_plain(cuda_device, bits, K, N,
                                                  dtype):
     """One group of K rows (group == K, so the reference's kernel path):
-    rows and columns not 16-byte aligned, a partial last K tile."""
+    rows and columns not 16-byte aligned, or aligned with a group that
+    64-deep K-tiles do not divide (the wgmma kernel's threads copy these,
+    not TMA), a partial last K tile."""
     for M in (5, 40):
         x, qw = _mixed_inputs(K + M, M, K, N, bits, dtype, cuda_device)
         assert tmg.mixed_gemm_on_kernel_path(qw) and qw.group == K
+        tmg.reset_counts()
         _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
                      dtype, f"bits={bits} K={K} M={M}")
+        assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(
+            dtype == torch.bfloat16 and M > 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -236,3 +236,57 @@ def test_params_from_jax_carries_quantized_weights():
         assert conv["embed"]["tokens"].dtype == torch.float32
         acct, ref_acct = tq.quantized_bytes(conv), jq.quantized_bytes(qtree)
         assert acct == ref_acct and acct["quantized"] > 0
+
+
+# the wgmma kernel's K-tile depth (csrc/mixed_gemm.cu WgSmem::BK)
+WGMMA_BK = 64
+
+
+def _emulate_wgmma_gemm(x, qw, splits):
+    """mixed_gemm_wgmma_kernel's order of sums in f32: split z of `splits`
+    takes K-groups [z G / splits, (z + 1) G / splits); each group is walked
+    in 64-deep K-tiles (a partial last tile when 64 does not divide the
+    group), each tile's bf16 products summed in f32 into the split's
+    partial; the partials are added in split order (splitk_reduce_kernel).
+    The weight is dequantized as the kernel does it: code * scale in f32,
+    then bf16."""
+    w = tm.dequantize_gemm_weight(qw).to(torch.bfloat16).float()
+    xb = x.to(torch.bfloat16).float()
+    G, g = qw.k_features // qw.group, qw.group
+    out = None
+    for z in range(splits):
+        part = torch.zeros(x.shape[0], qw.out_features)
+        for grp in range(z * G // splits, (z + 1) * G // splits):
+            for kin in range(0, g, WGMMA_BK):
+                k0, k1 = grp * g + kin, grp * g + min(g, kin + WGMMA_BK)
+                part = part + xb[:, k0:k1] @ w[k0:k1]
+        out = part if out is None else out + part
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("bits,K,N,group,splits", [
+    (8, 99, 33, 99, 1),      # the unaligned shapes of the card's tests:
+    (4, 200, 50, 200, 1),    # rows and strides off the 16-byte grid, a
+    (6, 96, 40, 96, 1),      # partial last K-tile
+    (8, 200, 64, 200, 1),    # aligned rows, a group that 64 does not divide
+    (8, 768, 96, 256, 3),    # one group per split
+    (4, 768, 96, 256, 2),    # 1 + 2 groups
+    (6, 1792, 40, 256, 3),   # 2 + 2 + 3 groups
+], ids=["int8_k99", "int4_k200", "fp6_k96", "int8_k200_n64", "int8_split3",
+        "int4_split2", "fp6_split3"])
+def test_wgmma_gemm_tile_order_and_split_k_match_plain_and_reference(
+        bits, K, N, group, splits):
+    """The M > 16 kernel's K-tile order and split-K, emulated at M = 40 in
+    f32, against mixed_gemm_plain and the reference's Pallas kernel
+    (interpret mode): f32 sums of the same exact bf16 products in another
+    order, within 1e-5 of the largest output."""
+    x = _rand(K + N, 40, K)
+    jw, tw = _both(_rand(K + N + 1, K, N), bits, group)
+    assert tm.mixed_gemm_on_kernel_path(tw) and tw.group == group
+    assert splits <= K // group
+    got = _emulate_wgmma_gemm(torch.from_numpy(x), tw, splits)
+    plain = tm.mixed_gemm_plain(torch.from_numpy(x), tw)
+    want = jm.mixed_gemm(jnp.asarray(x), jw)
+    assert _rel_err(got.numpy(), plain.numpy()) < 1e-5
+    assert _rel_err(got.numpy(), want) < 1e-5
+    assert _rel_err(plain.numpy(), want) < 1e-5

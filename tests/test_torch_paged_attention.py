@@ -261,3 +261,113 @@ def test_kernel_source_names_what_it_replaces():
         assert ref in src and name in src
         assert f'extern "C" int {entry}' in src
         assert entry in build._ENTRIES
+
+
+# ---------------------------------------------------------------------------
+# the bf16 prefill kernel's tensor-core arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+PREFILL_TILE = 64  # keys per tile of paged_prefill_tc_kernel
+LOG2E = 1.0 / math.log(2.0)
+
+
+def _emulate_tc_prefill(q, k_cache, v_cache, bt, start, length, split):
+    """paged_prefill_tc_kernel's arithmetic: per (sequence, kv head) the
+    query vectors (row, head in group) walk 64-key tiles whose rows are
+    gathered through the block table (zeros past the chunk's end), S = Q
+    K^T summed in f32 from bf16 products, an online softmax in the log2
+    domain (a vector keeps key c iff c <= min(start + row, end - 1), rows
+    past the chunk keep none), O += P V with P split into bf16 hi + lo
+    (``split``) or rounded to bf16 alone, o = acc / l in bf16."""
+    S, Qp, H, D = q.shape
+    BS, KV = k_cache.shape[1], k_cache.shape[2]
+    G, MB = H // KV, bt.shape[1]
+    scale2 = LOG2E / math.sqrt(D)
+    out = torch.zeros(S, Qp, H, D)
+    for s in range(S):
+        qlen = min(int(length[s]), Qp)
+        if qlen == 0:
+            continue
+        end = min(int(start[s]) + qlen, MB * BS)
+        qf = q[s].float().reshape(Qp, KV, G, D).transpose(0, 1) \
+            .reshape(KV, Qp * G, D)
+        rows = torch.arange(Qp * G) // G
+        lim = torch.where(rows < qlen,
+                          torch.clamp(int(start[s]) + rows, max=end - 1), -1)
+        m = torch.full((KV, Qp * G), -math.inf)
+        l = torch.zeros(KV, Qp * G)
+        acc = torch.zeros(KV, Qp * G, D)
+        for c0 in range(0, int(lim.max()) + 1, PREFILL_TILE):
+            c = torch.arange(c0, c0 + PREFILL_TILE)
+            live = (c < end)[:, None, None]
+            page = bt[s, torch.clamp(c // BS, max=MB - 1).long()].long()
+            kt = torch.where(live, k_cache[page, c % BS].float(), 0.0)
+            vt = torch.where(live, v_cache[page, c % BS].float(), 0.0)
+            keep = c[None, :] <= lim[:, None]
+            x = torch.where(keep, (qf @ kt.permute(1, 2, 0)) * scale2,
+                            -math.inf)
+            m_new = torch.maximum(m, x.max(-1).values)
+            m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - m_use)
+            p = torch.where(keep, torch.exp2(x - m_use[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None]
+            hi = p.to(torch.bfloat16).float()
+            parts = (hi, (p - hi).to(torch.bfloat16).float()) if split \
+                else (hi,)
+            for part in parts:
+                acc = acc + part @ vt.transpose(0, 1)
+            m = m_new
+        o = torch.where((l > 0)[..., None],
+                        acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+        out[s] = o.reshape(KV, Qp, G, D).transpose(0, 1).reshape(Qp, H, D)
+    return out.to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def smoke_prefill():
+    """chip_smoke's prefill check on the CPU: its shape (H = 32, KV = 8, D =
+    128, block 64, chains of 2048 positions), chunk starts and lengths,
+    bf16 inputs from a numpy seed, and the plain version's output (one
+    sequence at a time, to bound the scores' memory)."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    S, Qp = len(cs.PREFILL_START), cs.PREFILL_QP
+    NB = S * cs.MB
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    kc, vc = bf16(NB, cs.BS, cs.KV, cs.D), bf16(NB, cs.BS, cs.KV, cs.D)
+    q = bf16(S, Qp, cs.H, cs.D)
+    bt = torch.from_numpy(rng.permutation(NB).reshape(S, cs.MB)
+                          .astype(np.int32))
+    start = torch.tensor(cs.PREFILL_START, dtype=torch.int32)
+    length = torch.tensor(cs.PREFILL_LEN, dtype=torch.int32)
+    ref = torch.cat([tpa.prefill_attention_plain(
+        q[s:s + 1], kc, vc, bt[s:s + 1], start[s:s + 1], length[s:s + 1])
+        for s in range(S)])
+    return cs, (q, kc, vc, bt, start, length), ref
+
+
+def test_tc_prefill_hi_lo_split_meets_the_smoke_limit(smoke_prefill):
+    """With P split into bf16 hi + lo, the emulated kernel meets
+    chip_smoke's TOL_BF16 against the plain version (9.88e-05 inside it at
+    this seed), and padding rows are exactly zero."""
+    cs, args, ref = smoke_prefill
+    got = _emulate_tc_prefill(*args, split=True)
+    cs.compare(got, ref, cs.TOL_BF16, "emulated bf16 prefill")
+    assert cs.excess(got, ref, *cs.TOL_BF16)[1] < 0
+    for s, n in enumerate(cs.PREFILL_LEN):
+        assert not got[s, n:].any()
+
+
+def test_tc_prefill_p_rounded_to_bf16_breaks_the_smoke_limit(smoke_prefill):
+    """P rounded to bf16 alone lies past TOL_BF16 (1.71e-03 at this seed,
+    1200-key contexts): that is why the kernel splits P."""
+    cs, args, ref = smoke_prefill
+    got = _emulate_tc_prefill(*args, split=False)
+    with pytest.raises(SystemExit):
+        cs.compare(got, ref, cs.TOL_BF16, "emulated bf16 prefill, P bf16")
