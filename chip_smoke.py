@@ -63,8 +63,21 @@ In order it prints:
    plain / library (``torch.optim.AdamW(fused=True)``) / bound times; then
    ``fused_adamw_tree`` over the small model's parameters, one launch per
    call;
-12. a JSON line with every kernel's numbers;
-13. last, ``{"ok": true, "device": {...}}``.
+12. the evoformer path (``ops/evoformer.py``) at OpenFold's three attention
+   calls (MSA row attention with pair bias and one padded MSA sequence,
+   triangle attention, MSA column attention; D = 32, bf16):
+   ``evoformer_attention`` forward and backward with exactly one biased
+   flash-forward launch per call and no plain call; the bias kernel's o and
+   lse against ``flash_fwd_plain``, the padded sequence's o against the
+   mean of V, the output and all five gradients against the plain path
+   (bf16, with the op's output shared; and end to end in f32 at the MSA
+   row shape, with the f32 kernel); kernel / plain / library (SDPA with
+   the biases as its float mask) / bound times and the op's forward +
+   backward time; then ``sparse_attention`` with a causal Fixed layout at
+   llama3-8b's attention width (S = 4096, block 128): one launch of each
+   flash kernel, output and gradients against the plain versions;
+13. a JSON line with every kernel's numbers;
+14. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -154,6 +167,19 @@ GMM_F32_REL = 1e-4
 ADAM_N = 218_112_000
 ADAM_REL = 1e-6
 ADAM_HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1)
+# DS4Science evoformer attention at OpenFold's widths (openfold/config.py,
+# evoformer_stack: c_hidden_msa_att 32, no_heads_msa 8, c_hidden_pair_att
+# 32, no_heads_pair 4; initial training: crop_size 256, max_msa_clusters
+# 128): q/k/v (B, N, L, H, D), with the mask bias (B, N, 1, 1, L) and the
+# pair bias (B, 1, H, L, L) or not
+EVO_CALLS = {"msa_row": ((1, 128, 256, 8, 32), True, True),
+             "triangle": ((1, 256, 256, 4, 32), True, True),
+             "msa_column": ((1, 256, 128, 8, 32), True, False)}
+EVO_PADDED = 127  # msa_row's padded MSA sequence: all its keys at -1e9
+EVO_JSON = "msa_row"  # the shape of the kernels JSON line's bias row (and f32)
+# block-sparse attention at llama3-8b's attention width: a causal Fixed
+# layout (4 local blocks, 1 global) of 128-token blocks over 4096 tokens
+SPARSE_S, SPARSE_BLOCK = 4096, 128
 # H100 SXM data sheet: HBM3 rate and dense bf16 / int8 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -764,6 +790,219 @@ def check_flash(torch, fa, flush) -> list:
                      "library_ms": lib_ms, "bound_ms": b_ms,
                      "bound_by": b_by})
     return rows
+
+
+def evoformer_inputs(torch, shape, has_b1: bool, has_b2: bool, gen,
+                     padded=None):
+    """bf16 q, k, v, the cotangent g and the biases of one evoformer call:
+    bias1 a 0 / -1e9 mask bias with 10% of keys masked (and every key of
+    sequence ``padded``), bias2 a normal pair bias."""
+    B, N, L, Hh, Dh = shape
+
+    def rnd(*dims):
+        return torch.randn(dims, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q, k, v, g = (rnd(*shape) for _ in range(4))
+    b1 = b2 = None
+    if has_b1:
+        keep = torch.rand((B, N, 1, 1, L), generator=gen, device="cuda") < 0.9
+        if padded is not None:
+            keep[:, padded] = False
+        b1 = torch.where(keep, 0.0, -1e9).to(torch.bfloat16)
+    if has_b2:
+        b2 = rnd(B, 1, Hh, L, L)
+    return q, k, v, g, b1, b2
+
+
+def check_evoformer(torch, fa, ev, flush) -> dict:
+    """The evoformer path at OpenFold's three attention calls, bf16:
+    ``evoformer_attention`` forward and backward on the card (the main path:
+    exactly one bias launch per call, no plain call); then per call the bias
+    kernel's o and lse against ``flash_fwd_plain`` (TOL_BF16), the padded
+    MSA sequence's o against the mean of V, the output against the plain
+    path's, the five gradients against ``evoformer_bwd`` given the plain
+    lse (within GRAD_REL), and kernel / plain / library (SDPA with b1 + b2
+    as its float mask) / bound times.  The bf16 gradients share the op's
+    output: delta = rowsum(g o) reads o in bf16, so where kernel and plain
+    round an element of o to neighbouring bf16 values (both inside
+    TOL_BF16) delta moves, and the backward amplifies that to a few bf16
+    ulps of dq in some rows; the plain path is held to the op end to end
+    in f32 instead, at EVO_JSON's shape (forward within TOL_F32, the five
+    gradients within GRAD_REL)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    inputs = {name: evoformer_inputs(
+        torch, shape, h1, h2, gen, EVO_PADDED if name == "msa_row" else None)
+        for name, (shape, h1, h2) in EVO_CALLS.items()}
+    results = {}
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    for name, (q, k, v, g, b1, b2) in inputs.items():  # the main path
+        leaves = [t.requires_grad_() for t in (q, k, v, b1, b2)
+                  if t is not None]
+        out = ev.evoformer_attention(q, k, v, [b1, b2])
+        grads = torch.autograd.grad(out, leaves, g)
+        results[name] = (out.detach(), [t.detach() for t in grads])
+        for t in leaves:
+            t.requires_grad_(False)
+    torch.cuda.synchronize()
+    launches, bias_launches = dict(fa.LAUNCHES), dict(fa.BIAS_LAUNCHES)
+    plain_calls = dict(fa.PLAIN_CALLS)
+    want = len(EVO_CALLS)
+    if bias_launches["flash_fwd_bias"] != want or \
+            launches != {"flash_fwd": want, "flash_bwd_dkdv": 0,
+                         "flash_bwd_dq": 0} or any(plain_calls.values()):
+        fail(f"evoformer: launches {launches}, bias {bias_launches}, plain "
+             f"{plain_calls}; want {want} biased forwards and nothing else")
+
+    calls = {}
+    for name, (q, k, v, g, b1, b2) in inputs.items():
+        shape = EVO_CALLS[name][0]
+        B, N, L, Hh, Dh = shape
+        qf, kf, vf, mask, scale, bkv, bqk = ev.flash_args(q, k, v, b1, b2)
+        o, lse = fa.flash_fwd(qf, kf, vf, mask, scale, bkv, bqk)
+        o_p, lse_p = fa.flash_fwd_plain(qf, kf, vf, mask, scale, bkv, bqk)
+        torch.cuda.synchronize()
+        err = max(compare(o, o_p, TOL_BF16, f"evoformer {name} o"),
+                  compare(lse, lse_p, TOL_BF16, f"evoformer {name} lse"))
+        row = {"shape": list(shape), "bias1": b1 is not None,
+               "bias2": b2 is not None, "max_abs_err": err,
+               "margin_bf16": max(excess(o, o_p, *TOL_BF16)[1],
+                                  excess(lse, lse_p, *TOL_BF16)[1])}
+        if name == "msa_row":  # the padded sequence: o is the mean of V
+            o5 = o.reshape(shape)[:, EVO_PADDED]
+            mean_v = v[:, EVO_PADDED].float().mean(1, keepdim=True)
+            row["max_abs_err_padded_vs_mean_v"] = compare(
+                o5, mean_v.expand(o5.shape), TOL_BF16,
+                f"evoformer {name} padded sequence vs mean of V")
+        del o, lse, o_p, lse_p
+        names = ["dq", "dk", "dv"] + (["db1"] if b1 is not None else []) \
+            + (["db2"] if b2 is not None else [])
+        out, grads = results[name]
+        out_p, lse5_p = ev.evoformer_fwd_plain(q, k, v, b1, b2)
+        grads_p = [t for t in ev.evoformer_bwd(q, k, v, b1, b2, out,
+                                               lse5_p, g) if t is not None]
+        row["max_abs_err_out"] = compare(out, out_p, TOL_BF16,
+                                         f"evoformer {name} output")
+        row["max_abs_err_grads"] = {
+            gn: compare_grad(gk, gp, False, f"evoformer {name} {gn}")
+            for gn, gk, gp in zip(names, grads, grads_p)}
+        del out_p, lse5_p, grads_p
+        if name == EVO_JSON:  # the f32 kernel, and the op end to end in f32
+            f32 = [t.float() if t is not None else None
+                   for t in (qf, kf, vf, bkv, bqk)]
+            o32, lse32 = fa.flash_fwd(*f32[:3], mask, scale, *f32[3:])
+            o32_p, lse32_p = fa.flash_fwd_plain(*f32[:3], mask, scale,
+                                                *f32[3:])
+            torch.cuda.synchronize()
+            row["max_abs_err_f32"] = max(
+                compare(o32, o32_p, TOL_F32, f"evoformer {name} o (f32)"),
+                compare(lse32, lse32_p, TOL_F32,
+                        f"evoformer {name} lse (f32)"))
+            del o32, lse32, o32_p, lse32_p, f32
+            args = [t.float().requires_grad_() if t is not None else None
+                    for t in (q, k, v, b1, b2)]
+            leaves = [t for t in args if t is not None]
+            grads32 = torch.autograd.grad(
+                ev.evoformer_attention(*args[:3], args[3:]), leaves,
+                g.float())
+            args = [t.detach() if t is not None else None for t in args]
+            out32_p, lse32_p = ev.evoformer_fwd_plain(*args)
+            grads32_p = [t for t in ev.evoformer_bwd(
+                *args, out32_p, lse32_p, g.float()) if t is not None]
+            row["max_abs_err_grads_f32"] = {
+                gn: compare_grad(gk, gp, True, f"evoformer {name} {gn} (f32)")
+                for gn, gk, gp in zip(names, grads32, grads32_p)}
+            del args, leaves, grads32, out32_p, lse32_p, grads32_p
+
+        # times: the bias kernel, its plain version, SDPA with the biases
+        # as one float mask on (B N, H, L, D), and the step's fwd + bwd
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+        am = None
+        if b1 is not None:
+            am = b1.reshape(B * N, 1, 1, L)
+        if b2 is not None:
+            pair = b2.reshape(B, 1, Hh, L, L).expand(B, N, Hh, L, L) \
+                .reshape(B * N, Hh, L, L)
+            am = pair if am is None else am + pair
+
+        def evo_step():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, b1, b2)
+                      if t is not None]
+            it = iter(leaves)
+            lq, lk, lv = next(it), next(it), next(it)
+            lb = [next(it) if t is not None else None for t in (b1, b2)]
+            torch.autograd.grad(ev.evoformer_attention(lq, lk, lv, lb),
+                                leaves, g)
+
+        el = 2
+        nbytes = (4 * q.numel() * el + (0 if bkv is None else bkv.numel() * el)
+                  + (0 if bqk is None else bqk.numel() * el)
+                  + B * N * Hh * L * 4)
+        b_ms, b_by = bound(nbytes, 4 * Dh * L * L * Hh * B * N)
+        row.update({
+            "ms": time_ms(lambda: fa.flash_fwd(qf, kf, vf, mask, scale, bkv,
+                                               bqk), torch, flush),
+            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                qf, kf, vf, mask, scale, bkv, bqk), torch, flush, iters=5,
+                warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=am), torch, flush),
+            "fwd_bwd_ms": time_ms(evo_step, torch, flush, iters=3,
+                                  warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del qs, ks, vs, am
+        calls[name] = row
+    del results, inputs
+    return {"calls": calls, "launches": bias_launches["flash_fwd_bias"]}
+
+
+def run_sparse(torch, fa, sa) -> dict:
+    """``sparse_attention`` once with a causal Fixed layout at llama3-8b's
+    attention width (B=1, S=SPARSE_S, H=32, KV=8, D=128, bf16): one launch
+    of each flash kernel and no plain call; output and gradients against
+    the plain versions (TOL_BF16, GRAD_REL)."""
+    cfg = sa.FixedSparsityConfig(block=SPARSE_BLOCK,
+                                 attention="unidirectional")
+    layout = cfg.make_layout(SPARSE_S)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = rnd(1, SPARSE_S, H, D), rnd(1, SPARSE_S, KV, D), \
+        rnd(1, SPARSE_S, KV, D), rnd(1, SPARSE_S, H, D)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    out = sa.sparse_attention(q, k, v, cfg)
+    dq, dk, dv = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches, plain = dict(fa.LAUNCHES), dict(fa.PLAIN_CALLS)
+    if launches != {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                    "flash_bwd_dq": 1} or any(plain.values()):
+        fail(f"sparse attention: launches {launches}, plain {plain}")
+    q, k, v = (t.detach() for t in leaves)
+    mask = fa.AttnMask(True, 0, None, torch.as_tensor(
+        layout, device="cuda").to(torch.int32), SPARSE_BLOCK, SPARSE_BLOCK)
+    scale = 1.0 / math.sqrt(D)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, mask, scale)
+    delta = fa.attention_delta(do, o_p)
+    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, do, lse_p, delta, mask,
+                                         scale)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, mask, scale)
+    torch.cuda.synchronize()
+    return {"S": SPARSE_S, "block": SPARSE_BLOCK,
+            "kept_blocks": int(layout.sum()), "blocks": int(layout.size),
+            "max_abs_err": compare(out, o_p, TOL_BF16, "sparse attention o"),
+            "max_abs_err_grads": {
+                "dq": compare_grad(dq, dq_p, False, "sparse attention dq"),
+                "dk": compare_grad(dk, dk_p, False, "sparse attention dk"),
+                "dv": compare_grad(dv, dv_p, False, "sparse attention dv")},
+            "launches": launches}
 
 
 def run_training(torch, fa, profile: bool) -> dict:
@@ -1542,7 +1781,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
     try:
         from deepspeed_tpu_torch.models import transformer as tfm
+        from deepspeed_tpu_torch.ops import evoformer as ev
         from deepspeed_tpu_torch.ops import fused_optimizers as fo
+        from deepspeed_tpu_torch.ops import sparse_attention as sa
         from deepspeed_tpu_torch.ops.hopper import build
         from deepspeed_tpu_torch.ops.hopper import flash_attention as fa
         from deepspeed_tpu_torch.ops.hopper import grouped_matmul as gm
@@ -1689,21 +1930,50 @@ def main() -> None:
           f"{adam['bound_ms']:.5f} ({adam['bound_by']})")
     adam_tree = fused_adam_tree_path(torch, fo, tfm)
     print("fused_adamw_tree: " + json.dumps(adam_tree))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    evo = check_evoformer(torch, fa, ev, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, k in evo["calls"].items():
+        f32 = (f", {k['max_abs_err_f32']:.3e} (f32, limit {TOL_F32}; "
+               "evoformer f32 grads "
+               + json.dumps(k["max_abs_err_grads_f32"]) + ")"
+               if "max_abs_err_f32" in k else "")
+        print(f"flash_fwd_bias {name} {k['shape']} (bias1 {k['bias1']}, "
+              f"bias2 {k['bias2']}): max_abs_err {k['max_abs_err']:.3e} "
+              f"(bf16, {k['margin_bf16']:.3e} past its limit){f32}; "
+              f"evoformer output {k['max_abs_err_out']:.3e}, grads "
+              + json.dumps(k["max_abs_err_grads"])
+              + f" (limit {GRAD_REL} of max + 1e-2 |p|) kernel_ms "
+              f"{k['ms']:.4f} plain_ms {k['plain_ms']:.4f} library_ms "
+              f"{k['library_ms']:.4f} bound_ms {k['bound_ms']:.5f} "
+              f"({k['bound_by']}) evoformer fwd+bwd ms {k['fwd_bwd_ms']:.4f}")
+    sparse = run_sparse(torch, fa, sa)
+    print("sparse attention: " + json.dumps(sparse))
+    gc.collect()
+    torch.cuda.empty_cache()
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
-                     "fused_adamw": adam_tree["launches"]})
+                     "fused_adamw": adam_tree["launches"],
+                     "flash_fwd_bias": evo["launches"]})
     result = {"card": card, "torch": torch.__version__, "engine": engine,
               "small_model": small, "flash": flash, "training": training,
               "small_training": small_train, "mixed_gemm": gemm,
               "quantized_engine": quant, "small_quantized": small_quant,
               "grouped_matmul": gmm, "moe_engine": moe,
               "small_moe": small_moe, "small_moe_training": small_moe_train,
-              "fused_adamw": adam, "fused_adamw_tree": adam_tree}
+              "fused_adamw": adam, "fused_adamw_tree": adam_tree,
+              "evoformer": evo, "sparse_attention": sparse}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
                "flash_fwd": "flash_attention.cu",
                "flash_bwd_dkdv": "flash_attention.cu",
                "flash_bwd_dq": "flash_attention.cu",
+               "flash_fwd_bias": "flash_attention.cu",
                **{name: "mixed_gemm.cu" for name in GEMM_KERNELS},
                "grouped_matmul": "grouped_matmul.cu",
                "fused_adamw": "fused_adam.cu"}
@@ -1712,6 +1982,8 @@ def main() -> None:
                 "paged_prefill_attention":
                 "deepspeed_tpu/ops/pallas/paged_attention.py:255",
                 "flash_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:155",
+                "flash_fwd_bias":
+                "deepspeed_tpu/ops/pallas/flash_attention.py:155",
                 "flash_bwd_dkdv":
                 "deepspeed_tpu/ops/pallas/flash_attention.py:307",
                 "flash_bwd_dq":
@@ -1737,7 +2009,9 @@ def main() -> None:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
-    line = {"kernels": [row(k) for k in kernels + flash + at_shape + [adam]]}
+    evo_row = dict(evo["calls"][EVO_JSON], name="flash_fwd_bias")
+    line = {"kernels": [row(k) for k in
+                        kernels + flash + [evo_row] + at_shape + [adam]]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

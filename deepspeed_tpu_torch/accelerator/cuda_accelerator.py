@@ -2,7 +2,8 @@
 ``deepspeed_tpu/accelerator/tpu_accelerator.py``.
 
 Kept to what the serving and training slices use: device name and count,
-synchronize, and the bf16 peak that MFU is taken against.
+synchronize, the bf16 peak that MFU is taken against, and the op-builder
+lookup (``create_op_builder``) over ``ops/op_registry.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,12 @@ class CudaAccelerator:
 
     def synchronize(self, device=None) -> None:
         torch.cuda.synchronize(device)
+
+    def create_op_builder(self, op_name: str):
+        """The registry entry of ``op_name`` (``ops/op_registry.py``)."""
+        from ..ops.op_registry import get_op_builder
+
+        return get_op_builder(op_name, self.name)
 
     def peak_tflops(self, dtype: str = "bfloat16") -> float:
         """The card's dense peak for ``dtype``: the H100 SXM data sheet's

@@ -20,6 +20,18 @@
 //   flash_dkdv_kernel,    from f32 shared-memory tiles.
 //   flash_dq_kernel
 //
+// The forwards also take _fwd_kernel's additive biases (has_b1/has_b2, fed
+// by _flash_fwd's bias_kv and bias_qk; the evoformer attention op is their
+// caller): b1 (B, Skv), one value per key broadcast over rows and heads, and
+// b2 (B / rep, H, S, Skv), whose batch b reads b2[b / rep]; each bf16 or
+// f32, read in its own type and added in f32.  The scores become
+// s scale + b1 + b2, then the masks drop elements as before, then the
+// online softmax runs; lse (natural units) includes the biases.  A bias is
+// not a mask: a row whose keys all sit at -1e9 (a padded MSA sequence) is
+// kept, every score rounds to the same value and o is the mean of V, as
+// in the reference.  The backwards never see a bias (the reference's
+// evoformer recomputes its gradients outside any kernel).
+//
 // A row with no kept key writes o = 0 and lse = -inf.  The backward
 // recomputes p = exp(s - lse) and ds = p (dp - delta) scale, with delta =
 // rowsum(dO * O) computed by the caller, as _flash_bwd does.  Masks, all
@@ -50,7 +62,8 @@
 //   * Every product is mma.sync.m16n8k16 bf16 -> f32.  Forward: a block
 //     owns 128 query vectors, 8 warps of 16, one block per SM (~226
 //     registers a thread; two 4-warp blocks per SM ran slower, each
-//     loading its own K/V); Q is read once into registers (ldmatrix),
+//     loading its own K/V; at D = 32, two blocks of at most 128
+//     registers); Q is read once into registers (ldmatrix),
 //     S = Q K^T takes K by plain ldmatrix from a [key][d] tile, and
 //     O += P V takes P straight from S's accumulators, repacked in
 //     registers as A fragments, and V by ldmatrix.trans.  dK/dV: a block
@@ -94,6 +107,18 @@
 //   * Causal blocks differ in work by up to S/64x, so the heaviest launch
 //     first: forward and dQ blocks in descending query order, dK/dV
 //     blocks in ascending key order.
+//   * Biases (bf16 forward): each stage of the ring also holds the 64-key
+//     slice of b1 and the (128 vectors x 64 keys) tile of b2, copied in
+//     their own type by cp.async beside K and V.  A vector's b2 row is
+//     gathered through a per-block table of row offsets (the vectors of a
+//     block may span heads, as Q's are); rows are padded by 16 (bf16) or 32
+//     (f32) bytes, so a warp's pair reads hit distinct banks.  A row whose
+//     16-byte chunk is not 16-byte aligned (Skv not a multiple of 8 in
+//     bf16, 4 in f32) or runs past Skv is copied with 4-byte cp.async and,
+//     for a bf16 element off the 4-byte grid, a 2-byte load; the tail past
+//     Skv is zero.  softmax_step adds (b1 + b2) log2e to s scale log2e
+//     before the max.  Each (b1 type, b2 type) pair is its own
+//     instantiation, so the unbiased forward's code is unchanged.
 // The f32 kernels compute on the CUDA cores: each thread keeps a
 // 4 x 4 score tile and a 4 x (D/16) output tile in registers and reads f32
 // operands from shared memory whose rows are padded to D + 1 floats.
@@ -110,7 +135,38 @@
 
 #include <type_traits>
 
+// This file is compiled twice (ops/hopper/build.py): flash_attention_bias.cu
+// includes it with DS_FLASH_BIAS_UNIT set and keeps only the bf16 forward's
+// biased instantiations (ds_flash::run_fwd_tc_bias), so that nvcc builds
+// them beside the rest; this unit keeps everything else.
+#ifndef DS_FLASH_BIAS_UNIT
+#define DS_FLASH_BIAS_UNIT 0
+#endif
+
+namespace ds_flash {
+
+struct Problem {
+  int B, S, Skv, H, KV, group;
+  int causal, window;
+  const int* seg;  // (B, S) or null; requires S == Skv
+  const int* bm;   // (nqb, nkb) or null
+  int bq, bk, nkb;
+  float scale;
+  const void* b1;      // bias (B, Skv) or null (forward only)
+  const void* b2;      // bias (B / b2_rep, H, S, Skv) or null (forward only)
+  int b2_rep;
+  int b1_f32, b2_f32;  // a bias's element type: 1 float, 0 bf16
+};
+
+// the bf16 forward with b1 and / or b2 (defined by the bias unit)
+cudaError_t run_fwd_tc_bias(int D, const Problem& p, const void* q, const void* k,
+                            const void* v, void* o, float* lse, cudaStream_t st);
+
+}  // namespace ds_flash
+
 namespace {
+
+using ds_flash::Problem;
 
 constexpr int kThreads = 256;  // 16 x 16: tx = tid & 15, ty = tid >> 4
 constexpr int kTile = 64;      // query vectors per block, keys per kv tile
@@ -128,14 +184,11 @@ __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
 
-struct Problem {
-  int B, S, Skv, H, KV, group;
-  int causal, window;
-  const int* seg;  // (B, S) or null; requires S == Skv
-  const int* bm;   // (nqb, nkb) or null
-  int bq, bk, nkb;
-  float scale;
-};
+// element i of a bias of element type f32 (1) or bf16 (0), as f32
+__device__ __forceinline__ float bias_value(const void* b, size_t i, int f32) {
+  return f32 ? static_cast<const float*>(b)[i]
+             : __bfloat162float(static_cast<const __nv_bfloat16*>(b)[i]);
+}
 
 // the element keep-mask of one (row, key) pair; r < 0 marks a padding vector
 __device__ __forceinline__ bool keep(const Problem& p, int r, int c, int qseg,
@@ -283,10 +336,34 @@ __device__ __forceinline__ const T* kv_row(const T* k, const Problem& p, int b,
   return c >= p.Skv ? nullptr : k + (((size_t)b * p.Skv + c) * p.KV + kvh) * D;
 }
 
+// the biases of keys [c0, c0 + 64) for the block's 64 vectors, as f32:
+// b1_s[j] and b2_s[i][j] (stride kPLd); zeros past Skv, for padding vectors
+// and for an absent bias
+__device__ void stage_bias(float* b1_s, float* b2_s, const Problem& p, int b,
+                           const Vectors& vs, int c0) {
+  for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
+    const int i = idx / kTile, j = idx - i * kTile;
+    const int r = vs.row[i], c = c0 + j;
+    float x = 0.f;
+    if (p.b2 != nullptr && r >= 0 && c < p.Skv)
+      x = bias_value(
+          p.b2, (((size_t)(b / p.b2_rep) * p.H + vs.head[i]) * p.S + r) * p.Skv + c,
+          p.b2_f32);
+    b2_s[i * kPLd + j] = x;
+  }
+  if (threadIdx.x < kTile) {
+    const int c = c0 + threadIdx.x;
+    b1_s[threadIdx.x] = (p.b1 != nullptr && c < p.Skv)
+                            ? bias_value(p.b1, (size_t)b * p.Skv + c, p.b1_f32)
+                            : 0.f;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(S * group / 64), KV, B)
+// forward: grid (ceil(S * group / 64), KV, B); BIAS: b1 and b2 (either may
+// be null) are added to the scaled scores
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -298,6 +375,8 @@ flash_fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k,
   float* k_s = q_s + kTile * LD;     // [64][D+1]
   float* v_s = k_s + kTile * LD;     // [64][D+1]
   float* p_s = v_s + kTile * LD;     // [64][65]
+  float* b2_s = p_s + kTile * kPLd;  // [64][65] (BIAS)
+  float* b1_s = b2_s + kTile * kPLd; // [64] (BIAS)
   __shared__ Vectors vs;
   __shared__ int kseg[kTile];
 
@@ -329,6 +408,7 @@ flash_fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k,
     set_key_segs(kseg, p, b, c0);
     stage<T, D>(k_s, [&](int i) { return kv_row(k, p, b, kvh, c0 + i, D); });
     stage<T, D>(v_s, [&](int i) { return kv_row(v, p, b, kvh, c0 + i, D); });
+    if constexpr (BIAS) stage_bias(b1_s, b2_s, p, b, vs, c0);
     __syncthreads();
 
     float s[4][4];
@@ -340,8 +420,9 @@ flash_fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         const int j = tx + 16 * w;
-        s[u][w] = keep(p, vs.row[i], c0 + j, vs.seg[i], kseg[j]) ? s[u][w] * p.scale
-                                                                  : -INFINITY;
+        float x = s[u][w] * p.scale;
+        if constexpr (BIAS) x = x + b1_s[j] + b2_s[i * kPLd + j];
+        s[u][w] = keep(p, vs.row[i], c0 + j, vs.seg[i], kseg[j]) ? x : -INFINITY;
         mx = fmaxf(mx, s[u][w]);
       }
       mx = row_max(mx);
@@ -665,15 +746,15 @@ __device__ __forceinline__ void mma_bt(float (&c)[NT][4], const uint32_t (&a)[4]
 }
 
 // C[16 x D] += (hi + lo)[16 x 16] . B, B a [k][n] bf16 shared tile whose
-// rows k0..k0+15 are read with ldmatrix.trans.  In groups of 8 n-tiles:
-// the group's fragments first, then its hi products, then its lo products,
-// so the two products into one accumulator are 8 apart.
+// rows k0..k0+15 are read with ldmatrix.trans.  In groups of 8 n-tiles (4
+// at D = 32): the group's fragments first, then its hi products, then its
+// lo products, so the two products into one accumulator are 8 (4) apart.
 template <int D, int ROW>
 __device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t (&hi)[4],
                                             const uint32_t (&lo)[4], const uint8_t* b, int k0,
                                             int lane) {
-  constexpr int G = 4;  // ldmatrix.x4 per group: 8 n-tiles
-  static_assert((D / 16) % G == 0, "D is 64 or 128");
+  constexpr int G = D / 16 < 4 ? D / 16 : 4;  // ldmatrix.x4 per group: 2G n-tiles
+  static_assert((D / 16) % G == 0, "D is 32, 64 or 128");
 #pragma unroll
   for (int g = 0; g < D / 16; g += G) {
     uint32_t r[G][4];
@@ -877,39 +958,131 @@ struct QueryBlock {
 // ---------------------------------------------------------------------------
 // bf16 forward: 1-D grid of ceil(S * group / 128) * KV * B blocks
 // ---------------------------------------------------------------------------
-template <int D>
+// bytes of one bias element; 0 for an absent bias (void)
+template <typename B>
+constexpr int elem_bytes() {
+  if constexpr (std::is_void<B>::value) return 0; else return (int)sizeof(B);
+}
+
+// B1 and B2: the element types of b1 and b2 (__nv_bfloat16 or float), void
+// when absent.  A ring stage holds [K | V | b1 slice | b2 tile]; after the
+// kseg rings, b2_off[kFwdVecs] holds each vector's b2 row offset.
+template <int D, typename B1 = void, typename B2 = void>
 struct FwdTc {
   static constexpr int kRow = tc_row<D>();
   static constexpr int kThreads = 32 * kFwdWarps;
   static constexpr int kQBytes = kFwdVecs * kRow;
   static constexpr int kKvBytes = kTile * kRow;      // one K or V tile
-  static constexpr int kStageBytes = 2 * kKvBytes;   // K then V
-  static constexpr int kSmem = kQBytes + 2 * kStageBytes + 2 * kTile * (int)sizeof(int);
+  static constexpr int kB1Bytes = kTile * elem_bytes<B1>();       // 64 keys of b1
+  static constexpr int kB2Row = (kTile + 8) * elem_bytes<B2>();   // a padded b2 row
+  static constexpr int kB2Bytes = kFwdVecs * kB2Row;               // the vectors' b2 rows
+  static constexpr int kStageBytes = 2 * kKvBytes + kB1Bytes + kB2Bytes;
+  static constexpr int kSmem = kQBytes + 2 * kStageBytes + 2 * kTile * (int)sizeof(int) +
+                               (kB2Bytes > 0 ? kFwdVecs * (int)sizeof(long long) : 0);
+};
+
+// 16 bytes of bias elements into shared memory: the m elements at src (m
+// may exceed the chunk: only the chunk's share is copied), zeros after
+// them.  A whole, 16-byte aligned chunk is one 16-byte cp.async; otherwise
+// (a row stride off the 16-byte grid, or the ragged edge) 4-byte cp.async
+// and, for bf16 elements off the 4-byte grid, 2-byte loads.
+template <typename B>
+__device__ __forceinline__ void bias_chunk(uint8_t* dst, const B* src, int m) {
+  constexpr int E = 16 / (int)sizeof(B);
+  if (m <= 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  } else if (m >= E && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src);
+  } else if constexpr (sizeof(B) == 4) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e < m)
+        cp_async4(dst + 4 * e, src + e);
+      else
+        reinterpret_cast<uint32_t*>(dst)[e] = 0u;
+    }
+  } else {
+    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+    uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+    const bool pairs = (reinterpret_cast<uintptr_t>(src) & 3) == 0;
+#pragma unroll
+    for (int e = 0; e < E; e += 2) {
+      if (pairs && e + 1 < m) {
+        cp_async4(d16 + e, s16 + e);
+      } else {
+        d16[e] = e < m ? s16[e] : (uint16_t)0;
+        d16[e + 1] = e + 1 < m ? s16[e + 1] : (uint16_t)0;
+      }
+    }
+  }
+}
+
+// (b1 + b2) of one thread's rows in one ring stage, read in each bias's own
+// type and summed in f32.  v0: the thread's first vector in the block (its
+// second is v0 + 8).
+template <int D, typename B1, typename B2>
+struct BiasView {
+  static constexpr bool kAny = !std::is_void<B1>::value || !std::is_void<B2>::value;
+  const uint8_t* b1;  // the stage's 64 keys of b1
+  const uint8_t* b2;  // the stage's b2 tile
+  int v0;
+
+  template <typename B>
+  static __device__ __forceinline__ float2 load_pair(const uint8_t* at) {
+    if constexpr (std::is_same<B, float>::value)
+      return *reinterpret_cast<const float2*>(at);
+    else
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+  }
+
+  // b1 + b2 at keys jc, jc + 1 (jc even) of the thread's row h
+  __device__ __forceinline__ float2 pair(int h, int jc) const {
+    float2 x = make_float2(0.f, 0.f);
+    if constexpr (!std::is_void<B1>::value) {
+      const float2 y = load_pair<B1>(b1 + jc * (int)sizeof(B1));
+      x.x += y.x;
+      x.y += y.y;
+    }
+    if constexpr (!std::is_void<B2>::value) {
+      const float2 y = load_pair<B2>(b2 + (v0 + 8 * h) * FwdTc<D, B1, B2>::kB2Row +
+                                     jc * (int)sizeof(B2));
+      x.x += y.x;
+      x.y += y.y;
+    }
+    return x;
+  }
 };
 
 // One online-softmax step of a warp's 16 x 64 tile, in the log2 domain: s
 // holds Q K^T and becomes p; m (the rows' running max), l (this thread's
-// share of the row sums) and acc are rescaled.  MASK (a partial tile):
-// keep() per element, and a masked element is -inf and gets p = 0 without
-// an exp.  A row with nothing kept yet keeps m = -inf and p = 0.
-template <bool MASK, int D>
+// share of the row sums) and acc are rescaled.  With biases, x = s scale
+// log2e + (b1 + b2) log2e before the max.  MASK (a partial tile): keep()
+// per element, and a masked element is -inf and gets p = 0 without an exp.
+// A row with nothing kept yet keeps m = -inf and p = 0.
+template <bool MASK, int D, typename Bias>
 __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[2], float (&l)[2],
                                              float (&acc)[D / 8][4], float sl2,
                                              const Problem& p, const int (&row)[2],
                                              const int (&qseg)[2], const int* kseg, int c0,
-                                             int tq) {
+                                             int tq, const Bias& bias) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[j][e] * sl2;
-      if constexpr (MASK) {
-        const int jc = j * 8 + 2 * tq + (e & 1);
-        if (!keep(p, row[e >> 1], c0 + jc, qseg[e >> 1], kseg[jc])) x = -INFINITY;
+    for (int h = 0; h < 2; ++h) {
+      float2 bl = make_float2(0.f, 0.f);
+      if constexpr (Bias::kAny) bl = bias.pair(h, j * 8 + 2 * tq);
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        float x = s[j][e] * sl2;
+        if constexpr (Bias::kAny) x += ((e & 1) ? bl.y : bl.x) * kLog2e;
+        if constexpr (MASK) {
+          const int jc = j * 8 + 2 * tq + (e & 1);
+          if (!keep(p, row[h], c0 + jc, qseg[h], kseg[jc])) x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
       }
-      s[j][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
   float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -936,16 +1109,22 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[2], fl
     for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 }
 
-template <int D>
-__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+// B1, B2: the biases' element types, void when absent (FwdTc).  D = 32
+// (the evoformer's heads) is held to 128 registers, so two blocks share an
+// SM: its blocks walk few key tiles and wait on their copies, and a second
+// block hides that (timings in PERF.md; the variants with an f32 b2
+// spill 16-24 bytes).
+template <int D, typename B1, typename B2>
+__global__ void __launch_bounds__(32 * kFwdWarps, D <= 32 ? 2 : 1)
 flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
-  using L = FwdTc<D>;
+  using L = FwdTc<D, B1, B2>;
   extern __shared__ __align__(16) uint8_t tc_smem[];  // bytes, not the f32 kernels' smem
   uint8_t* q_s = tc_smem;
-  uint8_t* kv_s = tc_smem + L::kQBytes;  // 2 stages of [K | V]
+  uint8_t* kv_s = tc_smem + L::kQBytes;  // 2 stages of [K | V | b1 | b2]
   int* kseg_s = reinterpret_cast<int*>(kv_s + 2 * L::kStageBytes);  // [2][64]
+  long long* b2_off = reinterpret_cast<long long*>(kseg_s + 2 * kTile);  // [kFwdVecs]
 
   const QueryBlock<D> blk(p);
   const int b = blk.b, kvh = blk.kvh, kt_hi = blk.kt_hi;
@@ -953,8 +1132,43 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
   const int gr = lane >> 2, tq = lane & 3;
   int row[2], head[2], qseg[2];
   blk.thread_rows(p, warp, gr, row, head, qseg);
+  if constexpr (!std::is_void<B2>::value) {
+    // each vector's b2 row: (b / rep, head, row, 0), or -1 past S
+    for (int i = threadIdx.x; i < kFwdVecs; i += L::kThreads) {
+      const int gi = blk.base + i;
+      const int r = gi / p.group;
+      b2_off[i] = r < p.S ? (((long long)(b / p.b2_rep) * p.H + kvh * p.group +
+                              (gi - r * p.group)) * p.S + r) * p.Skv
+                          : -1;
+    }
+    __syncthreads();
+  }
   auto load_kv = [&](int kt, int st) {
-    blk.load_kv(p, k, v, kv_s + st * L::kStageBytes, kseg_s + st * kTile, kt);
+    uint8_t* stage = kv_s + st * L::kStageBytes;
+    blk.load_kv(p, k, v, stage, kseg_s + st * kTile, kt);
+    const int c0 = kt * kTile;
+    if constexpr (!std::is_void<B1>::value) {
+      constexpr int E = 16 / (int)sizeof(B1), CPR = kTile / E;
+      if (threadIdx.x < CPR) {
+        const int e0 = c0 + threadIdx.x * E;
+        bias_chunk<B1>(stage + 2 * L::kKvBytes + threadIdx.x * 16,
+                       static_cast<const B1*>(p.b1) + (size_t)b * p.Skv + e0, p.Skv - e0);
+      }
+    }
+    if constexpr (!std::is_void<B2>::value) {
+      constexpr int E = 16 / (int)sizeof(B2), CPR = kTile / E;
+      static_assert(kFwdVecs * CPR % L::kThreads == 0, "whole passes");
+      uint8_t* tile = stage + 2 * L::kKvBytes + L::kB1Bytes;
+#pragma unroll
+      for (int it = 0; it < kFwdVecs * CPR / L::kThreads; ++it) {
+        const int ci = threadIdx.x + it * L::kThreads;
+        const int i = ci / CPR, e0 = c0 + (ci % CPR) * E;
+        const long long off = b2_off[i];
+        bias_chunk<B2>(tile + i * L::kB2Row + (ci % CPR) * 16,
+                       static_cast<const B2*>(p.b2) + (off < 0 ? 0 : off + e0),
+                       off < 0 ? 0 : p.Skv - e0);
+      }
+    }
   };
   auto next_live = [&](int kt, int& state) { return blk.next_live(p, kt, state); };
 
@@ -986,6 +1200,8 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     const uint8_t* ks = kv_s + st * L::kStageBytes;
     const uint8_t* vs = ks + L::kKvBytes;
+    const BiasView<D, B1, B2> bias{ks + 2 * L::kKvBytes, ks + 2 * L::kKvBytes + L::kB1Bytes,
+                                   warp * 16 + gr};
 
     float s[8][4];
 #pragma unroll
@@ -996,9 +1212,10 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < D / 16; ++kk) mma_bt<8, L::kRow>(s, qf[kk], ks, 0, kk * 16, lane);
 
     if (cur_state == kPartial)
-      softmax_step<true, D>(s, m, l, acc, sl2, p, row, qseg, kseg_s + st * kTile, cur * kTile, tq);
+      softmax_step<true, D>(s, m, l, acc, sl2, p, row, qseg, kseg_s + st * kTile, cur * kTile, tq,
+                            bias);
     else
-      softmax_step<false, D>(s, m, l, acc, sl2, p, row, qseg, nullptr, 0, tq);
+      softmax_step<false, D>(s, m, l, acc, sl2, p, row, qseg, nullptr, 0, tq, bias);
 
     // O += (P_hi + P_lo) V
 #pragma unroll
@@ -1412,11 +1629,11 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 constexpr size_t slab_floats(int D) { return (size_t)kTile * (D + 1); }
 constexpr size_t tile_floats() { return (size_t)kTile * kPLd; }
 
-template <int D>
+template <int D, typename B1, typename B2>
 cudaError_t run_fwd_tc(const Problem& p, const void* q, const void* k, const void* v, void* o,
                        float* lse, cudaStream_t st) {
-  using L = FwdTc<D>;
-  auto kernel = flash_fwd_tc_kernel<D>;
+  using L = FwdTc<D, B1, B2>;
+  auto kernel = flash_fwd_tc_kernel<D, B1, B2>;
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
   const long long blocks =
@@ -1428,14 +1645,38 @@ cudaError_t run_fwd_tc(const Problem& p, const void* q, const void* k, const voi
   return cudaGetLastError();
 }
 
+#if DS_FLASH_BIAS_UNIT
+// the bf16 forward's instantiation for the biases' element types (void:
+// absent); b1_f32 / b2_f32 in p say which type each present bias has
+template <int D, typename B1>
+cudaError_t run_fwd_tc_b2(const Problem& p, const void* q, const void* k, const void* v,
+                          void* o, float* lse, cudaStream_t st) {
+  if (p.b2 == nullptr) return run_fwd_tc<D, B1, void>(p, q, k, v, o, lse, st);
+  if (p.b2_f32) return run_fwd_tc<D, B1, float>(p, q, k, v, o, lse, st);
+  return run_fwd_tc<D, B1, __nv_bfloat16>(p, q, k, v, o, lse, st);
+}
+
+template <int D>
+cudaError_t run_fwd_tc_b1(const Problem& p, const void* q, const void* k, const void* v,
+                          void* o, float* lse, cudaStream_t st) {
+  if (p.b1 == nullptr) return run_fwd_tc_b2<D, void>(p, q, k, v, o, lse, st);
+  if (p.b1_f32) return run_fwd_tc_b2<D, float>(p, q, k, v, o, lse, st);
+  return run_fwd_tc_b2<D, __nv_bfloat16>(p, q, k, v, o, lse, st);
+}
+#endif
+
 template <typename T, int D>
 cudaError_t run_fwd(const Problem& p, const void* q, const void* k, const void* v,
                     void* o, float* lse, cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return run_fwd_tc<D>(p, q, k, v, o, lse, st);
+    if (p.b1 != nullptr || p.b2 != nullptr)
+      return ds_flash::run_fwd_tc_bias(D, p, q, k, v, o, lse, st);
+    return run_fwd_tc<D, void, void>(p, q, k, v, o, lse, st);
   } else {
-    const size_t smem = (3 * slab_floats(D) + tile_floats()) * sizeof(float);
-    auto kernel = flash_fwd_kernel<T, D>;
+    const bool bias = p.b1 != nullptr || p.b2 != nullptr;
+    const size_t smem =
+        (3 * slab_floats(D) + (bias ? 2 * tile_floats() + kTile : tile_floats())) * sizeof(float);
+    auto kernel = bias ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.S * p.group + kTile - 1) / kTile, p.KV, p.B);
@@ -1519,6 +1760,7 @@ cudaError_t run_dq(const Problem& p, const void* q, const void* k, const void* v
   }
 }
 
+#if !DS_FLASH_BIAS_UNIT
 Problem make_problem(int B, int S, int Skv, int H, int KV, int causal, int window,
                      const void* seg, const void* bm, int bq, int bk, int nkb,
                      float scale) {
@@ -1529,33 +1771,61 @@ Problem make_problem(int B, int S, int Skv, int H, int KV, int causal, int windo
   p.bm = static_cast<const int*>(bm);
   p.bq = bq > 0 ? bq : 1; p.bk = bk > 0 ? bk : 1; p.nkb = nkb;
   p.scale = scale;
+  p.b1 = nullptr;
+  p.b2 = nullptr;
+  p.b2_rep = 1;
+  p.b1_f32 = p.b2_f32 = 0;
   return p;
 }
+#endif
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128; H % KV == 0.  The Python
-// wrapper checks shapes before it calls; a dtype or D outside these gives
-// cudaErrorInvalidValue.  seg and bm may be null.  Returns a cudaError_t.
+#if DS_FLASH_BIAS_UNIT
+cudaError_t ds_flash::run_fwd_tc_bias(int D, const Problem& p, const void* q, const void* k,
+                                      const void* v, void* o, float* lse, cudaStream_t st) {
+  if (D == 32) return run_fwd_tc_b1<32>(p, q, k, v, o, lse, st);
+  if (D == 64) return run_fwd_tc_b1<64>(p, q, k, v, o, lse, st);
+  if (D == 128) return run_fwd_tc_b1<128>(p, q, k, v, o, lse, st);
+  return cudaErrorInvalidValue;
+}
+#else
+
+// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128; H % KV == 0.  The
+// Python wrapper checks shapes before it calls; a dtype or D outside these
+// gives cudaErrorInvalidValue.  seg and bm may be null.  Returns a
+// cudaError_t.
 #define DS_FLASH_DISPATCH(CALL)                          \
   if (dtype == 1) {                                      \
+    if (D == 32) return (int)CALL(__nv_bfloat16, 32);    \
     if (D == 64) return (int)CALL(__nv_bfloat16, 64);    \
     if (D == 128) return (int)CALL(__nv_bfloat16, 128);  \
   }                                                      \
   if (dtype == 0) {                                      \
+    if (D == 32) return (int)CALL(float, 32);            \
     if (D == 64) return (int)CALL(float, 64);            \
     if (D == 128) return (int)CALL(float, 128);          \
   }                                                      \
   return (int)cudaErrorInvalidValue;
 
+// b1 (B, Skv) and b2 (B / b2_rep, H, S, Skv) may be null; b1_dtype and
+// b2_dtype use dtype's codes.
 extern "C" int ds_flash_fwd(int dtype, const void* q, const void* k, const void* v,
-                            const void* seg, const void* bm, void* o, void* lse,
-                            int B, int S, int Skv, int H, int KV, int D, int causal,
-                            int window, int bq, int bk, int nkb, float scale,
-                            void* stream) {
+                            const void* seg, const void* bm, const void* b1,
+                            const void* b2, int b1_dtype, int b2_dtype, int b2_rep,
+                            void* o, void* lse, int B, int S, int Skv, int H, int KV,
+                            int D, int causal, int window, int bq, int bk, int nkb,
+                            float scale, void* stream) {
   cudaGetLastError();  // a stale error must not be blamed on this launch
   if (B == 0 || S == 0) return cudaSuccess;
-  const Problem p = make_problem(B, S, Skv, H, KV, causal, window, seg, bm, bq, bk, nkb, scale);
+  if ((b1 != nullptr && (b1_dtype & ~1)) || (b2 != nullptr && ((b2_dtype & ~1) || b2_rep <= 0)))
+    return (int)cudaErrorInvalidValue;
+  Problem p = make_problem(B, S, Skv, H, KV, causal, window, seg, bm, bq, bk, nkb, scale);
+  p.b1 = b1;
+  p.b2 = b2;
+  p.b2_rep = b2_rep;
+  p.b1_f32 = b1_dtype == 0;
+  p.b2_f32 = b2_dtype == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
 #define DS_FWD(T, DD) run_fwd<T, DD>(p, q, k, v, o, lse_f, st)
@@ -1596,3 +1866,4 @@ extern "C" int ds_flash_bwd_dq(int dtype, const void* q, const void* k, const vo
 #undef DS_DQ
 }
 #undef DS_FLASH_DISPATCH
+#endif  // DS_FLASH_BIAS_UNIT

@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
                              CSRC / "flash_attention.cu",
+                             CSRC / "flash_attention_bias.cu",
                              CSRC / "mixed_gemm.cu",
                              CSRC / "grouped_matmul.cu",
                              CSRC / "fused_adam.cu")
@@ -45,9 +46,10 @@ _ENTRIES: Dict[str, list] = {
     "ds_paged_decode": [_I] + [_P] * 7 + [_I] * 7 + [_P],
     "ds_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _P],
-    # dtype, q, k, v, seg, bm, o, lse, B, S, Skv, H, KV, D, causal, window,
-    # bq, bk, nkb, scale, stream
-    "ds_flash_fwd": [_I] + [_P] * 7 + [_I] * 11 + [_F, _P],
+    # dtype, q, k, v, seg, bm, b1, b2, b1 dtype, b2 dtype, b2 rep, o, lse,
+    # B, S, Skv, H, KV, D, causal, window, bq, bk, nkb, scale, stream
+    "ds_flash_fwd": [_I] + [_P] * 7 + [_I] * 3 + [_P] * 2 + [_I] * 11
+    + [_F, _P],
     # dtype, q, k, v, do, lse, delta, seg, bm, dk, dv, (11 ints), scale, stream
     "ds_flash_bwd_dkdv": [_I] + [_P] * 10 + [_I] * 11 + [_F, _P],
     # dtype, q, k, v, do, lse, delta, seg, bm, dq, (11 ints), scale, stream

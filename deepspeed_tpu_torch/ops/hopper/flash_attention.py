@@ -17,6 +17,15 @@ kernels pick their own tiles and mask the ragged edge themselves, so there
 is no fallback for shapes the reference cannot tile.  A row with no kept
 key gives o = 0 and lse = -inf.
 
+:func:`flash_fwd` (not the public op) also takes the reference's additive
+biases, in this layout: ``bias_kv`` ``(B, Skv)``, one value per key
+broadcast over rows and heads, and ``bias_qk`` ``(B', H, S, Skv)`` with
+``B % B' == 0``, batch b reading ``bias_qk[b // (B // B')]``; each bf16 or
+f32.  The scores become ``s * sm_scale + bias_kv + bias_qk`` in f32, then
+the masks drop elements, then the softmax runs; lse includes the biases.
+Their only caller is ``ops/evoformer.py``, whose backward is plain torch,
+so the backward kernels take no bias.
+
 On CUDA tensors each wrapper checks dtype (bf16 or f32), shapes, devices,
 contiguity and (bf16) 16-byte alignment, launches its hand-written kernel
 from ``csrc/flash_attention.cu`` on the current stream, and raises on
@@ -42,16 +51,18 @@ from . import build
 
 #: launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+#: of LAUNCHES["flash_fwd"], the launches with a bias (the evoformer path)
+BIAS_LAUNCHES = {"flash_fwd_bias": 0}
 #: calls of each plain version (the CPU path and the kernels' oracle)
 PLAIN_CALLS = {"flash_fwd_plain": 0, "flash_bwd_dkdv_plain": 0,
                "flash_bwd_dq_plain": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the kernels' instantiations (csrc: ds_flash_*)
+_HEAD_DIMS = (32, 64, 128)  # the kernels' instantiations (csrc: ds_flash_*)
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, BIAS_LAUNCHES, PLAIN_CALLS):
         for key in counts:
             counts[key] = 0
 
@@ -100,10 +111,11 @@ def _split_heads(q, k):
     return B, S, H, D, KV, H // KV
 
 
-def flash_fwd_plain(q, k, v, mask: AttnMask, sm_scale: float
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_plain(q, k, v, mask: AttnMask, sm_scale: float, bias_kv=None,
+                    bias_qk=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch forward, f32 inside: ``(o (B,S,H,D) in q's dtype,
-    lse (B,H,S) f32)``.  Masked logits are -1e30 as in
+    lse (B,H,S) f32)``.  The biases (module doc) are added to the scaled
+    scores in f32; masked logits are then -1e30 as in
     ``_reference_attention``; rows with no kept key give o = 0 and
     lse = -inf."""
     PLAIN_CALLS["flash_fwd_plain"] += 1
@@ -112,11 +124,23 @@ def flash_fwd_plain(q, k, v, mask: AttnMask, sm_scale: float
     keep = keep_mask(mask, S, Skv, q.device)[:, None, None]  # (B|1,1,1,S,T)
     qf = q.float().reshape(B, S, KV, G, D)
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) * sm_scale
+    if bias_kv is not None:
+        logits = logits + bias_kv.float()[:, None, None, None, :]
+    if bias_qk is not None:  # batch b reads bias_qk[b // rep], no copy
+        Bq = bias_qk.shape[0]
+        logits = (logits.reshape(Bq, B // Bq, KV, G, S, Skv)
+                  + bias_qk.float().reshape(Bq, 1, KV, G, S, Skv)
+                  ).reshape(B, KV, G, S, Skv)
     logits = logits.masked_fill(~keep, -1e30)
-    any_keep = keep.any(-1)
-    lse = torch.where(any_keep, torch.logsumexp(logits, -1), -math.inf)
-    p = torch.where(keep, torch.exp(logits - lse[..., None]), 0.0)
-    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    # o = sum(e v) / l with e = exp(logits - max), as the kernels normalise:
+    # exp(logits - lse) would lose log(l) where every logit of a row sits
+    # at -1e9 (lse rounds to -1e9 there; o is the mean of V)
+    m = logits.amax(-1, keepdim=True)
+    e = torch.where(keep, torch.exp(logits - m), 0.0)
+    l = e.sum(-1)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), -math.inf)
+    o = torch.einsum("bkgst,btkd->bskgd",
+                     e / torch.where(l > 0, l, 1.0)[..., None], v.float())
     return (o.reshape(B, S, H, D).to(q.dtype),
             lse.reshape(B, H, S).contiguous())
 
@@ -219,6 +243,38 @@ def _check(q, k, v, mask: AttnMask, extra=()) -> Tuple[int, ...]:
     return B, S, Skv, H, KV, D, nkb
 
 
+def _check_bias(q, bias_kv, bias_qk, B, S, Skv, H) -> Tuple:
+    """Validate the forward's biases (module doc) for the kernels; returns
+    (bias_kv pointer, bias_qk pointer, their dtype codes, bias_qk's batch
+    repeat) and raises on anything the kernels do not take."""
+    ptrs, codes, rep = [None, None], [0, 0], 1
+    for i, (name, t) in enumerate((("bias_kv", bias_kv), ("bias_qk", bias_qk))):
+        if t is None:
+            continue
+        if name == "bias_kv":
+            if tuple(t.shape) != (B, Skv):
+                raise ValueError(f"bias_kv must be (B, Skv) = {(B, Skv)}, got "
+                                 f"{tuple(t.shape)}")
+        elif (t.dim() != 4 or tuple(t.shape[1:]) != (H, S, Skv)
+              or t.shape[0] <= 0 or B % t.shape[0]):
+            raise ValueError(f"bias_qk must be (B', H, S, Skv) = (B', {H}, {S}, "
+                             f"{Skv}) with B = {B} a multiple of B', got "
+                             f"{tuple(t.shape)}")
+        else:
+            rep = B // t.shape[0]
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name} must be bfloat16 or float32, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the bf16 "
+                             "kernels copy 16-byte chunks")
+        ptrs[i], codes[i] = t.data_ptr(), _DTYPE_CODES[t.dtype]
+    return ptrs[0], ptrs[1], codes[0], codes[1], rep
+
+
 def _mask_args(mask: AttnMask):
     seg = mask.segment_ids.data_ptr() if mask.segment_ids is not None \
         else None
@@ -236,27 +292,28 @@ def _on_cuda(name: str, q: torch.Tensor) -> bool:
 
 def flash_fwd(q, k, v, mask: AttnMask, sm_scale: float, bias_kv=None,
               bias_qk=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` of one attention call: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
-    if bias_kv is not None or bias_qk is not None:
-        raise NotImplementedError(
-            "the additive attention biases (bias_kv, bias_qk) are used only "
-            "by ops/evoformer.py; they arrive with the evoformer item "
-            "(ROADMAP.md, B1 bias operands)")
+    """``(o, lse)`` of one attention call, with the optional biases of the
+    module doc: the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if not _on_cuda("flash_fwd", q):
-        return flash_fwd_plain(q, k, v, mask, sm_scale)
+        return flash_fwd_plain(q, k, v, mask, sm_scale, bias_kv, bias_qk)
     B, S, Skv, H, KV, D, nkb = _check(q, k, v, mask)
+    b1, b2, b1_code, b2_code, rep = _check_bias(q, bias_kv, bias_qk, B, S,
+                                                Skv, H)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     seg, bm = _mask_args(mask)
     lib = build.load()
     err = lib.ds_flash_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), seg,
-        bm, o.data_ptr(), lse.data_ptr(), B, S, Skv, H, KV, D,
-        int(mask.causal), int(mask.window), mask.block_q, mask.block_k, nkb,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        bm, b1, b2, b1_code, b2_code, rep, o.data_ptr(), lse.data_ptr(), B,
+        S, Skv, H, KV, D, int(mask.causal), int(mask.window), mask.block_q,
+        mask.block_k, nkb, float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_fwd launch")
     LAUNCHES["flash_fwd"] += 1
+    if b1 is not None or b2 is not None:
+        BIAS_LAUNCHES["flash_fwd_bias"] += 1
     return o, lse
 
 

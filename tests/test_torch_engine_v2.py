@@ -253,8 +253,9 @@ def test_admission_and_cancel(model):
 
 def test_port_imports_no_jax():
     """The port, a CPU engine run (plain, W8A16 and dropless MoE),
-    int8_gemm, a CPU training step and a fused AdamW update never import
-    JAX, the JAX package, pydantic or optax."""
+    int8_gemm, a CPU training step, a fused AdamW update, evoformer and
+    block-sparse attention and the op registry never import JAX, the JAX
+    package, pydantic or optax."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -304,6 +305,22 @@ def test_port_imports_no_jax():
         assert len(meng.generate_all(burst=4)[uid]) == 25
         state = fo.init_fused_adam_state(params)
         fo.fused_adamw_tree(params, params, state, lr=1e-3)
+        from deepspeed_tpu_torch.accelerator.cuda_accelerator import (
+            CudaAccelerator)
+        from deepspeed_tpu_torch.ops import op_registry
+        from deepspeed_tpu_torch.ops import sparse_attention as sa
+        ev = CudaAccelerator().create_op_builder("evoformer_attn").load()
+        assert sorted(op_registry.available_ops()) == [
+            "evoformer_attn", "flash_attention", "fused_adam",
+            "grouped_gemm", "paged_attention", "quantizer"]
+        x = torch.randn(1, 2, 16, 2, 8, requires_grad=True)
+        ev.DS4Sci_EvoformerAttention(x, x, x, [torch.zeros(1, 2, 1, 1, 16),
+                                               torch.zeros(1, 1, 2, 16, 16)
+                                               ]).sum().backward()
+        y = torch.randn(1, 64, 2, 8, requires_grad=True)
+        sa.sparse_attention(y, y, y, sa.FixedSparsityConfig(
+            block=16, attention="unidirectional")).sum().backward()
+        assert x.grad is not None and y.grad is not None
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "deepspeed_tpu.",
                                               "pydantic", "optax"))

@@ -170,13 +170,57 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
             block_mask=torch.ones((2, 2), dtype=torch.int32), block_q=8,
             block_k=8))
     assert tfa._check(q, kv, kv, mask) == (1, 8, 8, 4, 2, 64, 0)
-    with pytest.raises(NotImplementedError, match="evoformer"):
-        tfa.flash_fwd(q, kv, kv, mask, 0.125, bias_qk=torch.zeros(1))
+    b2 = torch.zeros((2, 4, 8, 8))  # the biases: B' must divide B = 1
+    with pytest.raises(ValueError, match="bias_qk must be"):
+        tfa._check_bias(q, None, b2, 1, 8, 8, 4)
+    with pytest.raises(ValueError, match="bias_kv must be"):
+        tfa._check_bias(q, torch.zeros((1, 7)), None, 1, 8, 8, 4)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa._check_bias(q, torch.zeros((1, 8), dtype=torch.float16), None,
+                        1, 8, 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._check_bias(q, None, b2[:1].transpose(2, 3), 1, 8, 8, 4)
+    assert tfa._check_bias(q, None, b2[:1], 1, 8, 8, 4)[2:] == (0, 0, 1)
     with pytest.raises(ValueError, match="block_mask shape"):
         tfa.flash_attention(q, kv, kv, block_q=4, block_k=4,
                             block_mask=np.ones((3, 2), np.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_fwd(q.to("meta"), kv.to("meta"), kv.to("meta"), mask, 0.1)
+
+
+@pytest.mark.parametrize("b2_batch,causal,KV", [(1, True, 2), (2, False, 4),
+                                                (2, True, 1)],
+                         ids=["broadcast_causal_gqa", "full", "causal_mqa"])
+def test_plain_forward_biases_match_pallas(b2_batch, causal, KV):
+    """flash_fwd_plain with bias_kv (B, Skv) and bias_qk (B', H, S, Skv)
+    against the reference's ``_flash_fwd(..., bias_kv=, bias_qk=)`` in
+    interpret mode (its bias_kv in the (B, 8, Skv) sublane layout): o and
+    lse, masks on top of the biases, bias_qk broadcast over the batch."""
+    B, S, H, D = 2, 64, 4, 16
+    q, k, v, _ = _inputs(2, B, S, H, KV, D)
+    rng = np.random.default_rng(3)
+    bias_kv = rng.standard_normal((B, S)).astype(np.float32)
+    bias_kv[1, ::5] = -1e9
+    bias_qk = rng.standard_normal((b2_batch, H, S, S)).astype(np.float32)
+    scale = 1.0 / math.sqrt(D)
+    jo, jlse = jfa._flash_fwd(
+        *(jnp.asarray(t).transpose(0, 2, 1, 3) for t in (q, k, v)), None,
+        None, None, scale, causal, 32, 32,
+        bias_kv=jnp.broadcast_to(jnp.asarray(bias_kv)[:, None],
+                                 (B, jfa.NUM_SUBLANES, S)),
+        bias_qk=jnp.asarray(bias_qk))
+    tfa.reset_counts()
+    o, lse = tfa.flash_fwd(*map(torch.from_numpy, (q, k, v)),
+                           tfa.AttnMask(causal=causal), scale,
+                           torch.from_numpy(bias_kv),
+                           torch.from_numpy(bias_qk))
+    assert tfa.PLAIN_CALLS["flash_fwd_plain"] == 1
+    assert not any(tfa.LAUNCHES.values())
+    np.testing.assert_allclose(
+        o.numpy(), np.asarray(jo).transpose(0, 2, 1, 3), atol=FWD_TOL,
+        rtol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               atol=FWD_TOL, rtol=FWD_TOL)
 
 
 def test_public_op_prepares_strided_and_misaligned_inputs():

@@ -10,7 +10,8 @@ head, D = 128, causal, inputs rounded to bf16 as ``chip_smoke.check_flash``
 makes them) and holds o, lse, dK and dV to ``chip_smoke``'s own checks and
 limits (``TOL_BF16``, ``TOL_F32``, ``GRAD_REL``) against the port's plain
 versions, which the kernels meet on the card; dQ likewise
-(``_emulate_dq``).  Rounding p and ds to bf16 alone, without the lo half,
+(``_emulate_dq``); and the forward with the evoformer biases
+(``_emulate_fwd_bias``) at the smoke's MSA row attention shape.  Rounding p and ds to bf16 alone, without the lo half,
 fails those limits; that is why the kernels split.  The plain versions themselves agree with the Pallas kernels
 (interpret mode) at a small size.
 """
@@ -125,6 +126,72 @@ def _emulate_dq(q, k, v, do, lse, delta, scale, split):
         for part in _products(ds, split):
             dq[i0:] += part @ kt
     return (dq * scale).reshape(q.shape).to(torch.bfloat16)
+
+
+def _emulate_fwd_bias(q, k, v, bias, scale):
+    """The bias forward's arithmetic for one (sequence, head): q, k, v
+    (L, D) bf16, bias (L, L) f32 (b1 + b2, summed in f32); per 64-key tile
+    x = s scale log2e + bias log2e, then _emulate_fwd's online softmax
+    with the split p.  Returns o (L, D) bf16 and lse (L,) f32."""
+    L, Dh = q.shape
+    qf = q.float()
+    m = torch.full((L,), -math.inf)
+    l = torch.zeros(L)
+    acc = torch.zeros(L, Dh)
+    for c0 in range(0, k.shape[0], TILE):
+        kt, vt = k[c0:c0 + TILE].float(), v[c0:c0 + TILE].float()
+        s = (qf @ kt.T) * (scale * LOG2E) + bias[:, c0:c0 + TILE] * LOG2E
+        m_new = torch.maximum(m, s.max(1).values)
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s - m_use[:, None])
+        l = l * alpha + p.sum(1)
+        acc = acc * alpha[:, None]
+        for part in _products(p, True):
+            acc = acc + part @ vt
+        m = m_new
+    return ((acc / l[:, None]).to(torch.bfloat16),
+            m * math.log(2.0) + torch.log(l))
+
+
+def test_bias_forward_meets_the_smoke_limits():
+    """The bias forward's arithmetic at the smoke's MSA row attention call
+    (L = 256, H = 8, D = 32; 4 of its 128 sequences, one padded with every
+    key at -1e9; bf16 inputs and biases as ``chip_smoke.evoformer_inputs``
+    draws them) against flash_fwd_plain: o within TOL_BF16, lse within
+    TOL_F32, and the padded sequence's o the mean of V."""
+    shape = list(chip_smoke.EVO_CALLS["msa_row"][0])
+    shape[1] = 4
+    B, N, L, Hh, Dh = shape
+    rng = np.random.default_rng(7)
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+    q, k, v = (bf16(rng.standard_normal(shape)) for _ in range(3))
+    keep = rng.random((B, N, 1, 1, L)) < 0.9
+    keep[:, 3] = False
+    b1 = bf16(np.where(keep, 0.0, -1e9))
+    b2 = bf16(rng.standard_normal((B, 1, Hh, L, L)))
+    scale = 1.0 / math.sqrt(Dh)
+    flat = [t.reshape(B * N, L, Hh, Dh) for t in (q, k, v)]
+    o_p, lse_p = tfa.flash_fwd_plain(*flat, tfa.AttnMask(causal=False),
+                                     scale, b1.reshape(B * N, L),
+                                     b2.reshape(B, Hh, L, L))
+    o = torch.empty_like(o_p)
+    lse = torch.empty_like(lse_p)
+    for n in range(N):
+        for h in range(Hh):
+            bias = b1[0, n, 0, 0].float()[None, :] + b2[0, 0, h].float()
+            o[n, :, h], lse[n, h] = _emulate_fwd_bias(
+                q[0, n, :, h], k[0, n, :, h], v[0, n, :, h], bias, scale)
+    chip_smoke.compare(o, o_p, chip_smoke.TOL_BF16, "emulated biased o")
+    chip_smoke.compare(lse, lse_p, chip_smoke.TOL_F32,
+                       "emulated biased lse")
+    mean_v = v[0, 3].float().mean(0, keepdim=True).expand(L, Hh, Dh)
+    chip_smoke.compare(o[3], mean_v, chip_smoke.TOL_BF16,
+                       "padded sequence vs mean of V")
+    assert (lse[3] < -9e8).all()
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,9 @@ from deepspeed_tpu_torch.inference.v2 import engine as te
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.moe import dropless as tdl
 from deepspeed_tpu_torch.moe import layer as tml
+from deepspeed_tpu_torch.ops import evoformer as tev
 from deepspeed_tpu_torch.ops import fused_optimizers as tfo
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
 from deepspeed_tpu_torch.ops.hopper import grouped_matmul as tgm
 from deepspeed_tpu_torch.ops.hopper import mixed_gemm as tmg
@@ -271,7 +273,7 @@ def _close(got, want, dtype, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(cuda_device, dtype, D, case):
     c = FLASH_CASES[case]
@@ -374,8 +376,8 @@ def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
         tfa.flash_fwd(q, k, v, am, 0.125)
     q, k, v = q.float(), k.float(), v.float()
     with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                      v[..., :32].contiguous(), am, 0.125)
+        tfa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                      v[..., :48].contiguous(), am, 0.125)
     with pytest.raises(ValueError, match="multiple of KV"):
         tfa.flash_fwd(q[:, :, :3].contiguous(), k, v, am, 0.125)
     with pytest.raises(ValueError, match="contiguous"):
@@ -384,8 +386,22 @@ def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="int32"):
         tfa.flash_fwd(q, k, v, am._replace(segment_ids=torch.zeros(
             (1, 64), dtype=torch.int64, device=cuda_device)), 0.125)
-    with pytest.raises(NotImplementedError, match="evoformer"):
-        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=torch.zeros(1))
+    bias = torch.zeros((1, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="bias_kv must be"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=bias[:, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=torch.zeros(
+            (1, 128), device=cuda_device)[:, ::2])
+    with pytest.raises(ValueError, match="bias_qk must be"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_qk=torch.zeros(
+            (1, 4, 64, 63), device=cuda_device))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=bias.half())
+    with pytest.raises(ValueError, match="bias_kv is on"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=bias.cpu())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd(q, k, v, am, 0.125, bias_kv=torch.zeros(
+            65, dtype=torch.bfloat16, device=cuda_device)[1:].view(1, 64))
     # contiguous, but 2 bytes off the 16-byte grid the bf16 kernels copy
     buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
                       device=cuda_device)
@@ -398,6 +414,131 @@ def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
                                                   dtype=torch.bfloat16),
                          torch.zeros((1, 4, 64), device=cuda_device), am,
                          0.125)
+
+
+# the forward's additive biases (the evoformer path): B = 4 flattened
+# sequences of H = 4 heads; L = 20 and 100 put bf16 bias rows off the
+# 16-byte grid (40 and 200 bytes), L = 37 puts f32 rows off it and bf16
+# rows off the 4-byte grid (the narrow copies), L = 1000 leaves a ragged
+# key tile and query block; batch 1's keys all sit at -1e9 (a padded MSA sequence) and
+# batch 0 masks every third key so; bias_qk has B' = 2 (batch b reads
+# bias_qk[b // 2])
+BIAS_L = (20, 37, 100, 1000)
+BIAS_LSE_RTOL = 1e-6  # lse at -1e9: the f32 spacing there is 64
+
+
+def _bias_inputs(seed, B, L, H, KV, D, dtype, bias_dtype, device, b2_batch):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, t=dtype):
+        return torch.randn(shape, generator=gen, device=device).to(t)
+
+    q, k, v = rnd(B, L, H, D), rnd(B, L, KV, D), rnd(B, L, KV, D)
+    bias_kv = rnd(B, L, t=torch.float32)
+    bias_kv[1] = -1e9
+    bias_kv[0, ::3] = -1e9
+    return q, k, v, bias_kv.to(bias_dtype), rnd(b2_batch, H, L, L,
+                                                t=bias_dtype)
+
+
+def _check_bias_fwd(q, k, v, am, bias_kv, bias_qk, dtype):
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = tfa.flash_fwd(q, k, v, am, scale, bias_kv, bias_qk)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, am, scale, bias_kv, bias_qk)
+    _close(o, o_p, dtype, "o")
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4,
+                               rtol=BIAS_LSE_RTOL)
+    return o, o_p
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16],
+                         ids=["bias_f32", "bias_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("L", BIAS_L)
+def test_flash_fwd_bias_matches_plain(cuda_device, dtype, bias_dtype, D, L):
+    B, H = 4, 4
+    q, k, v, bias_kv, bias_qk = _bias_inputs(
+        0, B, L, H, H, D, dtype, bias_dtype, cuda_device, 2)
+    am = tfa.AttnMask(causal=False)
+    tfa.reset_counts()
+    for b1, b2 in ((bias_kv, bias_qk), (bias_kv, None), (None, bias_qk)):
+        o, o_p = _check_bias_fwd(q, k, v, am, b1, b2, dtype)
+        if b1 is not None:  # the padded sequence: o is the mean of V
+            _close(o[1], v[1].float().mean(0, keepdim=True).expand_as(o[1]),
+                   dtype, "padded row")
+    assert tfa.LAUNCHES == {"flash_fwd": 3, "flash_bwd_dkdv": 0,
+                            "flash_bwd_dq": 0}
+    assert tfa.BIAS_LAUNCHES == {"flash_fwd_bias": 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["causal", "window_mid_tile",
+                                  "block_mask_gqa", "segments_gqa"])
+def test_flash_fwd_bias_under_masks_matches_plain(cuda_device, dtype, case):
+    """Biases under every mask, GQA groups (a block's vectors span heads,
+    so the bias_qk tile is gathered per vector) and bias_qk broadcast to
+    the whole batch (B' = 1)."""
+    c = FLASH_CASES[case]
+    q, k, v, _, am = _flash_inputs(0, 2, c["S"], c["H"], c["KV"], 64, dtype,
+                                   cuda_device, c["mask"])
+    _, _, _, bias_kv, bias_qk = _bias_inputs(
+        1, 2, c["S"], c["H"], c["KV"], 64, dtype, torch.bfloat16,
+        cuda_device, 1)
+    _check_bias_fwd(q, k, v, am, bias_kv, bias_qk, dtype)
+
+
+def test_evoformer_on_gpu_matches_cpu(cuda_device):
+    """evoformer_attention's forward through the bias kernel and its five
+    gradients, against the same op on the CPU (plain forward), f32, with a
+    padded MSA sequence and L off the 64-key grid."""
+    B, N, L, H, D = 1, 3, 100, 4, 32
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, g = (torch.randn((B, N, L, H, D), generator=gen)
+                  for _ in range(4))
+    b1 = torch.where(torch.rand((B, N, 1, 1, L), generator=gen) < 0.8,
+                     0.0, -1e9)
+    b1[:, 1] = -1e9
+    b2 = torch.randn((B, 1, H, L, L), generator=gen)
+    results = []
+    for dev in (cuda_device, "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v, b1, b2)]
+        tfa.reset_counts()
+        out = tev.evoformer_attention(*leaves[:3], leaves[3:])
+        out.backward(g.to(dev))
+        if dev != "cpu":
+            assert tfa.BIAS_LAUNCHES == {"flash_fwd_bias": 1}
+            assert not any(tfa.PLAIN_CALLS.values())
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for name, got, want in zip(("out", "dq", "dk", "dv", "db1", "db2"),
+                               *results):
+        _close(got, want, torch.float32, name)
+
+
+def test_sparse_attention_on_gpu_matches_cpu(cuda_device):
+    """sparse_attention with a causal Fixed layout through the flash
+    kernels: output and gradients against the CPU's plain path (f32)."""
+    cfg = tsa.FixedSparsityConfig(block=64, num_local_blocks=2,
+                                  attention="unidirectional")
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((1, 512, 8, 64), generator=gen)
+    k, v = (torch.randn((1, 512, 2, 64), generator=gen) for _ in range(2))
+    results = []
+    for dev in (cuda_device, "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        tfa.reset_counts()
+        out = tsa.sparse_attention(*leaves, cfg)
+        (out ** 2).sum().backward()
+        if dev != "cpu":
+            assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                                    "flash_bwd_dq": 1}
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *results):
+        _close(got, want, torch.float32, name)
 
 
 # mixed GEMM: (K, group) with an odd group count; N = 96 leaves a ragged
