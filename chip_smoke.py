@@ -36,24 +36,29 @@ In order it prints:
    plain versions at llama3-8b's four projection shapes, at M = 8 (a decode
    body) and M = 256 (a mixed step), in bf16 and f32: max abs error and
    kernel / plain / library (bf16 ``torch.matmul`` by the dequantized
-   weight) / bound times (M = 8 runs ``mixed_gemm_kernel``, M = 256
-   ``mixed_gemm_wgmma_kernel``);
+   weight) / bound times (M = 8 runs ``mixed_gemm_kernel`` and
+   ``int8_gemm_mma_kernel``, M = 256 ``mixed_gemm_wgmma_kernel`` and
+   ``int8_gemm_wgmma_kernel``; the W8A8 dispatch is checked);
 8. quantized serving: the engine of 4. with ``quantize_bits=8`` (cold and
    warm), then 4 and 6, at full width and depth: tokens, finiteness,
    ``mixed_gemm`` launches = 7 x paged launches with no plain or envelope
    call, ``mixed_gemm_wgmma_kernel`` launches = 7 x prefill launches,
    determinism, tokens/s and memory; the seven projections of one
-   quantized layer through ``int8_gemm``; and the small f32 model of 4.
+   quantized layer through ``int8_gemm`` (each M = 256 call on
+   ``int8_gemm_wgmma_kernel``); and the small f32 model of 4.
    quantized at each width, card against CPU;
 9. the grouped matmul (dropless MoE) kernel against its plain version at
    Mixtral-8x7B's expert shapes (E = 8, (K, N) = (4096, 14336) and
    (14336, 4096)), for a decode body's 16 assignments and a 256-token
    mixed step's 512, forward and on transposed weights (the backward's
    dlhs), in bf16 and f32: max abs error and kernel / plain / library
-   (``torch._grouped_mm``) / bound times;
+   (``torch._grouped_mm``) / bound times (the bf16 forward at T = 512 runs
+   ``grouped_matmul_wgmma_kernel``, the rest the mma.sync and CUDA-core
+   kernels; the dispatch is checked);
 10. dropless MoE serving: the engine of 4. on Mixtral-8x7B at full width
    with its depth cut to 16 of 32 layers (bf16 weights from a seed),
-   cold and warm: tokens, grouped-GEMM launches = 3 x paged launches, no
+   cold and warm: tokens, grouped-GEMM launches = 3 x paged launches (of
+   which ``grouped_matmul_wgmma_kernel`` = 3 x prefill launches), no
    plain call, no host sync inside a decode body, tokens/s, peak memory
    and engine build time; then a small f32 MoE model served card against
    CPU (dropless and capacity routing) and trained 3 steps card against
@@ -156,7 +161,9 @@ TOL_LOGITS_QUANT = 2e-2
 MOE_E = 8
 MOE_SHAPES = {"w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
 MOE_T = (16, 512)
-MOE_JSON = ("w_gate/w_in", 16)  # the shape and T of the kernels JSON line
+# the shape and the T of the kernels JSON line's grouped-GEMM rows: a decode
+# body's (grouped_matmul_bf16_kernel) and a mixed step's (wgmma)
+MOE_JSON = (("w_gate/w_in", 16), ("w_gate/w_in", 512))
 MOE_LAYERS = 16
 # grouped matmul in f32: CUDA-core sums of up to 14336 terms in another
 # order than the plain version's: 1e-4 of the largest output
@@ -511,11 +518,11 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
             groups["gemm"] += ms
         else:
             groups["other"] += ms
-    # the port's own kernels by name (the text before the template
-    # arguments), e.g. flash_dq_tc_kernel
+    # the port's own kernels by name (the text before the template or
+    # function arguments), e.g. flash_dq_tc_kernel
     port = {}
     for ms, _, name in rows:
-        found = re.search(r"(\w+_kernel)<", name)
+        found = re.search(r"(\w+_kernel)[<(]", name)
         if found and "anonymous namespace" in name:
             port[found.group(1)] = port.get(found.group(1), 0.0) + ms
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
@@ -1198,8 +1205,17 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                         errs["f32"] = compare_grad(out, ref, True,
                                                    f"{what} (f32)",
                                                    rel=GEMM_F32_REL)
+                cuda_kernel = None
                 if name == "int8_gemm":
                     xc, xs = mg.quantize_activations_rowwise(x, QUANT_GROUP)
+                    # M = 8 runs the mma.sync kernel, M = 256 the wgmma one
+                    wgmma = mg.int8_uses_wgmma(xc, qw)
+                    if wgmma != (M > 16):
+                        fail(f"int8_gemm {shape_name} M={M}: dispatched to "
+                             f"the {'wgmma' if wgmma else 'mma.sync'} "
+                             "kernel")
+                    cuda_kernel = ("int8_gemm_wgmma_kernel" if wgmma
+                                   else "int8_gemm_mma_kernel")
 
                     def kernel():
                         return mg.int8_gemm_quantized(xc, xs, qw, x.dtype)
@@ -1223,7 +1239,8 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                                    2 * M * K * N, peak)
                 rows.append({
                     "name": name, "shape": shape_name, "K": K, "N": N,
-                    "M": M, "max_abs_err": errs["bf16"],
+                    "M": M, **({"kernel": cuda_kernel} if cuda_kernel else {}),
+                    "max_abs_err": errs["bf16"],
                     "max_abs_err_f32": errs["f32"],
                     "ms": time_ms(kernel, torch, flush),
                     "plain_ms": time_ms(plain, torch, flush, iters=5,
@@ -1264,11 +1281,18 @@ def int8_gemm_path(torch, mg, params) -> dict:
                     fail(f"int8_gemm {key} M={M}: mean relative error {rel}")
                 worst = max(worst, rel)
     launches = mg.LAUNCHES["int8_gemm"]
+    wgmma = mg.WGMMA_LAUNCHES["int8_gemm"]
     if launches != 2 * PROJECTIONS or any(mg.PLAIN_CALLS.values()) \
             or any(mg.DEQUANT_CALLS.values()):
         fail(f"int8_gemm path: {mg.LAUNCHES} {mg.PLAIN_CALLS} "
              f"{mg.DEQUANT_CALLS}, want {2 * PROJECTIONS} kernel launches")
-    return {"launches": launches, "worst_mean_rel_err": worst}
+    # each projection's M = 256 call runs int8_gemm_wgmma_kernel, its M = 8
+    # call int8_gemm_mma_kernel
+    if wgmma != PROJECTIONS:
+        fail(f"int8_gemm path: {wgmma} int8_gemm_wgmma_kernel launches, "
+             f"want {PROJECTIONS} (the M = 256 calls)")
+    return {"launches": launches, "wgmma_launches": wgmma,
+            "worst_mean_rel_err": worst}
 
 
 def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
@@ -1484,6 +1508,7 @@ def check_grouped_matmul(torch, gm, flush) -> list:
                 a, w, gg = ((t.float() for t in (lhs, rhs, g)) if f32
                             else (lhs, rhs, g))
                 tag = f"grouped_matmul {shape_name} T={T}"
+                gm.reset_counts()
                 outs = {
                     "fwd": (gm.grouped_matmul(a, w, tg, sizes, tile_m=tile_m,
                                               num_used_tiles=used),
@@ -1495,6 +1520,12 @@ def check_grouped_matmul(torch, gm, flush) -> list:
                              gm.grouped_matmul_plain(gg, w, tg, tile_m,
                                                      rhs_transposed=True))}
                 torch.cuda.synchronize()
+                # bf16 forward at tile_m 64 (T = 512): the wgmma kernel,
+                # once; everything else the mma.sync / CUDA-core kernels
+                want = int(not f32 and T > 16 * MOE_E)
+                if gm.WGMMA_LAUNCHES["grouped_matmul"] != want:
+                    fail(f"{tag}: {gm.WGMMA_LAUNCHES} wgmma launches, want "
+                         f"{want}")
                 for part, (out, ref) in outs.items():
                     what = f"{tag} {part} ({'f32' if f32 else 'bf16'})"
                     if out[tail:].abs().max().item() != 0.0:
@@ -1509,6 +1540,9 @@ def check_grouped_matmul(torch, gm, flush) -> list:
             rows.append({
                 "name": "grouped_matmul", "shape": shape_name, "K": K,
                 "N": N, "T": T, "tile_m": tile_m, "M_pad": lhs.shape[0],
+                "kernel": ("grouped_matmul_wgmma_kernel" if gm.uses_wgmma(
+                    lhs.dtype, tile_m, False)
+                    else "grouped_matmul_bf16_kernel"),
                 "used_tiles": int(used.item()), "experts_touched": touched,
                 "max_abs_err": errs[("fwd", False)],
                 "max_abs_err_f32": errs[("fwd", True)],
@@ -1595,7 +1629,8 @@ def run_moe_engine(torch, pa, gm, profile: bool) -> dict:
         gm.reset_counts()
         run = serve(torch, eng, prompts, trace if attempt == 2 else None)
         run.update(build_s=build_s, launches=dict(pa.LAUNCHES),
-                   gmm=dict(gm.LAUNCHES), gmm_plain=dict(gm.PLAIN_CALLS),
+                   gmm=dict(gm.LAUNCHES), gmm_wgmma=dict(gm.WGMMA_LAUNCHES),
+                   gmm_plain=dict(gm.PLAIN_CALLS),
                    attn_plain=dict(pa.PLAIN_CALLS),
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         runs.append(run)
@@ -1607,6 +1642,19 @@ def run_moe_engine(torch, pa, gm, profile: bool) -> dict:
             fail(f"{tag}: grouped_matmul launched "
                  f"{run['gmm']['grouped_matmul']} times for {paged} "
                  f"paged-attention launches, want 3 per paged launch")
+        # a mixed step routes more than 128 assignments (tile_m 64): its
+        # grouped GEMMs run the wgmma kernel, one per prefill launch; a
+        # decode body's 16 (tile_m 16) the mma.sync kernel
+        prefill = run["launches"]["paged_prefill_attention"]
+        wgmma = run["gmm_wgmma"]["grouped_matmul"]
+        if prefill == 0 or wgmma != 3 * prefill:
+            fail(f"{tag}: grouped_matmul_wgmma_kernel launched {wgmma} "
+                 f"times for {prefill} prefill launches, want 3 per prefill "
+                 "launch")
+        if run["gmm"]["grouped_matmul"] - wgmma != \
+                3 * run["launches"]["paged_decode_attention"]:
+            fail(f"{tag}: {run['gmm']['grouped_matmul'] - wgmma} mma.sync "
+                 "grouped launches, want 3 per decode launch")
         if any(run["gmm_plain"].values()) or any(run["attn_plain"].values()):
             fail(f"{tag}: a plain version ran: {run['gmm_plain']} "
                  f"{run['attn_plain']}")
@@ -1655,7 +1703,9 @@ def run_moe_engine(torch, pa, gm, profile: bool) -> dict:
            "param_gb": param_gb, "init_s": init_s,
            "prompt_tokens": prompt_tokens,
            "cold": rates(runs[0]), "warm": rates(runs[1]),
-           "launches": {**runs[0]["gmm"], **runs[0]["launches"]},
+           "launches": {**runs[0]["gmm"], **runs[0]["launches"],
+                        "grouped_matmul_wgmma":
+                        runs[0]["gmm_wgmma"]["grouped_matmul"]},
            "decode_body_host_syncs": 0}
     if profile:
         r, warm = runs[2], runs[1]
@@ -1664,6 +1714,10 @@ def run_moe_engine(torch, pa, gm, profile: bool) -> dict:
                                         warm["prefill_s"]),
             "decode": device_breakdown(torch, r["profiles"][1],
                                        warm["decode_s"])}
+        if "grouped_matmul_wgmma_kernel" not in \
+                out["profile"]["prefill"]["port_kernels_ms"]:
+            fail(f"{tag}: no grouped_matmul_wgmma_kernel in the prefill "
+                 "trace")
     return out
 
 
@@ -1873,7 +1927,8 @@ def main() -> None:
     print("small quantized model card vs CPU: " + json.dumps(small_quant))
     # mixed-GEMM launches by row count: a decode body's M = 8 calls run
     # mixed_gemm_kernel, a mixed step's (M > 16) mixed_gemm_wgmma_kernel;
-    # int8_gemm's own path runs M = 8 and 256 once per projection each
+    # int8_gemm's own path runs M = 8 and 256 once per projection each (M =
+    # 8 on int8_gemm_mma_kernel, M = 256 on int8_gemm_wgmma_kernel)
     decode_m, step_m = GEMM_MS
     gemm_launches = {}
     for name, bits in GEMM_KERNELS.items():
@@ -1882,9 +1937,10 @@ def main() -> None:
         counts = quant[f"w{bits}a16"]["launches"]
         gemm_launches[name, step_m] = counts[f"{name}_wgmma"]
         gemm_launches[name, decode_m] = counts[name] - counts[f"{name}_wgmma"]
-    for M in GEMM_MS:
-        gemm_launches["int8_gemm", M] = \
-            quant["w8a16"]["int8_gemm_path"]["launches"] // len(GEMM_MS)
+    int8_path = quant["w8a16"]["int8_gemm_path"]
+    gemm_launches["int8_gemm", step_m] = int8_path["wgmma_launches"]
+    gemm_launches["int8_gemm", decode_m] = \
+        int8_path["launches"] - int8_path["wgmma_launches"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1995,14 +2051,21 @@ def main() -> None:
                 "deepspeed_tpu/ops/pallas/grouped_matmul.py:47",
                 "fused_adamw": "deepspeed_tpu/ops/fused_optimizers.py:31"}
     at_shape = [k for k in gemm if (k["shape"], k["M"]) in GEMM_JSON]
-    at_shape += [k for k in gmm if (k["shape"], k["T"]) == MOE_JSON]
+    at_shape += [k for k in gmm if (k["shape"], k["T"]) in MOE_JSON]
+    # grouped-GEMM launches by T: the MoE engine's mixed steps (T = 512) on
+    # the wgmma kernel, its decode bodies (T = 16) on the mma.sync kernel
+    moe_wgmma = moe["launches"]["grouped_matmul_wgmma"]
+    gemm_launches["grouped_matmul", MOE_T[1]] = moe_wgmma
+    gemm_launches["grouped_matmul", MOE_T[0]] = \
+        moe["launches"]["grouped_matmul"] - moe_wgmma
 
     def row(k):
         return {"name": k["name"], "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
                 "replaces": replaces[k["name"]], "status": "ok",
-                **({"M": k["M"]} if "M" in k else {}),
+                **{d: k[d] for d in ("M", "T", "kernel") if d in k},
                 "launches": (gemm_launches[k["name"], k["M"]] if "M" in k
+                             else gemm_launches[k["name"], k["T"]] if "T" in k
                              else launches[k["name"]]),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],

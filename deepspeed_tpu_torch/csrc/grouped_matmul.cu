@@ -1,20 +1,27 @@
 // Grouped (per-expert) matmul for dropless MoE, written for Hopper (sm_90a).
 //
-//   grouped_matmul_kernel  replaces deepspeed_tpu/ops/pallas/grouped_matmul.py
-//                          _gmm_kernel (entry grouped_matmul):
+//   grouped_matmul_wgmma_kernel,  replace
+//   grouped_matmul_bf16_kernel,   deepspeed_tpu/ops/pallas/grouped_matmul.py
+//   grouped_matmul_f32_kernel     _gmm_kernel (entry grouped_matmul):
 //                          out[r] = lhs[r] @ W_e, e = tile_group[r / tile_m],
 //                          W_e = rhs[e] read as (K, N), or with transposed = 1
 //                          rhs[e] read as (N, K) and used transposed (the
 //                          backward's dlhs = g @ rhs[e]^T, without a copy).
 //                          f32 accumulation, the output in lhs's dtype.
+//                          The dispatch (chosen by the wrapper, checked
+//                          here) is on dtype, transposition and tile_m:
+//                          bf16 on (K, N) weights with tile_m a multiple of
+//                          64 (dropless MoE's mixed steps) runs the wgmma
+//                          kernel; bf16 at tile_m 16 (decode bodies) or on
+//                          transposed weights (the backward's dlhs) the
+//                          mma.sync kernel; f32 the CUDA-core kernel.
 //
 // lhs (M, K) holds rows in the tile-aligned layout: M is a multiple of
-// tile_m and every tile_m-row tile belongs to one expert.  A block owns BM
-// rows (BM divides tile_m, so its rows share one expert) and BN columns; it
-// reads tile_group for its tile and points at that expert's weights.  Tiles
-// at or past *used (the count of tiles that hold a group; null: all) hold
-// only padding rows, which are zero: the block writes zeros there and reads
-// no weights.  The layout always appends such tiles, clipped to expert E-1,
+// tile_m and every tile_m-row tile belongs to one expert; tile_group is
+// sorted, so an expert's tiles are contiguous.  Tiles at or past *used (the
+// count of tiles that hold a group; null: all) hold only padding rows,
+// which are zero: their output is written as zeros and no weights are read
+// for them.  The layout always appends such tiles, clipped to expert E-1,
 // and a kernel that computed them would stream that expert's weights again
 // for nothing.
 //
@@ -23,30 +30,38 @@
 // 16 assignments, ~2 rows per touched expert, so each touched expert's 117
 // MB of weights is read for ~4 flops per 2-byte element: bound by those
 // bytes.  A 256-token mixed step gives ~64 rows per expert, still below the
-// ~295 flops/byte ridge: bound by the bytes of all 8 experts.  What this
-// kernel does about that:
-//   * bf16 through the tensor cores (mma.sync m16n8k16, f32 accumulation),
-//     tiles staged with cp.async in a 4-stage ring so that each SM keeps
-//     tens of KB of weight loads in flight; lhs read with ldmatrix, the
-//     weight tile with ldmatrix.trans ((K, N): [k][n] in shared memory) or
-//     ldmatrix ((N, K): [n][k]);
-//   * BM = 16 row blocks for the layout's 16-row tiles (decode: one mma row
-//     tile, 4 warps across 64 columns) and BM = 64 for 64-row tiles (mixed
-//     steps: fewer re-reads of each expert's weights);
-//   * 64-wide column blocks, so that even a 4096-wide projection gives 64
-//     column blocks per touched tile, ~450 blocks at decode for 132 SMs.
+// ~295 flops/byte ridge: bound by the bytes of all 8 experts (0.94 GB,
+// 0.28 ms).  What the kernels do about that:
+//   * wgmma kernel: a block owns (expert e, 128 output columns) and finds
+//     e's first tile and tile count in tile_group itself (no host read, so
+//     a decode body stays free of host syncs), so each weight byte is read
+//     from memory once per GEMM when the expert has at most 256 rows (the
+//     rows go in chunks of at most 256, usually one).  The swapped form
+//     out_e^T = W_e^T lhs_e^T: W_e's columns are wgmma's M (two consumer
+//     warpgroups of 64), the expert's rows its N in 64-row sub-tiles, only
+//     as many as the chunk has (the tensor cores do no work on rows the
+//     expert does not have).  A producer thread keeps a 4-stage ring full
+//     by TMA; lhs feeds wgmma's B straight from its 128-byte-swizzled tile,
+//     W_e's (K, N) tile the A registers through ldmatrix.trans (A from
+//     registers needs no MN-major shared-memory descriptor).  One extra
+//     row of blocks writes the all-padding tail's zeros.
+//   * mma.sync kernel: bf16 through the tensor cores (m16n8k16, f32
+//     accumulation), tiles staged with cp.async in a 4-stage ring; lhs read
+//     with ldmatrix, the weight tile with ldmatrix.trans ((K, N): [k][n] in
+//     shared memory) or ldmatrix ((N, K): [n][k]); BM = 16 row blocks for
+//     the layout's 16-row tiles (decode: one mma row tile, 4 warps across
+//     64 columns, ~450 blocks at decode for 132 SMs) and BM = 64 for the
+//     transposed weights at 64-row tiles.
 //   * f32 (the small models' path) on the CUDA cores: 4 x 4 outputs per
 //     thread from shared-memory tiles, fmaf.
-// wgmma, TMA, split-K and a persistent schedule are later work.
+// Split-K and a persistent schedule are later work.
 //
-// The bf16 path loads 16-byte chunks: K and N multiples of 8 and 16-byte
+// The bf16 paths load 16-byte chunks: K and N multiples of 8 and 16-byte
 // aligned tensors (the wrapper checks).  K and N edges are zero-filled and
 // masked.  The C entry point launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -55,47 +70,6 @@ constexpr int kBK = 64;       // K per pipeline stage (bf16)
 constexpr int kStages = 4;
 constexpr int kRow = (kBK + 8) * 2;  // bytes per shared row: 144 (conflict-free ldmatrix)
 constexpr int kF32BK = 16;    // K per step (f32)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
 
 // The expert of this block's rows, or -1 when the tile is past the used
 // ones (or names no expert): then the block only writes zeros.
@@ -308,11 +282,153 @@ __global__ void __launch_bounds__(BM * 4)
     }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return cudaSuccess;
+// bf16, rhs (E, K, N), tile_m a multiple of 64 (grouped_matmul_wgmma_kernel):
+// out_e^T = W_e^T lhs_e^T per block of (expert e, BN = 128 output columns),
+// two consumer warpgroups of 64 columns (the wgmma M) and the expert's rows
+// in chunks of at most 256 (NSUB <= 4 m64n64k16 products per 16-deep
+// k-step, as many as the chunk has 64-row sub-tiles: no products on rows
+// the expert does not have), K in 64-deep tiles through a ring of STAGES
+// stages that one producer thread fills by TMA: the chunk's lhs rows (NSUB
+// boxes of 64 rows x 64 K, 128-byte swizzle, wgmma's B, K-major) and the
+// expert's weight tile (two boxes of 64 K-rows x 64 columns, 128-byte
+// swizzle), which each warp reads into its A registers with ldmatrix.trans.
+struct GmmWg {
+  static constexpr int kConsumers = 2;  // warpgroups, 64 columns each
+  static constexpr int BN = 64 * kConsumers, BK = 64, MAXSUB = 4, STAGES = 4;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kBox = 64 * BK * 2;  // one 64 x 64 bf16 box
+  static constexpr int kXBytes = MAXSUB * kBox, kWBytes = kConsumers * kBox;
+  static constexpr int kStage = kXBytes + kWBytes;
+  // + full and empty barriers, + slack to align the ring to 1024 bytes
+  static constexpr int kBytes = STAGES * kStage + 2 * STAGES * 8 + 1024;
+  static_assert(kStage % 1024 == 0, "swizzle atoms stay 1024-byte aligned");
+};
+
+__global__ void __launch_bounds__(GmmWg::kThreads, 1)
+    grouped_matmul_wgmma_kernel(__nv_bfloat16* __restrict__ out,
+                                const int* __restrict__ tile_group,
+                                const int* __restrict__ used, int N, int K, int E, int ntiles,
+                                int tile_m, const __grid_constant__ CUtensorMap tm_lhs,
+                                const __grid_constant__ CUtensorMap tm_rhs) {
+  using L = GmmWg;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::STAGES * L::kStage);
+  uint64_t* empty = full + L::STAGES;
+  __shared__ int s_before, s_mine;
+  const int e = blockIdx.y, n0 = blockIdx.x * L::BN;
+  // the tiles that hold a group: the first *used, or all
+  const int lim = used != nullptr ? min(max(*used, 0), ntiles) : ntiles;
+  if (e == E) {  // the all-padding tail [lim, ntiles): zeros, no weights read
+    const long long r0 = (long long)lim * tile_m, rows = (long long)(ntiles - lim) * tile_m;
+    for (long long i = threadIdx.x; i < rows * (L::BN / 8); i += blockDim.x) {
+      const int n = n0 + (int)(i % (L::BN / 8)) * 8;
+      if (n < N)
+        *reinterpret_cast<uint4*>(out + (r0 + i / (L::BN / 8)) * N + n) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  // expert e's tiles among the first lim (tile_group is sorted): they
+  // start after the tiles of experts < e
+  if (threadIdx.x == 0) s_before = s_mine = 0;
+  __syncthreads();
+  int before = 0, mine = 0;
+  for (int i = threadIdx.x; i < lim; i += blockDim.x) {
+    const int g = tile_group[i];
+    before += g < e;
+    mine += g == e;
+  }
+  if (before) atomicAdd(&s_before, before);
+  if (mine) atomicAdd(&s_mine, mine);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * L::kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int row0 = s_before * tile_m, rows = s_mine * tile_m;  // rows % 64 == 0
+  if (rows == 0) return;  // an expert with no rows
+  const int ktiles = (K + L::BK - 1) / L::BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp >= 4 * L::kConsumers) {
+    // producer: (chunk, K-tile) t into stage t % STAGES once the consumers
+    // released it; announced (full) when its copies have landed
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 128 * L::kConsumers) return;
+    int t = 0;
+    for (int r = row0; r < row0 + rows; r += 64 * L::MAXSUB) {
+      const int nsub = min(L::MAXSUB, (row0 + rows - r) / 64);
+      for (int kt = 0; kt < ktiles; ++kt, ++t) {
+        const int st = t % L::STAGES;
+        if (t >= L::STAGES) mbar_wait(&empty[st], (t / L::STAGES - 1) & 1);
+        uint8_t* sp = smem + st * L::kStage;
+        mbar_expect_tx(&full[st], nsub * L::kBox + L::kWBytes);
+        for (int s = 0; s < nsub; ++s)
+          tma_load(sp + s * L::kBox, &tm_lhs, &full[st], kt * L::BK, r + 64 * s);
+        for (int w = 0; w < L::kConsumers; ++w)
+          tma_load_3d(sp + L::kXBytes + w * L::kBox, &tm_rhs, &full[st], n0 + 64 * w,
+                      kt * L::BK, e);
+      }
+    }
+    return;
+  }
+
+  // consumers: warp wl of warpgroup wg owns the columns c = n0 + 64 wg +
+  // 16 wl + gr and c + 8 (its A rows gr, gr + 8; the m16n8k16 A layout)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, wl = warp & 3, gr = lane >> 2, tq = lane & 3;
+  // ldmatrix.trans lane addresses: matrix q = lane / 8 holds K-rows
+  // 8 (q / 2) .. + 7 and columns 8 (q % 2) .. + 7 of the warp's 16
+  const int a_k = (lane & 7) + ((lane >> 4) << 3), a_c = (16 * wl + ((lane >> 3) & 1) * 8) * 2;
+  const int c = n0 + 64 * wg + 16 * wl + gr;
+  int t = 0;
+  for (int r = row0; r < row0 + rows; r += 64 * L::MAXSUB) {
+    const int nsub = min(L::MAXSUB, (row0 + rows - r) / 64);
+    float d[L::MAXSUB][32];
+#pragma unroll
+    for (int sb = 0; sb < L::MAXSUB; ++sb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[sb][i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt, ++t) {
+      const int st = t % L::STAGES;
+      mbar_wait(&full[st], (t / L::STAGES) & 1);
+      const uint8_t* sp = smem + st * L::kStage;
+      const uint8_t* wt = sp + L::kXBytes + wg * L::kBox;  // [k][n], 128-byte rows
+      uint32_t a[L::BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < L::BK / 16; ++kk)
+        ldmatrix_x4_trans(a[kk], wt + sw128(16 * kk + a_k, a_c));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::BK / 16; ++kk)
+#pragma unroll
+        for (int sb = 0; sb < L::MAXSUB; ++sb)
+          if (sb < nsub) wgmma_m64n64k16(d[sb], a[kk], sw128_desc(sp + sb * L::kBox + 32 * kk));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int sb = 0; sb < L::MAXSUB; ++sb) fence_acc(d[sb]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+    // d[sb][4j + h] and d[sb][4j + 2 + h] are columns c and c + 8 of row
+    // r + 64 sb + 8j + 2tq + h
+#pragma unroll
+    for (int sb = 0; sb < L::MAXSUB; ++sb) {
+      if (sb >= nsub) break;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat16* p = out + (long long)(r + 64 * sb + 8 * j + 2 * tq + h) * N + c;
+          if (c < N) p[0] = __float2bfloat16(d[sb][4 * j + h]);
+          if (c + 8 < N) p[8] = __float2bfloat16(d[sb][4 * j + 2 + h]);
+        }
+    }
+  }
 }
 
 template <int BM, bool TRANS>
@@ -326,6 +442,27 @@ cudaError_t launch_bf16(const void* lhs, const void* rhs, const int* tg, const i
   kernel<<<grid, L::kThreads, L::kSmem, st>>>(static_cast<const __nv_bfloat16*>(lhs),
                                               static_cast<const __nv_bfloat16*>(rhs), tg, used,
                                               static_cast<__nv_bfloat16*>(out), N, K, E, tile_m);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16_wgmma(const void* lhs, const void* rhs, const int* tg, const int* used,
+                              void* out, int M, int N, int K, int E, int tile_m,
+                              cudaStream_t st) {
+  using L = GmmWg;
+  static cudaError_t attr = allow_smem(grouped_matmul_wgmma_kernel, L::kBytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tm_lhs{}, tm_rhs{};
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+  const uint64_t pitch[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
+  const uint32_t box[3] = {64, L::BK, 1};
+  if (!tile_map(&tm_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, lhs, K, M, (uint64_t)K * 2, L::BK,
+                64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map_nd(&tm_rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rhs, 3, dims, pitch, box,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + L::BN - 1) / L::BN, E + 1);  // + 1: the padding tail's zeros
+  grouped_matmul_wgmma_kernel<<<grid, L::kThreads, L::kBytes, st>>>(
+      static_cast<__nv_bfloat16*>(out), tg, used, N, K, E, M / tile_m, tile_m, tm_lhs, tm_rhs);
   return cudaGetLastError();
 }
 
@@ -344,20 +481,28 @@ cudaError_t launch_f32(const void* lhs, const void* rhs, const int* tg, const in
 // dtype: 0 = f32, 1 = bf16 (lhs, rhs and out).  lhs (M, K); rhs (E, K, N),
 // or (E, N, K) with transposed = 1; tile_group (M / tile_m,) int32; used: a
 // device int32 count of the tiles that hold a group, or null; out (M, N).
-// bm (16 or 64) divides tile_m, which divides M.
+// wgmma = 1 runs grouped_matmul_wgmma_kernel, which takes bf16 with rhs
+// (E, K, N) and tile_m a multiple of 64 (TMA: 16-byte aligned lhs and rhs);
+// wgmma = 0 runs the mma.sync or CUDA-core kernels with row blocks of bm
+// (16 or 64) rows, bm dividing tile_m, for everything else.
 extern "C" int ds_grouped_matmul(int dtype, const void* lhs, const void* rhs,
                                  const void* tile_group, const void* used, void* out, int M,
                                  int N, int K, int E, int tile_m, int bm, int transposed,
-                                 void* stream) {
+                                 int wgmma, void* stream) {
   cudaGetLastError();  // a stale error must not be blamed on this launch
   if (M == 0 || N == 0) return cudaSuccess;
-  if ((bm != 16 && bm != 64) || tile_m <= 0 || tile_m % bm != 0 || M % tile_m != 0 || E <= 0 ||
-      K <= 0)
-    return cudaErrorInvalidValue;
+  if (tile_m <= 0 || M % tile_m != 0 || E <= 0 || K <= 0) return cudaErrorInvalidValue;
   if (dtype == 1 && (K % 8 != 0 || N % 8 != 0)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tg = static_cast<const int*>(tile_group);
   const int* u = static_cast<const int*>(used);
+  if (wgmma) {
+    if (dtype != 1 || transposed || tile_m % 64 != 0 ||
+        ((reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs)) & 15) != 0)
+      return cudaErrorInvalidValue;
+    return (int)launch_bf16_wgmma(lhs, rhs, tg, u, out, M, N, K, E, tile_m, st);
+  }
+  if ((bm != 16 && bm != 64) || tile_m % bm != 0) return cudaErrorInvalidValue;
 #define DS_GMM(LAUNCH, BM, TR) return (int)LAUNCH<BM, TR>(lhs, rhs, tg, u, out, M, N, K, E, tile_m, st)
   if (dtype == 1) {
     if (bm == 16) {
@@ -365,7 +510,7 @@ extern "C" int ds_grouped_matmul(int dtype, const void* lhs, const void* rhs,
       DS_GMM(launch_bf16, 16, false);
     }
     if (transposed) DS_GMM(launch_bf16, 64, true);
-    DS_GMM(launch_bf16, 64, false);
+    return cudaErrorInvalidValue;  // bf16 (K, N) at 64-row tiles: the wgmma kernel's
   }
   if (dtype == 0) {
     if (bm == 16) {

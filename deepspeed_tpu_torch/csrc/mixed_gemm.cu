@@ -15,19 +15,23 @@
 //                      e3m2 (3K/4, N), bytes (b0, b1, b2) of a column holding
 //                      four K-rows c0 = b0 & 63, c1 = b0 >> 6 | (b1 & 15) << 2,
 //                      c2 = b1 >> 4 | (b2 & 3) << 4, c3 = b2 >> 2.
-//   int8_gemm_kernel   replaces mixed_gemm.py _int8_gemm_kernel (entry
-//                      int8_gemm): W8A8.  x arrives quantized per (row,
+//   int8_gemm_wgmma_kernel,  replace mixed_gemm.py _int8_gemm_kernel (entry
+//   int8_gemm_mma_kernel     int8_gemm): W8A8.  x arrives quantized per (row,
 //                      K-group) by the caller (codes int8 (M, K), scales
 //                      transposed to (K/group, M) f32); per group the int8 x
 //                      int8 product is summed exactly in int32, then
 //                      acc += f32(i32) * xs[g, m] * ws[g, n] in that order,
 //                      with no contraction into an FMA (__fmul_rn /
 //                      __fadd_rn), group by group: the plain version's
-//                      arithmetic to the bit.
+//                      arithmetic to the bit.  The dispatch (chosen by the
+//                      wrapper, checked here) is on M and the layout:
+//                      M > 16 with TMA's rows (N % 16 == 0, 16-byte
+//                      aligned arrays) runs the wgmma kernel, M <= 16 and
+//                      any other N the mma.sync kernel.
 //
 // They use the tensor cores: wgmma m64n64k16 bf16 -> f32 (bf16 x, M > 16),
-// mma.sync m16n8k16 bf16 -> f32 (the other mixed GEMMs) and m16n8k32 s8 ->
-// s32 (W8A8).  bf16 x bf16 products are exact
+// mma.sync m16n8k16 bf16 -> f32 (the other mixed GEMMs), wgmma m64n64k32
+// and mma.sync m16n8k32 s8 -> s32 (W8A8).  bf16 x bf16 products are exact
 // in f32, so against the plain version only the summation order differs
 // (the tensor cores' f32 accumulation truncates where IEEE addition rounds,
 // so the difference grows with K; see the tolerances of the callers).
@@ -78,6 +82,36 @@
 //     each tile's codes are dequantized once, by the whole block, into a
 //     bf16 tile in shared memory, which every warp reads with ldmatrix, x
 //     converted to bf16 the same way.
+// What the W8A8 kernels do (the same bounds, int8 products at twice the
+// bf16 rate, no dequantization): both compute y^T = W^T x^T, the codes as
+// the A operand from registers.  The codes are (K, N) with N contiguous,
+// but an s8 A fragment wants four K-rows of one column in a register: a
+// thread owns two adjacent columns (its A rows gr and gr + 8), so one
+// 16-bit load per code row feeds both, and byte permutes put four rows in
+// order (AFragS8); the code tiles are 64 columns of 128 K-rows in the
+// 64-byte swizzle mode, so that a warp's loads hit no bank twice.  A
+// 128-deep K-tile never spans two groups (group % 128 == 0), so a group's
+// s32 sums end on a tile edge, where they are rescaled into f32.
+//   * M > 16 (int8_gemm_wgmma_kernel): a block owns 64 columns and up to
+//     256 rows of a mixed step (two consumer warpgroups of 128 rows: an s32
+//     partial and an f32 sum of 64 registers each), so each code byte is
+//     read from memory once per GEMM; wgmma m64n128k32 with B = x^T K-major
+//     straight from TMA's 128-byte-swizzled tile, scale-d = 0 on a group's
+//     first k-step to start the group's sum; a producer thread keeps a
+//     4-stage ring full by TMA (x, codes, both scale rows).  Where 256-row
+//     blocks would leave SMs idle (N < 64 x the SM count), blocks of 128
+//     rows, the two row blocks of a column block neighbours in the launch
+//     order (the code slab read from memory once, from L2 twice).  No
+//     split-K: splits that added partial sums would change the last bit.
+//     The rescale, which a warpgroup does not overlap with its own products,
+//     holds much of the time at a mixed step (the conversion of the s32 sums
+//     is the exact magic-number add, not cvt, for groups of at most 256);
+//     keeping two groups' sums in flight, so that one group's rescale ran
+//     under the next group's products, made ptxas serialize every wgmma
+//     (C7514, C7515).
+//   * M <= 16 (int8_gemm_mma_kernel): mma.sync m16n8k32, B = x^T as one or
+//     two n8 tiles of x rows, 64 columns a block (224 blocks at N =
+//     14336), an 8-stage cp.async ring (~56 KB of codes in flight a block).
 //
 // Ragged M, N and K edges are masked here (rows >= M and columns >= N are
 // loaded as zeros and never stored; a group that BK does not divide ends in
@@ -89,34 +123,11 @@
 // (the caller passes the split-K workspace), and returns cudaGetLastError()
 // after its launches.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in the driver
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kPad = 16;  // bytes of padding after every shared-memory row
-constexpr int kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 16 bytes from global to shared memory: by cp.async when the source is
 // 16-byte aligned and all `valid` bytes are there, zeros when none is, else
@@ -151,15 +162,6 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, int dst_stride, const ui
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
   asm volatile(
@@ -167,20 +169,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
 }
 
 // two values as one register of packed bf16: lo in the low half
@@ -618,107 +606,6 @@ __global__ void __launch_bounds__(MmaSmem<BITS>::kThreads)
 // bf16 x, M > 16: wgmma, with the weight dequantized into registers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-          smem_addr(bar))
-      : "memory");
-}
-
-// waits until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// The accumulators are written by asynchronous wgmma: an empty asm that
-// reads and writes each keeps the compiler from moving their uses across
-// the wait.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The descriptor of a K-major bf16 wgmma operand in shared memory in the
-// 128-byte swizzle mode: rows of 64 elements (128 bytes), 8-row atoms 1024
-// bytes apart, the 16-byte chunk j of row r stored at chunk j ^ (r % 8) (as
-// TMA's 128-byte swizzle writes it; atoms 1024-byte aligned).  A k-step of
-// 16 elements inside the row starts 32 bytes further on.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-// byte c of row r of a 128-byte-row tile in that swizzle mode
-__device__ __forceinline__ int sw128(int r, int c) {
-  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
-}
-
-// TMA: the box of `map` at (x0 inner, x1 outer) into shared memory, its
-// bytes counted on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int x0, int x1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x0), "r"(x1)
-      : "memory");
-}
-
-// one arrival on `bar` that also expects `bytes` more bytes of copies
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// D[64 x 64] += A[64 x 16] . B[16 x 64], bf16 -> f32: A from registers
-// (per warp the m16n8k16 A fragment of its 16 rows), B K-major in shared
-// memory.  Each thread holds D's rows gr, gr + 8 of its warp's 16 and
-// columns 8j + 2tq, +1 as d[4j .. 4j + 3] (the m16n8 layout, j < 8).
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // The dequantized bf16 pairs (k, k+1) (k even) of columns c (p0, scale
 // s.x) and c + 1 (p1, scale s.y), c even, of a staged code tile (128-byte
 // rows, swizzled: sw128): one 16-bit load per code row gives both columns.
@@ -833,7 +720,7 @@ __global__ void __launch_bounds__(WgSmem<BITS, NSUB>::kThreads, 1)
       mbar_init(&full[s], use_tma ? 1 : 128);
       mbar_init(&empty[s], 4 * L::kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   fence_proxy_async();  // the zeros, for wgmma's reads
   __syncthreads();
@@ -997,191 +884,413 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, XT* __restric
 }
 
 // ---------------------------------------------------------------------------
-// W8A8 int8 GEMM
+// W8A8 int8 GEMM: y^T = W^T x^T, s8 x s8 -> s32 per group, then the rescale
 // ---------------------------------------------------------------------------
 
-template <typename TL>
-struct Int8Smem {
-  static constexpr int kXRow = TL::BK + kPad;
-  static constexpr int kWRow = TL::BN + kPad;
-  static constexpr int kXBytes = TL::BM * kXRow;
-  static constexpr int kWBytes = TL::BK * kWRow;
-  static constexpr int kStage = kXBytes + kWBytes + TL::BM * 4 + TL::BN * 4;
-  static constexpr int kBytes = kStage * TL::STAGES;
+// byte c (< 64) of row r of a 64-byte-row tile in the 64-byte swizzle mode
+// (TMA's CU_TENSOR_MAP_SWIZZLE_64B on a 512-byte-aligned tile; the
+// cp.async copies of int8_gemm_mma_kernel write the same layout): the
+// 16-byte chunk j of row r stored at chunk j ^ ((r / 2) % 4)
+__device__ __forceinline__ int sw64(int r, int c) {
+  return r * 64 + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15);
+}
+
+// The s8 A fragment of W^T for one 32-deep k-step at K-row k0 of a staged
+// code tile (64 columns, sw64), as AFragS8::load reads it: the A rows gr
+// and gr + 8 of the warp's 16 are the tile's columns c and c + 1 (c even),
+// so one 16-bit load per code row gives both.  a[0] and a[1] hold K-rows k0 + 4tq .. + 3 of columns c
+// and c + 1, a[2] and a[3] the same 16 rows further on (the m16n8k32 A
+// layout, and wgmma's per warp), the lowest K in the lowest byte, packed by
+// byte permutes.  Threads with tq >= 2 load their four rows in the order
+// 2, 3, 0, 1: then the warp's four row groups of each load fall in four
+// different 16-byte bank groups of the swizzled tile.  The byte offsets of
+// a thread's four code rows 4 tq + (i + rot) % 4, rot = tq & 2, at column c
+// are computed once: a row 16 further on is 1024 bytes further on (its
+// swizzle is the same), so they serve every k-step.
+struct AFragS8 {
+  int off[4];
+  __device__ __forceinline__ AFragS8(int c, int tq) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) off[i] = sw64(4 * tq + ((i + (tq & 2)) & 3), c);
+  }
+  // the fragment of the k-step at K-row k0 (k0 % 32 == 0)
+  __device__ __forceinline__ void load(const uint8_t* cs, int k0, int tq,
+                                       uint32_t (&a)[4]) const {
+    const bool rot = (tq & 2) != 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint8_t* base = cs + 64 * (k0 + 16 * h);
+      uint32_t u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[i] = *reinterpret_cast<const uint16_t*>(base + off[i]);
+      const uint32_t p = __byte_perm(u[0], u[1], 0x5410), q = __byte_perm(u[2], u[3], 0x5410);
+      const uint32_t r01 = rot ? q : p, r23 = rot ? p : q;  // K-rows 0, 1 and 2, 3
+      a[2 * h] = __byte_perm(r01, r23, 0x6420);             // column c
+      a[2 * h + 1] = __byte_perm(r01, r23, 0x7531);         // column c + 1
+    }
+  }
 };
 
-// needs group % BK == 0, so that a tile lies in one group
-template <typename XT, typename TL>
-__global__ void __launch_bounds__(TL::kThreads)
-    int8_gemm_kernel(const int8_t* __restrict__ xc, const float* __restrict__ xs_t,
-                     const int8_t* __restrict__ wc, const float* __restrict__ ws,
-                     XT* __restrict__ out, int M, int N, int K, int group) {
-  using SM = Int8Smem<TL>;
-  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, MT = TL::MT, NT = TL::NT;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tiles_per_group = group / BK;
-  const int tiles = K / BK;
+// f32(i) of a group's s32 sum.  SMALL (a group of at most 256 int8 x int8
+// products, each at most 2^14 in size, so |i| <= 2^22): i added to the bits
+// of 1.5 * 2^23 stays in its mantissa, and the exact difference with 1.5 *
+// 2^23 is i, an integer add and a float add at the full rate where
+// cvt.rn.f32.s32 runs at a quarter of it; else cvt.rn.f32.s32.
+template <bool SMALL>
+__device__ __forceinline__ float group_sum_f32(int i) {
+  if (SMALL) return __fsub_rn(__int_as_float(0x4B400000 + i), 12582912.0f);
+  return (float)i;
+}
 
+// acc += f32(i) * xs * ws with no contraction, the plain version's order
+template <bool SMALL>
+__device__ __forceinline__ float rescale(float acc, int i, float xs, float ws) {
+  return __fadd_rn(acc, __fmul_rn(__fmul_rn(group_sum_f32<SMALL>(i), xs), ws));
+}
+
+// The wgmma kernel's rescale of a warpgroup's NSUB x 32 sums: d[sb][4j + h]
+// and d[sb][4j + 2 + h] are columns c, c + 1 (scales w) of the warpgroup's
+// row 64 sb + 8j + 2tq + h (scale xs[that row]).
+template <bool SMALL, int NSUB>
+__device__ __forceinline__ void rescale_group(float (&acc)[NSUB][32], const int (&d)[NSUB][32],
+                                              const float* xs, float2 w, int tq) {
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 xv = *reinterpret_cast<const float2*>(xs + 64 * sb + 8 * j + 2 * tq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float xh = h ? xv.y : xv.x;
+        acc[sb][4 * j + h] = rescale<SMALL>(acc[sb][4 * j + h], d[sb][4 * j + h], xh, w.x);
+        acc[sb][4 * j + 2 + h] =
+            rescale<SMALL>(acc[sb][4 * j + 2 + h], d[sb][4 * j + 2 + h], xh, w.y);
+      }
+    }
+}
+
+// columns n, n + 1 of one output row (8-byte aligned for f32, 4 for bf16)
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// Stores the s8 kernels' results: v[4j + h] and v[4j + 2 + h] are columns
+// n, n + 1 of row m0 + 8j + 2tq + h, j < J.
+template <typename XT, int J>
+__device__ __forceinline__ void store_i8(XT* out, const float* v, int M, int N, int m0, int n,
+                                         int tq) {
+  if (n >= N) return;
+  const bool pair = n + 1 < N && (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * j + 2 * tq + h;
+      if (m >= M) continue;
+      XT* p = out + (long long)m * N + n;
+      if (pair) {
+        store_pair(p, v[4 * j + h], v[4 * j + 2 + h]);
+      } else {
+        p[0] = from_float<XT>(v[4 * j + h]);
+        if (n + 1 < N) p[1] = from_float<XT>(v[4 * j + 2 + h]);
+      }
+    }
+}
+
+// D[64 x 64] (+)= A[64 x 32] . B[32 x 64], s8 -> s32: A from registers
+// (AFragS8 per warp), B K-major in shared memory (sw128_desc); `acc` 0
+// starts a new sum (wgmma's scale-d), 1 adds to d.  d's layout is
+// wgmma_m64n64k16's.
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// The same on m64n128k32: d[4j .. 4j + 3] for j < 16, the layout of two
+// m64n64k32 products side by side.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// M > 16 (int8_gemm_wgmma_kernel): a block owns BN = 64 output columns and
+// BM = 2 RW rows of x, RW = 64 NSUB per consumer warpgroup (one m64n64k32
+// or m64n128k32 product per 32-deep k-step), K in 128-deep tiles through a
+// ring of STAGES stages that one producer thread fills by TMA: the x tile
+// (BM rows of 128 codes, sw128, wgmma's B), the code tile (128 K-rows of 64
+// codes, sw64, read into the A registers by both warpgroups), the group's
+// x-scale row (BM) and w-scale row (BN).
+template <int NSUB>
+struct I8Wg {
+  static constexpr int kConsumers = 2;  // warpgroups, RW rows each
+  static constexpr int BN = 64, RW = 64 * NSUB, BM = RW * kConsumers, BK = 128, STAGES = 4;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kXBytes = BM * BK;
+  static constexpr int kCBytes = BK * BN;
+  static constexpr int kTmaBytes = kXBytes + kCBytes + BM * 4 + BN * 4;  // a stage's copies
+  static constexpr int kStage = (kTmaBytes + 1023) / 1024 * 1024;
+  // + full and empty barriers, + slack to align the ring to 1024 bytes
+  static constexpr int kBytes = STAGES * kStage + 2 * STAGES * 8 + 1024;
+};
+
+template <typename XT, int NSUB>
+__global__ void __launch_bounds__(I8Wg<NSUB>::kThreads, 1)
+    int8_gemm_wgmma_kernel(XT* __restrict__ out, int M, int N, int K, int group,
+                           const __grid_constant__ CUtensorMap tm_x,
+                           const __grid_constant__ CUtensorMap tm_c,
+                           const __grid_constant__ CUtensorMap tm_xs,
+                           const __grid_constant__ CUtensorMap tm_ws) {
+  using L = I8Wg<NSUB>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::STAGES * L::kStage);
+  uint64_t* empty = full + L::STAGES;
+  // the row blocks of a column block are neighbours in the launch order, so
+  // that they share its code slab in L2
+  const int m0 = blockIdx.x * L::BM, n0 = blockIdx.y * L::BN;
+  const int tpg = group / L::BK, tiles = K / L::BK;  // K-tiles per group, in all
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * L::kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * L::kConsumers) {
+    // producer: tile t into stage t % STAGES once the consumers released
+    // it; the stage is announced (full) when its four copies have landed
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 128 * L::kConsumers) return;
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t % L::STAGES, g = t / tpg;
+      if (t >= L::STAGES) mbar_wait(&empty[st], (t / L::STAGES - 1) & 1);
+      uint8_t* sp = smem + st * L::kStage;
+      mbar_expect_tx(&full[st], L::kTmaBytes);
+      tma_load(sp, &tm_x, &full[st], t * L::BK, m0);
+      tma_load(sp + L::kXBytes, &tm_c, &full[st], n0, t * L::BK);
+      tma_load(sp + L::kXBytes + L::kCBytes, &tm_xs, &full[st], m0, g);
+      tma_load(sp + L::kXBytes + L::kCBytes + L::BM * 4, &tm_ws, &full[st], n0, g);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + wg RW .. + RW; warp wl the
+  // block's columns c = 16 wl + 2 gr and c + 1 as its A rows gr and gr + 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, wl = warp & 3, gr = lane >> 2, tq = lane & 3;
+  const int c = wl * 16 + 2 * gr;
+  const AFragS8 afrag(c, tq);
+  int d[NSUB][32];  // the group's exact s32 sums
+  float acc[NSUB][32];
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      d[sb][i] = 0;
+      acc[sb][i] = 0.f;
+    }
+
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % L::STAGES;
+    mbar_wait(&full[st], (t / L::STAGES) & 1);
+    const uint8_t* sp = smem + st * L::kStage;
+    const uint8_t* cs = sp + L::kXBytes;
+    uint32_t a[L::BK / 32][4];
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 32; ++kk) afrag.load(cs, 32 * kk, tq, a[kk]);
+    const int carry = t % tpg != 0;  // 0: the tile starts a group, a new sum
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 32; ++kk) {
+      const uint64_t b = sw128_desc(sp + wg * L::RW * 128 + 32 * kk);
+      if constexpr (NSUB == 2)  // the warpgroup's 128 rows in one product
+        wgmma_s8_m64n128k32(reinterpret_cast<int(&)[64]>(d), a[kk], b, kk == 0 ? carry : 1);
+      else
+        wgmma_s8_m64n64k32(d[0], a[kk], b, kk == 0 ? carry : 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int sb = 0; sb < NSUB; ++sb) fence_acc(d[sb]);
+    if ((t + 1) % tpg == 0) {  // the group is complete: rescale into acc
+      const float* xs = reinterpret_cast<const float*>(cs + L::kCBytes);
+      const float2 w = *reinterpret_cast<const float2*>(xs + L::BM + c);
+      if (tpg <= 2)
+        rescale_group<true>(acc, d, xs + wg * L::RW, w, tq);
+      else
+        rescale_group<false>(acc, d, xs + wg * L::RW, w, tq);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+#pragma unroll
+  for (int sb = 0; sb < NSUB; ++sb)
+    store_i8<XT, 8>(out, acc[sb], M, N, m0 + wg * L::RW + 64 * sb, n0 + c, tq);
+}
+
+// M <= 16, and rows TMA cannot take (int8_gemm_mma_kernel): the same swapped
+// form on mma.sync m16n8k32, 4 warps, BN = 64 columns (16 a warp, c = 16 wl
+// + 2 gr and c + 1 as its A rows gr and gr + 8), BM = 16 rows of x per
+// block (NT n8 tiles of B = x^T), K in 128-deep tiles through a cp.async
+// ring of STAGES stages: the code tile (128 K-rows of 64 codes, sw64), the
+// x tile (16 rows of 128 codes), the group's x-scale row (16) and w-scale
+// row (64).
+struct I8Mma {
+  static constexpr int BN = 64, BM = 16, BK = 128, STAGES = 8, kThreads = 128;
+  static constexpr int kXRow = BK + kPad;  // conflict-free B fragment loads
+  static constexpr int kCBytes = BK * BN;
+  static constexpr int kXBytes = BM * kXRow;
+  static constexpr int kStage = (kCBytes + kXBytes + BM * 4 + BN * 4 + 127) / 128 * 128;
+  static constexpr int kBytes = STAGES * kStage + 128;  // + slack to align to 128 bytes
+};
+
+template <typename XT, int NT>
+__global__ void __launch_bounds__(I8Mma::kThreads)
+    int8_gemm_mma_kernel(const int8_t* __restrict__ xc, const float* __restrict__ xs_t,
+                         int xs_pitch, const int8_t* __restrict__ wc,
+                         const float* __restrict__ ws, XT* __restrict__ out, int M, int N,
+                         int K, int group) {
+  using L = I8Mma;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  const int n0 = blockIdx.x * L::BN, m0 = blockIdx.y * L::BM;
+  const int tpg = group / L::BK, tiles = K / L::BK;
+  const int tid = threadIdx.x;
+  const uint8_t* codes = reinterpret_cast<const uint8_t*>(wc);
+  const bool c_al = ((reinterpret_cast<uintptr_t>(wc) | (uintptr_t)N) & 15) == 0;
+  const bool s_al = ((reinterpret_cast<uintptr_t>(ws) | (uintptr_t)N * 4) & 15) == 0;
+  const bool x_al = (reinterpret_cast<uintptr_t>(xc) & 15) == 0;  // K % 128 == 0
+  const bool xs_al = (reinterpret_cast<uintptr_t>(xs_t) & 15) == 0;  // pitch % 4 == 0
+
+  // thread tid copies code chunks tid + 128 i (row (tid + 128 i) / 4, chunk
+  // tid % 4), x chunk tid (row tid / 8, chunk tid % 8), and one scale chunk
+  // (tid < 4: x scales, 4 <= tid < 20: w scales)
   auto load = [&](int t) {
-    uint8_t* st = smem + (t % TL::STAGES) * SM::kStage;
-    const int k0 = t * BK, g = t / tiles_per_group;
-    load_tile<BM, BK>(st, SM::kXRow, reinterpret_cast<const uint8_t*>(xc) + (long long)m0 * K + k0,
-                      K, M - m0, BK);
-    load_tile<BK, BN>(st + SM::kXBytes, SM::kWRow,
-                      reinterpret_cast<const uint8_t*>(wc) + (long long)k0 * N + n0, N, BK,
-                      N - n0);
-    uint8_t* sc = st + SM::kXBytes + SM::kWBytes;
-    load_tile<1, BM * 4>(sc, 0, reinterpret_cast<const uint8_t*>(xs_t + (long long)g * M + m0), 0,
-                         1, (M - m0) * 4);
-    load_tile<1, BN * 4>(sc + BM * 4, 0,
-                         reinterpret_cast<const uint8_t*>(ws + (long long)g * N + n0), 0, 1,
-                         (N - n0) * 4);
+    uint8_t* sp = smem + (t % L::STAGES) * L::kStage;
+    const int k0 = t * L::BK, g = t / tpg;
+    const int ch = tid & 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 2) + 32 * i;
+      copy16(sp + sw64(r, 16 * ch), codes + (long long)(k0 + r) * N + n0 + 16 * ch, c_al,
+             N - n0 - 16 * ch);
+    }
+    const int xr = tid >> 3, xch = tid & 7;
+    copy16(sp + L::kCBytes + xr * L::kXRow + 16 * xch,
+           reinterpret_cast<const uint8_t*>(xc) + (long long)(m0 + xr) * K + k0 + 16 * xch,
+           x_al, m0 + xr < M ? 16 : 0);
+    uint8_t* ss = sp + L::kCBytes + L::kXBytes;
+    if (tid < 4)
+      copy16(ss + 16 * tid,
+             reinterpret_cast<const uint8_t*>(xs_t + (long long)g * xs_pitch + m0 + 4 * tid),
+             xs_al, (M - m0 - 4 * tid) * 4);
+    else if (tid < 20)
+      copy16(ss + L::BM * 4 + 16 * (tid - 4),
+             reinterpret_cast<const uint8_t*>(ws + (long long)g * N + n0 + 4 * (tid - 4)), s_al,
+             (N - n0 - 4 * (tid - 4)) * 4);
   };
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / TL::WN, wn = warp % TL::WN;
-  const int gr = lane >> 2, tq = lane & 3;
-  int iacc[MT][NT][4];
-  float acc[MT][NT][4];
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+  const int c = warp * 16 + 2 * gr;
+  const AFragS8 afrag(c, tq);
+  int iacc[NT][4];
+  float acc[NT * 4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        iacc[i][j][e] = 0;
-        acc[i][j][e] = 0.0f;
-      }
+    for (int e = 0; e < 4; ++e) {
+      iacc[j][e] = 0;
+      acc[4 * j + e] = 0.f;
+    }
 
 #pragma unroll
-  for (int s = 0; s < TL::STAGES - 1; ++s) {
+  for (int s = 0; s < L::STAGES - 1; ++s) {
     if (s < tiles) load(s);
     cp_async_commit();
   }
   for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<TL::STAGES - 2>();
-    __syncthreads();
-    if (t + TL::STAGES - 1 < tiles) load(t + TL::STAGES - 1);
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + L::STAGES - 1 < tiles) load(t + L::STAGES - 1);
     cp_async_commit();
 
-    const uint8_t* st = smem + (t % TL::STAGES) * SM::kStage;
-    const uint8_t* wsm = st + SM::kXBytes;
+    const uint8_t* cs = smem + (t % L::STAGES) * L::kStage;
+    const uint8_t* xsm = cs + L::kCBytes;
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = wm * (BM / TL::WM) + i * 16 + gr;
-        const uint8_t* x0 = st + r * SM::kXRow + ks + tq * 4;
-        const uint8_t* x8 = x0 + 8 * SM::kXRow;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(x0);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(x8);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(x0 + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(x8 + 16);
-      }
+    for (int kk = 0; kk < L::BK / 32; ++kk) {
+      uint32_t a[4];
+      afrag.load(cs, 32 * kk, tq, a);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const int n = wn * (BN / TL::WN) + j * 8 + gr;
-        // B is K-major per column: gather the column's four K-rows per
-        // register (the codes are stored with N contiguous)
-        const uint8_t* w0 = wsm + (ks + tq * 4) * SM::kWRow + n;
-        const uint8_t* w16 = w0 + 16 * SM::kWRow;
-        const uint32_t b0 = (uint32_t)w0[0] | (uint32_t)w0[SM::kWRow] << 8 |
-                            (uint32_t)w0[2 * SM::kWRow] << 16 |
-                            (uint32_t)w0[3 * SM::kWRow] << 24;
-        const uint32_t b1 = (uint32_t)w16[0] | (uint32_t)w16[SM::kWRow] << 8 |
-                            (uint32_t)w16[2 * SM::kWRow] << 16 |
-                            (uint32_t)w16[3 * SM::kWRow] << 24;
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_s8(iacc[i][j], a[i], b0, b1);
+        // B = x^T: K-rows 4tq .. + 3 (and 16 more) of x row 8j + gr
+        const uint8_t* xr = xsm + (8 * j + gr) * L::kXRow + 32 * kk + 4 * tq;
+        mma_s8(iacc[j], a, *reinterpret_cast<const uint32_t*>(xr),
+               *reinterpret_cast<const uint32_t*>(xr + 16));
       }
     }
-    if ((t + 1) % tiles_per_group == 0) {  // the group is complete: rescale
-      const float* xsc = reinterpret_cast<const float*>(st + SM::kXBytes + SM::kWBytes);
-      const float* wsc = xsc + BM;
+    if ((t + 1) % tpg == 0) {  // the group is complete: rescale
+      const float* xs = reinterpret_cast<const float*>(xsm + L::kXBytes);
+      const float w0 = xs[L::BM + c], w1 = xs[L::BM + c + 1];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+        for (int h = 0; h < 2; ++h) {
+          const float xh = xs[8 * j + 2 * tq + h];
+          acc[4 * j + h] = rescale<false>(acc[4 * j + h], iacc[j][h], xh, w0);
+          acc[4 * j + 2 + h] = rescale<false>(acc[4 * j + 2 + h], iacc[j][2 + h], xh, w1);
+        }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = wm * (BM / TL::WM) + i * 16 + gr + (e >> 1) * 8;
-            const int c = wn * (BN / TL::WN) + j * 8 + tq * 2 + (e & 1);
-            const float p = __fmul_rn(__fmul_rn((float)iacc[i][j][e], xsc[r]), wsc[c]);
-            acc[i][j][e] = __fadd_rn(acc[i][j][e], p);
-            iacc[i][j][e] = 0;
-          }
+        for (int e = 0; e < 4; ++e) iacc[j][e] = 0;
+      }
     }
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int r = m0 + wm * (BM / TL::WM) + i * 16 + gr;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = n0 + wn * (BN / TL::WN) + j * 8 + tq * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = r + (e >> 1) * 8, cc = c + (e & 1);
-        if (rr < M && cc < N) out[(long long)rr * N + cc] = from_float<XT>(acc[i][j][e]);
-      }
-    }
-  }
+  store_i8<XT, NT>(out, acc, M, N, m0, n0 + c, tq);
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return cudaSuccess;
-}
-
 // decode rows (M <= kSmallM) and everything larger
 using MixedSmall = Tiling<16, 128, 128, 1, 4, 4>;
-using Int8Small = Tiling<16, 32, 128, 1, 4, 8>;
-using Int8Large = Tiling<64, 64, 64, 2, 2, 4>;
 constexpr int kSmallM = 16;
-
-// cuTensorMapEncodeTiled, looked up in the driver once (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The TMA map of a row-major (rows, cols) array whose rows are `pitch`
-// bytes apart, in boxes of box_rows x box_cols; elements past the array
-// read as zeros.
-bool tile_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t cols,
-              uint64_t rows, uint64_t pitch, uint32_t box_cols, uint32_t box_rows,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {pitch};
-  const cuuint32_t box[2] = {box_cols, box_rows}, steps[2] = {1, 1};
-  return encode != nullptr &&
-         encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // TMA takes x, the codes and the scales when their rows are 16-byte
 // aligned and no K-tile spans two groups; other shapes are copied by the
@@ -1252,28 +1361,69 @@ cudaError_t launch_mixed(const void* x, const void* codes, const void* scales, v
   return cudaGetLastError();
 }
 
-template <typename XT, typename TL>
-cudaError_t launch_int8(const void* xc, const void* xs_t, const void* wc, const void* ws,
-                        void* out, int M, int N, int K, int group, cudaStream_t st) {
-  if (group % TL::BK != 0 || K % group != 0) return cudaErrorInvalidValue;
-  auto kernel = int8_gemm_kernel<XT, TL>;
-  const int smem = Int8Smem<TL>::kBytes;
-  static cudaError_t attr = allow_smem(kernel, smem);
+// W8A8 on wgmma: every operand by TMA (x codes, the codes, both scale rows)
+template <typename XT, int NSUB>
+cudaError_t launch_int8_wgmma(const int8_t* xc, const float* xs_t, int xs_pitch,
+                              const int8_t* wc, const float* ws, XT* out, int M, int N, int K,
+                              int group, cudaStream_t st) {
+  using L = I8Wg<NSUB>;
+  auto kernel = int8_gemm_wgmma_kernel<XT, NSUB>;
+  static cudaError_t attr = allow_smem(kernel, L::kBytes);  // once per instantiation
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
-  kernel<<<grid, TL::kThreads, smem, st>>>(
-      static_cast<const int8_t*>(xc), static_cast<const float*>(xs_t),
-      static_cast<const int8_t*>(wc), static_cast<const float*>(ws), static_cast<XT*>(out), M,
-      N, K, group);
+  CUtensorMap tm_x{}, tm_c{}, tm_xs{}, tm_ws{};
+  if (!tile_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, xc, K, M, K, L::BK, L::BM,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map(&tm_c, CU_TENSOR_MAP_DATA_TYPE_UINT8, wc, N, K, N, L::BN, L::BK,
+                CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tile_map(&tm_xs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xs_t, M, K / group,
+                (uint64_t)xs_pitch * 4, L::BM, 1, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tile_map(&tm_ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, N, K / group, (uint64_t)N * 4,
+                L::BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const dim3 grid((M + L::BM - 1) / L::BM, (N + L::BN - 1) / L::BN);
+  kernel<<<grid, L::kThreads, L::kBytes, st>>>(out, M, N, K, group, tm_x, tm_c, tm_xs, tm_ws);
   return cudaGetLastError();
 }
 
+template <typename XT, int NT>
+cudaError_t launch_int8_mma(const int8_t* xc, const float* xs_t, int xs_pitch, const int8_t* wc,
+                            const float* ws, XT* out, int M, int N, int K, int group,
+                            cudaStream_t st) {
+  auto kernel = int8_gemm_mma_kernel<XT, NT>;
+  static cudaError_t attr = allow_smem(kernel, I8Mma::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + I8Mma::BN - 1) / I8Mma::BN, (M + I8Mma::BM - 1) / I8Mma::BM);
+  kernel<<<grid, I8Mma::kThreads, I8Mma::kBytes, st>>>(xc, xs_t, xs_pitch, wc, ws, out, M, N, K,
+                                                       group);
+  return cudaGetLastError();
+}
+
+// wgmma: 256 rows a block where its blocks fill the card's SMs (a mixed
+// step's 256 rows at N >= 64 SMs columns: each code byte read once), else
+// 128 (M <= 128, or too few column blocks: twice the blocks, the code slab
+// read by two neighbours); mma.sync: one n8 tile of x rows up to M = 8,
+// else two
 template <typename XT>
-cudaError_t dispatch_int8(const void* xc, const void* xs_t, const void* wc, const void* ws,
-                          void* out, int M, int N, int K, int group, cudaStream_t st) {
-  if (M <= kSmallM)
-    return launch_int8<XT, Int8Small>(xc, xs_t, wc, ws, out, M, N, K, group, st);
-  return launch_int8<XT, Int8Large>(xc, xs_t, wc, ws, out, M, N, K, group, st);
+cudaError_t dispatch_int8(int wgmma, const void* xc, const void* xs_t, int xs_pitch,
+                          const void* wc, const void* ws, void* out, int M, int N, int K,
+                          int group, cudaStream_t st) {
+  const int8_t* x = static_cast<const int8_t*>(xc);
+  const float* xs = static_cast<const float*>(xs_t);
+  const int8_t* w = static_cast<const int8_t*>(wc);
+  const float* s = static_cast<const float*>(ws);
+  XT* o = static_cast<XT*>(out);
+  if (wgmma) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long blocks256 =
+        (long long)((M + 255) / 256) * ((N + I8Wg<2>::BN - 1) / I8Wg<2>::BN);
+    return M > 128 && blocks256 >= sms
+               ? launch_int8_wgmma<XT, 2>(x, xs, xs_pitch, w, s, o, M, N, K, group, st)
+               : launch_int8_wgmma<XT, 1>(x, xs, xs_pitch, w, s, o, M, N, K, group, st);
+  }
+  return M <= 8 ? launch_int8_mma<XT, 1>(x, xs, xs_pitch, w, s, o, M, N, K, group, st)
+                : launch_int8_mma<XT, 2>(x, xs, xs_pitch, w, s, o, M, N, K, group, st);
 }
 
 }  // namespace
@@ -1308,17 +1458,29 @@ extern "C" int ds_mixed_gemm(int dtype, int bits, const void* x, const void* cod
   return cudaErrorInvalidValue;
 }
 
-// W8A8: xc int8 (M, K), xs_t f32 (K/group, M), wc int8 (K, N), ws f32
-// (K/group, N); group a multiple of 128.
-extern "C" int ds_int8_gemm(int dtype, const void* xc, const void* xs_t, const void* wc,
-                            const void* ws, void* out, int M, int N, int K, int group,
-                            void* stream) {
+// W8A8: xc int8 (M, K), xs_t f32 (K/group, M) in rows xs_pitch >= M
+// elements apart (xs_pitch % 4 == 0), wc int8 (K, N), ws f32 (K/group, N);
+// group a multiple of 128.  wgmma = 1 runs int8_gemm_wgmma_kernel, which
+// takes TMA's rows only (N % 16 == 0, all four arrays 16-byte aligned);
+// wgmma = 0 runs int8_gemm_mma_kernel, which takes any N.
+extern "C" int ds_int8_gemm(int dtype, int wgmma, const void* xc, const void* xs_t,
+                            int xs_pitch, const void* wc, const void* ws, void* out, int M,
+                            int N, int K, int group, void* stream) {
   cudaGetLastError();
   if (M == 0 || N == 0) return cudaSuccess;
-  if (group <= 0) return cudaErrorInvalidValue;
+  if (group <= 0 || group % 128 != 0 || K % group != 0 || xs_pitch < M || xs_pitch % 4 != 0)
+    return cudaErrorInvalidValue;
+  if (wgmma && (N % 16 != 0 || ((reinterpret_cast<uintptr_t>(xc) |
+                                  reinterpret_cast<uintptr_t>(xs_t) |
+                                  reinterpret_cast<uintptr_t>(wc) |
+                                  reinterpret_cast<uintptr_t>(ws)) & 15) != 0))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)dispatch_int8<__nv_bfloat16>(xc, xs_t, wc, ws, out, M, N, K, group, st);
-  if (dtype == 0) return (int)dispatch_int8<float>(xc, xs_t, wc, ws, out, M, N, K, group, st);
+    return (int)dispatch_int8<__nv_bfloat16>(wgmma, xc, xs_t, xs_pitch, wc, ws, out, M, N, K,
+                                             group, st);
+  if (dtype == 0)
+    return (int)dispatch_int8<float>(wgmma, xc, xs_t, xs_pitch, wc, ws, out, M, N, K, group,
+                                     st);
   return cudaErrorInvalidValue;
 }

@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Every source in ``deepspeed_tpu_torch/csrc`` (:data:`SOURCES`) is compiled
-by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together, and the objects are linked into one shared library with a plain C
+Every source in ``deepspeed_tpu_torch/csrc`` (:data:`SOURCES`; the GEMM
+sources share the header :data:`HEADERS`) is compiled by ``nvcc`` for
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+the objects are linked into one shared library with a plain C
 interface, which the wrappers load with ``ctypes`` (pointers and the stream
 pass as ``c_void_p``; every C entry returns ``cudaGetLastError()``).
 Nothing includes PyTorch's headers, so a build takes seconds, not minutes.
 
 The build happens at first use, from the checkout's sources only, into
 ``build/torch_kernels/`` at the root of the checkout (git-ignored).  The
-library's file name carries a digest of every source and the flags, so an
+library's file name carries a digest of every source, header and flag, so an
 edited source is rebuilt and a stale library is never loaded.
 """
 
@@ -31,6 +32,8 @@ SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
                              CSRC / "mixed_gemm.cu",
                              CSRC / "grouped_matmul.cu",
                              CSRC / "fused_adam.cu")
+#: headers the sources include: part of the library's digest, not compiled
+HEADERS: Tuple[Path, ...] = (CSRC / "hopper.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,12 +60,12 @@ _ENTRIES: Dict[str, list] = {
     # dtype, bits, x, codes, scales, out, workspace, M, N, K, group, splits,
     # stream
     "ds_mixed_gemm": [_I, _I] + [_P] * 5 + [_I] * 5 + [_P],
-    # dtype, x codes, x scales (K/group, M), w codes, w scales, out, M, N, K,
-    # group, stream
-    "ds_int8_gemm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # dtype, wgmma, x codes, x scales (K/group, pitch), pitch, w codes, w
+    # scales, out, M, N, K, group, stream
+    "ds_int8_gemm": [_I, _I, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_P],
     # dtype, lhs, rhs, tile_group, used tiles, out, M, N, K, E, tile_m, bm,
-    # transposed, stream
-    "ds_grouped_matmul": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    # transposed, wgmma, stream
+    "ds_grouped_matmul": [_I] + [_P] * 5 + [_I] * 8 + [_P],
     # p dtype, g dtype, p, g, m, v, step, p out, m out, v out, n, lr, b1,
     # b2, 1 - b1, 1 - b2, eps, weight decay, stream
     "ds_fused_adamw": [_I, _I] + [_P] * 8 + [_L] + [_F] * 7 + [_P],
@@ -84,7 +87,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libds_kernels-{h.hexdigest()[:16]}.so"

@@ -7,10 +7,17 @@ belongs to one expert, named by ``tile_group``.  :func:`grouped_matmul`
 computes ``out[r] = lhs[r] @ rhs[tile_group[r // tile_m]]`` with f32
 accumulation and the result in lhs's dtype, what ``_gmm_kernel`` computes.
 
-* CUDA tensors launch the hand-written kernel of ``csrc/grouped_matmul.cu``
-  on the current stream (:data:`LAUNCHES`) or raise on what it does not
-  take; CPU tensors run :func:`grouped_matmul_plain` (:data:`PLAIN_CALLS`),
-  which is also the kernel's oracle on the card.
+* CUDA tensors launch the hand-written kernels of
+  ``csrc/grouped_matmul.cu`` on the current stream (:data:`LAUNCHES`) or
+  raise on what they do not take; CPU tensors run
+  :func:`grouped_matmul_plain` (:data:`PLAIN_CALLS`), which is also the
+  kernels' oracle on the card.  The dispatch (:func:`uses_wgmma`): bf16 on
+  (E, K, N) weights with ``tile_m`` a multiple of 64 (dropless MoE's mixed
+  steps) runs ``grouped_matmul_wgmma_kernel`` (also counted in
+  :data:`WGMMA_LAUNCHES`), which finds each expert's tiles in
+  ``tile_group`` itself and reads each expert's weights once; bf16 at
+  ``tile_m`` 16 (decode bodies) or on transposed weights runs
+  ``grouped_matmul_bf16_kernel``, f32 ``grouped_matmul_f32_kernel``.
 * ``num_used_tiles`` (a device int32 scalar, from
   ``tile_aligned_layout(..., with_used_tiles=True)``) marks where the real
   groups end.  The layout always appends all-padding tiles that the
@@ -39,9 +46,11 @@ import torch
 
 from . import build
 
-#: launches of the kernel, counted where the wrapper launches it (the
+#: launches of the kernels, counted where the wrapper launches one (the
 #: backward's dlhs launches count too)
 LAUNCHES = {"grouped_matmul": 0}
+#: of those, the launches of ``grouped_matmul_wgmma_kernel``
+WGMMA_LAUNCHES = {"grouped_matmul": 0}
 #: calls of the plain version (the CPU path and the kernel's oracle)
 PLAIN_CALLS = {"grouped_matmul_plain": 0}
 
@@ -50,7 +59,7 @@ _KERNEL_TILE_M = (64, 16)  # the kernel's row-block heights, largest first
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, WGMMA_LAUNCHES, PLAIN_CALLS):
         for key in counts:
             counts[key] = 0
 
@@ -130,6 +139,15 @@ def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def uses_wgmma(dtype: torch.dtype, tile_m: int, rhs_transposed: bool
+               ) -> bool:
+    """Whether a CUDA call runs ``grouped_matmul_wgmma_kernel``: bf16, rhs
+    read as (K, N), and layout tiles of a multiple of 64 rows (its 64-row
+    sub-tiles never span two experts)."""
+    return (dtype == torch.bfloat16 and not rhs_transposed
+            and tile_m % 64 == 0)
+
+
 def kernel_tile_m(tile_m: int) -> int:
     """The kernel's row-block height for a layout's ``tile_m``: 64 rows
     when 64 divides it, else 16; a block never spans two layout tiles."""
@@ -178,15 +196,18 @@ def _grouped_matmul_cuda(lhs, rhs, tile_group, tile_m, rhs_transposed,
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     if M == 0 or N == 0:
         return out
+    wgmma = uses_wgmma(lhs.dtype, tile_m, rhs_transposed)
     lib = build.load()
     err = lib.ds_grouped_matmul(
         _DTYPE_CODES[lhs.dtype], lhs.data_ptr(), rhs.data_ptr(),
         tile_group.data_ptr(),
         None if num_used_tiles is None else num_used_tiles.data_ptr(),
         out.data_ptr(), M, N, K, E, tile_m, bm, int(rhs_transposed),
-        _stream(lhs.device))
+        int(wgmma), _stream(lhs.device))
     build.check(lib, err, "grouped_matmul launch")
     LAUNCHES["grouped_matmul"] += 1
+    if wgmma:
+        WGMMA_LAUNCHES["grouped_matmul"] += 1
     return out
 
 

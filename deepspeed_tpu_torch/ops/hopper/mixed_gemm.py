@@ -24,10 +24,13 @@ for those shapes, not a fallback.  Inside the envelope, CUDA tensors launch
 the hand-written kernels of ``csrc/mixed_gemm.cu`` on the current stream
 (:data:`LAUNCHES`) or raise on what they do not take: ``mixed_gemm_kernel``
 for M <= 16 rows, ``mixed_gemm_wgmma_kernel`` for bf16 x at M > 16
-(:data:`WGMMA_LAUNCHES`), ``mixed_gemm_mma_kernel`` for f32 x at M > 16.
-CPU tensors run the plain versions (:func:`mixed_gemm_plain`,
-:func:`int8_gemm_plain`, :data:`PLAIN_CALLS`), which are also the kernels'
-oracle on the card.
+(:data:`WGMMA_LAUNCHES`), ``mixed_gemm_mma_kernel`` for f32 x at M > 16;
+W8A8 runs ``int8_gemm_wgmma_kernel`` at M > 16 where TMA takes the rows
+(N a multiple of 16, 16-byte aligned arrays; also counted in
+:data:`WGMMA_LAUNCHES`) and ``int8_gemm_mma_kernel`` elsewhere
+(:func:`int8_uses_wgmma`).  CPU tensors run the plain versions
+(:func:`mixed_gemm_plain`, :func:`int8_gemm_plain`, :data:`PLAIN_CALLS`),
+which are also the kernels' oracle on the card.
 
 The reference's TPU tile overrides and autotuner hook (``set_gemm_tiles``,
 ``clear_gemm_tiles``) choose TPU tiles only and change no result; they are
@@ -50,10 +53,11 @@ from . import build
 #: GEMM counts per code width (one template of one kernel each)
 LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0, "mixed_gemm_fp6": 0,
             "int8_gemm": 0}
-#: of those mixed-GEMM launches, the ones of ``mixed_gemm_wgmma_kernel``
-#: (bf16 x, M > 16), per code width
+#: of those launches, the ones of the wgmma kernels: per code width
+#: ``mixed_gemm_wgmma_kernel`` (bf16 x, M > 16), and
+#: ``int8_gemm_wgmma_kernel`` (:func:`int8_uses_wgmma`)
 WGMMA_LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0,
-                  "mixed_gemm_fp6": 0}
+                  "mixed_gemm_fp6": 0, "int8_gemm": 0}
 #: calls of each plain version (the CPU path and the kernels' oracle)
 PLAIN_CALLS = {"mixed_gemm_plain": 0, "int8_gemm_plain": 0}
 #: calls outside the reference's kernel envelope (its dequantize formula)
@@ -65,6 +69,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # x (128 rows up to M = 128, else 256) and MmaSmem for f32 x
 _SMALL_M = 16
 _SMALL_TILE, _MMA_TILE = (16, 128, 2), (128, 128, 2)
+_INT8_BK = 128  # the W8A8 kernels' K-tile: a group is whole tiles
 _SM_COUNT: dict = {}
 _WORKSPACES: dict = {}  # (device, raw stream) -> f32 split-K workspace
 _KERNEL_NAMES = {8: "mixed_gemm_int8", 4: "mixed_gemm_int4",
@@ -409,10 +414,21 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     return out
 
 
+def int8_uses_wgmma(xc: torch.Tensor, qw: QuantizedWeight) -> bool:
+    """Whether W8A8 on the quantized rows ``xc`` (M, K) runs
+    ``int8_gemm_wgmma_kernel``: more than 16 rows, and rows that TMA copies
+    (N a multiple of 16; x codes, weight codes and scales 16-byte aligned).
+    Otherwise ``int8_gemm_mma_kernel`` runs, which takes any N: a dispatch
+    on the shape, not a fallback."""
+    return (xc.shape[0] > _SMALL_M and qw.out_features % 16 == 0
+            and all(t.data_ptr() % 16 == 0
+                    for t in (xc, qw.codes, qw.scales)))
+
+
 def int8_gemm_quantized(xc: torch.Tensor, xs: torch.Tensor,
                         qw: QuantizedWeight, dtype: torch.dtype
                         ) -> torch.Tensor:
-    """The W8A8 kernel on CUDA activations already quantized by
+    """The W8A8 kernels on CUDA activations already quantized by
     :func:`quantize_activations_rowwise` (codes (M, K) int8, scales
     (M, K/group) f32); the result in ``dtype`` (bf16 or f32)."""
     if xc.device.type != "cuda":
@@ -428,17 +444,28 @@ def int8_gemm_quantized(xc: torch.Tensor, xs: torch.Tensor,
     if not xc.is_contiguous():
         raise ValueError("int8_gemm: x codes must be contiguous")
     _check_weight("int8_gemm", qw, xc.device)
+    if qw.group % _INT8_BK:
+        raise ValueError(f"int8_gemm kernels take groups of a multiple of "
+                         f"{_INT8_BK} K-rows, got group={qw.group}")
     out = torch.empty((M, N), dtype=dtype, device=xc.device)
     if M == 0 or N == 0:
         return out
-    xs_t = xs.t().contiguous()  # (K/group, M): a group's row scales in a row
+    # (K/group, M) with rows a multiple of 4 floats apart (16 bytes, as TMA
+    # and the 16-byte copies want): a group's row scales in a row
+    pitch = -(-M // 4) * 4
+    xs_t = torch.empty((K // qw.group, pitch), dtype=torch.float32,
+                       device=xc.device)
+    xs_t[:, :M].copy_(xs.t())
+    wgmma = int8_uses_wgmma(xc, qw)
     lib = build.load()
     err = lib.ds_int8_gemm(
-        _DTYPE_CODES[dtype], xc.data_ptr(), xs_t.data_ptr(),
-        qw.codes.data_ptr(), qw.scales.data_ptr(), out.data_ptr(), M, N, K,
-        qw.group, _stream(xc.device))
+        _DTYPE_CODES[dtype], int(wgmma), xc.data_ptr(), xs_t.data_ptr(),
+        pitch, qw.codes.data_ptr(), qw.scales.data_ptr(), out.data_ptr(), M,
+        N, K, qw.group, _stream(xc.device))
     build.check(lib, err, "int8_gemm launch")
     LAUNCHES["int8_gemm"] += 1
+    if wgmma:
+        WGMMA_LAUNCHES["int8_gemm"] += 1
     return out
 
 

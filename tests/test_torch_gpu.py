@@ -640,6 +640,66 @@ def test_int8_gemm_matches_plain_exactly(cuda_device, M, dtype):
         assert tmg.LAUNCHES["int8_gemm"] == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [8, 16, 17, 64, 256, 300])
+def test_int8_kernels_bit_exact_and_dispatched(cuda_device, M, dtype):
+    """int8_gemm_mma_kernel (M <= 16, and N off TMA's 16-byte rows) and
+    int8_gemm_wgmma_kernel (M > 16: 128-row blocks, or 256-row blocks where
+    they fill the SMs, N = 8448 at M > 128; a ragged last one at M = 300)
+    against the plain version to the bit; the counters name the kernel that
+    ran."""
+    for N in (96, 1024, 40, 8448):
+        x, qw = _mixed_inputs(M + N + 2, M, MG_K, N, 8, dtype, cuda_device)
+        assert tmg.int8_gemm_on_kernel_path(qw)
+        tmg.reset_counts()
+        got = tmg.int8_gemm(x, qw)
+        torch.testing.assert_close(got, tmg.int8_gemm_plain(x, qw), atol=0,
+                                   rtol=0, msg=f"M={M} N={N}")
+        wgmma = M > 16 and N % 16 == 0
+        assert tmg.LAUNCHES["int8_gemm"] == 1
+        assert tmg.WGMMA_LAUNCHES["int8_gemm"] == int(wgmma)
+        xc, xs = tmg.quantize_activations_rowwise(x, qw.group)
+        assert tmg.int8_uses_wgmma(xc, qw) == wgmma
+        # x codes off the 16-byte grid go to the mma.sync kernel, as exact
+        shifted = torch.empty(xc.numel() + 1, dtype=torch.int8,
+                              device=cuda_device)[1:].view(xc.shape)
+        shifted.copy_(xc)
+        tmg.reset_counts()
+        torch.testing.assert_close(
+            tmg.int8_gemm_quantized(shifted, xs, qw, dtype),
+            tmg.int8_gemm_quantized_plain(xc, xs, qw, dtype), atol=0, rtol=0)
+        assert tmg.WGMMA_LAUNCHES["int8_gemm"] == 0
+
+
+@pytest.mark.parametrize("group", [128, 512])
+@pytest.mark.parametrize("M", [8, 256])
+def test_int8_kernels_bit_exact_at_other_groups(cuda_device, M, group):
+    """Groups of one K-tile (128) and of four (512, whose s32 sums can pass
+    2**22 and take cvt.rn rather than the exact magic-number conversion)."""
+    x, qw = _mixed_inputs(M + group, M, 1024, 1024, 8, torch.bfloat16,
+                          cuda_device, group=group)
+    assert qw.group == group and tmg.int8_gemm_on_kernel_path(qw)
+    torch.testing.assert_close(tmg.int8_gemm(x, qw),
+                               tmg.int8_gemm_plain(x, qw), atol=0, rtol=0)
+
+
+def test_int8_kernels_raise_on_groups_they_do_not_take(cuda_device):
+    """The W8A8 kernels walk 128-deep K-tiles inside one group: a group of
+    64 (off the reference's W8A8 envelope, which int8_gemm serves with the
+    dequantize formula) is refused by the kernel entry, not run."""
+    x, qw = _mixed_inputs(3, 32, 256, 128, 8, torch.bfloat16, cuda_device,
+                          group=64)
+    assert not tmg.int8_gemm_on_kernel_path(qw)
+    xc, xs = tmg.quantize_activations_rowwise(x, qw.group)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tmg.int8_gemm_quantized(xc, xs, qw, torch.bfloat16)
+    tmg.reset_counts()
+    tmg.int8_gemm(x, qw)
+    assert tmg.DEQUANT_CALLS["int8_gemm"] == 1
+    assert tmg.LAUNCHES["int8_gemm"] == 0
+
+
 def test_mixed_gemm_wrappers_raise_on_cuda_input_they_do_not_take(
         cuda_device):
     x, qw = _mixed_inputs(0, 8, 512, 128, 4, torch.float32, cuda_device)
@@ -726,10 +786,47 @@ def test_grouped_matmul_matches_plain(cuda_device, dtype, tile_m,
         _mixed_close(got, want, dtype, f"T={T} tile_m={tile_m}")
         assert not got[int(used.item()) * tile_m:].any()
         assert tgm.LAUNCHES == {"grouped_matmul": 1}
+        assert tgm.WGMMA_LAUNCHES == {"grouped_matmul": int(
+            tgm.uses_wgmma(dtype, tile_m, transposed))}
         # without a used count every tile is computed: the same numbers
         torch.testing.assert_close(
             tgm.grouped_matmul(lhs, rhs, tgroup, sizes, tile_m=tile_m,
                                rhs_transposed=transposed), got,
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile_m", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_grouped_matmul_wgmma_matches_plain(cuda_device, seed, tile_m):
+    """grouped_matmul_wgmma_kernel at random routings: one expert of more
+    than 256 rows (two chunks), an empty expert, K and N off the 64-deep
+    K-tiles and 128-wide column blocks; within TOL_BF16 of the plain
+    version, the all-padding tail zero, the same numbers without a used
+    count (the last expert then also walks the zero tail)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    E, K, N = 4, 200, 136
+    for T in (600, 40):
+        ef = torch.randint(0, E, (T,), generator=gen, device=cuda_device)
+        ef[: T // 2] = seed % E  # the heavy expert
+        ef[ef == (seed + 1) % E] = (seed + 2) % E  # an empty expert
+        pos, tgroup, sizes, M_pad, used = tgm.tile_aligned_layout(
+            ef, E, T, tile_m, with_used_tiles=True)
+        lhs = torch.zeros((M_pad, K), device=cuda_device,
+                          dtype=torch.bfloat16)
+        lhs[pos.long()] = torch.randn((T, K), generator=gen,
+                                      device=cuda_device).bfloat16()
+        rhs = (torch.randn((E, K, N), generator=gen, device=cuda_device)
+               / K ** 0.5).bfloat16()
+        tgm.reset_counts()
+        got = tgm.grouped_matmul(lhs, rhs, tgroup, sizes, tile_m=tile_m,
+                                 num_used_tiles=used)
+        want = tgm.grouped_matmul_plain(lhs, rhs, tgroup, tile_m)
+        _mixed_close(got, want, torch.bfloat16, f"T={T} seed={seed}")
+        assert not got[int(used.item()) * tile_m:].any()
+        assert tgm.LAUNCHES == {"grouped_matmul": 1}
+        assert tgm.WGMMA_LAUNCHES == {"grouped_matmul": 1}
+        torch.testing.assert_close(
+            tgm.grouped_matmul(lhs, rhs, tgroup, sizes, tile_m=tile_m), got,
             rtol=0, atol=0)
 
 
@@ -748,6 +845,13 @@ def test_grouped_matmul_wrapper_raises_on_cuda_input_it_does_not_take(
     with pytest.raises(ValueError, match="multiple of 16"):
         tgm.grouped_matmul(lhs, rhs, torch.cat([tgroup, tgroup]), sizes,
                            tile_m=8)
+    # the wgmma kernel's TMA copies want 16-byte aligned rows
+    wide, wrhs, wtg, wsizes, _ = _gmm_problem(1, 16, 4, 64, 64, 64,
+                                              torch.bfloat16, cuda_device)
+    off = torch.empty(wide.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(wide.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tgm.grouped_matmul(off, wrhs, wtg, wsizes, tile_m=64)
 
 
 @pytest.mark.parametrize("routing", ["dropless", "capacity"])

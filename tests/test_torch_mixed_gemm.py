@@ -290,3 +290,229 @@ def test_wgmma_gemm_tile_order_and_split_k_match_plain_and_reference(
     assert _rel_err(got.numpy(), plain.numpy()) < 1e-5
     assert _rel_err(got.numpy(), want) < 1e-5
     assert _rel_err(plain.numpy(), want) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 kernels' arithmetic (csrc/mixed_gemm.cu int8_gemm_wgmma_kernel and
+# int8_gemm_mma_kernel), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+I8_BK, I8_BN = 128, 64  # K-tile depth and columns per block of both kernels
+H100_SMS = 132  # the wgmma kernel's row-block choice reads the SM count
+
+
+def _sw64(r, c):
+    """Byte c (< 64) of row r of a 64-byte-row tile in the 64-byte swizzle
+    mode (csrc ``sw64``): chunk c // 16 stored at chunk (c // 16) ^ ((r //
+    2) % 4)."""
+    return r * 64 + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15)
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm``: byte i of the result is byte (s >> 4i) & 7
+    of the eight bytes x (0-3), y (4-7)."""
+    b = [(x >> (8 * i)) & 255 for i in range(4)] + \
+        [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(b[(s >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _a_frag_s8(tile, k0, c, tq, loads=None):
+    """``a_frag_s8``: the four s8 A registers of one thread for the 32-deep
+    k-step at K-row k0, read from the swizzled code tile (bytes) as the
+    kernel reads it (tq >= 2 rotates its rows by two), each 16-bit load's
+    byte address appended to ``loads`` in issue order."""
+    rot = tq & 2
+    regs = []
+    for h in range(2):
+        kb = k0 + 16 * h + 4 * tq
+        u = []
+        for i in range(4):
+            at = _sw64(kb + ((i + rot) & 3), c)
+            if loads is not None:
+                loads.append(at)
+            u.append(int(tile[at]) | int(tile[at + 1]) << 8)
+        p, q = u[0] | u[1] << 16, u[2] | u[3] << 16
+        r01, r23 = (q, p) if rot else (p, q)
+        regs += [_byte_perm(r01, r23, 0x6420), _byte_perm(r01, r23, 0x7531)]
+    return regs
+
+
+def _swizzled(codes_tile):
+    """A (128, 64) int8 code tile laid out as TMA's 64-byte swizzle (and
+    the mma kernel's cp.async copies) write it."""
+    buf = np.zeros(128 * 64, np.uint8)
+    raw = codes_tile.astype(np.int8).view(np.uint8)
+    for r in range(128):
+        for c in range(64):
+            buf[_sw64(r, c)] = raw[r, c]
+    return buf
+
+
+def test_int8_a_fragments_from_the_swizzled_tile():
+    """Every thread's s8 A registers hold what wgmma's and mma.sync's A
+    layout asks for: register 2h + j is K-rows k0 + 16h + 4tq .. + 3 of
+    column 16 wl + 2 gr + j, lowest K in the lowest byte; and each of the
+    warp's 16-bit loads touches no shared-memory bank at two addresses."""
+    codes = np.random.default_rng(0).integers(-128, 128, (128, 64))
+    tile = _swizzled(codes)
+    raw = codes.astype(np.int8).view(np.uint8)
+    for wl in range(4):
+        for kk in range(4):
+            loads = {}
+            for lane in range(32):
+                gr, tq = lane >> 2, lane & 3
+                c = 16 * wl + 2 * gr
+                seq = []
+                regs = _a_frag_s8(tile, 32 * kk, c, tq, seq)
+                for h in range(2):
+                    for j in range(2):
+                        rows = 32 * kk + 16 * h + 4 * tq + np.arange(4)
+                        want = sum(int(raw[r, c + j]) << (8 * i)
+                                   for i, r in enumerate(rows))
+                        assert regs[2 * h + j] == want
+                for n, at in enumerate(seq):
+                    loads.setdefault(n, []).append(at)
+            for addrs in loads.values():  # one load instruction, 32 lanes
+                banks = {}
+                for at in addrs:
+                    banks.setdefault((at // 4) % 32, set()).add(at // 4)
+                assert max(len(words) for words in banks.values()) == 1
+
+
+def _group_sum_f32(i):
+    """csrc ``group_sum_f32<true>``: the s32 group sum i (|i| <= 2**22) as
+    f32 by the bits of 1.5 * 2**23 + i, less 1.5 * 2**23."""
+    bits = (0x4B400000 + i.to(torch.int64)).to(torch.int32)
+    return bits.view(torch.float32) - torch.tensor(12582912.0)
+
+
+def test_int8_group_sum_conversion_is_exact():
+    """Every s32 sum a group of at most 256 int8 products can reach, the
+    extremes +-2**22 included, converts exactly."""
+    i = torch.cat([torch.arange(-2 ** 22, -2 ** 22 + 4096),
+                   torch.arange(-70000, 70000),
+                   torch.randint(-2 ** 22, 2 ** 22 + 1, (200000,),
+                                 generator=torch.Generator().manual_seed(0)),
+                   torch.arange(2 ** 22 - 4096, 2 ** 22 + 1)])
+    got = _group_sum_f32(i)
+    assert torch.equal(got.to(torch.int64), i)
+    assert torch.equal(got, i.to(torch.float32))
+
+
+def _a_rows_to_columns(rows):
+    """The column of a 64-column block that A row rho (of a warp's 16, warp
+    rho // 16) stands for: A rows gr and gr + 8 are columns 2 gr and 2 gr +
+    1 of the warp's 16."""
+    rho = np.arange(rows)
+    return 16 * (rho // 16) + 2 * (rho % 8) + (rho % 16) // 8
+
+
+def _emulate_int8_kernel(xc, xs, qw, wgmma, dtype=torch.float32):
+    """The W8A8 kernels' arithmetic: per block of 64 columns and BM rows of
+    x (wgmma: two warpgroups of 128 rows, or of 64 where 256-row blocks
+    would not fill an H100's SMs; mma.sync: 16 rows), D = A B with
+    A = W^T's columns in the permuted A-row order (_a_rows_to_columns) and
+    B = x^T, summed exactly per 32-deep k-step and 128-deep K-tile, a new
+    sum at each group's first k-step (scale-d = 0); at each group's last
+    tile acc = acc + f32(D) * xs * ws in f32, one rounding per operation;
+    the result un-permuted at the store."""
+    M, K = xc.shape
+    N, g = qw.out_features, qw.group
+    codes = qw.codes.to(torch.int64)
+    x = xc.to(torch.int64)
+    if wgmma:  # 256-row blocks where they fill the card's SMs, else 128
+        big = M > 128 and -(-M // 256) * -(-N // I8_BN) >= H100_SMS
+        bm, parts = (256 if big else 128), 2
+    else:
+        bm, parts = 16, 1
+    perm = torch.from_numpy(_a_rows_to_columns(I8_BN))
+    out = torch.zeros((M, N), dtype=dtype)
+    for n0 in range(0, N, I8_BN):
+        cols = n0 + perm  # the block's A rows as columns
+        valid = cols < N
+        a_full = torch.zeros((I8_BN, K), dtype=torch.int64)
+        a_full[valid] = codes[:, cols[valid]].T  # A = W^T, permuted
+        for m0 in range(0, M, bm):
+            for part in range(parts):
+                r0 = m0 + part * (bm // parts)
+                rows = torch.arange(r0, r0 + bm // parts)
+                b_full = torch.zeros((K, rows.numel()), dtype=torch.int64)
+                b_full[:, rows < M] = x[rows[rows < M]].T
+                acc = torch.zeros((I8_BN, rows.numel()))
+                d = None
+                for t in range(K // I8_BK):
+                    for kk in range(I8_BK // 32):
+                        k = t * I8_BK + 32 * kk
+                        prod = a_full[:, k:k + 32] @ b_full[k:k + 32]
+                        new = t % (g // I8_BK) == 0 and kk == 0
+                        d = prod if new else d + prod
+                    if (t + 1) % (g // I8_BK) == 0:
+                        grp = t // (g // I8_BK)
+                        xsr = torch.zeros(rows.numel())
+                        xsr[rows < M] = xs[rows[rows < M], grp]
+                        wsr = torch.zeros(I8_BN)
+                        wsr[valid] = qw.scales[grp, cols[valid]]
+                        fd = (_group_sum_f32(d) if g <= 256
+                              else d.to(torch.float32))
+                        acc = acc + fd * xsr[None, :] * wsr[:, None]
+                keep = rows < M
+                out[rows[keep][:, None], cols[valid][None, :]] = \
+                    acc[valid][:, keep].T.to(dtype)
+    return out
+
+
+@pytest.mark.parametrize("wgmma", [True, False], ids=["wgmma", "mma"])
+@pytest.mark.parametrize("M,K,N", [
+    (8, 512, 96), (16, 256, 1024), (17, 256, 40), (64, 512, 128),
+    (200, 512, 384), (300, 256, 200), (200, 256, 8448)],
+    ids=["m8", "m16", "m17_n40", "m64", "m200", "m300_n200",
+         "m200_256row_blocks"])
+def test_int8_kernels_match_plain_bit_for_bit_and_reference(wgmma, M, K, N):
+    """The emulated kernels against int8_gemm_quantized_plain bit for bit
+    (the card holds the kernels to the same), and against the reference's
+    Pallas W8A8 kernel (interpret mode) within 1e-6 of max|ref|; ragged M
+    (17, 200, 300) leaves partial row blocks, ragged N (40, 200) partial
+    column blocks; the f32 sums of the group products go through
+    _group_sum_f32 where the group is at most 256 deep, as in the kernel."""
+    x = _rand(M + N, M, K)
+    jw, tw = _both(_rand(M + K, K, N), 8, group=256)
+    assert tm.int8_gemm_on_kernel_path(tw)
+    xc, xs = tm.quantize_activations_rowwise(torch.from_numpy(x), tw.group)
+    got = _emulate_int8_kernel(xc, xs, tw, wgmma)
+    plain = tm.int8_gemm_quantized_plain(xc, xs, tw, torch.float32)
+    assert torch.equal(got, plain)
+    bf16 = _emulate_int8_kernel(xc, xs, tw, wgmma, torch.bfloat16)
+    assert torch.equal(bf16, tm.int8_gemm_quantized_plain(
+        xc, xs, tw, torch.bfloat16))
+    assert _rel_err(got.numpy(), jm.int8_gemm(jnp.asarray(x), jw)) < 1e-6
+
+
+def test_int8_dispatch_and_refusals():
+    """W8A8's kernel choice is on the rows and the layout: more than 16
+    rows with TMA's rows (N a multiple of 16, 16-byte aligned arrays) take
+    the wgmma kernel; everything else the mma.sync kernel."""
+    _, tw = _both(_rand(30, 256, 96), 8)
+    xc = torch.zeros((17, 256), dtype=torch.int8)
+    assert tm.int8_uses_wgmma(xc, tw)
+    assert not tm.int8_uses_wgmma(xc[:16], tw)
+    _, odd = _both(_rand(31, 256, 40), 8)
+    assert not tm.int8_uses_wgmma(xc, odd)
+    shifted = torch.zeros(17 * 256 + 1, dtype=torch.int8)[1:].view(17, 256)
+    assert not tm.int8_uses_wgmma(shifted, tw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.int8_gemm_quantized(xc, torch.ones((17, 1)), tw, torch.float32)
+
+
+def test_kernel_header_is_part_of_the_library_digest(monkeypatch, tmp_path):
+    """The GEMM sources include csrc/hopper.cuh: an edited header gives
+    another library name, so a stale build is never loaded."""
+    from deepspeed_tpu_torch.ops.hopper import build
+    path = build.library_path()
+    assert [h.name for h in build.HEADERS] == ["hopper.cuh"]
+    for src in build.SOURCES:
+        if src.name in ("mixed_gemm.cu", "grouped_matmul.cu"):
+            assert '#include "hopper.cuh"' in src.read_text()
+    copy = tmp_path / "hopper.cuh"
+    copy.write_bytes(build.HEADERS[0].read_bytes() + b"// edited\n")
+    monkeypatch.setattr(build, "HEADERS", (copy,))
+    assert build.library_path().name != path.name
