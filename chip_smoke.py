@@ -19,7 +19,22 @@ In order it prints:
    random bf16 weights from a seed, serving 8 requests (SplitFuse prefill,
    then burst decode), checking tokens, finiteness, kernel launch counts
    and determinism; and a small f32 model served on the card and on the
-   CPU, whose greedy tokens must agree;
+   CPU, whose greedy tokens must agree; then the serving memory hierarchy
+   on the same weights (prefix cache, host pool, cold store, restart
+   rehydration) in five stages: a cold request with a 1000-token prefix
+   P; seven hits on P (three take all of it, four leave it inside its
+   16th block: copy-on-write); pressure that demotes P's chain into the
+   host pool and on into the cold store; P's return, promoted from both;
+   and a fresh engine on the same cold store that rehydrates it.  It
+   checks the counters, the tier identity after each stage, bitwise
+   equal blocks across every tier, that each hit prefilled only its
+   uncached tokens, B4/B5 launches with no plain call, no host sync in a
+   decode body, one ``engine/step`` span per ``step()`` and the first
+   tokens' logits against a cache-off engine; it prints TTFTs, ms per
+   demote and promote, cold-store MB/s, the rehydrate time, the tracer's
+   host cost and decode tokens/s with tracing off and on; and the same
+   five stages on the small f32 model, card vs CPU vs cache-off, whose
+   greedy tokens must be identical;
 5. each flash-attention kernel (forward, dK/dV, dQ) against its plain
    PyTorch version at the training shape (B=4, S=2048, H=32, KV=8, D=128,
    causal): in bf16 and in f32, max abs error (and in bf16 how far inside
@@ -95,6 +110,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -531,7 +547,9 @@ def device_breakdown(torch, prof, wall_s: float) -> dict:
             "top": [[name[:70], ms, n] for ms, n, name in rows[:10]]}
 
 
-def run_engine(torch, pa, profile: bool) -> dict:
+def run_engine(torch, pa, profile: bool, keep: dict = None) -> dict:
+    """``keep``: receives the weights under ``"params"``, for the
+    hierarchy phase that follows."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
@@ -544,6 +562,8 @@ def run_engine(torch, pa, profile: bool) -> dict:
         cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    if keep is not None:
+        keep["params"] = params
     v2 = V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
                   num_blocks=NB, max_blocks_per_seq=MB, dtype="bfloat16")
     rng = np.random.default_rng(SEED)
@@ -1820,6 +1840,578 @@ def fused_adam_tree_path(torch, fo, tfm) -> dict:
             "param_max_abs_diff": worst}
 
 
+# ---------------------------------------------------------------------------
+# the serving memory hierarchy: prefix cache, host paging, cold store
+# ---------------------------------------------------------------------------
+
+# traffic of the hierarchy phase, in tokens (block size BS = 64): P, the
+# shared prefix, is 15 full blocks and 40 tokens of its 16th
+HIER_PREFIX = 1000
+HIER_FIRST = 24  # the cold request's own suffix after P
+HIER_HIT_SUFFIX = (17, 100, 500)  # three hits: all of P, then these
+HIER_DIVERGE_AT = (5, 18, 29, 39)  # four hits leave P inside its 16th block
+HIER_DIVERGE_TAIL = 30  # ... followed by tokens of their own
+HIER_PRESSURE_LEN = 1200  # unrelated prompts that push P's chain down
+HIER_RETURN = 48  # the returning session's new suffix after P
+HIER_NEW = 32  # new tokens of every request, greedy
+# pool and host pool in KV blocks (a llama3-8b block is 8 MiB): small
+# enough that three pressure requests demote P's whole chain, the host pool
+# overflows into the cold store, and the returning session promotes P's
+# chain from both (4 demotions follow P's root: 8 blocks come back from the
+# host pool, 7 from the cold store).  The block arithmetic depends on the
+# token counts only, so the small f32 model crosses the tiers alike
+HIER_NB = 88
+HIER_HOST_BLOCKS = 12
+HIER_PRESSURE = 3  # unrelated requests of stage 3
+HIER_DRAIN = 2  # unrelated requests served after the return, before the drain
+# the hierarchy's first-token logits at full width (bf16) against a
+# cache-off engine on the same prompts: max |diff| <= this * max |logit|
+# of the cache-off engine, per request (PERF.md section 2)
+TOL_HIER_LOGITS_REL = 5e-2
+
+
+def hier_traffic(vocab: int) -> dict:
+    """The five stages' prompts from a seed.  Every suffix starts with a
+    token the cache does not hold at that position, so the cached prefix of
+    each request is known exactly."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+
+    def tokens(n, avoid=()):
+        out = rng.integers(0, vocab, size=n).tolist()
+        while out and out[0] in avoid:
+            out[0] = int(rng.integers(0, vocab))
+        return out
+
+    p = tokens(HIER_PREFIX)
+    first = tokens(HIER_FIRST)
+    hits = [p + tokens(n, avoid=(first[0],)) for n in HIER_HIT_SUFFIX]
+    nfull = HIER_PREFIX // BS * BS  # 960
+    hits += [p[:nfull + d] + tokens(HIER_DIVERGE_TAIL, avoid=(p[nfull + d],))
+             for d in HIER_DIVERGE_AT]
+    heads = {h[HIER_PREFIX] for h in hits[:3]} | {first[0]}
+    return {"p": p, "cold": [p + first], "hits": hits,
+            "hit_cached": [HIER_PREFIX] * 3
+            + [nfull + d for d in HIER_DIVERGE_AT],
+            "pressure": [tokens(HIER_PRESSURE_LEN)
+                         for _ in range(HIER_PRESSURE)],
+            "ret": [p + tokens(HIER_RETURN, avoid=heads)],
+            "drain": [tokens(HIER_PRESSURE_LEN) for _ in range(HIER_DRAIN)]}
+
+
+def hier_v2(cfg, dtype: str, cache: bool, cold_dir: str = "", nb=None):
+    """The phase's V2Config: the engine phase's geometry on a pool of
+    ``nb`` blocks, with the whole hierarchy on when ``cache``.  The host
+    pool holds HIER_HOST_BLOCKS payloads of this model (a payload is the
+    block plus a header of at most ~12 KB of chain tokens) and not one
+    more."""
+    from deepspeed_tpu_torch.inference.v2.engine import V2Config
+
+    item = 4 if dtype == "float32" else 2
+    block = 2 * cfg.num_layers * BS * cfg.kv_heads * cfg.head_dim * item
+    host = HIER_HOST_BLOCKS * block + block // 2
+    return V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
+                    num_blocks=nb or HIER_NB, max_blocks_per_seq=MB,
+                    dtype=dtype,
+                    enable_prefix_cache=cache,
+                    kv_host_pool_bytes=host if cache else 0,
+                    kv_coldstore_dir=cold_dir if cache else "")
+
+
+class HierProbe:
+    """Wraps an engine's ``builder.build`` and ``step``: per request the
+    chunks its batches scheduled (start, tokens), the host time and f32
+    logits row of its first token, and the ``step()`` calls.  With
+    ``sync_check`` the first all-decode state runs one decode body under
+    the host-sync check."""
+
+    def __init__(self, torch, eng, keep_logits: bool, sync_check: bool):
+        self.picks, self.first, self.calls = {}, {}, 0
+        self.rows, self.syncs = [], None
+        build, step = eng.builder.build, eng.step
+
+        def build_(picks):
+            for seq, n in picks:
+                self.picks.setdefault(seq.uid, []).append(
+                    (seq.seen_tokens, n))
+            batch = build(picks)
+            self.rows = batch.uids
+            return batch
+
+        def step_(*args, **kw):
+            self.calls += 1
+            out = step(*args, **kw)
+            now = time.perf_counter()
+            for uid in out:
+                if uid not in self.first:  # first tokens: mixed steps only
+                    row = self.rows.index(uid)
+                    self.first[uid] = (now, eng.last_logits[row].cpu()
+                                       if keep_logits else None)
+            if (sync_check and self.syncs is None and eng.running
+                    and not eng.waiting and eng._prefilling == 0):
+                self.syncs = decode_body_syncs(torch, eng)
+            return out
+
+        eng.builder.build, eng.step = build_, step_
+
+
+def hier_serve(eng, probe, prompts, what: str) -> list:
+    """Queue ``prompts`` together, drive them to completion (burst-8
+    greedy decode), and return per request its new tokens, the tokens its
+    batches prefilled, where its first chunk started (the cached prefix),
+    its TTFT and first-token logits.  Fails unless the batches prefilled
+    exactly the uncached tokens, in contiguous chunks."""
+    t0 = time.perf_counter()
+    uids = [eng.put(p, max_new_tokens=HIER_NEW) for p in prompts]
+    res = eng.generate_all(burst=8)
+    out = []
+    for uid, p in zip(uids, prompts):
+        chunks = [(s, n) for s, n in probe.picks[uid] if s < len(p)]
+        starts = [s for s, _ in chunks]
+        ends = [s + n for s, n in chunks]
+        if (res[uid][:len(p)] != p or len(res[uid]) != len(p) + HIER_NEW
+                or starts[1:] != ends[:-1] or ends[-1] != len(p)):
+            fail(f"hierarchy {what}: request {uid} scheduled {chunks} for "
+                 f"a {len(p)}-token prompt, or lost tokens")
+        t, logits = probe.first[uid]
+        out.append({"tokens": res[uid][len(p):], "cached": starts[0],
+                    "prefilled": sum(n for _, n in chunks),
+                    "ttft_s": t - t0, "logits": logits})
+    return out
+
+
+def hier_chain(eng, p) -> list:
+    """The radix nodes of P's full blocks, root first."""
+    node, out = eng.prefix_cache._root, []
+    for i in range(HIER_PREFIX // BS):
+        node = node.children.get(tuple(p[i * BS:(i + 1) * BS]))
+        if node is None:
+            break
+        out.append(node)
+    return out
+
+
+def hier_idle_checks(eng, what: str) -> None:
+    """The tier identity and the allocator's check, and no block leaked:
+    with no request live, free + evictable accounts for the whole pool and
+    the demoted count agrees three ways (allocator, pager, tree)."""
+    try:
+        eng.prefix_cache.check_consistency()
+    except AssertionError as e:
+        fail(f"hierarchy {what}: {e}")
+    if (eng.pinned_blocks != 0 or eng.free_blocks + eng.evictable_blocks
+            != eng.total_blocks):
+        fail(f"hierarchy {what}: {eng.free_blocks} free + "
+             f"{eng.evictable_blocks} evictable + {eng.pinned_blocks} "
+             f"pinned != {eng.total_blocks} blocks")
+
+
+def hier_same_bytes(eng, chain, ref, what: str) -> None:
+    """P's chain on the device holds, bit for bit, the bytes it held
+    before its first demotion."""
+    import torch
+
+    if len(chain) != len(ref) or any(n.tier != "device" for n in chain):
+        fail(f"hierarchy {what}: P's chain is not back on the device")
+    for i, node in enumerate(chain):
+        got = eng._read_kv_block(node.block)
+        for name in ("k", "v"):
+            if not torch.equal(got[name].view(torch.uint8),
+                               ref[i][name].view(torch.uint8)):
+                fail(f"hierarchy {what}: block {i} of P's chain differs "
+                     "bitwise from its bytes before demotion")
+
+
+def run_hierarchy(torch, cfg, params, device: str, dtype: str, pa=None,
+                  keep_logits: bool = False) -> dict:
+    """The five stages on one model: cold, hits, pressure, return, and a
+    restart on the same cold store.  Returns every request's results, the
+    counters, the spans' times, and the checks' outcomes; fails on any
+    broken check.  ``pa``: count the paged kernels' launches (card)."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.observability import recorder, tracer
+
+    tr = hier_traffic(cfg.vocab_size)
+    # the cold store lives in the checkout's git-ignored build/ directory
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="hier_coldstore_", dir=build)
+    out = {"stages": {}, "tiers": {}}
+    writes = [0, 0.0]  # cold-store bytes written, seconds
+
+    def engine():
+        eng = InferenceEngineV2(cfg, params, hier_v2(cfg, dtype, True, root),
+                                device=device)
+        cs = eng.pager.coldstore
+        write = cs.write
+
+        def timed_write(key, payload, meta=None):
+            t = time.perf_counter()
+            path = write(key, payload, meta)
+            writes[0] += len(payload)
+            writes[1] += time.perf_counter() - t
+            return path
+
+        cs.write = timed_write
+        return eng
+
+    def promotes_since(n):
+        return [sp for sp in tracer.spans(name="paging/promote")[n:]
+                if sp.attrs.get("ok")]
+
+    try:
+        tracer.clear()
+        recorder.clear()
+        if pa is not None:
+            pa.reset_counts()
+        eng = engine()
+        probe = HierProbe(torch, eng, keep_logits, device == "cuda")
+        st = out["stages"]
+        st["cold"] = hier_serve(eng, probe, tr["cold"], "cold")
+        hier_idle_checks(eng, "after the cold request")
+        chain = hier_chain(eng, tr["p"])
+        ref = [eng._read_kv_block(n.block) for n in chain]
+        if len(chain) != HIER_PREFIX // BS:
+            fail("hierarchy: the cold request did not cache P's blocks")
+        st["hits"] = hier_serve(eng, probe, tr["hits"], "hits")
+        hier_idle_checks(eng, "after the hits")
+        got = [r["cached"] for r in st["hits"]]
+        if got != tr["hit_cached"]:
+            fail(f"hierarchy hits: cached prefixes {got}, want "
+                 f"{tr['hit_cached']}")
+        st["pressure"] = hier_serve(eng, probe, tr["pressure"], "pressure")
+        hier_idle_checks(eng, "after the pressure")
+        if any(n.tier == "device" for n in chain):
+            fail("hierarchy pressure: P's chain was not demoted")
+        # where each block of P's chain lies now (a node keeps the tier it
+        # was demoted to; the pager knows which host entries spilled since)
+        source = {n.handle: "cold" if n.handle in eng.pager._spill
+                  else "host" for n in chain}
+        from_tier = [source[n.handle] for n in chain]
+        out["tiers"]["return"] = from_tier
+        n_promote = len(tracer.spans(name="paging/promote"))
+        st["ret"] = hier_serve(eng, probe, tr["ret"], "return")
+        hier_idle_checks(eng, "after the return")
+        promote_ms = {"host": [], "cold": []}
+        for sp in promotes_since(n_promote):
+            if sp.attrs["handle"] in source:
+                promote_ms[source[sp.attrs["handle"]]].append(
+                    sp.duration_s * 1e3)
+        chain = hier_chain(eng, tr["p"])
+        if "host" not in from_tier or "cold" not in from_tier:
+            fail(f"hierarchy return: P's chain came back from {from_tier}, "
+                 "want both the host pool and the cold store")
+        hier_same_bytes(eng, chain, ref, "return")
+        if device == "cuda" and probe.syncs != "":
+            fail("hierarchy: a decode body with the cache on waited on the "
+                 f"device (or never ran): {probe.syncs}")
+        # the restart's predecessor: two more sessions, then the drain a
+        # stopping worker does (every cached block demoted); the host tier
+        # dies with the process
+        st["drain"] = hier_serve(eng, probe, tr["drain"], "drain")
+        eng.prefix_cache.evict(eng.total_blocks)
+        hier_idle_checks(eng, "after the drain")
+        spilled = set(eng.pager._spill)
+        if any(n.handle not in spilled for n in chain):
+            fail("hierarchy drain: P's chain is not in the cold store")
+        out["stats"] = eng.prefix_stats()
+        write_s = writes[1]
+        calls = probe.calls
+        eng.close()
+        del eng, probe
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        eng = engine()
+        probe = HierProbe(torch, eng, keep_logits, False)
+        t = time.perf_counter()
+        out["rehydrate"] = eng.rehydrate_coldstore()
+        out["rehydrate_s"] = time.perf_counter() - t
+        n_promote = len(tracer.spans(name="paging/promote"))
+        st["restart"] = hier_serve(eng, probe, tr["ret"], "restart")
+        hier_idle_checks(eng, "after the restart")
+        chain = hier_chain(eng, tr["p"])
+        promoted = promotes_since(n_promote)
+        tier_of = {sp.attrs["block"]: sp.attrs["tier"] for sp in promoted}
+        out["tiers"]["restart"] = [tier_of.get(n.block) for n in chain]
+        rehydrated_ms = [sp.duration_s * 1e3 for sp in promoted]
+        if out["tiers"]["restart"] != ["cold"] * len(chain):
+            fail("hierarchy restart: P's chain did not come back from the "
+                 f"rehydrated cold store: {out['tiers']['restart']}")
+        hier_same_bytes(eng, chain, ref, "restart")
+        out["stats_restart"] = eng.prefix_stats()
+        calls += probe.calls
+        eng.close()
+        del eng, probe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    s, s2 = out["stats"], out["stats_restart"]
+    demotes = tracer.spans(name="paging/demote")
+    need = {"hits": s["hits"], "prefill_tokens_skipped":
+            s["prefill_tokens_skipped"], "cow_copies": s["cow_copies"],
+            "demotes_to_host": sum(1 for d in demotes
+                                   if d.attrs.get("tier") == "host"),
+            "coldstore_writes": s["coldstore_writes"],
+            "promotions": s["promotions"],
+            "rehydrated_blocks": s2["rehydrated_blocks"],
+            "restart_promotions": s2["promotions"]}
+    if not all(v > 0 for v in need.values()):
+        fail(f"hierarchy: a counter stayed at 0: {need}")
+    out["counters"] = need
+    # one engine/step span per step() call, the reference's kinds, and as
+    # many flight-recorder steps as spans (the recorder keeps 512)
+    steps = tracer.spans(name="engine/step")
+    kinds = {sp.attrs["kind"] for sp in steps}
+    n_rec = len(recorder.snapshot()["steps"])
+    if (len(steps) != calls or not kinds <= {"mixed", "decode"}
+            or "mixed" not in kinds or n_rec != min(calls, 512)):
+        fail(f"hierarchy: {len(steps)} engine/step spans ({kinds}) and "
+             f"{n_rec} recorder steps for {calls} step() calls")
+    for name in ("paging/demote", "paging/promote", "coldstore/rehydrate_kv"):
+        if not tracer.spans(name=name):
+            fail(f"hierarchy: no {name} span")
+    out["spans"] = {"engine_step": len(steps), "recorder_steps": n_rec,
+                    "kinds": sorted(kinds)}
+
+    def median(d):
+        return statistics.median(d) if d else None
+
+    out["times"] = {
+        "ttft_s": {k: [r["ttft_s"] for r in st[k]]
+                   for k in ("cold", "hits", "ret", "restart")},
+        # a demote (its put may spill the host pool's oldest entry to the
+        # cold store); a promote of P's chain from each tier, and after
+        # the restart
+        "demote_ms": median([d.duration_s * 1e3 for d in demotes
+                             if d.attrs.get("ok")]),
+        "demote_ms_max": max(d.duration_s * 1e3 for d in demotes),
+        # every cold-store write of the first engine happens inside a
+        # demote (its put spills the host pool's oldest entry): the rest of
+        # a demote, on average, is the D2H copy and the host-pool put
+        "demote_ms_without_cold_writes": (
+            sum(d.duration_s for d in demotes) - write_s) * 1e3
+        / len(demotes),
+        "promote_ms": {"host": median(promote_ms["host"]),
+                       "cold": median(promote_ms["cold"]),
+                       "rehydrated": median(rehydrated_ms)},
+        "coldstore_write_mb_per_s": writes[0] / 2**20 / max(writes[1], 1e-9),
+        "coldstore_write_mb": writes[0] / 2**20,
+        "rehydrate_s": out["rehydrate_s"]}
+    if pa is not None:
+        out["launches"] = dict(pa.LAUNCHES)
+        out["plain_calls"] = dict(pa.PLAIN_CALLS)
+    return out
+
+
+HIER_DECODE_STEPS = 48  # timed decode steps per turn, tracing off or on
+HIER_TRACE_TURNS = (False, True, True, False, False, True, True, False)
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def tracer_cost_us(n: int = 200_000) -> dict:
+    """Host cost of one ``begin``/``end`` pair of a private tracer, on and
+    off (the engine makes one pair per ``step()``)."""
+    from deepspeed_tpu_torch.observability.trace import Tracer
+
+    out = {}
+    for enabled in (True, False):
+        tr = Tracer(enabled=enabled)
+        t = time.perf_counter()
+        for _ in range(n):
+            tr.end(tr.begin("engine/step", kind="decode"), emitted=8)
+        out["on" if enabled else "off"] = (time.perf_counter() - t) / n * 1e6
+    return out
+
+
+def traced_decode_rates(torch, eng, vocab: int, device: str) -> dict:
+    """Warm decode through ``step()`` (a span and a recorder step each) at
+    8 rows, with the tracer off and on in turns (HIER_TRACE_TURNS):
+    tokens/s of HIER_DECODE_STEPS steps per turn.  A traced turn records
+    one ``engine/step`` span of kind "decode" per step, an untraced one
+    none."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.observability import tracer
+
+    rng = np.random.default_rng(SEED + 11)
+    rates = {"off": [], "on": []}
+    was = tracer.enabled
+    try:
+        for enabled in HIER_TRACE_TURNS:
+            for _ in range(8):
+                eng.put(rng.integers(0, vocab, size=64).tolist(),
+                        max_new_tokens=HIER_DECODE_STEPS + 1)
+            while eng.waiting or eng._prefilling:
+                eng.step()
+            tracer.enabled = enabled
+            tracer.clear()
+            sync(torch, device)
+            t = time.perf_counter()
+            n = sum(len(v) for _ in range(HIER_DECODE_STEPS)
+                    for v in eng.step().values())
+            sync(torch, device)
+            rates["on" if enabled else "off"].append(
+                n / (time.perf_counter() - t))
+            tracer.enabled = was
+            kinds = [sp.attrs["kind"] for sp in
+                     tracer.spans(name="engine/step")]
+            if kinds != ["decode"] * (HIER_DECODE_STEPS if enabled else 0):
+                fail(f"traced decode: {len(kinds)} engine/step spans "
+                     f"{set(kinds)} over {HIER_DECODE_STEPS} decode steps "
+                     f"with the tracer {'on' if enabled else 'off'}")
+            eng.generate_all()
+    finally:
+        tracer.enabled = was
+    return rates
+
+
+def run_hierarchy_phase(torch, pa, params, card: str, cfg=None,
+                        device: str = "cuda", dtype: str = "bfloat16"
+                        ) -> dict:
+    """llama3-8b at full width and depth, bf16, the engine phase's weights
+    (``cfg``/``device``/``dtype``: another model, as the GPU test's small
+    one): the five stages (``run_hierarchy``), then the same hits, return
+    and restart prompts on a cache-off engine: each request's first-token
+    logits within TOL_HIER_LOGITS_REL of the cache-off engine's, and the
+    count of identical greedy continuations; the tracer's host cost and
+    warm decode tokens/s with tracing off and on."""
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    model = "llama3-8b" if cfg is None else "small"
+    cfg = cfg or tfm.get_config("llama3-8b")
+    t0 = time.perf_counter()
+    run = run_hierarchy(torch, cfg, params, device, dtype,
+                        pa=pa if device == "cuda" else None,
+                        keep_logits=True)
+    wall = time.perf_counter() - t0
+    if device == "cuda" and (not all(run["launches"].values())
+                             or any(run["plain_calls"].values())):
+        fail(f"hierarchy: the paged kernels did not carry the phase: "
+             f"{run['launches']} {run['plain_calls']}")
+    tr = hier_traffic(cfg.vocab_size)
+    off = InferenceEngineV2(cfg, params, hier_v2(cfg, dtype, False, nb=NB),
+                            device=device)
+    probe = HierProbe(torch, off, True, False)
+    ref = {"hits": hier_serve(off, probe, tr["hits"], "cache-off hits"),
+           "ret": hier_serve(off, probe, tr["ret"], "cache-off return")}
+    st = run["stages"]
+    pairs = ([("hit", a, b) for a, b in zip(st["hits"], ref["hits"])]
+             + [("promoted", st["ret"][0], ref["ret"][0]),
+                ("rehydrated", st["restart"][0], ref["ret"][0])])
+    rel, same = [], 0
+    for what, a, b in pairs:
+        diff = (a["logits"] - b["logits"]).abs().max().item()
+        scale = b["logits"].abs().max().item()
+        rel.append(diff / scale)
+        if not math.isfinite(diff) or diff > TOL_HIER_LOGITS_REL * scale:
+            fail(f"hierarchy: a {what} request's first-token logits differ "
+                 f"from the cache-off engine's by {diff} (max |logit| "
+                 f"{scale}, limit {TOL_HIER_LOGITS_REL} of it)")
+        same += a["tokens"] == b["tokens"]
+    decode = traced_decode_rates(torch, off, cfg.vocab_size, device)
+    del off, probe
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for r in run["stages"].values():
+        for q in r:
+            q.pop("logits")
+    return {"card": card, "model": model, "dtype": dtype,
+            "num_blocks": HIER_NB, "host_blocks": HIER_HOST_BLOCKS,
+            "wall_s": wall, "counters": run["counters"],
+            "stats": run["stats"], "stats_restart": run["stats_restart"],
+            "rehydrate": run["rehydrate"], "tiers": run["tiers"],
+            "spans": run["spans"], "times": run["times"],
+            "cached_tokens": {k: [q["cached"] for q in v]
+                              for k, v in st.items()},
+            "prefilled_tokens": {k: [q["prefilled"] for q in v]
+                                 for k, v in st.items()},
+            "launches": run.get("launches"),
+            "decode_body_host_syncs": 0,
+            "logits_max_abs_diff_rel": max(rel), "logits_rel": rel,
+            "identical_continuations": f"{same} of {len(pairs)}",
+            "tracer_us_per_pair": tracer_cost_us(),
+            "decode_tokens_per_s_trace": decode}
+
+
+def hierarchy_line(hier: dict) -> str:
+    """The hierarchy phase's times, on one line beside the card."""
+    t, tr = hier["times"], hier["decode_tokens_per_s_trace"]
+
+    def f(xs):
+        return ", ".join(f"{x:.4f}" for x in xs)
+
+    return (
+        f"hierarchy ({hier['card']}): TTFT s cold {f(t['ttft_s']['cold'])}, "
+        f"hits {f(t['ttft_s']['hits'])}, promoted {f(t['ttft_s']['ret'])}, "
+        f"rehydrated {f(t['ttft_s']['restart'])}; ms per KV block: demote "
+        f"{t['demote_ms']:.3f} (median; mean without its cold-store writes "
+        f"{t['demote_ms_without_cold_writes']:.3f}), promote from host "
+        f"{t['promote_ms']['host']:.3f}, from the cold store "
+        f"{t['promote_ms']['cold']:.3f}, rehydrated "
+        f"{t['promote_ms']['rehydrated']:.3f}; cold-store writes "
+        f"{t['coldstore_write_mb_per_s']:.1f} MB/s over "
+        f"{t['coldstore_write_mb']:.1f} MB; rehydrate {t['rehydrate_s']:.4f}"
+        f" s; tracer {hier['tracer_us_per_pair']['on']:.3f} us per "
+        f"begin/end pair (off {hier['tracer_us_per_pair']['off']:.3f}); "
+        f"decode tokens/s at 8 rows, tracing off (DSTPU_TRACE=0) "
+        f"{f(tr['off'])}, on {f(tr['on'])}; first-token logits max |diff| "
+        f"{hier['logits_max_abs_diff_rel']:.3e} of max |logit| (limit "
+        f"{TOL_HIER_LOGITS_REL}); identical greedy continuations "
+        f"{hier['identical_continuations']}")
+
+
+def small_hierarchy_agreement(torch, pa) -> dict:
+    """The five stages on the small f32 model: on the card (kernels), on
+    the CPU (plain versions), and the same prompts in the same groups on a
+    cache-off engine on the card.  Every greedy token must be identical."""
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
+                         num_heads=4, num_kv_heads=2, dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        run = run_hierarchy(torch, cfg, params, dev, "float32",
+                            pa=pa if dev == "cuda" else None)
+        if dev == "cuda" and (not all(run["launches"].values())
+                              or any(run["plain_calls"].values())):
+            fail(f"small model hierarchy: the card run did not go through "
+                 f"the kernels: {run['launches']} {run['plain_calls']}")
+        tokens[dev] = {k: [q["tokens"] for q in v]
+                       for k, v in run["stages"].items()}
+    tr = hier_traffic(cfg.vocab_size)
+    off = InferenceEngineV2(cfg, params, hier_v2(cfg, "float32", False,
+                                                 nb=NB), device="cuda")
+    probe = HierProbe(torch, off, False, False)
+    tokens["cache_off"] = {
+        stage: [q["tokens"] for q in hier_serve(off, probe, tr[key], stage)]
+        for stage, key in (("cold", "cold"), ("hits", "hits"),
+                           ("pressure", "pressure"), ("ret", "ret"),
+                           ("drain", "drain"), ("restart", "ret"))}
+    for other in ("cpu", "cache_off"):
+        if tokens["cuda"] != tokens[other]:
+            bad = [k for k in tokens["cuda"]
+                   if tokens["cuda"][k] != tokens[other][k]]
+            fail(f"small model hierarchy: greedy tokens on the card differ "
+                 f"from the {other} run's in stages {bad}")
+    return {"requests": sum(len(v) for v in tokens["cuda"].values()),
+            "tokens_identical": ["cpu", "cache_off"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1881,11 +2473,18 @@ def main() -> None:
               f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
               f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
 
-    engine = run_engine(torch, pa, args.profile)
+    keep = {}
+    engine = run_engine(torch, pa, args.profile, keep)
     launches = engine["launches"]
     print("engine: " + json.dumps(engine))
     small = small_model_agreement(torch)
     print("small model card vs CPU: " + json.dumps(small))
+    hier = run_hierarchy_phase(torch, pa, keep.pop("params"), card)
+    print("hierarchy: " + json.dumps(hier))
+    print(hierarchy_line(hier))
+    small_hier = small_hierarchy_agreement(torch, pa)
+    print("small model hierarchy, card vs CPU vs cache-off: "
+          + json.dumps(small_hier))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2016,7 +2615,9 @@ def main() -> None:
                      "fused_adamw": adam_tree["launches"],
                      "flash_fwd_bias": evo["launches"]})
     result = {"card": card, "torch": torch.__version__, "engine": engine,
-              "small_model": small, "flash": flash, "training": training,
+              "small_model": small, "hierarchy": hier,
+              "small_hierarchy": small_hier, "flash": flash,
+              "training": training,
               "small_training": small_train, "mixed_gemm": gemm,
               "quantized_engine": quant, "small_quantized": small_quant,
               "grouped_matmul": gmm, "moe_engine": moe,
@@ -2067,6 +2668,8 @@ def main() -> None:
                 "launches": (gemm_launches[k["name"], k["M"]] if "M" in k
                              else gemm_launches[k["name"], k["T"]] if "T" in k
                              else launches[k["name"]]),
+                **({"launches_hierarchy": hier["launches"][k["name"]]}
+                   if k["name"] in hier["launches"] else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

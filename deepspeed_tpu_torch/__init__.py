@@ -46,6 +46,16 @@ Slice 2 adds the training step:
         "optimizer": {"type": "adamw", "params": {"lr": 1e-4}}})
     metrics = engine.train_batch({"input_ids": tokens})  # (4, S) int
 
+Slice 10 serves through the memory hierarchy of the JAX package: the
+prefix cache, the host pool, and the cold store a restarted engine
+re-adopts; every ``step()`` records an ``engine/step`` span
+(``observability/``):
+
+    eng = InferenceEngineV2(cfg, params, V2Config(
+        enable_prefix_cache=True, kv_host_pool_mb=64,
+        kv_coldstore_dir="/var/cache/kv"))
+    eng.rehydrate_coldstore()
+
 Importing the package builds nothing and imports neither ``triton`` nor the
 CUDA kernels; those are built from ``csrc/`` at their first launch.
 """

@@ -33,16 +33,33 @@ layer's feed-forward half, over all the step's rows; with
 (``ops/hopper/grouped_matmul.py``).  Expert-choice routing is refused, as
 the reference refuses it (non-causal).
 
-Prefix caching, host paging, the cold store, speculation and adapter slots
-are refused with ``NotImplementedError`` naming the later slice
-(``ROADMAP.md``) that brings them; so are ALiBi models.  The
-tracer span and flight-recorder append that the reference's ``step()``
-makes wait for the observability slice.
+The serving memory hierarchy is the reference's, host logic copied:
+``enable_prefix_cache`` shares full KV blocks across requests through the
+radix tree of ``prefix_cache.py`` (a partial-block divergence forks a
+copy-on-write block: one in-place ``copy_`` across all layers of both
+pools), so a hit prefills only its uncached suffix, from an arbitrary
+``chunk_start``; ``kv_host_pool_mb``/``kv_host_pool_bytes`` demote cold
+blocks to host DRAM instead of evicting them (``paging.py``: one D2H copy
+of a block across all layers; promotion is one H2D copy into a fresh
+block), ``kv_spill_dir`` or ``kv_coldstore_dir`` (``coldstore.py``, crash
+durable, re-adopted by :meth:`InferenceEngineV2.rehydrate_coldstore`)
+take the host pool's overflow, and ``kv_promote_ahead`` lifts disk
+entries to host memory on a background thread.  Every CUDA copy stays on
+the engine's thread, at admission and at a request's finish, never inside
+a decode body.  :meth:`InferenceEngineV2.step` records an ``engine/step``
+span and a flight-recorder step around its body
+(``observability/``), as the reference does.
+
+Speculation and adapter slots are refused with ``NotImplementedError``
+naming the later slice (``ROADMAP.md``) that brings them; so are ALiBi
+models.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -51,10 +68,16 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models import transformer as tfm
+from ...observability.recorder import recorder
+from ...observability.trace import tracer
 from ...ops.hopper.mixed_gemm import QuantizedWeight
 from ...ops.hopper.paged_attention import (paged_decode_attention,
                                            paged_prefill_attention)
+from ...utils import faults
 from ..quantization import quantize_on_host
+from .coldstore import ColdStore
+from .paging import BlockPager, deserialize_block, serialize_block
+from .prefix_cache import PrefixCache, chain_tokens, prefix_digests
 from .ragged import (DecodeStateTable, KVCacheManager, RaggedBatch,
                      RaggedBatchBuilder, SequenceDescriptor)
 
@@ -96,12 +119,6 @@ class V2Config:
 #: V2Config fields whose non-default value turns on a feature this slice
 #: does not carry -> the ROADMAP.md queue-A item that brings it
 _LATER = {
-    "enable_prefix_cache": "A2 (prefix cache)",
-    "kv_host_pool_mb": "A3 (host paging)",
-    "kv_host_pool_bytes": "A3 (host paging)",
-    "kv_spill_dir": "A3 (host paging)",
-    "kv_promote_ahead": "A3 (host paging)",
-    "kv_coldstore_dir": "A4 (cold store)",
     "spec_mode": "A5 (speculative decoding)",
     "adapter_slots": "A7 (multi-tenant adapters)",
 }
@@ -380,6 +397,25 @@ class InferenceEngineV2:
         # one block reserved as write-scratch for padded tokens
         self.kv = KVCacheManager(self.cfg.num_blocks - 1, self.cfg.block_size,
                                  self.cfg.max_blocks_per_seq)
+        self.prefix_cache = None
+        self.pager = None
+        if self.cfg.enable_prefix_cache:
+            self.prefix_cache = PrefixCache(
+                self.kv.allocator, self.cfg.block_size,
+                min_prefix_tokens=self.cfg.prefix_cache_min_tokens,
+                eviction=self.cfg.prefix_eviction)
+            self.kv.prefix_cache = self.prefix_cache
+            if self.cfg.kv_host_pool_mb > 0 or self.cfg.kv_host_pool_bytes:
+                cold = (ColdStore(self.cfg.kv_coldstore_dir)
+                        if self.cfg.kv_coldstore_dir else None)
+                self.pager = BlockPager(
+                    host_bytes=(self.cfg.kv_host_pool_bytes
+                                or self.cfg.kv_host_pool_mb << 20),
+                    spill_dir=self.cfg.kv_spill_dir,
+                    promote_ahead=self.cfg.kv_promote_ahead,
+                    coldstore=cold)
+                self.prefix_cache.attach_pager(
+                    self.pager, self._demote_node, self._promote_node)
         self.builder = RaggedBatchBuilder(self.cfg.max_tokens_per_step,
                                           self.cfg.max_seqs,
                                           self.cfg.max_blocks_per_seq)
@@ -414,6 +450,289 @@ class InferenceEngineV2:
     @property
     def free_blocks(self) -> int:
         return self.kv.allocator.free_blocks
+
+    @property
+    def evictable_blocks(self) -> int:
+        """Prefix-tree blocks no live sequence shares (refcount 1)."""
+        return self.prefix_cache.evictable_blocks if self.prefix_cache else 0
+
+    @property
+    def reclaimable_blocks(self) -> int:
+        """Evictable blocks admission control may treat as free (0 when
+        the cache is off or the eviction policy is 'none')."""
+        return (self.prefix_cache.reclaimable_blocks
+                if self.prefix_cache else 0)
+
+    @property
+    def pinned_blocks(self) -> int:
+        """Allocated blocks some live owner still needs — computed from
+        allocator refcounts (NOT as total - free - evictable) so the leak
+        invariant ``free + evictable + pinned == total`` is a real check."""
+        alloc = self.kv.allocator
+        live = sum(1 for b in range(alloc.num_blocks) if alloc.refcount(b) > 0)
+        return live - self.evictable_blocks
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """Prefix-cache counters + block-accounting gauges for serving
+        metrics; all-zero (enabled=0) when the cache is off."""
+        stats: Dict[str, float] = {
+            "enabled": 0, "lookups": 0, "hits": 0, "hit_rate": 0.0,
+            "prefill_tokens_skipped": 0, "evictions": 0, "cow_copies": 0,
+            "cached_blocks": 0, "shared_blocks": 0, "evictable_blocks": 0,
+            # memory-hierarchy tiers (paging.py)
+            "tier_device_blocks": 0, "tier_host_blocks": 0,
+            "tier_spill_blocks": 0, "demotions": 0, "promotions": 0,
+            "promote_wait_ms": 0.0,
+            # crash-durable cold tier (coldstore.py)
+            "tier_cold_blocks": 0, "rehydrated_blocks": 0,
+            "gc_spill_files": 0, "coldstore_entries": 0,
+            "coldstore_bytes": 0, "coldstore_writes": 0,
+            "coldstore_corrupt_dropped": 0, "coldstore_gc_tmp": 0,
+        }
+        if self.prefix_cache is not None:
+            stats.update(self.prefix_cache.stats())
+            stats["enabled"] = 1
+        if self.pager is not None:
+            stats["gc_spill_files"] = self.pager.gc_spill_files
+            if self.pager.coldstore is not None:
+                stats.update(self.pager.coldstore.stats())
+        stats["pinned_blocks"] = self.pinned_blocks
+        return stats
+
+    def prefix_summary(self, max_digests: int = 1024) -> Dict[str, Any]:
+        """Radix-tree digest summary for cache-aware routing (empty when
+        the cache is off)."""
+        if self.prefix_cache is None:
+            return {"block_size": self.cfg.block_size, "digests": []}
+        return self.prefix_cache.summary(max_digests)
+
+    # -- KV handoff between replica classes (disaggregated serving) -----
+
+    def export_prefix(self, tokens: List[int]) -> Optional[bytes]:
+        """Serialize the longest cached full-block prefix of ``tokens`` as
+        a safetensors payload: the k/v block data of the matched radix
+        subtree, (L, n, block, kv heads, head dim) each, plus the covered
+        token ids.  Byte for byte the reference engine's payload for the
+        same cache, so either engine imports the other's.  Returns
+        ``None`` when nothing is cached."""
+        if self.prefix_cache is None:
+            return None
+        blocks, matched = self.prefix_cache.walk_full_blocks(tokens)
+        if not blocks:
+            return None
+        try:
+            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            arrays = {name: self.caches[name].index_select(1, idx).cpu()
+                      for name in ("k", "v")}
+            meta = {
+                "tokens": ",".join(str(int(t)) for t in tokens[:matched]),
+                "block_size": str(self.cfg.block_size),
+            }
+            return serialize_block(arrays, meta)
+        finally:
+            self.kv.allocator.free(blocks)  # drop the export walk's pins
+
+    def import_prefix(self, payload: bytes) -> int:
+        """Adopt an exported prefix: allocate blocks, copy the k/v data
+        into the paged caches, and donate the chain into the radix tree.
+        Imports the longest leading run of blocks the pool can hold;
+        returns the number of prompt tokens now cached locally."""
+        if self.prefix_cache is None:
+            return 0
+        hlen = int.from_bytes(payload[:8], "little")
+        meta = json.loads(payload[8:8 + hlen].decode()).get(
+            "__metadata__", {})
+        if int(meta.get("block_size", -1)) != self.cfg.block_size:
+            return 0  # block-size mismatch: not transferable
+        tokens = [int(t) for t in meta["tokens"].split(",") if t]
+        tensors = deserialize_block(payload)
+        k_arr, v_arr = tensors["k"], tensors["v"]
+        n = k_arr.shape[1]
+        alloc = self.kv.allocator
+        if n > alloc.free_blocks:
+            self.prefix_cache.evict(n - alloc.free_blocks)
+        n = min(n, alloc.free_blocks)
+        if n == 0:
+            return 0
+        blocks = alloc.allocate(n)
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        for name, arr in (("k", k_arr), ("v", v_arr)):
+            cache = self.caches[name]
+            cache.index_copy_(1, idx, arr[:, :n].to(self.device, cache.dtype))
+        covered = n * self.cfg.block_size
+        # donate adopts our references (or dedupes against already-cached
+        # chunks by freeing the duplicate block)
+        self.prefix_cache.donate(tokens[:covered], covered, blocks)
+        return covered
+
+    # -- serving memory hierarchy (paging.py, coldstore.py) --------------
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy one KV block to another across every layer of both pools,
+        in place — the copy-on-write fork for partial-block prefix sharing.
+        Positions past the shared prefix carry stale KV that the paged
+        kernels never read: the step writes the chunk's KV before
+        attention, and keys at or past ``context_lens`` are masked."""
+        for cache in self.caches.values():
+            cache[:, dst].copy_(cache[:, src])
+
+    def _read_kv_block(self, block: int) -> Dict[str, torch.Tensor]:
+        """One block's k/v across all layers as CPU tensors (L, block, kv
+        heads, head dim): the pager's demote input, in the layout
+        ``export_prefix`` ships between replicas.  Always a copy, also
+        when the pool lies on the CPU."""
+        return {name: self.caches[name][:, block].to("cpu", copy=True)
+                for name in ("k", "v")}
+
+    def _demote_node(self, node) -> Optional[Tuple[int, str]]:
+        """Prefix-cache demote callback: copy the node's device block into
+        the pager.  Returns ``(handle, tier)`` or ``None`` (pager full →
+        the caller falls back to true eviction).
+
+        With a cold store attached, the block also gets its *durable
+        identity*: the chain digest of its full token prefix becomes the
+        cold-store key, and the manifest meta carries the chain tokens —
+        everything a restarted worker needs to rebuild the radix path in
+        :meth:`rehydrate_coldstore`."""
+        sp = tracer.begin("paging/demote", block=int(node.block))
+        meta = key = None
+        if self.pager.coldstore is not None:
+            tokens = chain_tokens(node)
+            bs = self.cfg.block_size
+            key = "kv-" + prefix_digests(tokens, bs)[-1]
+            meta = {"kind": "kv_block",
+                    "tokens": ",".join(str(t) for t in tokens),
+                    "block_size": str(bs)}
+        res = self.pager.put(self._read_kv_block(node.block),
+                             metadata=meta, durable_key=key)
+        if res is None:
+            tracer.end(sp, ok=False, full=True)
+            return None
+        handle, tier = res
+        tracer.end(sp, ok=True, handle=handle, tier=tier)
+        return handle, tier
+
+    def rehydrate_coldstore(self) -> Dict[str, int]:
+        """Restart rehydration: re-adopt the cold-store entries a crashed
+        (or gracefully restarted) predecessor left behind, so resumed
+        sessions promote instead of re-prefilling.
+
+        Every entry is verified BEFORE adoption (sha256 manifest + its
+        key recomputed from the chain tokens it claims) — a torn, corrupt
+        or tampered entry is deleted and the prefix degrades to
+        re-prefill, never to wrong tokens.  Entries whose ancestor chunks
+        did not survive are orphans and are deleted too (a radix chunk is
+        only reachable through its full chain).  Returns adoption counts;
+        a no-op without a cold store or prefix cache."""
+        out = {"adopted": 0, "orphaned": 0, "skipped": 0}
+        pager = self.pager
+        if (pager is None or pager.coldstore is None
+                or self.prefix_cache is None):
+            return out
+        cs = pager.coldstore
+        bs = self.cfg.block_size
+        sp = tracer.begin("coldstore/rehydrate_kv")
+        chains: List[Tuple[str, List[int], int]] = []
+        for key, meta, nbytes in cs.entries():
+            if meta.get("kind") != "kv_block":
+                continue  # not ours (e.g. an adapter section sharing root)
+            try:
+                entry_bs = int(meta.get("block_size", -1))
+                tokens = [int(t) for t in
+                          str(meta.get("tokens", "")).split(",") if t]
+            except ValueError:
+                entry_bs, tokens = -1, []
+            if (entry_bs != bs or not tokens or len(tokens) % bs != 0
+                    or key != "kv-" + prefix_digests(tokens, bs)[-1]):
+                cs.delete(key)  # wrong geometry or tampered meta
+                out["skipped"] += 1
+                continue
+            chains.append((key, tokens, nbytes))
+        chains.sort(key=lambda c: len(c[1]))  # parent-first (shallow first)
+        for key, tokens, nbytes in chains:
+            faults.maybe_fail("serving.coldstore.rehydrate")
+            if cs.read(key) is None:  # verify-before-adopt; corrupt → GC'd
+                out["skipped"] += 1
+                continue
+            handle = pager.adopt(key, nbytes)
+            if handle is None:
+                out["skipped"] += 1
+                continue
+            status = self.prefix_cache.adopt_demoted(tokens, handle,
+                                                     tier="cold")
+            if status == "adopted":
+                out["adopted"] += 1
+            elif status == "duplicate":
+                # the chain is already in the tree, and its node may be
+                # backed by this very durable entry — unwind the handle
+                # bookkeeping WITHOUT deleting the shared entry
+                pager.forget(handle)
+                out["skipped"] += 1
+            else:  # orphan: unreachable without its ancestors
+                pager.drop(handle)  # unwind + delete the dead entry
+                out["orphaned"] += 1
+        tracer.end(sp, **out)
+        return out
+
+    def _promote_node(self, node) -> bool:
+        """Prefix-cache promote callback: fetch a demoted node's bytes
+        (staged by the promote-ahead thread when enabled) and copy them
+        into a freshly-allocated device block — ``import_prefix``'s path,
+        so the step's kernels never change."""
+        t0 = time.perf_counter()
+        sp = tracer.begin("paging/promote", handle=int(node.handle or -1),
+                          tier=node.tier)
+        arrays = self.pager.get(node.handle)
+        if arrays is None:
+            tracer.end(sp, ok=False, lost=True)
+            return False
+        alloc = self.kv.allocator
+        if alloc.free_blocks == 0:
+            # make room by demoting a colder node (walked-path ancestors
+            # are pinned by match(), so they are never victims)
+            self.prefix_cache.evict(1)
+        if alloc.free_blocks == 0:
+            tracer.end(sp, ok=False)
+            return False  # match stops here; the tail prefills normally
+        (dst,) = alloc.allocate(1)
+        for name in ("k", "v"):
+            self.caches[name][:, dst].copy_(arrays[name])
+        handle = node.handle
+        node.block = dst
+        node.tier = "device"
+        node.handle = None
+        self.pager.drop(handle)
+        alloc.note_promote()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        self.pager.record_promote_wait(wait_ms)
+        tracer.end(sp, ok=True, block=dst, wait_ms=wait_ms)
+        return True
+
+    def _prefetch_demoted(self, tokens: List[int]) -> None:
+        """Promote-ahead: walk the radix tree read-only along a just-queued
+        prompt and hand any demoted handles to the pager's background
+        thread, so the disk→host half of their promotion overlaps the
+        steps before this request is scheduled."""
+        node = self.prefix_cache._root
+        bs = self.cfg.block_size
+        handles: List[int] = []
+        matched = 0
+        while matched + bs <= len(tokens):
+            child = node.children.get(tuple(tokens[matched:matched + bs]))
+            if child is None:
+                break
+            if child.tier != "device" and child.handle is not None:
+                handles.append(child.handle)
+            node = child
+            matched += bs
+        if handles:
+            self.pager.prefetch(handles)
+
+    def close(self) -> None:
+        """Release paging resources (promote-ahead thread, spill writer).
+        Safe to call more than once; a pagerless engine is a no-op."""
+        if self.pager is not None:
+            self.pager.close()
 
     @property
     def num_running(self) -> int:
@@ -456,7 +775,10 @@ class InferenceEngineV2:
                     f"all {self.cfg.max_seqs} sequence slots in use "
                     f"({self.num_running} running, {self.num_waiting} "
                     "waiting)")
-            avail = self.free_blocks - self._reserved_by_waiting()
+            # evictable prefix-cache blocks count as free: admission must
+            # not starve on a warm cache (the scheduler evicts on demand)
+            avail = (self.free_blocks + self.reclaimable_blocks
+                     - self._reserved_by_waiting())
             if self._blocks_for(need) > avail:
                 raise AdmissionError(
                     f"KV block pool exhausted: request needs "
@@ -466,7 +788,26 @@ class InferenceEngineV2:
             uid=self._uid, tokens=list(prompt_tokens),
             max_new_tokens=max_new_tokens, temperature=temperature,
             seed=seed))
+        if self.pager is not None and self.cfg.kv_promote_ahead:
+            # overlap the disk→host half of any needed promotions with the
+            # steps that run before the queue head is scheduled
+            self._lookahead_prefetch()
         return self._uid
+
+    def _lookahead_prefetch(self) -> None:
+        """Promote-ahead keyed off the scheduler's admission lookahead:
+        walk the waiting queue in admission order, bounded by the free
+        sequence slots and the token budget the next ``_schedule`` will
+        have, and prefetch demoted prefix blocks for exactly the requests
+        that can land in the upcoming batch."""
+        slots = self.cfg.max_seqs - self.num_running
+        budget = self.cfg.max_tokens_per_step
+        for seq in self.waiting:
+            if slots <= 0 or budget <= 0:
+                break
+            self._prefetch_demoted(seq.tokens)
+            slots -= 1
+            budget -= min(len(seq.tokens), budget)
 
     def _schedule(self) -> List[Tuple[SequenceDescriptor, int]]:
         """Dynamic SplitFuse: decode tokens first, then prefill chunks."""
@@ -485,10 +826,23 @@ class InferenceEngineV2:
         # max_new_tokens) so an admitted sequence never stalls mid-decode
         while self.waiting and budget > 0 and len(picks) < self.cfg.max_seqs:
             seq = self.waiting[0]
+            if (self.prefix_cache is not None and not seq.blocks
+                    and seq.seen_tokens == 0):
+                self._match_prefix(seq)
             n = min(seq.cur_len - seq.seen_tokens, budget)
             total_needed = (seq.cur_len - seq.seen_tokens) + seq.max_new_tokens
             if n <= 0 or not self.kv.ensure_capacity(seq, total_needed):
+                if seq.blocks or seq.seen_tokens:
+                    # roll the prefix match back — waiting sequences hold
+                    # no blocks (admission-reservation invariant); the
+                    # lookup is uncounted so stalls don't skew hit rate
+                    self.kv.release(seq)
+                    seq.seen_tokens = 0
+                    self.prefix_cache.lookups -= 1
                 break
+            if seq.seen_tokens:
+                self.prefix_cache.hits += 1
+                self.prefix_cache.tokens_skipped += seq.seen_tokens
             self.waiting.popleft()
             self.running[seq.uid] = seq
             self.table.admit(seq)
@@ -496,6 +850,38 @@ class InferenceEngineV2:
             picks.append((seq, n))
             budget -= n
         return picks
+
+    def _match_prefix(self, seq: SequenceDescriptor) -> None:
+        """Seed a waiting sequence's block table from the radix tree.
+
+        Full shared blocks are pure block-table indirection; a
+        partial-block divergence forks a private copy-on-write block on
+        the device.  ``seen_tokens`` advances past the cached prefix so
+        SplitFuse prefill starts at the first uncached token.  The
+        scheduler rolls this back via ``kv.release`` if the sequence still
+        cannot be admitted."""
+        m = self.prefix_cache.match(seq.tokens, limit=seq.cur_len - 1)
+        if m is None:
+            return
+        blocks = list(m.blocks)
+        skipped = m.tokens
+        if m.cow_src is not None:
+            alloc = self.kv.allocator
+            if alloc.free_blocks == 0:
+                self.prefix_cache.evict(1)
+            if (alloc.free_blocks > 0
+                    and len(blocks) < self.cfg.max_blocks_per_seq):
+                (dst,) = alloc.allocate(1)
+                self._cow_copy(m.cow_src, dst)
+                self.prefix_cache.cow_copies += 1
+                blocks.append(dst)
+                skipped += m.cow_tokens
+            alloc.free([m.cow_src])  # drop match()'s pin on the source
+        if skipped == 0:
+            self.kv.allocator.free(blocks)
+            return
+        seq.blocks = blocks
+        seq.seen_tokens = skipped
 
     def _flush_table(self) -> None:
         """Re-sync descriptors from the SoA rows before a mixed step."""
@@ -505,7 +891,22 @@ class InferenceEngineV2:
     def _finish(self, seq: SequenceDescriptor) -> None:
         seq.done = True
         self.table.retire(seq)
-        self.kv.release(seq)
+        if self.prefix_cache is not None:
+            # donate full prefix blocks into the radix tree instead of
+            # freeing them (retire() just flushed the SoA row, so
+            # seen_tokens == tokens actually written to KV)
+            self.prefix_cache.donate(seq.tokens, seq.seen_tokens, seq.blocks)
+            seq.blocks = []
+            if self.pager is not None:
+                # demote-on-pressure: keep one sequence's worth of headroom
+                # so the NEXT admission demotes nothing on its critical
+                # path (the donate above may have just consumed it)
+                short = (self.cfg.max_blocks_per_seq
+                         - self.kv.allocator.free_blocks)
+                if short > 0:
+                    self.prefix_cache.evict(short)
+        else:
+            self.kv.release(seq)
         del self.running[seq.uid]
 
     def cancel(self, uid: int) -> bool:
@@ -585,8 +986,30 @@ class InferenceEngineV2:
     def step(self, temperature: float = 0.0, rng: Optional[int] = None
              ) -> Dict[int, List[int]]:
         """One continuous-batching step -> {uid: [new token]} for the
-        sequences that produced a token (prefill finished, or decode)."""
-        return self._step_impl(temperature=temperature, rng=rng)
+        sequences that produced a token (prefill finished, or decode).
+
+        Instrumentation is host-side only (an ``engine/step`` span and a
+        flight-recorder append around the untouched step body), so tracing
+        changes no kernel launch."""
+        steady = (not self.waiting and self.running
+                  and self._prefilling == 0)
+        kind = "decode" if steady else "mixed"
+        running, waiting = self.num_running, len(self.waiting)
+        t0 = time.monotonic()
+        sp = tracer.begin("engine/step", kind=kind, running=running,
+                          waiting=waiting, prefilling=self._prefilling)
+        try:
+            out = self._step_impl(temperature=temperature, rng=rng)
+        except Exception:
+            tracer.end(sp, error=True)
+            raise
+        emitted = sum(len(v) for v in out.values())
+        tracer.end(sp, emitted=emitted)
+        recorder.record_step({
+            "kind": kind, "t_start": t0, "t_end": time.monotonic(),
+            "running": running, "waiting": waiting,
+            "prefilling": self._prefilling, "emitted": emitted})
+        return out
 
     def _step_impl(self, temperature: float = 0.0,
                    rng: Optional[int] = None) -> Dict[int, List[int]]:

@@ -5,8 +5,8 @@ builder.py`` ``OpBuilder``/``jit_load``): a named registry mapping op names to
 their implementations with compatibility probing.  The port's compute ops
 are hand-written CUDA kernels (``csrc/``, built by ``nvcc`` at first launch)
 with plain PyTorch versions on CPU tensors; each entry points at the port's
-module.  ``async_io`` (C++ async NVMe tensor I/O) has no port yet: its
-factory raises and :func:`available_ops` leaves it out.
+module.  ``async_io`` loads the ctypes binding of ``csrc/aio/ds_aio.cpp``
+(``nvme/aio_handle.py``, built with ``g++`` at first use).
 """
 
 from __future__ import annotations
@@ -101,10 +101,9 @@ def _ensure_builtin_ops() -> None:
         return quantizer
 
     def _aio():
-        raise NotImplementedError(
-            "op 'async_io' (C++ async NVMe tensor I/O) has no port yet: "
-            "ROADMAP.md A3 (the ctypes binding to csrc/aio/ds_aio.cpp) and "
-            "A14 (nvme/ offload)")
+        from ..nvme import aio_handle
+
+        return aio_handle
 
     def _paged_attn():
         from .hopper import paged_attention

@@ -200,9 +200,6 @@ def test_default_device_is_the_card(monkeypatch, model):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_prefix_cache", True), ("kv_host_pool_mb", 64),
-    ("kv_host_pool_bytes", 4096), ("kv_spill_dir", "spill"),
-    ("kv_promote_ahead", True), ("kv_coldstore_dir", "cold"),
     ("spec_mode", "self_draft"), ("adapter_slots", 4)])
 def test_unported_features_refused(model, field, value):
     _, _, tcfg, tparams = model
@@ -252,10 +249,12 @@ def test_admission_and_cancel(model):
 
 
 def test_port_imports_no_jax():
-    """The port, a CPU engine run (plain, W8A16 and dropless MoE),
-    int8_gemm, a CPU training step, a fused AdamW update, evoformer and
-    block-sparse attention and the op registry never import JAX, the JAX
-    package, pydantic or optax."""
+    """The port, a CPU engine run (plain, W8A16, dropless MoE, and with
+    the whole memory hierarchy on: prefix cache, host pool, cold store,
+    promote-ahead, restart rehydration, tracing), int8_gemm, a CPU
+    training step, a fused AdamW update, evoformer and block-sparse
+    attention and the op registry never import JAX, the JAX package,
+    ml_dtypes, pydantic or optax."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -280,6 +279,31 @@ def test_port_imports_no_jax():
             out = eng.generate_all(burst=4)[uid]
             assert len(out) == 25, out
         assert quantized_bytes(eng.params)["quantized"] > 0
+        import tempfile
+        from deepspeed_tpu_torch.observability import recorder, tracer
+        root = tempfile.mkdtemp()
+        hier = dict(max_tokens_per_step=16, max_seqs=4, block_size=8,
+                    num_blocks=64, max_blocks_per_seq=8, dtype="bfloat16",
+                    enable_prefix_cache=True, kv_host_pool_bytes=1,
+                    kv_promote_ahead=True, kv_coldstore_dir=root)
+        prompt = list(range(1, 41))
+        outs = []
+        for restart in (False, True):
+            heng = InferenceEngineV2(cfg, params, V2Config(**hier),
+                                     device="cpu")
+            if restart:
+                assert heng.rehydrate_coldstore()["adopted"] > 0
+            for p in (prompt, prompt[:20] + [7, 7, 7]):
+                uid = heng.put(p, max_new_tokens=4)
+                outs.append(heng.generate_all(burst=4)[uid])
+            heng.prefix_cache.evict(100)
+            heng.prefix_cache.check_consistency()
+            stats = heng.prefix_stats()
+            heng.close()
+        assert stats["promotions"] > 0 and stats["rehydrated_blocks"] > 0
+        assert outs[:2] == outs[2:], outs
+        assert tracer.spans(name="engine/step") and recorder.snapshot()[
+            "steps"]
         qw = mg.quantize_gemm_weight(torch.ones(256, 128))
         assert mg.int8_gemm(torch.ones(2, 256), qw).shape == (2, 128)
         tcfg = tfm.get_config("tiny", dtype="float32", num_kv_heads=2,
@@ -311,7 +335,7 @@ def test_port_imports_no_jax():
         from deepspeed_tpu_torch.ops import sparse_attention as sa
         ev = CudaAccelerator().create_op_builder("evoformer_attn").load()
         assert sorted(op_registry.available_ops()) == [
-            "evoformer_attn", "flash_attention", "fused_adam",
+            "async_io", "evoformer_attn", "flash_attention", "fused_adam",
             "grouped_gemm", "paged_attention", "quantizer"]
         x = torch.randn(1, 2, 16, 2, 8, requires_grad=True)
         ev.DS4Sci_EvoformerAttention(x, x, x, [torch.zeros(1, 2, 1, 1, 16),
@@ -323,7 +347,8 @@ def test_port_imports_no_jax():
         assert x.grad is not None and y.grad is not None
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "deepspeed_tpu.",
-                                              "pydantic", "optax"))
+                                              "pydantic", "optax",
+                                              "ml_dtypes"))
                or m in ("deepspeed_tpu", "triton")]
         assert not bad, bad
         print("clean")

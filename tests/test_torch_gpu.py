@@ -964,3 +964,28 @@ def test_fused_adamw_tree_one_launch(cuda_device):
     w, w0 = new["layers"]["moe"]["w_in"], params["layers"]["moe"]["w_in"]
     assert w.shape == w0.shape and torch.isfinite(w).all()
     assert not torch.equal(w, w0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_memory_hierarchy_five_stages(cuda_device, dtype):
+    """``chip_smoke.py``'s hierarchy phase at a small width: cold, hits
+    (copy-on-write), pressure into the host pool and the cold store,
+    promotion from both, restart rehydration.  The phase itself fails on
+    a broken check (counters, tier identity, bitwise blocks, prefilled
+    tokens, spans, first-token logits against a cache-off engine)."""
+    import chip_smoke
+
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, dtype=dtype)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    out = chip_smoke.run_hierarchy_phase(torch, tpa, params, "test",
+                                         cfg=cfg, device="cuda",
+                                         dtype=dtype)
+    assert all(v > 0 for v in out["counters"].values())
+    assert all(v > 0 for v in out["launches"].values())
+    assert out["tiers"]["return"].count("host") > 0
+    assert out["tiers"]["return"].count("cold") > 0
+    assert out["prefilled_tokens"]["hits"] == [17, 100, 500, 30, 30, 30, 30]
+    if dtype == "float32":
+        assert out["identical_continuations"] == "9 of 9"

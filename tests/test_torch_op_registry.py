@@ -1,8 +1,8 @@
 """Parity: the port's op registry (``deepspeed_tpu_torch.ops.op_registry``)
 against the JAX package's: the same op names, the same errors, each entry
-loading the port's module; ``async_io``, which has no port yet, refuses
-and is left out of ``available_ops``; and the CUDA accelerator's
-``create_op_builder`` over it."""
+loading the port's module (``async_io`` the ctypes binding of
+``csrc/aio/ds_aio.cpp``); and the CUDA accelerator's ``create_op_builder``
+over it."""
 
 import pytest
 
@@ -16,14 +16,15 @@ MODULES = {"evoformer_attn": "deepspeed_tpu_torch.ops.evoformer",
            "flash_attention": "deepspeed_tpu_torch.ops.hopper.flash_attention",
            "fused_adam": "deepspeed_tpu_torch.ops.fused_optimizers",
            "quantizer": "deepspeed_tpu_torch.ops.quantizer",
-           "paged_attention": "deepspeed_tpu_torch.ops.hopper.paged_attention"}
+           "paged_attention": "deepspeed_tpu_torch.ops.hopper.paged_attention",
+           "async_io": "deepspeed_tpu_torch.nvme.aio_handle"}
 
 
 def test_names_equal_the_reference():
     jreg._ensure_builtin_ops()
     treg._ensure_builtin_ops()
     assert sorted(treg._REGISTRY) == sorted(jreg._REGISTRY)
-    assert sorted(treg._REGISTRY) == sorted([*MODULES, "async_io"])
+    assert sorted(treg._REGISTRY) == sorted(MODULES)
 
 
 @pytest.mark.parametrize("name", sorted(MODULES))
@@ -43,10 +44,26 @@ def test_unknown_op_raises_the_reference_error():
 
 
 def test_async_io_refuses_and_is_not_available():
-    with pytest.raises(NotImplementedError, match="A3"):
-        treg.get_op_builder("async_io").load()
+    """Until the ctypes binding was ported (ROADMAP.md A3) ``async_io``
+    refused; now it loads the binding, whose handle writes and reads back
+    through the built library, and every op is available, as in the
+    reference."""
+    import numpy as np
+
+    aio = treg.get_op_builder("async_io").load()
+    assert aio.aio_available()
     assert set(treg.available_ops()) == set(MODULES)
-    assert set(treg.available_ops()) <= set(jreg.available_ops())
+    assert set(treg.available_ops()) == set(jreg.available_ops())
+    buf = np.arange(4096, dtype=np.uint8)
+    back = np.zeros_like(buf)
+    with aio.AsyncIOHandle(thread_count=1) as h:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            path = f"{d}/blob"
+            assert h.sync_pwrite(path, buf) == buf.nbytes
+            assert h.sync_pread(path, back) == buf.nbytes
+    assert np.array_equal(buf, back)
 
 
 def test_create_op_builder_on_the_cuda_accelerator():
