@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--profile] [--out results.json]
+    python3 chip_smoke.py --spec-rates   # one process's decode rates
 
 In order it prints:
 
@@ -14,7 +15,12 @@ In order it prints:
    same inputs in f32, max abs error only; decode also at contexts on its
    split-KV edges (bf16 and f32) and once under
    ``torch.cuda.set_sync_debug_mode("error")``; prefill also in bf16 on
-   pools of block size 16 and 128;
+   pools of block size 16 and 128; then both kernels again at the draft
+   model's head dim (D = 64, H = 32, KV = 8), and the prefill kernel at a
+   speculative verify's k + 1 = 5 query positions per row (D = 128); then
+   warm decode tokens/s of the plain, draft-model, self-draft and adapter
+   engines at llama3-8b, each from three processes of its own
+   (``--spec-rates``);
 4. the engine: ``InferenceEngineV2`` at full llama3-8b width and depth with
    random bf16 weights from a seed, serving 8 requests (SplitFuse prefill,
    then burst decode), checking tokens, finiteness, kernel launch counts
@@ -34,7 +40,18 @@ In order it prints:
    demote and promote, cold-store MB/s, the rehydrate time, the tracer's
    host cost and decode tokens/s with tracing off and on; and the same
    five stages on the small f32 model, card vs CPU vs cache-off, whose
-   greedy tokens must be identical;
+   greedy tokens must be identical; then speculative decoding and adapters
+   on the same weights (spec_k = 4): the draft-model engine (a
+   Llama-3.2-1B-shaped draft, D = 64, on its own mirrored pool), the
+   self-draft engine (heads seeded from the lm head), an adapter engine (8
+   slots, rank 16, four packs through ``AdapterRegistry``, the requests
+   over slots 0-4) and adapters with self-draft, each with exact paged
+   launch counts by head dim, no plain call, first-token logits against
+   the plain engine (slot-0 rows bit for bit) and, per speculative mode,
+   one greedy step with no host sync before its read-back; and a small
+   f32 model speculative in both modes and with adapters, card vs CPU vs
+   non-speculative (tokens identical; the model as its own draft accepts
+   every draft its budget allows);
 5. each flash-attention kernel (forward, dK/dV, dQ) against its plain
    PyTorch version at the training shape (B=4, S=2048, H=32, KV=8, D=128,
    causal): in bf16 and in f32, max abs error (and in bf16 how far inside
@@ -107,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -296,26 +314,27 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_inputs(torch, S: int, gen, bs: int = BS):
-    """A bf16 K and V pool of block size ``bs`` holding NB * BS positions,
-    and S disjoint block chains of MB * BS positions each."""
+def paged_inputs(torch, S: int, gen, bs: int = BS, d: int = D):
+    """A bf16 K and V pool of block size ``bs`` and head dim ``d`` holding
+    NB * BS positions, and S disjoint block chains of MB * BS positions
+    each."""
     nb, mb = NB * BS // bs, MB * BS // bs
-    kc = torch.randn((nb, bs, KV, D), generator=gen, device="cuda",
+    kc = torch.randn((nb, bs, KV, d), generator=gen, device="cuda",
                      dtype=torch.bfloat16)
-    vc = torch.randn((nb, bs, KV, D), generator=gen, device="cuda",
+    vc = torch.randn((nb, bs, KV, d), generator=gen, device="cuda",
                      dtype=torch.bfloat16)
     perm = torch.randperm(nb - 1, generator=gen, device="cuda")
     bt = perm[: S * mb].reshape(S, mb).to(torch.int32).contiguous()
     return kc, vc, bt
 
 
-def check_decode(torch, pa, flush) -> dict:
+def check_decode(torch, pa, flush, d: int = D) -> dict:
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     S = len(DECODE_CTX)
-    kc, vc, bt = paged_inputs(torch, S, gen)
-    q = torch.randn((S, H, D), generator=gen, device="cuda",
+    kc, vc, bt = paged_inputs(torch, S, gen, d=d)
+    q = torch.randn((S, H, d), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device="cuda")
     out = pa.paged_decode_attention(q, kc, vc, bt, ctx)
@@ -352,9 +371,9 @@ def check_decode(torch, pa, flush) -> dict:
     # contiguous (S, KV, T, D) K/V with a padding mask (gather excluded;
     # the ctx=0 row attends to position 0 here)
     T = max(DECODE_CTX)
-    kg = kc[bt.long()].reshape(S, MB * BS, KV, D)[:, :T].transpose(1, 2) \
+    kg = kc[bt.long()].reshape(S, MB * BS, KV, d)[:, :T].transpose(1, 2) \
         .contiguous()
-    vg = vc[bt.long()].reshape(S, MB * BS, KV, D)[:, :T].transpose(1, 2) \
+    vg = vc[bt.long()].reshape(S, MB * BS, KV, d)[:, :T].transpose(1, 2) \
         .contiguous()
     mask = torch.arange(T, device="cuda")[None, :] < ctx.clamp(min=1)[:, None]
     mask = mask[:, None, None, :]
@@ -370,12 +389,12 @@ def check_decode(torch, pa, flush) -> dict:
     n_pos = sum(DECODE_CTX)
     live = sum(1 for c in DECODE_CTX if c > 0)
     cols = sum(-(-c // BS) for c in DECODE_CTX)
-    nbytes = (live * H * D * 2 + n_pos * KV * D * 2 * 2 + cols * 4
+    nbytes = (live * H * d * 2 + n_pos * KV * d * 2 * 2 + cols * 4
               + S * 4 + q.numel() * 2)
-    flops = 4 * n_pos * H * D
+    flops = 4 * n_pos * H * d
     b_ms, b_by = bound(nbytes, flops)
     return {
-        "name": "paged_decode_attention", "max_abs_err": err,
+        "name": "paged_decode_attention", "D": d, "max_abs_err": err,
         "max_abs_err_f32": err_f32, "split": split,
         "max_abs_err_split_edges": err_edges,
         "ms": time_ms(lambda: pa.paged_decode_attention(q, kc, vc, bt, ctx),
@@ -387,13 +406,35 @@ def check_decode(torch, pa, flush) -> dict:
     }
 
 
-def check_prefill(torch, pa, flush) -> dict:
+def sdpa_on_gathered(torch, q, kc, vc, bt, cs, cl):
+    """B4's yardstick: one SDPA call over the same contexts pre-gathered
+    into contiguous K/V (the gather excluded), with the causal and
+    chunk-end mask; padding rows attend to position 0 here."""
     import torch.nn.functional as F
 
+    S, qp, _, d = q.shape
+    T = int((cs + cl).max().item())
+    kg = kc[bt.long()].reshape(S, -1, KV, d)[:, :T].transpose(1, 2) \
+        .contiguous()
+    vg = vc[bt.long()].reshape(S, -1, KV, d)[:, :T].transpose(1, 2) \
+        .contiguous()
+    rows = torch.arange(qp, device=q.device)
+    t_pos = torch.arange(T, device=q.device)
+    q_pos = cs.long()[:, None] + rows[None, :]
+    mask = ((t_pos[None, None, :] <= q_pos[:, :, None])
+            & (t_pos[None, None, :] < (cs + cl).long()[:, None, None]))
+    mask[:, :, 0] = True
+    mask = mask[:, None]
+    qs = q.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask, enable_gqa=True)
+
+
+def check_prefill(torch, pa, flush, d: int = D) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     S = len(PREFILL_START)
-    kc, vc, bt = paged_inputs(torch, S, gen)
-    q = torch.randn((S, PREFILL_QP, H, D), generator=gen, device="cuda",
+    kc, vc, bt = paged_inputs(torch, S, gen, d=d)
+    q = torch.randn((S, PREFILL_QP, H, d), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     cs = torch.tensor(PREFILL_START, dtype=torch.int32, device="cuda")
     cl = torch.tensor(PREFILL_LEN, dtype=torch.int32, device="cuda")
@@ -411,7 +452,7 @@ def check_prefill(torch, pa, flush) -> dict:
     # pools of smaller and larger blocks, the same queries and chunks
     err_blocks = {}
     for bs in PREFILL_BLOCKS:
-        kb, vb, btb = paged_inputs(torch, S, gen, bs)
+        kb, vb, btb = paged_inputs(torch, S, gen, bs, d)
         out_b = pa.paged_prefill_attention(q, kb, vb, btb, cs, cl)
         err_blocks[bs] = compare(
             out_b, pa.prefill_attention_plain(q, kb, vb, btb, cs, cl),
@@ -421,27 +462,8 @@ def check_prefill(torch, pa, flush) -> dict:
                 fail(f"prefill kernel, block size {bs}: padding rows of "
                      f"sequence {s} not zero")
         del kb, vb, btb, out_b
-    # yardstick: one SDPA call over the same contexts pre-gathered into
-    # contiguous K/V (gather excluded), with the causal + chunk-end mask;
-    # padding rows attend to position 0 here
+    library = sdpa_on_gathered(torch, q, kc, vc, bt, cs, cl)
     ends = [a + n for a, n in zip(PREFILL_START, PREFILL_LEN)]
-    T = max(ends)
-    kg = kc[bt.long()].reshape(S, MB * BS, KV, D)[:, :T].transpose(1, 2) \
-        .contiguous()
-    vg = vc[bt.long()].reshape(S, MB * BS, KV, D)[:, :T].transpose(1, 2) \
-        .contiguous()
-    rows = torch.arange(PREFILL_QP, device="cuda")
-    t_pos = torch.arange(T, device="cuda")
-    q_pos = cs.long()[:, None] + rows[None, :]
-    mask = ((t_pos[None, None, :] <= q_pos[:, :, None])
-            & (t_pos[None, None, :] < (cs + cl).long()[:, None, None]))
-    mask[:, :, 0] = True
-    mask = mask[:, None]
-    qs = q.transpose(1, 2).contiguous()
-
-    def library():
-        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
-                                              enable_gqa=True)
 
     # bytes the function must move: q of the rows below chunk_len (padding
     # rows and inactive tiles are written as zeros unread), K and V of each
@@ -452,12 +474,12 @@ def check_prefill(torch, pa, flush) -> dict:
     cols = sum(-(-e // BS) for e in live_ends)
     pairs = sum(a + i + 1 for a, n in zip(PREFILL_START, PREFILL_LEN)
                 for i in range(n))
-    nbytes = (sum(PREFILL_LEN) * H * D * 2 + n_pos * KV * D * 2 * 2
+    nbytes = (sum(PREFILL_LEN) * H * d * 2 + n_pos * KV * d * 2 * 2
               + cols * 4 + 2 * S * 4 + q.numel() * 2)
-    flops = 4 * pairs * H * D
+    flops = 4 * pairs * H * d
     b_ms, b_by = bound(nbytes, flops)
     return {
-        "name": "paged_prefill_attention", "max_abs_err": err,
+        "name": "paged_prefill_attention", "D": d, "max_abs_err": err,
         "max_abs_err_f32": err_f32, "max_abs_err_block_sizes": err_blocks,
         "ms": time_ms(lambda: pa.paged_prefill_attention(
             q, kc, vc, bt, cs, cl), torch, flush),
@@ -2412,6 +2434,641 @@ def small_hierarchy_agreement(torch, pa) -> dict:
             "tokens_identical": ["cpu", "cache_off"]}
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding and multi-tenant adapters
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4  # tokens proposed per speculative step
+# the draft model: meta-llama/Llama-3.2-1B's shape (its config.json: hidden
+# 2048, intermediate 8192, 16 layers, 32 heads, 8 KV heads so head dim 64,
+# vocab 128256, tied embeddings, rope_theta 500000); its rope_scaling is not
+# modelled, which random weights make immaterial
+DRAFT_SHAPE = dict(hidden_size=2048, intermediate_size=8192, num_layers=16,
+                   tie_embeddings=True)
+DRAFT_D = 64
+ADAPTER_SLOTS, ADAPTER_RANK, ADAPTER_PACKS = 8, 16, 4
+# the registry's host tier: four rank-16 packs of llama3-8b's attention
+# projections take ~218 MB of f32 factors, near the 256 MB default
+ADAPTER_HOST_BYTES = 1 << 30
+# decode tokens/s of warm engines varies by up to 61% between processes:
+# the rates come from this many processes, each its own warm-up
+SPEC_RATE_PROCS = 3
+# bf16 speculative / adapter engines against the plain engine on the same
+# batch (adapter rows against an engine serving the merged weights): the
+# first tokens' logits, and the next-token logits of the first steady step
+# (a decode body's, or a verify's position 0, over the same KV), are held
+# to the hierarchy phase's limit.  ROADMAP.md C4: a verify runs B4 over
+# k+1 positions where plain decode runs B5, in other GEMM shapes, so bf16
+# rounds otherwise there (0.078 of max |logit| 4.28 between the two paths)
+# and later continuations are counted, not gated
+TOL_SPEC_LOGITS_REL = 5e-2
+
+
+def spec_v2(**over):
+    """The bf16 serving cell's V2Config, with ``over``."""
+    from deepspeed_tpu_torch.inference.v2.engine import V2Config
+
+    return V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
+                    num_blocks=NB, max_blocks_per_seq=MB, dtype="bfloat16",
+                    **over)
+
+
+def draft_model(torch, tfm, cfg=None, shape=None):
+    """(config, weights from the seed) of the draft: ``cfg`` (default
+    llama3-8b) cut to ``shape`` (default the Llama-3.2-1B shape)."""
+    dcfg = dataclasses.replace(cfg or tfm.get_config("llama3-8b"),
+                               **(shape or DRAFT_SHAPE))
+    return dcfg, tfm.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(SEED + 2),
+        device="cuda")
+
+
+def adapter_packs(model_cfg, n: int, rank: int) -> list:
+    """``n`` seeded adapter packs over the four attention projections: a
+    ~ N(0, 1/K), b ~ 0.1 N(0, 1) (scaling folded in; a delta of ~0.4 on
+    projection outputs of ~1, so a served adapter moves the logits well
+    past TOL_SPEC_LOGITS_REL), f32 numpy."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import adapter_target_shapes
+
+    packs = []
+    for i in range(n):
+        rng = np.random.default_rng(1000 + i)
+        L = model_cfg.num_layers
+        packs.append({t: (
+            rng.standard_normal((L, K, rank), np.float32)
+            / np.float32(np.sqrt(K)),
+            np.float32(0.1) * rng.standard_normal((L, rank, N), np.float32))
+            for t, (K, N) in adapter_target_shapes(model_cfg).items()})
+    return packs
+
+
+class SteadyProbe:
+    """Wraps ``eng``'s decode body and the speculative verify
+    (``inference/v2/spec.verify_body``) until :meth:`close`: ``logits``
+    maps each request uid active at the first steady step to its
+    next-token logits there (a decode body's row, or a verify's position
+    0: the same function of the same KV), kept on the device, and
+    ``after`` to the number of tokens it had emitted before that step."""
+
+    def __init__(self, eng):
+        import numpy as np
+
+        from deepspeed_tpu_torch.inference.v2 import spec as spec_mod
+
+        self.logits, self.after, self.eng, self.spec = {}, {}, eng, spec_mod
+        self.seen = False
+        decode, self.verify = eng._decode, spec_mod.verify_body
+
+        def keep(rows):
+            if not self.seen:
+                self.seen = True
+                t = eng.table
+                for r in np.nonzero(t.active)[0]:
+                    uid = t.seq_at[int(r)].uid
+                    self.logits[uid] = rows[int(r)].clone()
+                    self.after[uid] = int(t.gen[r])
+
+        def decode_(*a, **kw):
+            logits = decode(*a, **kw)
+            keep(logits)
+            return logits
+
+        def verify_(*a, **kw):
+            logits, hidden = self.verify(*a, **kw)
+            keep(logits[:, 0])
+            return logits, hidden
+
+        eng._decode, spec_mod.verify_body = decode_, verify_
+
+    def close(self) -> None:
+        del self.eng._decode
+        self.spec.verify_body = self.verify
+
+
+def spec_run(torch, eng, prompts, slots=None) -> dict:
+    """Queue ``prompts`` (request i on adapter slot ``slots[i]``), run
+    SplitFuse steps until none is prefilling (the prefill phase), then
+    ``generate_all`` (the decode phase): per request its new tokens, the
+    f32 logits row of its first token and that of its first steady step
+    (:class:`SteadyProbe`; None for a request no longer running there)
+    with the count of tokens it had emitted before that step; the mixed
+    steps, the spec steps, and decode tokens/s."""
+    probe = HierProbe(torch, eng, True, False)
+    uids = [eng.put(p, max_new_tokens=NEW_TOKENS,
+                    adapter_slot=slots[i] if slots else 0)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mixed = 0
+    while eng.num_waiting or eng._prefilling:
+        eng.step()
+        mixed += 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    emitted = sum(len(s.tokens) for s in eng.running.values()) \
+        - sum(len(p) for p in prompts)
+    steady = SteadyProbe(eng)
+    try:
+        res = eng.generate_all(burst=8)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        steady.close()
+    tokens = [res[u][len(p):] for u, p in zip(uids, prompts)]
+    if any(len(t) != NEW_TOKENS for t in tokens):
+        fail("a request ended with the wrong number of tokens")
+    stats = eng.spec_stats()
+    return {"tokens": tokens,
+            "first_logits": [probe.first[u][1] for u in uids],
+            "steady_logits": [steady.logits[u].float().cpu()
+                              if u in steady.logits else None for u in uids],
+            "steady_after": [steady.after.get(u) for u in uids],
+            "mixed_steps": mixed, "spec_steps": eng.spec_steps,
+            "spec_stats": stats, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "decode_tokens_per_s": (len(prompts) * NEW_TOKENS - emitted)
+            / (t2 - t1)}
+
+
+def first_token_logits(torch, eng, prompts) -> list:
+    """The f32 logits row of each of ``prompts``' first token, the
+    prompts served together on ``eng``, one new token each."""
+    probe = HierProbe(torch, eng, True, False)
+    uids = [eng.put(p, max_new_tokens=1) for p in prompts]
+    eng.generate_all(burst=1)
+    return [probe.first[u][1] for u in uids]
+
+
+def spec_step_syncs(torch, eng, prompts) -> str:
+    """Bring ``eng`` to steady speculative decode on ``prompts``, then run
+    one greedy speculative step's device work (the draft iterations, the
+    verify, the accept) under ``torch.cuda.set_sync_debug_mode("error")``
+    up to its single read-back of emitted tokens and accept lengths.  The
+    inputs are placed before, as the engine places them."""
+    for p in prompts:
+        eng.put(p, max_new_tokens=NEW_TOKENS)
+    while eng.num_waiting or eng._prefilling:
+        eng.step()
+    inputs = eng._spec_inputs()
+    temps, rng = eng._row_temps(0.0), eng._step_rng(None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emitted, alen = eng._spec_device(inputs, rng, temps, eng.table.seed)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    back = torch.cat([emitted, alen[:, None]], dim=1).cpu()
+    if not ((back[:, -1] >= 0) & (back[:, -1] <= SPEC_K)).all():
+        return f"accept lengths out of range: {back[:, -1].tolist()}"
+    return ""
+
+
+def spec_launch_check(pa, what: str, want: dict, positive=()) -> dict:
+    """The paged kernels' launches by head dim since the last reset: each
+    exactly ``want``, or more than zero for a key in ``positive``, or zero;
+    and no plain call."""
+    got = {f"{n}_d{d}": c for (n, d), c in pa.LAUNCHES_BY_HEAD_DIM.items()}
+    ok = all(c > 0 if k in positive else c == want.get(k, 0)
+             for k, c in got.items())
+    if not ok or any(pa.PLAIN_CALLS.values()):
+        fail(f"{what}: paged launches {got}, want exactly {want} and "
+             f"{list(positive)} launched; plain calls {pa.PLAIN_CALLS}")
+    return got
+
+
+def logits_rel(a, b) -> float:
+    """max |a - b| over max |b|: one request's logits row against the
+    reference engine's."""
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def spec_compare(ref: dict, run: dict, what: str, rows=None,
+                 bitwise_rows=(), steady_ref=None) -> dict:
+    """For ``run``'s requests ``rows`` (default: all), the first-token
+    logits against ``ref``'s and those of the first steady step against
+    ``steady_ref[i]`` (default: ``ref``'s first steady step, which must
+    follow the same tokens), each within TOL_SPEC_LOGITS_REL of the
+    reference's max |logit| per request (the first token's bit for bit on
+    ``bitwise_rows``); and the count of identical greedy continuations
+    among them."""
+    rows = range(len(ref["tokens"])) if rows is None else rows
+    rel = {"first_logits": [], "steady_logits": []}
+    for i in rows:
+        if steady_ref is None:
+            n = run["steady_after"][i]
+            if (n != ref["steady_after"][i]
+                    or run["tokens"][i][:n] != ref["tokens"][i][:n]):
+                fail(f"{what}: request {i} reached its first steady step "
+                     "after other tokens than in the reference engine")
+            want = ref["steady_logits"][i]
+        else:
+            want = steady_ref[i]
+        for key, a, b in (("first_logits", run["first_logits"][i],
+                           ref["first_logits"][i]),
+                          ("steady_logits", run["steady_logits"][i], want)):
+            if (a is None) != (b is None):
+                fail(f"{what}: request {i} ran in the first steady step of "
+                     "one engine only")
+            if a is None:
+                continue
+            rel[key].append(logits_rel(a, b))
+            if not rel[key][-1] <= TOL_SPEC_LOGITS_REL:
+                fail(f"{what}: request {i}'s {key} differ from the "
+                     f"reference's by {rel[key][-1]} of its max |logit| "
+                     f"(limit {TOL_SPEC_LOGITS_REL})")
+        if i in bitwise_rows and not bool(
+                (run["first_logits"][i] == ref["first_logits"][i]).all()):
+            fail(f"{what}: slot-0 request {i}'s first-token logits are not "
+                 "bit for bit the adapterless engine's")
+    if not rel["steady_logits"]:
+        fail(f"{what}: no request of {list(rows)} ran in the first steady "
+             "step")
+    same = sum(run["tokens"][i] == ref["tokens"][i] for i in rows)
+    return {"logits_max_abs_diff_rel": max(rel["first_logits"]),
+            "steady_logits_max_abs_diff_rel": max(rel["steady_logits"]),
+            "identical_continuations":
+                f"{same} of {len(rel['first_logits'])}"}
+
+
+def spec_rates(torch) -> dict:
+    """One process's warm decode tokens/s of the bf16 serving cell at
+    llama3-8b: plain, draft-model and self-draft speculation, and with
+    adapters (slots 1-4 over the 8 requests).  Each engine serves the
+    traffic once to warm up, then once timed."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.linear.spec_heads import init_spec_heads
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.serving.adapters import AdapterRegistry
+
+    cfg = tfm.get_config("llama3-8b")
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    draft = draft_model(torch, tfm)
+    heads = init_spec_heads(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, SPEC_K, base_params=params)
+    packs = adapter_packs(cfg, ADAPTER_PACKS, ADAPTER_RANK)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+
+    def adapters():
+        eng = InferenceEngineV2(cfg, params, spec_v2(
+            adapter_slots=ADAPTER_SLOTS, adapter_rank=ADAPTER_RANK))
+        reg = AdapterRegistry(eng, host_bytes=ADAPTER_HOST_BYTES)
+        for i, pack in enumerate(packs):
+            reg.register(f"a{i}", pack=pack)
+        slots = [0] + [reg.acquire(f"a{i}") for i in range(ADAPTER_PACKS)]
+        return eng, [slots[i % len(slots)] for i in range(len(prompts))]
+
+    makers = {
+        "plain": lambda: (InferenceEngineV2(cfg, params, spec_v2()), None),
+        "draft": lambda: (InferenceEngineV2(
+            cfg, params, spec_v2(spec_mode="draft", spec_k=SPEC_K),
+            draft_params=draft[1], draft_config=draft[0]), None),
+        "self_draft": lambda: (InferenceEngineV2(
+            cfg, params, spec_v2(spec_mode="self_draft", spec_k=SPEC_K),
+            spec_heads=heads), None),
+        "adapters": adapters}
+    out = {}
+    for name, make in makers.items():
+        for timed in (False, True):
+            eng, slots = make()
+            r = spec_run(torch, eng, prompts, slots)
+            del eng
+            torch.cuda.empty_cache()
+        s = r["spec_stats"]
+        out[name] = {"decode_tokens_per_s": r["decode_tokens_per_s"],
+                     "acceptance_rate": s["acceptance_rate"],
+                     "tokens_per_row_step": (
+                         s["emitted_tokens"] / (s["proposed_tokens"] / SPEC_K)
+                         if s["proposed_tokens"] else 0.0)}
+    return out
+
+
+def spec_rates_over_processes(torch) -> dict:
+    """:func:`spec_rates` in SPEC_RATE_PROCS fresh processes (each one
+    ``chip_smoke.py --spec-rates``), in turn."""
+    runs = []
+    for _ in range(SPEC_RATE_PROCS):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--spec-rates"],
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"a --spec-rates process failed: {res.stderr[-2000:]}")
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    out = {}
+    for name in runs[0]:
+        rates = [r[name]["decode_tokens_per_s"] for r in runs]
+        out[name] = {"decode_tokens_per_s": rates,
+                     "median": statistics.median(rates),
+                     "acceptance_rate": [r[name]["acceptance_rate"]
+                                         for r in runs],
+                     "tokens_per_row_step": [r[name]["tokens_per_row_step"]
+                                             for r in runs]}
+    return out
+
+
+def verify_prefill_timing(torch, pa, flush) -> dict:
+    """B4 at a verify's shape (llama3-8b, Qp = SPEC_K + 1 positions per
+    row from each request's context) against its plain version: bf16 max
+    abs error and kernel / plain / library (SDPA on the gathered contexts)
+    / bound times, beside the Qp = 256 row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    S = len(PROMPT_LENS)
+    kc, vc, bt = paged_inputs(torch, S, gen)
+    qp = SPEC_K + 1
+    q = torch.randn((S, qp, H, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    starts = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
+    cs = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    cl = torch.full((S,), qp, dtype=torch.int32, device="cuda")
+    err = compare(pa.paged_prefill_attention(q, kc, vc, bt, cs, cl),
+                  pa.prefill_attention_plain(q, kc, vc, bt, cs, cl),
+                  TOL_BF16, "prefill kernel at the verify shape")
+    ends = [a + qp for a in starts]
+    n_pos = sum(ends)
+    cols = sum(-(-e // BS) for e in ends)
+    pairs = sum(a + i + 1 for a in starts for i in range(qp))
+    nbytes = (2 * q.numel() * 2 + n_pos * KV * D * 2 * 2 + cols * 4
+              + 2 * S * 4)
+    b_ms, b_by = bound(nbytes, 4 * pairs * H * D)
+    return {"Qp": qp, "max_abs_err": err,
+            "ms": time_ms(lambda: pa.paged_prefill_attention(
+                q, kc, vc, bt, cs, cl), torch, flush),
+            "plain_ms": time_ms(lambda: pa.prefill_attention_plain(
+                q, kc, vc, bt, cs, cl), torch, flush, iters=10),
+            "library_ms": time_ms(sdpa_on_gathered(torch, q, kc, vc, bt, cs,
+                                                   cl), torch, flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_spec_phase(torch, pa, params, card: str, cfg=None,
+                   draft_shape=None) -> dict:
+    """Speculative decoding and adapters at llama3-8b full width and depth
+    (bf16, the serving cell's V2Config and traffic, spec_k = 4), on the
+    engine phase's weights: a plain run (the reference logits and tokens);
+    the draft-model engine (the Llama-3.2-1B-shaped draft on its own pool)
+    with B4 = 32 x (mixed + spec steps) + 16 x mixed steps and B5 = 16 x
+    (k+1) x spec steps, exactly; self-draft (heads seeded from the lm
+    head) with B4 = 32 x (mixed + spec steps) and no B5; adapters (8 slots,
+    rank 16, four packs through ``AdapterRegistry``, the requests over
+    slots 0-4), then adapters with self-draft.  Each: no plain call;
+    the first-token logits and those of the first steady step (a decode
+    body's, or a verify's position 0) against the plain run (slot-0
+    rows' first token bit for bit), adapter rows against an engine
+    serving that adapter's merged weights, and with self-draft against
+    the adapter engine; for each speculative mode one greedy step with no
+    host sync.
+    ``cfg``/``draft_shape``: a smaller model and draft (the GPU tests)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.linear.spec_heads import init_spec_heads
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.checkpoint.engine import \
+        merge_adapter_pack
+    from deepspeed_tpu_torch.serving.adapters import AdapterRegistry
+
+    cfg = cfg or tfm.get_config("llama3-8b")
+    draft_shape = draft_shape or DRAFT_SHAPE
+    L, DL = cfg.num_layers, draft_shape["num_layers"]
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    out = {"card": card, "spec_k": SPEC_K}
+
+    def done(eng):
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    eng = InferenceEngineV2(cfg, params, spec_v2())
+    plain = spec_run(torch, eng, prompts)
+    done(eng)
+
+    draft = draft_model(torch, tfm, cfg, draft_shape)
+    make_draft = lambda: InferenceEngineV2(  # noqa: E731
+        cfg, params, spec_v2(spec_mode="draft", spec_k=SPEC_K),
+        draft_params=draft[1], draft_config=draft[0])
+    eng = make_draft()
+    pa.reset_counts()
+    r = spec_run(torch, eng, prompts)
+    m, s = r["mixed_steps"], r["spec_steps"]
+    launches = spec_launch_check(pa, "draft-model engine", {
+        f"paged_prefill_attention_d{D}": L * (m + s),
+        f"paged_prefill_attention_d{DRAFT_D}": DL * m,
+        f"paged_decode_attention_d{DRAFT_D}": DL * (SPEC_K + 1) * s})
+    out["draft"] = {"mixed_steps": m, "spec_steps": s, "launches": launches,
+                    "spec_stats": r["spec_stats"],
+                    "draft_pool_gb": sum(t.numel() * t.element_size()
+                                         for t in eng._draft_caches.values())
+                    / 1e9, **spec_compare(plain, r, "draft-model engine")}
+    done(eng)
+    eng = make_draft()
+    out["draft"]["spec_step_host_syncs"] = spec_step_syncs(torch, eng,
+                                                           prompts)
+    if out["draft"]["spec_step_host_syncs"]:
+        fail("draft-model spec step waited for the device: "
+             + out["draft"]["spec_step_host_syncs"])
+    done(eng)
+    del draft
+    done(None)
+
+    heads = init_spec_heads(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, SPEC_K, base_params=params)
+    out["heads_bytes"] = sum(t.numel() * t.element_size()
+                             for t in heads.values())
+    make_self = lambda **kw: InferenceEngineV2(  # noqa: E731
+        cfg, params, spec_v2(spec_mode="self_draft", spec_k=SPEC_K, **kw),
+        spec_heads=heads)
+    eng = make_self()
+    pa.reset_counts()
+    r = spec_run(torch, eng, prompts)
+    m, s = r["mixed_steps"], r["spec_steps"]
+    launches = spec_launch_check(pa, "self-draft engine", {
+        f"paged_prefill_attention_d{D}": L * (m + s)})
+    out["self_draft"] = {"mixed_steps": m, "spec_steps": s,
+                         "launches": launches, "spec_stats": r["spec_stats"],
+                         **spec_compare(plain, r, "self-draft engine")}
+    done(eng)
+    eng = make_self()
+    out["self_draft"]["spec_step_host_syncs"] = spec_step_syncs(
+        torch, eng, prompts)
+    if out["self_draft"]["spec_step_host_syncs"]:
+        fail("self-draft spec step waited for the device: "
+             + out["self_draft"]["spec_step_host_syncs"])
+    done(eng)
+
+    packs = adapter_packs(cfg, ADAPTER_PACKS, ADAPTER_RANK)
+    runs = {}
+    for name, make in (("adapters", lambda: InferenceEngineV2(
+            cfg, params, spec_v2(adapter_slots=ADAPTER_SLOTS,
+                                 adapter_rank=ADAPTER_RANK))),
+            ("adapters_self_draft", lambda: make_self(
+                adapter_slots=ADAPTER_SLOTS, adapter_rank=ADAPTER_RANK))):
+        eng = make()
+        reg = AdapterRegistry(eng, host_bytes=ADAPTER_HOST_BYTES)
+        for i, pack in enumerate(packs):
+            reg.register(f"a{i}", pack=pack)
+        lanes = [None] + [f"a{i}" for i in range(ADAPTER_PACKS)]
+        ids = [lanes[i % len(lanes)] for i in range(len(prompts))]
+        slots = [reg.acquire(a) if a else 0 for a in ids]
+        pa.reset_counts()
+        r = spec_run(torch, eng, prompts, slots)
+        m, s = r["mixed_steps"], r["spec_steps"]
+        # plain decode runs bursts of decode bodies (B5, any number)
+        launches = spec_launch_check(
+            pa, name, {f"paged_prefill_attention_d{D}": L * (m + s)},
+            positive=() if s else (f"paged_decode_attention_d{D}",))
+        for a in ids:
+            if a:
+                reg.release(a)
+        reg.check_leaks()
+        base_rows = [i for i, a in enumerate(ids) if a is None]
+        # slot-0 rows against the adapterless engine (the first token bit
+        # for bit), each adapter's rows against an engine serving its
+        # merged weights on the same batch; with self-draft, every row
+        # against the adapter engine's
+        vs = spec_compare(plain, r, name, rows=base_rows,
+                          bitwise_rows=base_rows)
+        if s:
+            vs = spec_compare(runs["adapters"], r, name)
+        else:
+            # the merged comparison tells a served adapter from none only
+            # where the adapter moves the logits past the limit
+            moved = min(logits_rel(r["first_logits"][i],
+                                   plain["first_logits"][i])
+                        for i, a in enumerate(ids) if a)
+            if not moved > TOL_SPEC_LOGITS_REL:
+                fail(f"{name}: an adapter moved first-token logits by only "
+                     f"{moved} of max |logit|, inside the limit "
+                     f"{TOL_SPEC_LOGITS_REL} that holds it to its merged "
+                     "weights")
+            vs["adapter_rows_vs_plain_rel_min"] = moved
+            # each adapter's rows against its merged weights: the first
+            # tokens on the same batch; the first steady step after the
+            # same tokens (greedy tokens part between the two engines in
+            # the mixed steps before it, C4), so against the first token
+            # of the row's prompt and the tokens it had emitted there
+            vs["merged"] = {}
+            for a in lanes[1:]:
+                rows = [i for i, b in enumerate(ids) if b == a]
+                m_params = merge_adapter_pack(params, reg.get_pack(a))
+                m_eng = InferenceEngineV2(cfg, m_params, spec_v2())
+                merged = spec_run(torch, m_eng, prompts)
+                done(m_eng)
+                m_eng = InferenceEngineV2(cfg, m_params, spec_v2())
+                forced = first_token_logits(torch, m_eng, [
+                    prompts[i] + r["tokens"][i][:r["steady_after"][i]]
+                    for i in rows])
+                done(m_eng)
+                del m_params
+                vs["merged"][a] = spec_compare(
+                    merged, r, f"{name}, adapter {a} against its merged "
+                    "weights", rows=rows, steady_ref=dict(zip(rows, forced)))
+                vs["merged"][a]["parted_before_steady_step"] = sum(
+                    merged["tokens"][i][:r["steady_after"][i]]
+                    != r["tokens"][i][:r["steady_after"][i]] for i in rows)
+        runs[name] = r
+        out[name] = {"mixed_steps": m, "spec_steps": s, "slots": slots,
+                     "launches": launches, "registry": reg.stats(), **vs}
+        reg.close()
+        done(eng)
+    del heads
+    done(None)
+    return out
+
+
+def small_spec_agreement(torch, pa) -> dict:
+    """A small f32 model (head dim 64) served speculatively — draft model
+    (itself as its draft), self-draft, and self-draft with three adapters
+    — on the card and on the CPU: greedy tokens identical card vs CPU vs
+    the non-speculative engine, and with the model as its own draft every
+    draft that its budget lets count is accepted (on the card and the
+    CPU)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
+                         num_heads=4, num_kv_heads=2, dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    base = V2Config(max_tokens_per_step=32, max_seqs=4, block_size=16,
+                    num_blocks=64, max_blocks_per_seq=8, dtype="float32")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (5, 40, 17, 70)]
+    packs = adapter_packs(cfg, 3, 4)
+    slots = [i % 4 for i in range(len(prompts))]
+    out = {}
+
+    def serve(dev, v2, with_slots):
+        eng = InferenceEngineV2(cfg, params, v2, draft_params=params,
+                                draft_config=cfg, device=dev)
+        if with_slots:
+            for j, pack in enumerate(packs):
+                eng.set_adapter_slot(j + 1, pack)
+        short = []
+        if v2.spec_mode == "draft":  # accept lengths vs the budget
+            device_step = eng._spec_device
+
+            def spec_device(inputs, *a):
+                t = eng.table
+                rows = np.nonzero(t.active)[0]
+                left = (t.budget - t.gen)[rows]
+                emitted, alen = device_step(inputs, *a)
+                got = alen.cpu().numpy()[rows]
+                short.extend(int(x) for x in
+                             np.minimum(SPEC_K, left) - got if x > 0)
+                return emitted, alen
+
+            eng._spec_device = spec_device
+        uids = [eng.put(p, max_new_tokens=12,
+                        adapter_slot=slots[i] if with_slots else 0)
+                for i, p in enumerate(prompts)]
+        res = eng.generate_all(burst=4)
+        return [res[u] for u in uids], eng.spec_stats(), short
+
+    for name, over, with_slots in (
+            ("draft", dict(spec_mode="draft", spec_k=SPEC_K), False),
+            ("self_draft", dict(spec_mode="self_draft", spec_k=SPEC_K),
+             False),
+            ("self_draft_adapters", dict(spec_mode="self_draft",
+                                         spec_k=SPEC_K, adapter_slots=4,
+                                         adapter_rank=4), True)):
+        v2 = dataclasses.replace(base, **over)
+        plain = dataclasses.replace(v2, spec_mode="off")
+        pa.reset_counts()
+        card, stats, short = serve("cuda", v2, with_slots)
+        need = ["paged_prefill_attention"]
+        if name == "draft":
+            need.append("paged_decode_attention")
+        if not all(pa.LAUNCHES[k] for k in need) or any(
+                pa.PLAIN_CALLS.values()):
+            fail(f"small spec {name}: the card run did not go through the "
+                 f"kernels: {pa.LAUNCHES} {pa.PLAIN_CALLS}")
+        cpu, _, short_cpu = serve("cpu", v2, with_slots)
+        ref, _, _ = serve("cpu", plain, with_slots)
+        if not card == cpu == ref:
+            fail(f"small spec {name}: greedy tokens differ: card vs CPU "
+                 f"{card == cpu}, card vs non-speculative {card == ref}")
+        if short or short_cpu:
+            fail(f"small spec {name}: the model as its own draft rejected "
+                 f"drafts its budget allowed: {short} (card), {short_cpu} "
+                 "(CPU)")
+        out[name] = {"spec_steps": stats["steps"],
+                     "acceptance_rate": stats["acceptance_rate"]}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2419,12 +3076,20 @@ def main() -> None:
                     "dropless MoE engines and one more training step with "
                     "torch.profiler and print where the device time goes")
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--spec-rates", action="store_true",
+                    help="print one process's warm decode tokens/s of the "
+                    "plain, speculative and adapter engines as a JSON line "
+                    "and stop (the main run starts these processes itself)")
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
+    if args.spec_rates:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(spec_rates(torch)))
+        return
     try:
         from deepspeed_tpu_torch.models import transformer as tfm
         from deepspeed_tpu_torch.ops import evoformer as ev
@@ -2459,19 +3124,34 @@ def main() -> None:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [check_decode(torch, pa, flush), check_prefill(torch, pa, flush)]
+    # the draft model's shapes (D = 64): its decode bodies and mirror
+    # prefills; and B4 at a verify's k + 1 positions per row (D = 128)
+    draft_kernels = [check_decode(torch, pa, flush, DRAFT_D),
+                     check_prefill(torch, pa, flush, DRAFT_D)]
+    verify_b4 = verify_prefill_timing(torch, pa, flush)
     del flush
-    for k in kernels:
+    for k in kernels + draft_kernels:
         edges = (f"split {k['split']}, split edges max_abs_err "
                  f"{k['max_abs_err_split_edges']:.3e}, "
                  if "split" in k else "")
         edges += "".join(f"block size {bs} max_abs_err {e:.3e}, " for bs, e
                          in k.get("max_abs_err_block_sizes", {}).items())
-        print(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e} "
+        print(f"{k['name']} D={k['D']}: max_abs_err {k['max_abs_err']:.3e} "
               f"(bf16, limit atol+rtol {TOL_BF16}), "
               f"{k['max_abs_err_f32']:.3e} (f32, limit {TOL_F32}) {edges}"
               f"kernel_ms {k['ms']:.4f} plain_ms "
               f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
               f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    print(f"paged_prefill_attention at a verify's Qp={verify_b4['Qp']} "
+          f"({card}): max_abs_err {verify_b4['max_abs_err']:.3e} kernel_ms "
+          f"{verify_b4['ms']:.4f} plain_ms {verify_b4['plain_ms']:.4f} "
+          f"library_ms {verify_b4['library_ms']:.4f} bound_ms "
+          f"{verify_b4['bound_ms']:.5f} ({verify_b4['bound_by']})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rates = spec_rates_over_processes(torch)
+    print(f"decode tokens/s over {SPEC_RATE_PROCS} processes ({card}): "
+          + json.dumps(rates))
 
     keep = {}
     engine = run_engine(torch, pa, args.profile, keep)
@@ -2479,9 +3159,18 @@ def main() -> None:
     print("engine: " + json.dumps(engine))
     small = small_model_agreement(torch)
     print("small model card vs CPU: " + json.dumps(small))
-    hier = run_hierarchy_phase(torch, pa, keep.pop("params"), card)
+    params = keep.pop("params")
+    hier = run_hierarchy_phase(torch, pa, params, card)
     print("hierarchy: " + json.dumps(hier))
     print(hierarchy_line(hier))
+    spec = run_spec_phase(torch, pa, params, card)
+    del params
+    print("speculative decoding and adapters: " + json.dumps(spec))
+    for k in draft_kernels:
+        k["launches"] = spec["draft"]["launches"][f"{k['name']}_d{DRAFT_D}"]
+    small_spec = small_spec_agreement(torch, pa)
+    print("small model speculative, card vs CPU vs plain: "
+          + json.dumps(small_spec))
     small_hier = small_hierarchy_agreement(torch, pa)
     print("small model hierarchy, card vs CPU vs cache-off: "
           + json.dumps(small_hier))
@@ -2616,6 +3305,8 @@ def main() -> None:
                      "flash_fwd_bias": evo["launches"]})
     result = {"card": card, "torch": torch.__version__, "engine": engine,
               "small_model": small, "hierarchy": hier,
+              "verify_prefill": verify_b4, "spec_rates": rates, "spec": spec,
+              "small_spec": small_spec,
               "small_hierarchy": small_hier, "flash": flash,
               "training": training,
               "small_training": small_train, "mixed_gemm": gemm,
@@ -2664,12 +3355,14 @@ def main() -> None:
         return {"name": k["name"], "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
                 "replaces": replaces[k["name"]], "status": "ok",
-                **{d: k[d] for d in ("M", "T", "kernel") if d in k},
-                "launches": (gemm_launches[k["name"], k["M"]] if "M" in k
+                **{d: k[d] for d in ("M", "T", "D", "kernel") if d in k},
+                "launches": (k["launches"] if "launches" in k
+                             else gemm_launches[k["name"], k["M"]] if "M" in k
                              else gemm_launches[k["name"], k["T"]] if "T" in k
                              else launches[k["name"]]),
                 **({"launches_hierarchy": hier["launches"][k["name"]]}
-                   if k["name"] in hier["launches"] else {}),
+                   if k["name"] in hier["launches"] and "launches" not in k
+                   else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -2677,7 +3370,8 @@ def main() -> None:
 
     evo_row = dict(evo["calls"][EVO_JSON], name="flash_fwd_bias")
     line = {"kernels": [row(k) for k in
-                        kernels + flash + [evo_row] + at_shape + [adam]]}
+                        kernels + draft_kernels + flash + [evo_row]
+                        + at_shape + [adam]]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

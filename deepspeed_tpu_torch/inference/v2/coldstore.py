@@ -1,6 +1,6 @@
 """Crash-durable cold tier for serving warm state — the port of
 ``deepspeed_tpu/inference/v2/coldstore.py`` (host-only, copied; KV blocks
-here, adapter packs with ROADMAP.md queue A item A7).
+here, adapter packs for ``serving/adapters.py``).
 
 The fourth tier below the :class:`~.paging.BlockPager` hierarchy
 (device → host DRAM → this).  Where the bare spill tier wrote one
@@ -37,9 +37,15 @@ Fault-injection sites (``DSTPU_FAULTS`` grammar, see ``utils/faults``):
 * ``serving.coldstore.rehydrate`` — fired by adopters per entry during
   restart rehydration (see ``engine.rehydrate_coldstore``).
 
-Threading: counters live under ``named_lock("coldstore.state")``; all
-file IO happens with no lock held (per-key directories are independent
-and the commit rename is atomic).
+Threading: counters live under ``named_lock("coldstore.state")``.  A
+key's commit (``_commit_dir``: remove the old entry, rename the staged
+one into place) and every read or delete of that key hold the key's
+stripe of ``named_lock("coldstore.entry")``, so a reader never sees an
+entry half removed by a rewrite.  The reference takes no such lock: there
+a reader (the promote-ahead thread) can find the half-removed directory,
+call it corrupt and ``rmtree`` it just after the writer's rename, losing
+the new entry (ROADMAP.md C5).  Payload writes and digests of the staged
+copy happen with no lock held.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import json
 import os
 import re
 import shutil
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 from ...runtime.checkpoint.engine import (
@@ -64,6 +71,9 @@ from ...utils.logging import logger
 
 #: the single payload file inside each committed entry directory
 PAYLOAD = "payload.safetensors"
+
+#: stripes of the per-key entry lock (a key maps to one by its hash)
+ENTRY_LOCK_STRIPES = 64
 
 #: startup GC is bounded per boot so a pathological backlog can't stall
 #: worker readiness; anything past the cap is swept on the next boot.
@@ -99,6 +109,8 @@ class ColdStore:
     def __init__(self, root: str):
         self.root = root
         self._lock = named_lock("coldstore.state")
+        self._entry_locks = [named_lock("coldstore.entry")
+                             for _ in range(ENTRY_LOCK_STRIPES)]
         # counters (monotonic; surfaced through pager/registry stats)
         self.writes = 0
         self.corrupt_dropped = 0
@@ -139,6 +151,13 @@ class ColdStore:
     def path(self, key: str) -> str:
         return os.path.join(self.root, sanitize_key(key))
 
+    def _entry_lock(self, key: str):
+        """The lock that serializes commits, reads and deletes of ``key``
+        (one of :data:`ENTRY_LOCK_STRIPES`, chosen by the key's hash)."""
+        name = sanitize_key(key)
+        return self._entry_locks[zlib.crc32(name.encode())
+                                 % ENTRY_LOCK_STRIPES]
+
     # -- write (stage → manifest → commit) -------------------------------
 
     def write(self, key: str, payload: bytes,
@@ -160,7 +179,8 @@ class ColdStore:
         # recorded — exactly the mismatch the manifest must catch
         faults.maybe_truncate("serving.coldstore.write", ppath)
         faults.maybe_fail("serving.coldstore.commit")
-        _commit_dir(tmp, final)
+        with self._entry_lock(key):
+            _commit_dir(tmp, final)
         with self._lock:
             self.writes += 1
         return final
@@ -173,22 +193,23 @@ class ColdStore:
         deleted so the caller's degrade-to-recompute is permanent, not
         retried forever)."""
         entry = self.path(key)
-        if not os.path.isdir(entry):
-            return None
-        problems = verify_checkpoint(entry, check_digests=True)
-        if problems:
-            logger.warning(f"coldstore: dropping corrupt entry {entry}: "
-                           f"{'; '.join(problems)}")
-            shutil.rmtree(entry, ignore_errors=True)
-            _fsync_path(self.root)
-            with self._lock:
-                self.corrupt_dropped += 1
-            return None
-        try:
-            with open(os.path.join(entry, PAYLOAD), "rb") as f:
-                return f.read()
-        except OSError:
-            return None
+        with self._entry_lock(key):
+            if not os.path.isdir(entry):
+                return None
+            problems = verify_checkpoint(entry, check_digests=True)
+            if problems:
+                logger.warning(f"coldstore: dropping corrupt entry {entry}: "
+                               f"{'; '.join(problems)}")
+                shutil.rmtree(entry, ignore_errors=True)
+                _fsync_path(self.root)
+                with self._lock:
+                    self.corrupt_dropped += 1
+                return None
+            try:
+                with open(os.path.join(entry, PAYLOAD), "rb") as f:
+                    return f.read()
+            except OSError:
+                return None
 
     def meta(self, key: str) -> Optional[Dict[str, Any]]:
         """Manifest metadata for ``key`` (no digest verification)."""
@@ -227,7 +248,8 @@ class ColdStore:
 
     def delete(self, key: str) -> None:
         entry = self.path(key)
-        shutil.rmtree(entry, ignore_errors=True)
+        with self._entry_lock(key):
+            shutil.rmtree(entry, ignore_errors=True)
 
     # -- gauges ----------------------------------------------------------
 

@@ -50,9 +50,18 @@ a decode body.  :meth:`InferenceEngineV2.step` records an ``engine/step``
 span and a flight-recorder step around its body
 (``observability/``), as the reference does.
 
-Speculation and adapter slots are refused with ``NotImplementedError``
-naming the later slice (``ROADMAP.md``) that brings them; so are ALiBi
-models.
+``spec_mode="draft" | "self_draft"`` decodes speculatively
+(``spec.py``): a draft model on its own mirrored paged pool, or
+Medusa-style heads on the carried hidden state, propose ``spec_k`` tokens
+that one multi-position verify forward (the paged prefill kernel from
+``chunk_start = ctx``) accepts or corrects; greedy output stays token for
+token the non-speculative decode.  ``adapter_slots``/``adapter_rank``
+serve many LoRA adapters over one base (``serving/adapters.py`` pages
+them in and out of the device stack): each row gathers its slot's
+factors and adds the low-rank delta to its attention projections, in
+plain torch; slot 0 is the all-zero null adapter.  ALiBi models are
+refused with ``NotImplementedError`` naming the later slice
+(``ROADMAP.md``) that brings them.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ import numpy as np
 import torch
 
 from ...accelerator import resolve_device
+from ...linear.spec_heads import init_spec_heads
 from ...models import transformer as tfm
 from ...observability.recorder import recorder
 from ...observability.trace import tracer
@@ -80,6 +90,7 @@ from .paging import BlockPager, deserialize_block, serialize_block
 from .prefix_cache import PrefixCache, chain_tokens, prefix_digests
 from .ragged import (DecodeStateTable, KVCacheManager, RaggedBatch,
                      RaggedBatchBuilder, SequenceDescriptor)
+from .spec import draft_model_step, self_draft_step, verify_inputs
 
 
 class AdmissionError(ValueError):
@@ -116,12 +127,10 @@ class V2Config:
     adapter_rank: int = 0
 
 
-#: V2Config fields whose non-default value turns on a feature this slice
-#: does not carry -> the ROADMAP.md queue-A item that brings it
-_LATER = {
-    "spec_mode": "A5 (speculative decoding)",
-    "adapter_slots": "A7 (multi-tenant adapters)",
-}
+#: V2Config fields whose non-default value turns on a feature the port
+#: does not carry yet -> the ROADMAP.md queue-A item that brings it (none
+#: left: the port takes every V2Config the reference takes)
+_LATER: Dict[str, str] = {}
 
 
 def _check_config(cfg: V2Config) -> None:
@@ -181,6 +190,60 @@ def sample_rows(logits: torch.Tensor, temps: np.ndarray, rng: int,
 
 
 # ---------------------------------------------------------------------------
+# batched heterogeneous-adapter LoRA (S-LoRA / Punica shape)
+# ---------------------------------------------------------------------------
+
+#: projections the device adapter stack carries deltas for: the attention
+#: projections (classic LoRA targets); MLP-targeted adapters are refused
+#: at registry load, never silently dropped
+ADAPTER_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def adapter_target_shapes(model_cfg: tfm.TransformerConfig
+                          ) -> Dict[str, Tuple[int, int]]:
+    """(K, N) of each stackable projection: what a loaded adapter's
+    ``lora_a (L, K, r)`` / ``lora_b (L, r, N)`` must match."""
+    H = model_cfg.hidden_size
+    qd = model_cfg.num_heads * model_cfg.head_dim
+    kvd = model_cfg.kv_heads * model_cfg.head_dim
+    return {"wq": (H, qd), "wk": (H, kvd), "wv": (H, kvd), "wo": (qd, H)}
+
+
+def init_adapter_stack(model_cfg: tfm.TransformerConfig, v2: "V2Config",
+                       device: torch.device) -> Dict[str, Dict[str,
+                                                               torch.Tensor]]:
+    """All-zero device adapter stack: per target, ``a (L, slots, K, r)``
+    and ``b (L, slots, r, N)`` in the compute dtype.  Slot 0 stays zero
+    (the null adapter); ``serving/adapters.py`` pages adapters in and out
+    of slots ``1..slots-1`` with ``set_adapter_slot``."""
+    dt = tfm.torch_dtype(v2.dtype)
+    L, S, r = model_cfg.num_layers, v2.adapter_slots, v2.adapter_rank
+    return {name: {"a": torch.zeros((L, S, K, r), dtype=dt, device=device),
+                   "b": torch.zeros((L, S, r, N), dtype=dt, device=device)}
+            for name, (K, N) in adapter_target_shapes(model_cfg).items()}
+
+
+def _adapter_proj_delta(x: torch.Tensor, ab: Dict[str, torch.Tensor],
+                        slots: torch.Tensor) -> torch.Tensor:
+    """Per-row gathered low-rank delta of one projection: row ``t`` adds
+    ``(x_t @ A[slots_t]) @ B[slots_t]`` (scaling folded into B at load).
+    ``x`` (T, K); ``ab`` this layer's stacked factors ``{"a": (slots, K,
+    r), "b": (slots, r, N)}``; ``slots`` (T,) on the device.  A gather and
+    two thin batched matmuls, no host sync; rows on the null slot add an
+    exact zero."""
+    xa = torch.bmm(x[:, None, :], ab["a"][slots])  # (T, 1, r)
+    return torch.bmm(xa, ab["b"][slots])[:, 0]
+
+
+def _layer_adapters(adapters, i: int):
+    """Layer ``i``'s slice of the adapter stack (views), or ``None``."""
+    if adapters is None:
+        return None
+    return {name: {"a": st["a"][i], "b": st["b"][i]}
+            for name, st in adapters.items()}
+
+
+# ---------------------------------------------------------------------------
 # ragged forward
 # ---------------------------------------------------------------------------
 
@@ -217,16 +280,26 @@ def _lm_head(params, x: torch.Tensor, cfg: tfm.TransformerConfig
     return logits.float()
 
 
-def _layer(x, lp, k_cache, v_cache, q_rope, attend, cfg, write_at):
-    """One decoder layer over tokens ``x`` (T, hidden): projections, RoPE,
-    the in-place KV write at ``write_at`` = (block ids, offsets), attention
-    through ``attend(q) -> o`` (T, H, D), output projection and MLP."""
+def _layer(x, lp, k_cache, v_cache, q_rope, attend, cfg, write_at,
+           ad=None, slots=None, ffn_shape=None):
+    """One decoder layer over tokens ``x`` (T, hidden): projections (plus
+    each row's adapter delta where ``ad``, this layer's adapter stack, is
+    given with the tokens' ``slots``), RoPE, the in-place KV write at
+    ``write_at`` = (block ids, offsets), attention through ``attend(q) ->
+    o`` (T, H, D), output projection and MLP (over ``ffn_shape`` + (hidden,),
+    default (1, T): the batch layout MoE routing sees)."""
     T = x.shape[0]
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     a_in = tfm._norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
-    q = tfm._lin(a_in, lp["attn"], "wq", "bq").reshape(T, nh, hd)
-    k = tfm._lin(a_in, lp["attn"], "wk", "bk").reshape(T, nkv, hd)
-    v = tfm._lin(a_in, lp["attn"], "wv", "bv").reshape(T, nkv, hd)
+    proj = {}
+    for name, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+        proj[name] = tfm._lin(a_in, lp["attn"], name, bias)
+        if ad is not None and name in ad:
+            proj[name] = proj[name] + _adapter_proj_delta(a_in, ad[name],
+                                                          slots)
+    q = proj["wq"].reshape(T, nh, hd)
+    k = proj["wk"].reshape(T, nkv, hd)
+    v = proj["wv"].reshape(T, nkv, hd)
     if q_rope is not None:
         cos, sin = q_rope
         q = tfm.apply_rope(q[None], cos, sin)[0]
@@ -234,14 +307,17 @@ def _layer(x, lp, k_cache, v_cache, q_rope, attend, cfg, write_at):
     # in place: the reference's donated functional cache update
     k_cache[write_at] = k.to(k_cache.dtype)
     v_cache[write_at] = v.to(v_cache.dtype)
-    o = attend(q.contiguous())
-    attn_out = tfm._lin(o.reshape(T, nh * hd), lp["attn"], "wo", "bo")
+    o = attend(q.contiguous()).reshape(T, nh * hd)
+    attn_out = tfm._lin(o, lp["attn"], "wo", "bo")
+    if ad is not None and "wo" in ad:
+        attn_out = attn_out + _adapter_proj_delta(o, ad["wo"], slots)
     m_src = x if cfg.parallel_residual else x + attn_out
     m_in = tfm._norm(m_src, lp["ln2"], cfg.norm, cfg.norm_eps)
     # MoE layers route every one of the T rows, padding and inactive rows
     # included, as the reference does: capacity routing drops tokens by
     # their position among exactly these rows
-    mlp_out = tfm.ffn_block(m_in[None], lp, cfg)[0]
+    shape = ffn_shape or (1, T)
+    mlp_out = tfm.ffn_block(m_in.reshape(*shape, -1), lp, cfg).reshape(T, -1)
     return (x + attn_out + mlp_out) if cfg.parallel_residual \
         else (m_src + mlp_out)
 
@@ -249,11 +325,17 @@ def _layer(x, lp, k_cache, v_cache, q_rope, attend, cfg, write_at):
 @torch.no_grad()
 def ragged_forward(params, caches, batch: RaggedBatch,
                    model_cfg: tfm.TransformerConfig, v2: V2Config,
-                   rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                   ) -> torch.Tensor:
+                   rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                   adapters=None, row_slots: Optional[np.ndarray] = None,
+                   return_hidden: bool = False):
     """One mixed (prefill + decode) step over a ragged batch: writes the
     batch's KV into ``caches`` in place and returns f32 logits
-    (max_seqs, vocab) at each sequence's last token."""
+    (max_seqs, vocab) at each sequence's last token.  With ``adapters``
+    (the device stack) and ``row_slots`` (host (max_seqs,), the pick rows'
+    slots), each token adds its row's adapter delta; padding tokens take
+    the null slot.  ``return_hidden``: also return the f32 final-norm
+    hidden state at those tokens (max_seqs, hidden), the state the
+    self-draft heads propose from."""
     dev = caches["k"].device
     bs = v2.block_size
     max_seqs = batch.block_tables.shape[0]
@@ -280,6 +362,11 @@ def ragged_forward(params, caches, batch: RaggedBatch,
     gath = (to_dev(gath_row), to_dev(gath_col))
     bt_d = to_dev(batch.block_tables)
     cs_d, cl_d = to_dev(batch.chunk_start), to_dev(batch.chunk_len)
+    slots = None
+    if adapters is not None:
+        tok_slot = np.where(batch.seq_index >= 0, np.asarray(row_slots)[
+            np.clip(batch.seq_index, 0, max_seqs - 1)], 0)
+        slots = to_dev(tok_slot.astype(np.int64))
 
     x = tfm.embed_tokens(params, tok_d, model_cfg, position_ids=pos_d)
     q_rope = None if rope is None else (rope[0][pos_d], rope[1][pos_d])
@@ -298,22 +385,32 @@ def ragged_forward(params, caches, batch: RaggedBatch,
             return o_seq[gath]
 
         x = _layer(x, tfm.layer_params(params, i), k_cache, v_cache, q_rope,
-                   attend, model_cfg, write_at)
+                   attend, model_cfg, write_at,
+                   ad=_layer_adapters(adapters, i), slots=slots)
     x = tfm._norm(x, params["final_norm"], model_cfg.norm, model_cfg.norm_eps)
-    return _lm_head(params, x[to_dev(batch.logits_rows).long()], model_cfg)
+    last = x[to_dev(batch.logits_rows).long()]
+    logits = _lm_head(params, last, model_cfg)
+    return (logits, last.float()) if return_hidden else logits
 
 
 @torch.no_grad()
 def decode_body(params, caches, token_ids: torch.Tensor,
                 position_ids: torch.Tensor, block_tables: torch.Tensor,
                 context_lens: torch.Tensor, model_cfg: tfm.TransformerConfig,
-                v2: V2Config, rope) -> torch.Tensor:
+                v2: V2Config, rope, adapters=None,
+                row_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token decode for every row (device tensors; context_lens
     INCLUDE the current token, inactive rows carry 0 and park their KV
-    write in the scratch block).  Returns f32 logits (max_seqs, vocab)."""
+    write in the scratch block).  ``adapters`` and ``row_slots`` (S,) on
+    the device: each row adds its adapter slot's delta.  Returns f32
+    logits (max_seqs, vocab).
+
+    Positions past the table's last one (a draft iteration beyond a row's
+    reservation) read the last rope row and block column, as the
+    reference's clamped gathers do; their writes park in scratch."""
     bs = v2.block_size
     S = token_ids.shape[0]
-    pos = position_ids.long()
+    pos = position_ids.long().clamp(max=block_tables.shape[1] * bs - 1)
     x = tfm.embed_tokens(params, token_ids.long(), model_cfg, position_ids=pos)
     q_rope = None if rope is None else (rope[0][pos], rope[1][pos])
     rows = torch.arange(S, device=token_ids.device)
@@ -328,7 +425,8 @@ def decode_body(params, caches, token_ids: torch.Tensor,
                                           context_lens)
 
         x = _layer(x, tfm.layer_params(params, i), k_cache, v_cache, q_rope,
-                   attend, model_cfg, write_at)
+                   attend, model_cfg, write_at,
+                   ad=_layer_adapters(adapters, i), slots=row_slots)
     x = tfm._norm(x, params["final_norm"], model_cfg.norm, model_cfg.norm_eps)
     return _lm_head(params, x, model_cfg)
 
@@ -343,6 +441,13 @@ def decode_body(params, caches, token_ids: torch.Tensor,
 _F32_LEAVES = ("router", "coef")
 
 
+def _structure(node):
+    """A parameter tree's nesting and leaf kinds, for ``swap_params``."""
+    if isinstance(node, dict):
+        return {k: _structure(v) for k, v in node.items()}
+    return type(node).__name__
+
+
 def _cast_tree(node, device: torch.device, dtype: torch.dtype, key=None):
     """Every tensor of the tree on ``device`` in ``dtype`` (the MoE router
     and PR-MoE coefficient in f32); a :class:`QuantizedWeight` moves with
@@ -354,7 +459,8 @@ def _cast_tree(node, device: torch.device, dtype: torch.dtype, key=None):
     if not isinstance(node, torch.Tensor):
         raise NotImplementedError(
             f"parameter leaf of type {type(node).__name__}: LoRA weights "
-            "arrive with the adapter slice (ROADMAP.md A7)")
+            "in served parameters arrive with PEFT (ROADMAP.md A14); serve "
+            "adapters through adapter_slots")
     return node.to(device=device,
                    dtype=torch.float32 if key in _F32_LEAVES else dtype)
 
@@ -366,10 +472,17 @@ class InferenceEngineV2:
     ``params`` is the port's parameter tree (``tfm.init_params`` or
     ``tfm.params_from_jax``); it is cast once to the compute dtype on
     ``device``, which defaults to ``"cuda"`` (``RuntimeError`` when CUDA
-    is absent and the caller did not ask for ``"cpu"``)."""
+    is absent and the caller did not ask for ``"cpu"``).  With
+    ``spec_mode="draft"``, ``draft_params``/``draft_config`` are the draft
+    model (cast the same way); with ``"self_draft"``, ``spec_heads`` are
+    the heads (``linear/spec_heads.py``; default: seeded from the lm
+    head)."""
 
     def __init__(self, model_config: tfm.TransformerConfig, params: Any,
-                 config: Optional[V2Config] = None, device: Any = "cuda"):
+                 config: Optional[V2Config] = None,
+                 draft_params: Any = None,
+                 draft_config: Optional[tfm.TransformerConfig] = None,
+                 spec_heads: Any = None, device: Any = "cuda"):
         self.device = resolve_device(device)
         if (getattr(model_config, "num_experts", 0) > 0 and
                 getattr(model_config, "moe_routing", "capacity")
@@ -394,6 +507,25 @@ class InferenceEngineV2:
                                       self.cfg.quantize_group, self.device)
         # cast once at load (the reference casts master weights per call)
         self.params = _cast_tree(params, self.device, dt)
+        self._prev_params = None
+        # device adapter stack for multi-tenant LoRA routing (slot 0 is the
+        # reserved all-zero null adapter; serving/adapters.py owns 1..N-1)
+        self.adapter_stack = None
+        if self.cfg.adapter_slots:
+            if self.cfg.adapter_slots < 2:
+                raise ValueError(
+                    "adapter_slots must be >= 2 when enabled (slot 0 is "
+                    "the reserved null adapter)")
+            if self.cfg.adapter_rank <= 0:
+                raise ValueError(
+                    "adapter_slots > 0 requires adapter_rank > 0")
+            if self.cfg.spec_mode == "draft":
+                raise ValueError(
+                    "adapter routing composes with spec_mode='self_draft' "
+                    "only — the separate draft model has no adapter stack "
+                    "to stay consistent with per-row deltas")
+            self.adapter_stack = init_adapter_stack(self.model_cfg, self.cfg,
+                                                    self.device)
         # one block reserved as write-scratch for padded tokens
         self.kv = KVCacheManager(self.cfg.num_blocks - 1, self.cfg.block_size,
                                  self.cfg.max_blocks_per_seq)
@@ -441,6 +573,147 @@ class InferenceEngineV2:
         self._rng = 0
         #: f32 logits (max_seqs, vocab) of the latest mixed step (probes)
         self.last_logits: Optional[torch.Tensor] = None
+        self._init_spec(draft_params, draft_config, spec_heads, dt)
+
+    def _init_spec(self, draft_params, draft_config, spec_heads,
+                   dt: torch.dtype) -> None:
+        """Speculative decoding state (``spec.py``): validation, the draft
+        model and its pool, or the self-draft heads and the carried
+        hidden state."""
+        mode = self.cfg.spec_mode
+        if mode not in ("off", "draft", "self_draft"):
+            raise ValueError(f"unknown spec_mode {mode!r}")
+        if mode != "off" and self.cfg.spec_k < 1:
+            raise ValueError("spec_k must be >= 1 when speculation is on")
+        self.spec_heads = None
+        self.draft_params = None
+        self.draft_cfg = None
+        self._draft_caches = None
+        self._draft_rope = None
+        # carried final-norm hidden state at each row's last accepted
+        # position, on the device: what the self-draft heads propose from
+        self._spec_hidden = torch.zeros(
+            (self.cfg.max_seqs, self.model_cfg.hidden_size),
+            dtype=torch.float32, device=self.device)
+        self.spec_steps = 0
+        self.spec_proposed = 0  # draft tokens offered to verification
+        self.spec_accepted = 0  # draft tokens that made it into the output
+        self.spec_emitted = 0  # total tokens emitted by spec steps
+        self.spec_fallback = 0  # mixed steps taken while speculation is on
+        if mode == "self_draft":
+            if spec_heads is None:
+                # untrained heads still decode exactly (acceptance is just
+                # lower); w2 seeded from the base lm head
+                spec_heads = init_spec_heads(
+                    torch.Generator(device=self.device).manual_seed(1),
+                    self.model_cfg, self.cfg.spec_k, base_params=self.params)
+            self.spec_heads = {name: torch.as_tensor(v).to(
+                self.device, torch.float32) for name, v in spec_heads.items()}
+        elif mode == "draft":
+            if draft_params is None or draft_config is None:
+                raise ValueError(
+                    "spec_mode='draft' needs draft_params and draft_config")
+            self.draft_cfg = dataclasses.replace(draft_config,
+                                                 dtype=self.cfg.dtype)
+            self.draft_params = _cast_tree(draft_params, self.device, dt)
+            dshape = (self.draft_cfg.num_layers, self.cfg.num_blocks,
+                      self.cfg.block_size, self.draft_cfg.kv_heads,
+                      self.draft_cfg.head_dim)
+            self._draft_caches = {
+                "k": torch.zeros(dshape, dtype=dt, device=self.device),
+                "v": torch.zeros(dshape, dtype=dt, device=self.device)}
+            if self.draft_cfg.position == "rope":
+                self._draft_rope = tfm.rope_table(
+                    self.cfg.max_blocks_per_seq * self.cfg.block_size,
+                    self.draft_cfg.rot_dim, self.draft_cfg.rope_theta,
+                    device=self.device)
+
+    @property
+    def _spec_on(self) -> bool:
+        return self.cfg.spec_mode != "off"
+
+    # -- rolling weight swaps --------------------------------------------
+
+    def swap_params(self, raw_params: Any) -> None:
+        """Point the engine at a new parameter tree (rolling weight swap).
+        ``raw_params`` is the UNQUANTIZED tree; the engine re-applies its
+        own quantization, so a quantized deployment swaps into quantized
+        weights, and casts it as at load.  The previous tree is kept for
+        :meth:`swap_rollback`.  Only between steps on a drained engine:
+        swapping mid-request would mix weight generations in one
+        stream."""
+        if self.cfg.quantize_bits:
+            raw_params = quantize_on_host(raw_params, self.cfg.quantize_bits,
+                                          self.cfg.quantize_group,
+                                          self.device)
+        if _structure(raw_params) != _structure(self.params):
+            raise ValueError("swap_params: incoming pytree structure does "
+                             "not match the serving model")
+        self._prev_params = self.params
+        self.params = _cast_tree(raw_params, self.device,
+                                 tfm.torch_dtype(self.cfg.dtype))
+
+    def swap_rollback(self) -> None:
+        """Restore the pre-swap weights (failed post-swap probe)."""
+        if self._prev_params is None:
+            raise RuntimeError("swap_rollback: no previous params retained")
+        self.params = self._prev_params
+        self._prev_params = None
+
+    # -- device adapter stack (serving/adapters.py) ----------------------
+
+    def set_adapter_slot(self, slot: int, pack: Dict[str, Tuple[Any, Any]]
+                         ) -> None:
+        """Load one adapter's stacked factors into device slot ``slot``.
+
+        ``pack`` maps target names (a subset of :data:`ADAPTER_TARGETS`) to
+        ``(lora_a (L, K, r), lora_b (L, r, N))`` host arrays or tensors,
+        scaling folded into ``lora_b`` and rank padded to
+        ``adapter_rank``.  Targets absent from the pack keep zeros.  One
+        in-place copy per factor; engine thread only."""
+        if self.adapter_stack is None:
+            raise RuntimeError("engine built without adapter_slots")
+        if not (0 < slot < self.cfg.adapter_slots):
+            raise ValueError(
+                f"slot must be in 1..{self.cfg.adapter_slots - 1} "
+                f"(0 is the null adapter), got {slot}")
+        stack = self.adapter_stack
+        for name, (a, b) in pack.items():
+            if name not in stack:
+                raise ValueError(
+                    f"unsupported adapter target {name!r}; the device "
+                    f"stack carries {sorted(stack)}")
+            tgt = stack[name]
+            want_a = tgt["a"].shape[:1] + tgt["a"].shape[2:]
+            want_b = tgt["b"].shape[:1] + tgt["b"].shape[2:]
+            if tuple(a.shape) != tuple(want_a) or \
+                    tuple(b.shape) != tuple(want_b):
+                raise ValueError(
+                    f"adapter target {name!r} shape mismatch: got "
+                    f"a{tuple(a.shape)}/b{tuple(b.shape)}, stack wants "
+                    f"a{tuple(want_a)}/b{tuple(want_b)}")
+        for name, (a, b) in pack.items():
+            for half, x in (("a", a), ("b", b)):
+                stack[name][half][:, slot].copy_(torch.as_tensor(x))
+
+    def clear_adapter_slot(self, slot: int) -> None:
+        """Zero a slot's factors (retire / demote): no row may reference
+        it any more (the registry's refcounts guarantee that)."""
+        if self.adapter_stack is None:
+            raise RuntimeError("engine built without adapter_slots")
+        if not (0 < slot < self.cfg.adapter_slots):
+            raise ValueError(f"invalid adapter slot {slot}")
+        for tgt in self.adapter_stack.values():
+            tgt["a"][:, slot].zero_()
+            tgt["b"][:, slot].zero_()
+
+    def _adapter_rows(self) -> Optional[torch.Tensor]:
+        """The decode table's per-row adapter slots on the device, or
+        ``None`` without an adapter stack."""
+        if self.adapter_stack is None:
+            return None
+        return torch.from_numpy(self.table.adapter.astype(np.int64)).to(
+            self.device)
 
     # -- capacity accessors ---------------------------------------------
     @property
@@ -734,6 +1007,24 @@ class InferenceEngineV2:
         if self.pager is not None:
             self.pager.close()
 
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculative-decoding counters; ``enabled=0`` and all zero when
+        ``spec_mode`` is 'off'.  ``acceptance_rate`` is accepted draft
+        tokens over proposed ones (correction and bonus tokens count on
+        neither side)."""
+        on = self._spec_on
+        return {
+            "enabled": float(on),
+            "k": float(self.cfg.spec_k) if on else 0.0,
+            "steps": float(self.spec_steps),
+            "proposed_tokens": float(self.spec_proposed),
+            "accepted_tokens": float(self.spec_accepted),
+            "emitted_tokens": float(self.spec_emitted),
+            "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+            "fallback_steps": float(self.spec_fallback),
+        }
+
     @property
     def num_running(self) -> int:
         return len(self.running)
@@ -757,11 +1048,18 @@ class InferenceEngineV2:
         never run (exceeds max context) or, with ``strict=True``, if no
         sequence slot or block budget is free right now.
         ``temperature``/``seed`` pin this request's sampling row;
-        ``temperature=None`` inherits the scalar passed to :meth:`step`."""
+        ``temperature=None`` inherits the scalar passed to :meth:`step`.
+        ``adapter_slot`` selects the adapter-stack slot the request's rows
+        read (0: the base model, no delta)."""
         if adapter_slot:
-            raise AdmissionError(
-                "engine built without adapter_slots; adapter requests "
-                "cannot run here")
+            if self.adapter_stack is None:
+                raise AdmissionError(
+                    "engine built without adapter_slots; adapter requests "
+                    "cannot run here")
+            if not (0 < adapter_slot < self.cfg.adapter_slots):
+                raise AdmissionError(
+                    f"adapter_slot {adapter_slot} out of range "
+                    f"1..{self.cfg.adapter_slots - 1}")
         max_ctx = self.cfg.max_blocks_per_seq * self.cfg.block_size
         need = len(prompt_tokens) + max_new_tokens
         if need > max_ctx:
@@ -787,7 +1085,7 @@ class InferenceEngineV2:
         self.waiting.append(SequenceDescriptor(
             uid=self._uid, tokens=list(prompt_tokens),
             max_new_tokens=max_new_tokens, temperature=temperature,
-            seed=seed))
+            seed=seed, adapter_slot=adapter_slot))
         if self.pager is not None and self.cfg.kv_promote_ahead:
             # overlap the disk→host half of any needed promotions with the
             # steps that run before the queue head is scheduled
@@ -826,8 +1124,12 @@ class InferenceEngineV2:
         # max_new_tokens) so an admitted sequence never stalls mid-decode
         while self.waiting and budget > 0 and len(picks) < self.cfg.max_seqs:
             seq = self.waiting[0]
+            # draft mode takes no prefix hits: a skipped prefill would
+            # leave the DRAFT pool without KV for the shared tokens (the
+            # tree indexes target blocks only); self-draft composes
             if (self.prefix_cache is not None and not seq.blocks
-                    and seq.seen_tokens == 0):
+                    and seq.seen_tokens == 0
+                    and self.cfg.spec_mode != "draft"):
                 self._match_prefix(seq)
             n = min(seq.cur_len - seq.seen_tokens, budget)
             total_needed = (seq.cur_len - seq.seen_tokens) + seq.max_new_tokens
@@ -891,7 +1193,7 @@ class InferenceEngineV2:
     def _finish(self, seq: SequenceDescriptor) -> None:
         seq.done = True
         self.table.retire(seq)
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and self.cfg.spec_mode != "draft":
             # donate full prefix blocks into the radix tree instead of
             # freeing them (retire() just flushed the SoA row, so
             # seen_tokens == tokens actually written to KV)
@@ -963,9 +1265,10 @@ class InferenceEngineV2:
             self._finish(t.seq_at[int(r)])
         return rows
 
-    def _decode(self, tok, pos, bt, ctx):
+    def _decode(self, tok, pos, bt, ctx, row_slots=None):
         return decode_body(self.params, self.caches, tok, pos, bt, ctx,
-                           self.model_cfg, self.cfg, self.rope)
+                           self.model_cfg, self.cfg, self.rope,
+                           adapters=self.adapter_stack, row_slots=row_slots)
 
     def _decode_step_fast(self, temperature: float,
                           rng: Optional[int]) -> Dict[int, List[int]]:
@@ -974,7 +1277,7 @@ class InferenceEngineV2:
         self.fast_steps += 1
         t = self.table
         tok, pos, bt, ctx_in = self._table_inputs()
-        logits = self._decode(tok, pos, bt, ctx_in)
+        logits = self._decode(tok, pos, bt, ctx_in, self._adapter_rows())
         sampled = sample_rows(logits, self._row_temps(temperature),
                               self._step_rng(rng), t.seed).cpu().numpy()
         rows = np.nonzero(t.active)[0]
@@ -983,18 +1286,99 @@ class InferenceEngineV2:
         self._advance_rows(sel)
         return out
 
+    def _spec_inputs(self) -> Dict[str, Any]:
+        """Every device input of one speculative step, placed from the
+        decode table before the step's device work starts (so that work,
+        from the first draft to the accept, never waits on the host)."""
+        t = self.table
+        tok, ctx, bt, _ = self._table_inputs()
+        vin = verify_inputs(t.ctx, t.block_tables, t.limit,
+                            self.cfg.spec_k + 1, self.cfg.block_size,
+                            self.caches["k"].shape[1] - 1, self.device)
+        return {"next_tok": tok, "ctx": ctx, "block_tables": bt,
+                "limit": torch.from_numpy(t.limit.astype(np.int32)).to(
+                    self.device),
+                "active": torch.from_numpy(t.ctx > 0).to(self.device),
+                "row_slots": self._adapter_rows(), "vin": vin}
+
+    def _spec_device(self, inputs: Dict[str, Any], rng: int,
+                     temps: np.ndarray, seeds: np.ndarray
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device work of one speculative step: propose, verify,
+        accept.  Returns (emitted (max_seqs, k+1), accept_len (max_seqs,))
+        on the device; self-draft also carries each active row's new
+        hidden state, on the device."""
+        if self.cfg.spec_mode == "self_draft":
+            emitted, alen, hidden = self_draft_step(
+                self.params, self.spec_heads, self.caches, inputs["next_tok"],
+                inputs["vin"], self._spec_hidden, rng, temps, seeds,
+                self.model_cfg, self.cfg, self.rope,
+                adapters=self.adapter_stack, row_slots=inputs["row_slots"])
+            self._spec_hidden = torch.where(inputs["active"][:, None],
+                                            hidden, self._spec_hidden)
+            return emitted, alen
+        return draft_model_step(
+            self.params, self.draft_params, self.caches, self._draft_caches,
+            inputs["next_tok"], inputs["ctx"], inputs["block_tables"],
+            inputs["limit"], inputs["vin"], rng, temps, seeds,
+            self.model_cfg, self.draft_cfg, self.cfg, self.rope,
+            self._draft_rope, self.cfg.spec_k)
+
+    def _spec_decode_step(self, temperature: float,
+                          rng: Optional[int]) -> Dict[int, List[int]]:
+        """Steady-state speculative decode: one propose -> verify -> accept
+        on the device emits 1..k+1 tokens per sequence; the host reads back
+        the emitted tokens and accept lengths once.  Rejected-suffix KV
+        needs no rollback (masked by the context lengths, overwritten next
+        step), so prefix-cache refcounts never move."""
+        self.fast_steps += 1
+        self.spec_steps += 1
+        t = self.table
+        rng = self._step_rng(rng)
+        temps = self._row_temps(temperature)
+        emitted, alen = self._spec_device(self._spec_inputs(), rng, temps,
+                                          t.seed)
+        back = torch.cat([emitted, alen[:, None]], dim=1).cpu().numpy()
+        emitted, alen = back[:, :-1], back[:, -1]
+        out: Dict[int, List[int]] = {}
+        k = self.cfg.spec_k
+        # rows advance by their own accept lengths, so the vectorized
+        # _advance_rows does not apply; a few scalar ops per active row
+        for r in np.nonzero(t.active)[0]:
+            r = int(r)
+            seq = t.seq_at[r]
+            # never emit past the request budget: the verify parks (and
+            # the attention window ignores) positions >= t.limit
+            take = int(min(alen[r] + 1, t.budget[r] - t.gen[r]))
+            toks = emitted[r, :take].astype(np.int32)
+            t.hist[r, t.hist_len[r]:t.hist_len[r] + take] = toks
+            t.hist_len[r] += take
+            t.next_tok[r] = toks[-1]
+            t.ctx[r] += take
+            t.gen[r] += take
+            out[seq.uid] = toks.tolist()
+            self.spec_proposed += k
+            self.spec_accepted += int(min(int(alen[r]), take))
+            self.spec_emitted += take
+            if t.gen[r] >= t.budget[r]:
+                self._finish(seq)
+        return out
+
     def step(self, temperature: float = 0.0, rng: Optional[int] = None
              ) -> Dict[int, List[int]]:
-        """One continuous-batching step -> {uid: [new token]} for the
-        sequences that produced a token (prefill finished, or decode).
+        """One continuous-batching step -> {uid: [new tokens]} for the
+        sequences that produced tokens (prefill finished, or decode):
+        one token each, or 1..spec_k+1 in a speculative step.
 
         Instrumentation is host-side only (an ``engine/step`` span and a
         flight-recorder append around the untouched step body), so tracing
         changes no kernel launch."""
         steady = (not self.waiting and self.running
                   and self._prefilling == 0)
-        kind = "decode" if steady else "mixed"
+        kind = (("spec" if self._spec_on else "decode") if steady
+                else "mixed")
         running, waiting = self.num_running, len(self.waiting)
+        prop0, acc0 = self.spec_proposed, self.spec_accepted
         t0 = time.monotonic()
         sp = tracer.begin("engine/step", kind=kind, running=running,
                           waiting=waiting, prefilling=self._prefilling)
@@ -1004,16 +1388,22 @@ class InferenceEngineV2:
             tracer.end(sp, error=True)
             raise
         emitted = sum(len(v) for v in out.values())
-        tracer.end(sp, emitted=emitted)
+        attrs = {"emitted": emitted}
+        if kind == "spec":
+            attrs["proposed"] = self.spec_proposed - prop0
+            attrs["accepted"] = self.spec_accepted - acc0
+        tracer.end(sp, **attrs)
         recorder.record_step({
             "kind": kind, "t_start": t0, "t_end": time.monotonic(),
             "running": running, "waiting": waiting,
-            "prefilling": self._prefilling, "emitted": emitted})
+            "prefilling": self._prefilling, **attrs})
         return out
 
     def _step_impl(self, temperature: float = 0.0,
                    rng: Optional[int] = None) -> Dict[int, List[int]]:
         if not self.waiting and self.running and self._prefilling == 0:
+            if self._spec_on:
+                return self._spec_decode_step(temperature, rng)
             return self._decode_step_fast(temperature, rng)
         self._flush_table()
         picks = self._schedule()
@@ -1023,9 +1413,27 @@ class InferenceEngineV2:
                     "scheduler made no progress with running sequences — "
                     "KV reservation invariant violated (bug)")
             return {}
+        if self._spec_on:
+            self.spec_fallback += 1  # a mixed step: no speculation
         batch = self.builder.build(picks)
-        logits = ragged_forward(self.params, self.caches, batch,
-                                self.model_cfg, self.cfg, self.rope)
+        row_ad = None
+        if self.adapter_stack is not None:
+            # batch rows are picks order (seq_index indexes the picks, not
+            # the decode table)
+            row_ad = np.zeros(self.cfg.max_seqs, np.int64)
+            for row, (seq, _) in enumerate(picks):
+                row_ad[row] = seq.adapter_slot
+        self_draft = self.cfg.spec_mode == "self_draft"
+        res = ragged_forward(self.params, self.caches, batch,
+                             self.model_cfg, self.cfg, self.rope,
+                             adapters=self.adapter_stack, row_slots=row_ad,
+                             return_hidden=self_draft)
+        logits, hidden = res if self_draft else (res, None)
+        if self.cfg.spec_mode == "draft":
+            # mirror every target KV write into the draft pool (same block
+            # tables) so the draft decodes from ctx without re-prefilling
+            ragged_forward(self.draft_params, self._draft_caches, batch,
+                           self.draft_cfg, self.cfg, self._draft_rope)
         self.last_logits = logits
         # pick rows carry their request's pinned temperature and seed,
         # padding rows stay greedy
@@ -1039,6 +1447,7 @@ class InferenceEngineV2:
                               seeds).cpu().numpy()
 
         out: Dict[int, List[int]] = {}
+        carry_rows, carry_picks = [], []
         for row, (seq, n) in enumerate(picks):
             seq.seen_tokens += n
             if seq.seen_tokens >= seq.cur_len:  # produced a next token
@@ -1051,8 +1460,16 @@ class InferenceEngineV2:
                     self._prefilling -= 1
                 if seq.generated >= seq.max_new_tokens:
                     self._finish(seq)
+                elif hidden is not None:
+                    # the hidden state whose lm head produced `tok`: what
+                    # the self-draft heads propose from next
+                    carry_rows.append(self.table.row_of[seq.uid])
+                    carry_picks.append(row)
             if seq.uid in self.table.row_of:
                 self.table.sync(seq)
+        if carry_rows:
+            self._spec_hidden[torch.tensor(carry_rows, device=self.device)] \
+                = hidden[torch.tensor(carry_picks, device=self.device)]
         return out
 
     def _burst_decode(self, k: int, temperature: float = 0.0,
@@ -1062,6 +1479,7 @@ class InferenceEngineV2:
         end (blocks were reserved at admission)."""
         t = self.table
         tok, pos, bt, ctx = self._table_inputs()
+        row_slots = self._adapter_rows()
         # rows inactive at entry must STAY inactive: advancing their ctx/pos
         # would flip them "active" with a zeroed block table and corrupt
         # block 0 of a real sequence
@@ -1070,7 +1488,7 @@ class InferenceEngineV2:
         rng = self._step_rng(rng)
         toks = []
         for _ in range(k):
-            logits = self._decode(tok, pos, bt, ctx)
+            logits = self._decode(tok, pos, bt, ctx, row_slots)
             rng, step_rng = split_key(rng)
             tok = sample_rows(logits, temps, step_rng, t.seed)
             toks.append(tok)
@@ -1092,8 +1510,10 @@ class InferenceEngineV2:
             if not self.waiting and not self.running:
                 break
             t = self.table
-            steady = (burst > 1 and not self.waiting and self.running
-                      and self._prefilling == 0)
+            # spec mode never bursts: a speculative step already emits up
+            # to spec_k + 1 tokens with its own budget clamp
+            steady = (burst > 1 and not self._spec_on and not self.waiting
+                      and self.running and self._prefilling == 0)
             if steady:
                 eff = min(burst, int((t.budget - t.gen)[t.active].min()))
                 if eff > 1:

@@ -54,12 +54,11 @@ import queue
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
-import warnings
-
 import torch
 
-from ...io.fast_writer import FastFileWriter, header_from_host
-from ...utils.tree_io import TORCH_DTYPES, host_arrays
+from ...io.fast_writer import (FastFileWriter, header_from_host,
+                               read_safetensors)
+from ...utils.tree_io import host_arrays
 from ...utils.locks import named_lock
 from ...utils.logging import logger
 from .coldstore import GC_SWEEP_LIMIT, ColdStore
@@ -81,25 +80,7 @@ def serialize_block(arrays: Dict[str, Any],
 def deserialize_block(payload: bytes) -> Dict[str, torch.Tensor]:
     """Inverse of :func:`serialize_block`: CPU tensors viewing the payload
     (read-only memory: copy them before writing into one)."""
-    hlen = int.from_bytes(payload[:8], "little")
-    hdr = json.loads(payload[8:8 + hlen].decode())
-    base = 8 + hlen
-    hdr.pop("__metadata__", None)
-    out: Dict[str, torch.Tensor] = {}
-    for name, ent in hdr.items():
-        lo, hi = ent["data_offsets"]
-        dtype = TORCH_DTYPES[ent["dtype"]]
-        count = (hi - lo) // torch.empty((), dtype=dtype).element_size()
-        if count == 0:
-            out[name] = torch.empty(ent["shape"], dtype=dtype)
-            continue
-        with warnings.catch_warnings():
-            # a bytes payload is immutable; the tensors only feed copies
-            warnings.simplefilter("ignore", UserWarning)
-            out[name] = torch.frombuffer(
-                payload, dtype=dtype, count=count, offset=base + lo
-            ).reshape(ent["shape"])
-    return out
+    return read_safetensors(payload)[0]
 
 
 class BlockPager:

@@ -16,7 +16,9 @@ loop:
 
 Arrays are numpy arrays or torch tensors (``utils/tree_io.host_array``):
 bf16 is written as its bits under the dtype ``"BF16"``, so a header and a
-payload are byte for byte the reference's.
+payload are byte for byte the reference's.  :func:`read_safetensors` is
+the one reader of the format, for the KV payloads (``paging``) and the
+tree files (``runtime/checkpoint``) alike.
 
 O_DIRECT support is probed once per directory (overlay/tmpfs filesystems
 reject it) and the writer falls back to buffered mode with a one-time log
@@ -30,13 +32,15 @@ import ctypes
 import json
 import os
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..utils import faults
 from ..utils.logging import warning_once
-from ..utils.tree_io import host_arrays
+from ..utils.tree_io import TORCH_DTYPES, host_arrays
 
 _ALIGN = 4096
 
@@ -60,6 +64,32 @@ def header_from_host(hosts: Dict[str, Tuple[np.ndarray, str]],
     pad = (8 - (len(blob) + 8) % 8) % 8  # keep the data section 8-aligned
     blob += b" " * pad
     return len(blob).to_bytes(8, "little") + blob, offsets, pos
+
+
+def read_safetensors(payload) -> Tuple[Dict[str, torch.Tensor],
+                                       Dict[str, str]]:
+    """(arrays, metadata) of a safetensors payload: CPU tensors viewing
+    ``payload`` (read-only memory for ``bytes``: copy them before writing
+    into one) and the ``__metadata__`` map (empty when absent)."""
+    hlen = int.from_bytes(payload[:8], "little")
+    hdr = json.loads(bytes(payload[8:8 + hlen]).decode())
+    base = 8 + hlen
+    meta = hdr.pop("__metadata__", None) or {}
+    out: Dict[str, torch.Tensor] = {}
+    for name, ent in hdr.items():
+        lo, hi = ent["data_offsets"]
+        dtype = TORCH_DTYPES[ent["dtype"]]
+        count = (hi - lo) // torch.empty((), dtype=dtype).element_size()
+        if count == 0:
+            out[name] = torch.empty(ent["shape"], dtype=dtype)
+            continue
+        with warnings.catch_warnings():
+            # a bytes payload is immutable; the tensors only feed copies
+            warnings.simplefilter("ignore", UserWarning)
+            out[name] = torch.frombuffer(
+                payload, dtype=dtype, count=count, offset=base + lo
+            ).reshape(ent["shape"])
+    return out, meta
 
 
 def build_safetensors_header(arrays: Dict[str, Any],

@@ -255,8 +255,8 @@ def _leaf_to_torch(leaf, device: torch.device,
     if not (hasattr(leaf, "shape") and hasattr(leaf, "dtype")):
         raise NotImplementedError(
             f"parameter leaf of type {type(leaf).__name__} is not a plain "
-            "array: LoRA weights arrive with the adapter slice (ROADMAP.md "
-            "A7)")
+            "array: LoRA weights in a parameter tree arrive with PEFT "
+            "(ROADMAP.md A14); serving adapters go through adapter_slots")
     arr = np.ascontiguousarray(np.asarray(leaf))
     if not arr.flags.writeable:  # torch tensors must own writable memory
         arr = arr.copy()
@@ -290,6 +290,38 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
         return _leaf_to_torch(node, dev, dt)
 
     return conv(tree)
+
+
+def spec_heads_from_jax(heads: Dict[str, Any], device: Any = "cuda"
+                        ) -> Dict[str, torch.Tensor]:
+    """The reference's self-draft heads (``linear/spec_heads.py``: ``w1``,
+    ``b1``, ``w2``, any array ``np.asarray`` reads) as the port's f32
+    tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: _leaf_to_torch(heads[k], dev, torch.float32)
+            for k in ("w1", "b1", "w2")}
+
+
+def adapter_pack_from_jax(pack: Dict[str, Any], device: Any = "cuda",
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """An adapter pack ``{target: (lora_a (L, K, r), lora_b (L, r, N))}``
+    (the reference's ``load_adapter_pack`` format) as tensors on
+    ``device`` (``dtype`` None: kept)."""
+    dev = resolve_device(device)
+    return {t: (_leaf_to_torch(a, dev, dtype), _leaf_to_torch(b, dev, dtype))
+            for t, (a, b) in pack.items()}
+
+
+def adapter_stack_from_jax(stack: Dict[str, Any], device: Any = "cuda",
+                           dtype: Optional[torch.dtype] = None
+                           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A device adapter stack ``{target: {"a": (L, slots, K, r), "b": (L,
+    slots, r, N)}}`` (the reference engine's ``adapter_stack``) as tensors
+    on ``device``."""
+    dev = resolve_device(device)
+    return {t: {h: _leaf_to_torch(ab[h], dev, dtype) for h in ("a", "b")}
+            for t, ab in stack.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +406,8 @@ def _lin(x: torch.Tensor, p: Dict[str, Any], w_key: str, b_key: str
         y = x @ w.to(x.dtype)
     else:
         raise NotImplementedError(
-            f"{w_key} is a {type(w).__name__}: LoRA weights arrive with the "
-            "adapter slice (ROADMAP.md A7)")
+            f"{w_key} is a {type(w).__name__}: LoRA weights in a parameter "
+            "tree arrive with PEFT (ROADMAP.md A14)")
     if b_key in p:
         y = y + p[b_key].to(x.dtype)
     return y

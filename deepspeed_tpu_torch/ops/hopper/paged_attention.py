@@ -44,6 +44,8 @@ PLAIN_CALLS = {"decode_attention_plain": 0, "prefill_attention_plain": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # the kernels' instantiations (csrc: ds_paged_*)
+#: the same launches by head dim: (kernel, D) -> launches
+LAUNCHES_BY_HEAD_DIM = {(name, d): 0 for name in LAUNCHES for d in _HEAD_DIMS}
 _GROUPS = (1, 2, 4, 8)  # query heads per kv head (csrc: kMaxGroup)
 _MAX_SMEM = 227 * 1024
 _SPLIT_UNIT = 128  # decode split lengths are multiples of every tile (csrc)
@@ -51,7 +53,7 @@ _MAX_SPLITS = 32   # decode splits per chain (csrc: kMaxSplits)
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, LAUNCHES_BY_HEAD_DIM, PLAIN_CALLS):
         for key in counts:
             counts[key] = 0
 
@@ -198,6 +200,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens):
         S, H, KV, D, BS, MB, split, _stream(q.device))
     build.check(lib, err, "paged_decode_attention launch")
     LAUNCHES["paged_decode_attention"] += 1
+    LAUNCHES_BY_HEAD_DIM["paged_decode_attention", D] += 1
     return out
 
 
@@ -237,4 +240,5 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_start,
         S, Qp, H, KV, D, BS, MB, _stream(q.device))
     build.check(lib, err, "paged_prefill_attention launch")
     LAUNCHES["paged_prefill_attention"] += 1
+    LAUNCHES_BY_HEAD_DIM["paged_prefill_attention", D] += 1
     return out

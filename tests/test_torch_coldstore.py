@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.inference.v2.paging import (BlockPager,
                                                      serialize_block)
 from deepspeed_tpu_torch.utils import faults
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.torch_hierarchy import (assert_consistent, jax_engine,
                                    port_engine, serve, tiny_model)
 
@@ -183,6 +184,73 @@ def test_coldstore_write_fault_stages_nothing(tmp_path):
     assert os.listdir(str(tmp_path)) == []
 
 
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_rewrite_read_race(tmp_path, monkeypatch, pkg):
+    """A rewrite of a key racing a read of it (ROADMAP.md C5), on the same
+    steps in both packages: the writer is held inside ``_commit_dir``
+    after part of the old entry is gone (its manifest) and before the
+    staged entry is renamed in; a reader then reads the key.  The
+    reference's reader calls the half-removed entry corrupt and removes
+    it after the writer's rename, so the new entry is lost.  The port's
+    reader waits for the commit and returns the new payload, which
+    survives."""
+    import shutil
+    import threading
+    import types
+
+    if pkg == "reference":
+        from deepspeed_tpu.inference.v2 import coldstore as cs_mod
+        from deepspeed_tpu.runtime.checkpoint import engine as ck
+    else:
+        from deepspeed_tpu_torch.inference.v2 import coldstore as cs_mod
+        from deepspeed_tpu_torch.runtime.checkpoint import engine as ck
+    cs = cs_mod.ColdStore(str(tmp_path))
+    cs.write("kv-k", b"O" * 96, {"kind": "kv_block"})
+    final = os.path.abspath(cs.path("kv-k"))
+    half_removed, judged = threading.Event(), threading.Event()
+    rmtree = shutil.rmtree
+
+    def writer_rmtree(path, ignore_errors=False):
+        if os.path.abspath(path) == final:  # _commit_dir's removal
+            os.remove(os.path.join(path, "manifest.json"))
+            half_removed.set()
+            judged.wait(10)
+        rmtree(path, ignore_errors=ignore_errors)
+
+    def reader_rmtree(path, ignore_errors=False):
+        if os.path.abspath(path) == final and \
+                threading.current_thread() is reader:
+            judged.set()  # the reader has called the entry corrupt
+            writer.join(10)
+        rmtree(path, ignore_errors=ignore_errors)
+
+    monkeypatch.setattr(ck, "shutil", types.SimpleNamespace(
+        rmtree=writer_rmtree))
+    monkeypatch.setattr(cs_mod, "shutil", types.SimpleNamespace(
+        rmtree=reader_rmtree))
+    got = []
+    writer = threading.Thread(target=cs.write,
+                              args=("kv-k", b"N" * 96, {"kind": "kv_block"}))
+    reader = threading.Thread(target=lambda: got.append(cs.read("kv-k")))
+    writer.start()
+    assert half_removed.wait(10)
+    reader.start()
+    if not judged.wait(0.5):
+        # the port: the reader waits on the key's lock behind the commit
+        assert pkg == "port" and reader.is_alive()
+        judged.set()
+    writer.join(10)
+    reader.join(10)
+    assert not writer.is_alive() and not reader.is_alive()
+    monkeypatch.undo()
+    if pkg == "reference":
+        assert got == [None] and cs.read("kv-k") is None  # the rewrite lost
+        assert cs.stats()["coldstore_corrupt_dropped"] == 1
+    else:
+        assert got == [b"N" * 96] and cs.read("kv-k") == b"N" * 96
+        assert cs.stats()["coldstore_corrupt_dropped"] == 0
+
+
 def test_sigkill_at_write_and_commit_sites(tmp_path):
     """Hard ``os._exit`` at each durability fault site in a real
     subprocess (the port alone, no JAX): a kill before staging leaves
@@ -199,9 +267,10 @@ def test_sigkill_at_write_and_commit_sites(tmp_path):
     for site, leftovers in (("serving.coldstore.write", []),
                             ("serving.coldstore.commit", ["kv-victim.tmp"])):
         env = {**os.environ, "DSTPU_FAULTS": f"{site}=exit:70"}
+        # a torch import and one write: seconds; a minute means it hung
         res = subprocess.run([sys.executable, "-c", script, root], env=env,
                              cwd=REPO, capture_output=True, text=True,
-                             timeout=120)
+                             timeout=60)
         assert res.returncode == 70, res.stderr
         assert sorted(os.listdir(root)) == leftovers
     cs = ColdStore(root)
@@ -395,7 +464,7 @@ def test_sigkill_mid_rehydrate_then_full_recovery(model, ref, tmp_path):
            "DSTPU_FAULTS": "serving.coldstore.rehydrate=exit:70@2"}
     res = subprocess.run([sys.executable, "-c", script, root], env=env,
                          cwd=REPO, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=90)
     assert res.returncode == 70, res.stderr
     eng = _cold_engine(model, root)
     r = eng.rehydrate_coldstore()

@@ -22,6 +22,8 @@ from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.inference.v2 import engine as te
 from deepspeed_tpu_torch.models import transformer as tt
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the V2Config of tests/test_inference_v2.py's greedy checks
 V2_KW = dict(max_tokens_per_step=32, max_seqs=4, block_size=8, num_blocks=64,
@@ -76,7 +78,12 @@ def test_concurrent_chunked_prefill_identical(model):
 def test_burst_matches_single_step(model):
     prompts = [[3, 1, 4, 1, 5], list(range(20, 41))]
     want, got4, _, _ = _serve_both(model, SPLIT_KW, prompts, 7, burst=4)
-    _, got1, _, teng1 = _serve_both(model, SPLIT_KW, prompts, 7, burst=1)
+    # single-step decode on the port alone: the reference's tokens are
+    # want, whatever its burst
+    teng1 = _engines(model, SPLIT_KW)[1]
+    uids = [teng1.put(p, max_new_tokens=7) for p in prompts]
+    res = teng1.generate_all(burst=1)
+    got1 = [res[u] for u in uids]
     assert got4 == want and got1 == want
     assert teng1.burst_steps == 0 and teng1.fast_steps > 0
 
@@ -199,13 +206,27 @@ def test_default_device_is_the_card(monkeypatch, model):
         te.InferenceEngineV2(tcfg, tparams, te.V2Config(**V2_KW))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("spec_mode", "self_draft"), ("adapter_slots", 4)])
-def test_unported_features_refused(model, field, value):
-    _, _, tcfg, tparams = model
-    cfg = te.V2Config(**{**V2_KW, field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        te.InferenceEngineV2(tcfg, tparams, cfg, device="cpu")
+@pytest.mark.parametrize("over,match", [
+    ({"spec_mode": "banana"}, "spec_mode"),
+    ({"spec_mode": "self_draft", "spec_k": 0}, "spec_k"),
+    ({"spec_mode": "draft"}, "draft_params"),
+    ({"adapter_slots": 1, "adapter_rank": 4}, "adapter_slots must be >= 2"),
+    ({"adapter_slots": 4, "adapter_rank": 0}, "adapter_rank"),
+    ({"adapter_slots": 4, "adapter_rank": 4, "spec_mode": "draft"},
+     "self_draft"),
+], ids=["spec_mode", "spec_k", "draft_model", "adapter_slots",
+        "adapter_rank", "adapters_with_draft"])
+def test_v2config_validation_matches_reference(model, over, match):
+    """Every V2Config the reference takes runs in the port (``_LATER`` is
+    empty); the ones it refuses, the port refuses with the same error."""
+    jcfg, params, tcfg, tparams = model
+    assert te._LATER == {}
+    with pytest.raises(ValueError, match=match) as jerr:
+        je.InferenceEngineV2(jcfg, params, je.V2Config(**{**V2_KW, **over}))
+    with pytest.raises(ValueError, match=match) as terr:
+        te.InferenceEngineV2(tcfg, tparams, te.V2Config(**{**V2_KW, **over}),
+                             device="cpu")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_v2config_fields_match_reference():
@@ -249,9 +270,10 @@ def test_admission_and_cancel(model):
 
 
 def test_port_imports_no_jax():
-    """The port, a CPU engine run (plain, W8A16, dropless MoE, and with
-    the whole memory hierarchy on: prefix cache, host pool, cold store,
-    promote-ahead, restart rehydration, tracing), int8_gemm, a CPU
+    """The port, a CPU engine run (plain, W8A16, speculative in both modes,
+    with an adapter registry, dropless MoE, and with the whole memory
+    hierarchy on: prefix cache, host pool, cold store, promote-ahead,
+    restart rehydration, tracing), int8_gemm, a CPU
     training step, a fused AdamW update, evoformer and block-sparse
     attention and the op registry never import JAX, the JAX package,
     ml_dtypes, pydantic or optax."""
@@ -279,6 +301,28 @@ def test_port_imports_no_jax():
             out = eng.generate_all(burst=4)[uid]
             assert len(out) == 25, out
         assert quantized_bytes(eng.params)["quantized"] > 0
+        import logging
+        from deepspeed_tpu_torch.serving.adapters import AdapterRegistry
+        # the registry logs each registration at INFO; warnings stay shown
+        logging.getLogger("dstpu_torch").setLevel(logging.WARNING)
+        for spec in (dict(spec_mode="draft"), dict(spec_mode="self_draft",
+                                                   adapter_slots=2,
+                                                   adapter_rank=2)):
+            seng = InferenceEngineV2(cfg, params, V2Config(
+                max_tokens_per_step=16, max_seqs=4, block_size=8,
+                num_blocks=64, max_blocks_per_seq=8, dtype="float32",
+                spec_k=2, **spec), draft_params=params, draft_config=cfg,
+                device="cpu")
+            slot = 0
+            if seng.adapter_stack is not None:
+                reg = AdapterRegistry(seng)
+                reg.register("a", pack={"wq": (np.ones((2, 64, 2), "f4"),
+                                               np.ones((2, 2, 64), "f4"))})
+                slot = reg.acquire("a")
+            uid = seng.put(list(range(1, 21)), max_new_tokens=5,
+                           adapter_slot=slot)
+            assert len(seng.generate_all()[uid]) == 25
+            assert seng.spec_stats()["steps"] > 0
         import tempfile
         from deepspeed_tpu_torch.observability import recorder, tracer
         root = tempfile.mkdtemp()
@@ -353,7 +397,9 @@ def test_port_imports_no_jax():
         assert not bad, bad
         print("clean")
     """)
+    # ~20 s on a loaded 8-core CPU box (imports, three engines, a
+    # training step): six times that before the run is called hung
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"

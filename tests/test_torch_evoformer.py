@@ -21,6 +21,8 @@ from deepspeed_tpu.ops import evoformer as jev
 from deepspeed_tpu_torch.ops import evoformer as tev
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 TOL = 2e-4  # tests/test_evoformer.py's limit, f32 both sides
 
 

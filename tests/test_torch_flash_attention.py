@@ -21,6 +21,8 @@ import torch
 from deepspeed_tpu.ops.pallas import flash_attention as jfa
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 FWD_TOL = 2e-5  # atol and rtol, f32 both sides
 GRAD_TOL = 5e-4
 

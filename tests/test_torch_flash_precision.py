@@ -28,6 +28,8 @@ import chip_smoke
 from deepspeed_tpu.ops.pallas import flash_attention as jfa
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 S, G, D = 2048, 4, 128
 TILE = 64  # keys per kernel tile (the forward's online-softmax step)
 LOG2E = 1.0 / math.log(2.0)

@@ -23,6 +23,8 @@ import torch
 from deepspeed_tpu.ops import fused_optimizers as jfo
 from deepspeed_tpu_torch.ops import fused_optimizers as tfo
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 REL = 1e-6
 HYPER = dict(lr=1e-2, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1)
 

@@ -989,3 +989,78 @@ def test_memory_hierarchy_five_stages(cuda_device, dtype):
     assert out["prefilled_tokens"]["hits"] == [17, 100, 500, 30, 30, 30, 30]
     if dtype == "float32":
         assert out["identical_continuations"] == "9 of 9"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,Qp", [(64, 40), (64, 256), (128, 5)],
+                         ids=["draft_d64", "draft_d64_qp256", "verify_qp5"])
+def test_paged_kernels_at_draft_and_verify_shapes(cuda_device, dtype, D, Qp):
+    """The paged kernels at the draft model's head dim (H = 32, KV = 8, D =
+    64: its decode bodies and mirror prefills) and the prefill kernel at a
+    verify's k + 1 = 5 positions per row (D = 128), each against its plain
+    version."""
+    rng = np.random.default_rng(D + Qp)
+    H, KV, BS, S, NB, MB = 32, 8, 64, 4, 40, 8
+    atol, rtol = TOLERANCE[dtype]
+
+    def dev(a, cast=True):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+        return t.to(dtype) if cast else t
+
+    k = dev(rng.standard_normal((NB, BS, KV, D)).astype(np.float32))
+    v = dev(rng.standard_normal((NB, BS, KV, D)).astype(np.float32))
+    bt = dev(rng.permutation(NB)[: S * MB].reshape(S, MB).astype(np.int32),
+             False)
+    ctx = dev(np.array([1, 64, 300, MB * BS], np.int32), False)
+    q = dev(rng.standard_normal((S, H, D)).astype(np.float32))
+    torch.testing.assert_close(
+        tpa.paged_decode_attention(q, k, v, bt, ctx).float(),
+        tpa.decode_attention_plain(q, k, v, bt, ctx).float(), atol=atol,
+        rtol=rtol)
+    start = dev(np.array([0, 63, 250, MB * BS - Qp], np.int32), False)
+    length = dev(np.array([Qp, Qp, 2, Qp], np.int32), False)
+    q = dev(rng.standard_normal((S, Qp, H, D)).astype(np.float32))
+    tpa.reset_counts()
+    got = tpa.paged_prefill_attention(q, k, v, bt, start, length)
+    torch.testing.assert_close(
+        got.float(),
+        tpa.prefill_attention_plain(q, k, v, bt, start, length).float(),
+        atol=atol, rtol=rtol)
+    assert not got[2, 2:].any()  # rows past the chunk stay zero
+    assert tpa.LAUNCHES_BY_HEAD_DIM["paged_prefill_attention", D] == 1
+
+
+def test_spec_and_adapter_phase_small(cuda_device):
+    """``chip_smoke.py``'s speculative and adapter phase at a small width
+    in bf16 (target head dim 128, draft head dim 64): exact paged launch
+    counts by head dim in both modes, no plain call, no host sync in a
+    greedy speculative step, first-token and first-steady-step logits
+    against the plain engine (slot-0 rows' first token bit for bit),
+    adapter rows against merged-weight engines.  The phase fails on a
+    broken check."""
+    import chip_smoke
+
+    cfg = tt.get_config("tiny", hidden_size=512, intermediate_size=1024,
+                        num_heads=4, num_kv_heads=2, dtype="bfloat16",
+                        vocab_size=1024)
+    params = tt.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    out = chip_smoke.run_spec_phase(
+        torch, tpa, params, "test", cfg=cfg,
+        draft_shape=dict(hidden_size=256, intermediate_size=512,
+                         num_layers=1, tie_embeddings=True))
+    assert out["draft"]["spec_steps"] > 0
+    assert out["self_draft"]["spec_steps"] > 0
+    assert out["adapters_self_draft"]["spec_steps"] > 0
+
+
+def test_small_model_speculative_card_matches_cpu(cuda_device):
+    """``chip_smoke.py``'s small f32 speculative check: both modes and
+    self-draft with adapters, tokens identical card vs CPU vs the plain
+    engine, and the model as its own draft accepting every draft its
+    budget allows."""
+    import chip_smoke
+
+    out = chip_smoke.small_spec_agreement(torch, tpa)
+    assert set(out) == {"draft", "self_draft", "self_draft_adapters"}

@@ -24,6 +24,8 @@ import torch
 from deepspeed_tpu.ops.pallas import grouped_matmul as jg
 from deepspeed_tpu_torch.ops.hopper import grouped_matmul as tg
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 TOL = 1e-5  # of the largest reference element
 
 

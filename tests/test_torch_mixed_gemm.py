@@ -29,6 +29,8 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops import quantizer as tqz
 from deepspeed_tpu_torch.ops.hopper import mixed_gemm as tm
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _rand(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(
@@ -412,14 +414,16 @@ def _emulate_int8_kernel(xc, xs, qw, wgmma, dtype=torch.float32):
     x (wgmma: two warpgroups of 128 rows, or of 64 where 256-row blocks
     would not fill an H100's SMs; mma.sync: 16 rows), D = A B with
     A = W^T's columns in the permuted A-row order (_a_rows_to_columns) and
-    B = x^T, summed exactly per 32-deep k-step and 128-deep K-tile, a new
-    sum at each group's first k-step (scale-d = 0); at each group's last
-    tile acc = acc + f32(D) * xs * ws in f32, one rounding per operation;
-    the result un-permuted at the store."""
+    B = x^T, summed exactly over each group's 32-deep k-steps and 128-deep
+    K-tiles, a new sum at each group's first k-step (scale-d = 0); at each
+    group's last tile acc = acc + f32(D) * xs * ws in f32, one rounding per
+    operation; the result un-permuted at the store.  A group's integer sum
+    is exact in any order, so it is formed by one f64 product over the
+    group's depth (every partial sum is an integer below 2**53)."""
     M, K = xc.shape
     N, g = qw.out_features, qw.group
-    codes = qw.codes.to(torch.int64)
-    x = xc.to(torch.int64)
+    codes = qw.codes.to(torch.float64)
+    x = xc.to(torch.float64)
     if wgmma:  # 256-row blocks where they fill the card's SMs, else 128
         big = M > 128 and -(-M // 256) * -(-N // I8_BN) >= H100_SMS
         bm, parts = (256 if big else 128), 2
@@ -430,31 +434,26 @@ def _emulate_int8_kernel(xc, xs, qw, wgmma, dtype=torch.float32):
     for n0 in range(0, N, I8_BN):
         cols = n0 + perm  # the block's A rows as columns
         valid = cols < N
-        a_full = torch.zeros((I8_BN, K), dtype=torch.int64)
+        a_full = torch.zeros((I8_BN, K), dtype=torch.float64)
         a_full[valid] = codes[:, cols[valid]].T  # A = W^T, permuted
         for m0 in range(0, M, bm):
             for part in range(parts):
                 r0 = m0 + part * (bm // parts)
                 rows = torch.arange(r0, r0 + bm // parts)
-                b_full = torch.zeros((K, rows.numel()), dtype=torch.int64)
+                b_full = torch.zeros((K, rows.numel()), dtype=torch.float64)
                 b_full[:, rows < M] = x[rows[rows < M]].T
                 acc = torch.zeros((I8_BN, rows.numel()))
-                d = None
-                for t in range(K // I8_BK):
-                    for kk in range(I8_BK // 32):
-                        k = t * I8_BK + 32 * kk
-                        prod = a_full[:, k:k + 32] @ b_full[k:k + 32]
-                        new = t % (g // I8_BK) == 0 and kk == 0
-                        d = prod if new else d + prod
-                    if (t + 1) % (g // I8_BK) == 0:
-                        grp = t // (g // I8_BK)
-                        xsr = torch.zeros(rows.numel())
-                        xsr[rows < M] = xs[rows[rows < M], grp]
-                        wsr = torch.zeros(I8_BN)
-                        wsr[valid] = qw.scales[grp, cols[valid]]
-                        fd = (_group_sum_f32(d) if g <= 256
-                              else d.to(torch.float32))
-                        acc = acc + fd * xsr[None, :] * wsr[:, None]
+                for grp in range(K // g):  # scaled at its last K-tile
+                    k0 = grp * g
+                    d = (a_full[:, k0:k0 + g] @ b_full[k0:k0 + g]).to(
+                        torch.int64)
+                    xsr = torch.zeros(rows.numel())
+                    xsr[rows < M] = xs[rows[rows < M], grp]
+                    wsr = torch.zeros(I8_BN)
+                    wsr[valid] = qw.scales[grp, cols[valid]]
+                    fd = (_group_sum_f32(d) if g <= 256
+                          else d.to(torch.float32))
+                    acc = acc + fd * xsr[None, :] * wsr[:, None]
                 keep = rows < M
                 out[rows[keep][:, None], cols[valid][None, :]] = \
                     acc[valid][:, keep].T.to(dtype)

@@ -38,6 +38,8 @@ from deepspeed_tpu_torch.moe import layer as tl
 from deepspeed_tpu_torch.moe import sharded_moe as tsm
 from deepspeed_tpu_torch.ops.hopper import grouped_matmul as tg
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 GRAD_TOL = 1e-4
 V2_KW = dict(max_tokens_per_step=32, max_seqs=4, block_size=8, num_blocks=64,

@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.observability import (FlightRecorder, Tracer,
                                                load_dump, recorder, tracer)
 from deepspeed_tpu_torch.utils import faults
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.torch_hierarchy import jax_engine, port_engine, serve, tiny_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -239,8 +240,9 @@ def test_injected_kill_dumps_flight_recorder(tmp_path):
     """)
     env = {**os.environ, "DSTPU_FAULTS": "test.site=exit",
            "DSTPU_FLIGHT_DIR": str(tmp_path)}
+    # a torch import and three tiny steps: seconds; 90 s means it hung
     res = subprocess.run([sys.executable, "-c", script], env=env, cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=90)
     assert res.returncode == 70, res.stderr
     (dump,) = tmp_path.glob("flight_*.json")
     body = load_dump(str(dump))
@@ -296,7 +298,7 @@ def test_lockdep_reports_the_same_cycle():
     outs = []
     for mod in ("deepspeed_tpu", "deepspeed_tpu_torch"):
         res = subprocess.run(
-            [sys.executable, "-c", script, mod], cwd=REPO, timeout=300,
+            [sys.executable, "-c", script, mod], cwd=REPO, timeout=90,
             env={**os.environ, "DSTPU_LOCKDEP": "1", "JAX_PLATFORMS": "cpu"},
             capture_output=True, text=True)
         assert res.returncode == 0, res.stderr

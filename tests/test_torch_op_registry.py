@@ -10,6 +10,8 @@ from deepspeed_tpu.ops import op_registry as jreg
 from deepspeed_tpu_torch.accelerator.cuda_accelerator import CudaAccelerator
 from deepspeed_tpu_torch.ops import op_registry as treg
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 # the port module each op loads
 MODULES = {"evoformer_attn": "deepspeed_tpu_torch.ops.evoformer",
            "grouped_gemm": "deepspeed_tpu_torch.ops.hopper.grouped_matmul",

@@ -18,6 +18,8 @@ from deepspeed_tpu.ops.pallas import paged_attention as jpa
 from deepspeed_tpu_torch.ops.hopper import build
 from deepspeed_tpu_torch.ops.hopper import paged_attention as tpa
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 ATOL = 1e-5  # f32 both sides; only the summation order differs
 
 

@@ -31,9 +31,10 @@ from deepspeed_tpu_torch.inference.v2.ragged import BlockedAllocator
 from deepspeed_tpu_torch.io.fast_writer import (FastFileWriter,
                                                 build_safetensors_header)
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.torch_hierarchy import (assert_consistent, assert_same_state,
-                                   jax_engine, port_engine, serve,
-                                   tiny_model)
+                                   drain_prefetch, jax_engine, port_engine,
+                                   serve, tiny_model)
 
 PA = list(range(1, 21))
 
@@ -332,11 +333,8 @@ def test_promote_ahead_with_cancels(model, ref, tmp_path):
     assert_consistent(teng)
     # the cancelled sessions' prefetched blocks are still staged: the
     # reference counts each of them twice (ROADMAP.md C2), the port once
-    deadline = time.monotonic() + 10
-    while not (jeng.pager._queue.empty() and teng.pager._queue.empty()):
-        assert time.monotonic() < deadline
-        time.sleep(0.01)
-    time.sleep(0.2)  # the last dequeued prefetch lands
+    for eng in (jeng, teng):
+        drain_prefetch(eng.pager)  # every queued prefetch has landed
     staged = len(teng.pager._staged)
     assert staged == len(jeng.pager._staged) > 0
     with pytest.raises(AssertionError, match="pager holds"):

@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.inference.v2.prefix_cache import (PrefixCache,
                                                            prefix_digests)
 from deepspeed_tpu_torch.inference.v2.ragged import BlockedAllocator
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.torch_hierarchy import (assert_consistent, assert_same_state,
                                    jax_engine, port_engine, serve,
                                    tiny_model)

@@ -12,6 +12,8 @@ import pytest
 from deepspeed_tpu.inference.v2 import ragged as jr
 from deepspeed_tpu_torch.inference.v2 import ragged as tr
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _same_state(a, b):
     """Two objects of the twin classes hold equal state."""

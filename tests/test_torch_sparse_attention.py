@@ -18,6 +18,8 @@ from deepspeed_tpu.ops import sparse_attention as jsa
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.hopper import flash_attention as tfa
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 FWD_TOL, GRAD_TOL = 2e-5, 5e-4
 
 # (class name, kwargs); each runs bidirectional and unidirectional

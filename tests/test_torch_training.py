@@ -41,6 +41,8 @@ from deepspeed_tpu_torch.runtime.engine import ModelSpec as TSpec
 from deepspeed_tpu_torch.runtime.lr_schedules import schedules as tsched
 from deepspeed_tpu_torch.sequence import tiled_compute as ttc
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 STEP_RTOL = 1e-5  # per-step loss / grad_norm / lr

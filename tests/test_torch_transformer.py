@@ -16,6 +16,8 @@ from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.moe.sharded_moe import sharded_moe_block
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 ATOL = 1e-5
 
 

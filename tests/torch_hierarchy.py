@@ -4,6 +4,8 @@ the ``tiny`` model in f32 for the JAX package and the port (the port's
 weights converted by ``params_from_jax``), engine pairs built from one
 ``V2Config``, and the tier-accounting checks both packages' tests make."""
 
+import threading
+
 import jax
 import numpy as np
 
@@ -46,6 +48,27 @@ def serve(eng, prompt, n, **gen_kw):
     """Queue ``prompt`` alone, run to completion, return its new tokens."""
     uid = eng.put(list(prompt), max_new_tokens=n)
     return [int(t) for t in eng.generate_all(**gen_kw)[uid][len(prompt):]]
+
+
+class _QueueMarker:
+    """A promote-ahead queue entry that is no handle: the pager's thread
+    hashes it when it looks it up, after it has finished every entry
+    queued before it (one thread, first in first out)."""
+
+    def __init__(self):
+        self.reached = threading.Event()
+
+    def __hash__(self):
+        self.reached.set()
+        return 0
+
+
+def drain_prefetch(pager, timeout: float = 10.0) -> None:
+    """Wait until the pager's promote-ahead thread has handled everything
+    queued so far (either package's pager)."""
+    marker = _QueueMarker()
+    pager._queue.put(marker)
+    assert marker.reached.wait(timeout), "promote-ahead thread stuck"
 
 
 def untimed(stats):
