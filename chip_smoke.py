@@ -70,7 +70,8 @@ In order it prints:
    kernel / plain / library (bf16 ``torch.matmul`` by the dequantized
    weight) / bound times (M = 8 runs ``mixed_gemm_kernel`` and
    ``int8_gemm_mma_kernel``, M = 256 ``mixed_gemm_wgmma_kernel`` and
-   ``int8_gemm_wgmma_kernel``; the W8A8 dispatch is checked);
+   ``int8_gemm_wgmma_kernel``; the W8A8 dispatch is checked); the int8
+   mixed GEMM also at M = 4096, the v1 prefill's rows (13.);
 8. quantized serving: the engine of 4. with ``quantize_bits=8`` (cold and
    warm), then 4 and 6, at full width and depth: tokens, finiteness,
    ``mixed_gemm`` launches = 7 x paged launches with no plain or envelope
@@ -113,8 +114,27 @@ In order it prints:
    backward time; then ``sparse_attention`` with a causal Fixed layout at
    llama3-8b's attention width (S = 4096, block 128): one launch of each
    flash kernel, output and gradients against the plain versions;
-13. a JSON line with every kernel's numbers;
-14. last, ``{"ok": true, "device": {...}}``.
+13. the v1 engine through ``init_inference``, right after 4.'s
+   speculative phase on its weights: llama3-8b bf16 at full width and
+   depth on 8 x 512 prompt tokens, 32 new (tokens, determinism, first-
+   token logits against the v2 engine's; prefill s, decode tokens/s, peak
+   memory), the same W8A16 (mixed-GEMM launches exact: 7 per layer per
+   forward, the prefill's on ``mixed_gemm_wgmma_kernel``; first-token
+   logits against a W8A16 v2 engine's), ALiBi at
+   BLOOM-7b1's width and depth (which v2 refuses), the BERT-base encoder
+   card against CPU; small f32 rope, ALiBi and dropless MoE models card
+   against CPU; then, after the hierarchy's small model, the serving
+   front: llama3-8b bf16 (nothing cut) behind the HTTP server from the
+   CLI's own flags, 16 requests from 8 client threads (half streamed):
+   every answer, B4/B5 launches exactly 32 per ``engine/step`` span of
+   their kind, ``/healthz``, ``/metrics``, three requests one at a time
+   against a lone engine, TTFT / TPOT and HTTP against ``generate_all``
+   tokens/s; two in-process replicas (one more KV pool, no weight copy);
+   the CLI as a subprocess with two workers, one SIGKILLed mid-stream (the
+   stream completes as the lone engine's), its respawn timed, no process
+   left after the drain; a small f32 model served card against CPU;
+14. a JSON line with every kernel's numbers;
+15. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -168,9 +188,14 @@ TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                "w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
 GEMM_MS = (8, 256)  # a decode body at max_seqs=8, a mixed step's 256 tokens
+V1_BATCH, V1_PROMPT = 8, 512  # v1 traffic: 8 x 512 prompt tokens, greedy
+# v1's W8A16 prefill runs every projection at M = B * T (int8 only)
+GEMM_V1_M = V1_BATCH * V1_PROMPT
 # the shape and the M of the kernels JSON line's mixed-GEMM and W8A8 rows:
-# a decode body's rows (mixed_gemm_kernel) and a mixed step's (wgmma)
-GEMM_JSON = (("w_gate/w_in", 8), ("w_gate/w_in", 256))
+# a decode body's rows (mixed_gemm_kernel), a mixed step's (wgmma), and,
+# for int8, v1's prefill (wgmma)
+GEMM_JSON = (("w_gate/w_in", 8), ("w_gate/w_in", 256),
+             ("w_gate/w_in", GEMM_V1_M))
 QUANT_GROUP = 256
 PROJECTIONS = 7  # wq, wk, wv, wo, w_gate, w_in, w_out per layer
 # mixed GEMM in f32: kernel and plain both sum the same exact bf16 products
@@ -1209,7 +1234,8 @@ GEMM_KERNELS = {"mixed_gemm_int8": 8, "mixed_gemm_int4": 4,
 
 def check_mixed_gemm(torch, mg, flush) -> list:
     """B6 (bits 8, 4, 6) and B7 against their plain versions at llama3-8b's
-    projection shapes, M = 8 and 256, group 256: bf16 x per element within
+    projection shapes, M = 8 and 256 (and, for int8 B6, v1's prefill M =
+    GEMM_V1_M), group 256: bf16 x per element within
     TOL_BF16, f32 x within GEMM_F32_REL of the largest output; kernel /
     plain / library / bound ms of the bf16 call.  The library call is one
     bf16 ``torch.matmul`` of x by the dequantized bf16 weight (the
@@ -1224,7 +1250,8 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                 fail(f"{name} {shape_name}: off the reference's kernel path")
             w_lib = mg.dequantize_gemm_weight(qw).to(torch.bfloat16)
             code_bytes = qw.codes.numel() + qw.scales.numel() * 4
-            for M in GEMM_MS:
+            for M in GEMM_MS + ((GEMM_V1_M,) if name == "mixed_gemm_int8"
+                                else ()):
                 x = torch.randn((M, K), generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
                 errs = {}
@@ -3069,6 +3096,782 @@ def small_spec_agreement(torch, pa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the v1 engine and init_inference
+# ---------------------------------------------------------------------------
+
+# bigscience/bloom-7b1's config.json: n_embed 4096, n_layer 30, n_head 32,
+# vocab_size 250880, the 4 x n_embed GELU MLP, layer_norm_epsilon 1e-5,
+# word-embedding layernorm, tied embeddings, ALiBi (weights random, bf16)
+BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=16384,
+                 num_layers=30, num_heads=32, max_seq_len=2048,
+                 norm="layernorm", activation="gelu", position="alibi",
+                 embed_norm=True, tie_embeddings=True, norm_eps=1e-5)
+# v1 against v2, first-token logits at llama3-8b in bf16: the two engines
+# round different programs (v1 attends over a dense cache in plain torch,
+# v2 through B4's tensor-core tiles), as the engine phase's mixed steps and
+# decode bodies do (ROADMAP C4): max |diff| <= this * max |logit|
+TOL_V1_LOGITS_REL = 5e-2
+# the encoder at BERT-base width in f32, card against CPU: every sum is f32
+# on both sides (TF32 off) in another order, over K = 768 or 3072 terms
+TOL_ENCODER_REL = 1e-4
+# real tokens per row of the encoder's 8 x 512 batch, the rest padding
+ENCODER_LENS = [512, 500, 384, 300, 256, 128, 64, 17]
+
+
+def free_cache(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def v1_prompts(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(SEED).integers(0, vocab,
+                                                (V1_BATCH, V1_PROMPT))
+
+
+def v1_run(torch, cfg, params, icfg: dict, prompts, what: str,
+           kernels=()) -> tuple:
+    """``init_inference`` on ``params``, then two rounds of a 1-token and a
+    NEW_TOKENS-token greedy ``generate`` (the first round cold).  Fails
+    unless the tokens are in the vocab, the prefill logits finite and the
+    second round's tokens the first's.  ``kernels``: modules whose counts
+    are reset just before the first full generate and read just after.
+    Returns (numbers, engine, tokens, prefill logits, counts)."""
+    import deepspeed_tpu_torch
+
+    eng = deepspeed_tpu_torch.init_inference(model_config=cfg, params=params,
+                                             config=icfg)
+    torch.cuda.reset_peak_memory_stats()
+    rounds, counts = [], {}
+    B, T = prompts.shape
+    for r in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for k in kernels if r == 0 else ():
+            k.reset_counts()
+        toks = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for k in kernels if r == 0 else ():
+            short = k.__name__.rsplit(".", 1)[1]
+            counts.update({f"{short}.{name}": dict(getattr(k, name))
+                           for name in ("LAUNCHES", "WGMMA_LAUNCHES",
+                                        "PLAIN_CALLS", "DEQUANT_CALLS")
+                           if hasattr(k, name)})
+        rounds.append((toks, t1 - t0, t2 - t1, eng.first_logits))
+    toks, first = rounds[0][0], rounds[0][3]
+    if toks.shape != (B, T + NEW_TOKENS) or (toks[:, :T] != prompts).any():
+        fail(f"{what}: generate gave {toks.shape}, want {(B, T + NEW_TOKENS)}"
+             " starting with the prompts")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{what}: a token outside the vocab")
+    if not bool(torch.isfinite(first).all()):
+        fail(f"{what}: the prefill's logits are not finite")
+    if (rounds[1][0] != toks).any():
+        fail(f"{what}: a second run on the same prompts gave other tokens")
+    warm = rounds[1]
+    out = {"prefill_s": warm[1], "prefill_tokens_per_s": B * T / warm[1],
+           "generate_s": warm[2], "cold_generate_s": rounds[0][2],
+           "decode_tokens_per_s": B * (NEW_TOKENS - 1) / (warm[2] - warm[1]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out, eng, toks, first, counts
+
+
+def v2_first_logits(torch, cfg, params, prompts, v2) -> "torch.Tensor":
+    """f32 first-token logits of each prompt through ``InferenceEngineV2``,
+    one request at a time (row 0 of its last mixed step)."""
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+
+    eng = InferenceEngineV2(cfg, params, v2)
+    rows = []
+    for p in prompts.tolist():
+        uid = eng.put(p, max_new_tokens=1)
+        while uid not in eng.step():
+            pass
+        rows.append(eng.last_logits[0].float().clone())
+    del eng
+    return torch.stack(rows)
+
+
+def v1_quantized_counts(counts: dict, cfg, what: str) -> dict:
+    """The mixed GEMM's launches over one quantized ``generate``: every
+    projection of every layer once per forward (one prefill at M = B * T on
+    ``mixed_gemm_wgmma_kernel`` when bf16, NEW_TOKENS - 1 decodes at M = B
+    on ``mixed_gemm_kernel``), no plain or envelope call."""
+    launches = counts["mixed_gemm.LAUNCHES"]["mixed_gemm_int8"]
+    wgmma = counts["mixed_gemm.WGMMA_LAUNCHES"]["mixed_gemm_int8"]
+    want = PROJECTIONS * cfg.num_layers * NEW_TOKENS
+    want_wgmma = PROJECTIONS * cfg.num_layers if cfg.dtype == "bfloat16" \
+        else 0
+    if launches != want or wgmma != want_wgmma:
+        fail(f"{what}: {launches} mixed_gemm launches ({wgmma} on wgmma), "
+             f"want {want} ({want_wgmma})")
+    if any(counts["mixed_gemm.PLAIN_CALLS"].values()) or any(
+            counts["mixed_gemm.DEQUANT_CALLS"].values()):
+        fail(f"{what}: a plain or envelope call: "
+             f"{counts['mixed_gemm.PLAIN_CALLS']} "
+             f"{counts['mixed_gemm.DEQUANT_CALLS']}")
+    return {"mixed_gemm_int8": launches, "mixed_gemm_wgmma": wgmma}
+
+
+def v1_against_v2(first, ref, what: str) -> float:
+    """The largest per-prompt max |v1 - v2| of the first-token logits, over
+    that prompt's max |logit|; fails past TOL_V1_LOGITS_REL."""
+    rel = ((first - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+    if not rel <= TOL_V1_LOGITS_REL:
+        fail(f"{what}: first-token logits differ from v2's by {rel} of max "
+             f"|logit| (limit {TOL_V1_LOGITS_REL})")
+    return rel
+
+
+def run_v1_phase(torch, mg, params, card: str) -> dict:
+    """The v1 engine through ``init_inference`` on the card: (a) llama3-8b
+    at full width and depth in bf16 on the engine phase's weights, against
+    the v2 engine's first-token logits; (b) the same quantized to int8,
+    with exact mixed-GEMM launches, against a v2 engine quantized to int8;
+    (c) ALiBi at BLOOM-7b1's width and depth (which v2 refuses); (d) the
+    encoder at BERT-base width, card against CPU."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import encoder as enc
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.get_config("llama3-8b")
+    icfg = {"dtype": "bfloat16", "max_seq_len": V1_PROMPT + NEW_TOKENS}
+    prompts = v1_prompts(cfg.vocab_size)
+    out = {}
+    bf16, eng, toks, first, _ = v1_run(torch, cfg, params, icfg, prompts,
+                                       "v1 bf16")
+    shared = eng.params["layers"]["attn"]["wq"] is \
+        params["layers"]["attn"]["wq"]
+    del eng
+    v2 = V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
+                  num_blocks=NB, max_blocks_per_seq=MB, dtype="bfloat16")
+    ref = v2_first_logits(torch, cfg, params, prompts, v2)
+    rel = v1_against_v2(first, ref, "v1 bf16")
+    agree = (toks[:, V1_PROMPT] == ref.argmax(-1).cpu().numpy()).sum()
+    out["bf16"] = dict(bf16, first_logits_rel_diff_vs_v2=rel,
+                       first_tokens_equal_v2=int(agree),
+                       weights_shared=shared)
+    del ref
+    free_cache(torch)
+
+    quant, eng, toks, first, counts = v1_run(
+        torch, cfg, params, dict(icfg, quantize_bits=8), prompts,
+        "v1 W8A16", kernels=[mg])
+    del eng
+    free_cache(torch)
+    # v2 quantizes the same raw weights itself: the same codes and scales
+    ref = v2_first_logits(torch, cfg, params, prompts,
+                          dataclasses.replace(v2, quantize_bits=8))
+    rel = v1_against_v2(first, ref, "v1 W8A16")
+    agree = (toks[:, V1_PROMPT] == ref.argmax(-1).cpu().numpy()).sum()
+    out["w8a16"] = dict(quant, launches=v1_quantized_counts(
+        counts, dataclasses.replace(cfg, dtype="bfloat16"), "v1 W8A16"),
+        first_logits_rel_diff_vs_v2=rel, first_tokens_equal_v2=int(agree))
+    del ref
+    free_cache(torch)
+
+    bcfg = tfm.TransformerConfig(dtype="bfloat16", **BLOOM_7B1)
+    try:
+        InferenceEngineV2(bcfg, {}, v2)
+        fail("v2 took an ALiBi model")
+    except NotImplementedError:
+        pass
+    t0 = time.perf_counter()
+    bparams = tfm.init_params(bcfg, torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bprompts = v1_prompts(bcfg.vocab_size)
+    res, eng, _, _, _ = v1_run(torch, bcfg, bparams, icfg, bprompts,
+                               "v1 ALiBi")
+    out["alibi"] = dict(res, params=bcfg.num_params(), init_s=init_s,
+                        layers=bcfg.num_layers)
+    del eng, bparams
+    free_cache(torch)
+
+    ecfg = enc.EncoderConfig()
+    eparams = enc.init_params(ecfg, torch.Generator().manual_seed(SEED),
+                              device="cpu")
+    rng = np.random.default_rng(SEED)
+    S = ecfg.max_seq_len
+    ids = rng.integers(0, ecfg.vocab_size, (len(ENCODER_LENS), S))
+    mask = (np.arange(S)[None, :] <
+            np.minimum(ENCODER_LENS, S)[:, None]).astype(np.int32)
+    hidden = {}
+    for dev in ("cuda", "cpu"):
+        e = deepspeed_tpu_torch.init_inference(
+            model_config=ecfg, params=eparams, config={"dtype": "float32"},
+            device=dev)
+        e.encode(ids, mask)  # warm
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        hidden[dev] = e.encode(ids, mask)
+        sync(torch, dev)
+        hidden[dev + "_s"] = time.perf_counter() - t0
+        del e
+    err = float(np.abs(hidden["cuda"] - hidden["cpu"]).max())
+    scale = float(np.abs(hidden["cpu"]).max())
+    if not (np.isfinite(hidden["cuda"]).all() and
+            err <= TOL_ENCODER_REL * scale):
+        fail(f"encoder: card against CPU {err} (limit {TOL_ENCODER_REL} of "
+             f"{scale})")
+    out["encoder"] = {"shape": list(hidden["cuda"].shape),
+                      "max_abs_err_vs_cpu": err, "max_abs": scale,
+                      "card_s": hidden["cuda_s"],
+                      "cpu_s": hidden["cpu_s"], "params": ecfg.num_params()}
+    out["card"] = card
+    return out
+
+
+def small_v1_agreement(torch, gm) -> dict:
+    """Small f32 models through the v1 engine on the card and on the CPU
+    from the same weights: rope, ALiBi (bloom-shaped) and dropless MoE
+    (the grouped GEMM on the card, no plain call); greedy tokens
+    identical."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    small = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                 dtype="float32")
+    cfgs = {"rope": tfm.get_config("tiny", num_kv_heads=2, **small),
+            "alibi": tfm.TransformerConfig(**dict(
+                BLOOM_7B1, **small, vocab_size=256, num_layers=2,
+                max_seq_len=128)),
+            "moe_dropless": small_moe_cfg(tfm, "dropless")}
+    prompts = np.random.default_rng(SEED).integers(0, 256, (4, 24))
+    icfg = {"dtype": "float32", "max_seq_len": 64}
+    out = {}
+    for name, cfg in cfgs.items():
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cpu")
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            gm.reset_counts()
+            import deepspeed_tpu_torch
+
+            eng = deepspeed_tpu_torch.init_inference(
+                model_config=cfg, params=params, config=icfg, device=dev)
+            toks[dev] = eng.generate(prompts, max_new_tokens=12)
+            if dev == "cuda" and name == "moe_dropless" and (
+                    not all(gm.LAUNCHES.values())
+                    or any(gm.PLAIN_CALLS.values())):
+                fail(f"small v1 {name}: the card run did not go through "
+                     f"the grouped GEMM: {gm.LAUNCHES} {gm.PLAIN_CALLS}")
+        if (toks["cuda"] != toks["cpu"]).any():
+            fail(f"small v1 {name}: greedy tokens on the card differ from "
+                 "the CPU's")
+        out[name] = {"tokens": int(toks["cuda"].size)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving front: broker, HTTP server, in-process and subprocess replicas
+# ---------------------------------------------------------------------------
+
+# the engine cell's V2Config as the server's CLI flags
+SERVE_ARGV = ["--model", "llama3-8b", "--dtype", "bfloat16",
+              "--max_tokens_per_step", "256", "--max_seqs", "8",
+              "--block_size", str(BS), "--num_blocks", str(NB),
+              "--max_blocks_per_seq", str(MB)]
+SERVE_REQUESTS, SERVE_CLIENTS = 16, 8  # requests, client threads
+SERVE_LEN = (17, 1000)  # prompt lengths drawn from this range
+SERVE_LONE = 3  # requests sent one at a time, against a lone engine
+SERVE_SPAWN_S = 600.0  # a worker imports torch and draws llama3-8b
+SERVE_HTTP_S = 600.0  # any one HTTP call
+
+
+def serve_traffic(vocab: int, n: int = SERVE_REQUESTS, lens=SERVE_LEN,
+                  seed: int = SEED + 1):
+    """``n`` (prompt, stream) pairs from a seed: prompt lengths in
+    ``lens``, every other request streamed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lens[0], lens[1] + 1, size=n)
+    return [(rng.integers(0, vocab, size=int(s)).tolist(), i % 2 == 1)
+            for i, s in enumerate(sizes)]
+
+
+def http_complete(port: int, prompt, stream: bool, on_first=None,
+                  max_tokens: int = 0) -> dict:
+    """One greedy ``/v1/completions`` call: status, tokens, the text,
+    finish reason, the request id, seconds to the first token (streams)
+    and in all.  ``on_first(rid)`` runs when a stream's first token
+    arrives.  ``max_tokens``: NEW_TOKENS when 0."""
+    import http.client
+
+    max_tokens = max_tokens or NEW_TOKENS
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SERVE_HTTP_S)
+    conn.request("POST", "/v1/completions", json.dumps(
+        {"prompt": prompt, "max_tokens": max_tokens, "stream": stream,
+         "temperature": 0.0}), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = {"status": resp.status, "stream": stream, "ttft_s": None}
+    if not stream or resp.status != 200:
+        body = json.loads(resp.read())
+        conn.close()
+        out["total_s"] = time.perf_counter() - t0
+        if resp.status != 200:
+            out["error"] = body
+            return out
+        choice = body["choices"][0]
+        out.update(tokens=choice["tokens"], text=choice["text"],
+                   finish=choice["finish_reason"], rid=body["id"],
+                   completion_tokens=body["usage"]["completion_tokens"])
+        return out
+    toks, text, finish, done = [], [], None, False
+    for raw in resp:
+        raw = raw.strip()
+        if not raw.startswith(b"data: "):
+            continue
+        if raw == b"data: [DONE]":
+            done = True
+            break
+        obj = json.loads(raw[6:])
+        choice = obj["choices"][0]
+        if choice.get("token") is not None:
+            if not toks:
+                out["ttft_s"] = time.perf_counter() - t0
+                out["rid"] = obj["id"]
+                if on_first is not None:
+                    on_first(obj["id"])
+            toks.append(choice["token"])
+            text.append(choice["text"])
+        else:
+            finish = choice["finish_reason"]
+            if "error" in obj:
+                out["error"] = obj["error"]
+    conn.close()
+    out.update(tokens=toks, text="".join(text), finish=finish, done=done,
+               total_s=time.perf_counter() - t0)
+    return out
+
+
+def http_get(port: int, path: str):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read().decode()
+    conn.close()
+    return resp.status, body
+
+
+def run_clients(port: int, traffic, clients: int = SERVE_CLIENTS) -> tuple:
+    """``traffic`` from ``clients`` threads at once: (results in traffic
+    order, wall seconds)."""
+    import queue
+    import threading
+
+    jobs = queue.Queue()
+    for i, job in enumerate(traffic):
+        jobs.put((i, job))
+    results, errors = [None] * len(traffic), []
+
+    def client():
+        while True:
+            try:
+                i, (prompt, stream) = jobs.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                results[i] = http_complete(port, prompt, stream)
+            except Exception as e:  # noqa: BLE001 — gated below
+                errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_HTTP_S)
+        if t.is_alive():
+            fail("serving: an HTTP client never finished")
+    if errors:
+        fail(f"serving: HTTP clients failed: {errors[:3]}")
+    return results, time.perf_counter() - t0
+
+
+def check_answers(results, traffic, what: str, max_tokens: int = 0) -> int:
+    """Every request answered 200 with ``max_tokens`` tokens and finish
+    reason "length"; a stream ended with ``[DONE]`` and its chunks' texts
+    concatenate to the completion's text.  Returns the completion
+    tokens.  ``max_tokens``: NEW_TOKENS when 0."""
+    max_tokens = max_tokens or NEW_TOKENS
+    n = 0
+    for i, (r, (prompt, stream)) in enumerate(zip(results, traffic)):
+        if r["status"] != 200 or r.get("error"):
+            fail(f"{what}: request {i} answered {r['status']} "
+                 f"{r.get('error')}")
+        toks = r["tokens"]
+        if len(toks) != max_tokens or r["finish"] != "length":
+            fail(f"{what}: request {i}: {len(toks)} tokens, finish "
+                 f"{r['finish']!r}")
+        if stream and (not r["done"] or r["text"] !=
+                       "".join(f" {t}" for t in toks)):
+            fail(f"{what}: stream {i}'s chunks do not make its completion")
+        n += len(toks)
+    return n
+
+
+def lone_tokens(eng, prompts) -> list:
+    """Each prompt served alone through ``step()``, as a replica's broker
+    drives its engine: the greedy new tokens."""
+    out = []
+    for p in prompts:
+        uid = eng.put(p, max_new_tokens=NEW_TOKENS)
+        toks = []
+        while eng.num_running or eng.num_waiting:
+            toks += eng.step().get(uid, [])
+        out.append(toks)
+    return out
+
+
+def step_launch_check(pa) -> dict:
+    """B4 and B5 launches against the ``engine/step`` spans recorded since
+    the tracer was cleared: one B4 launch per layer per mixed step, one B5
+    per layer per decode body, no plain call.  Exact for one replica."""
+    from deepspeed_tpu_torch.observability import tracer
+
+    spans = tracer.spans(name="engine/step")
+    kinds = [sp.attrs["kind"] for sp in spans]
+    mixed, decode = kinds.count("mixed"), kinds.count("decode")
+    return {"mixed_steps": mixed, "decode_bodies": decode,
+            "launches": dict(pa.LAUNCHES),
+            "plain_calls": dict(pa.PLAIN_CALLS)}
+
+
+def start_server(pool, scfg, name: str):
+    import threading
+
+    from deepspeed_tpu_torch.serving import create_server
+
+    srv = create_server(pool, pool.metrics, scfg, model_name=name)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def run_serving_phase(torch, pa, card: str, argv=SERVE_ARGV,
+                      traffic_lens=SERVE_LEN) -> dict:
+    """The serving front over the port's v2 engine on the card: (a) one
+    in-process replica at llama3-8b bf16, nothing cut, behind the HTTP
+    server, built from the CLI's own flags (``build_engine_factory``); (b)
+    two in-process replicas on the same weights; (c) the server CLI as a
+    subprocess with two worker processes, one of them killed mid-stream.
+    ``argv``/``traffic_lens``: a smaller model (the GPU tests)."""
+    import argparse
+    import signal
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.observability import tracer
+    from deepspeed_tpu_torch.observability.prometheus import parse_exposition
+    from deepspeed_tpu_torch.serving import ReplicaPool, ServingConfig
+    from deepspeed_tpu_torch.serving.server import (add_engine_cli_args,
+                                                    build_engine_factory,
+                                                    launch_server_subprocess,
+                                                    stop_server)
+
+    ap = argparse.ArgumentParser()
+    add_engine_cli_args(ap)
+    args = ap.parse_args(argv)
+    out = {"card": card, "model": args.model}
+    free_cache(torch)
+    t0 = time.perf_counter()
+    factory = build_engine_factory(args)  # draws the weights once
+    torch.cuda.synchronize()
+    out["weights_init_s"] = time.perf_counter() - t0
+
+    # (a) one in-process replica behind the HTTP server
+    scfg = ServingConfig(num_replicas=1, max_queue=64)
+    pool = ReplicaPool.build(factory, scfg).start()
+    pool.wait_ready(timeout=60)
+    rep = pool.replicas[0].engine
+    traffic = serve_traffic(rep.model_cfg.vocab_size, lens=traffic_lens)
+    srv = start_server(pool, scfg, args.model)
+    port = srv.server_port
+    pa.reset_counts()
+    tracer.clear()
+    results, wall = run_clients(port, traffic)
+    steps = step_launch_check(pa)
+    L = rep.model_cfg.num_layers
+    calls, plain = steps["launches"], steps["plain_calls"]
+    if (calls["paged_prefill_attention"] != L * steps["mixed_steps"]
+            or calls["paged_decode_attention"] != L * steps["decode_bodies"]
+            or any(plain.values())
+            or not steps["mixed_steps"] or not steps["decode_bodies"]):
+        fail(f"serving (a): paged launches {steps['launches']} (plain "
+             f"{plain}) for {steps['mixed_steps']} mixed steps and "
+             f"{steps['decode_bodies']} decode bodies of {L} layers")
+    tokens = check_answers(results, traffic, "serving (a)")
+    status, health = http_get(port, "/healthz")
+    if status != 200 or json.loads(health)["status"] != "ok":
+        fail(f"serving (a): /healthz answered {status} {health[:200]}")
+    status, text = http_get(port, "/metrics")
+    fam = parse_exposition(text)
+    counted = {k: fam[f"dstpu_serving_{k}"]["samples"][0][2]
+               for k in ("submitted", "completed", "tokens_out")}
+    if status != 200 or counted["completed"] != SERVE_REQUESTS or \
+            counted["submitted"] != SERVE_REQUESTS:
+        fail(f"serving (a): /metrics counts {counted}, want "
+             f"{SERVE_REQUESTS} requests")
+    snap = pool.metrics.snapshot()
+    ttft = sorted(r["ttft_s"] for r in results if r["ttft_s"] is not None)
+    # three requests one at a time, against a lone engine on the same
+    # weights (the replica's own tensors: no copy)
+    lone_prompts = [p for p, _ in traffic[:SERVE_LONE]]
+    via_http = [http_complete(port, p, False)["tokens"]
+                for p in lone_prompts]
+    lone = InferenceEngineV2(rep.model_cfg, rep.params, rep.cfg)
+    want = lone_tokens(lone, lone_prompts)
+    if via_http != want:
+        fail("serving (a): requests sent one at a time differ from a lone "
+             "engine's tokens")
+    # the hard-kill request of (c), served alone here first
+    kill_prompt = serve_traffic(rep.model_cfg.vocab_size, 1,
+                                lens=traffic_lens, seed=SEED + 2)[0][0]
+    kill_want = lone_tokens(lone, [kill_prompt])[0]
+    pool.shutdown()
+    srv.shutdown()
+    del srv  # it holds the pool
+    # generate_all on the same 16 prompts: the engine without the front
+    for p, _ in traffic:
+        lone.put(p, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lone.generate_all(burst=8)
+    torch.cuda.synchronize()
+    gen_all_s = time.perf_counter() - t0
+    # concurrent bf16 continuations may part from a lone run's (ROADMAP
+    # C4): counted, not gated
+    same = sum(r["tokens"] == w for r, w in zip(
+        results[:SERVE_LONE], want))
+    out["inprocess"] = {
+        "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+        "prompt_tokens": sum(len(p) for p, _ in traffic),
+        "completion_tokens": tokens, "wall_s": wall,
+        "http_tokens_per_s": tokens / wall,
+        "generate_all_s": gen_all_s,
+        "generate_all_tokens_per_s": SERVE_REQUESTS * NEW_TOKENS / gen_all_s,
+        "ttft_s_p50_client": statistics.median(ttft),
+        "ttft_ms_p50": snap["ttft_ms_p50"], "ttft_ms_p99": snap["ttft_ms_p99"],
+        "tpot_ms_p50": snap["tpot_ms_p50"], "metrics_counts": counted,
+        "mixed_steps": steps["mixed_steps"],
+        "decode_bodies": steps["decode_bodies"],
+        "launches": steps["launches"], "lone_equal": SERVE_LONE,
+        "concurrent_equal_lone": f"{same}/{SERVE_LONE}"}
+    del lone, pool, rep
+    free_cache(torch)
+
+    # (b) two in-process replicas: one more KV pool, not a weight copy
+    def allocated() -> int:
+        free_cache(torch)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    grown = {}
+    for n in (1, 2):
+        pool = None
+        m0 = allocated()
+        pool = ReplicaPool.build(factory, ServingConfig(num_replicas=n,
+                                                        max_queue=64))
+        grown[n] = allocated() - m0
+    kv = sum(t.numel() * t.element_size()
+             for t in pool.replicas[0].engine.caches.values())
+    if abs(grown[2] - grown[1] - kv) > 0.1 * kv:
+        fail(f"serving (b): a second replica took {grown[2] - grown[1]} "
+             f"bytes, want one KV pool ({kv})")
+    pool.start()
+    srv = start_server(pool, ServingConfig(num_replicas=2), args.model)
+    pa.reset_counts()
+    results, wall = run_clients(srv.server_port, traffic[:SERVE_CLIENTS])
+    tokens = check_answers(results, traffic[:SERVE_CLIENTS], "serving (b)")
+    out["two_replicas"] = {
+        "first_replica_bytes": grown[1], "second_replica_bytes":
+        grown[2] - grown[1], "kv_pool_bytes": kv,
+        "requests": SERVE_CLIENTS, "completion_tokens": tokens,
+        "wall_s": wall, "http_tokens_per_s": tokens / wall,
+        # two engine threads update the counters: reported, not gated
+        "launches": dict(pa.LAUNCHES)}
+    pool.shutdown()
+    srv.shutdown()
+    del srv, pool, factory  # the server holds the pool, the pool the weights
+    out["front_bytes_before_workers"] = allocated()
+
+    # (c) the CLI as a subprocess over two worker processes
+    t0 = time.perf_counter()
+    proc, url = launch_server_subprocess(
+        ["--port", "0", "--replica_transport", "subprocess", "--replicas",
+         "2", *argv], timeout_s=SERVE_SPAWN_S)
+    spawn_s = time.perf_counter() - t0
+    port = int(url.rsplit(":", 1)[1])
+    pids = set()
+    try:
+        results, wall = run_clients(port, traffic)
+        tokens = check_answers(results, traffic, "serving (c)")
+
+        def workers():
+            reps = json.loads(http_get(port, "/healthz")[1])["replicas"]
+            pids.update(r["pid"] for r in reps if r.get("pid"))
+            return {r["name"]: r for r in reps}
+
+        reps = workers()
+        if len(reps) != 2 or not all(r.get("healthy") for r in
+                                     reps.values()):
+            fail(f"serving (c): /healthz shows {reps}")
+        killed = {}
+
+        def kill(rid):
+            # "cmpl-replica1.g0-3": the replica serving this stream
+            name = rid.split("-")[1].split(".")[0]
+            killed.update(name=name, pid=reps[name]["pid"],
+                          generation=reps[name]["generation"],
+                          t=time.perf_counter())
+            os.kill(killed["pid"], signal.SIGKILL)
+
+        res = http_complete(port, kill_prompt, True, on_first=kill)
+        if not killed:
+            fail("serving (c): the stream never started")
+        if res["tokens"] != kill_want or res["finish"] != "length":
+            fail(f"serving (c): the stream whose worker was killed gave "
+                 f"{len(res['tokens'])} tokens (finish {res['finish']}), "
+                 "not the lone engine's")
+        while True:
+            reps = workers()
+            r = reps[killed["name"]]
+            if r.get("healthy") and r["generation"] > killed["generation"]:
+                break
+            if time.perf_counter() - killed["t"] > SERVE_SPAWN_S:
+                fail(f"serving (c): {killed['name']} never respawned")
+            time.sleep(0.5)
+        respawn_s = time.perf_counter() - killed["t"]
+        again = http_complete(port, kill_prompt, False)
+        if again["status"] != 200 or len(again["tokens"]) != NEW_TOKENS:
+            fail("serving (c): the fleet did not serve after the respawn")
+    finally:
+        rc = stop_server(proc, term_timeout_s=120.0)
+        proc.stdout.close()
+    left = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    try:
+        os.killpg(proc.pid, 0)
+        left.append(f"group {proc.pid}")
+    except ProcessLookupError:
+        pass
+    if left:
+        fail(f"serving (c): processes left after the drain: {left}")
+    out["subprocess"] = {
+        "spawn_to_ready_s": spawn_s, "requests": SERVE_REQUESTS,
+        "completion_tokens": tokens, "wall_s": wall,
+        "http_tokens_per_s": tokens / wall, "killed": killed["name"],
+        "respawn_s": respawn_s, "stop_rc": rc,
+        "worker_pids_seen": len(pids)}
+    return out
+
+
+def small_serving_agreement(torch, pa) -> dict:
+    """A small f32 model (head dim 64) behind the HTTP server on the card
+    and on the CPU, the same traffic sent one request at a time to each:
+    tokens identical, the card through the paged kernels with no plain
+    call."""
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.serving import ReplicaPool, ServingConfig
+
+    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
+                         num_heads=4, num_kv_heads=2, dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    v2 = V2Config(max_tokens_per_step=32, max_seqs=4, block_size=16,
+                  num_blocks=64, max_blocks_per_seq=8, dtype="float32")
+    traffic = serve_traffic(cfg.vocab_size, 8, lens=(5, 70))
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        scfg = ServingConfig(num_replicas=1)
+        pool = ReplicaPool.build(
+            lambda: InferenceEngineV2(cfg, params, v2, device=dev),
+            scfg).start()
+        srv = start_server(pool, scfg, "small")
+        pa.reset_counts()
+        try:
+            res = [http_complete(srv.server_port, p, s, max_tokens=12)
+                   for p, s in traffic]
+        finally:
+            pool.shutdown()
+            srv.shutdown()
+        check_answers(res, traffic, f"small serving ({dev})", 12)
+        toks[dev] = [r["tokens"] for r in res]
+        if dev == "cuda" and (not all(pa.LAUNCHES.values())
+                              or any(pa.PLAIN_CALLS.values())):
+            fail(f"small serving: the card did not go through the paged "
+                 f"kernels: {pa.LAUNCHES} {pa.PLAIN_CALLS}")
+    if toks["cuda"] != toks["cpu"]:
+        fail("small serving: tokens on the card differ from the CPU's")
+    return {"requests": len(traffic),
+            "tokens": sum(len(t) for t in toks["cuda"])}
+
+
+def v1_line(v1: dict) -> str:
+    """The v1 phase's numbers, on one line beside the card."""
+    b, q, a, e = v1["bf16"], v1["w8a16"], v1["alibi"], v1["encoder"]
+
+    def rates(r):
+        return (f"prefill {r['prefill_s']:.4f} s "
+                f"({r['prefill_tokens_per_s']:.2f} tokens/s), decode "
+                f"{r['decode_tokens_per_s']:.2f} tokens/s, peak "
+                f"{r['peak_mem_gb']:.2f} GB")
+
+    return (f"v1 ({v1['card']}), {V1_BATCH} x {V1_PROMPT} prompt tokens, "
+            f"{NEW_TOKENS} new: llama3-8b bf16 {rates(b)}, first-token "
+            f"logits {b['first_logits_rel_diff_vs_v2']:.3e} of max |logit| "
+            f"from v2's (limit {TOL_V1_LOGITS_REL}); W8A16 {rates(q)}, "
+            f"first-token logits {q['first_logits_rel_diff_vs_v2']:.3e} of "
+            f"max |logit| from W8A16 v2's, "
+            f"mixed_gemm launches {q['launches']['mixed_gemm_int8']} "
+            f"(wgmma {q['launches']['mixed_gemm_wgmma']}); BLOOM-7b1 shape "
+            f"(ALiBi, {a['layers']} layers) {rates(a)}; BERT-base encoder "
+            f"{e['shape']} card {e['card_s']:.4f} s, card vs CPU "
+            f"{e['max_abs_err_vs_cpu']:.3e} (limit {TOL_ENCODER_REL} of "
+            f"{e['max_abs']:.3f})")
+
+
+def serving_line(sv: dict) -> str:
+    """The serving phase's numbers, on one line beside the card."""
+    a, b, c = sv["inprocess"], sv["two_replicas"], sv["subprocess"]
+    return (f"serving ({sv['card']}), {a['requests']} requests from "
+            f"{a['clients']} clients, {NEW_TOKENS} new tokens each: "
+            f"in-process TTFT p50 {a['ttft_ms_p50']:.2f} ms, p99 "
+            f"{a['ttft_ms_p99']:.2f} ms, TPOT p50 {a['tpot_ms_p50']:.2f} ms, "
+            f"{a['http_tokens_per_s']:.2f} completion tokens/s through HTTP "
+            f"against {a['generate_all_tokens_per_s']:.2f} from generate_all "
+            f"on the same prompts; a second in-process replica "
+            f"{b['second_replica_bytes'] / 1e9:.3f} GB (one KV pool "
+            f"{b['kv_pool_bytes'] / 1e9:.3f} GB), two replicas "
+            f"{b['http_tokens_per_s']:.2f} tokens/s; subprocess CLI with two "
+            f"workers: spawn to ready {c['spawn_to_ready_s']:.2f} s, "
+            f"{c['http_tokens_per_s']:.2f} tokens/s, respawn after a "
+            f"killed worker {c['respawn_s']:.2f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3164,8 +3967,16 @@ def main() -> None:
     print("hierarchy: " + json.dumps(hier))
     print(hierarchy_line(hier))
     spec = run_spec_phase(torch, pa, params, card)
-    del params
     print("speculative decoding and adapters: " + json.dumps(spec))
+    gc.collect()
+    torch.cuda.empty_cache()
+    v1 = run_v1_phase(torch, mg, params, card)
+    del params
+    print(f"v1 engine ({card}): " + json.dumps(v1))
+    print(v1_line(v1))
+    small_v1 = small_v1_agreement(torch, gm)
+    print("small v1 models card vs CPU (rope, alibi, dropless MoE): "
+          + json.dumps(small_v1))
     for k in draft_kernels:
         k["launches"] = spec["draft"]["launches"][f"{k['name']}_d{DRAFT_D}"]
     small_spec = small_spec_agreement(torch, pa)
@@ -3174,6 +3985,14 @@ def main() -> None:
     small_hier = small_hierarchy_agreement(torch, pa)
     print("small model hierarchy, card vs CPU vs cache-off: "
           + json.dumps(small_hier))
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = run_serving_phase(torch, pa, card)
+    print(f"serving front ({card}): " + json.dumps(serving))
+    print(serving_line(serving))
+    small_serving = small_serving_agreement(torch, pa)
+    print("small model served over HTTP, card vs CPU: "
+          + json.dumps(small_serving))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3314,7 +4133,9 @@ def main() -> None:
               "grouped_matmul": gmm, "moe_engine": moe,
               "small_moe": small_moe, "small_moe_training": small_moe_train,
               "fused_adamw": adam, "fused_adamw_tree": adam_tree,
-              "evoformer": evo, "sparse_attention": sparse}
+              "evoformer": evo, "sparse_attention": sparse, "v1": v1,
+              "small_v1": small_v1, "serving": serving,
+              "small_serving": small_serving}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
@@ -3351,6 +4172,15 @@ def main() -> None:
     gemm_launches["grouped_matmul", MOE_T[0]] = \
         moe["launches"]["grouped_matmul"] - moe_wgmma
 
+    # the v1 W8A16 phase's mixed-GEMM launches by rows: its prefill (M = B
+    # * T, a row of its own) on the wgmma kernel, its decodes (M = 8, beside
+    # the engine's decode bodies) on mixed_gemm_kernel
+    v1_launch = v1["w8a16"]["launches"]
+    gemm_launches["mixed_gemm_int8", GEMM_V1_M] = \
+        v1_launch["mixed_gemm_wgmma"]
+    v1_gemm = {("mixed_gemm_int8", decode_m):
+               v1_launch["mixed_gemm_int8"] - v1_launch["mixed_gemm_wgmma"]}
+
     def row(k):
         return {"name": k["name"], "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
@@ -3363,6 +4193,12 @@ def main() -> None:
                 **({"launches_hierarchy": hier["launches"][k["name"]]}
                    if k["name"] in hier["launches"] and "launches" not in k
                    else {}),
+                **({"launches_serving":
+                    serving["inprocess"]["launches"][k["name"]]}
+                   if k["name"] in serving["inprocess"]["launches"]
+                   and "launches" not in k else {}),
+                **({"launches_v1": v1_gemm[k["name"], k["M"]]}
+                   if (k["name"], k.get("M")) in v1_gemm else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -56,6 +56,19 @@ re-adopts; every ``step()`` records an ``engine/step`` span
         kv_coldstore_dir="/var/cache/kv"))
     eng.rehydrate_coldstore()
 
+Slice 12 adds the v1 engine (a static KV cache; it also serves the ALiBi
+models the v2 engine refuses) and the BERT-family encoder, through the
+reference's other entry point:
+
+    eng = deepspeed_tpu_torch.init_inference(
+        model_config=cfg, params=params, config={"dtype": "bfloat16"})
+    tokens = eng.generate(prompts, max_new_tokens=32)  # (B, T + 32)
+
+and the serving front over the v2 engine (``serving/``): ``python -m
+deepspeed_tpu_torch.serving.server --model llama3-8b --dtype bfloat16``
+answers OpenAI-style ``/v1/completions`` from in-process or subprocess
+replicas.
+
 Importing the package builds nothing and imports neither ``triton`` nor the
 CUDA kernels; those are built from ``csrc/`` at their first launch.
 """
@@ -78,9 +91,15 @@ _LAZY = {
                        "TrainingEngine"),
     "get_accelerator": ("deepspeed_tpu_torch.accelerator", "get_accelerator"),
     "resolve_device": ("deepspeed_tpu_torch.accelerator", "resolve_device"),
+    "InferenceEngine": ("deepspeed_tpu_torch.inference.engine",
+                        "InferenceEngine"),
+    "EncoderInferenceEngine": ("deepspeed_tpu_torch.inference.engine",
+                               "EncoderInferenceEngine"),
+    "InferenceConfig": ("deepspeed_tpu_torch.inference.engine",
+                        "InferenceConfig"),
 }
 
-__all__ = ["__version__", "initialize", *_LAZY]
+__all__ = ["__version__", "initialize", "init_inference", *_LAZY]
 
 
 def initialize(model: Any = None,
@@ -106,6 +125,37 @@ def initialize(model: Any = None,
                           param_axes=param_axes)
     engine = TrainingEngine(model, cfg, device=device)
     return engine, engine.optimizer, None, engine.lr_schedule
+
+
+def init_inference(model: Any = None, config: Any = None,
+                   device: Any = "cuda", **kwargs: Any) -> Any:
+    """The v1 inference engine (reference: ``deepspeed_tpu.init_inference``).
+
+    Decoder models (``model_config=`` a ``TransformerConfig``, ``params=``)
+    get :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`;
+    encoder configs (:class:`~deepspeed_tpu_torch.models.encoder.
+    EncoderConfig`) get the bidirectional ``EncoderInferenceEngine``.
+    Both run on the card unless ``device="cpu"`` is asked for."""
+    from .models.encoder import EncoderConfig
+
+    mc = kwargs.get("model_config")
+    if isinstance(mc, EncoderConfig):
+        from .inference.engine import EncoderInferenceEngine
+
+        kwargs.pop("model_config")
+        params = kwargs.pop("params", None)
+        if params is None and model is not None and hasattr(model, "params"):
+            params = model.params  # ModelSpec-style bundle, decoder parity
+        if params is None:
+            raise ValueError(
+                "encoder inference needs the parameter tree: pass params= "
+                "or a model bundle with .params")
+        return EncoderInferenceEngine(mc, params, config=config,
+                                      device=device, **kwargs)
+    from .inference.engine import InferenceEngine
+
+    return InferenceEngine(model=model, config=config, device=device,
+                           **kwargs)
 
 
 def __getattr__(name: str):

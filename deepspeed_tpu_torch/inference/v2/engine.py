@@ -494,8 +494,8 @@ class InferenceEngineV2:
         if getattr(model_config, "position", "rope") == "alibi":
             raise NotImplementedError(
                 "v2's paged attention takes no additive logit bias — ALiBi "
-                "models (bloom) are served by the v1 engine, which is not "
-                "ported yet (ROADMAP.md queue A item A8)")
+                "models (bloom) are served by the v1 engine "
+                "(deepspeed_tpu_torch.init_inference)")
         self.cfg = config or V2Config()
         _check_config(self.cfg)
         self.model_cfg = dataclasses.replace(model_config, dtype=self.cfg.dtype)

@@ -1,5 +1,5 @@
-"""deepspeed_tpu_torch.observability — the span tracer and the flight
-recorder of ``deepspeed_tpu/observability/``.
+"""deepspeed_tpu_torch.observability — the port of
+``deepspeed_tpu/observability/``.
 
 * :mod:`.trace` — always-on span tracer (thread-safe ring buffer, host-side
   only, Chrome/Perfetto export); ``InferenceEngineV2.step`` records one
@@ -8,11 +8,17 @@ recorder of ``deepspeed_tpu/observability/``.
   spans;
 * :mod:`.recorder` — flight recorder: bounded rings of the last N request
   timelines / M engine steps / K infra events, dumped to
-  ``$DSTPU_FLIGHT_DIR`` on crash or injected fault.
+  ``$DSTPU_FLIGHT_DIR`` on crash or injected fault;
+* :mod:`.prometheus` — the Prometheus text exposition (builder and strict
+  parser) behind the serving ``/metrics`` endpoint;
+* :mod:`.replay` — workload capture (the broker's ``note_submit`` /
+  ``note_cancel`` seam), seeded synthesis, open-loop replay against a
+  replica pool, and the SLO gate over the packaged ``slo.toml`` (read
+  with stdlib ``tomllib``).
 
-The Prometheus exposition and workload replay come with the serving layer
-(ROADMAP.md queue A item A9).  Tracing never touches the device, so the
-engine's kernels and tokens are the same with it on or off
+The ``python -m ...observability`` CLI arrives with the second half of
+ROADMAP.md A9.  Tracing never touches the device, so the engine's
+kernels and tokens are the same with it on or off
 (``tests/test_torch_observability.py``).
 """
 

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -72,6 +73,7 @@ _ENTRIES: Dict[str, list] = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -138,17 +140,22 @@ def build() -> Tuple[float, str]:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its entry points'
-    argument and result types declared."""
+    argument and result types declared.  Thread-safe: the first launches
+    of two in-process replicas' engine threads build once (``build``
+    names its files by process), and neither sees a half-declared
+    library."""
     global _LIB
     if _LIB is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        for fn, argtypes in _ENTRIES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.ds_error_string.argtypes = [ctypes.c_int]
-        lib.ds_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                build()
+                lib = ctypes.CDLL(str(library_path()))
+                for fn, argtypes in _ENTRIES.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                lib.ds_error_string.argtypes = [ctypes.c_int]
+                lib.ds_error_string.restype = ctypes.c_char_p
+                _LIB = lib
     return _LIB
 
 

@@ -71,7 +71,6 @@ _SMALL_M = 16
 _SMALL_TILE, _MMA_TILE = (16, 128, 2), (128, 128, 2)
 _INT8_BK = 128  # the W8A8 kernels' K-tile: a group is whole tiles
 _SM_COUNT: dict = {}
-_WORKSPACES: dict = {}  # (device, raw stream) -> f32 split-K workspace
 _KERNEL_NAMES = {8: "mixed_gemm_int8", 4: "mixed_gemm_int4",
                  6: "mixed_gemm_fp6"}
 _CODE_DTYPES = {8: torch.int8, 4: torch.int8, 6: torch.uint8}
@@ -368,18 +367,6 @@ def mixed_gemm_splits(M: int, N: int, groups: int, sms: int,
     return max(1, min(groups, per_sm * sms // tiles))
 
 
-def _workspace(device: torch.device, stream: int, numel: int) -> int:
-    """An f32 split-K workspace of at least ``numel`` elements for kernels on
-    ``stream``: one buffer per stream, grown as needed.  Work on one stream
-    runs in order, so the next launch reuses the buffer only after the
-    previous launch's reduce pass has read it."""
-    buf = _WORKSPACES.get((device, stream))
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty(numel, dtype=torch.float32, device=device)
-        _WORKSPACES[(device, stream)] = buf
-    return buf.data_ptr()
-
-
 def _sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
@@ -400,13 +387,17 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     bf16 = x2.dtype == torch.bfloat16
     splits = mixed_gemm_splits(M, N, K // qw.group, _sm_count(x2.device),
                                bf16)
-    stream = _stream(x2.device)
+    # the split-K partial sums, one buffer per call from the caching
+    # allocator on the launch stream: calls from several threads on one
+    # stream never share it, and it is reused only after this call's reduce
+    ws = torch.empty(splits * M * N, dtype=torch.float32,
+                     device=x2.device) if splits > 1 else None
     lib = build.load()
     err = lib.ds_mixed_gemm(
         _DTYPE_CODES[x2.dtype], qw.bits, x2.data_ptr(), qw.codes.data_ptr(),
         qw.scales.data_ptr(), out.data_ptr(),
-        _workspace(x2.device, stream, splits * M * N) if splits > 1 else None,
-        M, N, K, qw.group, splits, stream)
+        None if ws is None else ws.data_ptr(),
+        M, N, K, qw.group, splits, _stream(x2.device))
     build.check(lib, err, "mixed_gemm launch")
     LAUNCHES[_KERNEL_NAMES[qw.bits]] += 1
     if bf16 and M > _SMALL_M:

@@ -1,13 +1,16 @@
-"""The package logger and ``warning_once`` — the part of
-``deepspeed_tpu/utils/logging.py`` the port's host modules use (the
-rank-filtered ``log_dist`` arrives with the multi-GPU slice, ROADMAP.md
-queue A item A13)."""
+"""Rank-aware logging — the port of ``deepspeed_tpu/utils/logging.py``:
+the package logger, ``warning_once``, the rank-filtered ``log_dist``
+(ranks from ``torch.distributed``, where the reference reads
+``jax.process_index()``) and the per-request ``request_logger`` the
+serving stack tags its lines with."""
 
 from __future__ import annotations
 
 import functools
 import logging
+import os
 import sys
+from typing import Iterable, Optional
 
 LOG_FORMAT = "[%(asctime)s] [%(levelname)s] [%(name)s] %(message)s"
 
@@ -28,6 +31,56 @@ def _create_logger(name: str = "dstpu_torch",
 
 
 logger = _create_logger()
+
+
+def _process_index() -> int:
+    """This process's ``torch.distributed`` rank; without a process
+    group, ``$RANK`` (0 when unset)."""
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank()
+    except Exception:
+        pass
+    return int(os.environ.get("RANK", 0))
+
+
+def log_dist(message: str, ranks: Optional[Iterable[int]] = None,
+             level: int = logging.INFO) -> None:
+    """Log ``message`` only on the given process ranks (default: rank 0).
+
+    ``ranks=[-1]`` logs on every process.
+    """
+    ranks = list(ranks) if ranks is not None else [0]
+    me = _process_index()
+    if -1 in ranks or me in ranks:
+        logger.log(level, f"[Rank {me}] {message}")
+
+
+def should_log_le(max_log_level: str) -> bool:
+    mapping = logging.getLevelNamesMapping()
+    wanted = mapping.get(max_log_level.upper())
+    if wanted is None:
+        raise ValueError(f"invalid log level: {max_log_level!r}")
+    return logger.getEffectiveLevel() <= wanted
+
+
+class _RequestLogAdapter(logging.LoggerAdapter):
+    """Prefixes every line with ``[rid=... uid=...]`` so one request's log
+    lines can be grepped across broker / balancer / engine threads."""
+
+    def process(self, msg, kwargs):
+        rid = self.extra.get("rid")
+        uid = self.extra.get("uid")
+        tag = f"[rid={rid}]" if not uid else f"[rid={rid} uid={uid}]"
+        return f"{tag} {msg}", kwargs
+
+
+def request_logger(rid: str, uid: Optional[str] = None
+                   ) -> logging.LoggerAdapter:
+    """Logger whose lines carry the request id (and user id when known)."""
+    return _RequestLogAdapter(logger, {"rid": rid, "uid": uid})
 
 
 def warning_once(message: str) -> None:

@@ -240,12 +240,14 @@ def test_v2config_fields_match_reference():
 def test_moe_and_alibi_refused(model):
     """MoE models are served (tests/test_torch_moe.py) except with
     expert-choice routing, which the reference refuses too (non-causal);
-    ALiBi models wait for the v1 engine."""
+    ALiBi models go to the v1 engine (tests/test_torch_inference_v1.py),
+    and the refusal says so."""
     _, _, _, tparams = model
     for name, kw, err in (
             ("tiny-moe", {"moe_routing": "expert_choice"}, ValueError),
             ("tiny", {"position": "alibi"}, NotImplementedError)):
-        with pytest.raises(err):
+        with pytest.raises(err, match="init_inference" if err is
+                           NotImplementedError else "expert_choice"):
             te.InferenceEngineV2(tt.get_config(name, dtype="float32", **kw),
                                  tparams, te.V2Config(**V2_KW), device="cpu")
 
@@ -275,8 +277,10 @@ def test_port_imports_no_jax():
     hierarchy on: prefix cache, host pool, cold store, promote-ahead,
     restart rehydration, tracing), int8_gemm, a CPU
     training step, a fused AdamW update, evoformer and block-sparse
-    attention and the op registry never import JAX, the JAX package,
-    ml_dtypes, pydantic or optax."""
+    attention, the op registry, the v1 and encoder engines through
+    ``init_inference``, and the serving front (an in-process pool behind
+    the HTTP server, the SLO loader) never import JAX, the JAX package,
+    ml_dtypes, pydantic or optax; nor does a replica worker process."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -389,6 +393,43 @@ def test_port_imports_no_jax():
         sa.sparse_attention(y, y, y, sa.FixedSparsityConfig(
             block=16, attention="unidirectional")).sum().backward()
         assert x.grad is not None and y.grad is not None
+        import argparse, http.client, json, threading
+        from deepspeed_tpu_torch.models import encoder as enc
+        from deepspeed_tpu_torch.monitor import monitor  # noqa: F401
+        from deepspeed_tpu_torch.observability import replay
+        from deepspeed_tpu_torch.serving import (ReplicaPool, ServingConfig,
+                                                 create_server)
+        from deepspeed_tpu_torch.serving import server as srv_mod
+        from deepspeed_tpu_torch.serving import supervisor, worker  # noqa
+        from deepspeed_tpu_torch.utils import backoff, proc  # noqa: F401
+        v1 = deepspeed_tpu_torch.init_inference(
+            model_config=cfg, params=params, device="cpu",
+            config={"dtype": "float32", "quantize_bits": 8})
+        assert v1.generate(np.ones((1, 4), np.int64), 3).shape == (1, 7)
+        ecfg = enc.EncoderConfig(vocab_size=64, hidden_size=32,
+                                 intermediate_size=64, num_layers=1,
+                                 num_heads=2, max_seq_len=16)
+        e1 = deepspeed_tpu_torch.init_inference(
+            model_config=ecfg, params=enc.init_params(
+                ecfg, torch.Generator().manual_seed(0), device="cpu"),
+            config={"dtype": "float32"}, device="cpu")
+        assert e1.mlm_logits(np.ones((1, 4), np.int64)).shape == (1, 4, 64)
+        ap = argparse.ArgumentParser()
+        srv_mod.add_engine_cli_args(ap)
+        scfg = ServingConfig(num_replicas=1)
+        pool = ReplicaPool.build(srv_mod.build_engine_factory(
+            ap.parse_args(["--device", "cpu"])), scfg).start()
+        front = create_server(pool, pool.metrics, scfg)
+        threading.Thread(target=front.serve_forever, daemon=True).start()
+        conn = http.client.HTTPConnection("127.0.0.1", front.server_port,
+                                          timeout=60)
+        conn.request("POST", "/v1/completions", json.dumps(
+            {"prompt": [1, 2, 3], "max_tokens": 4, "stream": True}))
+        resp = conn.getresponse()
+        assert resp.status == 200 and b"[DONE]" in resp.read()
+        pool.shutdown()
+        front.shutdown()
+        assert replay.load_slos()
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "deepspeed_tpu.",
                                               "pydantic", "optax",
@@ -403,3 +444,20 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+    # a replica worker process, under an import hook that fails on JAX or
+    # the JAX package: its CLI imports the whole serving stack
+    worker = textwrap.dedent("""
+        import runpy, sys
+        class NoJax:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "deepspeed_tpu"):
+                    raise ImportError(f"{name} imported by a port worker")
+        sys.meta_path.insert(0, NoJax())
+        sys.argv = ["worker", "--help"]
+        runpy.run_module("deepspeed_tpu_torch.serving.worker",
+                         run_name="__main__")
+    """)
+    res = subprocess.run([sys.executable, "-c", worker], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    assert "--device" in res.stdout and "--replica_class" in res.stdout

@@ -601,6 +601,42 @@ def test_mixed_gemm_split_k_matches_plain(cuda_device, monkeypatch, M,
         assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(M > 16)
 
 
+def test_mixed_gemm_split_k_from_two_threads(cuda_device):
+    """Two threads (two in-process replicas' broker threads) launch split-K
+    decode GEMMs (M = 8, seven K-groups) on the one default stream, each at
+    its own N: every call's partial sums stay its own, and a call never
+    writes a buffer that another call has let go."""
+    import threading
+
+    cases = [_mixed_inputs(seed, 8, 7 * MG_GROUP, N, 8, torch.bfloat16,
+                           cuda_device)
+             for seed, N in ((1, 1024), (2, 3072))]
+    assert all(tmg.mixed_gemm_splits(8, qw.out_features, 7,
+                                     tmg._sm_count(cuda_device)) > 1
+               for _, qw in cases)
+    wants = [tmg.mixed_gemm_plain(x, qw) for x, qw in cases]
+    outs = [[], []]
+    start = threading.Barrier(2)
+
+    def run(i):
+        x, qw = cases[i]
+        start.wait()
+        for _ in range(200):
+            outs[i].append(tmg.mixed_gemm(x, qw))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for i, want in enumerate(wants):
+        assert len(outs[i]) == 200
+        for j, got in enumerate(outs[i]):
+            _mixed_close(got, want, torch.bfloat16, f"thread {i} call {j}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("bits,K,N", [(8, 99, 33), (4, 200, 50),
@@ -1064,3 +1100,64 @@ def test_small_model_speculative_card_matches_cpu(cuda_device):
 
     out = chip_smoke.small_spec_agreement(torch, tpa)
     assert set(out) == {"draft", "self_draft", "self_draft_adapters"}
+
+
+def test_v1_quantized_launch_counts(cuda_device):
+    """``chip_smoke.py``'s v1 W8A16 gate at a small bf16 width: one quantized
+    ``generate`` launches the mixed GEMM once per projection, layer and
+    forward, the prefill (M = B * T) on ``mixed_gemm_wgmma_kernel``, with
+    no plain or envelope call; tokens in the vocab, a second run equal."""
+    import chip_smoke
+
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, dtype="bfloat16",
+                        vocab_size=1024)
+    params = tt.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    icfg = {"dtype": "bfloat16", "quantize_bits": 8,
+            "max_seq_len": chip_smoke.V1_PROMPT + chip_smoke.NEW_TOKENS}
+    _, _, toks, _, counts = chip_smoke.v1_run(
+        torch, cfg, params, icfg, chip_smoke.v1_prompts(cfg.vocab_size),
+        "v1 W8A16 (small)", kernels=[tmg])
+    got = chip_smoke.v1_quantized_counts(counts, cfg, "v1 W8A16 (small)")
+    assert got["mixed_gemm_wgmma"] == chip_smoke.PROJECTIONS * cfg.num_layers
+    assert toks.shape[1] == chip_smoke.V1_PROMPT + chip_smoke.NEW_TOKENS
+
+
+def test_v1_small_models_card_match_cpu(cuda_device):
+    """``chip_smoke.py``'s small v1 check: rope, bloom-shaped ALiBi and
+    dropless MoE (grouped GEMM on the card) f32 models, greedy tokens
+    identical card vs CPU."""
+    import chip_smoke
+
+    out = chip_smoke.small_v1_agreement(torch, tgm)
+    assert set(out) == {"rope", "alibi", "moe_dropless"}
+
+
+def test_inprocess_server_on_card_matches_cpu(cuda_device):
+    """A small f32 model (head dim 64) behind the HTTP server on the card
+    and on the CPU: the same requests give the same tokens, the card's
+    through the paged kernels with no plain call."""
+    import chip_smoke
+
+    out = chip_smoke.small_serving_agreement(torch, tpa)
+    assert out["requests"] == 8 and out["tokens"] == 8 * 12
+
+
+def test_serving_phase_small(cuda_device):
+    """``chip_smoke.py``'s serving phase on ``gpt2-125m`` in f32 (head dim
+    64): one in-process replica with exact paged launches against its
+    ``engine/step`` spans, /metrics and the lone-engine check; two replicas
+    sharing the weights (one more KV pool); the CLI as a subprocess with
+    two card workers, one killed mid-stream and respawned, none left after
+    the drain."""
+    import chip_smoke
+
+    argv = ["--model", "gpt2-125m", "--dtype", "float32",
+            "--max_tokens_per_step", "64", "--max_seqs", "8",
+            "--block_size", "16", "--num_blocks", "256",
+            "--max_blocks_per_seq", "16"]
+    out = chip_smoke.run_serving_phase(torch, tpa, "test", argv=argv,
+                                       traffic_lens=(17, 200))
+    assert out["inprocess"]["decode_bodies"] > 0
+    assert out["subprocess"]["respawn_s"] > 0
