@@ -133,8 +133,24 @@ In order it prints:
    the CLI as a subprocess with two workers, one SIGKILLed mid-stream (the
    stream completes as the lone engine's), its respawn timed, no process
    left after the drain; a small f32 model served card against CPU;
-14. a JSON line with every kernel's numbers;
-15. last, ``{"ok": true, "device": {...}}``.
+14. the serving fleet at llama3-8b bf16 (nothing cut but the rollout's
+   depth): dial-in workers (``--replica_transport remote``) under the
+   autoscaler from 1 to 2 (a load scales up, B4/B5 exactly 32 per engine
+   step in every worker, a SIGKILLed worker's lone stream completes, its
+   lease expires once and it re-registers under a higher epoch, idle
+   scales down with every request answered, an externally managed worker
+   SIGSTOPped past its lease is replaced under a newer epoch and fenced
+   when it resumes, no worker left after the drain); disaggregated
+   prefill/decode replicas (both classes routed, a 1000-token prefix
+   handed off bit for bit, the decode replica prefilling only the tail,
+   its first-token logits against a cache-off engine); a rolling swap at 8
+   layers (publish, a halted rollout rolled back, a swap under 8 streams);
+   fleet adapter register / retire over HTTP against merged weights; and
+   ``serving/bench.py`` (the mixed-GEMM sweep at llama3-8b's projections
+   against dequantize-then-matmul, an offered-load sweep against a server
+   subprocess); lone requests everywhere against a lone engine;
+15. a JSON line with every kernel's numbers;
+16. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -3404,11 +3420,12 @@ def serve_traffic(vocab: int, n: int = SERVE_REQUESTS, lens=SERVE_LEN,
 
 
 def http_complete(port: int, prompt, stream: bool, on_first=None,
-                  max_tokens: int = 0) -> dict:
+                  max_tokens: int = 0, extra=None) -> dict:
     """One greedy ``/v1/completions`` call: status, tokens, the text,
     finish reason, the request id, seconds to the first token (streams)
     and in all.  ``on_first(rid)`` runs when a stream's first token
-    arrives.  ``max_tokens``: NEW_TOKENS when 0."""
+    arrives.  ``max_tokens``: NEW_TOKENS when 0; ``extra``: more body
+    fields (an adapter id)."""
     import http.client
 
     max_tokens = max_tokens or NEW_TOKENS
@@ -3417,7 +3434,8 @@ def http_complete(port: int, prompt, stream: bool, on_first=None,
                                       timeout=SERVE_HTTP_S)
     conn.request("POST", "/v1/completions", json.dumps(
         {"prompt": prompt, "max_tokens": max_tokens, "stream": stream,
-         "temperature": 0.0}), {"Content-Type": "application/json"})
+         "temperature": 0.0, **(extra or {})}),
+        {"Content-Type": "application/json"})
     resp = conn.getresponse()
     out = {"status": resp.status, "stream": stream, "ttft_s": None}
     if not stream or resp.status != 200:
@@ -3830,6 +3848,970 @@ def small_serving_agreement(torch, pa) -> dict:
             "tokens": sum(len(t) for t in toks["cuda"])}
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet: dial-in workers, the autoscaler, replica classes,
+# rolling weight swaps, fleet adapter ops and the bench
+# ---------------------------------------------------------------------------
+
+# the stage's own autoscaler debounce, which is also its cool-down after a
+# scale-up: above a cold worker's spawn (a torch import, a CUDA context and
+# 8B weights drawn on the card: 16.00-19.18 s to ready on an H100), so a
+# second spawn never starts while the first is still coming up.  Every
+# other autoscaler knob keeps the reference's default.
+FLEET_DEBOUNCE_S = 25.0
+FLEET_LOAD_S = 300.0  # the load's budget to scale the fleet up
+HANDOFF_LEN = 1000  # the prompt whose prefix the prefill replica hands off
+ROLLOUT_LAYERS = 8  # the rolling swap's depth: a 5.6 GB checkpoint
+ROLLOUT_STREAMS = 8  # streams in flight while the fleet rolls
+ADAPTER_ARGV = ["--adapter_slots", "8", "--adapter_rank", "16"]
+BENCH_GEMM_MS = (1, 8, 256)
+BENCH_RATES = "2,8"
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def http_post(port: int, path: str, body: dict) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_HTTP_S)
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+    conn.close()
+    return resp.status, out
+
+
+def wait_for(pred, timeout: float, what: str, interval: float = 0.1) -> float:
+    """Seconds until ``pred()`` held; fails after ``timeout``."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            fail(what)
+        time.sleep(interval)
+    return time.perf_counter() - t0
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def fleet_kernels(pool, layers: int, seen: dict, what: str) -> None:
+    """Each live worker's kernel counts from its heartbeat (``/healthz``'s
+    ``kernels``): one B4 launch per layer per mixed step and one B5 per
+    layer per decode body since the worker started, no plain call.  Keeps
+    the newest counts per pid in ``seen``; a healthy worker that reports
+    no counts or no pid fails.  Read with the fleet idle."""
+    time.sleep(1.0)  # a heartbeat after the last step
+    for t in list(pool.replicas):
+        if not t.healthy():
+            continue
+        d = t.describe()
+        k, pid = d.get("kernels"), d.get("pid")
+        if k is None or not pid:
+            fail(f"fleet {what}: healthy worker {t.name} reports kernels "
+                 f"{k} and pid {pid}")
+        steps, calls = k["steps"], k["launches"]
+        if (calls["paged_prefill_attention"] != layers * steps.get("mixed", 0)
+                or calls["paged_decode_attention"]
+                != layers * steps.get("decode", 0)
+                or any(k["plain_calls"].values())):
+            fail(f"fleet {what}: worker {t.name} (pid {pid}) launched "
+                 f"{calls} (plain {k['plain_calls']}) for steps {steps} of "
+                 f"{layers} layers")
+        seen[pid] = k
+
+
+def worker_steps(t) -> int:
+    """Engine steps a live worker's heartbeat reports (0 before any)."""
+    k = t.describe().get("kernels") or {}
+    return sum(k.get("steps", {}).values())
+
+
+def fleet_remote_stage(torch, args, argv, traffic_lens) -> dict:
+    """Stage 1: ``--replica_transport remote`` with the autoscaler between
+    1 and 2 launcher-backed dial-in workers (``serving/remote.py``), the
+    front holding no engine: (a) the pool starts the floor's worker and a
+    load scales the fleet to two; (b) a worker is SIGKILLed under a lone
+    stream: the stream completes, its lease expires once and the slot
+    comes back under a higher epoch; (c) idle scales the fleet down to one
+    with every request answered; (d) an externally managed worker is
+    SIGSTOPped past its lease, declared dead and replaced by its agent
+    under a newer epoch; SIGCONT, it is fenced (stale epoch) and exits 3;
+    no request is answered twice; (e) the drain leaves no worker.  Every
+    worker the fleet had reports its kernel counts (``fleet_kernels``),
+    and each that served in (a), (b) or (d) reports engine steps: the
+    load runs until the scaled-up worker has served, and (d) places a
+    whole request on the external worker and on its replacement.
+    Returns the numbers and, apart, the lone requests' (prompt, tokens)
+    that stage 2 holds against a lone engine."""
+    import signal
+    import threading
+
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.serving import (Autoscaler, ReplicaPool,
+                                             ServingConfig)
+    from deepspeed_tpu_torch.serving.remote import (LocalWorkerLauncher,
+                                                    RemoteReplica)
+    from deepspeed_tpu_torch.serving.server import (engine_argv_from_args,
+                                                    serving_argv_from_config)
+    from deepspeed_tpu_torch.serving.worker import EXIT_FENCED
+
+    mcfg = tfm.get_config(args.model, dtype=args.dtype)
+    L, vocab = mcfg.num_layers, mcfg.vocab_size
+    cfg = ServingConfig(num_replicas=1, replica_transport="remote",
+                        max_queue=64, autoscale_min=1, autoscale_max=2,
+                        scale_up_debounce_s=FLEET_DEBOUNCE_S,
+                        spawn_timeout_s=SERVE_SPAWN_S)
+    worker_argv = engine_argv_from_args(args) + serving_argv_from_config(cfg)
+    pool = ReplicaPool.build_remote(worker_argv, cfg)
+    fleet = pool.metrics.fleet
+    # seen: pid -> newest kernel counts; pids: every worker the fleet
+    # had; served: the workers that must have served (steps > 0)
+    seen, pids, served = {}, set(), set()
+    out = {"lease_ttl_s": cfg.lease_ttl_s, "debounce_s": FLEET_DEBOUNCE_S}
+
+    def note_pids():
+        for t in pool.replicas:
+            pid = t.liveness()["pid"]
+            if pid:
+                pids.add(pid)
+
+    t0 = time.perf_counter()
+    pool.start()
+    pool.wait_ready(timeout=SERVE_SPAWN_S)
+    out["spawn_to_registered_s"] = time.perf_counter() - t0
+    srv = start_server(pool, cfg, args.model)
+    port = srv.server_port
+    ext_procs = []
+    try:
+        # (a) the load scales the fleet up to two
+        asc = Autoscaler(pool, cfg).start()
+        traffic = serve_traffic(vocab, lens=traffic_lens)
+        stop = threading.Event()
+        load = {"tokens": 0, "requests": 0, "error": None}
+
+        def client(jobs):
+            # loops over its share of the traffic until stopped: no round
+            # barrier, so the backlog never dips between rounds
+            try:
+                while not stop.is_set():
+                    for job in jobs:
+                        res = [http_complete(port, job[0], job[1])]
+                        n = check_answers(res, [job], "fleet (a) load")
+                        with lock:
+                            load["tokens"] += n
+                            load["requests"] += 1
+                        if stop.is_set():
+                            break
+            except BaseException as e:  # noqa: BLE001 — reported below
+                load["error"] = repr(e)
+
+        lock = threading.Lock()
+
+        def loader():
+            t = time.perf_counter()
+            clients = [threading.Thread(target=client,
+                                        args=(traffic[i::SERVE_CLIENTS],))
+                       for i in range(SERVE_CLIENTS)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            load["wall_s"] = time.perf_counter() - t
+
+        th = threading.Thread(target=loader)
+        th.start()
+        t_load = time.perf_counter()
+        out["scale_up_decision_s"] = wait_for(
+            lambda: asc.decisions["up"] >= 1 or load["error"], FLEET_LOAD_S,
+            "fleet (a): the load never scaled the fleet up")
+        out["scale_up_ready_s"] = wait_for(
+            lambda: len(pool.healthy_replicas()) == 2 or load["error"],
+            SERVE_SPAWN_S, "fleet (a): the scaled-up worker never registered")
+        out["load_to_two_s"] = time.perf_counter() - t_load
+        # the load runs on until the scaled-up worker has served too
+        wait_for(lambda: load["error"] or all(
+            worker_steps(pool.replicas[i]) for i in pool.healthy_replicas()),
+            SERVE_HTTP_S, "fleet (a): the scaled-up worker served nothing")
+        stop.set()
+        th.join(timeout=SERVE_HTTP_S)
+        asc.stop()  # (b)-(d) need both workers: no scale-down meanwhile
+        if load["error"] or th.is_alive():
+            fail(f"fleet (a): the load failed: {load['error']}")
+        up = dict(pool.metrics.autoscale)
+        if up["up"] < 1 or len(pool.replicas) != 2:
+            fail(f"fleet (a): autoscale counters {up}, "
+                 f"{len(pool.replicas)} slots")
+        out.update(load_requests=load["requests"],
+                   load_tokens=load["tokens"],
+                   http_tokens_per_s=load["tokens"] / load["wall_s"],
+                   autoscale_after_load=up)
+        note_pids()
+        served.update(pids)
+        fleet_kernels(pool, L, seen, "(a)")
+
+        # lone requests through HTTP, one at a time (stage 2 holds them
+        # against a lone engine)
+        lone_prompts = [p for p, _ in traffic[:SERVE_LONE]]
+        checks = {"lone": [(p, http_complete(port, p, False)["tokens"])
+                           for p in lone_prompts]}
+
+        # (b) SIGKILL a worker under a lone stream
+        kill_prompt = serve_traffic(vocab, 1, lens=traffic_lens,
+                                    seed=SEED + 2)[0][0]
+        epochs = {t.name: t.epoch for t in pool.replicas}
+        expiries = fleet["lease_expiries"]
+        h = pool.submit(kill_prompt, max_new_tokens=NEW_TOKENS)
+        it = iter(h.tokens(timeout=SERVE_HTTP_S))
+        toks = [next(it)]
+        victim = pool.replicas[h.replica_index]
+        vpid = victim.liveness()["pid"]
+        t_kill = time.perf_counter()
+        os.kill(vpid, signal.SIGKILL)
+        first_after = None
+        for tok in it:
+            first_after = first_after or time.perf_counter()
+            toks.append(tok)
+        if len(toks) != NEW_TOKENS or first_after is None:
+            fail(f"fleet (b): the killed worker's stream gave {len(toks)} "
+                 "tokens")
+        out["failover_s"] = first_after - t_kill
+        checks["killed"] = [(kill_prompt, toks)]
+        wait_for(lambda: fleet["lease_expiries"] > expiries,
+                 cfg.lease_ttl_s + SERVE_SPAWN_S,
+                 "fleet (b): the killed worker's lease never expired")
+        out["lease_expiry_s"] = time.perf_counter() - t_kill
+        wait_for(lambda: victim.healthy() and victim.epoch >
+                 epochs[victim.name], SERVE_SPAWN_S,
+                 "fleet (b): the killed worker's slot never re-registered")
+        out["reregistered_s"] = time.perf_counter() - t_kill
+        time.sleep(cfg.lease_ttl_s / 2)
+        if fleet["lease_expiries"] != expiries + 1 or pid_alive(vpid):
+            fail(f"fleet (b): {fleet['lease_expiries'] - expiries} lease "
+                 f"expiries (want 1), killed pid alive {pid_alive(vpid)}")
+        out["epochs"] = {"before": epochs[victim.name],
+                         "after": victim.epoch}
+        note_pids()
+        fleet_kernels(pool, L, seen, "(b)")
+
+        # (c) idle scales the fleet down to one; every request answered
+        asc = Autoscaler(pool, cfg).start()
+        t_idle, trickle = time.perf_counter(), 0
+        while len(pool.replicas) > 1:
+            if time.perf_counter() - t_idle > SERVE_SPAWN_S:
+                fail("fleet (c): idle never scaled the fleet down")
+            r = http_complete(port, kill_prompt[:17], False, max_tokens=2)
+            if r["status"] != 200 or len(r["tokens"]) != 2:
+                fail(f"fleet (c): a request during the scale-down answered "
+                     f"{r['status']} {r.get('error')}")
+            trickle += 1
+            time.sleep(0.5)
+        out["scale_down_s"] = time.perf_counter() - t_idle
+        asc.stop()
+        out["scale_down_requests"] = trickle
+        out["autoscale"] = dict(pool.metrics.autoscale)
+        if out["autoscale"]["down"] < 1:
+            fail(f"fleet (c): autoscale counters {out['autoscale']}")
+
+        # (d) an externally managed worker: SIGSTOP past its lease, the
+        # agent replaces it under a newer epoch, SIGCONT fences it
+        ext = RemoteReplica(cfg, "external0", pool.metrics)
+        pool.registry.register_slot(ext)
+        pool.add_replica(ext)
+        agent = LocalWorkerLauncher(worker_argv, cfg)
+        addr = pool.registry.address
+        t0 = time.perf_counter()
+        ext_procs.append(agent.spawn("external0", addr,
+                                     pool.registry.next_epoch("external0")))
+        wait_for(ext.healthy, SERVE_SPAWN_S,
+                 "fleet (d): the external worker never registered")
+        out["external_spawn_s"] = time.perf_counter() - t0
+        first_epoch = ext.epoch
+        stop_prompt = serve_traffic(vocab, 1, lens=traffic_lens,
+                                    seed=SEED + 3)[0][0]
+        others = [t.name for t in pool.replicas if t is not ext]
+        for name in others:  # place the requests on the external worker
+            pool.quiesce(name)
+        # one whole answer from it first, its counts read idle
+        h = pool.submit(stop_prompt, max_new_tokens=NEW_TOKENS)
+        ext_answer = h.result(timeout=SERVE_HTTP_S)
+        if pool.replicas[h.replica_index] is not ext:
+            fail("fleet (d): the request was not placed on the external "
+                 "worker")
+        fleet_kernels(pool, L, seen, "(d) external")
+        served.add(ext_procs[0].pid)
+        expiries = fleet["lease_expiries"]
+        h = pool.submit(stop_prompt, max_new_tokens=NEW_TOKENS)
+        it = iter(h.tokens(timeout=SERVE_HTTP_S))
+        toks = [next(it)]
+        for name in others:
+            pool.resume_replica(name)
+        if pool.replicas[h.replica_index] is not ext:
+            fail("fleet (d): the stream was not placed on the external "
+                 "worker")
+        stopped = ext_procs[0]
+        t_stop = time.perf_counter()
+        os.kill(stopped.pid, signal.SIGSTOP)
+        toks += list(it)
+        out["stopped_stream_s"] = time.perf_counter() - t_stop
+        checks["stopped"] = [(stop_prompt, toks)]
+        if toks != ext_answer:
+            fail(f"fleet (d): the stopped worker's stream gave {len(toks)} "
+                 "tokens, not the external worker's whole answer")
+        wait_for(lambda: fleet["lease_expiries"] > expiries,
+                 cfg.heartbeat_timeout_s + cfg.lease_ttl_s + 30,
+                 "fleet (d): the stopped worker's lease never expired")
+        out["stop_declared_dead_s"] = time.perf_counter() - t_stop
+        if ext.healthy() or stopped.poll() is not None:
+            fail("fleet (d): the stopped worker's slot is healthy or its "
+                 "process gone")
+        t0 = time.perf_counter()
+        ext_procs.append(agent.spawn("external0", addr,
+                                     pool.registry.next_epoch("external0")))
+        wait_for(lambda: ext.healthy() and ext.epoch > first_epoch,
+                 SERVE_SPAWN_S, "fleet (d): the replacement never registered")
+        out["replacement_s"] = time.perf_counter() - t0
+        free, total = torch.cuda.mem_get_info()
+        out["device_used_gb_three_workers"] = (total - free) / 1e9
+        stale = fleet["stale_epoch_rejects"]
+        os.kill(stopped.pid, signal.SIGCONT)
+        try:
+            rc = stopped.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail("fleet (d): the returning worker did not exit")
+        if rc != EXIT_FENCED or fleet["stale_epoch_rejects"] != stale + 1:
+            fail(f"fleet (d): the returning worker exited {rc} (want "
+                 f"{EXIT_FENCED}), stale-epoch rejects "
+                 f"{fleet['stale_epoch_rejects'] - stale}")
+        if h.finish_reason != "length":
+            fail(f"fleet (d): the stopped worker's stream finished "
+                 f"{h.finish_reason!r}")
+        out["epochs_external"] = {"stopped": first_epoch,
+                                  "replacement": ext.epoch}
+        out["returnee_rc"] = rc
+        for name in others:  # the replacement answers the prompt
+            pool.quiesce(name)
+        r = http_complete(port, stop_prompt, False)
+        for name in others:
+            pool.resume_replica(name)
+        if r["status"] != 200 or r["tokens"] != toks:
+            fail("fleet (d): the replacement answers the stopped stream's "
+                 "prompt differently")
+        note_pids()
+        served.add(ext_procs[1].pid)
+        fleet_kernels(pool, L, seen, "(d)")
+        out["fleet_counters"] = dict(fleet)
+    finally:
+        t0 = time.perf_counter()
+        pool.drain(timeout=120.0)
+        srv.shutdown()
+        for p in ext_procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+        out["drain_s"] = time.perf_counter() - t0
+    pids.update(p.pid for p in ext_procs)
+    left = [pid for pid in pids if pid_alive(pid)]
+    if left:
+        fail(f"fleet (e): worker processes left after the drain: {left}")
+    unread = sorted(pid for pid in pids if pid not in seen)
+    idle = sorted(pid for pid in served
+                  if not sum(seen.get(pid, {}).get("steps", {}).values()))
+    if unread or idle:
+        fail(f"fleet: workers {unread} never reported kernel counts, "
+             f"workers {idle} that served report no engine step")
+    out["worker_pids_seen"] = len(pids)
+    out["worker_pids_served"] = len(served)
+    out["launches"] = {
+        name: sum(k["launches"][name] for k in seen.values())
+        for name in ("paged_prefill_attention", "paged_decode_attention")}
+    out["steps"] = {kind: sum(k["steps"].get(kind, 0) for k in seen.values())
+                    for kind in ("mixed", "decode")}
+    del srv, pool
+    return out, checks
+
+
+def parse_engine_argv(argv):
+    import argparse
+
+    from deepspeed_tpu_torch.serving.server import (add_engine_cli_args,
+                                                    add_serving_cli_args)
+
+    ap = argparse.ArgumentParser()
+    add_engine_cli_args(ap)
+    add_serving_cli_args(ap)
+    return ap.parse_args(argv)
+
+
+def walk_blocks(eng, tokens) -> list:
+    """The cached full blocks of ``tokens`` on ``eng``, root first (the
+    walk's pins released)."""
+    blocks, _ = eng.prefix_cache.walk_full_blocks(list(tokens))
+    eng.kv.allocator.free(blocks)
+    return blocks
+
+
+def fleet_disagg_stage(torch, pa, argv, traffic_lens, handoff_len: int,
+                       remote_checks: dict) -> dict:
+    """Stage 2: two in-process replicas, ``--replica_classes
+    prefill,decode``, with the prefix cache on: the serving traffic plus
+    prompt-heavy and decode-heavy requests through HTTP (``route_stats``
+    must count both classes); then the ``handoff_len``-token request's
+    prefix, prefilled on the prefill replica, handed to the decode
+    replica (``handoff_prefix``): the imported blocks equal the source's
+    bit for bit, the decode replica prefills only the uncovered tail (one
+    mixed step from ``chunk_start`` = the covered tokens, B4 exactly one
+    launch per layer for it), its first-token logits lie within
+    TOL_SPEC_LOGITS_REL of max |logit| of a cache-off engine's, and its
+    continuation is counted.  A lone cache-off engine on the same weights
+    also holds stage 1's lone requests (the remote workers drew the same
+    weights from the same seed): their tokens must be equal."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.observability import tracer
+    from deepspeed_tpu_torch.serving import ReplicaPool, ServingConfig
+    from deepspeed_tpu_torch.serving.server import build_engine_factory
+
+    args = parse_engine_argv(list(argv) + ["--enable_prefix_cache"])
+    factory = build_engine_factory(args)
+    scfg = ServingConfig(num_replicas=2, max_queue=64,
+                         replica_classes=("prefill", "decode"))
+    pool = ReplicaPool.build(factory, scfg).start()
+    pool.wait_ready(timeout=60)
+    pre, dec = pool.replicas
+    if (pre.replica_class, dec.replica_class) != ("prefill", "decode"):
+        fail(f"disagg: replica classes {pre.replica_class}, "
+             f"{dec.replica_class}")
+    eng = pre.engine
+    mcfg, L, bs = eng.model_cfg, eng.model_cfg.num_layers, eng.cfg.block_size
+    lone = InferenceEngineV2(mcfg, eng.params, dataclasses.replace(
+        eng.cfg, enable_prefix_cache=False))
+    out = {}
+    # stage 1's lone requests against the lone engine
+    for key, pairs in remote_checks.items():
+        want = lone_tokens(lone, [p for p, _ in pairs])
+        if [t for _, t in pairs] != want:
+            fail(f"fleet: the remote workers' {key} requests differ from a "
+                 "lone engine's tokens")
+        out[f"remote_{key}_equal_lone"] = len(pairs)
+    srv = start_server(pool, scfg, args.model)
+    port = srv.server_port
+    try:
+        vocab = mcfg.vocab_size
+        rng = np.random.default_rng(SEED + 4)
+        heavy = [(rng.integers(0, vocab, size=n).tolist(), False)
+                 for n in (traffic_lens[1], traffic_lens[1] * 9 // 10, 16,
+                           24)]
+        traffic = serve_traffic(vocab, lens=traffic_lens) + heavy
+        route0 = dict(pool.route_stats)
+        results, wall = run_clients(port, traffic)
+        tokens = check_answers(results, traffic, "disagg")
+        routed = {k: pool.route_stats[k] - route0.get(k, 0)
+                  for k in ("prefill", "decode", "cache_hits")}
+        if routed["prefill"] < 1 or routed["decode"] < 1:
+            fail(f"disagg: route_stats counted {routed}")
+        out.update(requests=len(traffic), completion_tokens=tokens,
+                   wall_s=wall, http_tokens_per_s=tokens / wall,
+                   routed=routed)
+
+        # the handoff of one prefill-heavy request's prefix
+        prompt = np.random.default_rng(SEED + 5).integers(
+            0, vocab, size=handoff_len).tolist()
+        cold = http_complete(port, prompt, True)
+        if cold["status"] != 200 or len(cold["tokens"]) != NEW_TOKENS:
+            fail(f"disagg: the handoff request answered {cold['status']}")
+        full = (handoff_len // bs) * bs
+        src = walk_blocks(eng, prompt)
+        if len(src) * bs != full:
+            fail(f"disagg: the prefill replica caches {len(src)} blocks of "
+                 f"the {handoff_len}-token prompt, want {full // bs}")
+        wait_for(lambda: pool.queue_depth() == 0 and all(
+            t.num_running() == 0 for t in pool.replicas), 60,
+            "disagg: the pool never went idle")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        covered = pool.handoff_prefix(pre.name, dec.name, prompt)
+        torch.cuda.synchronize()
+        handoff_s = time.perf_counter() - t0
+        deng = dec.engine
+        dst = walk_blocks(deng, prompt)
+        if covered != full or len(dst) != len(src):
+            fail(f"disagg: the handoff covered {covered} tokens in "
+                 f"{len(dst)} blocks, want {full}")
+        for a, b in zip(src, dst):
+            ka, kb = eng._read_kv_block(a), deng._read_kv_block(b)
+            if not all(torch.equal(ka[n], kb[n]) for n in ("k", "v")):
+                fail(f"disagg: imported block {b} differs from the source's "
+                     f"block {a}")
+        # the decode replica serves the prompt from the imported prefix
+        probe = HierProbe(torch, deng, True, False)
+        before = deng.prefix_stats()
+        pa.reset_counts()
+        tracer.clear()
+        got = dec.broker.submit(prompt, max_new_tokens=NEW_TOKENS).result(
+            timeout=SERVE_HTTP_S)
+        after = deng.prefix_stats()
+        kinds = [sp.attrs["kind"] for sp in tracer.spans(name="engine/step")]
+        (uid,) = probe.picks
+        chunks = [(s, n) for s, n in probe.picks[uid] if s < handoff_len]
+        skipped = (after["prefill_tokens_skipped"]
+                   - before["prefill_tokens_skipped"])
+        if (chunks != [(covered, handoff_len - covered)] or skipped != covered
+                or pa.LAUNCHES["paged_prefill_attention"]
+                != L * kinds.count("mixed") or kinds.count("mixed") != 1
+                or pa.LAUNCHES["paged_decode_attention"]
+                != L * kinds.count("decode")
+                or any(pa.PLAIN_CALLS.values())):
+            fail(f"disagg: the decode replica prefilled {chunks} (skipped "
+                 f"{skipped}) in steps {kinds} with launches "
+                 f"{dict(pa.LAUNCHES)}, plain {dict(pa.PLAIN_CALLS)}")
+        ref_logits = first_token_logits(torch, lone, [prompt])[0]
+        rel = logits_rel(probe.first[uid][1], ref_logits)
+        if rel > TOL_SPEC_LOGITS_REL:
+            fail(f"disagg: the decode replica's first-token logits are "
+                 f"{rel:.3e} of max |logit| from a cache-off engine's "
+                 f"(limit {TOL_SPEC_LOGITS_REL})")
+        want = lone_tokens(lone, [prompt])[0]
+        out.update(
+            handoff_len=handoff_len, handoff_tokens=covered,
+            handoff_blocks=len(dst), handoff_ms=handoff_s * 1e3,
+            handoff_ms_per_block=handoff_s * 1e3 / len(dst),
+            cold_ttft_ms=cold["ttft_s"] * 1e3,
+            first_logits_rel_vs_cache_off=rel,
+            decode_replica_prefilled=handoff_len - covered,
+            decode_replica_launches=dict(pa.LAUNCHES),
+            continuation_equal=f"{int(got == want)}/1")
+    finally:
+        pool.shutdown()
+        srv.shutdown()
+    del srv, pool, factory, eng, lone, pre, dec
+    free_cache(torch)
+    return out
+
+
+def fleet_rollout_stage(torch, argv, layers: int) -> dict:
+    """Stage 3: two in-process replicas of the model cut to ``layers``
+    layers (0: not cut) on weights A; ``publish_params`` of weights B
+    (another seed) into ``build/``; a rollout with a wrong
+    ``probe_expected`` halts (``RolloutHalted``) and leaves both replicas
+    on A (their tokens equal a lone engine on A); then ``rolling_swap``
+    while ROLLOUT_STREAMS streams are in flight (run once before alone, so
+    that ``device_gb`` accounts for the swap's peak): no stream fails, each
+    stream's tokens all come from one weight generation (the engine's
+    ``params_version`` at each step that gave it tokens, recorded by the
+    broker), its first token is that generation's lone engine's (its
+    continuation counted: concurrent bf16 rows may part from a lone
+    run's, ROADMAP C4), the probe's tokens are B's, and each replica then
+    serves B's tokens."""
+    import shutil
+    import threading
+
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.observability import tracer
+    from deepspeed_tpu_torch.runtime.checkpoint.engine import \
+        flatten_with_paths
+    from deepspeed_tpu_torch.serving import (ReplicaPool, RolloutHalted,
+                                             ServingConfig, publish_params,
+                                             rolling_swap)
+
+    args = parse_engine_argv(argv)
+    over = {"num_layers": layers} if layers else {}
+    mcfg = tfm.get_config(args.model, dtype=args.dtype, **over)
+    v2 = V2Config(max_tokens_per_step=args.max_tokens_per_step,
+                  max_seqs=args.max_seqs, block_size=args.block_size,
+                  num_blocks=args.num_blocks,
+                  max_blocks_per_seq=args.max_blocks_per_seq,
+                  dtype=args.dtype)
+
+    def weights(seed):
+        return tfm.init_params(mcfg, torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda")
+
+    def gb():
+        return torch.cuda.memory_allocated() / 1e9
+
+    # the card's memory at each step, to account for the swap's peak
+    mem = {"front_before": gb()}
+    params_a, params_b = weights(SEED), weights(SEED + 7)
+    mem["weights_a_b"] = gb()
+    scfg = ServingConfig(num_replicas=2, max_queue=64,
+                         rollout_drain_timeout_s=SERVE_HTTP_S,
+                         rollout_probe_timeout_s=SERVE_HTTP_S)
+    pool = ReplicaPool.build(
+        lambda: InferenceEngineV2(mcfg, params_a, v2), scfg).start()
+    pool.wait_ready(timeout=60)
+    lone_a = InferenceEngineV2(mcfg, params_a, v2)
+    lone_b = InferenceEngineV2(mcfg, params_b, v2)
+    mem["four_engines"] = gb()
+    traffic = serve_traffic(mcfg.vocab_size, ROLLOUT_STREAMS + 1,
+                            lens=(17, 200), seed=SEED + 8)
+    prompts = [p for p, _ in traffic]
+    probe = prompts.pop()
+    want_a, want_b = lone_tokens(lone_a, prompts + [probe]), \
+        lone_tokens(lone_b, prompts + [probe])
+    n_probe = scfg.rollout_probe_tokens
+    out = {"layers": mcfg.num_layers}
+    root = os.path.join(BUILD_DIR, "fleet_rollout")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt = publish_params(params_b, root, "weights_b")
+        out["publish_s"] = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                     for f in os.listdir(ckpt))
+        out.update(checkpoint_gb=nbytes / 1e9,
+                   publish_gb_per_s=nbytes / 1e9 / out["publish_s"])
+
+        def each_replica(want, what):
+            for t in pool.replicas:
+                got = t.submit(prompt=prompts[0],
+                               max_new_tokens=NEW_TOKENS).result(
+                                   timeout=SERVE_HTTP_S)
+                if got != want[0]:
+                    fail(f"rollout: {t.name} {what}")
+
+        # a rollout whose probe cannot match halts and rolls back
+        t0 = time.perf_counter()
+        try:
+            rolling_swap(pool, ckpt, probe,
+                         probe_expected=[-1] * n_probe)
+        except RolloutHalted:
+            pass
+        else:
+            fail("rollout: a wrong probe_expected did not halt the rollout")
+        out["halted_rollout_s"] = time.perf_counter() - t0
+        if pool._quiesced:
+            fail(f"rollout: {pool._quiesced} left out of rotation")
+        each_replica(want_a, "does not serve the old weights after the "
+                     "halted rollout's rollback")
+
+        # the rollout under load; each replica's weight generation
+        # (``params_version``) on A, then on B
+        ver_a = {i: t.engine.params_version
+                 for i, t in enumerate(pool.replicas)}
+        results, versions, errors = [None] * len(prompts), \
+            [None] * len(prompts), []
+
+        def stream(i):
+            try:
+                h = pool.submit(prompts[i], max_new_tokens=NEW_TOKENS)
+                results[i] = h.result(timeout=SERVE_HTTP_S)
+                versions[i] = h.weight_versions
+            except Exception as e:  # noqa: BLE001 — gated below
+                errors.append(repr(e))
+
+        def streams(during):
+            threads = [threading.Thread(target=stream, args=(i,))
+                       for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            res = during()
+            for th in threads:
+                th.join(timeout=SERVE_HTTP_S)
+            return res
+
+        # the streams alone, for the memory they take beside the swap
+        mem["before_swap"] = gb()
+        torch.cuda.reset_peak_memory_stats()
+        streams(lambda: None)
+        mem["peak_streams_alone"] = torch.cuda.max_memory_allocated() / 1e9
+        tracer.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = streams(lambda: rolling_swap(pool, ckpt, probe))
+        out["rollout_s"] = time.perf_counter() - t0
+        mem["peak_during_swap"] = torch.cuda.max_memory_allocated() / 1e9
+        mem["after_swap"] = gb()
+        out["peak_gb_during_swap"] = mem["peak_during_swap"]
+        out["params_gb"] = sum(
+            v.numel() * v.element_size() for v in
+            flatten_with_paths(params_b).values()) / 1e9
+        out["device_gb"] = mem
+        if errors or any(r is None or len(r) != NEW_TOKENS
+                         for r in results):
+            fail(f"rollout: streams failed during the swap: {errors[:3]}")
+        ver_b = {i: t.engine.params_version
+                 for i, t in enumerate(pool.replicas)}
+        gens = []
+        for r, vs, a, b in zip(results, versions, want_a, want_b):
+            # one engine step's generation for every token of the stream
+            if vs is None or len(vs) != 1:
+                fail(f"rollout: a stream's tokens came from weight "
+                     f"generations {vs} (replica, version)")
+            (i, v), = vs
+            gen, want = (("a", a) if v == ver_a[i] != ver_b[i]
+                         else ("b", b) if v == ver_b[i] else (None, None))
+            if gen is None or r[0] != want[0]:
+                fail(f"rollout: a stream on replica {i} at version {v} "
+                     f"(A {ver_a[i]}, B {ver_b[i]}) starts with {r[0]}, "
+                     f"A's lone engine {a[0]}, B's {b[0]}")
+            gens.append(gen)
+        if summary["probe_tokens"] != want_b[-1][:n_probe] or \
+                sorted(summary["swapped"]) != sorted(
+                    t.name for t in pool.replicas):
+            fail(f"rollout: probe tokens {summary['probe_tokens']}, want "
+                 f"{want_b[-1][:n_probe]}; swapped {summary['swapped']}")
+        each_replica(want_b, "does not serve the new weights after the "
+                     "rollout")
+        ev = {}
+        for sp in tracer.spans():
+            if sp.name.startswith("rollout/") and "replica" in sp.attrs:
+                ev[sp.attrs["replica"], sp.name] = sp.t_start
+        out["swap_s"] = {t.name: ev[t.name, "rollout/swap"]
+                         - ev[t.name, "rollout/drain"]
+                         for t in pool.replicas}
+        out["probe_s"] = {t.name: ev[t.name, "rollout/probe_ok"]
+                          - ev[t.name, "rollout/swap"]
+                          for t in pool.replicas}
+        out.update(streams=len(prompts), stream_generations="".join(gens),
+                   streams_equal_lone=sum(
+                       r == (a if g == "a" else b) for r, g, a, b in
+                       zip(results, gens, want_a, want_b)))
+    finally:
+        pool.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    del pool, lone_a, lone_b, params_a, params_b
+    free_cache(torch)
+    return out
+
+
+def fleet_adapter_stage(torch, argv, traffic_lens, rank: int) -> dict:
+    """Stage 4: two in-process replicas with adapter slots; ``POST
+    /v1/adapters`` registers one of ``adapter_packs``' seeded packs
+    (published with ``publish_adapter``) on both; requests naming it, one
+    at a time, have first-token logits within TOL_SPEC_LOGITS_REL of max
+    |logit| of an engine on ``merge_adapter_pack`` weights, and past that
+    limit from the base engine's; after ``retire`` a request naming it is
+    refused (400)."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.runtime.checkpoint.engine import \
+        merge_adapter_pack
+    from deepspeed_tpu_torch.serving import ReplicaPool, ServingConfig
+    from deepspeed_tpu_torch.serving.adapters import (load_adapter_pack,
+                                                      publish_adapter)
+    from deepspeed_tpu_torch.serving.server import (build_adapter_factory,
+                                                    build_engine_factory)
+
+    args = parse_engine_argv(list(argv) + ["--adapter_slots", "8",
+                                           "--adapter_rank", str(rank)])
+    scfg = ServingConfig(num_replicas=2, max_queue=64)
+    pool = ReplicaPool.build(build_engine_factory(args), scfg,
+                             adapter_factory=build_adapter_factory(args))
+    pool.start()
+    pool.wait_ready(timeout=60)
+    engines = [t.engine for t in pool.replicas]
+    mcfg, params = engines[0].model_cfg, engines[0].params
+    root = os.path.join(BUILD_DIR, "fleet_adapters")
+    shutil.rmtree(root, ignore_errors=True)
+    pack = adapter_packs(mcfg, 1, rank)[0]
+    ckpt = publish_adapter({t: {"lora_a": a, "lora_b": b}
+                            for t, (a, b) in pack.items()}, root, "tenant0")
+    v2 = dataclasses.replace(engines[0].cfg, adapter_slots=0,
+                             adapter_rank=0)
+    srv = start_server(pool, scfg, args.model)
+    port = srv.server_port
+    out = {"rank": rank}
+    try:
+        status, body = http_post(port, "/v1/adapters", {
+            "op": "register", "adapter": "tenant0", "ckpt_dir": ckpt})
+        names = sorted(t.name for t in pool.replicas)
+        if status != 200 or sorted(body["registered"]) != names \
+                or body["failed"]:
+            fail(f"fleet adapters: register answered {status} {body}")
+        probes = [HierProbe(torch, e, True, False) for e in engines]
+        prompts = [p for p, _ in serve_traffic(mcfg.vocab_size, 3,
+                                               lens=traffic_lens,
+                                               seed=SEED + 10)]
+        served = []
+        for p in prompts:
+            seen = [set(pr.first) for pr in probes]
+            r = http_complete(port, p, False, extra={"adapter": "tenant0"})
+            if r["status"] != 200 or len(r["tokens"]) != NEW_TOKENS:
+                fail(f"fleet adapters: a request naming the adapter "
+                     f"answered {r['status']} {r.get('error')}")
+            new = [(pr, u) for pr, s in zip(probes, seen)
+                   for u in pr.first if u not in s]
+            (pr, u), = new
+            served.append(pr.first[u][1])
+        merged = InferenceEngineV2(mcfg, merge_adapter_pack(
+            params, load_adapter_pack(ckpt, mcfg, rank)), v2)
+        ref = first_token_logits(torch, merged, prompts)
+        del merged
+        base = first_token_logits(torch, InferenceEngineV2(mcfg, params, v2),
+                                  prompts)
+        rel = [logits_rel(s, m) for s, m in zip(served, ref)]
+        moved = [logits_rel(s, b) for s, b in zip(served, base)]
+        if max(rel) > TOL_SPEC_LOGITS_REL or \
+                min(moved) <= TOL_SPEC_LOGITS_REL:
+            fail(f"fleet adapters: first-token logits {rel} of max |logit| "
+                 f"from merged weights, {moved} from the base (limit "
+                 f"{TOL_SPEC_LOGITS_REL})")
+        status, body = http_post(port, "/v1/adapters", {
+            "op": "retire", "adapter": "tenant0"})
+        if status != 200 or sorted(body["retired"]) != names:
+            fail(f"fleet adapters: retire answered {status} {body}")
+        r = http_complete(port, prompts[0], False,
+                          extra={"adapter": "tenant0"})
+        if r["status"] != 400:
+            fail(f"fleet adapters: a request naming the retired adapter "
+                 f"answered {r['status']}")
+        out.update(registered=len(names), requests=len(prompts),
+                   logits_rel_vs_merged=rel, logits_rel_vs_base=moved,
+                   retired_refusal=r["error"]["error"]["type"])
+    finally:
+        pool.shutdown()
+        srv.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    del srv, pool, engines, params
+    free_cache(torch)
+    return out
+
+
+def fleet_bench_stage(torch, mg, argv, gemm_shapes) -> dict:
+    """Stage 5: ``serving/bench.py``.  ``run_gemm_sweep`` (``--mode gemm``)
+    at ``gemm_shapes``, M in BENCH_GEMM_MS, bits 8/4/6, group QUANT_GROUP:
+    every cell of the kernel within ``bench.GEMM_TOL`` (TOL_BF16's limits,
+    the absolute one taken of the largest output: the sweep's weights are
+    unit normal) of dequantize-then-matmul in the kernel's numerics (its
+    max error against the timed bf16 fallback is reported);
+    then ``--mode serving --rates BENCH_RATES`` against a server
+    subprocess on ``argv``, results written under ``build/``: no request
+    failed."""
+    import io
+
+    from deepspeed_tpu_torch.serving import bench
+
+    warmup, iters = 1, 10
+    before, before_wgmma = dict(mg.LAUNCHES), dict(mg.WGMMA_LAUNCHES)
+    sweep = bench.run_gemm_sweep(
+        ms=BENCH_GEMM_MS, shapes=tuple(gemm_shapes), bits_list=(8, 4, 6),
+        groups=(QUANT_GROUP,), warmup=warmup, iters=iters, device="cuda")
+    launches = {k: mg.LAUNCHES[k] - before[k] for k in before}
+    wgmma = {k: mg.WGMMA_LAUNCHES[k] - before_wgmma[k] for k in before_wgmma}
+    # launches by M: each cell calls the kernel once to check it, then
+    # warm-up and timed calls; held against the counted totals (M > 16
+    # runs mixed_gemm_wgmma_kernel)
+    per_cell = 1 + warmup + iters
+    by_m = {}
+    for name, bits in GEMM_KERNELS.items():
+        if not name.startswith("mixed_gemm"):
+            continue
+        want = {m: per_cell * sum(c["m"] == m and c["bits"] == bits
+                                  for c in sweep["cells"])
+                for m in BENCH_GEMM_MS}
+        if (launches[name] != sum(want.values())
+                or wgmma[name] != sum(n for m, n in want.items() if m > 16)):
+            fail(f"bench gemm: {name} launched {launches[name]} "
+                 f"({wgmma[name]} wgmma), want {want} by M")
+        by_m[name] = want
+    bad = [c for c in sweep["cells"] if not c["within_tol"]]
+    if bad:
+        fail(f"bench gemm: {len(bad)} cells outside {bench.GEMM_TOL} of "
+             f"dequantize-then-matmul, first {bad[0]}")
+    free_cache(torch)
+    path = os.path.join(BUILD_DIR, "fleet_bench.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = bench.main(["--mode", "serving", "--rates", BENCH_RATES,
+                         "--replicas", "1", "--server_args", " ".join(argv),
+                         "--out", path])
+    with open(path) as f:
+        serving = json.load(f)["serving"]
+    if rc != 0 or any(p["failed"] or not p["completed"]
+                      for p in serving["sweep"]):
+        fail(f"bench serving: rc {rc}, points {serving['sweep']}")
+    return {"gemm_cells": len(sweep["cells"]), "gemm_launches": launches,
+            "gemm_wgmma_launches": wgmma, "gemm_launches_by_m": by_m,
+            "gemm": [{k: c[k] for k in ("m", "n", "k", "bits", "kernel_s",
+                                        "dequant_dot_s", "rel_err")}
+                     for c in sweep["cells"]],
+            "serving": serving["sweep"], "serving_out": path}
+
+
+def run_fleet_phase(torch, pa, mg, card: str, argv=SERVE_ARGV,
+                    traffic_lens=SERVE_LEN, handoff_len: int = HANDOFF_LEN,
+                    rollout_layers: int = ROLLOUT_LAYERS,
+                    adapter_rank: int = 16, gemm_shapes=None) -> dict:
+    """The serving fleet on the card (A9's second half), five stages:
+    remote workers with the autoscaler, disaggregated replicas, a rolling
+    swap, fleet adapter ops and the bench (each function's docstring has
+    its gates).  Fails unless the front process holds no pool when the
+    phase starts and after each stage (a stage's engines can outlive it
+    in a reference cycle until the next collection: its memory would be
+    counted in the next stage's).  ``argv`` etc.: a smaller model (the
+    GPU tests)."""
+    def front_bytes(when: str) -> int:
+        free_cache(torch)
+        held = torch.cuda.memory_allocated()
+        if held > 2**30:
+            fail(f"fleet: the front process still holds {held / 1e9:.2f} "
+                 f"GB {when}")
+        return held
+
+    held = front_bytes("before its workers start")
+    free, total = torch.cuda.mem_get_info()
+    out = {"card": card, "front_bytes": held, "device_free_gb": free / 1e9,
+           "device_total_gb": total / 1e9}
+    args = parse_engine_argv(argv)
+
+    def stage(name, result):
+        out[name] = result
+        print(f"fleet {name} ({card}): " + json.dumps(result), flush=True)
+        front_bytes(f"after the {name} stage")
+
+    remote, checks = fleet_remote_stage(torch, args, argv, traffic_lens)
+    stage("remote", remote)
+    stage("disagg", fleet_disagg_stage(torch, pa, argv, traffic_lens,
+                                       handoff_len, checks))
+    launches = dict(out["remote"]["launches"])
+    for k, v in out["disagg"]["decode_replica_launches"].items():
+        launches[k] += v
+    stage("rollout", fleet_rollout_stage(torch, argv, rollout_layers))
+    stage("adapters", fleet_adapter_stage(torch, argv, traffic_lens,
+                                          adapter_rank))
+    stage("bench", fleet_bench_stage(
+        torch, mg, argv, gemm_shapes or GEMM_SHAPES.values()))
+    out["launches"] = launches
+    return out
+
+
+def fleet_line(fl: dict) -> str:
+    """The fleet phase's numbers, on one line beside the card."""
+    r, d, s, a = fl["remote"], fl["disagg"], fl["rollout"], fl["adapters"]
+    return (f"fleet ({fl['card']}): remote worker spawn to registered "
+            f"{r['spawn_to_registered_s']:.2f} s, scale-up decision "
+            f"{r['scale_up_decision_s']:.2f} s (debounce {r['debounce_s']} "
+            f"s) + ready {r['scale_up_ready_s']:.2f} s, "
+            f"{r['http_tokens_per_s']:.2f} tokens/s through HTTP; SIGKILL: "
+            f"failover {r['failover_s']:.3f} s, lease expiry "
+            f"{r['lease_expiry_s']:.2f} s (TTL {r['lease_ttl_s']} s), back "
+            f"under epoch {r['epochs']['after']} after "
+            f"{r['reregistered_s']:.2f} s; scale-down "
+            f"{r['scale_down_s']:.2f} s; SIGSTOP declared dead after "
+            f"{r['stop_declared_dead_s']:.2f} s, replacement "
+            f"{r['replacement_s']:.2f} s, returnee exit {r['returnee_rc']}, "
+            f"{r['device_used_gb_three_workers']:.2f} GB on the card with "
+            f"three workers; handoff of {d['handoff_blocks']} blocks "
+            f"{d['handoff_ms']:.2f} ms ({d['handoff_ms_per_block']:.2f} ms "
+            f"a block) against a cold TTFT of {d['cold_ttft_ms']:.2f} ms; "
+            f"rollout at {s['layers']} layers: publish {s['publish_s']:.2f} "
+            f"s ({s['publish_gb_per_s']:.3f} GB/s of {s['checkpoint_gb']:.2f}"
+            f" GB), swap s {json.dumps(s['swap_s'])}, peak "
+            f"{s['peak_gb_during_swap']:.2f} GB; adapters: logits "
+            f"{max(a['logits_rel_vs_merged']):.3e} of max |logit| from "
+            f"merged weights")
+
+
 def v1_line(v1: dict) -> str:
     """The v1 phase's numbers, on one line beside the card."""
     b, q, a, e = v1["bf16"], v1["w8a16"], v1["alibi"], v1["encoder"]
@@ -3995,6 +4977,8 @@ def main() -> None:
           + json.dumps(small_serving))
     gc.collect()
     torch.cuda.empty_cache()
+    fleet = run_fleet_phase(torch, pa, mg, card)
+    print(fleet_line(fleet))
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flash = check_flash(torch, fa, flush)
@@ -4135,7 +5119,7 @@ def main() -> None:
               "fused_adamw": adam, "fused_adamw_tree": adam_tree,
               "evoformer": evo, "sparse_attention": sparse, "v1": v1,
               "small_v1": small_v1, "serving": serving,
-              "small_serving": small_serving}
+              "small_serving": small_serving, "fleet": fleet}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
@@ -4180,6 +5164,15 @@ def main() -> None:
         v1_launch["mixed_gemm_wgmma"]
     v1_gemm = {("mixed_gemm_int8", decode_m):
                v1_launch["mixed_gemm_int8"] - v1_launch["mixed_gemm_wgmma"]}
+    # the fleet phase's launches: B4/B5 in its workers and replicas (stages
+    # 1 and 2), B6 in bench.py's gemm sweep by rows (M = 256 on the wgmma
+    # kernel, M = 1 and 8 on mixed_gemm_kernel)
+    fb = fleet["bench"]
+    fleet_launches = dict(fleet["launches"])
+    for name, by_m in fb["gemm_launches_by_m"].items():
+        # the bench's M = 1 launches stand on no row (no row has M = 1)
+        fleet_launches[name, step_m] = by_m[step_m]
+        fleet_launches[name, decode_m] = by_m[decode_m]
 
     def row(k):
         return {"name": k["name"], "route": "cuda",
@@ -4199,6 +5192,10 @@ def main() -> None:
                    and "launches" not in k else {}),
                 **({"launches_v1": v1_gemm[k["name"], k["M"]]}
                    if (k["name"], k.get("M")) in v1_gemm else {}),
+                **({"launches_fleet": fleet_launches[k["name"]]}
+                   if k["name"] in fleet_launches and "launches" not in k
+                   else {"launches_fleet": fleet_launches[k["name"], k["M"]]}
+                   if (k["name"], k.get("M")) in fleet_launches else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -508,6 +508,15 @@ class InferenceEngineV2:
         # cast once at load (the reference casts master weights per call)
         self.params = _cast_tree(params, self.device, dt)
         self._prev_params = None
+        #: which weights the engine serves: 0 at load, a new number at
+        #: every swap, the previous one again at a rollback (port only; a
+        #: broker records it beside each request's tokens)
+        self.params_version = 0
+        self._versions_issued = 0
+        self._prev_version: Optional[int] = None
+        #: step() calls by kind ("mixed", "decode", "spec"): what a serving
+        #: worker reports beside its kernel launch counts
+        self.steps_by_kind: Dict[str, int] = {}
         # device adapter stack for multi-tenant LoRA routing (slot 0 is the
         # reserved all-zero null adapter; serving/adapters.py owns 1..N-1)
         self.adapter_stack = None
@@ -652,6 +661,9 @@ class InferenceEngineV2:
         self._prev_params = self.params
         self.params = _cast_tree(raw_params, self.device,
                                  tfm.torch_dtype(self.cfg.dtype))
+        self._prev_version = self.params_version
+        self._versions_issued += 1
+        self.params_version = self._versions_issued
 
     def swap_rollback(self) -> None:
         """Restore the pre-swap weights (failed post-swap probe)."""
@@ -659,6 +671,7 @@ class InferenceEngineV2:
             raise RuntimeError("swap_rollback: no previous params retained")
         self.params = self._prev_params
         self._prev_params = None
+        self.params_version = self._prev_version
 
     # -- device adapter stack (serving/adapters.py) ----------------------
 
@@ -1378,6 +1391,7 @@ class InferenceEngineV2:
         kind = (("spec" if self._spec_on else "decode") if steady
                 else "mixed")
         running, waiting = self.num_running, len(self.waiting)
+        self.steps_by_kind[kind] = self.steps_by_kind.get(kind, 0) + 1
         prop0, acc0 = self.spec_proposed, self.spec_accepted
         t0 = time.monotonic()
         sp = tracer.begin("engine/step", kind=kind, running=running,

@@ -172,13 +172,17 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     ``device`` — an 8B model never exists in f32 on the card.  The
     generator must live on ``device``.  Torch and JAX draw different
     numbers from one seed: parity tests convert the reference's weights
-    with :func:`params_from_jax` instead."""
-    dev = resolve_device(device)
+    with :func:`params_from_jax` instead.  ``device="meta"`` gives the
+    tree's shapes and dtypes with no storage (a loader's template)."""
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     dt = dtype or torch_dtype(cfg.dtype)
     h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.kv_heads
 
     def dense(shape, fan_in):
+        if dev.type == "meta":  # shapes only: no draw
+            return torch.empty(shape, device=dev, dtype=dt)
         w = torch.randn(shape, generator=generator, device=dev, dtype=dt)
         return w.mul_(1.0 / math.sqrt(fan_in))
 
@@ -186,6 +190,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         # one layer at a time, straight into dt: at Mixtral's width a
         # whole (L, E, h, f) expert stack is 15 GB in bf16
         w = torch.empty(shape, device=dev, dtype=dt)
+        if dev.type == "meta":
+            return w
         for i in range(shape[0]):
             w[i].normal_(generator=generator).mul_(1.0 / math.sqrt(fan_in))
         return w

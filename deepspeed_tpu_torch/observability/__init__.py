@@ -16,8 +16,9 @@
   replica pool, and the SLO gate over the packaged ``slo.toml`` (read
   with stdlib ``tomllib``).
 
-The ``python -m ...observability`` CLI arrives with the second half of
-ROADMAP.md A9.  Tracing never touches the device, so the engine's
+``python -m deepspeed_tpu_torch.observability`` renders a flight dump (or
+the newest under ``--latest DIR``) and summarizes a workload JSONL
+(``workload``).  Tracing never touches the device, so the engine's
 kernels and tokens are the same with it on or off
 (``tests/test_torch_observability.py``).
 """

@@ -14,8 +14,8 @@ On a crash the rings answer "what was this replica doing?":
 
 * the fault-injection harness (``utils/faults.py``) runs registered crash
   hooks before ``os._exit`` — :func:`install_crash_hook` registers a dump;
-* the serving broker and the elastic agent (not ported yet: ROADMAP.md
-  queue A items A9 and A13) dump on an engine fault or a worker death.
+* the serving broker dumps on an engine fault or a worker death (the
+  elastic agent, which does too in the reference, is ROADMAP.md A13's).
 
 Dumps land in ``$DSTPU_FLIGHT_DIR`` (no dump when unset and no explicit
 path is given — crashing processes must not scatter files into arbitrary

@@ -3,8 +3,8 @@
 shared (optionally quantized) base (S-LoRA, Sheng et al. 2023; batched
 heterogeneous-adapter compute per Punica, Chen et al. 2023).
 
-Two layers are ported (host logic, copied and adapted; packs are numpy
-arrays, device slots torch tensors of the engine's stack):
+Three layers in this module (host logic, copied and adapted; packs are
+numpy arrays, device slots torch tensors of the engine's stack):
 
 * **checkpoint seam** — :func:`publish_adapter` commits an adapter-only
   tree (``adapter_model.safetensors`` + sha256 manifest, the PR-2 PEFT
@@ -22,14 +22,13 @@ arrays, device slots torch tensors of the engine's stack):
   ``release`` at completion lets the slot become evictable again.  A
   request whose adapter cannot get a slot RIGHT NOW (every slot pinned
   by running rows) raises :class:`AdapterCapacityError`, which the
-  broker treats exactly like KV ``AdmissionError`` — defer, not fail.
-
-The reference's third layer, fleet hot-load (``fleet_register`` /
-``fleet_retire`` over a replica pool's transport), arrives with the rest
-of ``serving/`` (ROADMAP.md queue A item A9); so does the broker that
-calls ``acquire``/``release`` around admission.  Without it the caller
-acquires a slot, passes it to ``InferenceEngineV2.put(...,
-adapter_slot=)`` and releases it when the request finishes.
+  broker treats exactly like KV ``AdmissionError`` — defer, not fail;
+* **fleet hot-load** — :func:`fleet_register` / :func:`fleet_retire`
+  walk a live replica pool and register/retire an adapter on every
+  healthy replica through the transport control ops, gated by the same
+  ``verify_checkpoint`` manifest check as rolling weight swaps.  No
+  restart, no drain: the base model and every other adapter keep
+  serving while a new tenant's adapter loads.
 
 Threading: all registry state lives under ``named_lock(
 "adapters.registry")``, which nests INSIDE ``broker.state`` (the broker
@@ -566,3 +565,64 @@ class AdapterRegistry:
 
     def close(self) -> None:
         self.pager.close()
+
+
+# ---------------------------------------------------------------------------
+# fleet hot-load (pool-level, PR-13 rollout discipline)
+# ---------------------------------------------------------------------------
+
+
+def fleet_register(pool, adapter_id: str, ckpt_dir: str,
+                   scaling: Optional[float] = None) -> dict:
+    """Register a published adapter on every healthy replica — the
+    adapter-scale analogue of ``rollout.rolling_swap``, minus the drain:
+    registration only ADDS routable state, so no replica leaves rotation
+    and no stream is touched.  Verifies the checkpoint manifest up front
+    (never touch a replica for an adapter that can't fully load); a
+    replica that fails to register is reported, not rolled back — the
+    balancer's residency scoring simply never routes that adapter there."""
+    from ..runtime.checkpoint.engine import verify_checkpoint
+
+    problems = verify_checkpoint(ckpt_dir)
+    if problems:
+        raise AdapterError(f"refusing fleet register from {ckpt_dir}: "
+                           + "; ".join(problems))
+    targets = [t for t in list(pool.replicas) if t.healthy()]
+    if not targets:
+        raise AdapterError("no healthy replicas to register on")
+    done, failed = [], {}
+    for t in targets:
+        try:
+            t.adapter_register(adapter_id, ckpt_dir, scaling=scaling)
+            done.append(t.name)
+        except Exception as e:  # noqa: BLE001 — keep walking the fleet
+            failed[t.name] = repr(e)
+            logger.error(f"adapters: register {adapter_id} on {t.name} "
+                         f"failed: {e!r}")
+    tracer.add_event("adapter/fleet_register",
+                     attrs={"adapter": adapter_id, "ok": len(done),
+                            "failed": len(failed)})
+    recorder.record_event("adapter/fleet_register", adapter=adapter_id,
+                          ok=len(done), failed=len(failed))
+    return {"adapter": adapter_id, "registered": done, "failed": failed}
+
+
+def fleet_retire(pool, adapter_id: str) -> dict:
+    """Retire an adapter fleet-wide.  In-flight requests finish; new
+    submits naming it are rejected as soon as each replica processes the
+    op.  Replicas that never had it count as already-retired."""
+    done, failed = [], {}
+    for t in [t for t in list(pool.replicas) if t.healthy()]:
+        try:
+            t.adapter_retire(adapter_id)
+            done.append(t.name)
+        except Exception as e:  # noqa: BLE001
+            failed[t.name] = repr(e)
+            logger.error(f"adapters: retire {adapter_id} on {t.name} "
+                         f"failed: {e!r}")
+    tracer.add_event("adapter/fleet_retire",
+                     attrs={"adapter": adapter_id, "ok": len(done),
+                            "failed": len(failed)})
+    recorder.record_event("adapter/fleet_retire", adapter=adapter_id,
+                          ok=len(done), failed=len(failed))
+    return {"adapter": adapter_id, "retired": done, "failed": failed}

@@ -31,7 +31,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Callable, Dict, FrozenSet, Iterator, List, Optional,
+                    Sequence, Set, Tuple)
 
 from ..inference.v2.prefix_cache import prefix_digests
 from ..monitor.monitor import Monitor
@@ -78,10 +79,22 @@ class BalancedHandle:
         self._kwargs = submit_kwargs
         self._delivered = 0
         self._cancelled = False
+        self._past_versions: Set[Tuple[int, int]] = set()
 
     @property
     def rid(self) -> str:
         return self._handle.rid
+
+    @property
+    def weight_versions(self) -> Optional[FrozenSet[Tuple[int, int]]]:
+        """``(replica index, params_version)`` of every engine step that
+        gave this request tokens, across failovers; ``None`` where the
+        transport does not report versions (port only)."""
+        cur = getattr(self._handle, "weight_versions", None)
+        if cur is None:
+            return None
+        return frozenset(self._past_versions
+                         | {(self.replica_index, v) for v in cur})
 
     @property
     def finish_reason(self) -> Optional[str]:
@@ -141,6 +154,7 @@ class BalancedHandle:
                                       trace_id=trace_id, reason=e.reason,
                                       attempt=attempts,
                                       from_replica=self.replica_index)
+                self._past_versions = set(self.weight_versions or ())
                 self._handle, self.replica_index = \
                     self._pool._resubmit(self._kwargs)
 
@@ -258,10 +272,21 @@ class ReplicaPool:
         spawns local worker processes pointed at its own registry (the
         single-host deployment and the test harness); with it off the
         slots wait for externally-launched workers and never respawn."""
-        raise NotImplementedError(
-            "the remote transport (serving/remote.py: a TCP registry of "
-            "fenced worker slots) arrives with the second half of "
-            "ROADMAP.md A9; use build or build_subprocess")
+        from .remote import (LocalWorkerLauncher, RemoteReplica,
+                             WorkerRegistry)
+        metrics = metrics or ServingMetrics()
+        registry = WorkerRegistry(config, metrics)
+        launcher = (LocalWorkerLauncher(worker_argv, config, extra_env)
+                    if launch_workers else None)
+        slots = [RemoteReplica(config, f"replica{i}", metrics, launcher,
+                               replica_class=_slot_class(config, i))
+                 for i in range(config.num_replicas)]
+        for s in slots:
+            registry.register_slot(s)
+        pool = cls(slots, config, metrics=metrics, monitor=monitor)
+        pool.registry = registry
+        pool._launcher = launcher
+        return pool
 
     # -- lifecycle -------------------------------------------------------
 
@@ -412,9 +437,22 @@ class ReplicaPool:
         """Mint, register, and start a fresh remote slot (scale-up);
         ``replica_class`` rides the launcher argv so the worker dials in
         already wearing its phase class."""
-        raise NotImplementedError(
-            "remote slots (serving/remote.py) and the autoscaler that "
-            "spawns them arrive with the second half of ROADMAP.md A9")
+        if self.registry is None:
+            raise RuntimeError("spawn_remote_replica needs a remote pool")
+        from .remote import RemoteReplica
+        with self._lock:
+            if name is None:
+                name = f"replica{self._slot_seq}"
+            self._slot_seq += 1
+        slot = RemoteReplica(self.cfg, name, self.metrics, self._launcher,
+                             replica_class=replica_class)
+        self.registry.register_slot(slot)
+        try:
+            self.add_replica(slot)
+        except Exception:
+            self.registry.unregister_slot(name)
+            raise
+        return name
 
     def replicas_of_class(self, replica_class: str) -> List[int]:
         """Indices of replicas wearing ``replica_class`` (autoscaler's

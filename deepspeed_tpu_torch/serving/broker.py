@@ -32,7 +32,8 @@ import threading
 import time
 import zlib
 from collections import deque
-from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Deque, Dict, FrozenSet, Iterator, List, Optional, Sequence,
+                    Set, Tuple)
 
 from ..inference.v2.engine import AdmissionError, InferenceEngineV2
 from ..observability import replay as workload
@@ -113,6 +114,9 @@ class _Request:
     finish_reason: Optional[str] = None
     error: Optional[str] = None
     out_q: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
+    #: the engine's ``params_version`` at every step that gave this
+    #: request tokens: one element unless a swap split the stream (port)
+    weight_versions: Set[int] = dataclasses.field(default_factory=set)
     # fleet-wide trace identity: the trace id minted by the
     # FIRST process that saw the request.  A failover resubmit mints a new
     # rid on the new replica but keeps the original trace_id, so the
@@ -143,6 +147,12 @@ class RequestHandle:
     @property
     def prompt(self) -> List[int]:
         return self._req.prompt
+
+    @property
+    def weight_versions(self) -> FrozenSet[int]:
+        """The weight generations (``InferenceEngineV2.params_version``)
+        that produced this request's tokens."""
+        return frozenset(self._req.weight_versions)
 
     def cancel(self) -> None:
         self._broker.cancel(self._req.rid)
@@ -615,7 +625,8 @@ class RequestBroker:
                         if r.state in _TERMINAL]:
                 del self._by_rid[rid]
 
-    def _dispatch(self, out: Dict[int, List[int]], now: float) -> None:
+    def _dispatch(self, out: Dict[int, List[int]], now: float,
+                  versions: Set[int]) -> None:
         # engine steps deliver token LISTS: one entry normally, up to
         # spec_k+1 from a speculative step.  A stop token mid-list cancels
         # the request and drops the speculative suffix after it.
@@ -638,6 +649,7 @@ class RequestBroker:
                 else:
                     self.metrics.record_token(now - req.last_token_ts)
                 req.last_token_ts = now
+                req.weight_versions |= versions
                 req.out_q.put(("tok", tok))
             else:
                 if uid not in self.engine.running:  # budget exhausted
@@ -680,8 +692,10 @@ class RequestBroker:
                         continue
                 # engine work outside the lock: submit/cancel stay non-blocking
                 faults.maybe_fail("serving.step")
+                version = self.engine.params_version
                 out = self.engine.step(temperature=self.cfg.temperature)
-                self._dispatch(out, time.monotonic())
+                self._dispatch(out, time.monotonic(),
+                               {version, self.engine.params_version})
                 if self._own_gauges:
                     self.metrics.set_gauges(
                         len(self._queue), self.engine.num_running,

@@ -26,8 +26,9 @@ Endpoints:
 * ``GET /debug/profile?seconds=N`` — on-demand ``torch.profiler`` capture
   (CPU and, on the card, CUDA activity); responds with the directory
   holding the Chrome trace.
-* ``POST /v1/adapters`` — the fleet adapter ops arrive with the second half
-  of ROADMAP.md A9; until then the endpoint answers 501 naming it.
+* ``POST /v1/adapters`` — fleet adapter ops: ``register`` hot-loads a
+  committed adapter checkpoint into every healthy replica, ``retire``
+  retires it fleet-wide (``adapters.fleet_register`` / ``fleet_retire``).
 
 Every replica's engine runs on the card unless ``--device cpu`` is passed
 (the CLI raises at once when CUDA is absent and the CPU was not asked for).
@@ -261,13 +262,32 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(503, str(e), "service_unavailable")
 
     def _adapters_admin(self) -> None:
-        """Fleet adapter ops (``register`` / ``retire`` across every
-        healthy replica) arrive with the second half of ROADMAP.md A9;
-        adapters preloaded with ``--adapter_preload`` serve already."""
-        self._read_body()
-        self._error(501, "fleet adapter ops (fleet_register / "
-                    "fleet_retire) arrive with the second half of "
-                    "ROADMAP.md A9", "not_implemented")
+        """Fleet adapter ops: ``{"op": "register", "adapter", "ckpt_dir"
+        [, "scaling"]}`` hot-loads a committed adapter checkpoint into
+        every healthy replica; ``{"op": "retire", "adapter"}`` retires it
+        fleet-wide (in-flight requests drain first)."""
+        from .adapters import fleet_register, fleet_retire
+
+        body = self._read_body()
+        op = body.get("op")
+        adapter = body.get("adapter")
+        if not isinstance(adapter, str) or not adapter:
+            raise InvalidRequestError("adapter must be a string adapter id")
+        if op == "register":
+            ckpt_dir = body.get("ckpt_dir")
+            if not isinstance(ckpt_dir, str) or not ckpt_dir:
+                raise InvalidRequestError("register needs a ckpt_dir")
+            try:
+                result = fleet_register(self.server.pool, adapter, ckpt_dir,
+                                        scaling=body.get("scaling"))
+            except (ValueError, OSError) as e:
+                raise InvalidRequestError(str(e))
+            self._json(200, result)
+        elif op == "retire":
+            self._json(200, fleet_retire(self.server.pool, adapter))
+        else:
+            raise InvalidRequestError(
+                f"unknown adapter op {op!r} (want register/retire)")
 
     def _parse_prompt(self, body: dict) -> List[int]:
         prompt = body.get("prompt")
@@ -811,18 +831,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--csv_dir", default=None,
                    help="emit serving metrics to a CSVMonitor at this path")
     args = p.parse_args(argv)
-    if args.replica_transport == "remote":
-        raise NotImplementedError(
-            "--replica_transport remote (serving/remote.py) arrives with the "
-            "second half of ROADMAP.md A9; use inprocess or subprocess")
-    if args.autoscale_max > 0:
-        raise NotImplementedError(
-            "--autoscale_max (serving/autoscaler.py) arrives with the second "
-            "half of ROADMAP.md A9")
-    if args.replica_classes:
-        raise NotImplementedError(
-            "--replica_classes (disaggregated prefill/decode replicas) "
-            "arrives with the second half of ROADMAP.md A9")
     from ..accelerator import resolve_device
 
     resolve_device(args.device)  # the card unless --device cpu, at once
@@ -830,6 +838,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     pool, metrics, cfg = _build_pool_from_args(args)
     pool.start()
     pool.wait_ready(timeout=cfg.spawn_timeout_s)
+    if args.replica_transport == "remote" and cfg.autoscale_max:
+        from .autoscaler import Autoscaler
+
+        Autoscaler(pool, cfg, metrics).start()
     server = create_server(pool, metrics, cfg, host=args.host, port=args.port,
                            model_name=args.model)
     stop = threading.Event()

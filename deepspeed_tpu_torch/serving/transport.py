@@ -250,9 +250,10 @@ class InProcessReplica(ReplicaTransport):
     def swap(self, ckpt_dir: str, timeout: Optional[float] = None) -> None:
         """Rolling-rollout hook: load a committed checkpoint and pointer-
         swap it into the engine (``serving/rollout.py`` quiesces first)."""
-        raise NotImplementedError(
-            "rolling weight swaps from a checkpoint (serving/rollout.py) "
-            "arrive with the second half of ROADMAP.md A9")
+        from .rollout import load_swap_params  # avoid an import cycle
+
+        self.broker.swap_params(
+            load_swap_params(ckpt_dir, self.broker.engine))
 
     def swap_rollback(self, timeout: Optional[float] = None) -> None:
         self.broker.swap_rollback()
@@ -837,11 +838,15 @@ class FramedReplica(ReplicaTransport):
 
     def describe(self) -> Dict[str, Any]:
         live = self.liveness()
-        return {"transport": self.transport, "pid": live["pid"],
-                "generation": self.generation,
-                "consecutive_failures": self.consecutive_failures,
-                "circuit_open": self.circuit_open,
-                "down_reason": live["down"]}
+        d = {"transport": self.transport, "pid": live["pid"],
+             "generation": self.generation,
+             "consecutive_failures": self.consecutive_failures,
+             "circuit_open": self.circuit_open,
+             "down_reason": live["down"]}
+        kernels = self._stat("kernels", None)
+        if kernels is not None:  # the worker's kernel counts (port only)
+            d["kernels"] = kernels
+        return d
 
 
 class SubprocessReplica(FramedReplica):

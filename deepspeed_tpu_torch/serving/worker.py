@@ -13,13 +13,19 @@ worker meets its pool:
   HOST:PORT`` (the parent greps for it), accept exactly one connection.
   The pool side is :class:`~deepspeed_tpu_torch.serving.transport.
   SubprocessReplica`; the supervisor respawns us as ``<name>.g<N+1>``.
-* **connect mode** (``--connect HOST:PORT``, dialing a multi-host fleet
-  registry) arrives with ``serving/remote.py`` in the second half of
-  ROADMAP.md A9 and is refused until then.
+* **connect mode** (``--connect HOST:PORT``, the multi-host fleet): dial
+  the pool's registry and send an authenticated hello carrying our
+  fencing ``--epoch`` (token from ``$DSTPU_FLEET_TOKEN``, never argv).
+  On a dropped connection we reconnect with decorrelated-jitter backoff,
+  proving continuity with ``prev_epoch``; a ``hello_err`` means our
+  epoch is stale — some newer registration owns the slot — and the only
+  correct move is to **exit** (rc 3), because a fenced zombie's epoch
+  only gets staler.  The pool side is :class:`~deepspeed_tpu_torch.serving.
+  remote.RemoteReplica`.
 
 The worker runs its engine on the card unless ``--device cpu`` is passed.
 
-Per-connection thread roles:
+Per-connection thread roles (both modes):
 
 * **reader**: op loop over ``submit`` / ``cancel`` / ``fault`` /
   ``swap`` / ``swap_rollback`` / ``adapter_register`` /
@@ -62,12 +68,23 @@ from ..accelerator import resolve_device
 from ..observability.recorder import recorder
 from ..observability.trace import tracer
 from ..utils import faults
+from ..utils.backoff import decorrelated_jitter
 from ..utils.locks import named_lock
 from ..utils.logging import logger
 from .broker import (BrokerStoppedError, InvalidRequestError, QueueFullError,
                      RequestBroker, RequestFailedError)
 from .config import ServingConfig, parse_slo_classes
-from .transport import READY_MARKER, recv_frame, send_frame
+from .transport import (FLEET_MAGIC, PROTO_VERSION, READY_MARKER,
+                        recv_frame, send_frame)
+
+#: dial-in reconnect pacing (decorrelated jitter; resets after a healthy
+#: connection) — fast enough to ride out a blip inside the lease TTL
+_RECONNECT_BASE_S = 0.2
+_RECONNECT_CAP_S = 5.0
+#: hello send → reply budget on the worker side (the registry has its own)
+_HELLO_TIMEOUT_S = 10.0
+#: exit code for a fenced/stale registration (deliberate, non-respawnable)
+EXIT_FENCED = 3
 
 def _stats(broker: RequestBroker) -> dict:
     eng = broker.engine
@@ -91,7 +108,20 @@ def _stats(broker: RequestBroker) -> dict:
         # registry digest for the pool's adapter-aware routing + gauges
         stats["adapters"] = broker.adapters.stats()
         stats["adapter_summary"] = broker.adapters.summary()
+    stats["kernels"] = _kernel_counts(eng)
     return stats
+
+
+def _kernel_counts(eng) -> dict:
+    """This process's paged-attention launches and plain calls beside its
+    engine's steps by kind: a caller holds them to one B4 launch per layer
+    per mixed step and one B5 per layer per decode body (the port's own
+    heartbeat field, shown under the replica in ``/healthz``)."""
+    from ..ops.hopper import paged_attention as pa
+
+    return {"launches": dict(pa.LAUNCHES),
+            "plain_calls": dict(pa.PLAIN_CALLS),
+            "steps": dict(eng.steps_by_kind)}
 
 
 def _pump(conn: socket.socket, wlock: threading.Lock, rid: str,
@@ -165,9 +195,12 @@ def _handle_swap(conn: socket.socket, wlock: threading.Lock,
     try:
         faults.maybe_fail("serving.worker.swap")
         if op == "swap":
-            raise NotImplementedError(
-                "rolling weight swaps from a checkpoint (serving/rollout.py)"
-                " arrive with the second half of ROADMAP.md A9")
+            from .rollout import load_swap_params  # lazy: import cycle
+
+            logger.info(f"worker {name}: swapping params from "
+                        f"{frame.get('ckpt_dir')}")
+            broker.swap_params(
+                load_swap_params(frame["ckpt_dir"], broker.engine))
         else:
             logger.info(f"worker {name}: rolling params back")
             broker.swap_rollback()
@@ -366,6 +399,101 @@ def _run_listen(args, broker: RequestBroker) -> int:
     return _finish(conn, broker, hb_state, result, args.name)
 
 
+def _dial(args, epoch: Optional[int], prev_epoch: Optional[int]):
+    """One registration attempt: connect, hello, await the verdict.
+    Returns ``(conn, rfile, granted_epoch)``; raises ``ConnectionError``
+    on transport trouble (retryable) and ``PermissionError`` on an
+    explicit rejection (fatal: our epoch can only get staler)."""
+    host, port = args.connect.rsplit(":", 1)
+    conn = socket.create_connection((host, int(port)), timeout=10.0)
+    try:
+        conn.settimeout(_HELLO_TIMEOUT_S)
+        # "class" is the only wire change for phase disaggregation: the
+        # registry validates it and the pool routes by it
+        hello = {"op": "hello", "magic": FLEET_MAGIC,
+                 "version": PROTO_VERSION, "name": args.name,
+                 "pid": os.getpid(), "class": args.replica_class}
+        token = os.environ.get("DSTPU_FLEET_TOKEN")
+        if token:
+            hello["token"] = token
+        if prev_epoch is not None:
+            hello["prev_epoch"] = prev_epoch
+        elif epoch is not None:
+            hello["epoch"] = epoch
+        send_frame(conn, hello)
+        rfile = conn.makefile("rb")
+        reply = recv_frame(rfile)
+    except socket.timeout as e:
+        conn.close()
+        raise ConnectionError(f"hello timed out: {e}")
+    except (ConnectionError, OSError):
+        conn.close()
+        raise
+    if reply is None:
+        conn.close()
+        raise ConnectionError("registry closed during hello")
+    ev = reply.get("ev")
+    if ev == "hello_err":
+        conn.close()
+        raise PermissionError(reply.get("reason", "rejected"))
+    if ev != "hello_ok":
+        # neither verdict frame: a corrupted or foreign peer — as fatal
+        # as a rejection (retrying cannot make it speak the protocol)
+        conn.close()
+        raise PermissionError(f"unexpected hello reply: {ev!r}")
+    conn.settimeout(None)
+    return conn, rfile, int(reply["epoch"])
+
+
+def _run_connect(args, broker: RequestBroker) -> int:
+    """Fleet transport: dial the registry, serve, reconnect on blips,
+    exit for good on a stop op or a fencing rejection."""
+    stop_evt = threading.Event()
+    holder: dict = {"conn": None}
+    _install_sigterm(holder, stop_evt)
+    hb_state = _HeartbeatState(args.name)
+    granted: Optional[int] = None  # last epoch the registry gave us
+    sleep_s = _RECONNECT_BASE_S
+    while not stop_evt.is_set():
+        try:
+            conn, rfile, granted = _dial(
+                args, epoch=args.epoch if granted is None else None,
+                prev_epoch=granted)
+        except PermissionError as e:
+            logger.error(f"worker {args.name}: registration rejected "
+                         f"({e}) — exiting, not retrying")
+            broker.stop(drain=False, timeout=5.0)
+            return EXIT_FENCED
+        except (ConnectionError, OSError) as e:
+            sleep_s = decorrelated_jitter(_RECONNECT_BASE_S,
+                                          _RECONNECT_CAP_S, sleep_s)
+            logger.warning(f"worker {args.name}: registry unreachable "
+                           f"({e!r}); retrying in {sleep_s:.2f}s")
+            if stop_evt.wait(sleep_s):
+                break
+            continue
+        sleep_s = _RECONNECT_BASE_S  # healthy connection: reset pacing
+        holder["conn"] = conn
+        logger.info(f"worker {args.name}: registered with {args.connect} "
+                    f"(epoch {granted})")
+        result = _serve_conn(conn, broker, args.name,
+                             args.heartbeat_interval_s, stop_evt, hb_state,
+                             rfile=rfile)
+        holder["conn"] = None
+        if result["exit"]:
+            return _finish(conn, broker, hb_state, result, args.name)
+        # connection dropped: keep the engine hot and dial back in — the
+        # pool holds our lease open for lease_ttl_s
+        try:
+            conn.close()
+        except OSError:
+            pass
+        logger.warning(f"worker {args.name}: connection to pool lost; "
+                       f"reconnecting")
+    broker.stop(drain=False, timeout=5.0)
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     from .server import add_engine_cli_args, add_serving_cli_args, \
         build_engine_factory
@@ -377,8 +505,7 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--connect", default=None, metavar="HOST:PORT",
                    help="dial in to a pool registry instead of listening "
-                        "(multi-host fleet mode; refused until the second "
-                        "half of A9)")
+                        "(multi-host fleet mode)")
     p.add_argument("--epoch", type=int, default=None,
                    help="fencing epoch for the first registration "
                         "(launcher-assigned; reconnects negotiate)")
@@ -389,11 +516,6 @@ def main(argv: Optional[list] = None) -> int:
     add_engine_cli_args(p)
     add_serving_cli_args(p)
     args = p.parse_args(argv)
-    if args.connect:
-        raise NotImplementedError(
-            "--connect (a worker dialing a multi-host fleet registry, "
-            "serving/remote.py) arrives with the second half of ROADMAP.md "
-            "A9")
     resolve_device(args.device)  # the card unless --device cpu
 
     # chaos: spawn-time crash site — BEFORE the engine builds, so a
@@ -442,6 +564,16 @@ def main(argv: Optional[list] = None) -> int:
     broker = RequestBroker(engine, scfg, name=args.name, adapters=adapters)
     broker.start()
 
+    if args.connect:
+        rc = _run_connect(args, broker)
+        if rc == EXIT_FENCED:
+            # a fenced zombie: its streams already failed over, so it
+            # leaves at once — interpreter teardown could otherwise race
+            # an engine thread still in device work and abort the exit
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(rc)
+        return rc
     return _run_listen(args, broker)
 
 

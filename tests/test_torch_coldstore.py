@@ -496,3 +496,56 @@ def test_rehydrated_block_is_bitwise_the_demoted_one(model, ref, tmp_path):
                 before[tuple(n.chunk)][name].view(torch.int16).numpy())
     assert_consistent(eng)
     eng.close()
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_restart_replay_workload_rehydrates_as_the_reference(model, tmp_path,
+                                                             batch):
+    """``bench.run_restart_replay``'s seeded session workload, in process
+    and in a fixed order (``batch`` requests at a time): the base wave on
+    an engine with a cold store under the bench's device and host
+    pressure, then a fresh engine on the same root (a restart) serves the
+    resume wave.  The port adopts, orphans and skips exactly as the JAX
+    engine, and serves the same tokens as a restart with no cold store.
+    On this workload every surviving entry is an orphan in both packages:
+    the radix tree demotes its leaves first, so the cold tier holds child
+    blocks whose parents died with the process; that is why the bench
+    mode's ``rehydrate-smoke`` gain gate holds only by chance of timing."""
+    from deepspeed_tpu_torch.observability import replay as rp
+
+    _, wl = rp.synthesize_workload(
+        seed=0, num_requests=12, mean_rate_rps=8.0, num_templates=6,
+        template_len=20, suffix_len=4, max_new_tokens=8,
+        resume_fraction=0.5, idle_gap_s=0.5)
+    base, resume = wl[:12], wl[12:]
+    geo = dict(num_blocks=20, kv_host_pool_bytes=65536)
+
+    def run(eng, wave):
+        toks = []
+        for i in range(0, len(wave), batch):
+            uids = [(eng.put(list(r.prompt), max_new_tokens=r.max_new_tokens),
+                     r) for r in wave[i:i + batch]]
+            done = eng.generate_all()
+            toks += [[int(t) for t in done[u][len(r.prompt):]]
+                     for u, r in uids]
+        return toks
+
+    def restart(jax, cold):
+        root = str(tmp_path / f"{jax}-{cold}")
+        make = jax_engine if jax else port_engine
+        first = make(model, kv_coldstore_dir=root, **geo)
+        run(first, base)
+        entries = first.prefix_stats()["coldstore_entries"]
+        eng = make(model, kv_coldstore_dir=root if cold else root + "-empty",
+                   **geo)
+        adopted = eng.rehydrate_coldstore()
+        s0 = eng.prefix_stats()["prefill_tokens_skipped"]
+        toks = run(eng, resume)
+        return {"entries": entries, "rehydrate": adopted, "toks": toks,
+                "skipped": eng.prefix_stats()["prefill_tokens_skipped"] - s0}
+
+    mine, theirs = restart(False, True), restart(True, True)
+    assert mine == theirs
+    assert mine["entries"] > 0
+    assert mine["rehydrate"]["orphaned"] == mine["entries"]
+    assert mine["toks"] == restart(False, False)["toks"]

@@ -278,8 +278,10 @@ def test_port_imports_no_jax():
     restart rehydration, tracing), int8_gemm, a CPU
     training step, a fused AdamW update, evoformer and block-sparse
     attention, the op registry, the v1 and encoder engines through
-    ``init_inference``, and the serving front (an in-process pool behind
-    the HTTP server, the SLO loader) never import JAX, the JAX package,
+    ``init_inference``, the serving front (an in-process pool behind the
+    HTTP server, the SLO loader) and the fleet (remote registry,
+    autoscaler, rollout, bench, the observability CLI, the frame-protocol
+    check) never import JAX, the JAX package,
     ml_dtypes, pydantic or optax; nor does a replica worker process."""
     code = textwrap.dedent("""
         import sys
@@ -401,6 +403,13 @@ def test_port_imports_no_jax():
                                                  create_server)
         from deepspeed_tpu_torch.serving import server as srv_mod
         from deepspeed_tpu_torch.serving import supervisor, worker  # noqa
+        from deepspeed_tpu_torch.serving import (  # noqa: F401
+            autoscaler, bench, remote, rollout)
+        from deepspeed_tpu_torch.observability import __main__ as ocli
+        from deepspeed_tpu_torch.analysis import concurrency
+        assert concurrency.check_frame_protocol() == []
+        assert ocli.render({"meta": {}, "requests": [], "steps": [],
+                            "events": []})
         from deepspeed_tpu_torch.utils import backoff, proc  # noqa: F401
         v1 = deepspeed_tpu_torch.init_inference(
             model_config=cfg, params=params, device="cpu",

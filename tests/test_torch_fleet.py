@@ -435,18 +435,6 @@ def test_engine_argv_roundtrip_and_matches_reference():
     assert mine[:i] + mine[i + 2:] == jargv(jargs)
 
 
-def test_remote_and_later_options_refuse_naming_a9():
-    from deepspeed_tpu_torch.serving import server
-
-    for extra in (["--replica_transport", "remote"],
-                  ["--autoscale_max", "2"],
-                  ["--replica_classes", "prefill,decode"]):
-        with pytest.raises(NotImplementedError, match="A9"):
-            server.main(["--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match="A9"):
-        ReplicaPool.build_remote(WORKER_ARGV, ServingConfig())
-
-
 def test_worker_needs_the_card_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device is the card")

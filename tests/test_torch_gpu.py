@@ -1161,3 +1161,31 @@ def test_serving_phase_small(cuda_device):
                                        traffic_lens=(17, 200))
     assert out["inprocess"]["decode_bodies"] > 0
     assert out["subprocess"]["respawn_s"] > 0
+
+
+def test_fleet_phase_small(cuda_device):
+    """``chip_smoke.py``'s fleet phase on ``gpt2-125m`` in f32 (head dim
+    64): dial-in card workers under the autoscaler (scale-up under load, a
+    SIGKILLed worker's stream completed and its lease expired once, idle
+    scale-down, a SIGSTOPped external worker replaced and fenced on its
+    return, no worker left); disaggregated replicas with a bit-exact
+    prefix handoff that leaves only the tail to prefill; a rolling swap
+    that halts and rolls back on a wrong probe, then swaps under load;
+    fleet adapter register / retire over HTTP against merged weights; and
+    the bench's gemm sweep and offered-load sweep."""
+    import chip_smoke
+
+    argv = ["--model", "gpt2-125m", "--dtype", "float32",
+            "--max_tokens_per_step", "64", "--max_seqs", "8",
+            "--block_size", "16", "--num_blocks", "256",
+            "--max_blocks_per_seq", "16"]
+    out = chip_smoke.run_fleet_phase(
+        torch, tpa, tmg, "test", argv=argv, traffic_lens=(17, 200),
+        handoff_len=200, rollout_layers=0, adapter_rank=4,
+        gemm_shapes=[(4096, 1024)])
+    remote = out["remote"]
+    assert remote["returnee_rc"] == 3
+    assert remote["epochs"]["after"] > remote["epochs"]["before"]
+    assert out["disagg"]["handoff_tokens"] == 192
+    assert out["rollout"]["streams"] == chip_smoke.ROLLOUT_STREAMS
+    assert out["bench"]["gemm_launches"]["mixed_gemm_int8"] > 0
