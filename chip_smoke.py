@@ -66,16 +66,21 @@ In order it prints:
    losses and parameters must agree;
 7. the mixed GEMM (W8A16 / W4A16 / W6A16) and W8A8 kernels against their
    plain versions at llama3-8b's four projection shapes, at M = 8 (a decode
-   body) and M = 256 (a mixed step), in bf16 and f32: max abs error and
-   kernel / plain / library (bf16 ``torch.matmul`` by the dequantized
-   weight) / bound times (M = 8 runs ``mixed_gemm_kernel`` and
-   ``int8_gemm_mma_kernel``, M = 256 ``mixed_gemm_wgmma_kernel`` and
-   ``int8_gemm_wgmma_kernel``; the W8A8 dispatch is checked); the int8
-   mixed GEMM also at M = 4096, the v1 prefill's rows (13.);
+   body) and M = 256 (a mixed step), the mixed GEMM also at M = 1 and 16
+   (one and two n8 tiles of the decode kernel), in bf16 and f32: max abs
+   error and kernel / plain / library (bf16 ``torch.matmul`` by the
+   dequantized weight) / bound times (M <= 16 runs
+   ``mixed_gemm_decode_kernel`` and ``int8_gemm_mma_kernel``, M = 256
+   ``mixed_gemm_wgmma_kernel`` and ``int8_gemm_wgmma_kernel``; both
+   dispatches are checked); the int8 mixed GEMM also at M = 4096, the v1
+   prefill's rows (13.);
 8. quantized serving: the engine of 4. with ``quantize_bits=8`` (cold and
    warm), then 4 and 6, at full width and depth: tokens, finiteness,
    ``mixed_gemm`` launches = 7 x paged launches with no plain or envelope
    call, ``mixed_gemm_wgmma_kernel`` launches = 7 x prefill launches,
+   ``mixed_gemm_decode_kernel`` launches = 7 x decode launches (with
+   ``--profile``: the W8A16 decode trace shows it and no
+   ``splitk_reduce_kernel``),
    determinism, tokens/s and memory; the seven projections of one
    quantized layer through ``int8_gemm`` (each M = 256 call on
    ``int8_gemm_wgmma_kernel``); and the small f32 model of 4.
@@ -204,14 +209,18 @@ TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                "w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
 GEMM_MS = (8, 256)  # a decode body at max_seqs=8, a mixed step's 256 tokens
+# B6 at decode rows: a lone request, a decode body, and the decode kernel's
+# two n8 tiles of x rows
+GEMM_DECODE_MS = (1, 8, 16)
 V1_BATCH, V1_PROMPT = 8, 512  # v1 traffic: 8 x 512 prompt tokens, greedy
 # v1's W8A16 prefill runs every projection at M = B * T (int8 only)
 GEMM_V1_M = V1_BATCH * V1_PROMPT
 # the shape and the M of the kernels JSON line's mixed-GEMM and W8A8 rows:
-# a decode body's rows (mixed_gemm_kernel), a mixed step's (wgmma), and,
-# for int8, v1's prefill (wgmma)
-GEMM_JSON = (("w_gate/w_in", 8), ("w_gate/w_in", 256),
-             ("w_gate/w_in", GEMM_V1_M))
+# a decode body's rows (mixed_gemm_decode_kernel; W8A8 int8_gemm_mma_kernel),
+# a mixed step's (wgmma), and for the mixed GEMM a lone request's and 16
+# rows (the bench's M = 1 and 16 calls) and, for int8, v1's prefill (wgmma)
+GEMM_JSON = (("w_gate/w_in", 1), ("w_gate/w_in", 8), ("w_gate/w_in", 16),
+             ("w_gate/w_in", 256), ("w_gate/w_in", GEMM_V1_M))
 QUANT_GROUP = 256
 PROJECTIONS = 7  # wq, wk, wv, wo, w_gate, w_in, w_out per layer
 # mixed GEMM in f32: kernel and plain both sum the same exact bf16 products
@@ -1250,11 +1259,12 @@ GEMM_KERNELS = {"mixed_gemm_int8": 8, "mixed_gemm_int4": 4,
 
 def check_mixed_gemm(torch, mg, flush) -> list:
     """B6 (bits 8, 4, 6) and B7 against their plain versions at llama3-8b's
-    projection shapes, M = 8 and 256 (and, for int8 B6, v1's prefill M =
-    GEMM_V1_M), group 256: bf16 x per element within
-    TOL_BF16, f32 x within GEMM_F32_REL of the largest output; kernel /
-    plain / library / bound ms of the bf16 call.  The library call is one
-    bf16 ``torch.matmul`` of x by the dequantized bf16 weight (the
+    projection shapes, M = 8 and 256 (B6 also at M = 1 and 16 and, for int8
+    B6, v1's prefill M = GEMM_V1_M), group 256: bf16 x per element within
+    TOL_BF16, f32 x within GEMM_F32_REL of the largest output; each B6
+    call at M <= 16 on ``mixed_gemm_decode_kernel``; kernel / plain /
+    library / bound ms of the bf16 call.  The library call is one bf16
+    ``torch.matmul`` of x by the dequantized bf16 weight (the
     dequantization excluded): the stock path the kernel replaces."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
@@ -1266,8 +1276,12 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                 fail(f"{name} {shape_name}: off the reference's kernel path")
             w_lib = mg.dequantize_gemm_weight(qw).to(torch.bfloat16)
             code_bytes = qw.codes.numel() + qw.scales.numel() * 4
-            for M in GEMM_MS + ((GEMM_V1_M,) if name == "mixed_gemm_int8"
-                                else ()):
+            if name == "int8_gemm":
+                ms = GEMM_MS
+            else:
+                ms = GEMM_DECODE_MS + GEMM_MS[1:] + (
+                    (GEMM_V1_M,) if name == "mixed_gemm_int8" else ())
+            for M in ms:
                 x = torch.randn((M, K), generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
                 errs = {}
@@ -1279,8 +1293,14 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                         ref = mg.int8_gemm_quantized_plain(xc, xs, qw,
                                                            xd.dtype)
                     else:
+                        before = mg.DECODE_LAUNCHES[name]
                         out, ref = mg.mixed_gemm(xd, qw), \
                             mg.mixed_gemm_plain(xd, qw)
+                        if mg.DECODE_LAUNCHES[name] - before != int(M <= 16):
+                            fail(f"{name} {shape_name} M={M}: "
+                                 f"mixed_gemm_decode_kernel launched "
+                                 f"{mg.DECODE_LAUNCHES[name] - before} "
+                                 "times")
                     torch.cuda.synchronize()
                     what = f"{name} {shape_name} M={M}"
                     if xd.dtype == torch.bfloat16:
@@ -1312,6 +1332,9 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                     in_bytes = M * K + xs.numel() * 4  # int8 codes, scales
                     peak = INT8_OPS_PER_S
                 else:
+                    cuda_kernel = ("mixed_gemm_decode_kernel" if M <= 16
+                                   else "mixed_gemm_wgmma_kernel")
+
                     def kernel():
                         return mg.mixed_gemm(x, qw)
 
@@ -1438,6 +1461,7 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
             run = serve(torch, eng, prompts, trace if attempt == 2 else None)
             run.update(build_s=build_s, launches=dict(pa.LAUNCHES),
                        mixed=dict(mg.LAUNCHES), wgmma=dict(mg.WGMMA_LAUNCHES),
+                       decode=dict(mg.DECODE_LAUNCHES),
                        plain=dict(mg.PLAIN_CALLS),
                        dequant=dict(mg.DEQUANT_CALLS),
                        attn_plain=dict(pa.PLAIN_CALLS),
@@ -1463,6 +1487,13 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
                 fail(f"{tag}: mixed_gemm_wgmma_kernel launched "
                      f"{run['wgmma'][kernel]} times for {prefill} prefill "
                      f"launches, want {PROJECTIONS} per prefill launch")
+            # every decode body has 8 rows: its projections run the decode
+            # kernel, one per decode-attention launch
+            decode = run["launches"]["paged_decode_attention"]
+            if run["decode"][kernel] != PROJECTIONS * decode or decode == 0:
+                fail(f"{tag}: mixed_gemm_decode_kernel launched "
+                     f"{run['decode'][kernel]} times for {decode} decode "
+                     f"launches, want {PROJECTIONS} per decode launch")
             if any(run["plain"].values()) or any(run["dequant"].values()) \
                     or any(run["attn_plain"].values()):
                 fail(f"{tag}: a plain or dequantize path ran: {run['plain']}"
@@ -1496,6 +1527,7 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
         res = {"runs": [rates(r) for r in runs[:2]],
                "launches": {kernel: runs[0]["mixed"][kernel],
                             f"{kernel}_wgmma": runs[0]["wgmma"][kernel],
+                            f"{kernel}_decode": runs[0]["decode"][kernel],
                             **runs[0]["launches"]},
                "quantized_bytes": runs[0]["qbytes"]}
         if bits == 8:
@@ -1513,6 +1545,14 @@ def run_quantized_engine(torch, pa, mg, profile: bool) -> dict:
                         res["profile"]["prefill"]["port_kernels_ms"]:
                     fail(f"{tag}: no mixed_gemm_wgmma_kernel in the "
                          "prefill trace")
+                # decode bodies add their split-K sums inside the decode
+                # kernel: no second pass
+                dec = res["profile"]["decode"]["port_kernels_ms"]
+                if "mixed_gemm_decode_kernel" not in dec or \
+                        "splitk_reduce_kernel" in dec:
+                    fail(f"{tag}: the decode trace's kernels {sorted(dec)}: "
+                         "want mixed_gemm_decode_kernel and no "
+                         "splitk_reduce_kernel")
         out[f"w{bits}a16"] = res
         del runs
     del params
@@ -3177,7 +3217,8 @@ def v1_run(torch, cfg, params, icfg: dict, prompts, what: str,
             short = k.__name__.rsplit(".", 1)[1]
             counts.update({f"{short}.{name}": dict(getattr(k, name))
                            for name in ("LAUNCHES", "WGMMA_LAUNCHES",
-                                        "PLAIN_CALLS", "DEQUANT_CALLS")
+                                        "DECODE_LAUNCHES", "PLAIN_CALLS",
+                                        "DEQUANT_CALLS")
                            if hasattr(k, name)})
         rounds.append((toks, t1 - t0, t2 - t1, eng.first_logits))
     toks, first = rounds[0][0], rounds[0][3]
@@ -3218,21 +3259,25 @@ def v1_quantized_counts(counts: dict, cfg, what: str) -> dict:
     """The mixed GEMM's launches over one quantized ``generate``: every
     projection of every layer once per forward (one prefill at M = B * T on
     ``mixed_gemm_wgmma_kernel`` when bf16, NEW_TOKENS - 1 decodes at M = B
-    on ``mixed_gemm_kernel``), no plain or envelope call."""
+    on ``mixed_gemm_decode_kernel``), no plain or envelope call."""
     launches = counts["mixed_gemm.LAUNCHES"]["mixed_gemm_int8"]
     wgmma = counts["mixed_gemm.WGMMA_LAUNCHES"]["mixed_gemm_int8"]
+    decode = counts["mixed_gemm.DECODE_LAUNCHES"]["mixed_gemm_int8"]
     want = PROJECTIONS * cfg.num_layers * NEW_TOKENS
     want_wgmma = PROJECTIONS * cfg.num_layers if cfg.dtype == "bfloat16" \
         else 0
-    if launches != want or wgmma != want_wgmma:
-        fail(f"{what}: {launches} mixed_gemm launches ({wgmma} on wgmma), "
-             f"want {want} ({want_wgmma})")
+    want_decode = PROJECTIONS * cfg.num_layers * (NEW_TOKENS - 1)
+    if launches != want or wgmma != want_wgmma or decode != want_decode:
+        fail(f"{what}: {launches} mixed_gemm launches ({wgmma} on wgmma, "
+             f"{decode} on the decode kernel), want {want} ({want_wgmma}, "
+             f"{want_decode})")
     if any(counts["mixed_gemm.PLAIN_CALLS"].values()) or any(
             counts["mixed_gemm.DEQUANT_CALLS"].values()):
         fail(f"{what}: a plain or envelope call: "
              f"{counts['mixed_gemm.PLAIN_CALLS']} "
              f"{counts['mixed_gemm.DEQUANT_CALLS']}")
-    return {"mixed_gemm_int8": launches, "mixed_gemm_wgmma": wgmma}
+    return {"mixed_gemm_int8": launches, "mixed_gemm_wgmma": wgmma,
+            "mixed_gemm_decode": decode}
 
 
 def v1_against_v2(first, ref, what: str) -> float:
@@ -3864,7 +3909,7 @@ HANDOFF_LEN = 1000  # the prompt whose prefix the prefill replica hands off
 ROLLOUT_LAYERS = 8  # the rolling swap's depth: a 5.6 GB checkpoint
 ROLLOUT_STREAMS = 8  # streams in flight while the fleet rolls
 ADAPTER_ARGV = ["--adapter_slots", "8", "--adapter_rank", "16"]
-BENCH_GEMM_MS = (1, 8, 256)
+BENCH_GEMM_MS = (1, 8, 16, 256)
 BENCH_RATES = "2,8"
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
@@ -4694,14 +4739,17 @@ def fleet_bench_stage(torch, mg, argv, gemm_shapes) -> dict:
 
     warmup, iters = 1, 10
     before, before_wgmma = dict(mg.LAUNCHES), dict(mg.WGMMA_LAUNCHES)
+    before_decode = dict(mg.DECODE_LAUNCHES)
     sweep = bench.run_gemm_sweep(
         ms=BENCH_GEMM_MS, shapes=tuple(gemm_shapes), bits_list=(8, 4, 6),
         groups=(QUANT_GROUP,), warmup=warmup, iters=iters, device="cuda")
     launches = {k: mg.LAUNCHES[k] - before[k] for k in before}
     wgmma = {k: mg.WGMMA_LAUNCHES[k] - before_wgmma[k] for k in before_wgmma}
+    decode = {k: mg.DECODE_LAUNCHES[k] - before_decode[k]
+              for k in before_decode}
     # launches by M: each cell calls the kernel once to check it, then
     # warm-up and timed calls; held against the counted totals (M > 16
-    # runs mixed_gemm_wgmma_kernel)
+    # runs mixed_gemm_wgmma_kernel, M <= 16 mixed_gemm_decode_kernel)
     per_cell = 1 + warmup + iters
     by_m = {}
     for name, bits in GEMM_KERNELS.items():
@@ -4711,9 +4759,12 @@ def fleet_bench_stage(torch, mg, argv, gemm_shapes) -> dict:
                                   for c in sweep["cells"])
                 for m in BENCH_GEMM_MS}
         if (launches[name] != sum(want.values())
-                or wgmma[name] != sum(n for m, n in want.items() if m > 16)):
+                or wgmma[name] != sum(n for m, n in want.items() if m > 16)
+                or decode[name] != sum(n for m, n in want.items()
+                                       if m <= 16)):
             fail(f"bench gemm: {name} launched {launches[name]} "
-                 f"({wgmma[name]} wgmma), want {want} by M")
+                 f"({wgmma[name]} wgmma, {decode[name]} decode), want "
+                 f"{want} by M")
         by_m[name] = want
     bad = [c for c in sweep["cells"] if not c["within_tol"]]
     if bad:
@@ -5017,7 +5068,8 @@ def main() -> None:
     small_quant = [small_model_agreement(torch, bits) for bits in (8, 4, 6)]
     print("small quantized model card vs CPU: " + json.dumps(small_quant))
     # mixed-GEMM launches by row count: a decode body's M = 8 calls run
-    # mixed_gemm_kernel, a mixed step's (M > 16) mixed_gemm_wgmma_kernel;
+    # mixed_gemm_decode_kernel, a mixed step's (M > 16)
+    # mixed_gemm_wgmma_kernel;
     # int8_gemm's own path runs M = 8 and 256 once per projection each (M =
     # 8 on int8_gemm_mma_kernel, M = 256 on int8_gemm_wgmma_kernel)
     decode_m, step_m = GEMM_MS
@@ -5027,7 +5079,7 @@ def main() -> None:
             continue
         counts = quant[f"w{bits}a16"]["launches"]
         gemm_launches[name, step_m] = counts[f"{name}_wgmma"]
-        gemm_launches[name, decode_m] = counts[name] - counts[f"{name}_wgmma"]
+        gemm_launches[name, decode_m] = counts[f"{name}_decode"]
     int8_path = quant["w8a16"]["int8_gemm_path"]
     gemm_launches["int8_gemm", step_m] = int8_path["wgmma_launches"]
     gemm_launches["int8_gemm", decode_m] = \
@@ -5158,21 +5210,22 @@ def main() -> None:
 
     # the v1 W8A16 phase's mixed-GEMM launches by rows: its prefill (M = B
     # * T, a row of its own) on the wgmma kernel, its decodes (M = 8, beside
-    # the engine's decode bodies) on mixed_gemm_kernel
+    # the engine's decode bodies) on mixed_gemm_decode_kernel
     v1_launch = v1["w8a16"]["launches"]
     gemm_launches["mixed_gemm_int8", GEMM_V1_M] = \
         v1_launch["mixed_gemm_wgmma"]
-    v1_gemm = {("mixed_gemm_int8", decode_m):
-               v1_launch["mixed_gemm_int8"] - v1_launch["mixed_gemm_wgmma"]}
+    v1_gemm = {("mixed_gemm_int8", decode_m): v1_launch["mixed_gemm_decode"]}
     # the fleet phase's launches: B4/B5 in its workers and replicas (stages
     # 1 and 2), B6 in bench.py's gemm sweep by rows (M = 256 on the wgmma
-    # kernel, M = 1 and 8 on mixed_gemm_kernel)
+    # kernel, M = 1, 8 and 16 on mixed_gemm_decode_kernel); the M = 1 and 16
+    # rows' launches are the bench's alone
     fb = fleet["bench"]
     fleet_launches = dict(fleet["launches"])
     for name, by_m in fb["gemm_launches_by_m"].items():
-        # the bench's M = 1 launches stand on no row (no row has M = 1)
-        fleet_launches[name, step_m] = by_m[step_m]
-        fleet_launches[name, decode_m] = by_m[decode_m]
+        for m in BENCH_GEMM_MS:
+            fleet_launches[name, m] = by_m[m]
+            if m not in GEMM_MS:
+                gemm_launches[name, m] = by_m[m]
 
     def row(k):
         return {"name": k["name"], "route": "cuda",

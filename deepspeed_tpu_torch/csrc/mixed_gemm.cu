@@ -1,6 +1,6 @@
 // Quantized-weight GEMMs for serving, written for Hopper (sm_90a).
 //
-//   mixed_gemm_kernel,        replace deepspeed_tpu/ops/pallas/mixed_gemm.py
+//   mixed_gemm_decode_kernel, replace deepspeed_tpu/ops/pallas/mixed_gemm.py
 //   mixed_gemm_wgmma_kernel,  _mixed_gemm_kernel (entry mixed_gemm):
 //   mixed_gemm_mma_kernel     M <= 16 rows, bf16 x at M > 16, f32 x at M >
 //                      16 (the dispatch is on M and dtype, not a fallback);
@@ -43,18 +43,40 @@
 // step they do 512 flops per code byte (int8), past the ridge: bound by
 // operations (the same w_in: 30 GFLOP, 30.4 us in bf16, 15.2 us in int8).
 // What the mixed GEMM does about each:
-//   * every block owns a BM x BN output tile and walks K in BK-deep tiles (a
-//     tile never spans two groups, so it carries one scale row), with a ring
-//     of stages kept in flight so that the code stream does not wait on one
-//     round trip per tile;
-//   * split-K: when the output tiles alone cannot fill the card (a 4096-wide
-//     projection at decode has 32 of them for 132 SMs), blockIdx.z takes a
-//     contiguous share of the K-groups and writes f32 partial sums to a
-//     workspace that splitk_reduce_kernel adds in order into the output;
-//   * decode rows (M <= 16, mixed_gemm_kernel): 16 x 128 tiles, 128 K-rows a
-//     stage, each row of a code tile 128 contiguous bytes; the codes stay
-//     packed in shared memory and are dequantized straight into the mma B
-//     fragments in registers (each element by one thread, once);
+//   * decode rows (M <= 16, mixed_gemm_decode_kernel): y^T = W^T x^T on
+//     mma.sync m16n8k16, the dequantized weight as the A operand built in
+//     registers straight from global memory (no shared-memory tile), x^T as
+//     B (one n8 tile of x rows up to M = 8, two up to 16), so no mma row is
+//     padding at M <= 8.  A warp owns 128 columns, a thread 16 adjacent ones
+//     (its A rows gr and gr + 8 of eight m16 tiles): one 16-byte load per
+//     code row feeds all eight tiles.  The codes become f32 without
+//     conversion instructions (int8 and int4: the code placed in the
+//     mantissa of 2^23 by byte permutes, the offset taken off exactly; fp6:
+//     its bits placed as a scaled f32 pattern), then one product by the
+//     scale and a packed round to bf16.  The grid is as many blocks of 8
+//     warps as the card holds at once, each an equal share of the
+//     128-column tiles' K-steps in tile order (stream-K: no SM holds more
+//     work than another), one tile at a time, each warp a contiguous share
+//     of the tile's steps with the next step's loads in flight while it
+//     converts one; the warps' sums meet in shared memory in warp order,
+//     and a tile that several blocks share is added up in the same kernel
+//     from an f32 workspace: the last of its blocks to finish (an atomic
+//     ticket per tile, reset by that block) adds the shares in block order.
+//     At llama3-8b's widths int8 streams its codes at ~85% of the memory
+//     rate once running, and a launch's fixed cost (its first loads after a
+//     cold start, the shared tiles' sums) is most of the rest; int4 and
+//     fp6 are held by the instruction issue of their conversions (~4 and ~5
+//     instructions a code).  A shared-memory cp.async ring (more steps in
+//     flight), wider blocks (longer runs of a code row, more splits), L2
+//     prefetch ahead of the loads and a third register stage (spills) each
+//     measured slower;
+//   * every block of the M > 16 kernels owns a BM x BN output tile and
+//     walks K in BK-deep tiles (a tile never spans two groups, so it carries
+//     one scale row), with a ring of stages kept in flight so that the code
+//     stream does not wait on one round trip per tile; their split-K
+//     (blockIdx.z takes a contiguous share of the K-groups) writes f32
+//     partial sums to a workspace that splitk_reduce_kernel adds in order
+//     into the output;
 //   * bf16 x at M > 16 (mixed_gemm_wgmma_kernel): y^T = W^T x^T on wgmma,
 //     the dequantized weight as the A operand straight from registers.  A
 //     block owns 128 output columns (two consumer warpgroups of 64, each
@@ -117,11 +139,12 @@
 // loaded as zeros and never stored; a group that BK does not divide ends in
 // a partial tile, zero-filled), so any M, any N and K = G * group work.
 // Loads whose source is not 16-byte aligned (odd N, odd K) go through
-// registers byte by byte; the rest by cp.async or TMA.
+// registers byte by byte; the rest by cp.async, TMA or (decode rows) 16-byte
+// loads into registers.
 //
 // Every C entry point launches on the caller's stream, allocates nothing
-// (the caller passes the split-K workspace), and returns cudaGetLastError()
-// after its launches.
+// (the caller passes the split-K workspace and the decode kernel's tickets),
+// and returns cudaGetLastError() after its launches.
 
 #include "hopper.cuh"
 
@@ -177,15 +200,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x elements (k, k+1) of one row of the staged x tile, as packed bf16
-__device__ __forceinline__ uint32_t x_pair(const float* row, int k) {
-  const float2 v = *reinterpret_cast<const float2*>(row + k);
-  return pack_bf16(v.x, v.y);
-}
-__device__ __forceinline__ uint32_t x_pair(const __nv_bfloat16* row, int k) {
-  return *reinterpret_cast<const uint32_t*>(row + k);
-}
-
 // e3m2 (bias 3): subnormal m * 2^-4, normal (1 + m/4) * 2^(e-3), sign in bit
 // 5; the power of two is built from its bits (exact, as the reference)
 __device__ __forceinline__ float fp6_value(int c) {
@@ -210,45 +224,6 @@ template <>
 struct Pack<6> {
   static constexpr int num = 3, den = 4;
 };
-
-// The dequantized bf16 pair (k, k+1) of column n (k even) of a staged code
-// tile whose rows are `stride` bytes apart: code * scale in f32, rounded once
-// to f32 and once to bf16, as _mixed_gemm_kernel computes it.
-template <int BITS>
-__device__ __forceinline__ uint32_t w_pair(const uint8_t* cs, int stride, int k, int n, float s);
-
-template <>
-__device__ __forceinline__ uint32_t w_pair<8>(const uint8_t* cs, int stride, int k, int n,
-                                              float s) {
-  const float v0 = (float)(int8_t)cs[k * stride + n];
-  const float v1 = (float)(int8_t)cs[(k + 1) * stride + n];
-  return pack_bf16(__fmul_rn(v0, s), __fmul_rn(v1, s));
-}
-
-template <>
-__device__ __forceinline__ uint32_t w_pair<4>(const uint8_t* cs, int stride, int k, int n,
-                                              float s) {
-  const int b = (int8_t)cs[(k >> 1) * stride + n];
-  const int lo = ((b & 15) ^ 8) - 8, hi = b >> 4;
-  return pack_bf16(__fmul_rn((float)lo, s), __fmul_rn((float)hi, s));
-}
-
-template <>
-__device__ __forceinline__ uint32_t w_pair<6>(const uint8_t* cs, int stride, int k, int n,
-                                              float s) {
-  const uint8_t* col = cs + (k >> 2) * 3 * stride + n;  // b0 of k's quad
-  int c0, c1;
-  if ((k & 3) == 0) {
-    const int b0 = col[0], b1 = col[stride];
-    c0 = b0 & 63;
-    c1 = (b0 >> 6) | ((b1 & 15) << 2);
-  } else {
-    const int b1 = col[stride], b2 = col[2 * stride];
-    c0 = (b1 >> 4) | ((b2 & 3) << 4);
-    c1 = b2 >> 2;
-  }
-  return pack_bf16(__fmul_rn(fp6_value(c0), s), __fmul_rn(fp6_value(c1), s));
-}
 
 // Signed byte i of a 32-bit word, as f32.
 __device__ __forceinline__ float sbyte(uint32_t w, int i) {
@@ -336,16 +311,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Block tiling: BM x BN outputs per block, BK K-rows per pipeline stage,
-// WM x WN warps each owning a (BM/WM) x (BN/WN) sub-tile.
-template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_>
-struct Tiling {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, STAGES = STAGES_;
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int MT = BM / WM / 16;  // 16-row mma tiles per warp
-  static constexpr int NT = BN / WN / 8;   // 8-column mma tiles per warp
-  static_assert(MT >= 1 && NT >= 1 && BN % 16 == 0, "tiling");
-};
+// columns n, n + 1 of one output row (8-byte aligned for f32, 4 for bf16)
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
 
 // ---------------------------------------------------------------------------
 // mixed GEMM (W8A16 / W4A16 / W6A16)
@@ -403,94 +375,6 @@ __device__ __forceinline__ void store_acc(const float (&acc)[MT][NT][4], XT* out
         else
           part[(long long)r * N + c] = acc[i][j][e];
       }
-}
-
-template <typename XT, int BITS, typename TL>
-struct MixedSmem {
-  static constexpr int kXRow = TL::BK * (int)sizeof(XT) + kPad;
-  static constexpr int kCRows = TL::BK * Pack<BITS>::num / Pack<BITS>::den;
-  static constexpr int kCRow = TL::BN + kPad;
-  static constexpr int kXBytes = TL::BM * kXRow;
-  static constexpr int kCBytes = kCRows * kCRow;
-  static constexpr int kStage = kXBytes + kCBytes + TL::BN * 4;
-  static constexpr int kBytes = kStage * TL::STAGES;
-};
-
-// Decode rows: codes dequantized straight into the B fragments (registers).
-template <typename XT, int BITS, typename TL>
-__global__ void __launch_bounds__(TL::kThreads)
-    mixed_gemm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-                      const float* __restrict__ scales, XT* __restrict__ out,
-                      float* __restrict__ ws, int M, int N, int K, int group, int splits) {
-  using SM = MixedSmem<XT, BITS, TL>;
-  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, MT = TL::MT, NT = TL::NT;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  int g_lo, g_hi;
-  split_groups(K, group, splits, g_lo, g_hi);
-  const int tiles = (g_hi - g_lo) * ((group + BK - 1) / BK);
-  auto load = [&](int t) {
-    load_mixed_tile<XT, BITS, BM, BN, BK>(smem + (t % TL::STAGES) * SM::kStage, SM::kXRow,
-                                          SM::kCRow, x, codes, scales, M, N, K, group, m0,
-                                          n0, g_lo, t);
-  };
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / TL::WN, wn = warp % TL::WN;
-  const int gr = lane >> 2, tq = lane & 3;  // mma fragment row group, thread in quad
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < TL::STAGES - 1; ++s) {
-    if (s < tiles) load(s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<TL::STAGES - 2>();
-    __syncthreads();  // tile t is in; every warp is done with tile t - 1
-    if (t + TL::STAGES - 1 < tiles) load(t + TL::STAGES - 1);
-    cp_async_commit();
-
-    const uint8_t* st = smem + (t % TL::STAGES) * SM::kStage;
-    const uint8_t* cs = st + SM::kXBytes;
-    const float* ss = reinterpret_cast<const float*>(st + SM::kXBytes + SM::kCBytes);
-    float sc[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) sc[j] = ss[wn * (BN / TL::WN) + j * 8 + gr];
-#pragma unroll 4
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = wm * (BM / TL::WM) + i * 16 + gr;
-        const XT* x0 = reinterpret_cast<const XT*>(st + r * SM::kXRow);
-        const XT* x8 = reinterpret_cast<const XT*>(st + (r + 8) * SM::kXRow);
-        const int k = ks + tq * 2;
-        a[i][0] = x_pair(x0, k);
-        a[i][1] = x_pair(x8, k);
-        a[i][2] = x_pair(x0, k + 8);
-        a[i][3] = x_pair(x8, k + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = wn * (BN / TL::WN) + j * 8 + gr;
-        const int k = ks + tq * 2;
-        const uint32_t b0 = w_pair<BITS>(cs, SM::kCRow, k, n, sc[j]);
-        const uint32_t b1 = w_pair<BITS>(cs, SM::kCRow, k + 8, n, sc[j]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  store_acc<XT, MT, NT>(acc, out, ws, splits, M, N, m0 + wm * (BM / TL::WM),
-                        n0 + wn * (BN / TL::WN));
 }
 
 // f32 x, M > 16: 128 x 128 tiles, 8 warps of 64 x 32, two blocks per SM;
@@ -884,6 +768,548 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, XT* __restric
 }
 
 // ---------------------------------------------------------------------------
+// decode rows (M <= 16): mixed_gemm_decode_kernel
+// ---------------------------------------------------------------------------
+
+// y^T = W^T x^T on mma.sync m16n8k16 over 128-column tiles of y and their
+// K-steps, 16 K-rows each: a group of `group` rows is ceil(group / 16)
+// steps, the last one partial when 16 does not divide it (its rows past the
+// group read as zeros, codes and x).  Block b takes the steps [b T S / B,
+// (b + 1) T S / B) of the T tiles' S steps in tile order, a tile at a time;
+// its 8 warps take contiguous shares of a tile's steps; every warp owns
+// all 128 columns, thread (gr, tq) of a warp the 16 adjacent columns
+// c = 16 gr .. + 15, as the A rows gr (its column 2t) and gr + 8 (column
+// 2t + 1) of the eight m16 tiles t.  So one 16-byte load per code row feeds
+// all eight tiles, and the sums of a thread end as 16 adjacent columns of
+// its x rows 2tq, 2tq + 1 (+ 8).  The codes go from global memory straight
+// into registers (read once, not kept in L1), each step issued one step
+// ahead of its use; x's B fragments (x rows gr, gr + 8) are read from L1.
+// Where the rows are 16-byte aligned and 16 divides the group, the steps
+// follow each other in memory and the loads walk running pointers; else
+// every row is checked against its group and N (byte loads off the grid).
+struct Dec {
+  static constexpr int BN = 128;    // columns per tile (and per warp)
+  static constexpr int kWarps = 8;  // per block
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kStep = 16;  // K-rows per step (the mma's k)
+  static constexpr int kStages = 2;  // register sets: a step in flight while one is used
+  static constexpr int kFinal = 8;   // partial sums the last block loads at once
+  // shared memory of the warps' sums: kWarps x 32 NT x 32 floats
+  static constexpr int smem(int nt) { return kWarps * 32 * nt * 32 * 4; }
+};
+
+// The code rows a thread loads for one step (kRegs rows of its 16 columns),
+// as offsets from the step's first code row (K-row k0: int4 k0 even, fp6
+// k0 % 4 == 0), and the first K-row of each, from k0, which decides whether
+// it lies inside the step's group.
+template <int BITS>
+struct DecRows;
+template <>
+struct DecRows<8> {  // K-rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9
+  static constexpr int kRegs = 4;
+  static __device__ __forceinline__ int row(int i, int tq) {
+    return 2 * tq + (i & 1) + 8 * (i >> 1);
+  }
+  static __device__ __forceinline__ int krow(int i, int tq) { return row(i, tq); }
+};
+template <>
+struct DecRows<4> {  // byte rows tq, tq + 4: K-rows 2tq, 2tq + 1 and 8 further
+  static constexpr int kRegs = 2;
+  static __device__ __forceinline__ int row(int i, int tq) { return tq + 4 * i; }
+  static __device__ __forceinline__ int krow(int i, int tq) { return 2 * tq + 8 * i; }
+};
+template <>
+struct DecRows<6> {  // the two byte rows of K-rows 2tq, 2tq + 1 (and 8 further)
+  static constexpr int kRegs = 4;
+  static __device__ __forceinline__ int row(int i, int tq) {
+    return 3 * (tq >> 1) + (tq & 1) + (i & 1) + 6 * (i >> 1);
+  }
+  static __device__ __forceinline__ int krow(int i, int tq) { return 2 * tq + 8 * (i >> 1); }
+};
+
+
+// x elements k, k + 1 of one row (nullptr: a row past M) as packed bf16, 0
+// from kend on
+__device__ __forceinline__ float x_value(const float* row, int k) { return row[k]; }
+__device__ __forceinline__ float x_value(const __nv_bfloat16* row, int k) {
+  return __bfloat162float(row[k]);
+}
+template <typename XT>
+__device__ __forceinline__ uint32_t x_frag(const XT* row, int k, int kend, bool vec) {
+  if (row == nullptr) return 0;
+  if (vec && k + 1 < kend) {
+    if constexpr (sizeof(XT) == 2) {
+      return __ldg(reinterpret_cast<const unsigned int*>(row + k));
+    } else {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(row + k));
+      return pack_bf16(v.x, v.y);
+    }
+  }
+  return pack_bf16(k < kend ? x_value(row, k) : 0.f, k + 1 < kend ? x_value(row, k + 1) : 0.f);
+}
+
+// Exact f32 codes without conversion instructions.  int8: byte b of w, its
+// sign bit flipped (w ^ 0x80808080), in the mantissa of 2^23: 2^23 + code +
+// 128, less 2^23 + 128.
+__device__ __forceinline__ float i8_value(uint32_t w, int b) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + b)), 8388736.0f);
+}
+// int4 low nibble (w & 0x0F0F0F0F) ^ 0x08080808: 2^23 + code + 8, less 2^23 + 8
+__device__ __forceinline__ float i4_lo(uint32_t l, int b) {
+  return __fsub_rn(__uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540 + b)), 8388616.0f);
+}
+// int4 high nibble (w & 0xF0F0F0F0) ^ 0x80808080: 2^23 + 16 (code + 8), by
+// 1/16 less 2^19 + 8 in one fma whose exact result is the code
+__device__ __forceinline__ float i4_hi(uint32_t h, int b) {
+  return __fmaf_rn(__uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540 + b)), 0.0625f,
+                   -524296.0f);
+}
+// fp6: t holds two columns' codes of K-rows k (bits 0-5) and k + 1 (bits
+// 6-11), one column per 16-bit half.  The code of K-row k (second = false)
+// or k + 1 of both columns as bf16 bit patterns: sign at bit 15, the five
+// bits e m at bits 5-9, which reads as fp6 * 2^-124 (as fp6_times places
+// them, a subnormal when e = 0).  Its halves as f32: x << 16, x & 0xFFFF0000.
+__device__ __forceinline__ uint32_t fp6_bits(uint32_t t, bool second) {
+  return second ? ((t >> 1) & 0x03E003E0u) | ((t << 4) & 0x80008000u)
+                : ((t << 5) & 0x03E003E0u) | ((t << 10) & 0x80008000u);
+}
+// v * s for an fp6 pattern v: `fast`, the scale holds s * 2^124 (exact, s <
+// 16), one rounded product of the exact fp6 * s; else two, as fp6_times
+__device__ __forceinline__ float fp6_scaled(uint32_t v, float s, bool fast) {
+  const float f = __uint_as_float(v);
+  return fast ? __fmul_rn(f, s) : __fmul_rn(__fmul_rn(f, 0x1p124f), s);
+}
+
+// One step's products: the A fragments of the eight tiles from the codes c
+// (rows as DecRows) and the scales sc of the thread's 16 columns (fp6,
+// `fast`: times 2^124), each element code * scale in f32 rounded to bf16;
+// then acc[t][j] += A_t B_j.
+template <int BITS, int NT>
+__device__ __forceinline__ void decode_step(const uint32_t (&c)[DecRows<BITS>::kRegs][4],
+                                            const float (&sc)[16], bool fast, int tq,
+                                            const uint32_t (&b)[NT][2], float (&acc)[8][NT][4]) {
+  if constexpr (BITS == 8) {
+    uint32_t w[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[i][q] = c[i][q] ^ 0x80808080u;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int q = t >> 1, b0 = 2 * (t & 1);
+      const float s0 = sc[2 * t], s1 = sc[2 * t + 1];
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // K-rows 2tq, 2tq + 1, then 8 further
+        a[2 * h] = pack_bf16(__fmul_rn(i8_value(w[2 * h][q], b0), s0),
+                             __fmul_rn(i8_value(w[2 * h + 1][q], b0), s0));
+        a[2 * h + 1] = pack_bf16(__fmul_rn(i8_value(w[2 * h][q], b0 + 1), s1),
+                                 __fmul_rn(i8_value(w[2 * h + 1][q], b0 + 1), s1));
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[t][j], a, b[j][0], b[j][1]);
+    }
+  } else if constexpr (BITS == 4) {
+    uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        lo[i][q] = (c[i][q] & 0x0F0F0F0Fu) ^ 0x08080808u;
+        hi[i][q] = (c[i][q] & 0xF0F0F0F0u) ^ 0x80808080u;
+      }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int q = t >> 1, b0 = 2 * (t & 1);
+      const float s0 = sc[2 * t], s1 = sc[2 * t + 1];
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // byte row tq (K-rows 2tq, 2tq + 1), then tq + 4
+        a[2 * h] = pack_bf16(__fmul_rn(i4_lo(lo[h][q], b0), s0),
+                             __fmul_rn(i4_hi(hi[h][q], b0), s0));
+        a[2 * h + 1] = pack_bf16(__fmul_rn(i4_lo(lo[h][q], b0 + 1), s1),
+                                 __fmul_rn(i4_hi(hi[h][q], b0 + 1), s1));
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[t][j], a, b[j][0], b[j][1]);
+    }
+  } else {
+    // the two byte rows of a K-row pair hold its codes at bit sh of each
+    // column's 16 bits (b_row | b_row+1 << 8): sh = 0 for K-rows 4q, 4q + 1,
+    // 4 for 4q + 2, 4q + 3
+    const int sh = 4 * (tq & 1);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int q = t >> 1;
+      const float s0 = sc[2 * t], s1 = sc[2 * t + 1];
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // columns 2t (low half) and 2t + 1 (high half): bytes 2(t & 1) and
+        // 2(t & 1) + 1 of both rows' word q
+        const uint32_t u = __byte_perm(c[2 * h][q], c[2 * h + 1][q], (t & 1) ? 0x7362 : 0x5140);
+        const uint32_t x0 = fp6_bits(u >> sh, false), x1 = fp6_bits(u >> sh, true);
+        a[2 * h] = pack_bf16(fp6_scaled(x0 << 16, s0, fast), fp6_scaled(x1 << 16, s0, fast));
+        a[2 * h + 1] = pack_bf16(fp6_scaled(x0 & 0xFFFF0000u, s1, fast),
+                                 fp6_scaled(x1 & 0xFFFF0000u, s1, fast));
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[t][j], a, b[j][0], b[j][1]);
+    }
+  }
+}
+
+// 16 bytes that are read once: kept out of L1, where x stays
+__device__ __forceinline__ void ld_stream(uint32_t (&v)[4], const uint8_t* p) {
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "l"(p));
+}
+
+// A code row's 16 bytes at p (columns col .. col + 15; `valid` of them
+// inside N): one 16-byte load where the rows are 16-byte aligned (then all
+// 16 or none are valid), else byte by byte; zeros for a row outside the step
+__device__ __forceinline__ void load_code_row(uint32_t (&v)[4], const uint8_t* p, bool aligned,
+                                              int valid, bool row_ok) {
+  if (row_ok && aligned && valid >= 16) {
+    ld_stream(v, p);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = 0;
+  if (!row_ok || aligned) return;
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+    if (c < valid) v[c >> 2] |= (uint32_t)p[c] << (8 * (c & 3));
+}
+
+// A warp's place in its share of the K-steps: step u, in group g, from the
+// group's K-row kin; next() walks on without a division.
+struct DecPos {
+  int u, g, kin;
+  __device__ __forceinline__ DecPos(int u0, int upg)
+      : u(u0), g(u0 / upg), kin((u0 - u0 / upg * upg) * Dec::kStep) {}
+  __device__ __forceinline__ void next(int group) {
+    ++u;
+    kin += Dec::kStep;
+    if (kin >= group) {
+      kin = 0;
+      ++g;
+    }
+  }
+};
+
+
+// Built with -DDS_DECODE_TRACE (scripts/torch_b6_decode_trace.py, never the
+// library the port loads), thread 0 of every decode block stamps
+// %globaltimer at its start (0), its first step's products (1), the end of
+// its warps' steps (2), its stores (3), its ticket (4), a shared tile's
+// sum (5), and its SM (7), the last segment's stamps winning; the entry
+// ds_decode_trace reads or clears them.
+#ifdef DS_DECODE_TRACE
+__device__ unsigned long long g_decode_trace[4096 * 8];
+__device__ __forceinline__ void dec_mark(int i, bool once = false) {
+  if (threadIdx.x != 0) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  unsigned long long* p = g_decode_trace + 8 * (blockIdx.x & 4095);
+  if (!(once && p[i] != 0)) p[i] = t;
+  if (i == 0) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    p[7] = smid;
+  }
+}
+#else
+__device__ __forceinline__ void dec_mark(int, bool = false) {}
+#endif
+
+// one more on the ticket at p: an acquire-release atomic at GPU scope;
+// returns the count before it
+__device__ __forceinline__ int ticket_add(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+
+// the registers of one step in flight: its code rows and x's B fragments
+template <int BITS, int NT>
+struct DecStage {
+  uint32_t c[DecRows<BITS>::kRegs][4];
+  uint32_t b[NT][2];
+};
+
+// y[m, n .. n + 1] (v0, v1; n + 1 only where < N) in T: a pair store where
+// N is even (n is)
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float v0, float v1, int n, int N) {
+  if ((N & 1) == 0 && n + 1 < N) {
+    store_pair(p, v0, v1);
+  } else {
+    p[0] = from_float<T>(v0);
+    if (n + 1 < N) p[1] = from_float<T>(v1);
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// y[m, n .. n + 3] (those < N) in T: two pair stores where N is even
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v, int n, int N) {
+  if (n < N) store2(p, v.x, v.y, n, N);
+  if (n + 2 < N) store2(p + 2, v.z, v.w, n + 2, N);
+}
+
+template <typename XT, int BITS, int NT>
+__global__ void __launch_bounds__(Dec::kThreads, NT == 1 ? 2 : 1)
+    mixed_gemm_decode_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+                             const float* __restrict__ scales, XT* __restrict__ out,
+                             float* __restrict__ ws, int* __restrict__ tickets, int M, int N,
+                             int K, int group, int aligned, int xvec) {
+  using R = DecRows<BITS>;
+  extern __shared__ __align__(16) float red[];  // [warp][t][j][e][lane]
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const int upg = (group + Dec::kStep - 1) / Dec::kStep, steps = (K / group) * upg;
+  // block b's share of the tiles' steps, in tile order: [start_of(b), start_of(b + 1))
+  const int tiles = (N + Dec::BN - 1) / Dec::BN, nb = gridDim.x;
+  const long long all = (long long)tiles * steps;
+  auto start_of = [&](int b) { return (long long)b * all / nb; };
+  auto block_of = [&](long long l) {  // the block whose share holds step l
+    return (int)(((l + 1) * nb + all - 1) / all - 1);
+  };
+  const XT* xrow[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) xrow[j] = gr + 8 * j < M ? x + (long long)(gr + 8 * j) * K : nullptr;
+  dec_mark(0);
+
+  const long long l_start = start_of(blockIdx.x);
+  for (long long l = l_start, l_end = start_of(blockIdx.x + 1); l < l_end;) {
+    // one tile's segment [s_lo, s_hi) of the share; a tile that several
+    // blocks share has its segments' sums added by the last to finish
+    const int tile = (int)(l / steps), s_lo = (int)(l - (long long)tile * steps);
+    const int s_hi = (int)min((long long)steps, s_lo + (l_end - l));
+    const bool first = l == l_start;  // the block's first segment
+    l += s_hi - s_lo;
+    const int col = tile * Dec::BN + 16 * gr;  // the thread's first column
+    const int u_lo = s_lo + warp * (s_hi - s_lo) / Dec::kWarps;
+    const int u_hi = s_lo + (warp + 1) * (s_hi - s_lo) / Dec::kWarps;
+    const uint8_t* ccol = codes + col;
+
+    // step p's code rows and B fragments into st (nothing past the warp's share)
+    auto issue = [&](DecStage<BITS, NT>& st, const DecPos& p) {
+      if (p.u >= u_hi) return;
+      const int k0 = p.g * group + p.kin, vk = min(Dec::kStep, group - p.kin);
+      const long long row0 = (long long)k0 * Pack<BITS>::num / Pack<BITS>::den;
+#pragma unroll
+      for (int i = 0; i < R::kRegs; ++i)
+        load_code_row(st.c[i], ccol + (row0 + R::row(i, tq)) * N, aligned, N - col,
+                      R::krow(i, tq) < vk);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        st.b[j][0] = x_frag(xrow[j], k0 + 2 * tq, k0 + vk, xvec);
+        st.b[j][1] = x_frag(xrow[j], k0 + 2 * tq + 8, k0 + vk, xvec);
+      }
+    };
+
+    float acc[8][NT][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+    float sc[16];
+    int gcur = -1;
+    bool fast = true;
+    // step cp's products from the registers of st: first the group's scales
+    // of the thread's columns when the group changes
+    auto compute = [&](const DecStage<BITS, NT>& st, const DecPos& cp) {
+      const int g = cp.g;
+      if (g != gcur) {
+        gcur = g;
+        const float* sp = scales + (long long)g * N + col;
+        if (aligned && col < N) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(sp) + q);
+            sc[4 * q] = v.x;
+            sc[4 * q + 1] = v.y;
+            sc[4 * q + 2] = v.z;
+            sc[4 * q + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 16; ++c) sc[c] = col + c < N ? sp[c] : 0.f;
+        }
+        if constexpr (BITS == 6) {  // s * 2^124 is exact for every s < 16
+          bool small = true;
+#pragma unroll
+          for (int c = 0; c < 16; ++c) small = small && sc[c] < 16.f;
+          fast = __all_sync(0xffffffffu, small);
+          if (fast)
+#pragma unroll
+            for (int c = 0; c < 16; ++c) sc[c] = __fmul_rn(sc[c], 0x1p124f);
+        }
+      }
+      decode_step<BITS, NT>(st.c, sc, fast, tq, st.b, acc);
+      dec_mark(1, true);
+    };
+
+    DecPos ld(u_lo, upg), cp = ld;  // loaded, computed
+    DecStage<BITS, NT> st[Dec::kStages];
+    if (aligned && xvec && group % Dec::kStep == 0) {
+      // every step whole and the next one's rows right after it: running
+      // pointers, no bounds but the ragged columns and x's rows
+      constexpr int kStepRows = Dec::kStep * Pack<BITS>::num / Pack<BITS>::den;
+      const long long step_bytes = (long long)kStepRows * N;
+      const uint8_t* cptr = ccol + (long long)u_lo * step_bytes;
+      int roff[R::kRegs];
+#pragma unroll
+      for (int i = 0; i < R::kRegs; ++i) roff[i] = R::row(i, tq) * N;
+      const XT* xp[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        xp[j] = xrow[j] == nullptr ? nullptr : xrow[j] + u_lo * Dec::kStep + 2 * tq;
+      const bool cols_ok = col < N;
+      auto issue_fast = [&](DecStage<BITS, NT>& st, int u) {
+        if (u < u_hi) {
+#pragma unroll
+          for (int i = 0; i < R::kRegs; ++i) {
+            if (cols_ok) {
+              ld_stream(st.c[i], cptr + roff[i]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) st.c[i][q] = 0;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            st.b[j][0] = x_frag(xp[j], 0, 2, true);
+            st.b[j][1] = x_frag(xp[j], 8, 10, true);
+            if (xp[j] != nullptr) xp[j] += Dec::kStep;
+          }
+        }
+        cptr += step_bytes;
+      };
+#pragma unroll
+      for (int s = 0; s + 1 < Dec::kStages; ++s) issue_fast(st[s], u_lo + s);
+      for (int base = u_lo; base < u_hi; base += Dec::kStages) {
+#pragma unroll
+        for (int s = 0; s < Dec::kStages; ++s) {
+          if (base + s >= u_hi) break;
+          issue_fast(st[(s + Dec::kStages - 1) % Dec::kStages], base + s + Dec::kStages - 1);
+          compute(st[s], cp);
+          cp.next(group);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s + 1 < Dec::kStages; ++s) {
+        issue(st[s], ld);
+        ld.next(group);
+      }
+      while (cp.u < u_hi) {
+#pragma unroll
+        for (int s = 0; s < Dec::kStages; ++s) {
+          if (cp.u >= u_hi) break;
+          issue(st[(s + Dec::kStages - 1) % Dec::kStages], ld);
+          ld.next(group);
+          compute(st[s], cp);
+          cp.next(group);
+        }
+      }
+    }
+
+    // the warps' sums meet in shared memory; warp w adds tile t = w of every
+    // warp's in warp order: thread lane then holds y rows 8j + 2tq + h,
+    // columns n = col + 2t and n + 1
+    float* mine = red + warp * (8 * NT * 4 * 32) + lane;
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[((t * NT + j) * 4 + e) * 32] = acc[t][j][e];
+    __syncthreads();
+    dec_mark(2);
+    const int t = warp, n = col + 2 * t;
+    float v[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* p = red + ((t * NT + j) * 4 + e) * 32 + lane;
+        float s = p[0];
+#pragma unroll
+        for (int w = 1; w < Dec::kWarps; ++w) s = __fadd_rn(s, p[w * (8 * NT * 4 * 32)]);
+        v[j][e] = s;
+      }
+    const long long t0 = (long long)tile * steps;
+    const int b_first = block_of(t0), b_last = block_of(t0 + steps - 1);
+    // a segment's partial sums: slot 2b (the block's first segment) or 2b +
+    // 1 (its last), M rows of the tile's 128 columns.  The tile is the first
+    // segment of every block after b_first, and b_first's first too when
+    // its share starts with the tile.
+    const int nt = n - tile * Dec::BN;
+    const int first_slot = 2 * b_first + (start_of(b_first) == t0 ? 0 : 1);
+    auto slot = [&](int s) { return ws + (long long)s * M * Dec::BN; };
+    float* mine_part = slot(2 * blockIdx.x + (first ? 0 : 1));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * j + 2 * tq + h;
+        if (m >= M || n >= N) continue;
+        if (b_first == b_last)
+          store2(out + (long long)m * N + n, v[j][h], v[j][2 + h], n, N);
+        else
+          store2(mine_part + m * Dec::BN + nt, v[j][h], v[j][2 + h], n, N);
+      }
+    dec_mark(3);
+    if (b_first != b_last) {
+      // The barrier orders every thread's stores before thread 0's ticket,
+      // an acquire-release atomic at GPU scope, which orders them before the
+      // last block's loads, and the other blocks' stores before them through
+      // its acquire and the second barrier.
+      __syncthreads();
+      if (threadIdx.x == 0) last = ticket_add(tickets + tile) == b_last - b_first;
+      __syncthreads();
+      dec_mark(4);
+      if (last) {
+        // add the segments in block order (deterministic): thread i takes
+        // row i / 32 (and every 8th after it) at columns 4 (i % 32) .. + 3
+        // of the tile, one 16-byte load per segment, kFinal in flight
+        const int c4 = 4 * lane, n4 = tile * Dec::BN + c4;
+        for (int m = warp; m < M; m += Dec::kWarps) {
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int b0 = b_first; b0 <= b_last; b0 += Dec::kFinal) {
+            float4 a[Dec::kFinal];
+#pragma unroll
+            for (int i = 0; i < Dec::kFinal; ++i) {
+              const int b = b0 + i;
+              a[i] = b <= b_last ? __ldcg(reinterpret_cast<const float4*>(
+                                       slot(b == b_first ? first_slot : 2 * b) + m * Dec::BN + c4))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int i = 0; i < Dec::kFinal; ++i)
+              if (b0 + i <= b_last) sum = b0 + i == b_first ? a[i] : add4(sum, a[i]);
+          }
+          store4(out + (long long)m * N + n4, sum, n4, N);
+        }
+        if (threadIdx.x == 0) tickets[tile] = 0;  // for the stream's next launch
+        dec_mark(5);
+      }
+    }
+    __syncthreads();  // the sums' shared memory and `last` serve the next segment
+  }
+}
+
+// ---------------------------------------------------------------------------
 // W8A8 int8 GEMM: y^T = W^T x^T, s8 x s8 -> s32 per group, then the rescale
 // ---------------------------------------------------------------------------
 
@@ -967,14 +1393,6 @@ __device__ __forceinline__ void rescale_group(float (&acc)[NSUB][32], const int 
             rescale<SMALL>(acc[sb][4 * j + 2 + h], d[sb][4 * j + 2 + h], xh, w.y);
       }
     }
-}
-
-// columns n, n + 1 of one output row (8-byte aligned for f32, 4 for bf16)
-__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
 // Stores the s8 kernels' results: v[4j + h] and v[4j + 2 + h] are columns
@@ -1288,9 +1706,26 @@ __global__ void __launch_bounds__(I8Mma::kThreads)
 // launchers
 // ---------------------------------------------------------------------------
 
-// decode rows (M <= kSmallM) and everything larger
-using MixedSmall = Tiling<16, 128, 128, 1, 4, 4>;
-constexpr int kSmallM = 16;
+constexpr int kDecodeM = 16;  // rows that run mixed_gemm_decode_kernel
+
+// decode rows: one n8 tile of x rows up to M = 8, two up to 16; 16-byte
+// code loads where the code and scale rows are 16-byte aligned, bytes
+// elsewhere; x pairs by one load where x's rows allow it
+template <typename XT, int BITS, int NT>
+cudaError_t launch_decode(const XT* x, const uint8_t* codes, const float* scales, XT* out,
+                          float* ws, int* tickets, int M, int N, int K, int group, int blocks,
+                          cudaStream_t st) {
+  auto kernel = mixed_gemm_decode_kernel<XT, BITS, NT>;
+  static cudaError_t attr = allow_smem(kernel, Dec::smem(NT));  // once per instantiation
+  if (attr != cudaSuccess) return attr;
+  const int aligned =
+      ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(scales)) & 15) == 0 &&
+      N % 16 == 0;
+  const int xvec = reinterpret_cast<uintptr_t>(x) % (2 * sizeof(XT)) == 0 && K % 2 == 0;
+  kernel<<<blocks, Dec::kThreads, Dec::smem(NT), st>>>(x, codes, scales, out, ws, tickets, M,
+                                                        N, K, group, aligned, xvec);
+  return cudaGetLastError();
+}
 
 // TMA takes x, the codes and the scales when their rows are 16-byte
 // aligned and no K-tile spans two groups; other shapes are copied by the
@@ -1326,21 +1761,18 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* codes, const flo
 
 template <typename XT, int BITS>
 cudaError_t launch_mixed(const void* x, const void* codes, const void* scales, void* out,
-                         float* ws, int M, int N, int K, int group, int splits,
+                         float* ws, int* tickets, int M, int N, int K, int group, int splits,
                          cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* cp = static_cast<const uint8_t*>(codes);
   const float* sp = static_cast<const float*>(scales);
   XT* op = static_cast<XT*>(out);
-  if (M <= kSmallM) {
-    using TL = MixedSmall;
-    auto kernel = mixed_gemm_kernel<XT, BITS, TL>;
-    const int smem = MixedSmem<XT, BITS, TL>::kBytes;
-    static cudaError_t attr = allow_smem(kernel, smem);  // once per instantiation
-    if (attr != cudaSuccess) return attr;
-    const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM, splits);
-    kernel<<<grid, TL::kThreads, smem, st>>>(xp, cp, sp, op, ws, M, N, K, group, splits);
-  } else if constexpr (sizeof(XT) == 2) {  // bf16: wgmma, 128 or 256 rows per block
+  if (M <= kDecodeM)  // the split-K sums are added inside the kernel
+    return M <= 8 ? launch_decode<XT, BITS, 1>(xp, cp, sp, op, ws, tickets, M, N, K, group,
+                                               splits, st)
+                  : launch_decode<XT, BITS, 2>(xp, cp, sp, op, ws, tickets, M, N, K, group,
+                                               splits, st);
+  if constexpr (sizeof(XT) == 2) {  // bf16: wgmma, 128 or 256 rows per block
     const cudaError_t attr =
         M <= 128 ? launch_wgmma<BITS, 2>(xp, cp, sp, op, ws, M, N, K, group, splits, st)
                  : launch_wgmma<BITS, 4>(xp, cp, sp, op, ws, M, N, K, group, splits, st);
@@ -1429,21 +1861,37 @@ cudaError_t dispatch_int8(int wgmma, const void* xc, const void* xs_t, int xs_pi
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (x and out); bits: 8, 4 or 6.  codes and scales
-// as in the header; K = (K / group) * group.  splits (1 <= splits <= K /
-// group) shares the K-groups among blockIdx.z; with splits > 1, ws is an f32
-// workspace of splits * M * N.
+// as in the header; K = (K / group) * group.  Above 16 rows, splits (1 <=
+// splits <= K / group) shares the K-groups among blockIdx.z, and with
+// splits > 1 ws is an f32 workspace of splits * M * N.  At M <= 16, splits
+// is the decode kernel's block count B (1 <= B <= tiles * steps, tiles =
+// ceil(N / 128), steps = K / group * ceil(group / 16)): block b takes
+// steps [b * tiles * steps / B, (b + 1) * tiles * steps / B) of the
+// tiles' steps in tile order; with B > 1, ws is an f32 workspace of 2 B *
+// M * 128 and tickets a zero int per tile, which the launch leaves zero
+// (one buffer per stream serves its launches in turn).  There a group
+// starts on a code byte: int4 groups are even and fp6 groups a multiple
+// of 4, unless there is one group.
 extern "C" int ds_mixed_gemm(int dtype, int bits, const void* x, const void* codes,
-                             const void* scales, void* out, void* ws, int M, int N, int K,
-                             int group, int splits, void* stream) {
+                             const void* scales, void* out, void* ws, void* tickets, int M, int N,
+                             int K, int group, int splits, void* stream) {
   cudaGetLastError();  // a stale error must not be blamed on this launch
   if (M == 0 || N == 0) return cudaSuccess;
-  if (group <= 0 || K % group != 0 || splits < 1 || splits > K / group ||
-      (splits > 1 && ws == nullptr))
+  if (group <= 0 || K % group != 0 || splits < 1) return cudaErrorInvalidValue;
+  if (M <= kDecodeM) {
+    const long long steps = (long long)(K / group) * ((group + Dec::kStep - 1) / Dec::kStep);
+    if (splits > (N + Dec::BN - 1) / Dec::BN * steps ||
+        (splits > 1 && (ws == nullptr || tickets == nullptr)) ||
+        (K > group && ((bits == 4 && group % 2 != 0) || (bits == 6 && group % 4 != 0))))
+      return cudaErrorInvalidValue;
+  } else if (splits > K / group || (splits > 1 && ws == nullptr)) {
     return cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsp = static_cast<float*>(ws);
+  int* tp = static_cast<int*>(tickets);
 #define DS_MIXED(T, B) \
-  return (int)launch_mixed<T, B>(x, codes, scales, out, wsp, M, N, K, group, splits, st)
+  return (int)launch_mixed<T, B>(x, codes, scales, out, wsp, tp, M, N, K, group, splits, st)
   if (dtype == 1) {
     if (bits == 8) DS_MIXED(__nv_bfloat16, 8);
     if (bits == 4) DS_MIXED(__nv_bfloat16, 4);
@@ -1457,6 +1905,15 @@ extern "C" int ds_mixed_gemm(int dtype, int bits, const void* x, const void* cod
 #undef DS_MIXED
   return cudaErrorInvalidValue;
 }
+
+#ifdef DS_DECODE_TRACE
+// the decode blocks' stamps (4096 x 8 u64) into dst, or cleared (clear)
+extern "C" int ds_decode_trace(void* dst, int clear) {
+  static unsigned long long zeros[4096 * 8];
+  if (clear) return (int)cudaMemcpyToSymbol(g_decode_trace, zeros, sizeof(zeros));
+  return (int)cudaMemcpyFromSymbol(dst, g_decode_trace, sizeof(zeros));
+}
+#endif
 
 // W8A8: xc int8 (M, K), xs_t f32 (K/group, M) in rows xs_pitch >= M
 // elements apart (xs_pitch % 4 == 0), wc int8 (K, N), ws f32 (K/group, N);

@@ -58,9 +58,9 @@ _ENTRIES: Dict[str, list] = {
     "ds_flash_bwd_dkdv": [_I] + [_P] * 10 + [_I] * 11 + [_F, _P],
     # dtype, q, k, v, do, lse, delta, seg, bm, dq, (11 ints), scale, stream
     "ds_flash_bwd_dq": [_I] + [_P] * 9 + [_I] * 11 + [_F, _P],
-    # dtype, bits, x, codes, scales, out, workspace, M, N, K, group, splits,
-    # stream
-    "ds_mixed_gemm": [_I, _I] + [_P] * 5 + [_I] * 5 + [_P],
+    # dtype, bits, x, codes, scales, out, workspace, tickets, M, N, K,
+    # group, splits, stream
+    "ds_mixed_gemm": [_I, _I] + [_P] * 6 + [_I] * 5 + [_P],
     # dtype, wgmma, x codes, x scales (K/group, pitch), pitch, w codes, w
     # scales, out, M, N, K, group, stream
     "ds_int8_gemm": [_I, _I, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_P],

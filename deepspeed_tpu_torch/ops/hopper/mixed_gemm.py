@@ -22,8 +22,11 @@ same test from the shapes before any launch and computes the same formula
 there, counted in :data:`DEQUANT_CALLS`: that is the reference's function
 for those shapes, not a fallback.  Inside the envelope, CUDA tensors launch
 the hand-written kernels of ``csrc/mixed_gemm.cu`` on the current stream
-(:data:`LAUNCHES`) or raise on what they do not take: ``mixed_gemm_kernel``
-for M <= 16 rows, ``mixed_gemm_wgmma_kernel`` for bf16 x at M > 16
+(:data:`LAUNCHES`) or raise on what they do not take:
+``mixed_gemm_decode_kernel`` for M <= 16 rows (:data:`DECODE_LAUNCHES`;
+:func:`decode_blocks` blocks, each an equal share of the tiles' K-steps,
+whose shared tiles are added up in the same launch through the stream's
+tickets, :func:`_tickets`), ``mixed_gemm_wgmma_kernel`` for bf16 x at M > 16
 (:data:`WGMMA_LAUNCHES`), ``mixed_gemm_mma_kernel`` for f32 x at M > 16;
 W8A8 runs ``int8_gemm_wgmma_kernel`` at M > 16 where TMA takes the rows
 (N a multiple of 16, 16-byte aligned arrays; also counted in
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Any, Optional, Tuple
 
 import torch
@@ -58,6 +62,10 @@ LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0, "mixed_gemm_fp6": 0,
 #: ``int8_gemm_wgmma_kernel`` (:func:`int8_uses_wgmma`)
 WGMMA_LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0,
                   "mixed_gemm_fp6": 0, "int8_gemm": 0}
+#: of the mixed GEMM's launches, the ones of ``mixed_gemm_decode_kernel``
+#: (M <= 16 rows), per code width
+DECODE_LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0,
+                   "mixed_gemm_fp6": 0}
 #: calls of each plain version (the CPU path and the kernels' oracle)
 PLAIN_CALLS = {"mixed_gemm_plain": 0, "int8_gemm_plain": 0}
 #: calls outside the reference's kernel envelope (its dequantize formula)
@@ -65,19 +73,26 @@ DEQUANT_CALLS = {"mixed_gemm": 0, "int8_gemm": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' (rows, columns) per block and resident blocks per SM, for
-# the split-K choice (csrc): MixedSmall for M <= 16; above, WgSmem for bf16
-# x (128 rows up to M = 128, else 256) and MmaSmem for f32 x
+# the split-K choice (csrc): Dec for M <= 16 (8 warps on 128 columns, at
+# most 128 registers a thread and two blocks per SM for one n8 tile of x
+# rows, M <= 8; one block for two); above, WgSmem for bf16 x (128 rows up
+# to M = 128, else 256) and MmaSmem for f32 x
 _SMALL_M = 16
-_SMALL_TILE, _MMA_TILE = (16, 128, 2), (128, 128, 2)
+_DECODE_COLS = 128
+_MMA_TILE = (128, 128, 2)
 _INT8_BK = 128  # the W8A8 kernels' K-tile: a group is whole tiles
 _SM_COUNT: dict = {}
 _KERNEL_NAMES = {8: "mixed_gemm_int8", 4: "mixed_gemm_int4",
                  6: "mixed_gemm_fp6"}
 _CODE_DTYPES = {8: torch.int8, 4: torch.int8, 6: torch.uint8}
+# the decode kernel's split-K tickets, one buffer per (device, stream)
+_TICKETS: dict = {}
+_TICKETS_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, WGMMA_LAUNCHES, PLAIN_CALLS, DEQUANT_CALLS):
+    for counts in (LAUNCHES, WGMMA_LAUNCHES, DECODE_LAUNCHES, PLAIN_CALLS,
+                   DEQUANT_CALLS):
         for key in counts:
             counts[key] = 0
 
@@ -350,9 +365,7 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
 
 
 def _mixed_tile(M: int, bf16: bool):
-    """(rows, columns, blocks per SM) of the kernel that takes M rows."""
-    if M <= _SMALL_M:
-        return _SMALL_TILE
+    """(rows, columns, blocks per SM) of the M > 16 kernel for M rows."""
     if not bf16:
         return _MMA_TILE
     return (128 if M <= 128 else 256), 128, 1
@@ -360,11 +373,54 @@ def _mixed_tile(M: int, bf16: bool):
 
 def mixed_gemm_splits(M: int, N: int, groups: int, sms: int,
                       bf16: bool = True) -> int:
-    """How many K-splits the mixed GEMM kernel takes: enough for its output
-    tiles to fill the card's resident blocks, at most one per group."""
+    """How many K-splits the mixed GEMM kernel above 16 rows takes: enough
+    for its output tiles to fill the card's resident blocks, at most one
+    per group."""
     bm, bn, per_sm = _mixed_tile(M, bf16)
     tiles = -(-M // bm) * -(-N // bn)
     return max(1, min(groups, per_sm * sms // tiles))
+
+
+def decode_steps(K: int, group: int) -> int:
+    """``mixed_gemm_decode_kernel``'s K-steps of 16 rows: ceil(group / 16)
+    a group (the last one partial where 16 does not divide the group)."""
+    return K // group * -(-group // 16)
+
+
+#: K-steps a decode block takes at least (two for each of its 8 warps)
+_DECODE_MIN_STEPS = 16
+
+
+def decode_blocks(M: int, N: int, K: int, group: int, sms: int) -> int:
+    """How many blocks ``mixed_gemm_decode_kernel`` runs: as many as the
+    card holds at once (8 warps, at most 128 registers a thread: two an SM
+    for one n8 tile of x rows, M <= 8, one for two), each an equal share of
+    the 128-column tiles' K-steps in tile order (a tile split between
+    blocks is added up in the kernel), every block at least
+    _DECODE_MIN_STEPS steps."""
+    per_sm = 2 if M <= 8 else 1
+    steps = -(-N // _DECODE_COLS) * decode_steps(K, group)
+    return max(1, min(per_sm * sms, steps // _DECODE_MIN_STEPS))
+
+
+def _tickets(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """The decode kernel's split-K tickets for launches on ``stream``: an
+    int32 per 128-column tile, zero between launches (the last block of a
+    tile resets its own).  Launches on one stream run in turn and share
+    one buffer; another stream's, which may run at the same time, get
+    another.  A buffer grows only by a new zeroed one allocated on its
+    stream (``torch.zeros`` is queued there), and the caching allocator
+    hands the old one's memory only to work queued later on that stream.
+    The lock keeps two threads from growing one stream's buffer at once;
+    the caller holds the tensor until its launch is queued."""
+    key = (device.index, stream)
+    with _TICKETS_LOCK:
+        buf = _TICKETS.get(key)
+        if buf is None or buf.numel() < tiles:
+            size = max(tiles, 2 * (0 if buf is None else buf.numel()))
+            buf = torch.zeros(size, dtype=torch.int32, device=device)
+            _TICKETS[key] = buf
+        return buf
 
 
 def _sm_count(device: torch.device) -> int:
@@ -385,23 +441,37 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     if M == 0 or N == 0:
         return out
     bf16 = x2.dtype == torch.bfloat16
-    splits = mixed_gemm_splits(M, N, K // qw.group, _sm_count(x2.device),
-                               bf16)
-    # the split-K partial sums, one buffer per call from the caching
-    # allocator on the launch stream: calls from several threads on one
-    # stream never share it, and it is reused only after this call's reduce
-    ws = torch.empty(splits * M * N, dtype=torch.float32,
-                     device=x2.device) if splits > 1 else None
+    decode = M <= _SMALL_M
+    sms = _sm_count(x2.device)
+    # the decode kernel's blocks, or the split count above 16 rows
+    splits = decode_blocks(M, N, K, qw.group, sms) if decode else \
+        mixed_gemm_splits(M, N, K // qw.group, sms, bf16)
+    stream = _stream(x2.device)
+    # the partial sums of shared tiles (decode: two segments a block, M rows
+    # of 128 columns) or of the K-splits, one buffer per call from the
+    # caching allocator on the launch stream: calls from several threads on
+    # one stream never share it, and it is reused only after this call's sum
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty(2 * splits * M * _DECODE_COLS if decode
+                         else splits * M * N, dtype=torch.float32,
+                         device=x2.device)
+        if decode:
+            tickets = _tickets(x2.device, stream, -(-N // _DECODE_COLS))
     lib = build.load()
     err = lib.ds_mixed_gemm(
         _DTYPE_CODES[x2.dtype], qw.bits, x2.data_ptr(), qw.codes.data_ptr(),
         qw.scales.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        M, N, K, qw.group, splits, _stream(x2.device))
+        None if tickets is None else tickets.data_ptr(),
+        M, N, K, qw.group, splits, stream)
     build.check(lib, err, "mixed_gemm launch")
-    LAUNCHES[_KERNEL_NAMES[qw.bits]] += 1
-    if bf16 and M > _SMALL_M:
-        WGMMA_LAUNCHES[_KERNEL_NAMES[qw.bits]] += 1
+    name = _KERNEL_NAMES[qw.bits]
+    LAUNCHES[name] += 1
+    if decode:
+        DECODE_LAUNCHES[name] += 1
+    elif bf16:
+        WGMMA_LAUNCHES[name] += 1
     return out
 
 

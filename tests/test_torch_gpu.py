@@ -564,14 +564,27 @@ def _mixed_close(got, want, dtype, what):
                                atol=1e-5 * want.abs().max().item(), msg=what)
 
 
+def _mixed_launched(bits, M, dtype):
+    """One launch, of the kernel that takes M rows and x's dtype:
+    mixed_gemm_decode_kernel at M <= 16, the wgmma kernel for bf16 x
+    above."""
+    name = tmg._KERNEL_NAMES[bits]
+    assert tmg.LAUNCHES[name] == 1
+    assert tmg.DECODE_LAUNCHES[name] == int(M <= 16)
+    assert tmg.WGMMA_LAUNCHES[name] == int(dtype == torch.bfloat16
+                                           and M > 16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("M", [1, 8, 17, 37, 64, 255, 256, 300])
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 15, 16, 17, 37, 64, 255, 256,
+                               300])
 @pytest.mark.parametrize("bits", [8, 4, 6])
 def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
-    """M <= 16 runs the decode kernel; bf16 x at M > 16 the wgmma kernel
-    (TMA copies; 128- and 256-row blocks, ragged last ones), f32 x at M >
-    16 the mma.sync kernel; N = 96 leaves a ragged column block."""
+    """M <= 16 runs the decode kernel (one n8 tile of x rows up to M = 8,
+    two above); bf16 x at M > 16 the wgmma kernel (TMA copies; 128- and
+    256-row blocks, ragged last ones), f32 x at M > 16 the mma.sync
+    kernel; N = 96 leaves a ragged column block."""
     for N in (96, 1024):
         x, qw = _mixed_inputs(M + N, M, MG_K, N, bits, dtype, cuda_device)
         tmg.reset_counts()
@@ -579,26 +592,33 @@ def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
         want = tmg.mixed_gemm_plain(x, qw)
         assert got.dtype == dtype and got.shape == (M, N)
         _mixed_close(got, want, dtype, f"bits={bits} M={M} N={N}")
-        assert tmg.LAUNCHES[tmg._KERNEL_NAMES[bits]] == 1
-        assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(
-            dtype == torch.bfloat16 and M > 16)
+        _mixed_launched(bits, M, dtype)
         assert tmg.DEQUANT_CALLS["mixed_gemm"] == 0
 
 
 @pytest.mark.parametrize("splits", [1, 3, 7])
-@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("M", [2, 8, 9, 15, 16, 256])
 def test_mixed_gemm_split_k_matches_plain(cuda_device, monkeypatch, M,
                                           splits):
     """Seven K-groups shared by 1, 3 (2 + 2 + 3) or 7 splits, both bf16
-    kernels (decode rows and the wgmma kernel): the partial sums add up."""
+    kernels: the wgmma kernel's K-splits, and the decode kernel's blocks
+    (8 tiles x splits blocks, each an equal share of the tiles' 112 steps:
+    whole tiles, shares of 37 1/3 steps that straddle tiles, or 16), whose
+    last block of a tile adds the shares' sums; the partial sums add up,
+    and each call leaves the stream's tickets at zero for the next."""
     monkeypatch.setattr(tmg, "mixed_gemm_splits", lambda *a: splits)
+    monkeypatch.setattr(tmg, "decode_blocks",
+                        lambda M, N, *a: -(-N // 128) * splits)
     for bits in (8, 4, 6):
         x, qw = _mixed_inputs(splits + bits, M, 7 * MG_GROUP, 1024, bits,
                               torch.bfloat16, cuda_device)
         tmg.reset_counts()
         _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
                      torch.bfloat16, f"bits={bits} splits={splits}")
-        assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(M > 16)
+        _mixed_launched(bits, M, torch.bfloat16)
+    torch.cuda.synchronize()
+    for buf in tmg._TICKETS.values():
+        assert not buf.any().item()
 
 
 def test_mixed_gemm_split_k_from_two_threads(cuda_device):
@@ -611,9 +631,11 @@ def test_mixed_gemm_split_k_from_two_threads(cuda_device):
     cases = [_mixed_inputs(seed, 8, 7 * MG_GROUP, N, 8, torch.bfloat16,
                            cuda_device)
              for seed, N in ((1, 1024), (2, 3072))]
-    assert all(tmg.mixed_gemm_splits(8, qw.out_features, 7,
-                                     tmg._sm_count(cuda_device)) > 1
-               for _, qw in cases)
+    # more blocks than tiles: every call adds shared tiles through the
+    # stream's tickets and its own workspace
+    assert all(tmg.decode_blocks(8, qw.out_features, 7 * MG_GROUP, MG_GROUP,
+                                 tmg._sm_count(cuda_device))
+               > qw.out_features // 128 for _, qw in cases)
     wants = [tmg.mixed_gemm_plain(x, qw) for x, qw in cases]
     outs = [[], []]
     start = threading.Barrier(2)
@@ -647,17 +669,43 @@ def test_mixed_gemm_split_k_from_two_threads(cuda_device):
 def test_mixed_gemm_unaligned_shapes_match_plain(cuda_device, bits, K, N,
                                                  dtype):
     """One group of K rows (group == K, so the reference's kernel path):
-    rows and columns not 16-byte aligned, or aligned with a group that
-    64-deep K-tiles do not divide (the wgmma kernel's threads copy these,
-    not TMA), a partial last K tile."""
-    for M in (5, 40):
+    rows and columns not 16-byte aligned (the decode kernel loads their
+    codes byte by byte, x by elements at odd K), or aligned with a group
+    that 64-deep K-tiles do not divide (the wgmma kernel's threads copy
+    these, not TMA), a partial last K tile (K-step at the decode rows)."""
+    for M in (2, 5, 9, 15, 16, 40):
         x, qw = _mixed_inputs(K + M, M, K, N, bits, dtype, cuda_device)
         assert tmg.mixed_gemm_on_kernel_path(qw) and qw.group == K
         tmg.reset_counts()
         _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
                      dtype, f"bits={bits} K={K} M={M}")
-        assert tmg.WGMMA_LAUNCHES[tmg._KERNEL_NAMES[bits]] == int(
-            dtype == torch.bfloat16 and M > 16)
+        _mixed_launched(bits, M, dtype)
+
+
+def test_mixed_gemm_split_k_on_two_streams(cuda_device):
+    """Split-K decode GEMMs on two streams at once (each stream its own
+    tickets): 100 calls on each, queued in turns so that the two streams'
+    kernels overlap, every output against plain; then both streams'
+    tickets are back at zero."""
+    cases = [_mixed_inputs(seed, 8, 7 * MG_GROUP, N, bits, torch.bfloat16,
+                           cuda_device)
+             for seed, N, bits in ((3, 1024, 8), (4, 2048, 6))]
+    wants = [tmg.mixed_gemm_plain(x, qw) for x, qw in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(100):
+        for i, (x, qw) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(tmg.mixed_gemm(x, qw))
+    torch.cuda.synchronize()
+    keys = {(cuda_device.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(tmg._TICKETS)
+    for key in keys:
+        assert not tmg._TICKETS[key].any().item()
+    for i, want in enumerate(wants):
+        for j, got in enumerate(outs[i]):
+            _mixed_close(got, want, torch.bfloat16, f"stream {i} call {j}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1105,8 +1153,9 @@ def test_small_model_speculative_card_matches_cpu(cuda_device):
 def test_v1_quantized_launch_counts(cuda_device):
     """``chip_smoke.py``'s v1 W8A16 gate at a small bf16 width: one quantized
     ``generate`` launches the mixed GEMM once per projection, layer and
-    forward, the prefill (M = B * T) on ``mixed_gemm_wgmma_kernel``, with
-    no plain or envelope call; tokens in the vocab, a second run equal."""
+    forward, the prefill (M = B * T) on ``mixed_gemm_wgmma_kernel``, the
+    decodes (M = B) on ``mixed_gemm_decode_kernel``, with no plain or
+    envelope call; tokens in the vocab, a second run equal."""
     import chip_smoke
 
     cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
@@ -1121,6 +1170,8 @@ def test_v1_quantized_launch_counts(cuda_device):
         "v1 W8A16 (small)", kernels=[tmg])
     got = chip_smoke.v1_quantized_counts(counts, cfg, "v1 W8A16 (small)")
     assert got["mixed_gemm_wgmma"] == chip_smoke.PROJECTIONS * cfg.num_layers
+    assert got["mixed_gemm_decode"] == chip_smoke.PROJECTIONS * \
+        cfg.num_layers * (chip_smoke.NEW_TOKENS - 1)
     assert toks.shape[1] == chip_smoke.V1_PROMPT + chip_smoke.NEW_TOKENS
 
 

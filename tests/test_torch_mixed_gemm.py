@@ -515,3 +515,368 @@ def test_kernel_header_is_part_of_the_library_digest(monkeypatch, tmp_path):
     copy.write_bytes(build.HEADERS[0].read_bytes() + b"// edited\n")
     monkeypatch.setattr(build, "HEADERS", (copy,))
     assert build.library_path().name != path.name
+
+
+# ---------------------------------------------------------------------------
+# the decode-row kernel (csrc/mixed_gemm.cu mixed_gemm_decode_kernel),
+# emulated on the CPU: its exact code conversions bit for bit, then its
+# fragments, loads, K-steps, warps and split-K sums
+# ---------------------------------------------------------------------------
+
+DEC_STEP, DEC_COLS, DEC_WARPS = 16, 128, 8  # csrc Dec: K-rows a step, columns a tile, warps
+
+
+def _f32(bits):
+    return np.asarray(bits, np.uint32).view(np.float32)
+
+
+def _bf16_bits(v):
+    """f32 -> bf16 bits, round to nearest even (finite values), as
+    ``__floats2bfloat162_rn`` and ``Tensor.to(torch.bfloat16)``."""
+    u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+def _i8_value(w, b):
+    """csrc ``i8_value``: byte b of w (sign bits flipped) in 2^23's mantissa,
+    less 2^23 + 128."""
+    return _f32(_byte_perm(w, 0x4B000000, 0x7540 + b)) - np.float32(8388736.0)
+
+
+def _i4_lo(lo, b):
+    return _f32(_byte_perm(lo, 0x4B000000, 0x7540 + b)) - np.float32(8388616.0)
+
+
+def _i4_hi(hi, b):
+    """csrc ``i4_hi``: one fma of 2^23 + 16 (code + 8) by 1/16 less 2^19 + 8;
+    its exact result is an integer, so computing it in f64 and rounding
+    once is the fma."""
+    exact = _f32(_byte_perm(hi, 0x4B000000, 0x7540 + b)).astype(np.float64) \
+        * 0.0625 - 524296.0
+    assert np.array_equal(exact, np.round(exact))
+    return exact.astype(np.float32)
+
+
+def _fp6_bits(t, second):
+    """csrc ``fp6_bits``: both columns' codes of K-row k (or k + 1) as bf16
+    patterns of fp6 * 2^-124."""
+    t = np.asarray(t, np.uint32)
+    if second:
+        return ((t >> 1) & 0x03E003E0) | ((t << 4) & 0x80008000)
+    return ((t << 5) & 0x03E003E0) | ((t << 10) & 0x80008000)
+
+
+def _fp6_scaled(v, s, fast):
+    """csrc ``fp6_scaled``: fast, s holds s * 2^124; else two products."""
+    f = _f32(v)
+    if fast:
+        return f * np.float32(s)
+    return (f * np.float32(2.0 ** 124)) * np.float32(s)
+
+
+_CONV_SCALES = np.array([1.0, 0.0123, 3.7e-3, 7.5, 15.99, 1e-30, 1e-40,
+                         2.0 ** -7, 1.0 / 3.0], np.float32)
+
+
+def _ref_bf16(values, s):
+    """``(float)code * s`` rounded to bf16, as the plain version's
+    dequantization does it (torch on the CPU)."""
+    w = torch.from_numpy(np.asarray(values, np.float32)) * torch.tensor(s)
+    return w.to(torch.bfloat16).view(torch.int16).numpy().astype(
+        np.uint32) & 0xFFFF
+
+
+@pytest.mark.parametrize("s", _CONV_SCALES.tolist() + [16.0, 1e4],
+                         ids=lambda s: f"s{s:g}")
+def test_decode_code_conversions_are_exact(s):
+    """Every int8 code (all 256, in each byte of a word), every int4 nibble
+    (low and high, each byte) and every fp6 code (both K-rows of a pair,
+    both halves, at bit 0 and bit 4 of the pair's 16 bits; subnormals and
+    +-0) through the decode kernel's bit paths, times the scale and
+    rounded to bf16, equals (float)code * s rounded to bf16, bit for bit;
+    fp6 takes one product by s * 2^124 below s = 16, two above."""
+    rng = np.random.default_rng(7)
+    s = np.float32(s)
+    codes = np.arange(-128, 128)
+    for b in range(4):  # int8: code in byte b, other bytes random
+        other = rng.integers(0, 256, (codes.size, 4)).astype(np.uint32)
+        other[:, b] = codes.astype(np.int8).view(np.uint8)
+        w = (other[:, 0] | other[:, 1] << 8 | other[:, 2] << 16
+             | other[:, 3] << 24).astype(np.uint32) ^ np.uint32(0x80808080)
+        v = _i8_value(w, b)
+        assert np.array_equal(v, codes.astype(np.float32))
+        np.testing.assert_array_equal(_bf16_bits(v * s), _ref_bf16(codes, s))
+    lo, hi = np.meshgrid(np.arange(-8, 8), np.arange(-8, 8))
+    lo, hi = lo.ravel(), hi.ravel()
+    byte = ((lo & 15) | (hi & 15) << 4).astype(np.uint32)
+    for b in range(4):
+        w = (rng.integers(0, 2 ** 32, byte.size, dtype=np.uint64).astype(
+            np.uint32) & ~np.uint32(255 << (8 * b))) | byte << (8 * b)
+        vl = _i4_lo((w & 0x0F0F0F0F) ^ 0x08080808, b)
+        vh = _i4_hi((w & 0xF0F0F0F0) ^ 0x80808080, b)
+        assert np.array_equal(vl, lo.astype(np.float32))
+        assert np.array_equal(vh, hi.astype(np.float32))
+        np.testing.assert_array_equal(_bf16_bits(vl * s), _ref_bf16(lo, s))
+        np.testing.assert_array_equal(_bf16_bits(vh * s), _ref_bf16(hi, s))
+    c0, c1 = np.meshgrid(np.arange(64), np.arange(64))
+    c0, c1 = c0.ravel().astype(np.uint32), c1.ravel().astype(np.uint32)
+    vals = tqz.minifloat_decode(torch.arange(64), 3, 2).numpy()
+    fast = s < 16
+    scale = s * np.float32(2.0 ** 124) if fast else s
+    assert np.isfinite(scale)
+    for sh in (0, 4):  # K-rows 4q, 4q + 1 (bit 0) or 4q + 2, 4q + 3 (bit 4)
+        junk = rng.integers(0, 16, c0.size).astype(np.uint32)
+        u = (c0 << sh | c1 << (sh + 6) | (junk << 12 if sh == 0 else junk))
+        u_other = np.roll(u, 1)  # the other column of the register
+        for half in (0, 1):
+            word = (u | u_other << 16) if half == 0 else (u_other | u << 16)
+            t = (word & 0xFFFFFFFF).astype(np.uint32) >> sh
+            x0, x1 = _fp6_bits(t, False), _fp6_bits(t, True)
+            if half == 0:
+                v0, v1 = (x0 << 16) & 0xFFFFFFFF, (x1 << 16) & 0xFFFFFFFF
+            else:
+                v0, v1 = x0 & 0xFFFF0000, x1 & 0xFFFF0000
+            np.testing.assert_array_equal(
+                _bf16_bits(_fp6_scaled(v0, scale, fast)),
+                _ref_bf16(vals[c0], s))
+            np.testing.assert_array_equal(
+                _bf16_bits(_fp6_scaled(v1, scale, fast)),
+                _ref_bf16(vals[c1], s))
+
+
+_LANES = np.arange(32)
+_GR, _TQ = _LANES >> 2, _LANES & 3
+
+
+def _dec_rows(bits, i):
+    """csrc ``DecRows``: (code row offset, first K-row) of register i of
+    every lane."""
+    if bits == 8:
+        r = 2 * _TQ + (i & 1) + 8 * (i >> 1)
+        return r, r
+    if bits == 4:
+        return _TQ + 4 * i, 2 * _TQ + 8 * i
+    return (3 * (_TQ >> 1) + (_TQ & 1) + (i & 1) + 6 * (i >> 1),
+            2 * _TQ + 8 * (i >> 1))
+
+
+def _dec_a_frags(bits, words, sc, fast):
+    """csrc ``decode_step``'s A registers (lanes, tile t, register r) from
+    the code words (lanes, register, word) and the lanes' 16 scales."""
+    a = np.zeros((32, 8, 4), np.uint32)
+    pack = (lambda lo_, hi_: _bf16_bits(lo_) | _bf16_bits(hi_) << 16)
+    if bits == 8:
+        w = words ^ np.uint32(0x80808080)
+    elif bits == 4:
+        lo = (words & 0x0F0F0F0F) ^ np.uint32(0x08080808)
+        hi = (words & 0xF0F0F0F0) ^ np.uint32(0x80808080)
+    sh = (4 * (_TQ & 1)).astype(np.uint32)
+    for t in range(8):
+        q, b0 = t >> 1, 2 * (t & 1)
+        s0, s1 = sc[:, 2 * t], sc[:, 2 * t + 1]
+        for h in range(2):
+            if bits == 8:
+                a[:, t, 2 * h] = pack(_i8_value(w[:, 2 * h, q], b0) * s0,
+                                      _i8_value(w[:, 2 * h + 1, q], b0) * s0)
+                a[:, t, 2 * h + 1] = pack(
+                    _i8_value(w[:, 2 * h, q], b0 + 1) * s1,
+                    _i8_value(w[:, 2 * h + 1, q], b0 + 1) * s1)
+            elif bits == 4:
+                a[:, t, 2 * h] = pack(_i4_lo(lo[:, h, q], b0) * s0,
+                                      _i4_hi(hi[:, h, q], b0) * s0)
+                a[:, t, 2 * h + 1] = pack(_i4_lo(lo[:, h, q], b0 + 1) * s1,
+                                          _i4_hi(hi[:, h, q], b0 + 1) * s1)
+            else:
+                u = _byte_perm(words[:, 2 * h, q], words[:, 2 * h + 1, q],
+                               0x7362 if t & 1 else 0x5140)
+                t_ = (np.asarray(u, np.uint32) >> sh).astype(np.uint32)
+                x0, x1 = _fp6_bits(t_, False), _fp6_bits(t_, True)
+                lo16 = (lambda v: (v << 16) & 0xFFFFFFFF)
+                a[:, t, 2 * h] = pack(_fp6_scaled(lo16(x0), s0, fast),
+                                      _fp6_scaled(lo16(x1), s0, fast))
+                a[:, t, 2 * h + 1] = pack(
+                    _fp6_scaled(x0 & 0xFFFF0000, s1, fast),
+                    _fp6_scaled(x1 & 0xFFFF0000, s1, fast))
+    return a
+
+
+def _bf16_value(bits):
+    return _f32((np.asarray(bits, np.uint32) & 0xFFFF) << 16)
+
+
+def _emulate_decode_kernel(x, qw, blocks):
+    """mixed_gemm_decode_kernel's arithmetic in f32: `blocks` blocks, block
+    b taking steps [b T S / blocks, (b + 1) T S / blocks) of the T
+    128-column tiles' S K-steps (16 K-rows each, partial at a group's end)
+    in tile order, one tile's segment at a time: its 8 warps take
+    contiguous shares of the segment; each lane's code rows gathered as the
+    kernel loads them (every load instruction reading whole 128-byte row
+    runs where the rows allow), converted by the kernel's bit paths into
+    the m16n8k16 A fragments of eight m16 tiles (A rows gr, gr + 8 =
+    columns 16 gr + 2t, + 1), B = x^T from the lanes' bf16 x pairs; D += A
+    B per step; the warps added in warp order; y stored through the C
+    fragment layout, a tile that several blocks share as their segments'
+    sums added in block order."""
+    M, K = x.shape
+    N, g, bits = qw.out_features, qw.group, qw.bits
+    NT = 1 if M <= 8 else 2
+    upg, G = -(-g // DEC_STEP), K // g
+    steps = G * upg
+    tiles = -(-N // DEC_COLS)
+    width = tiles * DEC_COLS + DEC_COLS
+    codes = np.zeros((qw.codes.shape[0], width), np.uint8)
+    codes[:, :N] = qw.codes.numpy().view(np.uint8)
+    scales = np.zeros((G, width), np.float32)
+    scales[:, :N] = qw.scales.numpy()
+    xf = x.numpy().astype(np.float32)
+    num, den = {8: (1, 1), 4: (1, 2), 6: (3, 4)}[bits]
+    n_regs = {8: 4, 4: 2, 6: 4}[bits]
+    rows_k = [_dec_rows(bits, i) for i in range(n_regs)]
+
+    def warp_steps(col, u_lo, u_hi):
+        acc = np.zeros((8, 16, 8 * NT), np.float32)
+        for u in range(u_lo, u_hi):
+            grp, kin = u // upg, (u % upg) * DEC_STEP
+            k0, vk = grp * g + kin, min(DEC_STEP, g - kin)
+            row0 = k0 * num // den
+            words = np.zeros((32, n_regs, 4), np.uint32)
+            for i, (r, kr) in enumerate(rows_k):
+                at = (row0 + r)[:, None] * width + col[:, None] + np.arange(16)
+                if N % 16 == 0:  # one 16-byte load: 4 runs of 128 bytes
+                    for q in range(4):
+                        run = np.sort(at[_TQ == q, 0])
+                        assert np.array_equal(np.diff(run), [16] * 7)
+                ok = (kr < vk)[:, None]
+                raw = np.where(ok, codes.ravel()[np.minimum(
+                    at, codes.size - 1)], 0).astype(np.uint8)
+                words[:, i] = raw.view("<u4").reshape(32, 4)
+            sc = scales[grp][col[:, None] + np.arange(16)]
+            fast = bool((sc < 16).all())
+            a = _dec_a_frags(bits, words, sc * np.float32(2.0 ** 124)
+                             if bits == 6 and fast else sc, fast)
+            A = np.zeros((8, 16, 16), np.float32)
+            for r, (rr, kk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                A[:, _GR + rr, 2 * _TQ + kk] = _bf16_value(a[:, :, r]).T
+                A[:, _GR + rr, 2 * _TQ + kk + 1] = _bf16_value(a[:, :, r] >> 16).T
+            B = np.zeros((16, 8 * NT), np.float32)
+            for j in range(NT):  # x rows gr + 8j, K-rows from k0
+                m = _GR + 8 * j
+                for kk in (0, 1, 8, 9):
+                    k = k0 + 2 * _TQ + kk
+                    ok = (m < M) & (k < k0 + vk)
+                    v = np.where(ok, xf[np.minimum(m, M - 1),
+                                        np.minimum(k, K - 1)], 0)
+                    B[2 * _TQ + kk, m] = _bf16_value(_bf16_bits(v))
+            acc = acc + np.matmul(A, B)
+        return acc
+
+    def tile_values(v):
+        """The warps' sum v (8, 16, 8 NT) as y rows and the tile's 128
+        columns, through the C fragment layout: D[gr + 8 (e >> 1), 2tq + (e
+        & 1) + 8j] -> y[8j + 2tq + (e & 1), 16 gr + 2t + (e >> 1)]."""
+        out = np.zeros((16, DEC_COLS), np.float32)
+        for e in range(4):
+            for j in range(NT):
+                m = 8 * j + 2 * _TQ + (e & 1)
+                n = 16 * _GR[:, None] + 2 * np.arange(8) + (e >> 1)
+                out[np.broadcast_to(m[:, None], n.shape), n] = \
+                    v[np.arange(8), (_GR + 8 * (e >> 1))[:, None],
+                      (2 * _TQ + (e & 1) + 8 * j)[:, None]]
+        return out[:M]
+
+    total = tiles * steps
+    segment = {}
+    for b in range(blocks):
+        l, l_end = b * total // blocks, (b + 1) * total // blocks
+        while l < l_end:
+            tile, s_lo = l // steps, l % steps
+            s_hi = min(steps, s_lo + l_end - l)
+            l += s_hi - s_lo
+            col = tile * DEC_COLS + 16 * _GR
+            v = None
+            for w in range(DEC_WARPS):  # the warps in warp order
+                d = warp_steps(col, s_lo + w * (s_hi - s_lo) // DEC_WARPS,
+                               s_lo + (w + 1) * (s_hi - s_lo) // DEC_WARPS)
+                v = d if v is None else v + d
+            segment[b, tile] = tile_values(v)
+
+    def block_of(step):
+        return ((step + 1) * blocks + total - 1) // total - 1
+
+    y = np.zeros((M, tiles * DEC_COLS), np.float32)
+    for tile in range(tiles):
+        first, last = block_of(tile * steps), block_of((tile + 1) * steps - 1)
+        v = segment[first, tile]
+        for b in range(first + 1, last + 1):  # shared: in block order
+            v = v + segment[b, tile]
+        y[:, tile * DEC_COLS:(tile + 1) * DEC_COLS] = v
+    return torch.from_numpy(y[:, :N].copy())
+
+
+@pytest.mark.parametrize("bits,M,K,N,group,blocks", [
+    (8, 1, 768, 104, 256, 3),   # a tile in three shares of one group each
+    (8, 8, 768, 256, 256, 5),   # two tiles in five shares: one straddles
+    (8, 16, 512, 40, 128, 3),   # two n8 tiles, N off the 16-byte grid
+    (8, 9, 200, 96, 200, 1),    # a group 16 does not divide (a partial step)
+    (8, 7, 99, 33, 99, 1),      # odd K: x rows and codes unaligned
+    (4, 9, 512, 104, 256, 2),
+    (4, 16, 200, 40, 200, 1),   # int4, a partial step
+    (4, 1, 768, 256, 256, 7),   # shares of 13 5/7 steps over two tiles
+    (6, 8, 768, 104, 256, 3),
+    (6, 7, 512, 40, 128, 2),
+    (6, 16, 96, 96, 96, 1),
+], ids=["int8_m1_3shares", "int8_m8_straddle", "int8_m16_n40",
+        "int8_partial_step", "int8_oddk", "int4_m9", "int4_partial_step",
+        "int4_m1_straddle", "fp6_m8_3shares", "fp6_m7_2shares",
+        "fp6_m16_k96"])
+def test_decode_kernel_emulation_matches_plain_and_reference(
+        bits, M, K, N, group, blocks):
+    """The decode kernel emulated in f32 (_emulate_decode_kernel) against
+    mixed_gemm_plain and the reference's Pallas kernel (interpret mode):
+    sums of the same exact bf16 products in another order, within 1e-5 of
+    the largest output."""
+    x = _rand(M * K + N, M, K)
+    jw, tw = _both(_rand(K * N + bits, K, N), bits, group)
+    assert tw.group == group and tm.mixed_gemm_on_kernel_path(tw)
+    got = _emulate_decode_kernel(torch.from_numpy(x), tw, blocks)
+    plain = tm.mixed_gemm_plain(torch.from_numpy(x), tw)
+    assert _rel_err(got.numpy(), plain.numpy()) < 1e-5
+    assert _rel_err(got.numpy(), jm.mixed_gemm(jnp.asarray(x), jw)) < 1e-5
+
+
+def test_decode_kernel_emulation_odd_k_int4():
+    """int4 at odd K (one group: the kernel takes it; the wrapper sends
+    it to the reference's dequantize formula, off its kernel envelope):
+    the zero padding row in the last code byte, x masked past K."""
+    x = _rand(5, 9, 99)
+    tw = tm.quantize_gemm_weight(torch.from_numpy(_rand(6, 99, 48)), bits=4,
+                                 group=256)
+    assert tw.group == 99 and tw.codes.shape[0] == 50
+    got = _emulate_decode_kernel(torch.from_numpy(x), tw, 1)
+    plain = tm.mixed_gemm_plain(torch.from_numpy(x), tw)
+    assert _rel_err(got.numpy(), plain.numpy()) < 1e-5
+
+
+def test_decode_split_k_rule():
+    """The decode kernel's split of the work (decode_blocks): as many
+    blocks as an H100's 132 SMs hold at once, two an SM up to M = 8 (one
+    n8 tile of x rows) and one above, each an equal share of the
+    128-column tiles' 16-row K-steps, at least 16 steps a block.  At
+    llama3-8b's projections (group 256): w_gate/w_in and w_out 264 blocks
+    (108 3/5 and 108 8/11 steps), wk/wv 128 (8 tiles of 256 steps: the
+    16-step floor); above 16 rows mixed_gemm_splits keeps the wgmma
+    kernel's K-splits."""
+    sms = 132
+    assert tm.decode_steps(4096, 256) == 256
+    assert tm.decode_steps(200, 200) == 13  # the last step partial
+    assert tm.decode_blocks(8, 14336, 4096, 256, sms) == 264
+    assert tm.decode_blocks(1, 14336, 4096, 256, sms) == 264
+    assert tm.decode_blocks(16, 14336, 4096, 256, sms) == 132
+    assert tm.decode_blocks(8, 4096, 14336, 256, sms) == 264
+    assert tm.decode_blocks(8, 4096, 4096, 256, sms) == 264
+    assert tm.decode_blocks(8, 1024, 4096, 256, sms) == 128
+    assert tm.decode_blocks(8, 33, 99, 99, sms) == 1
+    # above 16 rows the wgmma kernel's tile: 128 x 128, one block an SM
+    assert tm.mixed_gemm_splits(17, 14336, 16, sms) == 1
+    assert tm.mixed_gemm_splits(256, 4096, 16, sms) == 4
+    assert tm.mixed_gemm_splits(256, 4096, 16, sms, bf16=False) == 4
