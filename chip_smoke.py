@@ -56,14 +56,27 @@ In order it prints:
    PyTorch version at the training shape (B=4, S=2048, H=32, KV=8, D=128,
    causal): in bf16 and in f32, max abs error (and in bf16 how far inside
    its limit the worst element lies) and kernel / plain / library (SDPA
-   forward; SDPA backward for dK/dV and dQ together) / bound times;
+   forward; SDPA backward for dK/dV and dQ together) / bound times; then
+   the f16 kernels the same way against fp16 SDPA, also where the
+   loss-scaled dS passes 65504 and falls under 6.1e-5, and where the
+   gradients overflow (inf where the plain versions' are);
 6. training: ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
    llama3-8b at full width with its depth cut to 8 layers (bf16
    parameters, f32 AdamW state, flash attention, tiled loss), 2 warm-up
    and 5 timed steps on one fixed batch: tokens/s, step ms, MFU, peak
    memory, finite and falling loss, and exact flash launch counts; then a
    small f32 model trained 3 steps on the card and on the CPU, whose
-   losses and parameters must agree;
+   losses and parameters must agree; then the rest of the training
+   engine: fp16 on the same model (f16 compute, f32 master weights) from
+   a loss scale of 2**32 (overflowed steps leave the state bit for bit,
+   the scale follows the reference's state machine replayed from the
+   flags, the loss falls, B1-B3 f16 launches exact), the six remat
+   policies (fwd + bwd ms, peak GB, B1-B3 launches per policy, gradients
+   against ``nothing_saveable``'s), the seven other optimizers card vs
+   CPU on the small model, checkpoints at full width and 2 layers
+   (native + sha256 and fast: save, load bit for bit, equal resumed
+   losses; an async save; the fallback past a truncated tag; GB/s), and
+   each optimizer's step at full width;
 7. the mixed GEMM (W8A16 / W4A16 / W6A16) and W8A8 kernels against their
    plain versions at llama3-8b's four projection shapes, at M = 8 (a decode
    body) and M = 256 (a mixed step), the mixed GEMM also at M = 1 and 16
@@ -201,10 +214,52 @@ TOL_LOGITS_F32 = 1e-3  # small f32 model: card vs CPU first-step logits
 # 64-row tile moves a gradient row by a few percent of its size, far past
 # this.  bf16 adds one output ulp per element (rtol 1e-2).
 GRAD_REL = 1e-4
+# f16 flash outputs against their plain versions (stated before the kernels'
+# first run on the card): both sides compute in f32 and round once to f16,
+# so an element may round one f16 ulp the other way (2**-10 of its size, or
+# 2**-24 under f16's normal range); o, dq, dk and dv also carry F16_REL of
+# the tensor's largest element (summation order, as GRAD_REL):
+# |k - p| <= 2**-24 + F16_REL max|p| + F16_RTOL |p|
+F16_ABS, F16_REL, F16_RTOL = 2.0 ** -24, 1e-4, 2e-3
+# the f16 check's (dO, V) scales: dO 2**13 and V 16 push the loss-scaled dS
+# past 65504 (f16's largest; dO 2**13 alone reached 6740 on an NVIDIA H100
+# 80GB HBM3), dO 2**-20 pulls it under 6.1e-5 (f16's smallest normal)
+F16_DS_SCALES = {"dS past 65504": (2.0 ** 13, 16.0),
+                 "dS under 6.1e-5": (2.0 ** -20, 1.0)}
+F16_MAX = 65504.0
 # flash training shape (bench.py's micro-batch and sequence, llama3-8b heads)
 FB, FS = 4, 2048
 TRAIN_LAYERS, TRAIN_WARMUP, TRAIN_STEPS, TILE = 8, 2, 5, 512
 TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
+# the training engine's phase: fp16 with a dynamic loss scale started high
+# enough that the first steps overflow, each overflow halving it
+# (hysteresis 1; the reference's default 2 halves it every second one)
+FP16_SCALE_POWER, FP16_HYSTERESIS = 32, 1
+FP16_MAX_STEPS, FP16_FINITE_AFTER, FP16_TIMED = 30, 4, 3
+REMAT_POLICIES = ("nothing_saveable", "everything", "dots_saveable",
+                  "dots_with_no_batch_dims_saveable", "save_attn",
+                  "save_attn_mlp")
+# checkpoints at full width, depth cut from 32 to 2 layers: bf16 params and
+# f32 moments, 9.62 GB a checkpoint (the preset ties its embeddings: 525 M
+# of its 961 M parameters); the optimizers' full-width step on the same
+# model
+CKPT_LAYERS = 2
+CKPT_DIR = os.path.join("build", "ckpt_smoke")
+# the other optimizers, card vs CPU on the small model (TOL_TRAIN): learning
+# rates at which one f32 rounding of a gradient near zero, which a sign
+# (Lion, 1-bit Adam) or Adam's normalization turns into a full step, stays
+# inside TOL_TRAIN; Muon's Newton-Schulz iterations (x 3.4445 each on a
+# direction whose singular value is near zero) moved a parameter by 2.4e-4
+# card vs CPU at lr 1e-3 (NVIDIA H100 80GB HBM3): 1e-4
+OPT_SMALL = {
+    "lamb": {"lr": 1e-4, "weight_decay": 0.01},
+    "lion": {"lr": 1e-5, "weight_decay": 0.01},
+    "sgd": {"lr": 1e-2, "momentum": 0.9, "nesterov": True},
+    "adagrad": {"lr": 1e-3},
+    "adafactor": {"lr": 1e-3},
+    "muon": {"lr": 1e-4},
+    "onebitadam": {"lr": 1e-5, "freeze_step": 2, "weight_decay": 0.01},
+}
 # mixed GEMM: llama3-8b's projection shapes (K, N) and rows per call
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
                "w_gate/w_in": (4096, 14336), "w_out": (14336, 4096)}
@@ -891,6 +946,183 @@ def check_flash(torch, fa, flush) -> list:
     return rows
 
 
+def f16_excess(out, ref) -> tuple:
+    """``(max |out - ref|, how far the worst element lies past the f16
+    limit)`` (F16_ABS, F16_REL, F16_RTOL).  inf must meet inf, or the
+    largest finite f16 of its sign: f32 values either side of 65520 round
+    to inf and to 65504, one f16 ulp apart."""
+    ref, out = ref.float(), out.float()
+    if not same_infs(out, ref) or bool(ref.isnan().any()):
+        return math.inf, math.inf
+    inf = out.isinf() | ref.isinf()
+    fin = ~inf
+    if not bool(fin.any()):
+        return 0.0, -math.inf
+    r, o = ref[fin], out[fin]
+    diff = (o - r).abs()
+    limit = F16_ABS + F16_REL * r.abs().max() + F16_RTOL * r.abs()
+    return diff.max().item(), (diff - limit).max().item()
+
+
+def same_infs(out, ref) -> bool:
+    """inf where ``ref`` is inf (or, one f16 ulp away, the largest finite
+    f16 of its sign), nowhere else, and no NaN."""
+    one = out.isinf() ^ ref.isinf()
+    fin, inf = torch_where_inf(out.float(), ref.float())
+    return bool(((fin[one].abs() == F16_MAX)
+                 & (fin[one].sign() == inf[one].sign())).all()) and \
+        not bool(out.isnan().any())
+
+
+def torch_where_inf(a, b):
+    """(the finite one, the infinite one) of a and b, elementwise where
+    exactly one is inf."""
+    fin = a.where(b.isinf(), b)
+    return fin, a.where(a.isinf(), b)
+
+
+def compare_f16(out, ref, what: str) -> float:
+    err, over = f16_excess(out, ref)
+    if not math.isfinite(err) or over > 0:
+        fail(f"{what} disagrees with its plain version: max abs err {err}, "
+             f"past |k - p| <= {F16_ABS} + {F16_REL} max|p| + {F16_RTOL} "
+             f"|p| by {over}")
+    return err
+
+
+def check_flash_f16(torch, fa, flush) -> list:
+    """B1-B3's f16 kernels against their plain versions at the training
+    shape: normal inputs, then dO scaled so that the loss-scaled dS passes
+    65504 and falls under 6.1e-5 (max |dS| read from the plain version's
+    recompute on the first batch row), and a dO whose gradients overflow
+    (inf where the plain version's are inf); times of each kernel against
+    its plain version, fp16 SDPA and its bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float16)
+
+    q, k, v, do = rnd(FB, FS, H, D), rnd(FB, FS, KV, D), rnd(FB, FS, KV, D), \
+        rnd(FB, FS, H, D)
+    mask = fa.AttnMask(causal=True)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = fa.flash_fwd(q, k, v, mask, scale)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": max(compare_f16(o, o_p, "flash_fwd o (f16)"),
+                             compare(lse, lse_p, TOL_F32,
+                                     "flash_fwd lse (f16)"))}
+    cases = {}
+    for case, (s, vs) in [("normal", (1.0, 1.0)), *F16_DS_SCALES.items()]:
+        dd = (do.float() * s).half()
+        vv = (v.float() * vs).half()
+        op, lp = (o_p, lse_p) if vs == 1.0 else fa.flash_fwd_plain(
+            q, k, vv, mask, scale)
+        delta = fa.attention_delta(dd, op)
+        dk, dv = fa.flash_bwd_dkdv(q, k, vv, dd, lp, delta, mask, scale)
+        dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, vv, dd, lp, delta,
+                                             mask, scale)
+        dq = fa.flash_bwd_dq(q, k, vv, dd, lp, delta, mask, scale)
+        dq_p = fa.flash_bwd_dq_plain(q, k, vv, dd, lp, delta, mask, scale)
+        torch.cuda.synchronize()
+        ds = fa._recompute(q[:1], k[:1], vv[:1], dd[:1], lp[:1],
+                           delta[:1], mask, scale)[3].abs()
+        kept = ds[ds > 0]
+        cases[case] = {
+            "dO_scale": s, "V_scale": vs,
+            "finite_share": float(torch.stack([
+                t.isfinite().float().mean() for t in (dk_p, dv_p, dq_p)]
+                ).mean()),
+            "max_abs_ds": ds.max().item(), "min_abs_ds": kept.min().item(),
+            "flash_bwd_dkdv": max(compare_f16(dk, dk_p, f"dk (f16, {case})"),
+                                  compare_f16(dv, dv_p, f"dv (f16, {case})")),
+            "flash_bwd_dq": compare_f16(dq, dq_p, f"dq (f16, {case})")}
+        del ds, kept, dk, dv, dk_p, dv_p, dq, dq_p, vv, op, lp
+    if not cases["dS past 65504"]["max_abs_ds"] > 65504:
+        fail(f"f16 flash check: dS reached only "
+             f"{cases['dS past 65504']['max_abs_ds']}, not past 65504")
+    if not cases["dS under 6.1e-5"]["max_abs_ds"] < 6.1e-5:
+        fail(f"f16 flash check: dS reached "
+             f"{cases['dS under 6.1e-5']['max_abs_ds']}, not under 6.1e-5")
+    # an overflowed gradient stays visible: inf where the plain one is inf
+    # (its finite elements are sums of terms near 1e7 that cancel, so they
+    # are held to the inf pattern only, not to the f16 limit)
+    big = torch.full_like(do, 60000.0)
+    vv = (v.float() * 64).half()
+    o2, lse2 = fa.flash_fwd_plain(q, k, vv, mask, scale)
+    delta = fa.attention_delta(big, o2)
+    dk, dv = fa.flash_bwd_dkdv(q, k, vv, big, lse2, delta, mask, scale)
+    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, vv, big, lse2, delta, mask,
+                                         scale)
+    dq = fa.flash_bwd_dq(q, k, vv, big, lse2, delta, mask, scale)
+    dq_p = fa.flash_bwd_dq_plain(q, k, vv, big, lse2, delta, mask, scale)
+    torch.cuda.synchronize()
+    overflow = {}
+    for name, a, b in (("dk", dk, dk_p), ("dv", dv, dv_p), ("dq", dq, dq_p)):
+        if not same_infs(a, b):
+            fail(f"f16 flash overflow case: {name}'s inf elements differ "
+                 "from the plain version's (or it holds a NaN)")
+        overflow[name] = int(b.isinf().sum())
+    if not sum(overflow.values()):
+        fail("f16 flash overflow case: no gradient overflowed")
+    del o2, lse2, big, vv, dk, dv, dk_p, dv_p, dq, dq_p
+    delta = fa.attention_delta(do, o_p)
+    lse = lse_p
+    del o, o_p
+
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    out = sdpa()
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+
+    lib_fwd = time_ms(sdpa, torch, flush)
+    lib_bwd = time_ms(sdpa_bwd, torch, flush)
+    pairs = FS * (FS + 1) // 2
+    qb, kvb, rowb = FB * FS * H * D * 2, FB * FS * KV * D * 2, FB * H * FS * 4
+    work = {"flash_fwd": (qb + 2 * kvb + qb + rowb, 4 * FB * H * D * pairs),
+            "flash_bwd_dkdv": (2 * qb + 2 * kvb + 2 * rowb + 2 * kvb,
+                               8 * FB * H * D * pairs),
+            "flash_bwd_dq": (2 * qb + 2 * kvb + 2 * rowb + qb,
+                             6 * FB * H * D * pairs)}
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, mask, scale),
+                      lambda: fa.flash_fwd_plain(q, k, v, mask, scale),
+                      lib_fwd),
+        "flash_bwd_dkdv": (
+            lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, scale),
+            lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, mask,
+                                            scale), lib_bwd),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, mask, scale),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, mask,
+                                          scale), lib_bwd)}
+    rows = []
+    for name, (kernel, plain, lib_ms) in calls.items():
+        b_ms, b_by = bound(*work[name])  # f16 tensor cores: bf16's rate
+        err = errs.get(name, max(c.get(name, 0.0) for c in cases.values()))
+        rows.append({"name": name, "dtype": "float16",
+                     "kernel": name.replace("bwd_", "") + "_tc_kernel<__half>",
+                     "max_abs_err": err, "max_abs_err_f32": None,
+                     "ds_cases": cases, "overflow_infs": overflow,
+                     "ms": time_ms(kernel, torch, flush, iters=10),
+                     "plain_ms": time_ms(plain, torch, flush, iters=5,
+                                         warmup=1),
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+    return rows
+
+
 def evoformer_inputs(torch, shape, has_b1: bool, has_b2: bool, gen,
                      padded=None):
     """bf16 q, k, v, the cotangent g and the biases of one evoformer call:
@@ -1192,12 +1424,14 @@ def run_training(torch, fa, profile: bool) -> dict:
     return out
 
 
-def small_training_agreement(torch, fa, cfg=None, kernels=None) -> dict:
+def small_training_agreement(torch, fa, cfg=None, kernels=None,
+                             optimizer=None) -> dict:
     """A small llama-shaped f32 model (head dim 64, GQA, flash attention;
     ``cfg`` when given) trained 3 steps on the card (kernels) and on the
     CPU (plain versions) from the same weights: losses within TOL_TRAIN
     relative, final parameters within TOL_TRAIN.  ``kernels``: more kernel
-    modules whose launches the card run must show, with no plain call."""
+    modules whose launches the card run must show, with no plain call;
+    ``optimizer``: the optimizer section (AdamW by default)."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -1225,7 +1459,7 @@ def small_training_agreement(torch, fa, cfg=None, kernels=None) -> dict:
                 # bench.py's lr: Adam's first steps move each weight by
                 # ~lr * g / |g|, so where |g| is near eps the card's and the
                 # CPU's f32 rounding of g shows up in proportion to lr
-                "optimizer": {"type": "adamw", "params": {
+                "optimizer": optimizer or {"type": "adamw", "params": {
                     "lr": 1e-4, "weight_decay": 0.01}},
                 "gradient_clipping": 1.0, "steps_per_print": 10_000},
             device=dev)
@@ -1243,10 +1477,418 @@ def small_training_agreement(torch, fa, cfg=None, kernels=None) -> dict:
     param_diff = max((a - b).abs().max().item() for a, b in zip(
         out["cuda"][1], out["cpu"][1]))
     if not loss_rel <= TOL_TRAIN or not param_diff <= TOL_TRAIN:
-        fail(f"small training: card vs CPU losses differ by {loss_rel} "
-             f"(relative), parameters by {param_diff}")
+        fail(f"small training{' ' + optimizer['type'] if optimizer else ''}"
+             f": card vs CPU losses differ by {loss_rel} (relative), "
+             f"parameters by {param_diff}")
     return {"losses_cuda": out["cuda"][0], "losses_cpu": out["cpu"][0],
             "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_diff}
+
+
+# ---------------------------------------------------------------------------
+# the training engine: fp16, remat policies, checkpoints, optimizers
+# ---------------------------------------------------------------------------
+
+
+def replay_loss_scale(flags, power: int, hysteresis: int,
+                      window: int = 1000, min_scale: float = 1.0) -> list:
+    """The scale each step ran under, from the overflow flags alone: the
+    reference's ``DynamicLossScaler`` state machine
+    (``deepspeed_tpu/runtime/loss_scaler.py``), replayed on the host."""
+    scale, good, hys, out = 2.0 ** power, 0, hysteresis, []
+    for overflow in flags:
+        out.append(scale)
+        if overflow:
+            hys -= 1
+            if hys <= 0:
+                scale, hys = max(scale / 2.0, min_scale), hysteresis
+            good = 0
+        else:
+            good += 1
+            if good >= window:
+                scale, good = scale * 2.0, 0
+            hys = hysteresis
+    return out
+
+
+def bit_sums(torch, tensors) -> list:
+    """An int64 sum of the bit patterns of each tensor (2 or 4 bytes an
+    element): a changed element changes it (the bit-for-bit check of
+    full-width state, which a copy would not fit beside)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return torch.stack([torch.sum(t.detach().view(ints[t.element_size()]),
+                                  dtype=torch.int64) for t in tensors]
+                       ).tolist()
+
+
+def fp16_training(torch, fa) -> dict:
+    """fp16 on the card: llama3-8b at full width, TRAIN_LAYERS layers, f16
+    compute with f32 master weights, AdamW, flash attention through the
+    f16 B1-B3 kernels, a dynamic loss scale from 2**FP16_SCALE_POWER.
+    Gates: at least one skipped step, each leaving parameters and moments
+    bit for bit; the scale each step ran under equal to the reference's
+    state machine replayed from the flags; the loss falling after the scale
+    settles; B1-B3 launches exact, no plain call.  Then FP16_TIMED steps
+    timed."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("llama3-8b", num_layers=TRAIN_LAYERS,
+                         dtype="float16", param_dtype="float32",
+                         attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=torch.float32)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+            p, b, cfg, tile_size=TILE), params=params), config={
+            "train_micro_batch_size_per_gpu": FB,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+            "fp16": {"enabled": True,
+                     "initial_scale_power": FP16_SCALE_POWER,
+                     "hysteresis": FP16_HYSTERESIS},
+            "steps_per_print": 10_000})
+    del params
+    torch.cuda.empty_cache()
+    placed = engine.place_batch({"input_ids": np.random.default_rng(
+        SEED).integers(0, cfg.vocab_size, size=(
+            engine.train_batch_size, FS)).astype(np.int32)})
+    opt = engine.optimizer
+    state = list(engine._leaves) + opt.mu + opt.nu
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    flags, scales, losses, first = [], [], [], None
+    while len(flags) < FP16_MAX_STEPS:
+        before = bit_sums(torch, state)
+        m = engine.train_batch(placed)
+        flags.append(m["overflow"])
+        scales.append(m["loss_scale"])
+        losses.append(m["loss"])
+        if m["overflow"]:
+            if bit_sums(torch, state) != before:
+                fail(f"fp16: overflowed step {len(flags) - 1} changed the "
+                     "parameters or the optimizer state")
+        elif first is None:
+            first = len(flags) - 1
+        if first is not None and len(flags) - 1 - first >= FP16_FINITE_AFTER:
+            break
+    launches, plain = dict(fa.LAUNCHES), dict(fa.PLAIN_CALLS)
+    steps, L = len(flags), cfg.num_layers
+    skipped = int(sum(flags))
+    want = replay_loss_scale(flags, FP16_SCALE_POWER, FP16_HYSTERESIS)
+    if first is None or not skipped:
+        fail(f"fp16: want overflowed steps, then finite ones: {flags}")
+    if scales != want:
+        fail(f"fp16: loss scales {scales}, the reference's state machine "
+             f"gives {want}")
+    finite = [x for x, f in zip(losses, flags) if not f]
+    if not all(math.isfinite(x) for x in finite) or \
+            not finite[-1] < finite[0]:
+        fail(f"fp16: the loss did not fall after the scale settled: "
+             f"{finite}")
+    if launches != {"flash_fwd": 2 * L * steps, "flash_bwd_dkdv": L * steps,
+                    "flash_bwd_dq": L * steps} or any(plain.values()):
+        fail(f"fp16: flash launches {launches} over {steps} steps, plain "
+             f"calls {plain}")
+    if int(engine.skipped_steps) != skipped or \
+            int(opt.count) != steps - skipped:
+        fail(f"fp16: skipped {int(engine.skipped_steps)} / count "
+             f"{int(opt.count)}, want {skipped} / {steps - skipped}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FP16_TIMED):
+        engine.train_batch(placed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / FP16_TIMED
+    out = {"model": "llama3-8b", "layers": L, "dtype": "float16",
+           "param_dtype": "float32", "steps": steps, "skipped": skipped,
+           "flags": flags, "loss_scales": scales, "losses": losses,
+           "launches": launches, "launches_per_step": {
+               k: n // steps for k, n in launches.items()},
+           "step_ms": dt * 1e3,
+           "tokens_per_s": engine.train_batch_size * (FS - 1) / dt,
+           "final_loss_scale": engine.get_loss_scale(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine, placed, state, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_policies(torch, fa) -> dict:
+    """The bf16 training phase's model (TRAIN_LAYERS layers), one loss and
+    gradient per remat policy after a warm one: step ms, peak GB and
+    B1-B3 launches (gated: B1 2L, or L under ``everything``; B2 = B3 = L);
+    each policy's loss and gradients against ``nothing_saveable``'s within
+    TOL_BF16, and whether bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.optimizers import leaves
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("llama3-8b", num_layers=TRAIN_LAYERS,
+                         param_dtype="bfloat16", attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=tfm.param_dtype(cfg))
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    batch = {"input_ids": torch.from_numpy(np.random.default_rng(
+        SEED).integers(0, cfg.vocab_size, size=(FB, FS)).astype(
+            np.int32)).cuda()}
+    L, ref, out = cfg.num_layers, None, {}
+    for policy in REMAT_POLICIES:
+        pc = dataclasses.replace(cfg, remat_policy=policy)
+
+        def run():
+            loss, _ = tiled_loss_fn(params, batch, pc, tile_size=TILE)
+            return loss.detach(), torch.autograd.grad(loss, flat)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = dict(fa.LAUNCHES), dict(fa.PLAIN_CALLS)
+        want = {"flash_fwd": L if policy == "everything" else 2 * L,
+                "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+        if launches != want or any(plain.values()):
+            fail(f"remat {policy}: flash launches {launches}, want {want}; "
+                 f"plain {plain}")
+        row = {"fwd_bwd_ms": dt * 1e3,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_step": launches, "loss": loss.item()}
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            compare(loss, ref[0], TOL_BF16, f"remat {policy} loss")
+            row["max_abs_err_grads"] = max(
+                compare(g, r, TOL_BF16, f"remat {policy} gradient")
+                for g, r in zip(grads, ref[1]))
+            row["bit_for_bit"] = bool(torch.equal(loss, ref[0])) and all(
+                torch.equal(g, r) for g, r in zip(grads, ref[1]))
+        out[policy] = row
+        del grads
+    del params, flat, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def checkpoint_roundtrips(torch) -> dict:
+    """Checkpoints at full width, CKPT_LAYERS layers (bf16 parameters,
+    AdamW): 2 steps, a native save with sha256, a load into a fresh engine
+    (parameters and optimizer state bit for bit), 2 more steps on both
+    with equal losses; the same through the ``fast`` engine; an async save
+    whose files hold the state at save time although a step ran during
+    the write, which is also the tag the load falls back to past a
+    truncated newer one.
+    Save and load GB/s and seconds (the disk under the checkout; reads
+    warm)."""
+    import shutil
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.checkpoint import engine as ce
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("llama3-8b", num_layers=CKPT_LAYERS,
+                         param_dtype="bfloat16", attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=tfm.param_dtype(cfg))
+
+    def new(**ckpt):
+        return deepspeed_tpu_torch.initialize(
+            model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+                p, b, cfg, tile_size=TILE), params=params), config={
+                "train_micro_batch_size_per_gpu": FB,
+                "optimizer": {"type": "adamw", "params": {
+                    "lr": 1e-4, "weight_decay": 0.01}},
+                "checkpoint": ckpt, "steps_per_print": 10_000})[0]
+
+    def state(eng):
+        return list(eng._leaves) + list(eng.optimizer_state_flat().values())
+
+    def same(a, b, what):
+        sa, sb = state(a), state(b)
+        if len(sa) != len(sb) or not all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(sa, sb)):
+            fail(f"checkpoints: {what}: the loaded state is not the saved "
+                 "state bit for bit")
+        if a.get_global_step() != b.get_global_step():
+            fail(f"checkpoints: {what}: step {b.get_global_step()} != "
+                 f"{a.get_global_step()}")
+
+    rng = np.random.default_rng(SEED + 9)
+    a = new()
+    batches = [a.place_batch({"input_ids": rng.integers(
+        0, cfg.vocab_size, size=(FB, FS)).astype(np.int32)})
+        for _ in range(8)]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out = {"layers": CKPT_LAYERS}
+    for i in range(2):
+        a.train_batch(batches[i])
+    for mode, ckpt, resume in (("native", {"integrity": "sha256"}, (2, 3)),
+                               ("fast", {"engine": "fast",
+                                         "integrity": "sha256"}, (4,))):
+        d = os.path.join(CKPT_DIR, mode)
+        a.config.checkpoint.engine = ckpt.get("engine", "native")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = a.save_checkpoint(d)
+        t1 = time.perf_counter()
+        b = new(**ckpt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        b.load_checkpoint(d)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        same(a, b, mode)
+        la = [a.train_batch(batches[i])["loss"] for i in resume]
+        lb = [b.train_batch(batches[i])["loss"] for i in resume]
+        if la != lb:
+            fail(f"checkpoints ({mode}): resumed losses {lb} != the "
+                 f"uninterrupted run's {la}")
+        gb = dir_bytes(path) / 1e9
+        out[mode] = {"gb": gb, "save_s": t1 - t0, "save_gb_s": gb / (t1 - t0),
+                     "load_s": t3 - t2, "load_gb_s": gb / (t3 - t2),
+                     "resumed_losses": lb, "losses_equal": True}
+        del b
+        torch.cuda.empty_cache()
+        shutil.rmtree(d)
+    # async: the snapshot is taken before save_checkpoint returns; then a
+    # truncated newer tag in the same directory, past which the load falls
+    # back to the async one
+    d = os.path.join(CKPT_DIR, "async")
+    a.config.checkpoint.engine = "native"
+    a.config.checkpoint.async_save = True
+    a.config.checkpoint.integrity = "none"
+    at_save, step_at_save = bit_sums(torch, state(a)), a.get_global_step()
+    t0 = time.perf_counter()
+    a.save_checkpoint(d)
+    t1 = time.perf_counter()
+    a.train_batch(batches[5])  # in place, while the thread writes
+    ce.wait_for_async_saves()
+    t2 = time.perf_counter()
+    a.config.checkpoint.async_save = False
+    newest = a.save_checkpoint(d)
+    model = os.path.join(newest, "model.safetensors")
+    with open(model, "rb+") as f:
+        f.truncate(os.path.getsize(model) // 2)
+    c = new(integrity="none")
+    path, _ = c.load_checkpoint(d)
+    if not path.endswith(f"global_step{step_at_save}") or \
+            c.get_global_step() != step_at_save:
+        fail(f"checkpoints: the load did not fall back past the truncated "
+             f"tag {newest} ({path})")
+    if bit_sums(torch, state(c)) != at_save:
+        fail("checkpoints (async): the loaded state is not the state at "
+             "save time")
+    out["async"] = {"return_s": t1 - t0, "until_written_s": t2 - t0,
+                    "step_during_write": True}
+    out["fallback"] = {"truncated": os.path.basename(newest),
+                       "loaded": os.path.basename(path)}
+    del c, a, batches
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out["params"] = params
+    return out
+
+
+def optimizer_steps(torch, params) -> dict:
+    """Each optimizer's device ms for one step at full width (CKPT_LAYERS
+    layers, bf16 parameters, f32 gradients drawn from a seed), after a warm
+    step, CUDA events around ``step``."""
+    from deepspeed_tpu_torch.runtime.config import OptimizerConfig
+    from deepspeed_tpu_torch.runtime.optimizers import (
+        create_optimizer, default_weight_decay_mask, leaves)
+
+    flat = [t.detach() for t in leaves(params)]
+    mask = leaves(default_weight_decay_mask(params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    grads = [torch.randn(t.shape, generator=gen, device="cuda") * 1e-3
+             for t in flat]
+    out = {}
+    for name, hp in {"adamw": {"lr": 1e-4, "weight_decay": 0.01},
+                     **OPT_SMALL}.items():
+        opt = create_optimizer(OptimizerConfig(type=name, params=hp),
+                               lambda c: hp["lr"], mask)
+        opt.init(flat)
+        opt.step(flat, grads)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        opt.step(flat, grads)
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end)
+        if not all(bool(torch.isfinite(t).all()) for t in flat):
+            fail(f"optimizer {name}: a parameter is not finite")
+        del opt
+        torch.cuda.empty_cache()
+    del grads, flat
+    return out
+
+
+def run_training_engine_phase(torch, fa) -> dict:
+    """fp16, the remat policies, checkpoints and the other optimizers: the
+    rest of the training engine on the card."""
+    out = {"fp16": fp16_training(torch, fa)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["remat"] = remat_policies(torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["optimizers_small"] = {
+        name: small_training_agreement(torch, fa, optimizer={
+            "type": name, "params": hp})
+        for name, hp in OPT_SMALL.items()}
+    ck = checkpoint_roundtrips(torch)
+    params = ck.pop("params")
+    out["checkpoints"] = ck
+    out["optimizer_step_ms"] = optimizer_steps(torch, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_engine_line(te: dict) -> str:
+    fp, ck = te["fp16"], te["checkpoints"]
+    remat = "; ".join(
+        f"{p} {r['fwd_bwd_ms']:.2f} ms {r['peak_mem_gb']:.2f} GB B1 "
+        f"{r['launches_per_step']['flash_fwd']}" for p, r in
+        te["remat"].items())
+    opt = ", ".join(f"{k} {v:.2f}" for k, v in
+                    te["optimizer_step_ms"].items())
+    return (f"training engine: fp16 llama3-8b x{fp['layers']} "
+            f"{fp['step_ms']:.2f} ms/step {fp['tokens_per_s']:.2f} tokens/s, "
+            f"{fp['skipped']} of {fp['steps']} steps skipped, scale "
+            f"{fp['loss_scales'][0]:.0f} -> {fp['final_loss_scale']:.0f}, "
+            f"peak {fp['peak_mem_gb']:.2f} GB | remat (fwd+bwd): {remat} | "
+            f"checkpoints x{ck['layers']}: native {ck['native']['gb']:.2f} "
+            f"GB save {ck['native']['save_gb_s']:.3f} GB/s load "
+            f"{ck['native']['load_gb_s']:.3f} GB/s, fast save "
+            f"{ck['fast']['save_gb_s']:.3f} load {ck['fast']['load_gb_s']:.3f}"
+            f" GB/s, async returned in {ck['async']['return_s']:.2f} s | "
+            f"optimizer step ms x{CKPT_LAYERS}: {opt}")
 
 
 # ---------------------------------------------------------------------------
@@ -5033,6 +5675,7 @@ def main() -> None:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flash = check_flash(torch, fa, flush)
+    flash16 = check_flash_f16(torch, fa, flush)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -5043,11 +5686,28 @@ def main() -> None:
               f"grads {GRAD_REL} of max) kernel_ms {k['ms']:.4f} plain_ms "
               f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} "
               f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    for k in flash16:
+        cases = ", ".join(f"{c} (max |dS| {v['max_abs_ds']:.3e}) "
+                          f"{v.get(k['name'], 0.0):.3e}"
+                          for c, v in k["ds_cases"].items())
+        print(f"{k['name']} f16 ({k['kernel']}): max_abs_err "
+              f"{k['max_abs_err']:.3e} (limit {F16_ABS} + {F16_REL} max|p| "
+              f"+ {F16_RTOL} |p|; {cases}; overflow infs "
+              f"{k['overflow_infs']}) kernel_ms {k['ms']:.4f} plain_ms "
+              f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} (fp16 "
+              f"SDPA) bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
     training = run_training(torch, fa, args.profile)
     launches.update(training["launches"])
     print("training: " + json.dumps(training))
     small_train = small_training_agreement(torch, fa)
     print("small training card vs CPU: " + json.dumps(small_train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_engine = run_training_engine_phase(torch, fa)
+    for k in flash16:
+        k["launches"] = train_engine["fp16"]["launches"][k["name"]]
+    print(f"training engine ({card}): " + json.dumps(train_engine))
+    print(training_engine_line(train_engine))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5163,7 +5823,8 @@ def main() -> None:
               "verify_prefill": verify_b4, "spec_rates": rates, "spec": spec,
               "small_spec": small_spec,
               "small_hierarchy": small_hier, "flash": flash,
-              "training": training,
+              "flash_f16": flash16, "training": training,
+              "training_engine": train_engine,
               "small_training": small_train, "mixed_gemm": gemm,
               "quantized_engine": quant, "small_quantized": small_quant,
               "grouped_matmul": gmm, "moe_engine": moe,
@@ -5231,7 +5892,8 @@ def main() -> None:
         return {"name": k["name"], "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
                 "replaces": replaces[k["name"]], "status": "ok",
-                **{d: k[d] for d in ("M", "T", "D", "kernel") if d in k},
+                **{d: k[d] for d in ("M", "T", "D", "kernel", "dtype")
+                   if d in k},
                 "launches": (k["launches"] if "launches" in k
                              else gemm_launches[k["name"], k["M"]] if "M" in k
                              else gemm_launches[k["name"], k["T"]] if "T" in k
@@ -5256,7 +5918,7 @@ def main() -> None:
 
     evo_row = dict(evo["calls"][EVO_JSON], name="flash_fwd_bias")
     line = {"kernels": [row(k) for k in
-                        kernels + draft_kernels + flash + [evo_row]
+                        kernels + draft_kernels + flash + flash16 + [evo_row]
                         + at_shape + [adam]]}
     result.update(line)
     if args.out:

@@ -20,6 +20,9 @@
 //   flash_dkdv_kernel,    from f32 shared-memory tiles.
 //   flash_dq_kernel
 //
+// f16 runs the three tensor-core kernels at E = __half (m16n8k16 f16 ->
+// f32, the same schedule; built in flash_attention_f16.cu), unbiased.
+//
 // The forwards also take _fwd_kernel's additive biases (has_b1/has_b2, fed
 // by _flash_fwd's bias_kv and bias_qk; the evoformer attention op is their
 // caller): b1 (B, Skv), one value per key broadcast over rows and heads, and
@@ -119,6 +122,13 @@
 //     Skv is zero.  softmax_step adds (b1 + b2) log2e to s scale log2e
 //     before the max.  Each (b1 type, b2 type) pair is its own
 //     instantiation, so the unbiased forward's code is unchanged.
+//   * f16 (fp16 training under a dynamic loss scale): the products of f16
+//     q, k, v and dO are exact in f32 as bf16's are; p <= 1 is split into
+//     f16 hi/lo after a multiply by 2^14 (kHalfP), so that no p >= 2^-28
+//     falls under f16's normal range; dS, which the reference keeps in f32
+//     and which a loss scale of 2^16 pushes past 65504, is split after a
+//     power-of-two scale per accumulator row (scale_rows), taken out at the
+//     store.  Outputs round once to f16 and overflow to inf, never clamp.
 // The f32 kernels compute on the CUDA cores: each thread keeps a
 // 4 x 4 score tile and a 4 x (D/16) output tile in registers and reads f32
 // operands from shared memory whose rows are padded to D + 1 floats.
@@ -129,19 +139,27 @@
 // aligned (D is a multiple of 8).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-// This file is compiled twice (ops/hopper/build.py): flash_attention_bias.cu
-// includes it with DS_FLASH_BIAS_UNIT set and keeps only the bf16 forward's
-// biased instantiations (ds_flash::run_fwd_tc_bias), so that nvcc builds
-// them beside the rest; this unit keeps everything else.
+// This file is compiled three times (ops/hopper/build.py), so that nvcc
+// builds its instantiations side by side: flash_attention_bias.cu includes
+// it with DS_FLASH_BIAS_UNIT set and keeps only the bf16 forward's biased
+// instantiations (ds_flash::run_fwd_tc_bias); flash_attention_f16.cu
+// includes it with DS_FLASH_F16_UNIT set and keeps only the f16
+// tensor-core kernels (ds_flash::run_*_f16); this unit keeps everything
+// else, the C entry points among it.
 #ifndef DS_FLASH_BIAS_UNIT
 #define DS_FLASH_BIAS_UNIT 0
 #endif
+#ifndef DS_FLASH_F16_UNIT
+#define DS_FLASH_F16_UNIT 0
+#endif
+#define DS_FLASH_MAIN_UNIT (!DS_FLASH_BIAS_UNIT && !DS_FLASH_F16_UNIT)
 
 namespace ds_flash {
 
@@ -161,6 +179,16 @@ struct Problem {
 // the bf16 forward with b1 and / or b2 (defined by the bias unit)
 cudaError_t run_fwd_tc_bias(int D, const Problem& p, const void* q, const void* k,
                             const void* v, void* o, float* lse, cudaStream_t st);
+
+// the f16 tensor-core kernels, unbiased (defined by the f16 unit)
+cudaError_t run_fwd_f16(int D, const Problem& p, const void* q, const void* k,
+                        const void* v, void* o, float* lse, cudaStream_t st);
+cudaError_t run_dkdv_f16(int D, const Problem& p, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, cudaStream_t st);
+cudaError_t run_dq_f16(int D, const Problem& p, const void* q, const void* k,
+                       const void* v, const void* dout, const float* lse,
+                       const float* delta, void* dq, cudaStream_t st);
 
 }  // namespace ds_flash
 
@@ -649,6 +677,15 @@ constexpr int kBwdVecs = 64;                // query vectors per dK/dV stage
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// f16 (the same kernels at E = __half; see "f16" in the file's notes):
+// p <= 1 is split into hi/lo as bf16's is, after a multiply by kHalfP =
+// 2^14, which keeps every p >= 2^-28 in f16's normal range and p 2^14 <=
+// 16384 under its 65504.  The sums and accumulators fed by p carry the
+// same factor, taken out at the store (exact: a power of two).
+constexpr float kHalfP = 16384.f;
+constexpr float kHalfPInv = 1.f / 16384.f;
+constexpr float kHalfPLn = 9.704060527839234f;  // ln(2^14)
+
 // bytes per bf16 shared-memory row of D elements: D + 8, so that the 8 rows
 // an ldmatrix reads (16 bytes each) start 16 bytes apart modulo 128
 template <int D>
@@ -676,15 +713,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// E, the tensor-core kernels' element type: __nv_bfloat16 or __half (the
+// same m16n8k16 shape and fragments, f32 accumulators)
+template <typename E>
+constexpr bool kIsHalf = std::is_same<E, __half>::value;
+
 // not volatile: a pure function of its operands, so the compiler may
 // interleave independent products with the fragment loads around them
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <typename E>
+__device__ __forceinline__ void mma_tc(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (kIsHalf<E>)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -701,34 +749,51 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
-__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
+// (x0, x1) rounded to nearest into one packed pair of E (x0 in the low
+// half); an f16 conversion past 65504 gives inf, never a clamped value
+template <typename E>
+__device__ __forceinline__ uint32_t pack_pair(float x0, float x1) {
+  if constexpr (kIsHalf<E>) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
 }
 
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi) as packed pairs (x0 in the
-// low half, the lower column of an A fragment)
+template <typename E>
+__device__ __forceinline__ float2 unpack_pair(uint32_t x) {
+  if constexpr (kIsHalf<E>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// (x0, x1) -> hi = E(x), lo = E(x - hi) as packed pairs (x0 in the low
+// half, the lower column of an A fragment)
+template <typename E>
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16_pair(h);
-  lo = bf16_pair(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+  hi = pack_pair<E>(x0, x1);
+  const float2 hf = unpack_pair<E>(hi);
+  lo = pack_pair<E>(x0 - hf.x, x1 - hf.y);
 }
 
 // the A fragments (hi and lo) of k-step kk of a 16 x 64 accumulator tile
 // acc[8][4] (rows gr, gr + 8; columns 8j + 2tq, +1 of n-tile j)
-template <int NT>
+template <typename E, int NT>
 __device__ __forceinline__ void a_split(const float (&acc)[NT][4], int kk, uint32_t (&hi)[4],
                                         uint32_t (&lo)[4]) {
-  split_pair(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
-  split_pair(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
-  split_pair(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
-  split_pair(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+  split_pair<E>(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
+  split_pair<E>(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
+  split_pair<E>(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
+  split_pair<E>(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
 }
 
 // C[16 x 8 NT] += A[16 x 16] . B^T, B a [n][k] bf16 shared tile (rows
 // n0.., stride ROW bytes): plain ldmatrix gives the col-major B fragments.
 // All fragments are loaded before the products, so no mma waits on a load.
-template <int NT, int ROW>
+template <typename E, int NT, int ROW>
 __device__ __forceinline__ void mma_bt(float (&c)[NT][4], const uint32_t (&a)[4],
                                        const uint8_t* b, int n0, int k0, int lane) {
   uint32_t r[NT / 2][4];
@@ -740,8 +805,8 @@ __device__ __forceinline__ void mma_bt(float (&c)[NT][4], const uint32_t (&a)[4]
   }
 #pragma unroll
   for (int jj = 0; jj < NT / 2; ++jj) {
-    mma_bf16(c[2 * jj], a, r[jj][0], r[jj][1]);
-    mma_bf16(c[2 * jj + 1], a, r[jj][2], r[jj][3]);
+    mma_tc<E>(c[2 * jj], a, r[jj][0], r[jj][1]);
+    mma_tc<E>(c[2 * jj + 1], a, r[jj][2], r[jj][3]);
   }
 }
 
@@ -749,7 +814,7 @@ __device__ __forceinline__ void mma_bt(float (&c)[NT][4], const uint32_t (&a)[4]
 // rows k0..k0+15 are read with ldmatrix.trans.  In groups of 8 n-tiles (4
 // at D = 32): the group's fragments first, then its hi products, then its
 // lo products, so the two products into one accumulator are 8 (4) apart.
-template <int D, int ROW>
+template <typename E, int D, int ROW>
 __device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t (&hi)[4],
                                             const uint32_t (&lo)[4], const uint8_t* b, int k0,
                                             int lane) {
@@ -766,13 +831,13 @@ __device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t
     }
 #pragma unroll
     for (int jj = 0; jj < G; ++jj) {
-      mma_bf16(c[2 * (g + jj)], hi, r[jj][0], r[jj][1]);
-      mma_bf16(c[2 * (g + jj) + 1], hi, r[jj][2], r[jj][3]);
+      mma_tc<E>(c[2 * (g + jj)], hi, r[jj][0], r[jj][1]);
+      mma_tc<E>(c[2 * (g + jj) + 1], hi, r[jj][2], r[jj][3]);
     }
 #pragma unroll
     for (int jj = 0; jj < G; ++jj) {
-      mma_bf16(c[2 * (g + jj)], lo, r[jj][0], r[jj][1]);
-      mma_bf16(c[2 * (g + jj) + 1], lo, r[jj][2], r[jj][3]);
+      mma_tc<E>(c[2 * (g + jj)], lo, r[jj][0], r[jj][1]);
+      mma_tc<E>(c[2 * (g + jj) + 1], lo, r[jj][2], r[jj][3]);
     }
   }
 }
@@ -794,9 +859,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// 16 bytes of a bf16 row into shared memory, or zeros where the row is
-// absent (past S or Skv)
-__device__ __forceinline__ void chunk16(uint8_t* dst, const __nv_bfloat16* src) {
+// 16 bytes of a bf16 or f16 row into shared memory, or zeros where the row
+// is absent (past S or Skv)
+__device__ __forceinline__ void chunk16(uint8_t* dst, const void* src) {
   if (src != nullptr)
     cp_async16(dst, src);
   else
@@ -815,10 +880,9 @@ struct RowCopy {
 
   // keys [c0, c0 + N) of one (batch, kv head) of k and v (B, Skv, KV, D)
   // into [N][ROW] tiles; zeros past Skv
-  template <int ROW, int N>
-  __device__ __forceinline__ void keys(uint8_t* ks, uint8_t* vs, const __nv_bfloat16* k,
-                                       const __nv_bfloat16* v, const Problem& p, int b,
-                                       int kvh, int c0) const {
+  template <int ROW, int N, typename E>
+  __device__ __forceinline__ void keys(uint8_t* ks, uint8_t* vs, const E* k, const E* v,
+                                       const Problem& p, int b, int kvh, int c0) const {
     static_assert(N % R == 0, "whole passes");
     const size_t step = (size_t)p.KV * D;
     const size_t at = ((size_t)b * p.Skv * p.KV + kvh) * D + col;
@@ -834,10 +898,10 @@ struct RowCopy {
 
   // N query vectors from flattened index base of one (batch, kv head) of a
   // (and b2 when given), (B, S, H, D), into [N][ROW] tiles; zeros past S
-  template <int ROW, int N>
-  __device__ __forceinline__ void vectors(uint8_t* da, const __nv_bfloat16* a, uint8_t* db,
-                                          const __nv_bfloat16* b2, const Problem& p, int b,
-                                          int kvh, int base) const {
+  template <int ROW, int N, typename E>
+  __device__ __forceinline__ void vectors(uint8_t* da, const E* a, uint8_t* db, const void* b2v,
+                                          const Problem& p, int b, int kvh, int base) const {
+    const E* b2 = static_cast<const E*>(b2v);
     static_assert(N % R == 0, "whole passes");
 #pragma unroll
     for (int i = 0; i < N / R; ++i) {
@@ -945,7 +1009,8 @@ struct QueryBlock {
 
   // K and V of tile kt into a ring stage ([K | V]) and its key segments
   // into kseg
-  __device__ void load_kv(const Problem& p, const __nv_bfloat16* k, const __nv_bfloat16* v,
+  template <typename E>
+  __device__ void load_kv(const Problem& p, const E* k, const E* v,
                           uint8_t* stage, int* kseg, int kt) const {
     copy.template keys<kRow, kTile>(stage, stage + kKvBytes, k, v, p, b, kvh, kt * kTile);
     if (p.seg != nullptr && threadIdx.x < kTile) {
@@ -1058,8 +1123,9 @@ struct BiasView {
 // share of the row sums) and acc are rescaled.  With biases, x = s scale
 // log2e + (b1 + b2) log2e before the max.  MASK (a partial tile): keep()
 // per element, and a masked element is -inf and gets p = 0 without an exp.
-// A row with nothing kept yet keeps m = -inf and p = 0.
-template <bool MASK, int D, typename Bias>
+// A row with nothing kept yet keeps m = -inf and p = 0.  In f16, p leaves
+// multiplied by kHalfP (p_scale below), as do the sums it adds to l.
+template <typename E, bool MASK, int D, typename Bias>
 __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[2], float (&l)[2],
                                              float (&acc)[D / 8][4], float sl2,
                                              const Problem& p, const int (&row)[2],
@@ -1097,7 +1163,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[2], fl
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = s[j][e];
-      const float pv = (MASK && x == -INFINITY) ? 0.f : exp2_approx(x - m_use[e >> 1]);
+      float pv = (MASK && x == -INFINITY) ? 0.f : exp2_approx(x - m_use[e >> 1]);
+      if constexpr (kIsHalf<E>) pv *= kHalfP;
       s[j][e] = pv;
       sum[e >> 1] += pv;
     }
@@ -1114,11 +1181,10 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[2], fl
 // SM: its blocks walk few key tiles and wait on their copies, and a second
 // block hides that (timings in PERF.md; the variants with an f32 b2
 // spill 16-24 bytes).
-template <int D, typename B1, typename B2>
+template <typename E, int D, typename B1, typename B2>
 __global__ void __launch_bounds__(32 * kFwdWarps, D <= 32 ? 2 : 1)
-flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+flash_fwd_tc_kernel(Problem p, const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, E* __restrict__ o, float* __restrict__ lse) {
   using L = FwdTc<D, B1, B2>;
   extern __shared__ __align__(16) uint8_t tc_smem[];  // bytes, not the f32 kernels' smem
   uint8_t* q_s = tc_smem;
@@ -1148,21 +1214,21 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
     blk.load_kv(p, k, v, stage, kseg_s + st * kTile, kt);
     const int c0 = kt * kTile;
     if constexpr (!std::is_void<B1>::value) {
-      constexpr int E = 16 / (int)sizeof(B1), CPR = kTile / E;
+      constexpr int EB = 16 / (int)sizeof(B1), CPR = kTile / EB;
       if (threadIdx.x < CPR) {
-        const int e0 = c0 + threadIdx.x * E;
+        const int e0 = c0 + threadIdx.x * EB;
         bias_chunk<B1>(stage + 2 * L::kKvBytes + threadIdx.x * 16,
                        static_cast<const B1*>(p.b1) + (size_t)b * p.Skv + e0, p.Skv - e0);
       }
     }
     if constexpr (!std::is_void<B2>::value) {
-      constexpr int E = 16 / (int)sizeof(B2), CPR = kTile / E;
+      constexpr int EB = 16 / (int)sizeof(B2), CPR = kTile / EB;
       static_assert(kFwdVecs * CPR % L::kThreads == 0, "whole passes");
       uint8_t* tile = stage + 2 * L::kKvBytes + L::kB1Bytes;
 #pragma unroll
       for (int it = 0; it < kFwdVecs * CPR / L::kThreads; ++it) {
         const int ci = threadIdx.x + it * L::kThreads;
-        const int i = ci / CPR, e0 = c0 + (ci % CPR) * E;
+        const int i = ci / CPR, e0 = c0 + (ci % CPR) * EB;
         const long long off = b2_off[i];
         bias_chunk<B2>(tile + i * L::kB2Row + (ci % CPR) * 16,
                        static_cast<const B2*>(p.b2) + (off < 0 ? 0 : off + e0),
@@ -1209,20 +1275,20 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) mma_bt<8, L::kRow>(s, qf[kk], ks, 0, kk * 16, lane);
+    for (int kk = 0; kk < D / 16; ++kk) mma_bt<E, 8, L::kRow>(s, qf[kk], ks, 0, kk * 16, lane);
 
     if (cur_state == kPartial)
-      softmax_step<true, D>(s, m, l, acc, sl2, p, row, qseg, kseg_s + st * kTile, cur * kTile, tq,
-                            bias);
+      softmax_step<E, true, D>(s, m, l, acc, sl2, p, row, qseg, kseg_s + st * kTile, cur * kTile,
+                               tq, bias);
     else
-      softmax_step<false, D>(s, m, l, acc, sl2, p, row, qseg, nullptr, 0, tq, bias);
+      softmax_step<E, false, D>(s, m, l, acc, sl2, p, row, qseg, nullptr, 0, tq, bias);
 
     // O += (P_hi + P_lo) V
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t hi[4], lo[4];
-      a_split(s, kk, hi, lo);
-      mma_split_b<D, L::kRow>(acc, hi, lo, vs, kk * 16, lane);
+      a_split<E>(s, kk, hi, lo);
+      mma_split_b<E, D, L::kRow>(acc, hi, lo, vs, kk * 16, lane);
     }
 
     cp_async_wait_all();
@@ -1238,14 +1304,19 @@ flash_fwd_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
     const float lt = quad_sum(l[h]);
     if (row[h] < 0) continue;
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
-    __nv_bfloat16* orow = o + (((size_t)b * p.S + row[h]) * p.H + head[h]) * D;
+    E* orow = o + (((size_t)b * p.S + row[h]) * p.H + head[h]) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
-    if (tq == 0)
-      lse[((size_t)b * p.H + head[h]) * p.S + row[h]] =
-          lt > 0.f ? m[h] * kLn2 + logf(lt) : -INFINITY;
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tq) =
+          pack_pair<E>(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    if (tq == 0) {
+      float lrow = -INFINITY;
+      if (lt > 0.f) {
+        lrow = m[h] * kLn2 + logf(lt);
+        if constexpr (kIsHalf<E>) lrow -= kHalfPLn;  // l carries kHalfP
+      }
+      lse[((size_t)b * p.H + head[h]) * p.S + row[h]] = lrow;
+    }
   }
 }
 
@@ -1265,10 +1336,72 @@ struct DkdvTc {
   static_assert(kBwdVecs <= kThreads, "one thread per vector's lse and delta");
 };
 
+// f16's dS (dK/dV and dQ).  The reference keeps ds = p (dp - delta) in
+// f32; under a loss scale of 2^16 it passes 65504, and it may fall under
+// f16's normal range (2^-14), so an f16 hi/lo split as bf16's would turn a
+// finite gradient into inf or lose it.  Each accumulator row (a thread's
+// rows h = 0, 1: gr and gr + 8 of its warp's 16) therefore has its own
+// power-of-two scale 2^sig: sig is the least 14 - floor(log2 max |ds|)
+// over the row's tiles so far, so every tile's row max lands at or under
+// [2^14, 2^15) before the split; the accumulator holds its sum times 2^sig
+// and is rescaled when sig falls, and the store multiplies by 2^-sig.
+// Every factor is a power of two, so no scaling rounds.  A row whose ds is
+// all zero or not finite sets no scale (kNoScale): inf and NaN reach the
+// accumulator as they are and the output reads inf or NaN, as the
+// reference's does.
+constexpr int kNoScale = 1000;
+
+// 2^n for n <= 127 (0 under 2^-126)
+__device__ __forceinline__ float pow2i(int n) {
+  return n < -126 ? 0.f : __int_as_float((n + 127) << 23);
+}
+
+// x: a warp's 16 rows x 8 NT columns of ds in accumulator layout; acc: the
+// same rows' accumulator (NA n-tiles); sig: the rows' scales
+template <int NT, int NA>
+__device__ __forceinline__ void scale_rows(float (&x)[NT][4], float (&acc)[NA][4],
+                                           int (&sig)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[j][e]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m = quad_max(mx[h]);
+    // 14 - floor(log2 m) from m's exponent bits; at most 100 (m under
+    // 2^-86, or f32-subnormal)
+    const int want = (m > 0.f && m <= 3.402823466e38f)
+                         ? min(141 - (int)(__float_as_uint(m) >> 23), 100)
+                         : kNoScale;
+    if (want < sig[h]) {
+      const float f = sig[h] == kNoScale ? 1.f : pow2i(want - sig[h]);
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        acc[j][2 * h] *= f;
+        acc[j][2 * h + 1] *= f;
+      }
+      sig[h] = want;
+    }
+    const float f = sig[h] == kNoScale ? 1.f : pow2i(sig[h]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      x[j][2 * h] *= f;
+      x[j][2 * h + 1] *= f;
+    }
+  }
+}
+
+// 2^-sig, the factor that takes a row's scale out at the store
+__device__ __forceinline__ float unscale(int sig) {
+  return sig == kNoScale ? 1.f : pow2i(-sig);
+}
+
 // P^T of a warp's 16 keys x 8 NT vectors: exp2(s^T scale log2e - lse
-// log2e) in f32.  MASK (a partial tile): keep() per element; a masked
-// element gets p = 0 without an exp (its lse may be -inf).
-template <bool MASK, int NT>
+// log2e) in f32 (times kHalfP in f16).  MASK (a partial tile): keep() per
+// element; a masked element gets p = 0 without an exp (its lse may be
+// -inf).
+template <typename E, bool MASK, int NT>
 __device__ __forceinline__ void probs_t(float (&pt)[NT][4], float sl2, const Problem& p,
                                         const int (&key)[2], const int (&kseg)[2],
                                         const float* lse_t, const int* row_t,
@@ -1281,17 +1414,17 @@ __device__ __forceinline__ void probs_t(float (&pt)[NT][4], float sl2, const Pro
       float pv = 0.f;
       if (!MASK || keep(p, row_t[vi], key[e >> 1], seg_t[vi], kseg[e >> 1]))
         pv = exp2_approx(pt[j][e] * sl2 - lse_t[vi] * kLog2e);
+      if constexpr (kIsHalf<E>) pv *= kHalfP;
       pt[j][e] = pv;
     }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(32 * kBwdWarps, 8 / kBwdWarps)
-flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv) {
+flash_dkdv_tc_kernel(Problem p, const E* __restrict__ q, const E* __restrict__ k,
+                     const E* __restrict__ v, const E* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     E* __restrict__ dk, E* __restrict__ dv) {
   using L = DkdvTc<D>;
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* k_s = tc_smem;
@@ -1363,6 +1496,7 @@ flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  int sig[2] = {kNoScale, kNoScale};  // f16: dk_acc's row scales
 
   int cur_state = kEmpty, nxt_state = kEmpty;
   int cur = next_live(ch_lo, cur_state);
@@ -1398,18 +1532,18 @@ flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
       ldmatrix_x4(a, k_w + kk * 32);
-      mma_bt<NT, L::kRow>(pt, a, q_t, 0, kk * 16, lane);
+      mma_bt<E, NT, L::kRow>(pt, a, q_t, 0, kk * 16, lane);
     }
     if (cur_state == kPartial)
-      probs_t<true, NT>(pt, sl2, p, key, kseg, lse_t, row_t, seg_t, tq);
+      probs_t<E, true, NT>(pt, sl2, p, key, kseg, lse_t, row_t, seg_t, tq);
     else
-      probs_t<false, NT>(pt, sl2, p, key, kseg, lse_t, row_t, seg_t, tq);
+      probs_t<E, false, NT>(pt, sl2, p, key, kseg, lse_t, row_t, seg_t, tq);
     // dV += (P^T_hi + P^T_lo) dO
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
       uint32_t hi[4], lo[4];
-      a_split(pt, kk, hi, lo);
-      mma_split_b<D, L::kRow>(dv_acc, hi, lo, do_t, kk * 16, lane);
+      a_split<E>(pt, kk, hi, lo);
+      mma_split_b<E, D, L::kRow>(dv_acc, hi, lo, do_t, kk * 16, lane);
     }
     // dS^T = P^T (dP^T - delta) scale, dP^T = V dO^T
     float dst[NT][4];
@@ -1421,21 +1555,25 @@ flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
       ldmatrix_x4(a, v_w + kk * 32);
-      mma_bt<NT, L::kRow>(dst, a, do_t, 0, kk * 16, lane);
+      mma_bt<E, NT, L::kRow>(dst, a, do_t, 0, kk * 16, lane);
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int vi = j * 8 + 2 * tq + (e & 1);
-        dst[j][e] = pt[j][e] * (dst[j][e] - dl_t[vi]) * p.scale;
+        if constexpr (kIsHalf<E>)  // scale and kHalfP come out at the store
+          dst[j][e] = pt[j][e] * (dst[j][e] - dl_t[vi]);
+        else
+          dst[j][e] = pt[j][e] * (dst[j][e] - dl_t[vi]) * p.scale;
       }
+    if constexpr (kIsHalf<E>) scale_rows(dst, dk_acc, sig);
     // dK += (dS^T_hi + dS^T_lo) Q
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
       uint32_t hi[4], lo[4];
-      a_split(dst, kk, hi, lo);
-      mma_split_b<D, L::kRow>(dk_acc, hi, lo, q_t, kk * 16, lane);
+      a_split<E>(dst, kk, hi, lo);
+      mma_split_b<E, D, L::kRow>(dk_acc, hi, lo, q_t, kk * 16, lane);
     }
 
     cp_async_wait_all();
@@ -1450,13 +1588,26 @@ flash_dkdv_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= p.Skv) continue;
     const size_t at = (((size_t)b * p.Skv + key[h]) * p.KV + kvh) * D;
+    if constexpr (kIsHalf<E>) {
+      // dk: 2^-sig kHalfP^-1 (exact) then the softmax scale; dv: kHalfP^-1
+      const float fk = unscale(sig[h]) * kHalfPInv;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int d = j * 8 + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + d) =
-          __floats2bfloat162_rn(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + d) =
-          __floats2bfloat162_rn(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        const int d = j * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(dk + at + d) = pack_pair<E>(
+            dk_acc[j][2 * h] * fk * p.scale, dk_acc[j][2 * h + 1] * fk * p.scale);
+        *reinterpret_cast<uint32_t*>(dv + at + d) =
+            pack_pair<E>(dv_acc[j][2 * h] * kHalfPInv, dv_acc[j][2 * h + 1] * kHalfPInv);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int d = j * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(dk + at + d) =
+            pack_pair<E>(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at + d) =
+            pack_pair<E>(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+      }
     }
   }
 }
@@ -1505,12 +1656,12 @@ __device__ __forceinline__ void ds_tile(float (&s)[NT][4], const float (&dp)[NT]
     }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
-flash_dq_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq) {
+flash_dq_tc_kernel(Problem p, const E* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v, const E* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   E* __restrict__ dq) {
   using L = DqTc<D>;
   constexpr int NT = kDqKeys / 8;
   extern __shared__ __align__(16) uint8_t tc_smem[];
@@ -1562,6 +1713,7 @@ flash_dq_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  int sig[2] = {kNoScale, kNoScale};  // f16: acc's row scales
   const float sl2 = p.scale * kLog2e;
 
   int nxt = cur <= kt_hi ? next_live(cur + 1, nxt_state) : kt_hi + 1;
@@ -1582,19 +1734,22 @@ flash_dq_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) mma_bt<NT, L::kRow>(s, qf[kk], ks, n0, kk * 16, lane);
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bt<E, NT, L::kRow>(s, qf[kk], ks, n0, kk * 16, lane);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) mma_bt<NT, L::kRow>(dp, df[kk], vs, n0, kk * 16, lane);
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bt<E, NT, L::kRow>(dp, df[kk], vs, n0, kk * 16, lane);
       if (cur_state == kPartial)
         ds_tile<true, NT>(s, dp, sl2, lse2, dl, p, row, qseg, kseg + n0, cur * kTile + n0, tq);
       else
         ds_tile<false, NT>(s, dp, sl2, lse2, dl, p, row, qseg, kseg + n0, cur * kTile + n0, tq);
+      if constexpr (kIsHalf<E>) scale_rows(s, acc, sig);
       // dQ += (dS_hi + dS_lo) K, K's rows n0 .. n0 + 31 by ldmatrix.trans
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk) {
         uint32_t hi[4], lo[4];
-        a_split(s, kk, hi, lo);
-        mma_split_b<D, L::kRow>(acc, hi, lo, ks, n0 + kk * 16, lane);
+        a_split<E>(s, kk, hi, lo);
+        mma_split_b<E, D, L::kRow>(acc, hi, lo, ks, n0 + kk * 16, lane);
       }
     }
 
@@ -1609,11 +1764,19 @@ flash_dq_tc_kernel(Problem p, const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] < 0) continue;
-    __nv_bfloat16* out = dq + (((size_t)b * p.S + row[h]) * p.H + head[h]) * D;
+    E* out = dq + (((size_t)b * p.S + row[h]) * p.H + head[h]) * D;
+    float f = p.scale;
+    if constexpr (kIsHalf<E>) {
+      const float u = unscale(sig[h]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) acc[j][e] *= u;  // exact
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * h] * p.scale, acc[j][2 * h + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * tq) =
+          pack_pair<E>(acc[j][2 * h] * f, acc[j][2 * h + 1] * f);
   }
 }
 
@@ -1629,19 +1792,19 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 constexpr size_t slab_floats(int D) { return (size_t)kTile * (D + 1); }
 constexpr size_t tile_floats() { return (size_t)kTile * kPLd; }
 
-template <int D, typename B1, typename B2>
+template <typename E, int D, typename B1, typename B2>
 cudaError_t run_fwd_tc(const Problem& p, const void* q, const void* k, const void* v, void* o,
                        float* lse, cudaStream_t st) {
   using L = FwdTc<D, B1, B2>;
-  auto kernel = flash_fwd_tc_kernel<D, B1, B2>;
+  auto kernel = flash_fwd_tc_kernel<E, D, B1, B2>;
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
   const long long blocks =
       (((long long)p.S * p.group + kFwdVecs - 1) / kFwdVecs) * p.KV * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, L::kThreads, L::kSmem, st>>>(
-      p, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse);
+      p, static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<E*>(o), lse);
   return cudaGetLastError();
 }
 
@@ -1651,9 +1814,10 @@ cudaError_t run_fwd_tc(const Problem& p, const void* q, const void* k, const voi
 template <int D, typename B1>
 cudaError_t run_fwd_tc_b2(const Problem& p, const void* q, const void* k, const void* v,
                           void* o, float* lse, cudaStream_t st) {
-  if (p.b2 == nullptr) return run_fwd_tc<D, B1, void>(p, q, k, v, o, lse, st);
-  if (p.b2_f32) return run_fwd_tc<D, B1, float>(p, q, k, v, o, lse, st);
-  return run_fwd_tc<D, B1, __nv_bfloat16>(p, q, k, v, o, lse, st);
+  using E = __nv_bfloat16;
+  if (p.b2 == nullptr) return run_fwd_tc<E, D, B1, void>(p, q, k, v, o, lse, st);
+  if (p.b2_f32) return run_fwd_tc<E, D, B1, float>(p, q, k, v, o, lse, st);
+  return run_fwd_tc<E, D, B1, __nv_bfloat16>(p, q, k, v, o, lse, st);
 }
 
 template <int D>
@@ -1671,7 +1835,7 @@ cudaError_t run_fwd(const Problem& p, const void* q, const void* k, const void* 
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (p.b1 != nullptr || p.b2 != nullptr)
       return ds_flash::run_fwd_tc_bias(D, p, q, k, v, o, lse, st);
-    return run_fwd_tc<D, void, void>(p, q, k, v, o, lse, st);
+    return run_fwd_tc<__nv_bfloat16, D, void, void>(p, q, k, v, o, lse, st);
   } else {
     const bool bias = p.b1 != nullptr || p.b2 != nullptr;
     const size_t smem =
@@ -1687,20 +1851,19 @@ cudaError_t run_fwd(const Problem& p, const void* q, const void* k, const void* 
   }
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t run_dkdv_tc(const Problem& p, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta, void* dk,
                         void* dv, cudaStream_t st) {
   using L = DkdvTc<D>;
-  auto kernel = flash_dkdv_tc_kernel<D>;
+  auto kernel = flash_dkdv_tc_kernel<E, D>;
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
   const long long blocks = (((long long)p.Skv + kBwdKeys - 1) / kBwdKeys) * p.KV * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, L::kThreads, L::kSmem, st>>>(
-      p, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
-      delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
+      p, static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv));
   return cudaGetLastError();
 }
 
@@ -1709,7 +1872,7 @@ cudaError_t run_dkdv(const Problem& p, const void* q, const void* k, const void*
                      const void* dout, const float* lse, const float* delta,
                      void* dk, void* dv, cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return run_dkdv_tc<D>(p, q, k, v, dout, lse, delta, dk, dv, st);
+    return run_dkdv_tc<__nv_bfloat16, D>(p, q, k, v, dout, lse, delta, dk, dv, st);
   } else {
     const size_t smem = (4 * slab_floats(D) + 2 * tile_floats()) * sizeof(float);
     auto kernel = flash_dkdv_kernel<T, D>;
@@ -1723,21 +1886,20 @@ cudaError_t run_dkdv(const Problem& p, const void* q, const void* k, const void*
   }
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t run_dq_tc(const Problem& p, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta, void* dq,
                       cudaStream_t st) {
   using L = DqTc<D>;
-  auto kernel = flash_dq_tc_kernel<D>;
+  auto kernel = flash_dq_tc_kernel<E, D>;
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
   const long long blocks =
       (((long long)p.S * p.group + kFwdVecs - 1) / kFwdVecs) * p.KV * p.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, L::kThreads, L::kSmem, st>>>(
-      p, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
-      delta, static_cast<__nv_bfloat16*>(dq));
+      p, static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq));
   return cudaGetLastError();
 }
 
@@ -1746,7 +1908,7 @@ cudaError_t run_dq(const Problem& p, const void* q, const void* k, const void* v
                    const void* dout, const float* lse, const float* delta, void* dq,
                    cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return run_dq_tc<D>(p, q, k, v, dout, lse, delta, dq, st);
+    return run_dq_tc<__nv_bfloat16, D>(p, q, k, v, dout, lse, delta, dq, st);
   } else {
     const size_t smem = (4 * slab_floats(D) + tile_floats()) * sizeof(float);
     auto kernel = flash_dq_kernel<T, D>;
@@ -1760,7 +1922,7 @@ cudaError_t run_dq(const Problem& p, const void* q, const void* k, const void* v
   }
 }
 
-#if !DS_FLASH_BIAS_UNIT
+#if DS_FLASH_MAIN_UNIT
 Problem make_problem(int B, int S, int Skv, int H, int KV, int causal, int window,
                      const void* seg, const void* bm, int bq, int bk, int nkb,
                      float scale) {
@@ -1789,12 +1951,45 @@ cudaError_t ds_flash::run_fwd_tc_bias(int D, const Problem& p, const void* q, co
   if (D == 128) return run_fwd_tc_b1<128>(p, q, k, v, o, lse, st);
   return cudaErrorInvalidValue;
 }
-#else
+#endif
 
-// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128; H % KV == 0.  The
-// Python wrapper checks shapes before it calls; a dtype or D outside these
-// gives cudaErrorInvalidValue.  seg and bm may be null.  Returns a
-// cudaError_t.
+#if DS_FLASH_F16_UNIT
+// f16 runs the bf16 kernels' schedule at E = __half; it takes no bias (the
+// biases' only caller, the evoformer op, runs bf16 or f32)
+cudaError_t ds_flash::run_fwd_f16(int D, const Problem& p, const void* q, const void* k,
+                                  const void* v, void* o, float* lse, cudaStream_t st) {
+  if (p.b1 != nullptr || p.b2 != nullptr) return cudaErrorInvalidValue;
+  if (D == 32) return run_fwd_tc<__half, 32, void, void>(p, q, k, v, o, lse, st);
+  if (D == 64) return run_fwd_tc<__half, 64, void, void>(p, q, k, v, o, lse, st);
+  if (D == 128) return run_fwd_tc<__half, 128, void, void>(p, q, k, v, o, lse, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t ds_flash::run_dkdv_f16(int D, const Problem& p, const void* q, const void* k,
+                                   const void* v, const void* dout, const float* lse,
+                                   const float* delta, void* dk, void* dv, cudaStream_t st) {
+  if (D == 32) return run_dkdv_tc<__half, 32>(p, q, k, v, dout, lse, delta, dk, dv, st);
+  if (D == 64) return run_dkdv_tc<__half, 64>(p, q, k, v, dout, lse, delta, dk, dv, st);
+  if (D == 128) return run_dkdv_tc<__half, 128>(p, q, k, v, dout, lse, delta, dk, dv, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t ds_flash::run_dq_f16(int D, const Problem& p, const void* q, const void* k,
+                                 const void* v, const void* dout, const float* lse,
+                                 const float* delta, void* dq, cudaStream_t st) {
+  if (D == 32) return run_dq_tc<__half, 32>(p, q, k, v, dout, lse, delta, dq, st);
+  if (D == 64) return run_dq_tc<__half, 64>(p, q, k, v, dout, lse, delta, dq, st);
+  if (D == 128) return run_dq_tc<__half, 128>(p, q, k, v, dout, lse, delta, dq, st);
+  return cudaErrorInvalidValue;
+}
+#endif
+
+#if DS_FLASH_MAIN_UNIT
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the f16 unit's kernels,
+// no bias); D: 32, 64 or 128; H % KV == 0.  The Python wrapper checks
+// shapes before it calls; a dtype or D outside these gives
+// cudaErrorInvalidValue.  seg and bm may be null.  Returns a cudaError_t.
 #define DS_FLASH_DISPATCH(CALL)                          \
   if (dtype == 1) {                                      \
     if (D == 32) return (int)CALL(__nv_bfloat16, 32);    \
@@ -1828,6 +2023,7 @@ extern "C" int ds_flash_fwd(int dtype, const void* q, const void* k, const void*
   p.b2_f32 = b2_dtype == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (dtype == 2) return (int)ds_flash::run_fwd_f16(D, p, q, k, v, o, lse_f, st);
 #define DS_FWD(T, DD) run_fwd<T, DD>(p, q, k, v, o, lse_f, st)
   DS_FLASH_DISPATCH(DS_FWD)
 #undef DS_FWD
@@ -1845,6 +2041,8 @@ extern "C" int ds_flash_bwd_dkdv(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* dl_f = static_cast<const float*>(delta);
+  if (dtype == 2)
+    return (int)ds_flash::run_dkdv_f16(D, p, q, k, v, dout, lse_f, dl_f, dk, dv, st);
 #define DS_DKDV(T, DD) run_dkdv<T, DD>(p, q, k, v, dout, lse_f, dl_f, dk, dv, st)
   DS_FLASH_DISPATCH(DS_DKDV)
 #undef DS_DKDV
@@ -1861,9 +2059,10 @@ extern "C" int ds_flash_bwd_dq(int dtype, const void* q, const void* k, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* dl_f = static_cast<const float*>(delta);
+  if (dtype == 2) return (int)ds_flash::run_dq_f16(D, p, q, k, v, dout, lse_f, dl_f, dq, st);
 #define DS_DQ(T, DD) run_dq<T, DD>(p, q, k, v, dout, lse_f, dl_f, dq, st)
   DS_FLASH_DISPATCH(DS_DQ)
 #undef DS_DQ
 }
 #undef DS_FLASH_DISPATCH
-#endif  // DS_FLASH_BIAS_UNIT
+#endif  // DS_FLASH_MAIN_UNIT

@@ -22,8 +22,9 @@ tree files (``runtime/checkpoint``) alike.
 
 O_DIRECT support is probed once per directory (overlay/tmpfs filesystems
 reject it) and the writer falls back to buffered mode with a one-time log
-line.  The pytree ``save_tree(s)`` of the reference belongs to the
-checkpoint engine (ROADMAP.md queue A item A12) and is not ported yet.
+line.  The checkpoint engine's ``fast`` engine
+(``runtime/checkpoint/engine.py``) writes its tree files through
+:func:`get_fast_writer`, the process's one writer.
 """
 
 from __future__ import annotations
@@ -331,3 +332,14 @@ class FastFileWriter:
         else:
             self._drain_and_close([fd], [r for r in inflight if r is not None],
                                   truncate_to=logical)
+
+
+_WRITER: Optional[FastFileWriter] = None
+
+
+def get_fast_writer() -> FastFileWriter:
+    """The process's writer (one AIO thread pool), built at first use."""
+    global _WRITER
+    if _WRITER is None:
+        _WRITER = FastFileWriter()
+    return _WRITER

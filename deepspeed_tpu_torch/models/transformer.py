@@ -28,8 +28,10 @@ from ..accelerator import resolve_device
 from ..ops.hopper.mixed_gemm import (QuantizedWeight, mixed_gemm,
                                      mixed_gemm_frozen)
 
-# the dtypes the paged-attention kernels take
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the model's dtypes: the paged-attention kernels take bf16 and f32; the
+# flash kernels (training) also take f16, the fp16 engine's compute dtype
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -553,22 +555,76 @@ def _attention_block(x, p, cfg: TransformerConfig, cos, sin,
     return _lin(o.reshape(B, S, nh * hd), p, "wo", "bo")
 
 
-def _remat_policy(name: str) -> bool:
-    """Whether each layer is checkpointed: ``nothing_saveable`` recomputes
-    the whole layer in backward (``torch.utils.checkpoint`` around it, as
-    ``jax.checkpoint`` wraps the scanned body), ``everything`` saves all
-    activations.  The reference's named-save policies are refused."""
-    if name == "nothing_saveable":
-        return True
-    if name == "everything":
-        return False
-    if name in ("dots_saveable", "dots_with_no_batch_dims_saveable",
-                "save_attn", "save_attn_mlp"):
-        raise NotImplementedError(
-            f"remat_policy={name!r} saves named activations; the named "
-            "policies arrive with the rest of the training engine "
-            "(ROADMAP.md A12); use 'nothing_saveable' or 'everything'")
-    raise ValueError(f"unknown remat policy {name!r}")
+#: the reference's remat policies (``_remat_policy``), by name
+REMAT_POLICIES = ("everything", "nothing_saveable", "dots_saveable",
+                  "dots_with_no_batch_dims_saveable", "save_attn",
+                  "save_attn_mlp")
+
+
+def _remat_policy(name: str) -> str:
+    """The layer's remat policy, checked, with the reference's meaning
+    (``jax.checkpoint`` policies around the scanned layer body):
+
+    - ``everything``: nothing recomputed, every activation saved;
+    - ``nothing_saveable``: the whole layer recomputed in backward
+      (``torch.utils.checkpoint`` around it);
+    - ``dots_saveable`` / ``dots_with_no_batch_dims_saveable``: the layer
+      recomputed except its matmul outputs (all of them / those without
+      batch dimensions, i.e. ``aten.mm``/``addmm`` but not ``bmm``), kept
+      by a selective-checkpoint policy on the dispatcher's ops;
+    - ``save_attn``: the attention output (the reference's ``attn_out``
+      tag) saved, the layer around it recomputed: the pre-attention
+      segment (norm, projections, rope, attention, ``wo``) and the
+      post-attention segment (norm, MLP, residual) are checkpointed
+      separately, so the value between them is kept;
+    - ``save_attn_mlp``: the MLP output (``mlp_out``) saved too, the MLP
+      segment checkpointed on its own.
+
+    The flash kernels are launched through ``ctypes`` inside an autograd
+    function, which a selective-checkpoint policy does not see; so, as in
+    the reference (whose Pallas forward is not a dot and whose backward
+    needs its o and lse), every policy but ``everything`` runs the flash
+    forward again in backward: 2 launches of B1 per layer and step, 1 of
+    B2 and B3; ``everything`` runs each once."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}")
+    return name
+
+
+def _dots_policy(batch_dims: bool):
+    """A selective-checkpoint policy that saves matmul outputs: ``mm`` and
+    ``addmm`` (a projection ``x @ W`` of any rank folds into one), with
+    ``batch_dims`` also ``bmm`` and ``baddbmm`` (einsums over batch and
+    heads)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.addmm.default}
+    if batch_dims:
+        saved |= {aten.bmm.default, aten.baddbmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def _checkpointed(fn, policy: str):
+    """``fn`` under ``torch.utils.checkpoint`` as ``policy`` asks; the
+    named-save policies (``save_attn*``) are built from segments by the
+    caller."""
+    import functools
+
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+
+    if policy in ("dots_saveable", "dots_with_no_batch_dims_saveable"):
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy(policy == "dots_saveable"))
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
@@ -594,24 +650,50 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     if cfg.position == "rope":
         cos, sin = rope_table(S, cfg.rot_dim, cfg.rope_theta, x.device)
 
-    def layer(h, lp):
+    def attn(h, lp):  # -> attn_out
         a_in = _norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
-        attn_out = _attention_block(a_in, lp["attn"], cfg, cos, sin, attn_fn)
-        if cfg.parallel_residual:
-            m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-            return h + attn_out + ffn_block(m_in, lp, cfg, moe_fn)
-        h = h + attn_out
-        m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-        return h + ffn_block(m_in, lp, cfg, moe_fn)
+        return _attention_block(a_in, lp["attn"], cfg, cos, sin, attn_fn)
 
-    remat = _remat_policy(cfg.remat_policy)
+    def mlp(h, lp):  # -> mlp_out
+        m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+        return ffn_block(m_in, lp, cfg, moe_fn)
+
+    def layer(h, lp):
+        attn_out = attn(h, lp)
+        if cfg.parallel_residual:
+            return h + attn_out + mlp(h, lp)
+        h = h + attn_out
+        return h + mlp(h, lp)
+
+    def mlp_residual(h, lp):  # the post-attention segment of save_attn
+        return h + mlp(h, lp)
+
+    def parallel_rest(h, attn_out, lp):
+        return h + attn_out + mlp(h, lp)
+
+    policy = _remat_policy(cfg.remat_policy)
+    if policy == "everything" or not torch.is_grad_enabled():
+        step = layer
+    elif policy in ("save_attn", "save_attn_mlp"):
+        attn_c = _checkpointed(attn, policy)
+        mlp_c = _checkpointed(mlp, policy)
+        rest_c = _checkpointed(
+            parallel_rest if cfg.parallel_residual else mlp_residual, policy)
+
+        def step(h, lp):
+            attn_out = attn_c(h, lp)  # kept: the segment's output
+            if policy == "save_attn_mlp":
+                if cfg.parallel_residual:
+                    return h + attn_out + mlp_c(h, lp)
+                h = h + attn_out
+                return h + mlp_c(h, lp)
+            if cfg.parallel_residual:
+                return rest_c(h, attn_out, lp)
+            return rest_c(h + attn_out, lp)
+    else:
+        step = _checkpointed(layer, policy)
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(layer, x, lp,
-                                                  use_reentrant=False)
-        else:
-            x = layer(x, lp)
+        x = step(x, layer_params(params, i))
     return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
 

@@ -28,7 +28,11 @@ _LIB: Optional[ctypes.CDLL] = None
 _ROOT = Path(__file__).resolve().parents[2]
 _SRC = _ROOT / "csrc" / "aio" / "ds_aio.cpp"
 BUILD_DIR = _ROOT / "build" / "torch_kernels"
-_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# ``-include string``: the source uses std::string without including
+# <string>, which libstdc++ 12 pulls in through <functional> and 13 does
+# not (the H100 machine's g++ 13.3 refuses the source without it)
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", "-include",
+          "string")
 
 
 def _build_library() -> str:

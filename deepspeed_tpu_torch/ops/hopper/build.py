@@ -30,6 +30,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
                              CSRC / "flash_attention.cu",
                              CSRC / "flash_attention_bias.cu",
+                             CSRC / "flash_attention_f16.cu",
                              CSRC / "mixed_gemm.cu",
                              CSRC / "grouped_matmul.cu",
                              CSRC / "fused_adam.cu")

@@ -26,12 +26,16 @@ the masks drop elements, then the softmax runs; lse includes the biases.
 Their only caller is ``ops/evoformer.py``, whose backward is plain torch,
 so the backward kernels take no bias.
 
-On CUDA tensors each wrapper checks dtype (bf16 or f32), shapes, devices,
-contiguity and (bf16) 16-byte alignment, launches its hand-written kernel
-from ``csrc/flash_attention.cu`` on the current stream, and raises on
-anything the kernel does not take.  In bf16 the forward, dK/dV and dQ run
-on the tensor cores (p and ds split into bf16 hi/lo pairs, so they keep
-f32 precision); f32 runs on the CUDA cores.  On CPU tensors it runs the
+On CUDA tensors each wrapper checks dtype (bf16, f16 or f32), shapes,
+devices, contiguity and (bf16, f16) 16-byte alignment, launches its
+hand-written kernel from ``csrc/flash_attention.cu`` on the current stream,
+and raises on anything the kernel does not take.  In bf16 and f16 the
+forward, dK/dV and dQ run on the tensor cores (p and ds split into hi/lo
+pairs of the input's type, so they keep f32 precision; in f16 p is split
+after a multiply by 2^14 and ds after a power-of-two scale per row, so
+neither leaves f16's range: an output past 65504 still reads inf, as the
+reference's cast gives it); f32 runs on the CUDA cores.  The f16 forward
+takes no bias.  On CPU tensors it runs the
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_dkdv_plain``,
 ``flash_bwd_dq_plain``), which is also the kernels' oracle on the card.
 The public :func:`flash_attention` copies a strided or (bf16) misaligned
@@ -57,7 +61,9 @@ BIAS_LAUNCHES = {"flash_fwd_bias": 0}
 PLAIN_CALLS = {"flash_fwd_plain": 0, "flash_bwd_dkdv_plain": 0,
                "flash_bwd_dq_plain": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the 2-byte types, whose kernels copy 16-byte chunks
+_HALF_TYPES = (torch.bfloat16, torch.float16)
 _HEAD_DIMS = (32, 64, 128)  # the kernels' instantiations (csrc: ds_flash_*)
 
 
@@ -192,8 +198,8 @@ def _check(q, k, v, mask: AttnMask, extra=()) -> Tuple[int, ...]:
     """Validate CUDA inputs for the kernels; returns (B, S, Skv, H, KV, D,
     nkb) and raises on anything the kernels do not take."""
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash attention kernels take bfloat16 or float32, "
-                        f"got {q.dtype}")
+        raise TypeError(f"flash attention kernels take bfloat16, float16 or "
+                        f"float32, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q must be (B, S, H, D) and k, v (B, Skv, KV, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -235,9 +241,9 @@ def _check(q, k, v, mask: AttnMask, extra=()) -> Tuple[int, ...]:
         elif t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q {q.dtype}: the kernels "
                             "take one dtype")
-        elif t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        elif t.dtype in _HALF_TYPES and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned: the bf16 "
-                             "kernels copy 16-byte chunks")
+                             "and f16 kernels copy 16-byte chunks")
     if tuple(dict(extra).get("do", q).shape) != tuple(q.shape):
         raise ValueError("do must have q's shape")
     return B, S, Skv, H, KV, D, nkb
@@ -251,6 +257,9 @@ def _check_bias(q, bias_kv, bias_qk, B, S, Skv, H) -> Tuple:
     for i, (name, t) in enumerate((("bias_kv", bias_kv), ("bias_qk", bias_qk))):
         if t is None:
             continue
+        if q.dtype == torch.float16:
+            raise TypeError(f"{name}: the f16 forward takes no bias (the "
+                            "biased kernels run bf16 or f32)")
         if name == "bias_kv":
             if tuple(t.shape) != (B, Skv):
                 raise ValueError(f"bias_kv must be (B, Skv) = {(B, Skv)}, got "
@@ -262,7 +271,7 @@ def _check_bias(q, bias_kv, bias_qk, B, S, Skv, H) -> Tuple:
                              f"{tuple(t.shape)}")
         else:
             rep = B // t.shape[0]
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name} must be bfloat16 or float32, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -372,10 +381,10 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the wrappers take it: itself when contiguous and, in bf16,
-    16-byte aligned; else a contiguous copy (a fresh allocation, so
+    """``t`` as the wrappers take it: itself when contiguous and, in bf16
+    or f16, 16-byte aligned; else a contiguous copy (a fresh allocation, so
     aligned)."""
-    if t.is_contiguous() and (t.dtype != torch.bfloat16
+    if t.is_contiguous() and (t.dtype not in _HALF_TYPES
                               or t.data_ptr() % 16 == 0):
         return t
     return t.clone(memory_format=torch.contiguous_format)

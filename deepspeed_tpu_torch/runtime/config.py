@@ -5,11 +5,17 @@ The root config accepts every section and key of the reference's, so a
 config written for the JAX package loads here and a typo still raises
 :class:`ConfigError`.  The training slice reads the batch spine
 (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
-``gradient_accumulation_steps``), ``bf16``, ``optimizer``, ``scheduler``,
-``zero_optimization.stage`` (0), ``gradient_clipping``, ``seed`` and
-``steps_per_print``.  Any other key set to a value other than its default
-raises ``NotImplementedError`` naming the ROADMAP item it arrives with, as
-do fp16 and ZeRO stages 1-3.
+``gradient_accumulation_steps``), ``bf16``, ``fp16`` (the dynamic loss
+scaler), ``optimizer``, ``scheduler``, ``zero_optimization.stage`` (0),
+``gradient_clipping``, ``sanity_checks``, ``checkpoint`` (the ``native``
+and ``fast`` engines), ``seed`` and ``steps_per_print``.  ``data_types``,
+``remat`` and ``activation_checkpointing`` are parsed and validated and, as
+in the reference, read by no engine code (the model's ``remat_policy``
+and ``runtime/activation_checkpointing`` carry the policies).  Any other
+key set to a value other than its default raises ``NotImplementedError``
+naming the ROADMAP item it arrives with, as do ZeRO stages 1-3, the
+``orbax`` checkpoint engine (multi-host), universal checkpoints and the
+activation-checkpointing options that offload or partition.
 
 Batch-size arithmetic is the reference's, verbatim:
 
@@ -46,6 +52,10 @@ class FP16Config(DSConfigModel):
     consecutive_hysteresis: bool = False
     min_loss_scale: float = 1.0
     auto_cast: bool = False
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0.0
 
 
 @dataclass
@@ -361,22 +371,16 @@ class PEFTConfig(DSConfigModel):
 _LATER = {
     "wall_clock_breakdown": "A14 (training periphery)",
     "dump_state": "A14 (training periphery)",
-    "sanity_checks": "A12 (training engine)",
     "prescale_gradients": "A13 (multi-GPU)",
     "gradient_predivide_factor": "A13 (multi-GPU)",
     "sparse_gradients": "A13 (multi-GPU)",
     "memory_breakdown": "A14 (training periphery)",
-    "fp16": "A12 (fp16 and the loss scaler)",
-    "data_types": "A12 (training engine)",
     "mesh": "A13 (multi-GPU)",
     "pipeline": "A13 (multi-GPU)",
     "moe": "A13 (multi-GPU, MoE)",
     "sequence_parallel": "A13 (multi-GPU)",
     "tensor_parallel": "A13 (multi-GPU)",
-    "activation_checkpointing": "A12 (named remat policies)",
-    "remat": "A12 (named remat policies)",
     "aio": "A14 (offload)",
-    "checkpoint": "A12 (checkpoints)",
     "tensorboard": "A14 (training periphery)",
     "wandb": "A14 (training periphery)",
     "comet": "A14 (training periphery)",
@@ -478,6 +482,7 @@ class DeepSpeedTPUConfig(DSConfigModel):
                 raise NotImplementedError(
                     f"config key {key!r} is not ported yet; it arrives with "
                     f"ROADMAP.md {item}")
+        self._check_training_sections()
         zero = self.zero_optimization
         if zero.stage != 0:
             raise NotImplementedError(
@@ -496,6 +501,52 @@ class DeepSpeedTPUConfig(DSConfigModel):
             raise NotImplementedError(
                 f"zero_optimization keys {changed} tune the multi-GPU "
                 "reduction and arrive with ROADMAP.md A13 (multi-GPU)")
+
+    def _check_training_sections(self) -> None:
+        """Validate the A12 sections the port accepts, and refuse their
+        options that arrive with later items."""
+        ckpt = self.checkpoint
+        if ckpt.engine == "orbax":
+            raise NotImplementedError(
+                "checkpoint.engine='orbax' is the multi-host checkpoint "
+                "engine; it arrives with ROADMAP.md A13 (multi-GPU); use "
+                "'native' or 'fast'")
+        if ckpt.engine not in ("native", "fast"):
+            raise ConfigError(f"checkpoint.engine must be native, fast or "
+                              f"orbax, got {ckpt.engine!r}")
+        if ckpt.load_universal:
+            raise NotImplementedError(
+                "checkpoint.load_universal (universal checkpoints) arrives "
+                "with ROADMAP.md A14 (training periphery)")
+        if ckpt.integrity not in ("none", "crc32", "sha256"):
+            raise ConfigError(f"checkpoint.integrity must be none, crc32 or "
+                              f"sha256, got {ckpt.integrity!r}")
+        if ckpt.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ConfigError(f"checkpoint.tag_validation must be Ignore, "
+                              f"Warn or Fail, got {ckpt.tag_validation!r}")
+        ac = self.activation_checkpointing
+        if ac.cpu_checkpointing:
+            raise NotImplementedError(
+                "activation_checkpointing.cpu_checkpointing offloads the "
+                "saved residuals to host memory; it arrives with ROADMAP.md "
+                "A14 (offload)")
+        if ac.partition_activations:
+            raise NotImplementedError(
+                "activation_checkpointing.partition_activations shards the "
+                "saved residuals over tp/sp; it arrives with ROADMAP.md A13 "
+                "(multi-GPU)")
+        from .activation_checkpointing.checkpointing import POLICIES
+        if ac.policy not in POLICIES:
+            raise ConfigError(f"activation_checkpointing.policy "
+                              f"{ac.policy!r} is not one of {sorted(POLICIES)}")
+        from ..models.transformer import REMAT_POLICIES
+        if self.remat.policy not in REMAT_POLICIES:
+            raise ConfigError(f"remat.policy {self.remat.policy!r} is not one "
+                              f"of {sorted(REMAT_POLICIES)}")
+        if self.data_types.master_dtype not in ("float32", "bfloat16",
+                                                "float16"):
+            raise ConfigError(f"data_types.master_dtype must be a float "
+                              f"dtype, got {self.data_types.master_dtype!r}")
 
     @property
     def compute_dtype(self) -> str:

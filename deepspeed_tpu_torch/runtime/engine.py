@@ -3,22 +3,34 @@
 
 One ``train_batch`` runs the reference's step (``engine.py:775-844``,
 ``:1039-1143``) eagerly: for each of the ``gas`` micro-batches, the loss
-and its gradients (cast to f32 and summed), then the mean over ``gas``,
-the global norm of those f32 gradients, optional clipping
-(``gradient_clipping``) and the Adam/AdamW update with the lr
+(times the loss scale under fp16) and its gradients (cast to f32 and
+summed), then the mean over ``gas``, the unscale (fp16), the finite check
+(fp16), the global norm of those f32 gradients, optional clipping
+(``gradient_clipping``) and the optimizer's update with the lr
 ``schedule(step - skipped)``.  Parameters stay in their own dtype (the
-model's ``param_dtype``); optimizer moments are f32.  The update runs in
+model's ``param_dtype``); optimizer state is f32.  The update runs in
 place: the engine owns copies of the caller's parameters (``engine.params``)
 and keeps no reference to the caller's tensors, which never change.
 
-``train_batch`` returns :class:`LazyMetrics` — ``loss``, ``accuracy``,
-``tokens``, ``grad_norm``, ``loss_scale`` (1.0), ``lr``, ``overflow``
-(0.0) — which stay on the device until first read, so a training loop that
-does not read them never waits for the card.
+fp16 (``fp16.enabled``; the model's compute dtype is ``float16``, its
+master weights ``param_dtype``): the loss scale, the optimizer's count and
+the skipped-step count live on the device (``runtime/loss_scaler.py``), so
+an overflowed step is skipped without a host sync: the optimizer keeps
+each leaf's old parameters and state where the gradients were not finite
+(``torch.where``), the scale follows the reference's state machine, and
+``skipped_steps`` grows, so that the lr schedule reads ``step - skipped``.
 
-Data parallelism, ZeRO 1-3, offload, fp16 loss scaling, 1-bit and
-quantized gradients, PEFT and checkpoints are later items of ROADMAP.md;
-the config refuses them out loud.
+``train_batch`` returns :class:`LazyMetrics` — ``loss``, ``accuracy``,
+``tokens``, ``grad_norm``, ``loss_scale`` (the scale this step ran
+under), ``lr``, ``overflow`` (1.0 on a skipped step) — which stay on the
+device until first read, so a training loop that does not read them never
+waits for the card.  ``sanity_checks`` reads them every step and raises on
+a non-finite loss or grad norm unless the step overflowed (one device: no
+replicas to compare).  ``save_checkpoint`` / ``load_checkpoint`` write and
+read the reference's layout (``runtime/checkpoint/engine.py``).
+
+Data parallelism, ZeRO 1-3, offload, wire compression of gradients and
+PEFT are later items of ROADMAP.md; the config refuses them out loud.
 """
 
 from __future__ import annotations
@@ -34,9 +46,12 @@ import torch
 from ..accelerator import get_accelerator, resolve_device
 from .config import DeepSpeedTPUConfig, ResolvedBatchConfig
 from .config_utils import ConfigError
+from .loss_scaler import (LossScaleState, grads_finite, init_loss_scale,
+                          scale_loss, unscale_grads, update_loss_scale)
 from .lr_schedules import create_scheduler
 from .optimizers import (clip_by_global_norm, create_optimizer,
-                         default_weight_decay_mask, global_norm, leaves)
+                         default_weight_decay_mask, global_norm, leaf_paths,
+                         leaves)
 
 logger = logging.getLogger(__name__)
 
@@ -124,6 +139,7 @@ class TrainingEngine:
         self.params = _map(model.params, lambda p: p.detach().to(
             self.device, copy=True).requires_grad_(True))
         self._leaves: List[torch.Tensor] = leaves(self.params)
+        self._paths: List[str] = leaf_paths(self.params)
         # keep the spec without the caller's tensors, so that a caller who
         # drops them frees their memory (an 8B model's 4.5 GB on the card)
         self.model = dataclasses.replace(model, params=None)
@@ -137,8 +153,22 @@ class TrainingEngine:
                                           wd_mask)
         self.optimizer.init(self._leaves)
         self.step_count = 0
-        self.skipped_steps = 0
         self.global_steps = 0
+        self.fp16_enabled = config.fp16.enabled is True
+        fp = config.fp16
+        if self.fp16_enabled:
+            self.loss_scale: LossScaleState = init_loss_scale(
+                fp.initial_scale_power, fp.hysteresis, fp.loss_scale,
+                device=self.device)
+            # the count of applied updates and of skipped steps stay on the
+            # device: an overflow is decided there, without a host sync
+            self.optimizer.count_on_device(self.device)
+            self.skipped_steps: Any = torch.zeros((), dtype=torch.int32,
+                                                  device=self.device)
+        else:
+            self.loss_scale = init_loss_scale(static_scale=1.0,
+                                              device=self.device)
+            self.skipped_steps = 0
         logger.info("engine ready: zero_stage=0 device=%s batch=%d micro=%d "
                     "gas=%d", self.device, self.train_batch_size,
                     self.train_micro_batch_size_per_device,
@@ -189,11 +219,15 @@ class TrainingEngine:
         placed = batch.placed
         gas = self.batch_config.gradient_accumulation_steps
         rng = self._step_rng()
+        fp16 = self.fp16_enabled
+        ls = self.loss_scale
         grads: Optional[List[torch.Tensor]] = None
         msum: Dict[str, torch.Tensor] = {}
         for i in range(gas):
             mb = {k: v[i] for k, v in placed.items()}
             loss, metrics = self.model.loss_fn(self.params, mb, rng)
+            if fp16:
+                loss = scale_loss(loss, ls)
             g = torch.autograd.grad(loss, self._leaves, allow_unused=True)
             g = [torch.zeros_like(p, dtype=torch.float32) if gi is None
                  else gi.float() for gi, p in zip(g, self._leaves)]
@@ -210,27 +244,56 @@ class TrainingEngine:
                 for g in grads:
                     g.div_(float(gas))
             metrics = {k: m / gas for k, m in msum.items()}
+            finite = None
+            if fp16:
+                grads = unscale_grads(grads, ls)
+                finite = grads_finite(grads)
             grad_norm = global_norm(grads)
             clip = self.config.gradient_clipping
             if clip and clip > 0:
                 clip_by_global_norm(grads, grad_norm, clip)
-            lr = self.lr_schedule(self.step_count - self.skipped_steps)
-            self.optimizer.step(self._leaves, grads)
+            # lr(step - skipped): the optimizer's count is that difference
+            lr = self.optimizer.lr(self.optimizer.count)
+            self.optimizer.step(self._leaves, grads, finite=finite)
+            if fp16:
+                fp = self.config.fp16
+                self.loss_scale = update_loss_scale(
+                    ls, finite, loss_scale_window=fp.loss_scale_window,
+                    min_scale=fp.min_loss_scale, hysteresis=fp.hysteresis,
+                    dynamic=fp.dynamic_loss_scale)
+                self.skipped_steps = self.skipped_steps + (~finite).to(
+                    torch.int32)
         del grads
         self.step_count += 1
         self.global_steps += 1
         dev = self.device
         metrics["grad_norm"] = grad_norm
-        metrics["loss_scale"] = torch.ones((), device=dev)
-        metrics["lr"] = torch.full((), float(lr), device=dev)
-        metrics["overflow"] = torch.zeros((), device=dev)
+        metrics["loss_scale"] = ls.scale
+        metrics["lr"] = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+        metrics["overflow"] = (~finite).float() if fp16 else \
+            torch.zeros((), device=dev)
         out = LazyMetrics(metrics)
+        if self.config.sanity_checks:
+            self._run_sanity_checks(out)
         every = self.config.steps_per_print
         if every and self.global_steps % every == 0:
             logger.info("step=%d loss=%.4f lr=%.2e grad_norm=%.3f",
                         self.global_steps, out["loss"], out["lr"],
                         out["grad_norm"])
         return out
+
+    def _run_sanity_checks(self, out: LazyMetrics) -> None:
+        """``sanity_checks`` (reference ``_run_sanity_checks``): a
+        non-finite loss or grad norm raises, unless the step overflowed
+        (the dynamic loss scale skipped it).  One device holds no replicas
+        to compare."""
+        if float(out.get("overflow", 0.0)) == 0.0:
+            for key in ("loss", "grad_norm"):
+                if key in out and not np.isfinite(float(out[key])):
+                    raise RuntimeError(
+                        f"sanity_checks: non-finite {key}="
+                        f"{float(out[key])} at step {self.global_steps} — "
+                        "data or numerics corruption upstream of the update")
 
     def eval_batch(self, batch: Any) -> Dict[str, float]:
         """The loss function's metrics over the whole batch, no update."""
@@ -258,24 +321,84 @@ class TrainingEngine:
         return self.batch_config.gradient_accumulation_steps
 
     def get_lr(self) -> float:
-        return float(self.lr_schedule(self.step_count - self.skipped_steps))
+        return float(self.lr_schedule(self.step_count
+                                      - int(self.skipped_steps)))
 
     def get_global_step(self) -> int:
         return self.step_count
 
     def get_loss_scale(self) -> float:
-        return 1.0
+        return float(self.loss_scale.scale)
 
     # -- checkpointing ---------------------------------------------------
 
+    def _opt_prefix(self) -> str:
+        # the reference's optimizer is optax.chain([clip,] base): the base
+        # optimizer's state sits under index 1 when clipping is on
+        clip = self.config.gradient_clipping
+        return "1/" if clip and clip > 0 else "0/"
+
+    def optimizer_state_flat(self) -> Dict[str, torch.Tensor]:
+        """The optimizer state under the reference's paths (the engine's
+        ``optax.chain`` index first)."""
+        pre = self._opt_prefix()
+        return {pre + k: v for k, v in self.optimizer.state_flat(
+            self._paths, self.device).items()}
+
+    @torch.no_grad()
+    def load_state_from(self, flat_params: Dict[str, torch.Tensor],
+                        flat_opt: Optional[Dict[str, torch.Tensor]],
+                        meta: Dict[str, Any], where: str = "") -> None:
+        """Restore from a checkpoint's flat trees and engine meta: each
+        parameter in place (in the engine's dtype), the optimizer state
+        (``flat_opt``; None keeps the engine's), the step counts and the
+        loss scale.  The step's generator derives from the restored step
+        (the reference's ``rng`` key is not used)."""
+        for path, p in zip(self._paths, self._leaves):
+            if path not in flat_params:
+                raise KeyError(f"checkpoint missing tensor {path!r}")
+            src = flat_params[path]
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{path}: checkpoint shape "
+                                 f"{tuple(src.shape)} != {tuple(p.shape)}")
+            p.copy_(src.to(p.device, p.dtype))
+        if flat_opt is not None:
+            pre = self._opt_prefix()
+            flat = {k[len(pre):]: v for k, v in flat_opt.items()
+                    if k.startswith(pre)}
+            try:
+                self.optimizer.load_state_flat(flat, self._paths)
+            except KeyError as e:
+                raise ValueError(
+                    f"optimizer state in {where} does not match the "
+                    f"engine's optimizer structure ({e}); if the optimizer "
+                    "config changed, pass load_optimizer_states=False") from e
+        dev = self.device
+        self.step_count = self.global_steps = int(meta["step"])
+        skipped = int(meta.get("skipped_steps", 0))
+        self.skipped_steps = torch.tensor(skipped, dtype=torch.int32,
+                                          device=dev) \
+            if self.fp16_enabled else skipped
+        self.loss_scale = LossScaleState(
+            scale=torch.tensor(float(meta["loss_scale"]),
+                               dtype=torch.float32, device=dev),
+            good_steps=torch.tensor(int(meta["loss_scale_good_steps"]),
+                                    dtype=torch.int32, device=dev),
+            hysteresis=torch.tensor(int(meta["loss_scale_hysteresis"]),
+                                    dtype=torch.int32, device=dev))
+
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[Dict] = None) -> str:
-        raise NotImplementedError(
-            "checkpoints arrive with the rest of the training engine "
-            "(ROADMAP.md A12)")
+        from .checkpoint.engine import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state or {})
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
-                        **kwargs) -> Any:
-        raise NotImplementedError(
-            "checkpoints arrive with the rest of the training engine "
-            "(ROADMAP.md A12)")
+                        load_optimizer_states: bool = True,
+                        fallback: Optional[bool] = None,
+                        ) -> Tuple[Optional[str], Dict]:
+        from .checkpoint.engine import load_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag,
+                     load_optimizer_states=load_optimizer_states,
+                     fallback=fallback)

@@ -565,17 +565,18 @@ def main(argv: Optional[list] = None) -> int:
     broker.start()
 
     if args.connect:
-        rc = _run_connect(args, broker)
-        if rc == EXIT_FENCED:
-            # a fenced zombie: its streams already failed over, so it
-            # leaves at once — interpreter teardown could otherwise race
-            # an engine thread still in device work and abort the exit
-            sys.stdout.flush()
-            sys.stderr.flush()
-            os._exit(rc)
-        return rc
+        return _run_connect(args, broker)
     return _run_listen(args, broker)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # Leave at once, whatever the exit: a fenced zombie's streams have
+    # failed over, and a stopped worker has drained, sent its last
+    # heartbeat and closed its socket.  Interpreter teardown could
+    # otherwise race a thread still in torch (the heartbeat, the reader,
+    # an engine thread past its stop window) and abort the exit with
+    # SIGABRT, which the launcher reads as a crash.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -47,7 +47,9 @@ def host_array(x: Any) -> Tuple[np.ndarray, str]:
         if t.dtype == torch.bfloat16:
             t = t.view(torch.uint16)
         return t.numpy(), st
-    arr = np.ascontiguousarray(x)
+    arr = np.asarray(x)
+    if not arr.flags["C_CONTIGUOUS"]:  # (ascontiguousarray makes 0-d 1-d)
+        arr = np.ascontiguousarray(arr)
     st = ST_DTYPES.get(str(arr.dtype))
     if st is None:
         raise TypeError(f"dtype {arr.dtype} not representable in "

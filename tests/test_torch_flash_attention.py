@@ -151,11 +151,14 @@ def test_checkpoint_recompute_gives_the_same_gradients():
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take():
-    q = torch.zeros((1, 8, 4, 64), dtype=torch.float16)
-    kv = torch.zeros((1, 8, 2, 64), dtype=torch.float16)
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.float64)
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.float64)
     mask = tfa.AttnMask()
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
         tfa._check(q, kv, kv, mask)
+    assert tfa._check(q.half(), kv.half(), kv.half(), mask)[-2] == 64
+    with pytest.raises(TypeError, match="f16 forward takes no bias"):
+        tfa._check_bias(q.half(), torch.zeros((1, 8)), None, 1, 8, 8, 4)
     q, kv = q.float(), kv.float()
     with pytest.raises(ValueError, match="head dim"):
         tfa._check(q[..., :48], kv[..., :48], kv[..., :48], mask)

@@ -260,19 +260,23 @@ def _flash_inputs(seed, B, S, H, KV, D, dtype, device, mask, Skv=None):
     return q, k, v, do, am
 
 
-def _close(got, want, dtype, what):
+def _close(got, want, dtype, what, scale=None):
     """f32: summation order only, 1e-4 of the tensor's largest magnitude
     (dq/dk/dv sum over up to S * H/KV rows); bf16: one output ulp (2**-7
-    of an element's size) on top of that."""
+    of an element's size) on top of that; f16: two output ulps (2e-3 of an
+    element's size) and one ulp under f16's normal range (2**-24)."""
     want = want.float()
-    scale = max(want.abs().max().item(), 1.0)
-    rtol = 0.0 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want, atol=1e-4 * scale,
-                               rtol=rtol, msg=what)
+    if scale is None:
+        scale = max(want.abs().max().item(), 1.0)
+    rtol = {torch.float32: 0.0, torch.bfloat16: 1e-2,
+            torch.float16: 2e-3}[dtype]
+    atol = 1e-4 * scale + (2.0 ** -24 if dtype == torch.float16 else 0.0)
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol,
+                               msg=what)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(cuda_device, dtype, D, case):
@@ -370,10 +374,13 @@ def test_flash_attention_takes_strided_inputs(cuda_device, dtype, layout):
 
 
 def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
-    q, k, v, do, am = _flash_inputs(1, 1, 64, 4, 2, 64, torch.float16,
+    q, k, v, do, am = _flash_inputs(1, 1, 64, 4, 2, 64, torch.float64,
                                     cuda_device, {})
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
         tfa.flash_fwd(q, k, v, am, 0.125)
+    with pytest.raises(TypeError, match="f16 forward takes no bias"):
+        tfa.flash_fwd(q.half(), k.half(), v.half(), am, 0.125,
+                      bias_kv=torch.zeros((1, 64), device=cuda_device))
     q, k, v = q.float(), k.float(), v.float()
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
@@ -1240,3 +1247,184 @@ def test_fleet_phase_small(cuda_device):
     assert out["disagg"]["handoff_tokens"] == 192
     assert out["rollout"]["streams"] == chip_smoke.ROLLOUT_STREAMS
     assert out["bench"]["gemm_launches"]["mixed_gemm_int8"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the training engine (fp16, remat policies, checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def _f16_close(got, want, what):
+    """Two f16 ulps of each finite element (``_close``); inf where the
+    plain version is inf, or the largest finite f16 of its sign (f32 values
+    either side of 65520 round one ulp apart, to 65504 and to inf)."""
+    one = got.isinf() ^ want.isinf()
+    finite_side = torch.where(got.isinf(), want, got)[one]
+    assert (finite_side.abs() == 65504).all(), what
+    both = torch.isfinite(got) & torch.isfinite(want)
+    _close(got[both], want[both], torch.float16, what,
+           scale=want[both].abs().max().item())
+
+
+@pytest.mark.parametrize("ds_scale,v_scale", [(2.0 ** 13, 16.0),
+                                              (2.0 ** -20, 1.0)],
+                         ids=["ds_past_65504", "ds_under_6e-5"])
+def test_flash_f16_out_of_range_ds_matches_plain(cuda_device, ds_scale,
+                                                 v_scale):
+    """dO (and V) scaled so that dS passes f16's largest value or falls
+    under its smallest normal one: the f16 kernels' per-row power-of-two
+    scaling keeps dK, dV and dQ within two f16 ulps of the plain versions
+    (f32 dS), and their inf where a plain gradient overflows."""
+    q, k, v, do, am = _flash_inputs(5, 2, 300, 8, 2, 128, torch.float16,
+                                    cuda_device, {"causal": True})
+    do = (do.float() * ds_scale).half()
+    v = (v.float() * v_scale).half()
+    scale = 128 ** -0.5
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, am, scale)
+    delta = tfa.attention_delta(do, o_p)
+    ds = tfa._recompute(q, k, v, do, lse_p, delta, am, scale)[3].abs()
+    if ds_scale > 1:
+        assert ds.max() > 65504
+    else:
+        assert ds.max() < 6.1e-5
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, lse_p, delta, am, scale)
+    dk_p, dv_p = tfa.flash_bwd_dkdv_plain(q, k, v, do, lse_p, delta, am,
+                                          scale)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse_p, delta, am, scale)
+    dq_p = tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, am, scale)
+    for got, want, what in ((dk, dk_p, "dk"), (dv, dv_p, "dv"),
+                            (dq, dq_p, "dq")):
+        _f16_close(got, want, what)
+
+
+def test_flash_f16_overflow_stays_inf(cuda_device):
+    """A dO of 60000 over a V scaled by 64: the gradients overflow, and the
+    kernels' read inf where the plain versions' do (one f16 ulp from
+    65504 either way) and never NaN; their finite elements are sums of
+    terms near 1e7 that cancel, held to the inf pattern only."""
+    q, k, v, _, am = _flash_inputs(6, 1, 128, 2, 2, 64, torch.float16,
+                                   cuda_device, {"causal": True})
+    do = torch.full_like(q, 60000.0)
+    v = (v.float() * 64).half()
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, am, 0.125)
+    delta = tfa.attention_delta(do, o_p)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, lse_p, delta, am, 0.125)
+    dk_p, dv_p = tfa.flash_bwd_dkdv_plain(q, k, v, do, lse_p, delta, am,
+                                          0.125)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse_p, delta, am, 0.125)
+    dq_p = tfa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, am, 0.125)
+    for got, want, what in ((dk, dk_p, "dk"), (dv, dv_p, "dv"),
+                            (dq, dq_p, "dq")):
+        assert want.isinf().any() and not got.isnan().any()
+        one = got.isinf() ^ want.isinf()
+        assert (torch.where(got.isinf(), want, got)[one].abs()
+                == 65504).all(), what
+
+
+def _small_engine(device, config, seed=0, **cfg_over):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, attn_impl="flash",
+                        **cfg_over)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu", dtype=tt.param_dtype(cfg))
+    eng = deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tt.loss_fn(p, b, cfg),
+                        params=params),
+        config=dict({"train_micro_batch_size_per_gpu": 4,
+                     "steps_per_print": 10_000}, **config),
+        device=device)[0]
+    return eng, cfg
+
+
+def test_fp16_engine_skips_overflow_bit_for_bit(cuda_device):
+    """fp16 on the card (f16 flash kernels, f32 master weights): a scale
+    of 2**40 overflows, the step leaves parameters and moments bit for bit
+    and halves the scale, with no host sync in the step; then the scale
+    comes down far enough for updates."""
+    eng, cfg = _small_engine(cuda_device, {
+        "fp16": {"enabled": True, "initial_scale_power": 40,
+                 "hysteresis": 1}}, dtype="float16", param_dtype="float32")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64))
+    flags = []
+    tfa.reset_counts()
+    for _ in range(40):
+        before = [t.clone() for t in eng._leaves + eng.optimizer.mu
+                  + eng.optimizer.nu]
+        m = eng.train_batch({"input_ids": ids.astype(np.int32)})
+        flags.append(m["overflow"])
+        if m["overflow"]:
+            after = eng._leaves + eng.optimizer.mu + eng.optimizer.nu
+            assert all(torch.equal(a, b) for a, b in zip(after, before))
+        elif sum(1 for f in flags if not f) >= 2:
+            break
+    assert flags[0] == 1.0 and flags[-1] == 0.0
+    assert int(eng.skipped_steps) == int(sum(flags))
+    assert eng.get_loss_scale() == 2.0 ** (40 - sum(flags))
+    assert tfa.PLAIN_CALLS == {"flash_fwd_plain": 0,
+                               "flash_bwd_dkdv_plain": 0,
+                               "flash_bwd_dq_plain": 0}
+    assert tfa.LAUNCHES["flash_bwd_dq"] == cfg.num_layers * len(flags)
+
+
+@pytest.mark.parametrize("policy", ["everything", "nothing_saveable",
+                                    "dots_saveable",
+                                    "dots_with_no_batch_dims_saveable",
+                                    "save_attn", "save_attn_mlp"])
+def test_remat_policy_launch_counts_on_gpu(cuda_device, policy):
+    """B1 runs 2 L times a step under every policy but ``everything`` (L),
+    B2 and B3 L times; the loss and gradients equal ``nothing_saveable``'s
+    bit for bit (deterministic kernels)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.runtime.optimizers import leaves
+
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, attn_impl="flash",
+                        dtype="bfloat16", param_dtype="bfloat16")
+    params = tt.init_params(cfg, torch.Generator(cuda_device).manual_seed(
+        1), device=cuda_device, dtype=torch.bfloat16)
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 128))).to(cuda_device)
+    out = []
+    for pol in ("nothing_saveable", policy):
+        tfa.reset_counts()
+        loss = tt.loss_fn(params, {"input_ids": ids},
+                          dataclasses.replace(cfg, remat_policy=pol))[0]
+        out.append((loss.detach(), torch.autograd.grad(loss, flat),
+                    dict(tfa.LAUNCHES)))
+    L = cfg.num_layers
+    assert out[1][2] == {"flash_fwd": L if policy == "everything" else 2 * L,
+                         "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_train_checkpoint_round_trip_on_gpu(cuda_device, tmp_path):
+    """Save on the card, load into a fresh engine: parameters and optimizer
+    state bit for bit, and the next steps' losses equal."""
+    eng, cfg = _small_engine(cuda_device, {"optimizer": {
+        "type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.01}}},
+        dtype="bfloat16", param_dtype="bfloat16")
+    rng = np.random.default_rng(2)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (4, 64)).astype(
+        np.int32)} for _ in range(4)]
+    for b in batches[:2]:
+        eng.train_batch(b)
+    eng.save_checkpoint(str(tmp_path))
+    fresh, _ = _small_engine(cuda_device, {"optimizer": {
+        "type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.01}}},
+        seed=9, dtype="bfloat16", param_dtype="bfloat16")
+    fresh.load_checkpoint(str(tmp_path))
+    for a, b in zip(eng._leaves + list(eng.optimizer_state_flat().values()),
+                    fresh._leaves + list(
+                        fresh.optimizer_state_flat().values())):
+        assert torch.equal(a, b)
+    for b in batches[2:]:
+        assert eng.train_batch(b)["loss"] == fresh.train_batch(b)["loss"]

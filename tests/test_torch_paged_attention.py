@@ -212,6 +212,7 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert [s.name for s in build.SOURCES] == ["paged_attention.cu",
                                                "flash_attention.cu",
                                                "flash_attention_bias.cu",
+                                               "flash_attention_f16.cu",
                                                "mixed_gemm.cu",
                                                "grouped_matmul.cu",
                                                "fused_adam.cu"]
@@ -239,10 +240,12 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_source_names_what_it_replaces():
-    paged, flash, flash_bias, mixed, grouped, adam = (
+    paged, flash, flash_bias, flash_f16, mixed, grouped, adam = (
         s.read_text() for s in build.SOURCES)
     assert '#include "flash_attention.cu"' in flash_bias
     assert "DS_FLASH_BIAS_UNIT 1" in flash_bias
+    assert '#include "flash_attention.cu"' in flash_f16
+    assert "DS_FLASH_F16_UNIT 1" in flash_f16
     assert "_decode_kernel" in paged and "_prefill_kernel" in paged
     assert 'extern "C" int ds_paged_decode' in paged
     assert 'extern "C" int ds_paged_prefill' in paged

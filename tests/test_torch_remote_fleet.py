@@ -141,6 +141,13 @@ def _fencing_story(pkg):
     counters at the end."""
     reg, slot, metrics = _registry(pkg, fleet_token="sekrit")
     out = []
+
+    def adopted(n):
+        # the slot takes the new epoch before it counts the registration
+        # (``RemoteReplica.attach``), so an epoch seen here does not yet
+        # mean the counter moved: wait for the n-th accepted hello to be
+        # counted before the counters are read
+        return metrics.fleet["registrations"] >= n
     try:
         for over in ({"op": "nonsense"}, {"magic": "http/1.1"},
                      {"version": 99}, {"name": "nobody"}, {"token": None},
@@ -152,8 +159,8 @@ def _fencing_story(pkg):
             s.close()
         sa, rfa, reply = _hello(reg.address, epoch=5, token="sekrit")
         out.append(reply)
-        wait_until(lambda: slot.healthy() and slot.epoch == 5,
-                   msg="first registration")
+        wait_until(lambda: slot.healthy() and slot.epoch == 5
+                   and adopted(1), msg="first registration")
         for epoch in (5, 4):  # duplicate while live, then stale
             s, _, reply = _hello(reg.address, epoch=epoch, token="sekrit")
             out.append(reply)
@@ -161,7 +168,8 @@ def _fencing_story(pkg):
         sb, _, reply = _hello(reg.address, epoch=6, token="sekrit",
                               **{"class": "decode"})
         out.append(reply)
-        wait_until(lambda: slot.epoch == 6, msg="the newer epoch fences")
+        wait_until(lambda: slot.epoch == 6 and adopted(2),
+                   msg="the newer epoch fences")
         sa.settimeout(5.0)
         assert rfa.read(1) == b""  # the fenced connection is closed
         sa.close()
@@ -171,7 +179,8 @@ def _fencing_story(pkg):
         sc, _, reply = _hello(reg.address, epoch=None, prev_epoch=6,
                               token="sekrit")
         out.append(reply)
-        wait_until(lambda: slot.epoch == 7, msg="reconnect bumps the epoch")
+        wait_until(lambda: slot.epoch == 7 and adopted(3),
+                   msg="reconnect bumps the epoch")
         s, _, reply = _hello(reg.address, epoch=None, prev_epoch=5,
                              token="sekrit")
         out.append(reply)

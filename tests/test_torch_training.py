@@ -180,8 +180,8 @@ def _unflat(flat):
 def test_model_refusals():
     _, tcfg, _, tparams = _model("xla")
     batch = {k: torch.from_numpy(v) for k, v in _batch(3).items()}
-    for policy in ("dots_saveable", "save_attn"):
-        with pytest.raises(NotImplementedError, match="A12"):
+    for policy in ("dots", "save_everything"):  # not the reference's names
+        with pytest.raises(ValueError, match="unknown remat policy"):
             tt.loss_fn(tparams, batch,
                        dataclasses.replace(tcfg, remat_policy=policy))
     for impl in ("ulysses", "ring"):
@@ -340,8 +340,9 @@ def test_three_engine_steps_match_reference(gas):
     ev_j, ev_t = jeng.eval_batch(_batch(20, B=8)), teng.eval_batch(
         _batch(20, B=8))
     np.testing.assert_allclose(ev_t["loss"], ev_j["loss"], rtol=STEP_RTOL)
-    with pytest.raises(NotImplementedError, match="A12"):
-        teng.save_checkpoint("/nonexistent")
+    with pytest.raises(FileNotFoundError, match="checkpoint dir"):
+        teng.load_checkpoint("/nonexistent", tag="global_step3",
+                             fallback=False)
 
 
 def test_lazy_metrics_and_batch_checks():
@@ -396,20 +397,35 @@ def test_config_matches_reference_contract():
     assert set(jconfig.DeepSpeedTPUConfig.model_fields) == {
         f.name for f in dataclasses.fields(tconfig.DeepSpeedTPUConfig)}
     # unported sections load, and refuse to run
-    for cfg, item in [({"fp16": {"enabled": True}}, "A12"),
+    for cfg, item in [({"checkpoint": {"engine": "orbax"}}, "A13"),
+                      ({"checkpoint": {"load_universal": True}}, "A14"),
+                      ({"activation_checkpointing": {
+                          "cpu_checkpointing": True}}, "A14"),
+                      ({"activation_checkpointing": {
+                          "partition_activations": True}}, "A13"),
                       ({"zero_optimization": {"stage": 1}}, "A13"),
                       ({"zero_optimization": {"offload_optimizer": {
                           "device": "cpu"}}}, "A14"),
                       ({"zero_optimization": {"overlap_comm": True}}, "A13"),
                       ({"pipeline": {"stages": 2}}, "A13"),
                       ({"peft": {"lora": {"enabled": True}}}, "A14"),
-                      ({"gradient_compression": {"enabled": True}}, "A13"),
-                      ({"checkpoint": {"async_save": True}}, "A12")]:
+                      ({"gradient_compression": {"enabled": True}}, "A13")]:
         c = tconfig.load_config(cfg)
         with pytest.raises(NotImplementedError, match=item):
             c.check_supported()
-    with pytest.raises(NotImplementedError, match="A12"):
-        topt.create_optimizer(tconfig.OptimizerConfig(type="lamb"), 1e-3)
+    # the training engine's sections run (A12)
+    for cfg in ({"fp16": {"enabled": True}}, {"sanity_checks": True},
+                {"checkpoint": {"async_save": True, "engine": "fast"}},
+                {"remat": {"policy": "save_attn"}},
+                {"activation_checkpointing": {"policy": "dots"}},
+                {"data_types": {"master_dtype": "bfloat16"}}):
+        tconfig.load_config(cfg).check_supported()
+    for cfg in ({"remat": {"policy": "save_nothing"}},
+                {"checkpoint": {"integrity": "md5"}}):
+        with pytest.raises(ConfigError):
+            tconfig.load_config(cfg).check_supported()
+    for name in topt.OPTIMIZERS:
+        topt.create_optimizer(tconfig.OptimizerConfig(type=name), 1e-3)
     with pytest.raises(ConfigError, match="unknown optimizer"):
         topt.create_optimizer(tconfig.OptimizerConfig(type="adamx"), 1e-3)
     c = tconfig.load_config({"fp16": {"enabled": True}})
