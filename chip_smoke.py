@@ -167,8 +167,25 @@ In order it prints:
    ``serving/bench.py`` (the mixed-GEMM sweep at llama3-8b's projections
    against dequantize-then-matmul, an offered-load sweep against a server
    subprocess); lone requests everywhere against a lone engine;
-15. a JSON line with every kernel's numbers;
-16. last, ``{"ok": true, "device": {...}}``.
+15. fp16 serving: each f16 kernel against its plain version within the f16
+   limit (B7 bit for bit) and timed against its fp16 library call and
+   bound at the bf16 rows' shapes (B5 with its split-KV edges, B4 also on
+   pools of block size 16 and 128, B6 at the four projection shapes, M =
+   1, 8, 16, 256 (split-K at wq/wo, wk/wv and w_out) and 4096, B7 at M = 8
+   and 256, B8 at both expert shapes, T = 16 and 512, B1 with f16 biases
+   at OpenFold's three calls, B9 with f16 parameters at ADAM_N); then
+   ``V2Config(dtype="float16")`` at llama3-8b full width and depth on the
+   engine phase's traffic, plain and W8A16 (exact B4 / B5 / B6 launches,
+   B4 per mixed step and B5 per decode body, no plain call, first-token
+   logits against an f32 engine on the same seeded f16 weights), W4A16
+   and W6A16, W8A8 with f16 output on one quantized layer, the v1 engine
+   in fp16 W8A16 (exact B6 launches, first-token logits against v2),
+   dropless Mixtral-8x7B at MOE_LAYERS layers (exact B8 launches), small
+   f16 models card against CPU and ``fused_adamw_flat`` on f16
+   parameters; the phase's seconds;
+16. a JSON line with every kernel's numbers (the f16 rows with
+   ``"dtype": "float16"`` and their launches on the fp16 paths);
+17. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -419,50 +436,63 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_inputs(torch, S: int, gen, bs: int = BS, d: int = D):
-    """A bf16 K and V pool of block size ``bs`` and head dim ``d`` holding
-    NB * BS positions, and S disjoint block chains of MB * BS positions
-    each."""
+def paged_inputs(torch, S: int, gen, bs: int = BS, d: int = D, dtype=None):
+    """A K and V pool (bf16, or ``dtype``) of block size ``bs`` and head dim
+    ``d`` holding NB * BS positions, and S disjoint block chains of MB * BS
+    positions each."""
+    dtype = dtype or torch.bfloat16
     nb, mb = NB * BS // bs, MB * BS // bs
     kc = torch.randn((nb, bs, KV, d), generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
+                     dtype=dtype)
     vc = torch.randn((nb, bs, KV, d), generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
+                     dtype=dtype)
     perm = torch.randperm(nb - 1, generator=gen, device="cuda")
     bt = perm[: S * mb].reshape(S, mb).to(torch.int32).contiguous()
     return kc, vc, bt
 
 
-def check_decode(torch, pa, flush, d: int = D) -> dict:
+def half_check(torch, dtype):
+    """The kernel-against-plain check of a 2-byte dtype: bf16 within
+    TOL_BF16, f16 within the F16 limit (``compare_f16``)."""
+    if dtype == torch.float16:
+        return lambda out, ref, what: compare_f16(out, ref, f"{what} (f16)")
+    return lambda out, ref, what: compare(out, ref, TOL_BF16, what)
+
+
+def check_decode(torch, pa, flush, d: int = D, dtype=None) -> dict:
+    """B5 in bf16 (and f32), or in ``dtype`` (f16) alone."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.bfloat16
+    cmp = half_check(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     S = len(DECODE_CTX)
-    kc, vc, bt = paged_inputs(torch, S, gen, d=d)
-    q = torch.randn((S, H, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
+    kc, vc, bt = paged_inputs(torch, S, gen, d=d, dtype=dtype)
+    q = torch.randn((S, H, d), generator=gen, device="cuda", dtype=dtype)
     ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device="cuda")
     out = pa.paged_decode_attention(q, kc, vc, bt, ctx)
     ref = pa.decode_attention_plain(q, kc, vc, bt, ctx)
     torch.cuda.synchronize()
-    err = compare(out, ref, TOL_BF16, "decode kernel")
+    err = cmp(out, ref, "decode kernel")
     if out[0].abs().max().item() != 0.0:
         fail("decode kernel: the ctx=0 row is not zero")
+    bf16 = dtype == torch.bfloat16
     err_f32 = check_f32(torch, pa.paged_decode_attention,
                         pa.decode_attention_plain, (q, kc, vc, bt, ctx),
-                        "decode kernel")
+                        "decode kernel") if bf16 else None
     # the split-KV edges: contexts at, one below and one past a split's
-    # end, a partial last split and the whole chain, in bf16 and f32
+    # end, a partial last split and the whole chain, in bf16 and f32 (f16)
     split = pa.decode_split(MB * BS)
     edges = torch.tensor([0, 1, split - 1, split, split + 1, 1000,
                           MB * BS - 1, MB * BS], dtype=torch.int32,
                          device="cuda")
-    err_edges = compare(pa.paged_decode_attention(q, kc, vc, bt, edges),
-                        pa.decode_attention_plain(q, kc, vc, bt, edges),
-                        TOL_BF16, "decode kernel at split edges")
-    err_edges = max(err_edges, check_f32(
-        torch, pa.paged_decode_attention, pa.decode_attention_plain,
-        (q, kc, vc, bt, edges), "decode kernel at split edges"))
+    err_edges = cmp(pa.paged_decode_attention(q, kc, vc, bt, edges),
+                    pa.decode_attention_plain(q, kc, vc, bt, edges),
+                    "decode kernel at split edges")
+    if bf16:
+        err_edges = max(err_edges, check_f32(
+            torch, pa.paged_decode_attention, pa.decode_attention_plain,
+            (q, kc, vc, bt, edges), "decode kernel at split edges"))
     # a decode call waits on nothing (its splits follow from the shapes)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -499,7 +529,10 @@ def check_decode(torch, pa, flush, d: int = D) -> dict:
     flops = 4 * n_pos * H * d
     b_ms, b_by = bound(nbytes, flops)
     return {
-        "name": "paged_decode_attention", "D": d, "max_abs_err": err,
+        "name": "paged_decode_attention", "D": d,
+        **({} if bf16 else {"dtype": "float16",
+                            "kernel": "paged_decode_kernel<__half>"}),
+        "max_abs_err": err,
         "max_abs_err_f32": err_f32, "split": split,
         "max_abs_err_split_edges": err_edges,
         "ms": time_ms(lambda: pa.paged_decode_attention(q, kc, vc, bt, ctx),
@@ -535,33 +568,37 @@ def sdpa_on_gathered(torch, q, kc, vc, bt, cs, cl):
         qs, kg, vg, attn_mask=mask, enable_gqa=True)
 
 
-def check_prefill(torch, pa, flush, d: int = D) -> dict:
+def check_prefill(torch, pa, flush, d: int = D, dtype=None) -> dict:
+    """B4 in bf16 (and f32), or in ``dtype`` (f16) alone."""
+    dtype = dtype or torch.bfloat16
+    cmp = half_check(torch, dtype)
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     S = len(PREFILL_START)
-    kc, vc, bt = paged_inputs(torch, S, gen, d=d)
+    kc, vc, bt = paged_inputs(torch, S, gen, d=d, dtype=dtype)
     q = torch.randn((S, PREFILL_QP, H, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
+                    dtype=dtype)
     cs = torch.tensor(PREFILL_START, dtype=torch.int32, device="cuda")
     cl = torch.tensor(PREFILL_LEN, dtype=torch.int32, device="cuda")
     out = pa.paged_prefill_attention(q, kc, vc, bt, cs, cl)
     ref = pa.prefill_attention_plain(q, kc, vc, bt, cs, cl)
     torch.cuda.synchronize()
-    err = compare(out, ref, TOL_BF16, "prefill kernel")
+    err = cmp(out, ref, "prefill kernel")
     for s, n in enumerate(PREFILL_LEN):
         if n < PREFILL_QP and out[s, n:].abs().max().item() != 0.0:
             fail(f"prefill kernel: padding rows of sequence {s} not zero")
     err_f32 = check_f32(torch, pa.paged_prefill_attention,
                         pa.prefill_attention_plain, (q, kc, vc, bt, cs, cl),
-                        "prefill kernel")
-    # the bf16 kernel gathers its 64-key tiles through the block table:
-    # pools of smaller and larger blocks, the same queries and chunks
+                        "prefill kernel") if bf16 else None
+    # the tensor-core kernel gathers its 64-key tiles through the block
+    # table: pools of smaller and larger blocks, the same queries and chunks
     err_blocks = {}
     for bs in PREFILL_BLOCKS:
-        kb, vb, btb = paged_inputs(torch, S, gen, bs, d)
+        kb, vb, btb = paged_inputs(torch, S, gen, bs, d, dtype)
         out_b = pa.paged_prefill_attention(q, kb, vb, btb, cs, cl)
-        err_blocks[bs] = compare(
+        err_blocks[bs] = cmp(
             out_b, pa.prefill_attention_plain(q, kb, vb, btb, cs, cl),
-            TOL_BF16, f"prefill kernel, block size {bs}")
+            f"prefill kernel, block size {bs}")
         for s, n in enumerate(PREFILL_LEN):
             if n < PREFILL_QP and out_b[s, n:].abs().max().item() != 0.0:
                 fail(f"prefill kernel, block size {bs}: padding rows of "
@@ -584,7 +621,10 @@ def check_prefill(torch, pa, flush, d: int = D) -> dict:
     flops = 4 * pairs * H * d
     b_ms, b_by = bound(nbytes, flops)
     return {
-        "name": "paged_prefill_attention", "D": d, "max_abs_err": err,
+        "name": "paged_prefill_attention", "D": d,
+        **({} if bf16 else {"dtype": "float16",
+                            "kernel": "paged_prefill_tc_kernel<__half>"}),
+        "max_abs_err": err,
         "max_abs_err_f32": err_f32, "max_abs_err_block_sizes": err_blocks,
         "ms": time_ms(lambda: pa.paged_prefill_attention(
             q, kc, vc, bt, cs, cl), torch, flush),
@@ -617,6 +657,11 @@ def serve(torch, eng, prompts, trace=None) -> dict:
     t1 = time.perf_counter()
     emitted = sum(len(s.tokens) for s in eng.running.values()) \
         - sum(len(p) for p in prompts)
+    # every decode body advances each running request by one token, so the
+    # decode phase runs as many bodies as the most tokens one still needs
+    prompt_of = dict(zip(uids, prompts))
+    needed = max((NEW_TOKENS - len(s.tokens) + len(prompt_of[u])
+                  for u, s in eng.running.items()), default=0)
     with phase() as prof_decode:
         results = eng.generate_all(burst=8)
         torch.cuda.synchronize()
@@ -624,7 +669,8 @@ def serve(torch, eng, prompts, trace=None) -> dict:
     return {"uids": uids, "results": results, "mixed_steps": steps,
             "probes_finite": probes, "first_logits": first,
             "prefill_s": t1 - t0,
-            "prefill_emitted": emitted, "decode_s": t2 - t1,
+            "prefill_emitted": emitted, "decode_bodies_needed": needed,
+            "decode_s": t2 - t1,
             "profiles": (prof_prefill, prof_decode)}
 
 
@@ -946,11 +992,11 @@ def check_flash(torch, fa, flush) -> list:
     return rows
 
 
-def f16_excess(out, ref) -> tuple:
+def f16_excess(out, ref, rel: float = F16_REL) -> tuple:
     """``(max |out - ref|, how far the worst element lies past the f16
-    limit)`` (F16_ABS, F16_REL, F16_RTOL).  inf must meet inf, or the
-    largest finite f16 of its sign: f32 values either side of 65520 round
-    to inf and to 65504, one f16 ulp apart."""
+    limit)`` (F16_ABS, ``rel`` (F16_REL) of the largest element, F16_RTOL).
+    inf must meet inf, or the largest finite f16 of its sign: f32 values
+    either side of 65520 round to inf and to 65504, one f16 ulp apart."""
     ref, out = ref.float(), out.float()
     if not same_infs(out, ref) or bool(ref.isnan().any()):
         return math.inf, math.inf
@@ -960,7 +1006,7 @@ def f16_excess(out, ref) -> tuple:
         return 0.0, -math.inf
     r, o = ref[fin], out[fin]
     diff = (o - r).abs()
-    limit = F16_ABS + F16_REL * r.abs().max() + F16_RTOL * r.abs()
+    limit = F16_ABS + rel * r.abs().max() + F16_RTOL * r.abs()
     return diff.max().item(), (diff - limit).max().item()
 
 
@@ -981,11 +1027,11 @@ def torch_where_inf(a, b):
     return fin, a.where(a.isinf(), b)
 
 
-def compare_f16(out, ref, what: str) -> float:
-    err, over = f16_excess(out, ref)
+def compare_f16(out, ref, what: str, rel: float = F16_REL) -> float:
+    err, over = f16_excess(out, ref, rel)
     if not math.isfinite(err) or over > 0:
         fail(f"{what} disagrees with its plain version: max abs err {err}, "
-             f"past |k - p| <= {F16_ABS} + {F16_REL} max|p| + {F16_RTOL} "
+             f"past |k - p| <= {F16_ABS} + {rel} max|p| + {F16_RTOL} "
              f"|p| by {over}")
     return err
 
@@ -1899,15 +1945,22 @@ GEMM_KERNELS = {"mixed_gemm_int8": 8, "mixed_gemm_int4": 4,
                 "mixed_gemm_fp6": 6, "int8_gemm": 8}
 
 
-def check_mixed_gemm(torch, mg, flush) -> list:
+def check_mixed_gemm(torch, mg, flush, dtype=None) -> list:
     """B6 (bits 8, 4, 6) and B7 against their plain versions at llama3-8b's
-    projection shapes, M = 8 and 256 (B6 also at M = 1 and 16 and, for int8
-    B6, v1's prefill M = GEMM_V1_M), group 256: bf16 x per element within
-    TOL_BF16, f32 x within GEMM_F32_REL of the largest output; each B6
-    call at M <= 16 on ``mixed_gemm_decode_kernel``; kernel / plain /
-    library / bound ms of the bf16 call.  The library call is one bf16
-    ``torch.matmul`` of x by the dequantized bf16 weight (the
-    dequantization excluded): the stock path the kernel replaces."""
+    four projection shapes, M = 8 and 256 (B6 also at M = 1 and 16 and,
+    for int8 B6, v1's prefill M = GEMM_V1_M), group 256: bf16 x per
+    element within TOL_BF16, f32 x within GEMM_F32_REL of the largest
+    output; with ``dtype`` f16, f16 x alone: B6 within the f16 limit with
+    GEMM_F32_REL of the largest output for the f32 sums' order (both sides
+    round x to bf16: the same exact products), B7 bit for bit; each B6
+    call at M <= 16 on ``mixed_gemm_decode_kernel``, and above 16 rows its
+    split count (``splits``); kernel / plain / library / bound ms of the
+    2-byte call.  The library call is one ``torch.matmul`` of x by the
+    dequantized weight in x's dtype (the dequantization excluded): the
+    stock path the kernel replaces."""
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
     for shape_name, (K, N) in GEMM_SHAPES.items():
@@ -1916,7 +1969,7 @@ def check_mixed_gemm(torch, mg, flush) -> list:
             qw = mg.quantize_gemm_weight(w, bits=bits, group=QUANT_GROUP)
             if not mg.mixed_gemm_on_kernel_path(qw):
                 fail(f"{name} {shape_name}: off the reference's kernel path")
-            w_lib = mg.dequantize_gemm_weight(qw).to(torch.bfloat16)
+            w_lib = mg.dequantize_gemm_weight(qw).to(dtype)
             code_bytes = qw.codes.numel() + qw.scales.numel() * 4
             if name == "int8_gemm":
                 ms = GEMM_MS
@@ -1925,9 +1978,9 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                     (GEMM_V1_M,) if name == "mixed_gemm_int8" else ())
             for M in ms:
                 x = torch.randn((M, K), generator=gen, device="cuda",
-                                dtype=torch.bfloat16)
-                errs = {}
-                for xd in (x, x.float()):
+                                dtype=dtype)
+                errs = {"f32": None}
+                for xd in ((x, x.float()) if bf16 else (x,)):
                     if name == "int8_gemm":
                         xc, xs = mg.quantize_activations_rowwise(
                             xd, QUANT_GROUP)
@@ -1946,8 +1999,16 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                     torch.cuda.synchronize()
                     what = f"{name} {shape_name} M={M}"
                     if xd.dtype == torch.bfloat16:
-                        errs["bf16"] = compare(out, ref, TOL_BF16,
+                        errs["half"] = compare(out, ref, TOL_BF16,
                                                f"{what} (bf16)")
+                    elif xd.dtype == torch.float16 and name == "int8_gemm":
+                        if not torch.equal(out, ref):
+                            fail(f"{what} (f16): not bit for bit the plain "
+                                 "version")
+                        errs["half"] = 0.0
+                    elif xd.dtype == torch.float16:
+                        errs["half"] = compare_f16(out, ref, f"{what} (f16)",
+                                                   rel=GEMM_F32_REL)
                     else:
                         errs["f32"] = compare_grad(out, ref, True,
                                                    f"{what} (f32)",
@@ -1987,10 +2048,18 @@ def check_mixed_gemm(torch, mg, flush) -> list:
                     peak = BF16_FLOPS_PER_S
                 b_ms, b_by = bound(code_bytes + in_bytes + M * N * 2,
                                    2 * M * K * N, peak)
+                if not bf16:
+                    cuda_kernel += "<__half>"
+                    if cuda_kernel.startswith("mixed_gemm_wgmma"):
+                        cuda_kernel = "round_x_bf16_kernel + " + cuda_kernel
                 rows.append({
                     "name": name, "shape": shape_name, "K": K, "N": N,
                     "M": M, **({"kernel": cuda_kernel} if cuda_kernel else {}),
-                    "max_abs_err": errs["bf16"],
+                    **({"splits": mg.mixed_gemm_splits(
+                        M, N, K // QUANT_GROUP, sms)}
+                       if name != "int8_gemm" and M > 16 else {}),
+                    **({} if bf16 else {"dtype": "float16"}),
+                    "max_abs_err": errs["half"],
                     "max_abs_err_f32": errs["f32"],
                     "ms": time_ms(kernel, torch, flush),
                     "plain_ms": time_ms(plain, torch, flush, iters=5,
@@ -2003,11 +2072,12 @@ def check_mixed_gemm(torch, mg, flush) -> list:
     return rows
 
 
-def int8_gemm_path(torch, mg, params) -> dict:
+def int8_gemm_path(torch, mg, params, dtype=None) -> dict:
     """``int8_gemm`` as a caller uses it: the seven projections of layer 0
-    of a bits=8 quantized llama3-8b, each at M = 8 and 256, bf16 x.  The
-    output must be finite and int8-grade against x @ dequant(W): mean
-    relative error below 5% (the reference's own check)."""
+    of a bits=8 quantized llama3-8b, each at M = 8 and 256, bf16 x (or
+    ``dtype``).  The output must be finite and int8-grade against x @
+    dequant(W): mean relative error below 5% (the reference's own
+    check)."""
     from deepspeed_tpu_torch.models import transformer as tfm
 
     layer = tfm.layer_params(params, 0)
@@ -2020,7 +2090,7 @@ def int8_gemm_path(torch, mg, params) -> dict:
             qw = layer[part][key]
             for M in GEMM_MS:
                 x = torch.randn((M, qw.k_features), generator=gen,
-                                device="cuda", dtype=torch.bfloat16)
+                                device="cuda", dtype=dtype or torch.bfloat16)
                 out = mg.int8_gemm(x, qw)
                 exact = x.float() @ mg.dequantize_gemm_weight(qw)
                 if not torch.isfinite(out).all().item():
@@ -2251,27 +2321,31 @@ def library_grouped_mm(torch, lhs, rhs, sizes):
     return "matmul loop over experts", loop
 
 
-def check_grouped_matmul(torch, gm, flush) -> list:
-    """B8 against its plain version at Mixtral's expert shapes, for T = 16
-    and 512 assignments: forward and on transposed weights (dlhs), bf16
-    per element within TOL_BF16, f32 within GMM_F32_REL of the largest
-    output; the all-padding tail must be zeros.  Kernel / plain / library /
-    bound ms of the bf16 forward.  Bound: the touched experts' weights, the
-    real lhs rows and the real output rows once, against 2 T K N flops."""
+def check_grouped_matmul(torch, gm, flush, dtype=None) -> list:
+    """B8 against its plain version at Mixtral's two expert shapes, for T =
+    16 and 512 assignments: forward and
+    on transposed weights (dlhs), bf16 per element within TOL_BF16, f32
+    within GMM_F32_REL of the largest output; with ``dtype`` f16, f16 alone
+    within the f16 limit with GMM_F32_REL of the largest output (exact f16
+    products, f32 sums in another order); the all-padding tail must be
+    zeros.  Kernel / plain / library / bound ms of the 2-byte forward.
+    Bound: the touched experts' weights, the real lhs rows and the real
+    output rows once, against 2 T K N flops."""
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows = []
     for shape_name, (K, N) in MOE_SHAPES.items():
         for T in MOE_T:
             lhs, rhs, tg, sizes, used, tile_m, pos, touched = grouped_inputs(
-                torch, gm, K, N, T, gen, torch.bfloat16)
+                torch, gm, K, N, T, gen, dtype)
             # dlhs's g: random rows where the forward's output is real
-            g = torch.zeros((lhs.shape[0], N), device="cuda",
-                            dtype=torch.bfloat16)
+            g = torch.zeros((lhs.shape[0], N), device="cuda", dtype=dtype)
             g[pos.long()] = torch.randn((T, N), generator=gen, device="cuda",
-                                        dtype=torch.bfloat16)
+                                        dtype=dtype)
             tail = int(used.item()) * tile_m
-            errs = {}
-            for f32 in (False, True):
+            errs = {("fwd", True): None, ("dlhs", True): None}
+            for f32 in ((False, True) if bf16 else (False,)):
                 a, w, gg = ((t.float() for t in (lhs, rhs, g)) if f32
                             else (lhs, rhs, g))
                 tag = f"grouped_matmul {shape_name} T={T}"
@@ -2294,12 +2368,13 @@ def check_grouped_matmul(torch, gm, flush) -> list:
                     fail(f"{tag}: {gm.WGMMA_LAUNCHES} wgmma launches, want "
                          f"{want}")
                 for part, (out, ref) in outs.items():
-                    what = f"{tag} {part} ({'f32' if f32 else 'bf16'})"
+                    what = f"{tag} {part} ({'f32' if f32 else a.dtype})"
                     if out[tail:].abs().max().item() != 0.0:
                         fail(f"{what}: the all-padding tiles are not zero")
                     errs[(part, f32)] = (
                         compare_grad(out, ref, True, what, rel=GMM_F32_REL)
-                        if f32 else compare(out, ref, TOL_BF16, what))
+                        if f32 else compare(out, ref, TOL_BF16, what) if bf16
+                        else compare_f16(out, ref, what, rel=GMM_F32_REL))
                 del a, w, gg, outs
             lib_name, library = library_grouped_mm(torch, lhs, rhs, sizes)
             nbytes = touched * K * N * 2 + T * K * 2 + T * N * 2
@@ -2309,7 +2384,9 @@ def check_grouped_matmul(torch, gm, flush) -> list:
                 "N": N, "T": T, "tile_m": tile_m, "M_pad": lhs.shape[0],
                 "kernel": ("grouped_matmul_wgmma_kernel" if gm.uses_wgmma(
                     lhs.dtype, tile_m, False)
-                    else "grouped_matmul_bf16_kernel"),
+                    else "grouped_matmul_bf16_kernel")
+                + ("" if bf16 else "<__half>"),
+                **({} if bf16 else {"dtype": "float16"}),
                 "used_tiles": int(used.item()), "experts_touched": touched,
                 "max_abs_err": errs[("fwd", False)],
                 "max_abs_err_f32": errs[("fwd", True)],
@@ -2495,35 +2572,44 @@ def small_moe_cfg(tfm, routing: str, **kw):
                           moe_routing=routing, **kw)
 
 
-def check_fused_adam(torch, fo, flush) -> dict:
-    """B9 against its plain version on ADAM_N f32 parameters, two steps
-    with weight decay, each side from its own outputs: p, m and v within
-    ADAM_REL of each tensor's largest element.  Kernel / plain / library
+def check_fused_adam(torch, fo, flush, dtype=None) -> dict:
+    """B9 against its plain version on ADAM_N f32 parameters (``dtype``:
+    f16 parameters and gradients), two steps with weight decay, each side
+    from its own outputs: p, m and v within ADAM_REL of each tensor's
+    largest element (f16 p within the f16 limit: an f32 p' an ulp apart
+    may round to the other f16 neighbour).  Kernel / plain / library
     (``torch.optim.AdamW(fused=True)`` on the same flat tensor: decay
     folded as p (1 - lr wd) and eps outside sqrt(v)/sqrt(bc2), the same
-    update algebraically, not bit for bit) / bound ms of one step: 28 bytes
-    per element (read p, g, m, v; write p, m, v) at 3.35 TB/s."""
+    update algebraically, not bit for bit; its moments in p's dtype) /
+    bound ms of one step: 28 bytes per element with f32 p and g, 22 with
+    f16 (read p, g, m, v; write p, m, v) at 3.35 TB/s."""
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     n = ADAM_N
-    p = torch.randn(n, generator=gen, device="cuda")
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
     m = torch.zeros(n, device="cuda")
     v = torch.zeros(n, device="cuda")
     k_state = p_state = (p, m, v)
     for step in (1, 2):
-        g = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda").to(dtype)
         st = torch.tensor(step, dtype=torch.int32, device="cuda")
         k_state = fo.fused_adamw_flat(*k_state[:1], g, *k_state[1:], st,
                                       **ADAM_HYPER)
         p_state = fo.adamw_plain(*p_state[:1], g, *p_state[1:], st,
                                  **ADAM_HYPER)
     torch.cuda.synchronize()
-    errs = [compare_grad(a, b, True, f"fused_adamw {name}", rel=ADAM_REL)
+    errs = [compare_f16(a, b, f"fused_adamw {name} (f16)", rel=ADAM_REL)
+            if a.dtype == torch.float16 else
+            compare_grad(a, b, True, f"fused_adamw {name}", rel=ADAM_REL)
             for name, a, b in zip("pmv", k_state, p_state)]
     del p_state
     pk, mk, vk = k_state
     st = torch.tensor(3, dtype=torch.int32, device="cuda")
+    f32 = dtype == torch.float32
     out = {"name": "fused_adamw", "n": n, "max_abs_err": max(errs),
-           "max_abs_err_f32": max(errs),
+           "max_abs_err_f32": max(errs) if f32 else None,
+           **({} if f32 else {"dtype": "float16",
+                              "kernel": "fused_adamw_kernel<__half, __half>"}),
            "ms": time_ms(lambda: fo.fused_adamw_flat(
                pk, g, mk, vk, st, **ADAM_HYPER), torch, flush),
            "plain_ms": time_ms(lambda: fo.adamw_plain(
@@ -2537,7 +2623,8 @@ def check_fused_adam(torch, fo, flush) -> dict:
                             weight_decay=ADAM_HYPER["weight_decay"],
                             fused=True)
     out["library_ms"] = time_ms(opt.step, torch, flush)
-    out["bound_ms"], out["bound_by"] = bound(28 * n, 18 * n, F32_FLOPS_PER_S)
+    per = 28 if f32 else 22
+    out["bound_ms"], out["bound_by"] = bound(per * n, 18 * n, F32_FLOPS_PER_S)
     del param, opt, k_state, pk, mk, vk, g, p, m, v
     torch.cuda.empty_cache()
     return out
@@ -3900,14 +3987,14 @@ def v2_first_logits(torch, cfg, params, prompts, v2) -> "torch.Tensor":
 def v1_quantized_counts(counts: dict, cfg, what: str) -> dict:
     """The mixed GEMM's launches over one quantized ``generate``: every
     projection of every layer once per forward (one prefill at M = B * T on
-    ``mixed_gemm_wgmma_kernel`` when bf16, NEW_TOKENS - 1 decodes at M = B
-    on ``mixed_gemm_decode_kernel``), no plain or envelope call."""
+    ``mixed_gemm_wgmma_kernel`` when bf16 or f16, NEW_TOKENS - 1 decodes at
+    M = B on ``mixed_gemm_decode_kernel``), no plain or envelope call."""
     launches = counts["mixed_gemm.LAUNCHES"]["mixed_gemm_int8"]
     wgmma = counts["mixed_gemm.WGMMA_LAUNCHES"]["mixed_gemm_int8"]
     decode = counts["mixed_gemm.DECODE_LAUNCHES"]["mixed_gemm_int8"]
     want = PROJECTIONS * cfg.num_layers * NEW_TOKENS
-    want_wgmma = PROJECTIONS * cfg.num_layers if cfg.dtype == "bfloat16" \
-        else 0
+    want_wgmma = PROJECTIONS * cfg.num_layers \
+        if cfg.dtype in ("bfloat16", "float16") else 0
     want_decode = PROJECTIONS * cfg.num_layers * (NEW_TOKENS - 1)
     if launches != want or wgmma != want_wgmma or decode != want_decode:
         fail(f"{what}: {launches} mixed_gemm launches ({wgmma} on wgmma, "
@@ -5478,6 +5565,509 @@ def run_fleet_phase(torch, pa, mg, card: str, argv=SERVE_ARGV,
     return out
 
 
+# ---------------------------------------------------------------------------
+# fp16 serving: B4, B5, B6, B7, B8 in f16, and B1's biases and B9 in f16
+# ---------------------------------------------------------------------------
+
+# An fp16 engine's first-token logits against an f32 engine's on the same
+# seeded f16 weights (the f32 engine reads them exactly), and a small f16
+# model's card against CPU: max |a - b| over max |b| per request.  Stated
+# before the phase's first chip run: the bf16 gate (5e-2) holds two bf16
+# engines whose activations both round at 2**-8; here one side rounds at
+# 2**-11 and the other not at all, so the expected difference is ~8x
+# smaller (~0.3%), and 2e-2 leaves a 5x margin while a lost block, head or
+# layer still moves logits by their own size.  W8A16: both engines round
+# every projection's x to bf16 (the reference's numerics), so an f16
+# difference upstream flips bf16 roundings: the bf16 gate.
+TOL_LOGITS_F16_REL = 2e-2
+TOL_LOGITS_F16_QUANT_REL = 5e-2
+# OpenFold's mask value in low precision (openfold/config.py, low_prec:
+# inf = 1e4): -1e9 is -inf in f16
+EVO_F16_MASK = -1e4
+
+
+def check_evoformer_f16(torch, fa, ev, flush) -> dict:
+    """B1's f16 forward with its biases at OpenFold's three attention calls
+    (f16 q, k, v and biases; the mask bias at EVO_F16_MASK):
+    ``evoformer_attention`` forward and backward on the card (one biased
+    launch per call, no plain call, finite output and gradients); per call
+    the kernel's o against ``flash_fwd_plain`` within the f16 limit (the
+    padded sequence's within the f32 spacing of its scores: see below) and
+    its lse within 1e-4 + 1e-5 |lse| (f32 on both sides; the padded
+    sequence's lse lies near -1e4, where the f32 spacing is 1e-3); kernel /
+    plain / library (fp16 SDPA with b1 + b2 as its mask) / bound ms."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    inputs = {}
+    for name, (shape, h1, h2) in EVO_CALLS.items():
+        q, k, v, g, b1, b2 = evoformer_inputs(
+            torch, shape, h1, h2, gen, EVO_PADDED if name == "msa_row"
+            else None)
+        half = [None if t is None else t.float().clamp(min=EVO_F16_MASK)
+                .half() for t in (q, k, v, g, b1, b2)]
+        inputs[name] = half
+        del q, k, v, g, b1, b2
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    for name, (q, k, v, g, b1, b2) in inputs.items():  # the main path
+        leaves = [t.requires_grad_() for t in (q, k, v, b1, b2)
+                  if t is not None]
+        out = ev.evoformer_attention(q, k, v, [b1, b2])
+        grads = torch.autograd.grad(out, leaves, g)
+        if not all(bool(torch.isfinite(t).all()) for t in (out, *grads)):
+            fail(f"evoformer {name} (f16): output or gradients not finite")
+        for t in leaves:
+            t.requires_grad_(False)
+    torch.cuda.synchronize()
+    launches, bias_launches = dict(fa.LAUNCHES), dict(fa.BIAS_LAUNCHES)
+    want = len(EVO_CALLS)
+    if bias_launches["flash_fwd_bias"] != want or \
+            launches != {"flash_fwd": want, "flash_bwd_dkdv": 0,
+                         "flash_bwd_dq": 0} or any(fa.PLAIN_CALLS.values()):
+        fail(f"evoformer (f16): launches {launches}, bias {bias_launches}, "
+             f"plain {fa.PLAIN_CALLS}; want {want} biased forwards only")
+    calls = {}
+    for name, (q, k, v, g, b1, b2) in inputs.items():
+        shape = EVO_CALLS[name][0]
+        B, N, L, Hh, Dh = shape
+        qf, kf, vf, mask, scale, bkv, bqk = ev.flash_args(q, k, v, b1, b2)
+        o, lse = fa.flash_fwd(qf, kf, vf, mask, scale, bkv, bqk)
+        o_p, lse_p = fa.flash_fwd_plain(qf, kf, vf, mask, scale, bkv, bqk)
+        torch.cuda.synchronize()
+        err = compare(lse, lse_p, (1e-4, 1e-5), f"evoformer {name} lse (f16)")
+        if name == "msa_row":
+            # the padded sequence: every score sits near EVO_F16_MASK,
+            # where f32's spacing is 2**-10 on both sides, so each p
+            # carries a relative error up to |EVO_F16_MASK| 2**-24 and o
+            # may move by twice that times max |v| (the others: f16 limit)
+            o5, o5_p = o.reshape(shape), o_p.reshape(shape)
+            keep = [n for n in range(N) if n != EVO_PADDED]
+            pad_atol = 2 * -EVO_F16_MASK * 2.0 ** -24 * \
+                v[:, EVO_PADDED].float().abs().max().item()
+            err = max(err, compare_f16(o5[:, keep], o5_p[:, keep],
+                                       f"evoformer {name} o (f16)"),
+                      compare(o5[:, EVO_PADDED], o5_p[:, EVO_PADDED],
+                              (pad_atol, F16_RTOL),
+                              f"evoformer {name} padded sequence o (f16)"))
+            del o5, o5_p
+        else:
+            err = max(err, compare_f16(o, o_p, f"evoformer {name} o (f16)"))
+        del o, lse, o_p, lse_p
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+        am = None
+        if b1 is not None:
+            am = b1.reshape(B * N, 1, 1, L)
+        if b2 is not None:
+            pair = b2.reshape(B, 1, Hh, L, L).expand(B, N, Hh, L, L) \
+                .reshape(B * N, Hh, L, L)
+            am = pair if am is None else am + pair
+        nbytes = (4 * q.numel() * 2 + (0 if bkv is None else bkv.numel() * 2)
+                  + (0 if bqk is None else bqk.numel() * 2)
+                  + B * N * Hh * L * 4)
+        b_ms, b_by = bound(nbytes, 4 * Dh * L * L * Hh * B * N)
+        calls[name] = {
+            "name": "flash_fwd_bias", "dtype": "float16",
+            "kernel": "flash_fwd_tc_kernel<__half, D, B1, B2>",
+            "shape": list(shape), "bias1": b1 is not None,
+            "bias2": b2 is not None, "max_abs_err": err,
+            "max_abs_err_f32": None,
+            "ms": time_ms(lambda: fa.flash_fwd(qf, kf, vf, mask, scale, bkv,
+                                               bqk), torch, flush),
+            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                qf, kf, vf, mask, scale, bkv, bqk), torch, flush, iters=5,
+                warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=am), torch, flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del qs, ks, vs, am
+    del inputs
+    return {"calls": calls, "launches": bias_launches["flash_fwd_bias"]}
+
+
+def f16_serve(torch, pa, mg, gm, cfg, params, v2, prompts, what) -> dict:
+    """One engine of the fp16 phase: ``serve`` on ``prompts``, then the
+    gates: NEW_TOKENS in-vocab tokens per request, finite mixed-step
+    logits, B4 launched once per layer and mixed step and B5 a positive
+    multiple of the layers, no plain call; quantized, B6 exactly 7 x the
+    paged launches (``mixed_gemm_wgmma_kernel`` 7 x prefill,
+    ``mixed_gemm_decode_kernel`` 7 x decode) and no envelope call; dropless
+    MoE, B8 exactly 3 x the paged launches (``grouped_matmul_wgmma_kernel``
+    3 x prefill).  B4 and B5 are held to the steps the engine ran: B4 to
+    the layers times the ``engine/step`` spans of kind mixed, B5 to the
+    layers times the decode bodies, counted here around the engine's
+    decode body and equal to the most tokens a request still needed when
+    the prefill phase ended.  Counts are reset just before the requests
+    are queued and read just after the last token."""
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.observability import tracer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngineV2(cfg, params, v2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bodies = [0]
+    decode_body = eng._decode
+
+    def counted_decode(*args, **kwargs):
+        bodies[0] += 1
+        return decode_body(*args, **kwargs)
+
+    eng._decode = counted_decode
+    for mod in (pa, mg, gm):
+        mod.reset_counts()
+    tracer.clear()
+    run = serve(torch, eng, prompts)
+    mixed = [sp.attrs["kind"] for sp in
+             tracer.spans(name="engine/step")].count("mixed")
+    paged = dict(pa.LAUNCHES)
+    gemm = {"mixed": dict(mg.LAUNCHES), "mixed_wgmma": dict(mg.WGMMA_LAUNCHES),
+            "mixed_decode": dict(mg.DECODE_LAUNCHES),
+            "grouped": dict(gm.LAUNCHES),
+            "grouped_wgmma": dict(gm.WGMMA_LAUNCHES)}
+    plain = {**pa.PLAIN_CALLS, **mg.PLAIN_CALLS, **gm.PLAIN_CALLS,
+             **{f"dequant_{k}": n for k, n in mg.DEQUANT_CALLS.items()}}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    for uid, prompt in zip(run["uids"], prompts):
+        toks = run["results"][uid]
+        new = toks[len(prompt):]
+        if toks[:len(prompt)] != prompt or len(new) != NEW_TOKENS or not \
+                all(0 <= t < cfg.vocab_size for t in new):
+            fail(f"{what}: request {uid}: {len(new)} new tokens, want "
+                 f"{NEW_TOKENS} in the vocab")
+    if not run["probes_finite"] or not all(run["probes_finite"]):
+        fail(f"{what}: a mixed step's logits were not finite")
+    if any(plain.values()):
+        fail(f"{what}: a plain version ran: {plain}")
+    L = cfg.num_layers
+    pre, dec = paged["paged_prefill_attention"], \
+        paged["paged_decode_attention"]
+    if pre != L * mixed or mixed != run["mixed_steps"] or \
+            dec != L * bodies[0] or bodies[0] != run["decode_bodies_needed"] \
+            or not bodies[0]:
+        fail(f"{what}: {pre} prefill launches for {mixed} mixed steps "
+             f"({run['mixed_steps']} in the prefill phase) and {dec} decode "
+             f"launches for {bodies[0]} decode bodies "
+             f"({run['decode_bodies_needed']} needed) of {L} layers")
+    launches = dict(paged)
+    if v2.quantize_bits:
+        name = mg._KERNEL_NAMES[v2.quantize_bits]
+        got = (gemm["mixed"][name], gemm["mixed_wgmma"][name],
+               gemm["mixed_decode"][name])
+        if got != (PROJECTIONS * (pre + dec), PROJECTIONS * pre,
+                   PROJECTIONS * dec):
+            fail(f"{what}: {name} launches (all, wgmma, decode) {got} for "
+                 f"{pre} prefill and {dec} decode launches, want "
+                 f"{PROJECTIONS} each")
+        launches.update({name: got[0], f"{name}_wgmma": got[1],
+                         f"{name}_decode": got[2]})
+    if getattr(cfg, "num_experts", 0):
+        got = (gemm["grouped"]["grouped_matmul"],
+               gemm["grouped_wgmma"]["grouped_matmul"])
+        if got != (3 * (pre + dec), 3 * pre):
+            fail(f"{what}: grouped_matmul launches (all, wgmma) {got} for "
+                 f"{pre} prefill and {dec} decode launches, want 3 each")
+        launches.update({"grouped_matmul": got[0],
+                         "grouped_matmul_wgmma": got[1]})
+    prompt_tokens = sum(len(p) for p in prompts)
+    decode_tokens = len(prompts) * NEW_TOKENS - run["prefill_emitted"]
+    return {"build_s": build_s, "mixed_steps": run["mixed_steps"],
+            "decode_bodies": bodies[0], "prefill_s": run["prefill_s"],
+            "prefill_tokens_per_s": prompt_tokens / run["prefill_s"],
+            "decode_s": run["decode_s"],
+            "decode_tokens_per_s": decode_tokens / run["decode_s"],
+            "peak_mem_gb": peak, "launches": launches,
+            "tokens": [run["results"][u][len(p):]
+                       for u, p in zip(run["uids"], prompts)]}
+
+
+def f16_against_f32(torch, cfg, params, v2, prompts, tol: float,
+                    what: str) -> dict:
+    """First-token logits of ``prompts`` (served together) on an fp16 engine
+    and then, the first one freed, on an f32 engine from the same weights:
+    each request's max |fp16 - f32| over its max |f32 logit| within
+    ``tol``; the requests whose first greedy tokens agree are counted."""
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+
+    rows = {}
+    for dt in ("float16", "float32"):
+        eng = InferenceEngineV2(cfg, params, dataclasses.replace(v2, dtype=dt))
+        rows[dt] = [r.float() for r in first_token_logits(torch, eng,
+                                                           prompts)]
+        del eng
+        free_cache(torch)
+    rel = [logits_rel(a, b) for a, b in zip(rows["float16"], rows["float32"])]
+    if not all(bool(torch.isfinite(r).all()) for r in rows["float16"]) or \
+            not max(rel) <= tol:
+        fail(f"{what}: fp16 first-token logits differ from the f32 "
+             f"engine's by {max(rel)} of max |logit| (limit {tol})")
+    same = sum(int(a.argmax() == b.argmax())
+               for a, b in zip(rows["float16"], rows["float32"]))
+    return {"first_logits_rel_vs_f32": max(rel),
+            "first_logits_rel_vs_f32_by_request": rel,
+            "first_tokens_equal_f32": same, "requests": len(prompts)}
+
+
+def run_fp16_engines(torch, pa, mg, gm, card: str, cfg=None, moe_cfg=None,
+                     prompt_lens=PROMPT_LENS, v1_shape=(V1_BATCH, V1_PROMPT),
+                     v2=None) -> dict:
+    """fp16 serving through the normal entry points (defaults: llama3-8b at
+    full width and depth, dropless Mixtral-8x7B at full width and
+    MOE_LAYERS layers, the bf16 cell's V2Config and traffic; weights drawn
+    from the seed straight into f16): ``V2Config(dtype="float16")`` plain
+    and W8A16, each gated (``f16_serve``) and held against an f32 engine
+    on the same weights (``f16_against_f32``); the v1 engine in fp16 W8A16
+    (``init_inference``: exact B6 launches, first-token logits against an
+    fp16 W8A16 v2 engine's); then dropless Mixtral in fp16, gated."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import V2Config
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    cfg = cfg or tfm.get_config("llama3-8b", dtype="float16")
+    v2 = v2 or V2Config(max_tokens_per_step=256, max_seqs=8, block_size=BS,
+                        num_blocks=NB, max_blocks_per_seq=MB,
+                        dtype="float16")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in prompt_lens]
+    free_cache(torch)
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=torch.float16)
+    out = {"layers": cfg.num_layers, "card": card}
+    out["fp16"] = f16_serve(torch, pa, mg, gm, cfg, params, v2, prompts,
+                            "fp16 engine")
+    out["fp16"].update(f16_against_f32(torch, cfg, params, v2, prompts,
+                                       TOL_LOGITS_F16_REL, "fp16 engine"))
+    free_cache(torch)
+    q8 = dataclasses.replace(v2, quantize_bits=8)
+    out["fp16_w8a16"] = f16_serve(torch, pa, mg, gm, cfg, params, q8,
+                                  prompts, "fp16 W8A16 engine")
+    out["fp16_w8a16"].update(f16_against_f32(
+        torch, cfg, params, q8, prompts, TOL_LOGITS_F16_QUANT_REL,
+        "fp16 W8A16 engine"))
+    free_cache(torch)
+    for bits in (4, 6):
+        out[f"fp16_w{bits}a16"] = f16_serve(
+            torch, pa, mg, gm, cfg, params,
+            dataclasses.replace(v2, quantize_bits=bits), prompts,
+            f"fp16 W{bits}A16 engine")
+        free_cache(torch)
+    # W8A8's own entry on one quantized layer, f16 x (B7 with f16 output)
+    from deepspeed_tpu_torch.inference.quantization import quantize_on_host
+    qparams = quantize_on_host(params, 8, q8.quantize_group, "cuda")
+    out["int8_gemm_path_f16"] = int8_gemm_path(torch, mg, qparams,
+                                               torch.float16)
+    del qparams
+    free_cache(torch)
+
+    # the v1 engine, fp16 W8A16, against a v2 engine at the same
+    # quantization and dtype (v2 quantizes the same raw weights itself)
+    B, T = v1_shape
+    v1p = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T))
+    icfg = {"dtype": "float16", "max_seq_len": T + NEW_TOKENS,
+            "quantize_bits": 8}
+    v1, eng, toks, first, counts = v1_run(torch, cfg, params, icfg, v1p,
+                                          "v1 fp16 W8A16", kernels=[mg])
+    del eng
+    free_cache(torch)
+    ref = v2_first_logits(torch, cfg, params, v1p, q8)
+    rel = v1_against_v2(first, ref, "v1 fp16 W8A16")
+    agree = (toks[:, T] == ref.argmax(-1).cpu().numpy()).sum()
+    out["v1_fp16_w8a16"] = dict(
+        v1, launches=v1_quantized_counts(counts, cfg, "v1 fp16 W8A16"),
+        first_logits_rel_diff_vs_v2=rel, first_tokens_equal_v2=int(agree))
+    del params, ref
+    free_cache(torch)
+
+    mcfg = moe_cfg or tfm.get_config("mixtral-8x7b", moe_routing="dropless",
+                                     num_layers=MOE_LAYERS, dtype="float16")
+    mparams = tfm.init_params(mcfg, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda", dtype=torch.float16)
+    mrng = np.random.default_rng(SEED)
+    mprompts = [mrng.integers(0, mcfg.vocab_size, size=n).tolist()
+                for n in prompt_lens]
+    out["fp16_dropless_moe"] = dict(
+        f16_serve(torch, pa, mg, gm, mcfg, mparams, v2, mprompts,
+                  "fp16 dropless MoE engine"), layers=mcfg.num_layers,
+        param_gb=sum(t.numel() * t.element_size() for t in
+                     _leaves(mparams)) / 1e9)
+    del mparams
+    free_cache(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def fused_adam_f16_path(torch, fo, tfm) -> dict:
+    """``fused_adamw_flat`` as an f16 caller uses it: the small MoE model's
+    parameters as one flat f16 vector with f16 gradients and f32 moments,
+    3 steps on the card (one launch each) against the same steps on the CPU
+    (plain version): parameters within the f16 limit (ADAM_REL of the
+    largest), moments within ADAM_REL of their largest element."""
+    params = tfm.init_params(small_moe_cfg(tfm, "dropless"),
+                             torch.Generator().manual_seed(SEED),
+                             device="cpu", dtype=torch.float32)
+    flat = torch.cat([x.reshape(-1) for x in _leaves(params)]).half()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    grads = [torch.randn(flat.shape, generator=gen).half() for _ in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = (flat.to(dev), torch.zeros(flat.shape, device=dev),
+                 torch.zeros(flat.shape, device=dev))
+        fo.reset_counts()
+        for step, g in enumerate(grads, 1):
+            state = fo.fused_adamw_flat(state[0], g.to(dev), *state[1:],
+                                        step, **ADAM_HYPER)
+        out[dev] = ([t.cpu() for t in state], dict(fo.LAUNCHES),
+                    dict(fo.PLAIN_CALLS))
+    _, launches, plain = out["cuda"]
+    if launches != {"fused_adamw": len(grads)} or any(plain.values()):
+        fail(f"fused_adamw_flat (f16): {launches} {plain}, want one launch "
+             f"per call for {len(grads)} calls")
+    (pk, mk, vk), (pp, mp, vp) = out["cuda"][0], out["cpu"][0]
+    worst = max(compare_f16(pk, pp, "fused_adamw_flat p (f16)", rel=ADAM_REL),
+                compare_grad(mk, mp, True, "fused_adamw_flat m", rel=ADAM_REL),
+                compare_grad(vk, vp, True, "fused_adamw_flat v", rel=ADAM_REL))
+    return {"launches": launches["fused_adamw"], "calls": len(grads),
+            "elements": flat.numel(), "max_abs_diff": worst}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def small_f16_agreement(torch, pa, mg, gm) -> dict:
+    """Small f16 models (head dim 64, GQA; plain, W8A16 and dropless MoE)
+    served on the card and on the CPU from the same weights: the first
+    mixed step's logits within TOL_LOGITS_F16_REL of their largest
+    magnitude, the card run through every kernel of its path with no plain
+    call; the greedy tokens that follow are counted, not gated (one f16
+    rounding the other way can turn a near tie, ROADMAP C4)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import (InferenceEngineV2,
+                                                         V2Config)
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    small = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                 num_kv_heads=2, dtype="float16")
+    cases = {"plain": (tfm.get_config("tiny", **small), 0),
+             "w8a16": (tfm.get_config("tiny", **small), 8),
+             "dropless_moe": (tfm.get_config("tiny-moe",
+                                             moe_routing="dropless",
+                                             **small), 0)}
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, (cfg, bits) in cases.items():
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cpu", dtype=torch.float32)
+        v2 = V2Config(max_tokens_per_step=32, max_seqs=4, block_size=16,
+                      num_blocks=64, max_blocks_per_seq=8, dtype="float16",
+                      quantize_bits=bits)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                   for n in (5, 40, 17, 70)]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            eng = InferenceEngineV2(cfg, params, v2, device=dev)
+            uids = [eng.put(p, max_new_tokens=12) for p in prompts]
+            for mod in (pa, mg, gm):
+                mod.reset_counts()
+            eng.step()
+            first = eng.last_logits.float().cpu()
+            toks = eng.generate_all(burst=4)
+            res[dev] = (first, [toks[u] for u in uids])
+            if dev == "cuda":
+                ran = [pa.LAUNCHES] + ([mg.LAUNCHES] if bits else []) + (
+                    [gm.LAUNCHES] if name == "dropless_moe" else [])
+                plain = {**pa.PLAIN_CALLS, **mg.PLAIN_CALLS,
+                         **gm.PLAIN_CALLS}
+                if not all(any(c.values()) for c in ran) or \
+                        any(plain.values()):
+                    fail(f"small f16 {name}: the card run did not go "
+                         f"through its kernels: {ran} {plain}")
+        a, b = res["cuda"][0], res["cpu"][0]
+        rel = ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item()
+        if not (bool(torch.isfinite(a).all()) and rel <= TOL_LOGITS_F16_REL):
+            fail(f"small f16 {name}: card vs CPU first-step logits differ by "
+                 f"{rel} of max |logit| (limit {TOL_LOGITS_F16_REL})")
+        same = sum(x == y for x, y in zip(res["cuda"][1], res["cpu"][1]))
+        out[name] = {"first_logits_rel": rel, "requests": len(prompts),
+                     "requests_with_equal_tokens": same}
+    return out
+
+
+def run_fp16_phase(torch, pa, mg, gm, fa, ev, fo, tfm, card: str) -> dict:
+    """fp16 serving: each f16 kernel against its plain version and timed
+    (B4, B5, B6 and B7 and B8 at the bf16 checks' shapes, B1 with biases
+    at OpenFold's calls, B9 at ADAM_N), then the engines through them
+    (``run_fp16_engines``), small f16 models card vs CPU and B9's f16 path;
+    prints each result and the phase's seconds."""
+    t_f16 = time.perf_counter()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    f16 = torch.float16
+    out = {"paged": [check_decode(torch, pa, flush, dtype=f16),
+                     check_prefill(torch, pa, flush, dtype=f16)],
+           "mixed_gemm": check_mixed_gemm(torch, mg, flush, f16),
+           "grouped_matmul": check_grouped_matmul(torch, gm, flush, f16),
+           "fused_adamw": check_fused_adam(torch, fo, flush, f16),
+           "evoformer": check_evoformer_f16(torch, fa, ev, flush)}
+    del flush
+    free_cache(torch)
+    # a mixed step's rows at wq/wo, wk/wv and w_out take split-K, so the f16
+    # sum of the splits (splitk_reduce_kernel<__half>) is held above too
+    unsplit = {k["shape"] for k in out["mixed_gemm"]
+               if k["M"] == GEMM_MS[1] and k["name"] != "int8_gemm"
+               and k["splits"] <= 1}
+    if unsplit & {"wq/wo", "wk/wv", "w_out"}:
+        fail(f"mixed_gemm f16: no split-K at M = {GEMM_MS[1]} at {unsplit}")
+    for k in (out["paged"] + out["mixed_gemm"] + out["grouped_matmul"]
+              + [out["fused_adamw"]] + list(out["evoformer"]["calls"]
+                                            .values())):
+        where = "".join(f" {key}={k[key]}" for key in ("shape", "M", "T", "D")
+                        if key in k)
+        print(f"{k['name']} f16 ({k['kernel']}){where}: max_abs_err "
+              f"{k['max_abs_err']:.3e} (limit {F16_ABS} + {F16_REL} max|p| + "
+              f"{F16_RTOL} |p|; B6 and B8 {GEMM_F32_REL} / {GMM_F32_REL} "
+              f"max|p|, B7 bit for bit) kernel_ms {k['ms']:.4f} plain_ms "
+              f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} (fp16) "
+              f"bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    out["engines"] = run_fp16_engines(torch, pa, mg, gm, card)
+    print("fp16 engines: " + json.dumps(out["engines"]))
+    print(fp16_line(out["engines"]))
+    out["small"] = small_f16_agreement(torch, pa, mg, gm)
+    print("small f16 models card vs CPU: " + json.dumps(out["small"]))
+    out["fused_adamw_path"] = fused_adam_f16_path(torch, fo, tfm)
+    print("fused_adamw_flat f16 path: " + json.dumps(out["fused_adamw_path"]))
+    free_cache(torch)
+    out["seconds"] = time.perf_counter() - t_f16
+    print(f"fp16 phase ({card}): {out['seconds']:.1f} s")
+    return out
+
+
+def fp16_line(f16: dict) -> str:
+    def eng(e):
+        return (f"prefill {e['prefill_tokens_per_s']:.2f} / decode "
+                f"{e['decode_tokens_per_s']:.2f} tokens/s, peak "
+                f"{e['peak_mem_gb']:.2f} GB")
+    v1 = f16["v1_fp16_w8a16"]
+    return (f"fp16 serving ({f16['card']}, {f16['seconds']:.1f} s): "
+            f"llama3-8b x{f16['layers']} fp16 {eng(f16['fp16'])}, first "
+            f"logits {f16['fp16']['first_logits_rel_vs_f32']:.3e} of max vs "
+            f"f32 (limit {TOL_LOGITS_F16_REL}) | fp16 W8A16 "
+            f"{eng(f16['fp16_w8a16'])}, "
+            f"{f16['fp16_w8a16']['first_logits_rel_vs_f32']:.3e} vs f32 W8A16 "
+            f"(limit {TOL_LOGITS_F16_QUANT_REL}) | v1 fp16 W8A16 decode "
+            f"{v1['decode_tokens_per_s']:.2f} tokens/s, "
+            f"{v1['first_logits_rel_diff_vs_v2']:.3e} vs v2 | dropless "
+            f"Mixtral x{f16['fp16_dropless_moe']['layers']} fp16 "
+            f"{eng(f16['fp16_dropless_moe'])}")
+
+
 def fleet_line(fl: dict) -> str:
     """The fleet phase's numbers, on one line beside the card."""
     r, d, s, a = fl["remote"], fl["disagg"], fl["rollout"], fl["adapters"]
@@ -5595,7 +6185,9 @@ def main() -> None:
     print(f"build: {secs:.2f} s")
     kernel = ""
     for line in log.splitlines():
-        if "Compiling entry function" in line:
+        if line.startswith("== "):  # a source and its seconds
+            print(f"  nvcc {line[3:]}")
+        elif "Compiling entry function" in line:
             kernel = kernel_name(line)
         elif "registers" in line or "spill" in line:
             print(f"  ptxas: {kernel}: {line.strip()}")
@@ -5815,6 +6407,12 @@ def main() -> None:
     print("sparse attention: " + json.dumps(sparse))
     gc.collect()
     torch.cuda.empty_cache()
+
+    f16 = run_fp16_phase(torch, pa, mg, gm, fa, ev, fo, tfm, card)
+    paged16, gemm16, gmm16, adam16, evo16, fp16, small16, adam16_path = (
+        f16[k] for k in ("paged", "mixed_gemm", "grouped_matmul",
+                         "fused_adamw", "evoformer", "engines", "small",
+                         "fused_adamw_path"))
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
                      "fused_adamw": adam_tree["launches"],
                      "flash_fwd_bias": evo["launches"]})
@@ -5832,7 +6430,11 @@ def main() -> None:
               "fused_adamw": adam, "fused_adamw_tree": adam_tree,
               "evoformer": evo, "sparse_attention": sparse, "v1": v1,
               "small_v1": small_v1, "serving": serving,
-              "small_serving": small_serving, "fleet": fleet}
+              "small_serving": small_serving, "fleet": fleet,
+              "paged_f16": paged16, "mixed_gemm_f16": gemm16,
+              "grouped_matmul_f16": gmm16, "fused_adamw_f16": adam16,
+              "evoformer_f16": evo16, "fp16_engines": fp16,
+              "small_f16": small16, "fused_adamw_f16_path": adam16_path}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
@@ -5889,6 +6491,7 @@ def main() -> None:
                 gemm_launches[name, m] = by_m[m]
 
     def row(k):
+        half = k.get("dtype") == "float16"
         return {"name": k["name"], "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{sources[k['name']]}",
                 "replaces": replaces[k["name"]], "status": "ok",
@@ -5906,20 +6509,59 @@ def main() -> None:
                    if k["name"] in serving["inprocess"]["launches"]
                    and "launches" not in k else {}),
                 **({"launches_v1": v1_gemm[k["name"], k["M"]]}
-                   if (k["name"], k.get("M")) in v1_gemm else {}),
+                   if (k["name"], k.get("M")) in v1_gemm and not half
+                   else {}),
                 **({"launches_fleet": fleet_launches[k["name"]]}
                    if k["name"] in fleet_launches and "launches" not in k
                    else {"launches_fleet": fleet_launches[k["name"], k["M"]]}
-                   if (k["name"], k.get("M")) in fleet_launches else {}),
+                   if (k["name"], k.get("M")) in fleet_launches and not half
+                   else {}),
+                **{x: k[x] for x in ("launches_w8a16", "launches_moe")
+                   if x in k},
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
     evo_row = dict(evo["calls"][EVO_JSON], name="flash_fwd_bias")
+    # the f16 rows' launches: each from the fp16 path that runs it
+    e16 = fp16["fp16"]["launches"]
+    for k in paged16:
+        k["launches"] = e16[k["name"]]
+        k["launches_w8a16"] = fp16["fp16_w8a16"]["launches"][k["name"]]
+        k["launches_moe"] = fp16["fp16_dropless_moe"]["launches"][k["name"]]
+    rows16 = list(paged16)
+    for k in gemm16:
+        name, M = k["name"], k["M"]
+        if (k["shape"], M) not in GEMM_JSON:
+            continue
+        if name == "int8_gemm":
+            path = fp16["int8_gemm_path_f16"]
+            n = path["wgmma_launches"] if M > 16 else \
+                path["launches"] - path["wgmma_launches"]
+        elif M == GEMM_V1_M:
+            n = fp16["v1_fp16_w8a16"]["launches"]["mixed_gemm_wgmma"]
+        elif M in GEMM_MS:
+            eng16 = fp16[f"fp16_w{GEMM_KERNELS[name]}a16"]["launches"]
+            n = eng16[f"{name}_wgmma" if M > 16 else f"{name}_decode"]
+        else:  # M = 1 and 16: no fp16 path runs these rows
+            continue
+        rows16.append(dict(k, launches=n))
+    moe16 = fp16["fp16_dropless_moe"]["launches"]
+    for k in gmm16:
+        if (k["shape"], k["T"]) not in MOE_JSON:
+            continue
+        rows16.append(dict(k, launches=moe16["grouped_matmul_wgmma"]
+                           if k["T"] > 16 else moe16["grouped_matmul"]
+                           - moe16["grouped_matmul_wgmma"]))
+    rows16.append(dict(evo16["calls"][EVO_JSON], launches=evo16["launches"]))
+    rows16.append(dict(adam16, launches=adam16_path["launches"]))
+    for k in rows16:
+        if not k["launches"] > 0:
+            fail(f"{k['name']} f16: no launch on its fp16 path")
     line = {"kernels": [row(k) for k in
                         kernels + draft_kernels + flash + flash16 + [evo_row]
-                        + at_shape + [adam]]}
+                        + at_shape + [adam] + rows16]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

@@ -21,13 +21,16 @@
 //   flash_dq_kernel
 //
 // f16 runs the three tensor-core kernels at E = __half (m16n8k16 f16 ->
-// f32, the same schedule; built in flash_attention_f16.cu), unbiased.
+// f32, the same schedule; built in flash_attention_f16.cu); its forward
+// with biases (f16 or f32) is built in flash_attention_bias_f16.cu, beside
+// the bf16 one's in flash_attention_bias.cu.
 //
 // The forwards also take _fwd_kernel's additive biases (has_b1/has_b2, fed
 // by _flash_fwd's bias_kv and bias_qk; the evoformer attention op is their
 // caller): b1 (B, Skv), one value per key broadcast over rows and heads, and
-// b2 (B / rep, H, S, Skv), whose batch b reads b2[b / rep]; each bf16 or
-// f32, read in its own type and added in f32.  The scores become
+// b2 (B / rep, H, S, Skv), whose batch b reads b2[b / rep]; each f32 or
+// the half type of the call (bf16; f16 for an f16 forward), read in its own
+// type and added in f32.  The scores become
 // s scale + b1 + b2, then the masks drop elements as before, then the
 // online softmax runs; lse (natural units) includes the biases.  A bias is
 // not a mask: a row whose keys all sit at -1e9 (a padded MSA sequence) is
@@ -146,13 +149,15 @@
 
 #include <type_traits>
 
-// This file is compiled three times (ops/hopper/build.py), so that nvcc
+// This file is compiled four times (ops/hopper/build.py), so that nvcc
 // builds its instantiations side by side: flash_attention_bias.cu includes
-// it with DS_FLASH_BIAS_UNIT set and keeps only the bf16 forward's biased
-// instantiations (ds_flash::run_fwd_tc_bias); flash_attention_f16.cu
-// includes it with DS_FLASH_F16_UNIT set and keeps only the f16
-// tensor-core kernels (ds_flash::run_*_f16); this unit keeps everything
-// else, the C entry points among it.
+// it with DS_FLASH_BIAS_UNIT 1 and keeps only the bf16 forward's biased
+// instantiations (ds_flash::run_fwd_tc_bias), flash_attention_bias_f16.cu
+// with DS_FLASH_BIAS_UNIT 2 and keeps only the f16 forward's
+// (ds_flash::run_fwd_tc_bias_f16); flash_attention_f16.cu includes it with
+// DS_FLASH_F16_UNIT set and keeps only the f16 tensor-core kernels
+// (ds_flash::run_*_f16); this unit keeps everything else, the C entry
+// points among it.
 #ifndef DS_FLASH_BIAS_UNIT
 #define DS_FLASH_BIAS_UNIT 0
 #endif
@@ -173,14 +178,17 @@ struct Problem {
   const void* b1;      // bias (B, Skv) or null (forward only)
   const void* b2;      // bias (B / b2_rep, H, S, Skv) or null (forward only)
   int b2_rep;
-  int b1_f32, b2_f32;  // a bias's element type: 1 float, 0 bf16
+  int b1_f32, b2_f32;  // a bias's element type: 1 float, 0 the call's half type
 };
 
-// the bf16 forward with b1 and / or b2 (defined by the bias unit)
+// the bf16 and f16 forwards with b1 and / or b2 (defined by the bias units)
 cudaError_t run_fwd_tc_bias(int D, const Problem& p, const void* q, const void* k,
                             const void* v, void* o, float* lse, cudaStream_t st);
+cudaError_t run_fwd_tc_bias_f16(int D, const Problem& p, const void* q, const void* k,
+                                const void* v, void* o, float* lse, cudaStream_t st);
 
-// the f16 tensor-core kernels, unbiased (defined by the f16 unit)
+// the f16 tensor-core kernels (defined by the f16 unit; a biased forward
+// goes on to run_fwd_tc_bias_f16)
 cudaError_t run_fwd_f16(int D, const Problem& p, const void* q, const void* k,
                         const void* v, void* o, float* lse, cudaStream_t st);
 cudaError_t run_dkdv_f16(int D, const Problem& p, const void* q, const void* k,
@@ -1029,9 +1037,10 @@ constexpr int elem_bytes() {
   if constexpr (std::is_void<B>::value) return 0; else return (int)sizeof(B);
 }
 
-// B1 and B2: the element types of b1 and b2 (__nv_bfloat16 or float), void
-// when absent.  A ring stage holds [K | V | b1 slice | b2 tile]; after the
-// kseg rings, b2_off[kFwdVecs] holds each vector's b2 row offset.
+// B1 and B2: the element types of b1 and b2 (float, or the forward's
+// element type E: __nv_bfloat16 or __half), void when absent.  A ring
+// stage holds [K | V | b1 slice | b2 tile]; after the kseg rings,
+// b2_off[kFwdVecs] holds each vector's b2 row offset.
 template <int D, typename B1 = void, typename B2 = void>
 struct FwdTc {
   static constexpr int kRow = tc_row<D>();
@@ -1096,6 +1105,8 @@ struct BiasView {
   static __device__ __forceinline__ float2 load_pair(const uint8_t* at) {
     if constexpr (std::is_same<B, float>::value)
       return *reinterpret_cast<const float2*>(at);
+    else if constexpr (std::is_same<B, __half>::value)
+      return __half22float2(*reinterpret_cast<const __half2*>(at));
     else
       return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
   }
@@ -1809,23 +1820,32 @@ cudaError_t run_fwd_tc(const Problem& p, const void* q, const void* k, const voi
 }
 
 #if DS_FLASH_BIAS_UNIT
-// the bf16 forward's instantiation for the biases' element types (void:
-// absent); b1_f32 / b2_f32 in p say which type each present bias has
-template <int D, typename B1>
+// the E forward's instantiation for the biases' element types (void:
+// absent; a half-type bias is E's own type); b1_f32 / b2_f32 in p say which
+// type each present bias has
+template <typename E, int D, typename B1>
 cudaError_t run_fwd_tc_b2(const Problem& p, const void* q, const void* k, const void* v,
                           void* o, float* lse, cudaStream_t st) {
-  using E = __nv_bfloat16;
   if (p.b2 == nullptr) return run_fwd_tc<E, D, B1, void>(p, q, k, v, o, lse, st);
   if (p.b2_f32) return run_fwd_tc<E, D, B1, float>(p, q, k, v, o, lse, st);
-  return run_fwd_tc<E, D, B1, __nv_bfloat16>(p, q, k, v, o, lse, st);
+  return run_fwd_tc<E, D, B1, E>(p, q, k, v, o, lse, st);
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t run_fwd_tc_b1(const Problem& p, const void* q, const void* k, const void* v,
                           void* o, float* lse, cudaStream_t st) {
-  if (p.b1 == nullptr) return run_fwd_tc_b2<D, void>(p, q, k, v, o, lse, st);
-  if (p.b1_f32) return run_fwd_tc_b2<D, float>(p, q, k, v, o, lse, st);
-  return run_fwd_tc_b2<D, __nv_bfloat16>(p, q, k, v, o, lse, st);
+  if (p.b1 == nullptr) return run_fwd_tc_b2<E, D, void>(p, q, k, v, o, lse, st);
+  if (p.b1_f32) return run_fwd_tc_b2<E, D, float>(p, q, k, v, o, lse, st);
+  return run_fwd_tc_b2<E, D, E>(p, q, k, v, o, lse, st);
+}
+
+template <typename E>
+cudaError_t run_fwd_tc_bias_d(int D, const Problem& p, const void* q, const void* k,
+                              const void* v, void* o, float* lse, cudaStream_t st) {
+  if (D == 32) return run_fwd_tc_b1<E, 32>(p, q, k, v, o, lse, st);
+  if (D == 64) return run_fwd_tc_b1<E, 64>(p, q, k, v, o, lse, st);
+  if (D == 128) return run_fwd_tc_b1<E, 128>(p, q, k, v, o, lse, st);
+  return cudaErrorInvalidValue;
 }
 #endif
 
@@ -1943,22 +1963,28 @@ Problem make_problem(int B, int S, int Skv, int H, int KV, int causal, int windo
 
 }  // namespace
 
-#if DS_FLASH_BIAS_UNIT
+#if DS_FLASH_BIAS_UNIT == 1
 cudaError_t ds_flash::run_fwd_tc_bias(int D, const Problem& p, const void* q, const void* k,
                                       const void* v, void* o, float* lse, cudaStream_t st) {
-  if (D == 32) return run_fwd_tc_b1<32>(p, q, k, v, o, lse, st);
-  if (D == 64) return run_fwd_tc_b1<64>(p, q, k, v, o, lse, st);
-  if (D == 128) return run_fwd_tc_b1<128>(p, q, k, v, o, lse, st);
-  return cudaErrorInvalidValue;
+  return run_fwd_tc_bias_d<__nv_bfloat16>(D, p, q, k, v, o, lse, st);
+}
+#endif
+
+#if DS_FLASH_BIAS_UNIT == 2
+cudaError_t ds_flash::run_fwd_tc_bias_f16(int D, const Problem& p, const void* q,
+                                          const void* k, const void* v, void* o, float* lse,
+                                          cudaStream_t st) {
+  return run_fwd_tc_bias_d<__half>(D, p, q, k, v, o, lse, st);
 }
 #endif
 
 #if DS_FLASH_F16_UNIT
-// f16 runs the bf16 kernels' schedule at E = __half; it takes no bias (the
-// biases' only caller, the evoformer op, runs bf16 or f32)
+// f16 runs the bf16 kernels' schedule at E = __half; a biased forward (the
+// evoformer op's) runs the bias unit's f16 instantiations
 cudaError_t ds_flash::run_fwd_f16(int D, const Problem& p, const void* q, const void* k,
                                   const void* v, void* o, float* lse, cudaStream_t st) {
-  if (p.b1 != nullptr || p.b2 != nullptr) return cudaErrorInvalidValue;
+  if (p.b1 != nullptr || p.b2 != nullptr)
+    return ds_flash::run_fwd_tc_bias_f16(D, p, q, k, v, o, lse, st);
   if (D == 32) return run_fwd_tc<__half, 32, void, void>(p, q, k, v, o, lse, st);
   if (D == 64) return run_fwd_tc<__half, 64, void, void>(p, q, k, v, o, lse, st);
   if (D == 128) return run_fwd_tc<__half, 128, void, void>(p, q, k, v, o, lse, st);
@@ -1986,8 +2012,8 @@ cudaError_t ds_flash::run_dq_f16(int D, const Problem& p, const void* q, const v
 
 #if DS_FLASH_MAIN_UNIT
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the f16 unit's kernels,
-// no bias); D: 32, 64 or 128; H % KV == 0.  The Python wrapper checks
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the f16 unit's kernels);
+// D: 32, 64 or 128; H % KV == 0.  The Python wrapper checks
 // shapes before it calls; a dtype or D outside these gives
 // cudaErrorInvalidValue.  seg and bm may be null.  Returns a cudaError_t.
 #define DS_FLASH_DISPATCH(CALL)                          \
@@ -2004,7 +2030,8 @@ cudaError_t ds_flash::run_dq_f16(int D, const Problem& p, const void* q, const v
   return (int)cudaErrorInvalidValue;
 
 // b1 (B, Skv) and b2 (B / b2_rep, H, S, Skv) may be null; b1_dtype and
-// b2_dtype use dtype's codes.
+// b2_dtype use dtype's codes: 0 (f32) or the call's half type (1 for an f32
+// or bf16 call, 2 for an f16 call).
 extern "C" int ds_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                             const void* seg, const void* bm, const void* b1,
                             const void* b2, int b1_dtype, int b2_dtype, int b2_rep,
@@ -2013,7 +2040,9 @@ extern "C" int ds_flash_fwd(int dtype, const void* q, const void* k, const void*
                             float scale, void* stream) {
   cudaGetLastError();  // a stale error must not be blamed on this launch
   if (B == 0 || S == 0) return cudaSuccess;
-  if ((b1 != nullptr && (b1_dtype & ~1)) || (b2 != nullptr && ((b2_dtype & ~1) || b2_rep <= 0)))
+  const int half_code = dtype == 2 ? 2 : 1;
+  if ((b1 != nullptr && b1_dtype != 0 && b1_dtype != half_code) ||
+      (b2 != nullptr && ((b2_dtype != 0 && b2_dtype != half_code) || b2_rep <= 0)))
     return (int)cudaErrorInvalidValue;
   Problem p = make_problem(B, S, Skv, H, KV, causal, window, seg, bm, bq, bk, nkb, scale);
   p.b1 = b1;

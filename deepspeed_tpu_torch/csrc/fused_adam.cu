@@ -18,11 +18,12 @@
 // 28 bytes per element with f32 parameters and gradients, a few flops each:
 // bound by those bytes at 3.35 TB/s.  What the kernel does about it: a
 // grid-stride loop over groups of four elements, each thread loading
-// 16 bytes at a time from every f32 stream (8 from a bf16 one) when the
+// 16 bytes at a time from every f32 stream (8 from a bf16 or f16 one) when the
 // pointers allow it; the ragged tail, and misaligned pointers, go element
 // by element.  Nothing is read twice and nothing is padded.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,6 +46,7 @@ __device__ __forceinline__ void adam1(float p, float g, float m, float v, const 
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -55,6 +57,10 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // four consecutive elements as f32
@@ -67,6 +73,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 __device__ __forceinline__ void store4(float* p, const float4& v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -74,6 +86,14 @@ __device__ __forceinline__ void store4(float* p, const float4& v) {
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
   const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store4(__half* p, const float4& v) {
+  const __half2 a = __floats2half2_rn(v.x, v.y);
+  const __half2 b = __floats2half2_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<const uint32_t*>(&a);
   u.y = *reinterpret_cast<const uint32_t*>(&b);
@@ -133,7 +153,7 @@ bool aligned(const void* ptr, int bytes) {
 
 }  // namespace
 
-// p_dtype, g_dtype: 0 = f32, 1 = bf16.  p, g, m, v and the outputs po, mo,
+// p_dtype, g_dtype: 0 = f32, 1 = bf16, 2 = f16.  p, g, m, v and the outputs po, mo,
 // vo: n elements each (m, v, mo, vo f32); step: one device int32.
 // omb1 = 1 - b1 and omb2 = 1 - b2, as the host computes them.
 extern "C" int ds_fused_adamw(int p_dtype, int g_dtype, const void* p, const void* g,
@@ -144,16 +164,22 @@ extern "C" int ds_fused_adamw(int p_dtype, int g_dtype, const void* p, const voi
   if (n == 0) return cudaSuccess;
   if (n < 0) return cudaErrorInvalidValue;
   const Hyper h{lr, b1, b2, omb1, omb2, eps, wd, 0.0f, 0.0f};
-  const int pb = p_dtype == 1 ? 8 : 16, gb = g_dtype == 1 ? 8 : 16;
+  const int pb = p_dtype != 0 ? 8 : 16, gb = g_dtype != 0 ? 8 : 16;
   const int vec = aligned(p, pb) && aligned(po, pb) && aligned(g, gb) && aligned(m, 16) &&
                   aligned(v, 16) && aligned(mo, 16) && aligned(vo, 16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sp = static_cast<const int*>(step);
 #define DS_ADAM(PT, GT) return (int)launch<PT, GT>(p, g, m, v, sp, po, mo, vo, n, vec, h, st)
-  if (p_dtype == 0 && g_dtype == 0) DS_ADAM(float, float);
-  if (p_dtype == 0 && g_dtype == 1) DS_ADAM(float, __nv_bfloat16);
-  if (p_dtype == 1 && g_dtype == 0) DS_ADAM(__nv_bfloat16, float);
-  if (p_dtype == 1 && g_dtype == 1) DS_ADAM(__nv_bfloat16, __nv_bfloat16);
+#define DS_ADAM_G(PT)                               \
+  do {                                              \
+    if (g_dtype == 0) DS_ADAM(PT, float);           \
+    if (g_dtype == 1) DS_ADAM(PT, __nv_bfloat16);   \
+    if (g_dtype == 2) DS_ADAM(PT, __half);          \
+  } while (0)
+  if (p_dtype == 0) DS_ADAM_G(float);
+  if (p_dtype == 1) DS_ADAM_G(__nv_bfloat16);
+  if (p_dtype == 2) DS_ADAM_G(__half);
+#undef DS_ADAM_G
 #undef DS_ADAM
   return cudaErrorInvalidValue;
 }

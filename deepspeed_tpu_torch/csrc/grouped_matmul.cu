@@ -10,11 +10,15 @@
 //                          f32 accumulation, the output in lhs's dtype.
 //                          The dispatch (chosen by the wrapper, checked
 //                          here) is on dtype, transposition and tile_m:
-//                          bf16 on (K, N) weights with tile_m a multiple of
-//                          64 (dropless MoE's mixed steps) runs the wgmma
-//                          kernel; bf16 at tile_m 16 (decode bodies) or on
-//                          transposed weights (the backward's dlhs) the
-//                          mma.sync kernel; f32 the CUDA-core kernel.
+//                          bf16 or f16 on (K, N) weights with tile_m a
+//                          multiple of 64 (dropless MoE's mixed steps) runs
+//                          the wgmma kernel; bf16 or f16 at tile_m 16
+//                          (decode bodies) or on transposed weights (the
+//                          backward's dlhs) the mma.sync kernel; f32 the
+//                          CUDA-core kernel.  f16 runs the bf16 kernels at
+//                          E = __half (mma.sync and wgmma f16 -> f32): the
+//                          products of f16 inputs are exact in f32 as
+//                          bf16's are, so only the element type differs.
 //
 // lhs (M, K) holds rows in the tile-aligned layout: M is a multiple of
 // tile_m and every tile_m-row tile belongs to one expert; tile_group is
@@ -56,7 +60,7 @@
 //     thread from shared-memory tiles, fmaf.
 // Split-K and a persistent schedule are later work.
 //
-// The bf16 paths load 16-byte chunks: K and N multiples of 8 and 16-byte
+// The bf16 and f16 paths load 16-byte chunks: K and N multiples of 8 and 16-byte
 // aligned tensors (the wrapper checks).  K and N edges are zero-filled and
 // masked.  The C entry point launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError().
@@ -90,15 +94,15 @@ __device__ void write_zeros(T* out, int row0, int rows, int n0, int N) {
 }
 
 // 16-byte chunk copy, or zeros where the chunk lies outside the matrix.
-__device__ __forceinline__ void chunk(uint8_t* dst, const __nv_bfloat16* src, bool valid) {
+__device__ __forceinline__ void chunk(uint8_t* dst, const void* src, bool valid) {
   if (valid)
     cp_async16(dst, src);
   else
     *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
 }
 
-// bf16 tensor-core kernel.  4 warps: BM = 16 -> 1 x 4 warps of 16 x 16;
-// BM = 64 -> 2 x 2 warps of 32 x 32.
+// bf16 (or f16: E = __half) tensor-core kernel.  4 warps: BM = 16 -> 1 x
+// 4 warps of 16 x 16; BM = 64 -> 2 x 2 warps of 32 x 32.
 template <int BM, bool TRANS>
 struct Bf16Tile {
   static constexpr int WM = BM == 16 ? 1 : 2, WN = 4 / WM;
@@ -111,13 +115,11 @@ struct Bf16Tile {
   static_assert(NT % 2 == 0, "B fragments load two n-tiles at a time");
 };
 
-template <int BM, bool TRANS>
+template <typename ET, int BM, bool TRANS>
 __global__ void __launch_bounds__(128)
-    grouped_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
-                               const __nv_bfloat16* __restrict__ rhs,
+    grouped_matmul_bf16_kernel(const ET* __restrict__ lhs, const ET* __restrict__ rhs,
                                const int* __restrict__ tile_group, const int* __restrict__ used,
-                               __nv_bfloat16* __restrict__ out, int N, int K, int E,
-                               int tile_m) {
+                               ET* __restrict__ out, int N, int K, int E, int tile_m) {
   using L = Bf16Tile<BM, TRANS>;
   constexpr int MT = L::MT, NT = L::NT;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -127,8 +129,8 @@ __global__ void __launch_bounds__(128)
     write_zeros(out, row0, BM, n0, N);
     return;
   }
-  const __nv_bfloat16* a_src = lhs + (long long)row0 * K;
-  const __nv_bfloat16* w = rhs + (long long)e * K * N;
+  const ET* a_src = lhs + (long long)row0 * K;
+  const ET* w = rhs + (long long)e * K * N;
   const int nk = (K + kBK - 1) / kBK;
 
   auto load = [&](int t) {
@@ -205,7 +207,7 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+        for (int j = 0; j < NT; ++j) mma_tc<ET>(acc[i][j], a[i], b[j][0], b[j][1]);
     }
   }
   cp_async_wait<0>();
@@ -220,8 +222,7 @@ __global__ void __launch_bounds__(128)
         const int r = row0 + wm * (BM / L::WM) + i * 16 + gr + h * 8;
         const int c = n0 + wn * (kBN / L::WN) + j * 8 + tq * 2;
         if (c < N)  // N is even: the pair is whole
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * N + c) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          store_pair(out + (long long)r * N + c, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
 }
 
@@ -282,7 +283,7 @@ __global__ void __launch_bounds__(BM * 4)
     }
 }
 
-// bf16, rhs (E, K, N), tile_m a multiple of 64 (grouped_matmul_wgmma_kernel):
+// bf16 or f16 (ET), rhs (E, K, N), tile_m a multiple of 64 (grouped_matmul_wgmma_kernel):
 // out_e^T = W_e^T lhs_e^T per block of (expert e, BN = 128 output columns),
 // two consumer warpgroups of 64 columns (the wgmma M) and the expert's rows
 // in chunks of at most 256 (NSUB <= 4 m64n64k16 products per 16-deep
@@ -304,8 +305,9 @@ struct GmmWg {
   static_assert(kStage % 1024 == 0, "swizzle atoms stay 1024-byte aligned");
 };
 
+template <typename ET>
 __global__ void __launch_bounds__(GmmWg::kThreads, 1)
-    grouped_matmul_wgmma_kernel(__nv_bfloat16* __restrict__ out,
+    grouped_matmul_wgmma_kernel(ET* __restrict__ out,
                                 const int* __restrict__ tile_group,
                                 const int* __restrict__ used, int N, int K, int E, int ntiles,
                                 int tile_m, const __grid_constant__ CUtensorMap tm_lhs,
@@ -406,7 +408,8 @@ __global__ void __launch_bounds__(GmmWg::kThreads, 1)
       for (int kk = 0; kk < L::BK / 16; ++kk)
 #pragma unroll
         for (int sb = 0; sb < L::MAXSUB; ++sb)
-          if (sb < nsub) wgmma_m64n64k16(d[sb], a[kk], sw128_desc(sp + sb * L::kBox + 32 * kk));
+          if (sb < nsub)
+            wgmma_m64n64k16<ET>(d[sb], a[kk], sw128_desc(sp + sb * L::kBox + 32 * kk));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -423,47 +426,64 @@ __global__ void __launch_bounds__(GmmWg::kThreads, 1)
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          __nv_bfloat16* p = out + (long long)(r + 64 * sb + 8 * j + 2 * tq + h) * N + c;
-          if (c < N) p[0] = __float2bfloat16(d[sb][4 * j + h]);
-          if (c + 8 < N) p[8] = __float2bfloat16(d[sb][4 * j + 2 + h]);
+          ET* p = out + (long long)(r + 64 * sb + 8 * j + 2 * tq + h) * N + c;
+          if (c < N) p[0] = from_float<ET>(d[sb][4 * j + h]);
+          if (c + 8 < N) p[8] = from_float<ET>(d[sb][4 * j + 2 + h]);
         }
     }
   }
 }
 
-template <int BM, bool TRANS>
+template <typename ET, int BM, bool TRANS>
 cudaError_t launch_bf16(const void* lhs, const void* rhs, const int* tg, const int* used,
                         void* out, int M, int N, int K, int E, int tile_m, cudaStream_t st) {
   using L = Bf16Tile<BM, TRANS>;
-  auto kernel = grouped_matmul_bf16_kernel<BM, TRANS>;
+  auto kernel = grouped_matmul_bf16_kernel<ET, BM, TRANS>;
   static cudaError_t attr = allow_smem(kernel, L::kSmem);  // once per instantiation
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + kBN - 1) / kBN, M / BM);
-  kernel<<<grid, L::kThreads, L::kSmem, st>>>(static_cast<const __nv_bfloat16*>(lhs),
-                                              static_cast<const __nv_bfloat16*>(rhs), tg, used,
-                                              static_cast<__nv_bfloat16*>(out), N, K, E, tile_m);
+  kernel<<<grid, L::kThreads, L::kSmem, st>>>(static_cast<const ET*>(lhs),
+                                              static_cast<const ET*>(rhs), tg, used,
+                                              static_cast<ET*>(out), N, K, E, tile_m);
   return cudaGetLastError();
 }
 
+template <typename ET>
 cudaError_t launch_bf16_wgmma(const void* lhs, const void* rhs, const int* tg, const int* used,
                               void* out, int M, int N, int K, int E, int tile_m,
                               cudaStream_t st) {
   using L = GmmWg;
-  static cudaError_t attr = allow_smem(grouped_matmul_wgmma_kernel, L::kBytes);
+  auto kernel = grouped_matmul_wgmma_kernel<ET>;
+  static cudaError_t attr = allow_smem(kernel, L::kBytes);  // once per instantiation
   if (attr != cudaSuccess) return attr;
+  const CUtensorMapDataType type = std::is_same<ET, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tm_lhs{}, tm_rhs{};
   const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
   const uint64_t pitch[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
   const uint32_t box[3] = {64, L::BK, 1};
-  if (!tile_map(&tm_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, lhs, K, M, (uint64_t)K * 2, L::BK,
-                64, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tile_map_nd(&tm_rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rhs, 3, dims, pitch, box,
-                   CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!tile_map(&tm_lhs, type, lhs, K, M, (uint64_t)K * 2, L::BK, 64,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map_nd(&tm_rhs, type, rhs, 3, dims, pitch, box, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   const dim3 grid((N + L::BN - 1) / L::BN, E + 1);  // + 1: the padding tail's zeros
-  grouped_matmul_wgmma_kernel<<<grid, L::kThreads, L::kBytes, st>>>(
-      static_cast<__nv_bfloat16*>(out), tg, used, N, K, E, M / tile_m, tile_m, tm_lhs, tm_rhs);
+  kernel<<<grid, L::kThreads, L::kBytes, st>>>(static_cast<ET*>(out), tg, used, N, K, E,
+                                               M / tile_m, tile_m, tm_lhs, tm_rhs);
   return cudaGetLastError();
+}
+
+// the mma.sync kernel at ET (bf16 or f16): row blocks of bm rows, rhs (K,
+// N) at bm = 16 or transposed; (K, N) at 64-row tiles is the wgmma kernel's
+template <typename ET>
+cudaError_t dispatch_tc(const void* lhs, const void* rhs, const int* tg, const int* used,
+                        void* out, int M, int N, int K, int E, int tile_m, int bm,
+                        int transposed, cudaStream_t st) {
+  if (bm == 16)
+    return transposed ? launch_bf16<ET, 16, true>(lhs, rhs, tg, used, out, M, N, K, E, tile_m, st)
+                      : launch_bf16<ET, 16, false>(lhs, rhs, tg, used, out, M, N, K, E, tile_m, st);
+  if (transposed) return launch_bf16<ET, 64, true>(lhs, rhs, tg, used, out, M, N, K, E, tile_m, st);
+  return cudaErrorInvalidValue;
 }
 
 template <int BM, bool TRANS>
@@ -478,10 +498,10 @@ cudaError_t launch_f32(const void* lhs, const void* rhs, const int* tg, const in
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (lhs, rhs and out).  lhs (M, K); rhs (E, K, N),
+// dtype: 0 = f32, 1 = bf16, 2 = f16 (lhs, rhs and out).  lhs (M, K); rhs (E, K, N),
 // or (E, N, K) with transposed = 1; tile_group (M / tile_m,) int32; used: a
 // device int32 count of the tiles that hold a group, or null; out (M, N).
-// wgmma = 1 runs grouped_matmul_wgmma_kernel, which takes bf16 with rhs
+// wgmma = 1 runs grouped_matmul_wgmma_kernel, which takes bf16 or f16 with rhs
 // (E, K, N) and tile_m a multiple of 64 (TMA: 16-byte aligned lhs and rhs);
 // wgmma = 0 runs the mma.sync or CUDA-core kernels with row blocks of bm
 // (16 or 64) rows, bm dividing tile_m, for everything else.
@@ -492,26 +512,24 @@ extern "C" int ds_grouped_matmul(int dtype, const void* lhs, const void* rhs,
   cudaGetLastError();  // a stale error must not be blamed on this launch
   if (M == 0 || N == 0) return cudaSuccess;
   if (tile_m <= 0 || M % tile_m != 0 || E <= 0 || K <= 0) return cudaErrorInvalidValue;
-  if (dtype == 1 && (K % 8 != 0 || N % 8 != 0)) return cudaErrorInvalidValue;
+  if ((dtype == 1 || dtype == 2) && (K % 8 != 0 || N % 8 != 0)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tg = static_cast<const int*>(tile_group);
   const int* u = static_cast<const int*>(used);
   if (wgmma) {
-    if (dtype != 1 || transposed || tile_m % 64 != 0 ||
+    if ((dtype != 1 && dtype != 2) || transposed || tile_m % 64 != 0 ||
         ((reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs)) & 15) != 0)
       return cudaErrorInvalidValue;
-    return (int)launch_bf16_wgmma(lhs, rhs, tg, u, out, M, N, K, E, tile_m, st);
+    if (dtype == 2)
+      return (int)launch_bf16_wgmma<__half>(lhs, rhs, tg, u, out, M, N, K, E, tile_m, st);
+    return (int)launch_bf16_wgmma<__nv_bfloat16>(lhs, rhs, tg, u, out, M, N, K, E, tile_m, st);
   }
   if ((bm != 16 && bm != 64) || tile_m % bm != 0) return cudaErrorInvalidValue;
 #define DS_GMM(LAUNCH, BM, TR) return (int)LAUNCH<BM, TR>(lhs, rhs, tg, u, out, M, N, K, E, tile_m, st)
-  if (dtype == 1) {
-    if (bm == 16) {
-      if (transposed) DS_GMM(launch_bf16, 16, true);
-      DS_GMM(launch_bf16, 16, false);
-    }
-    if (transposed) DS_GMM(launch_bf16, 64, true);
-    return cudaErrorInvalidValue;  // bf16 (K, N) at 64-row tiles: the wgmma kernel's
-  }
+  if (dtype == 1) return (int)dispatch_tc<__nv_bfloat16>(lhs, rhs, tg, u, out, M, N, K, E,
+                                                        tile_m, bm, transposed, st);
+  if (dtype == 2)
+    return (int)dispatch_tc<__half>(lhs, rhs, tg, u, out, M, N, K, E, tile_m, bm, transposed, st);
   if (dtype == 0) {
     if (bm == 16) {
       if (transposed) DS_GMM(launch_f32, 16, true);

@@ -9,8 +9,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in the driver
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -40,6 +43,55 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same product of f16 fragments (f16 x f16 products are exact in f32)
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma_bf16 or mma_f16 by the fragments' element type E
+template <typename E>
+__device__ __forceinline__ void mma_tc(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (std::is_same<E, __half>::value)
+    mma_f16(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
+}
+
+// an f32 sum stored in an output of type T (f32, bf16 or f16), rounded to
+// nearest even
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// columns n, n + 1 of one output row (8-byte aligned for f32, 4 for bf16
+// and f16)
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__half* p, float v0, float v1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -160,26 +212,33 @@ __device__ __forceinline__ int sw128(int r, int c) {
   return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
 }
 
-// D[64 x 64] += A[64 x 16] . B[16 x 64], bf16 -> f32: A from registers
-// (per warp the m16n8k16 A fragment of its 16 rows), B K-major in shared
-// memory.  Each thread holds D's rows gr, gr + 8 of its warp's 16 and
-// columns 8j + 2tq, +1 as d[4j .. 4j + 3] (the m16n8 layout, j < 8).
+// D[64 x 64] += A[64 x 16] . B[16 x 64], E (bf16 or f16) -> f32: A from
+// registers (per warp the m16n8k16 A fragment of its 16 rows), B K-major in
+// shared memory.  Each thread holds D's rows gr, gr + 8 of its warp's 16
+// and columns 8j + 2tq, +1 as d[4j .. 4j + 3] (the m16n8 layout, j < 8).
+#define DS_WGMMA_M64N64K16(TYPE)                                                             \
+  asm volatile(                                                                              \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"                                         \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "                       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "    \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+        "+f"(d[31])                                                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<E, __half>::value)
+    DS_WGMMA_M64N64K16("f16");
+  else
+    DS_WGMMA_M64N64K16("bf16");
 }
+#undef DS_WGMMA_M64N64K16
 
 // --- host: tensor maps -------------------------------------------------------
 

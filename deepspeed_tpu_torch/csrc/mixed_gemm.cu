@@ -2,14 +2,21 @@
 //
 //   mixed_gemm_decode_kernel, replace deepspeed_tpu/ops/pallas/mixed_gemm.py
 //   mixed_gemm_wgmma_kernel,  _mixed_gemm_kernel (entry mixed_gemm):
-//   mixed_gemm_mma_kernel     M <= 16 rows, bf16 x at M > 16, f32 x at M >
-//                      16 (the dispatch is on M and dtype, not a fallback);
+//   mixed_gemm_mma_kernel     M <= 16 rows, bf16 or f16 x at M > 16, f32 x
+//                      at M > 16 (the dispatch is on M and dtype, not a
+//                      fallback);
 //                      all three compute
 //                      y (M, N) = x (M, K) @ dequant(W).  Per K-group g, each
 //                      code becomes f32, is multiplied by the group's scale
 //                      scales[g, n] and rounded to bf16; x is rounded to bf16;
 //                      the (exact) bf16 products are summed in f32 and y is
-//                      written in x's dtype (bf16 or f32).  Codes: int8
+//                      written in x's dtype (bf16, f16 or f32).  f16 x is
+//                      not an f16 product: it is rounded to bf16, as the
+//                      reference rounds any x to bf16 (the decode
+//                      kernel where it loads its B fragments; above 16
+//                      rows round_x_bf16_kernel, launched by the same
+//                      entry before the wgmma kernel, into the caller's
+//                      workspace).  Codes: int8
 //                      (K, N); int4 (K/2, N), byte row r holding K-rows 2r
 //                      (low nibble) and 2r+1 (high nibble), both signed; fp6
 //                      e3m2 (3K/4, N), bytes (b0, b1, b2) of a column holding
@@ -27,7 +34,8 @@
 //                      wrapper, checked here) is on M and the layout:
 //                      M > 16 with TMA's rows (N % 16 == 0, 16-byte
 //                      aligned arrays) runs the wgmma kernel, M <= 16 and
-//                      any other N the mma.sync kernel.
+//                      any other N the mma.sync kernel.  The output is
+//                      bf16, f16 or f32.
 //
 // They use the tensor cores: wgmma m64n64k16 bf16 -> f32 (bf16 x, M > 16),
 // mma.sync m16n8k16 bf16 -> f32 (the other mixed GEMMs), wgmma m64n64k32
@@ -99,7 +107,11 @@
 //     block reads all of x, but skipping x's copies saves 3%.  A 128-row
 //     variant (more blocks, codes dequantized twice) and a 5-stage ring
 //     measured slower at three of llama3-8b's four shapes.  fp6 converts a
-//     code with two exact f32 products (fp6_times), not fp6_value;
+//     code with two exact f32 products (fp6_times), not fp6_value.  f16 x
+//     takes the same kernel (bf16 x, f16 y) after one elementwise pass
+//     rounds x to bf16 into a workspace, so each element is converted once
+//     (converted per stage in shared memory, every column block would
+//     convert all of x again);
 //   * f32 x at M > 16 (mixed_gemm_mma_kernel): 128 x 128 tiles for 8 warps;
 //     each tile's codes are dequantized once, by the whole block, into a
 //     bf16 tile in shared memory, which every warp reads with ldmatrix, x
@@ -143,8 +155,9 @@
 // loads into registers.
 //
 // Every C entry point launches on the caller's stream, allocates nothing
-// (the caller passes the split-K workspace and the decode kernel's tickets),
-// and returns cudaGetLastError() after its launches.
+// (the caller passes the split-K workspace, which also holds f16 x rounded
+// to bf16, and the decode kernel's tickets), and returns cudaGetLastError()
+// after its launches.
 
 #include "hopper.cuh"
 
@@ -300,23 +313,14 @@ struct Unit<6> {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
+// a packed f16 pair rounded to a packed bf16 pair (f16 -> f32 is exact)
+__device__ __forceinline__ uint32_t half2_to_bf16x2(uint32_t w) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  return pack_bf16(f.x, f.y);
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// columns n, n + 1 of one output row (8-byte aligned for f32, 4 for bf16)
-__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+__device__ __forceinline__ uint4 half8_to_bf16(uint4 u) {
+  return make_uint4(half2_to_bf16x2(u.x), half2_to_bf16x2(u.y), half2_to_bf16x2(u.z),
+                    half2_to_bf16x2(u.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -569,11 +573,13 @@ struct WgSmem {
                 "128-byte rows");
 };
 
-template <int BITS, int NSUB>
+// OT, y's type: __nv_bfloat16, or __half for f16 x (which launch_mixed
+// has rounded to bf16 first)
+template <typename OT, int BITS, int NSUB>
 __global__ void __launch_bounds__(WgSmem<BITS, NSUB>::kThreads, 1)
     mixed_gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                             const uint8_t* __restrict__ codes, const float* __restrict__ scales,
-                            __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M, int N,
+                            OT* __restrict__ out, float* __restrict__ ws, int M, int N,
                             int K, int group, int splits, const __grid_constant__ CUtensorMap tm_x,
                             const __grid_constant__ CUtensorMap tm_c,
                             const __grid_constant__ CUtensorMap tm_s, int use_tma) {
@@ -741,10 +747,10 @@ __global__ void __launch_bounds__(WgSmem<BITS, NSUB>::kThreads, 1)
         const long long at = (long long)m * N + n;
         if (splits == 1) {
           if (pair) {
-            *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v0, v1);
+            store_pair(out + at, v0, v1);
           } else {
-            out[at] = __float2bfloat16(v0);
-            if (n + 1 < N) out[at + 1] = __float2bfloat16(v1);
+            out[at] = from_float<OT>(v0);
+            if (n + 1 < N) out[at + 1] = from_float<OT>(v1);
           }
         } else if (pair) {
           *reinterpret_cast<float2*>(part + at) = make_float2(v0, v1);
@@ -765,6 +771,28 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, XT* __restric
     for (int z = 1; z < splits; ++z) acc = __fadd_rn(acc, ws[z * mn + i]);
     out[i] = from_float<XT>(acc);
   }
+}
+
+// f16 x above 16 rows: x (n values) rounded to bf16 into xb, the workspace
+// that mixed_gemm_wgmma_kernel then reads as bf16 x; 8 values a thread-step
+// where both are 16-byte aligned
+__global__ void round_x_bf16_kernel(const __half* __restrict__ x, __nv_bfloat16* __restrict__ xb,
+                                    long long n, int vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    done = n / 8 * 8;
+    for (long long i = i0; i < n / 8; i += stride)
+      reinterpret_cast<uint4*>(xb)[i] = half8_to_bf16(__ldg(reinterpret_cast<const uint4*>(x) + i));
+  }
+  for (long long i = done + i0; i < n; i += stride) xb[i] = __float2bfloat16(__half2float(x[i]));
+}
+
+// where ws holds the bf16 copy of f16 x, in floats: after the split-K sums,
+// 16-byte aligned
+inline long long round_x_offset(int M, int N, int splits) {
+  return splits > 1 ? ((long long)splits * M * N + 3) / 4 * 4 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -834,12 +862,17 @@ __device__ __forceinline__ float x_value(const float* row, int k) { return row[k
 __device__ __forceinline__ float x_value(const __nv_bfloat16* row, int k) {
   return __bfloat162float(row[k]);
 }
+__device__ __forceinline__ float x_value(const __half* row, int k) {
+  return __half2float(row[k]);
+}
 template <typename XT>
 __device__ __forceinline__ uint32_t x_frag(const XT* row, int k, int kend, bool vec) {
   if (row == nullptr) return 0;
   if (vec && k + 1 < kend) {
-    if constexpr (sizeof(XT) == 2) {
+    if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
       return __ldg(reinterpret_cast<const unsigned int*>(row + k));
+    } else if constexpr (std::is_same<XT, __half>::value) {
+      return half2_to_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(row + k)));
     } else {
       const float2 v = __ldg(reinterpret_cast<const float2*>(row + k));
       return pack_bf16(v.x, v.y);
@@ -1730,12 +1763,12 @@ cudaError_t launch_decode(const XT* x, const uint8_t* codes, const float* scales
 // TMA takes x, the codes and the scales when their rows are 16-byte
 // aligned and no K-tile spans two groups; other shapes are copied by the
 // producer's threads (an explicit choice by shape, the same result)
-template <int BITS, int NSUB>
+template <typename OT, int BITS, int NSUB>
 cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* codes, const float* scales,
-                         __nv_bfloat16* out, float* ws, int M, int N, int K, int group,
-                         int splits, cudaStream_t st) {
+                         OT* out, float* ws, int M, int N, int K, int group, int splits,
+                         cudaStream_t st) {
   using L = WgSmem<BITS, NSUB>;
-  auto kernel = mixed_gemm_wgmma_kernel<BITS, NSUB>;
+  auto kernel = mixed_gemm_wgmma_kernel<OT, BITS, NSUB>;
   static cudaError_t attr = allow_smem(kernel, L::kBytes);  // once per instantiation
   if (attr != cudaSuccess) return attr;
   CUtensorMap tm_x{}, tm_c{}, tm_s{};
@@ -1772,10 +1805,23 @@ cudaError_t launch_mixed(const void* x, const void* codes, const void* scales, v
                                                splits, st)
                   : launch_decode<XT, BITS, 2>(xp, cp, sp, op, ws, tickets, M, N, K, group,
                                                splits, st);
-  if constexpr (sizeof(XT) == 2) {  // bf16: wgmma, 128 or 256 rows per block
+  if constexpr (sizeof(XT) == 2) {  // bf16, f16: wgmma, 128 or 256 rows per block
+    const __nv_bfloat16* xb;
+    if constexpr (std::is_same<XT, __half>::value) {  // f16 x, rounded to bf16 first
+      __nv_bfloat16* xw = reinterpret_cast<__nv_bfloat16*>(ws + round_x_offset(M, N, splits));
+      const long long n = (long long)M * K;
+      const int vec = ((reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(xw)) &
+                       15) == 0;
+      const long long chunks = (vec ? n / 8 : n) + 255;
+      round_x_bf16_kernel<<<(int)(chunks / 256 < 1056 ? chunks / 256 : 1056), 256, 0, st>>>(
+          xp, xw, n, vec);
+      xb = xw;
+    } else {
+      xb = xp;
+    }
     const cudaError_t attr =
-        M <= 128 ? launch_wgmma<BITS, 2>(xp, cp, sp, op, ws, M, N, K, group, splits, st)
-                 : launch_wgmma<BITS, 4>(xp, cp, sp, op, ws, M, N, K, group, splits, st);
+        M <= 128 ? launch_wgmma<XT, BITS, 2>(xb, cp, sp, op, ws, M, N, K, group, splits, st)
+                 : launch_wgmma<XT, BITS, 4>(xb, cp, sp, op, ws, M, N, K, group, splits, st);
     if (attr != cudaSuccess) return attr;
   } else {  // f32: mma.sync
     using L = MmaSmem<BITS>;
@@ -1860,10 +1906,13 @@ cudaError_t dispatch_int8(int wgmma, const void* xc, const void* xs_t, int xs_pi
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (x and out); bits: 8, 4 or 6.  codes and scales
+// dtype: 0 = f32, 1 = bf16, 2 = f16 (x and out); bits: 8, 4 or 6.  codes and scales
 // as in the header; K = (K / group) * group.  Above 16 rows, splits (1 <=
 // splits <= K / group) shares the K-groups among blockIdx.z, and with
-// splits > 1 ws is an f32 workspace of splits * M * N.  At M <= 16, splits
+// splits > 1 ws is an f32 workspace of splits * M * N; f16 x there also
+// takes M * K bf16 in ws, after those sums rounded up to 16 bytes (from
+// offset 0 when splits = 1), where x is rounded to bf16 before the wgmma
+// kernel runs.  At M <= 16, splits
 // is the decode kernel's block count B (1 <= B <= tiles * steps, tiles =
 // ceil(N / 128), steps = K / group * ceil(group / 16)): block b takes
 // steps [b * tiles * steps / B, (b + 1) * tiles * steps / B) of the
@@ -1884,7 +1933,7 @@ extern "C" int ds_mixed_gemm(int dtype, int bits, const void* x, const void* cod
         (splits > 1 && (ws == nullptr || tickets == nullptr)) ||
         (K > group && ((bits == 4 && group % 2 != 0) || (bits == 6 && group % 4 != 0))))
       return cudaErrorInvalidValue;
-  } else if (splits > K / group || (splits > 1 && ws == nullptr)) {
+  } else if (splits > K / group || ((splits > 1 || dtype == 2) && ws == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1896,6 +1945,11 @@ extern "C" int ds_mixed_gemm(int dtype, int bits, const void* x, const void* cod
     if (bits == 8) DS_MIXED(__nv_bfloat16, 8);
     if (bits == 4) DS_MIXED(__nv_bfloat16, 4);
     if (bits == 6) DS_MIXED(__nv_bfloat16, 6);
+  }
+  if (dtype == 2) {
+    if (bits == 8) DS_MIXED(__half, 8);
+    if (bits == 4) DS_MIXED(__half, 4);
+    if (bits == 6) DS_MIXED(__half, 6);
   }
   if (dtype == 0) {
     if (bits == 8) DS_MIXED(float, 8);
@@ -1917,9 +1971,10 @@ extern "C" int ds_decode_trace(void* dst, int clear) {
 
 // W8A8: xc int8 (M, K), xs_t f32 (K/group, M) in rows xs_pitch >= M
 // elements apart (xs_pitch % 4 == 0), wc int8 (K, N), ws f32 (K/group, N);
-// group a multiple of 128.  wgmma = 1 runs int8_gemm_wgmma_kernel, which
-// takes TMA's rows only (N % 16 == 0, all four arrays 16-byte aligned);
-// wgmma = 0 runs int8_gemm_mma_kernel, which takes any N.
+// group a multiple of 128; out in dtype (0 = f32, 1 = bf16, 2 = f16).
+// wgmma = 1 runs int8_gemm_wgmma_kernel, which takes TMA's rows only (N %
+// 16 == 0, all four arrays 16-byte aligned); wgmma = 0 runs
+// int8_gemm_mma_kernel, which takes any N.
 extern "C" int ds_int8_gemm(int dtype, int wgmma, const void* xc, const void* xs_t,
                             int xs_pitch, const void* wc, const void* ws, void* out, int M,
                             int N, int K, int group, void* stream) {
@@ -1936,6 +1991,9 @@ extern "C" int ds_int8_gemm(int dtype, int wgmma, const void* xc, const void* xs
   if (dtype == 1)
     return (int)dispatch_int8<__nv_bfloat16>(wgmma, xc, xs_t, xs_pitch, wc, ws, out, M, N, K,
                                              group, st);
+  if (dtype == 2)
+    return (int)dispatch_int8<__half>(wgmma, xc, xs_t, xs_pitch, wc, ws, out, M, N, K, group,
+                                      st);
   if (dtype == 0)
     return (int)dispatch_int8<float>(wgmma, xc, xs_t, xs_pitch, wc, ws, out, M, N, K, group,
                                      st);

@@ -8,8 +8,8 @@
 //                         One query token per sequence; context_lens include
 //                         the current token; ctx = 0 rows write zeros.
 //   paged_prefill_tc_kernel  replace paged_attention.py _prefill_kernel
-//   (bf16), paged_prefill_   (entry paged_prefill_attention).  Chunked
-//   kernel (f32)             prefill: row i of sequence s sits at absolute
+//   (bf16, f16), paged_      (entry paged_prefill_attention).  Chunked
+//   prefill_kernel (f32)     prefill: row i of sequence s sits at absolute
 //                            position chunk_start[s] + i and sees cache
 //                            positions <= its own and < chunk_start[s] +
 //                            chunk_len[s]; rows >= chunk_len[s] write
@@ -17,9 +17,10 @@
 //                            has exactly one kernel; not a fallback).
 //
 // All accumulate in f32 with an online softmax scaled by 1/sqrt(D), take
-// bf16 or f32 in and write the query's dtype.  Plain C entry points (bound
-// from Python with ctypes) launch on the caller's stream, allocate nothing,
-// and return cudaGetLastError() after the launch.
+// bf16, f16 or f32 in and write the query's dtype (the output rounds
+// once).  Plain C entry points (bound from Python with ctypes) launch on
+// the caller's stream, allocate nothing, and return cudaGetLastError()
+// after the launch.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   decode  reads each sequence's K and V once per kv head, 2*ctx*KV*D*2
@@ -60,14 +61,22 @@
 //           tests/test_torch_paged_attention.py emulates both), V by
 //           ldmatrix.trans.  Tiles are classified once per block (full: no
 //           element mask; partial: the causal edge and the chunk end), and
-//           only partial tiles run the masked softmax.  f32 keeps
+//           only partial tiles run the masked softmax.  f16 runs the same
+//           kernel at E = __half (mma.sync m16n8k16 f16 -> f32): q, k and v
+//           products are exact in f32 as bf16's are, and p <= 1 is split
+//           into f16 hi/lo after a multiply by 2^14 (kHalfP), so that no p
+//           >= 2^-28 falls under f16's normal range (2^-14); l carries the
+//           same factor, so it cancels in o = acc / l.  f32 keeps
 //           paged_prefill_kernel: CUDA-core dot products over one staged
 //           K/V block per step.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,6 +89,7 @@ constexpr int kPrefillChunk = 16;     // kv positions per softmax update
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -88,6 +98,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // N contiguous elements at p (aligned to N * sizeof(T)) into f32 registers
@@ -107,25 +121,31 @@ __device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
   }
 }
 
+// a packed pair of T (bf16 or f16) into two f32
+template <typename T>
 __device__ __forceinline__ void unpack2(uint32_t w, float* out) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&w);
-  float2 f = __bfloat1622float2(h);
+  float2 f;
+  if constexpr (std::is_same<T, __half>::value)
+    f = __half22float2(*reinterpret_cast<__half2*>(&w));
+  else
+    f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
   out[0] = f.x; out[1] = f.y;
 }
 
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&out)[N]) {
+// the 2-byte types: bf16 or f16
+template <int N, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
+  static_assert(sizeof(T) == 2, "bf16 or f16");
   if constexpr (N % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 8; ++i) {
       uint4 u = reinterpret_cast<const uint4*>(p)[i];
-      unpack2(u.x, out + 8 * i); unpack2(u.y, out + 8 * i + 2);
-      unpack2(u.z, out + 8 * i + 4); unpack2(u.w, out + 8 * i + 6);
+      unpack2<T>(u.x, out + 8 * i); unpack2<T>(u.y, out + 8 * i + 2);
+      unpack2<T>(u.z, out + 8 * i + 4); unpack2<T>(u.w, out + 8 * i + 6);
     }
   } else {
-    static_assert(N == 2, "bf16 vector width must be 2 or 8k");
-    unpack2(*reinterpret_cast<const uint32_t*>(p), out);
+    static_assert(N == 2, "bf16 / f16 vector width must be 2 or 8k");
+    unpack2<T>(*reinterpret_cast<const uint32_t*>(p), out);
   }
 }
 
@@ -586,25 +606,39 @@ paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_ca
 }
 
 // ---------------------------------------------------------------------------
-// bf16 prefill on the tensor cores.  The helpers below are those of the
-// bf16 flash forward (csrc/flash_attention.cu), kept here so that each
-// source builds alone.
+// bf16 and f16 prefill on the tensor cores.  The helpers below are those of
+// the flash forward (csrc/flash_attention.cu), kept here so that each
+// source builds alone.  E, the element type: __nv_bfloat16 or __half (the
+// same m16n8k16 shape and fragments, f32 accumulators).
 // ---------------------------------------------------------------------------
 constexpr int kTcWarps = 8;               // 16 query vectors per warp
 constexpr int kTcVecs = 16 * kTcWarps;    // 128 per block, one block per SM
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcKeys = 64;               // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
+// f16: p <= 1 leaves the softmax multiplied by 2^14, which keeps every p >=
+// 2^-28 in f16's normal range and p 2^14 <= 16384 under its 65504; l
+// carries the same factor, so o = acc / l is unchanged
+constexpr float kHalfP = 16384.f;
+
+template <typename E>
+constexpr bool kIsHalf = std::is_same<E, __half>::value;
 
 // not volatile: a pure function of its operands, so the compiler may
 // interleave independent products with the fragment loads around them
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <typename E>
+__device__ __forceinline__ void mma_tc(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (kIsHalf<E>)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -621,33 +655,43 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
-__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
+// (x0, x1) rounded to nearest into one packed pair of E (x0 in the low half)
+template <typename E>
+__device__ __forceinline__ uint32_t pack_pair(float x0, float x1) {
+  if constexpr (kIsHalf<E>) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
 }
 
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi) as packed pairs (x0 in the
-// low half, the lower column of an A fragment)
+// (x0, x1) -> hi = E(x), lo = E(x - hi) as packed pairs (x0 in the low
+// half, the lower column of an A fragment)
+template <typename E>
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16_pair(h);
-  lo = bf16_pair(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+  hi = pack_pair<E>(x0, x1);
+  float hf[2];
+  unpack2<E>(hi, hf);
+  lo = pack_pair<E>(x0 - hf[0], x1 - hf[1]);
 }
 
 // the A fragments (hi and lo) of k-step kk of a 16 x 64 accumulator tile
 // acc[8][4] (rows gr, gr + 8; columns 8j + 2tq, +1 of n-tile j)
+template <typename E>
 __device__ __forceinline__ void a_split(const float (&acc)[8][4], int kk, uint32_t (&hi)[4],
                                         uint32_t (&lo)[4]) {
-  split_pair(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
-  split_pair(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
-  split_pair(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
-  split_pair(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+  split_pair<E>(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
+  split_pair<E>(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
+  split_pair<E>(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
+  split_pair<E>(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
 }
 
-// C[16 x 64] += A[16 x 16] . B^T, B a [n][k] bf16 shared tile (rows 0..63,
+// C[16 x 64] += A[16 x 16] . B^T, B a [n][k] E shared tile (rows 0..63,
 // stride ROW bytes): plain ldmatrix gives the col-major B fragments.  All
 // fragments are loaded before the products, so no mma waits on a load.
-template <int ROW>
+template <typename E, int ROW>
 __device__ __forceinline__ void mma_bt(float (&c)[8][4], const uint32_t (&a)[4],
                                        const uint8_t* b, int k0, int lane) {
   uint32_t r[4][4];
@@ -659,16 +703,16 @@ __device__ __forceinline__ void mma_bt(float (&c)[8][4], const uint32_t (&a)[4],
   }
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
-    mma_bf16(c[2 * jj], a, r[jj][0], r[jj][1]);
-    mma_bf16(c[2 * jj + 1], a, r[jj][2], r[jj][3]);
+    mma_tc<E>(c[2 * jj], a, r[jj][0], r[jj][1]);
+    mma_tc<E>(c[2 * jj + 1], a, r[jj][2], r[jj][3]);
   }
 }
 
-// C[16 x D] += (hi + lo)[16 x 16] . B, B a [k][n] bf16 shared tile whose
+// C[16 x D] += (hi + lo)[16 x 16] . B, B a [k][n] E shared tile whose
 // rows k0..k0+15 are read with ldmatrix.trans.  In groups of 8 n-tiles:
 // the group's fragments first, then its hi products, then its lo products,
 // so the two products into one accumulator are 8 apart.
-template <int D, int ROW>
+template <typename E, int D, int ROW>
 __device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t (&hi)[4],
                                             const uint32_t (&lo)[4], const uint8_t* b, int k0,
                                             int lane) {
@@ -685,13 +729,13 @@ __device__ __forceinline__ void mma_split_b(float (&c)[D / 8][4], const uint32_t
     }
 #pragma unroll
     for (int jj = 0; jj < G; ++jj) {
-      mma_bf16(c[2 * (g + jj)], hi, r[jj][0], r[jj][1]);
-      mma_bf16(c[2 * (g + jj) + 1], hi, r[jj][2], r[jj][3]);
+      mma_tc<E>(c[2 * (g + jj)], hi, r[jj][0], r[jj][1]);
+      mma_tc<E>(c[2 * (g + jj) + 1], hi, r[jj][2], r[jj][3]);
     }
 #pragma unroll
     for (int jj = 0; jj < G; ++jj) {
-      mma_bf16(c[2 * (g + jj)], lo, r[jj][0], r[jj][1]);
-      mma_bf16(c[2 * (g + jj) + 1], lo, r[jj][2], r[jj][3]);
+      mma_tc<E>(c[2 * (g + jj)], lo, r[jj][0], r[jj][1]);
+      mma_tc<E>(c[2 * (g + jj) + 1], lo, r[jj][2], r[jj][3]);
     }
   }
 }
@@ -715,7 +759,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 template <int D>
 struct PrefillTc {
-  static constexpr int kRow = (D + 8) * 2;  // bf16 row padded by 16 bytes: ldmatrix's 8
+  static constexpr int kRow = (D + 8) * 2;  // 2-byte row padded by 16 bytes: ldmatrix's 8
                                             // rows hit 8 bank groups
   static constexpr int kChunks = D / 8;     // 16-byte chunks per row
   static constexpr int kPass = kTcThreads / kChunks;  // rows per copy pass
@@ -731,8 +775,9 @@ struct PrefillTc {
 // share of the row sums) and acc are rescaled.  MASK (a partial tile): key
 // c0 + j is kept for vector h iff it is <= lim[h] (-1: a vector with no
 // key), and a masked element is -inf and gets p = 0 without an exp.  A row
-// with nothing kept yet keeps m = -inf and p = 0.
-template <bool MASK, int D>
+// with nothing kept yet keeps m = -inf and p = 0.  In f16, p leaves
+// multiplied by kHalfP, as do the sums it adds to l.
+template <typename E, bool MASK, int D>
 __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
                                              float (&acc)[D / 8][4], float sl2,
                                              const int (&lim)[2], int c0, int tq) {
@@ -761,7 +806,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], fl
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = s[j][e];
-      const float pv = (MASK && x == -INFINITY) ? 0.f : exp2_approx(x - m_use[e >> 1]);
+      float pv = (MASK && x == -INFINITY) ? 0.f : exp2_approx(x - m_use[e >> 1]);
+      if constexpr (kIsHalf<E>) pv *= kHalfP;
       s[j][e] = pv;
       sum[e >> 1] += pv;
     }
@@ -777,14 +823,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], fl
 // query vectors (flattened (row, head-in-group), 16 per warp) of (sequence,
 // kv head) b % (S * KV), from vector base ((nvb - 1 - b / (S * KV)) * 128),
 // so the heaviest vector blocks of every sequence launch first.
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
-paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k_cache,
-                        const __nv_bfloat16* __restrict__ v_cache,
+paged_prefill_tc_kernel(const E* __restrict__ q,
+                        const E* __restrict__ k_cache,
+                        const E* __restrict__ v_cache,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ chunk_start,
-                        const int* __restrict__ chunk_len, __nv_bfloat16* __restrict__ out,
+                        const int* __restrict__ chunk_len, E* __restrict__ out,
                         int S, int Qp, int H, int KV, int BS, int MB, float scale) {
   using L = PrefillTc<D>;
   extern __shared__ __align__(16) uint8_t tc_smem[];
@@ -889,19 +935,19 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) mma_bt<L::kRow>(sc, qf[kk], ks, kk * 16, lane);
+      for (int kk = 0; kk < D / 16; ++kk) mma_bt<E, L::kRow>(sc, qf[kk], ks, kk * 16, lane);
 
       if (kt < kt_full)
-        softmax_tile<false, D>(sc, m, l, acc, sl2, lim, 0, tq);
+        softmax_tile<E, false, D>(sc, m, l, acc, sl2, lim, 0, tq);
       else
-        softmax_tile<true, D>(sc, m, l, acc, sl2, lim, kt * kTcKeys, tq);
+        softmax_tile<E, true, D>(sc, m, l, acc, sl2, lim, kt * kTcKeys, tq);
 
       // O += (P_hi + P_lo) V
 #pragma unroll
       for (int kk = 0; kk < kTcKeys / 16; ++kk) {
         uint32_t hi[4], lo[4];
-        a_split(sc, kk, hi, lo);
-        mma_split_b<D, L::kRow>(acc, hi, lo, vs, kk * 16, lane);
+        a_split<E>(sc, kk, hi, lo);
+        mma_split_b<E, D, L::kRow>(acc, hi, lo, vs, kk * 16, lane);
       }
 
       cp_async_wait<0>();
@@ -915,11 +961,11 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const float lt = quad_sum(l[h]);
     if (row[h] >= Qp) continue;
     const float inv = (lim[h] >= 0 && lt > 0.f) ? 1.f / lt : 0.f;
-    __nv_bfloat16* orow = out + (((size_t)s * Qp + row[h]) * H + head[h]) * D;
+    E* orow = out + (((size_t)s * Qp + row[h]) * H + head[h]) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tq) =
+          pack_pair<E>(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
   }
 }
 
@@ -973,25 +1019,25 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_prefill_tc(const void* q, const void* k, const void* v, const int* bt,
                               const int* cs, const int* cl, void* out, int S, int Qp, int H,
                               int KV, int BS, int MB, cudaStream_t stream) {
   using L = PrefillTc<D>;
-  auto kernel = paged_prefill_tc_kernel<D>;
+  auto kernel = paged_prefill_tc_kernel<E, D>;
   cudaError_t err = allow_smem(kernel, L::kSmem);
   if (err != cudaSuccess) return err;
   const int nvb = (Qp * (H / KV) + kTcVecs - 1) / kTcVecs;
   kernel<<<S * KV * nvb, kTcThreads, L::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bt, cs, cl, static_cast<__nv_bfloat16*>(out), S, Qp,
-      H, KV, BS, MB, 1.0f / sqrtf((float)D));
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), bt, cs, cl,
+      static_cast<E*>(out), S, Qp, H, KV, BS, MB, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128; H / KV: 1, 2, 4 or 8.  The
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D: 64 or 128; H / KV: 1, 2,
+// 4 or 8.  The
 // Python wrapper checks shapes before it calls; a dtype or D outside these
 // gives cudaErrorInvalidValue.  Returns a cudaError_t.
 extern "C" int ds_paged_decode(int dtype, const void* q, const void* k_cache,
@@ -1009,6 +1055,10 @@ extern "C" int ds_paged_decode(int dtype, const void* q, const void* k_cache,
   if (dtype == 1) {
     if (D == 64) DS_DECODE(__nv_bfloat16, 64);
     if (D == 128) DS_DECODE(__nv_bfloat16, 128);
+  }
+  if (dtype == 2) {
+    if (D == 64) DS_DECODE(__half, 64);
+    if (D == 128) DS_DECODE(__half, 128);
   }
   if (dtype == 0) {
     if (D == 64) DS_DECODE(float, 64);
@@ -1031,11 +1081,15 @@ extern "C" int ds_paged_prefill(int dtype, const void* q, const void* k_cache,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DS_PREFILL(DD) \
   return (int)launch_prefill<DD>(q, k_cache, v_cache, bt, cs, cl, out, S, Qp, H, KV, BS, MB, st)
-#define DS_PREFILL_TC(DD) \
-  return (int)launch_prefill_tc<DD>(q, k_cache, v_cache, bt, cs, cl, out, S, Qp, H, KV, BS, MB, st)
+#define DS_PREFILL_TC(E, DD) \
+  return (int)launch_prefill_tc<E, DD>(q, k_cache, v_cache, bt, cs, cl, out, S, Qp, H, KV, BS, MB, st)
   if (dtype == 1) {  // bf16: the tensor-core kernel
-    if (D == 64) DS_PREFILL_TC(64);
-    if (D == 128) DS_PREFILL_TC(128);
+    if (D == 64) DS_PREFILL_TC(__nv_bfloat16, 64);
+    if (D == 128) DS_PREFILL_TC(__nv_bfloat16, 128);
+  }
+  if (dtype == 2) {  // f16: the same kernel at __half
+    if (D == 64) DS_PREFILL_TC(__half, 64);
+    if (D == 128) DS_PREFILL_TC(__half, 128);
   }
   if (dtype == 0) {  // f32: the CUDA-core kernel
     if (D == 64) DS_PREFILL(64);

@@ -81,6 +81,7 @@ from ...models import transformer as tfm
 from ...observability.recorder import recorder
 from ...observability.trace import tracer
 from ...ops.hopper.mixed_gemm import QuantizedWeight
+from ...ops.hopper import paged_attention as paged
 from ...ops.hopper.paged_attention import (paged_decode_attention,
                                            paged_prefill_attention)
 from ...utils import faults
@@ -140,6 +141,23 @@ def _check_config(cfg: V2Config) -> None:
             raise NotImplementedError(
                 f"V2Config.{name}={getattr(cfg, name)!r} is not ported yet: "
                 f"it arrives with ROADMAP.md queue A item {item}")
+
+
+def check_card_coverage(model_config: tfm.TransformerConfig, dtype: str,
+                        what: str = "model") -> None:
+    """On the card every attention call of the engine runs the paged
+    kernels (B4, B5).  A model that no instantiation of theirs covers is
+    refused here, at construction, naming its ROADMAP.md item (port rule
+    6), instead of raising at its first step."""
+    dt = tfm.torch_dtype(dtype)
+    H, KV, D = (model_config.num_heads, model_config.kv_heads,
+                model_config.head_dim)
+    if not paged.kernels_cover(dt, H, KV, D):
+        raise NotImplementedError(
+            f"{what} in {dtype} with H={H}, KV={KV}, head dim {D} on the "
+            f"card: the paged attention kernels (B4, B5) take "
+            f"{paged.coverage()}; another instantiation arrives with "
+            f"ROADMAP.md queue B, coverage")
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +517,8 @@ class InferenceEngineV2:
         self.cfg = config or V2Config()
         _check_config(self.cfg)
         self.model_cfg = dataclasses.replace(model_config, dtype=self.cfg.dtype)
+        if self.device.type == "cuda":
+            check_card_coverage(self.model_cfg, self.cfg.dtype)
         dt = tfm.torch_dtype(self.cfg.dtype)
         if self.cfg.quantize_bits:
             # quantize the caller's raw weights before any cast, as the
@@ -624,6 +644,9 @@ class InferenceEngineV2:
                     "spec_mode='draft' needs draft_params and draft_config")
             self.draft_cfg = dataclasses.replace(draft_config,
                                                  dtype=self.cfg.dtype)
+            if self.device.type == "cuda":
+                check_card_coverage(self.draft_cfg, self.cfg.dtype,
+                                    "draft model")
             self.draft_params = _cast_tree(draft_params, self.device, dt)
             dshape = (self.draft_cfg.num_layers, self.cfg.num_blocks,
                       self.cfg.block_size, self.draft_cfg.kv_heads,

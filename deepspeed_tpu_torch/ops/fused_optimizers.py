@@ -35,7 +35,7 @@ LAUNCHES = {"fused_adamw": 0}
 #: calls of the plain version (the CPU path and the kernel's oracle)
 PLAIN_CALLS = {"adamw_plain": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_counts() -> None:
@@ -75,8 +75,8 @@ def adamw_plain(params: torch.Tensor, grads: torch.Tensor, m: torch.Tensor,
 
 def _check(params, grads, m, v, step) -> None:
     if params.dtype not in _DTYPE_CODES or grads.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_adamw kernel takes float32 or bfloat16 "
-                        f"params and grads, got {params.dtype}, "
+        raise TypeError(f"fused_adamw kernel takes float32, bfloat16 or "
+                        f"float16 params and grads, got {params.dtype}, "
                         f"{grads.dtype}")
     if m.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"fused_adamw: m and v must be float32, got "

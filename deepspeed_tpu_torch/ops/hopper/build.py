@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -30,6 +31,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES: Tuple[Path, ...] = (CSRC / "paged_attention.cu",
                              CSRC / "flash_attention.cu",
                              CSRC / "flash_attention_bias.cu",
+                             CSRC / "flash_attention_bias_f16.cu",
                              CSRC / "flash_attention_f16.cu",
                              CSRC / "mixed_gemm.cu",
                              CSRC / "grouped_matmul.cu",
@@ -98,9 +100,10 @@ def library_path() -> Path:
 
 def build() -> Tuple[float, str]:
     """Compile the kernel library unless it is built already.  Returns the
-    seconds the build took and ``nvcc``'s output (ptxas' register and spill
-    report), or ``(0.0, "")`` for a library already on disk; raises
-    ``RuntimeError`` with the compiler's output when the build fails."""
+    seconds the build took and ``nvcc``'s output (each source's seconds,
+    ptxas' register and spill report), or ``(0.0, "")`` for a library
+    already on disk; raises ``RuntimeError`` with the compiler's output
+    when the build fails."""
     out = library_path()
     if out.exists():
         return 0.0, ""
@@ -114,10 +117,16 @@ def build() -> Tuple[float, str]:
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(SOURCES, objs)]
-    logs, failed = [], []
-    for src, proc in zip(SOURCES, procs):
+
+    def finish(proc):  # each read on its own thread: the pipes never fill
         log = proc.communicate()[0]
-        logs.append(f"== {src.name}\n{log}")
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    logs, failed = [], []
+    for src, proc, (log, secs) in zip(SOURCES, procs, done):
+        logs.append(f"== {src.name} ({secs:.1f} s)\n{log}")
         if proc.returncode != 0:
             failed.append(f"{src.name} (nvcc exit {proc.returncode})")
     try:

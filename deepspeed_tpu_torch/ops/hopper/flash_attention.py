@@ -20,9 +20,10 @@ key gives o = 0 and lse = -inf.
 :func:`flash_fwd` (not the public op) also takes the reference's additive
 biases, in this layout: ``bias_kv`` ``(B, Skv)``, one value per key
 broadcast over rows and heads, and ``bias_qk`` ``(B', H, S, Skv)`` with
-``B % B' == 0``, batch b reading ``bias_qk[b // (B // B')]``; each bf16 or
-f32.  The scores become ``s * sm_scale + bias_kv + bias_qk`` in f32, then
-the masks drop elements, then the softmax runs; lse includes the biases.
+``B % B' == 0``, batch b reading ``bias_qk[b // (B // B')]``; each f32 or
+the forward's half type (bf16; f16 for an f16 forward).  The scores
+become ``s * sm_scale + bias_kv + bias_qk`` in f32, then the masks drop
+elements, then the softmax runs; lse includes the biases.
 Their only caller is ``ops/evoformer.py``, whose backward is plain torch,
 so the backward kernels take no bias.
 
@@ -34,8 +35,8 @@ forward, dK/dV and dQ run on the tensor cores (p and ds split into hi/lo
 pairs of the input's type, so they keep f32 precision; in f16 p is split
 after a multiply by 2^14 and ds after a power-of-two scale per row, so
 neither leaves f16's range: an output past 65504 still reads inf, as the
-reference's cast gives it); f32 runs on the CUDA cores.  The f16 forward
-takes no bias.  On CPU tensors it runs the
+reference's cast gives it); f32 runs on the CUDA cores.  On CPU tensors
+it runs the
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_dkdv_plain``,
 ``flash_bwd_dq_plain``), which is also the kernels' oracle on the card.
 The public :func:`flash_attention` copies a strided or (bf16) misaligned
@@ -257,9 +258,6 @@ def _check_bias(q, bias_kv, bias_qk, B, S, Skv, H) -> Tuple:
     for i, (name, t) in enumerate((("bias_kv", bias_kv), ("bias_qk", bias_qk))):
         if t is None:
             continue
-        if q.dtype == torch.float16:
-            raise TypeError(f"{name}: the f16 forward takes no bias (the "
-                            "biased kernels run bf16 or f32)")
         if name == "bias_kv":
             if tuple(t.shape) != (B, Skv):
                 raise ValueError(f"bias_kv must be (B, Skv) = {(B, Skv)}, got "
@@ -271,15 +269,17 @@ def _check_bias(q, bias_kv, bias_qk, B, S, Skv, H) -> Tuple:
                              f"{tuple(t.shape)}")
         else:
             rep = B // t.shape[0]
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name} must be bfloat16 or float32, got {t.dtype}")
+        half = torch.float16 if q.dtype == torch.float16 else torch.bfloat16
+        if t.dtype not in (torch.float32, half):
+            raise TypeError(f"{name} must be {half} or float32 for a "
+                            f"{q.dtype} forward, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned: the bf16 "
-                             "kernels copy 16-byte chunks")
+        if t.dtype == half and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the "
+                             f"{half} kernels copy 16-byte chunks")
         ptrs[i], codes[i] = t.data_ptr(), _DTYPE_CODES[t.dtype]
     return ptrs[0], ptrs[1], codes[0], codes[1], rep
 

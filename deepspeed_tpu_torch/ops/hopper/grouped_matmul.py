@@ -11,13 +11,15 @@ accumulation and the result in lhs's dtype, what ``_gmm_kernel`` computes.
   ``csrc/grouped_matmul.cu`` on the current stream (:data:`LAUNCHES`) or
   raise on what they do not take; CPU tensors run
   :func:`grouped_matmul_plain` (:data:`PLAIN_CALLS`), which is also the
-  kernels' oracle on the card.  The dispatch (:func:`uses_wgmma`): bf16 on
-  (E, K, N) weights with ``tile_m`` a multiple of 64 (dropless MoE's mixed
-  steps) runs ``grouped_matmul_wgmma_kernel`` (also counted in
+  kernels' oracle on the card.  The dispatch (:func:`uses_wgmma`): bf16 or
+  f16 on (E, K, N) weights with ``tile_m`` a multiple of 64 (dropless MoE's
+  mixed steps) runs ``grouped_matmul_wgmma_kernel`` (also counted in
   :data:`WGMMA_LAUNCHES`), which finds each expert's tiles in
-  ``tile_group`` itself and reads each expert's weights once; bf16 at
-  ``tile_m`` 16 (decode bodies) or on transposed weights runs
-  ``grouped_matmul_bf16_kernel``, f32 ``grouped_matmul_f32_kernel``.
+  ``tile_group`` itself and reads each expert's weights once; bf16 or f16
+  at ``tile_m`` 16 (decode bodies) or on transposed weights runs
+  ``grouped_matmul_bf16_kernel``, f32 ``grouped_matmul_f32_kernel``.  f16
+  runs the bf16 kernels at ``__half`` (f16 x f16 products are exact in
+  f32).
 * ``num_used_tiles`` (a device int32 scalar, from
   ``tile_aligned_layout(..., with_used_tiles=True)``) marks where the real
   groups end.  The layout always appends all-padding tiles that the
@@ -54,7 +56,9 @@ WGMMA_LAUNCHES = {"grouped_matmul": 0}
 #: calls of the plain version (the CPU path and the kernel's oracle)
 PLAIN_CALLS = {"grouped_matmul_plain": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the 2-byte types: the tensor-core kernels' (16-byte rows)
+_HALF_TYPES = (torch.bfloat16, torch.float16)
 _KERNEL_TILE_M = (64, 16)  # the kernel's row-block heights, largest first
 
 
@@ -141,10 +145,10 @@ def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
 
 def uses_wgmma(dtype: torch.dtype, tile_m: int, rhs_transposed: bool
                ) -> bool:
-    """Whether a CUDA call runs ``grouped_matmul_wgmma_kernel``: bf16, rhs
-    read as (K, N), and layout tiles of a multiple of 64 rows (its 64-row
-    sub-tiles never span two experts)."""
-    return (dtype == torch.bfloat16 and not rhs_transposed
+    """Whether a CUDA call runs ``grouped_matmul_wgmma_kernel``: bf16 or
+    f16, rhs read as (K, N), and layout tiles of a multiple of 64 rows (its
+    64-row sub-tiles never span two experts)."""
+    return (dtype in _HALF_TYPES and not rhs_transposed
             and tile_m % 64 == 0)
 
 
@@ -167,18 +171,18 @@ def _stream(device: torch.device) -> int:
 def _grouped_matmul_cuda(lhs, rhs, tile_group, tile_m, rhs_transposed,
                          num_used_tiles) -> torch.Tensor:
     if lhs.dtype not in _DTYPE_CODES or rhs.dtype != lhs.dtype:
-        raise TypeError(f"grouped_matmul kernel takes bfloat16 or float32 "
-                        f"lhs and rhs of one dtype, got {lhs.dtype}, "
-                        f"{rhs.dtype}")
+        raise TypeError(f"grouped_matmul kernel takes bfloat16, float16 or "
+                        f"float32 lhs and rhs of one dtype, got "
+                        f"{lhs.dtype}, {rhs.dtype}")
     M, K = lhs.shape
     E = rhs.shape[0]
     N = rhs.shape[1] if rhs_transposed else rhs.shape[2]
     bm = kernel_tile_m(tile_m)
-    if lhs.dtype == torch.bfloat16 and (K % 8 or N % 8 or lhs.data_ptr() % 16
-                                        or rhs.data_ptr() % 16):
-        raise ValueError(f"grouped_matmul kernel (bf16) loads 16-byte rows: "
-                         f"K and N must be multiples of 8 and lhs, rhs "
-                         f"16-byte aligned, got K={K}, N={N}")
+    if lhs.dtype in _HALF_TYPES and (K % 8 or N % 8 or lhs.data_ptr() % 16
+                                     or rhs.data_ptr() % 16):
+        raise ValueError(f"grouped_matmul kernel ({lhs.dtype}) loads "
+                         f"16-byte rows: K and N must be multiples of 8 and "
+                         f"lhs, rhs 16-byte aligned, got K={K}, N={N}")
     if tile_group.dtype != torch.int32 or tuple(tile_group.shape) != (
             M // tile_m,):
         raise ValueError(f"tile_group must be int32 ({M // tile_m},), got "

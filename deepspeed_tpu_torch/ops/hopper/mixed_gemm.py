@@ -26,8 +26,11 @@ the hand-written kernels of ``csrc/mixed_gemm.cu`` on the current stream
 ``mixed_gemm_decode_kernel`` for M <= 16 rows (:data:`DECODE_LAUNCHES`;
 :func:`decode_blocks` blocks, each an equal share of the tiles' K-steps,
 whose shared tiles are added up in the same launch through the stream's
-tickets, :func:`_tickets`), ``mixed_gemm_wgmma_kernel`` for bf16 x at M > 16
-(:data:`WGMMA_LAUNCHES`), ``mixed_gemm_mma_kernel`` for f32 x at M > 16;
+tickets, :func:`_tickets`), ``mixed_gemm_wgmma_kernel`` for bf16 or f16 x
+at M > 16 (:data:`WGMMA_LAUNCHES`), ``mixed_gemm_mma_kernel`` for f32 x at
+M > 16; f16 x is rounded to bf16, as the reference rounds any x (by the
+decode kernel as it loads x; above 16 rows by a rounding pass that the same
+C entry launches first, into the workspace), and y is written in f16;
 W8A8 runs ``int8_gemm_wgmma_kernel`` at M > 16 where TMA takes the rows
 (N a multiple of 16, 16-byte aligned arrays; also counted in
 :data:`WGMMA_LAUNCHES`) and ``int8_gemm_mma_kernel`` elsewhere
@@ -58,7 +61,7 @@ from . import build
 LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0, "mixed_gemm_fp6": 0,
             "int8_gemm": 0}
 #: of those launches, the ones of the wgmma kernels: per code width
-#: ``mixed_gemm_wgmma_kernel`` (bf16 x, M > 16), and
+#: ``mixed_gemm_wgmma_kernel`` (bf16 or f16 x, M > 16), and
 #: ``int8_gemm_wgmma_kernel`` (:func:`int8_uses_wgmma`)
 WGMMA_LAUNCHES = {"mixed_gemm_int8": 0, "mixed_gemm_int4": 0,
                   "mixed_gemm_fp6": 0, "int8_gemm": 0}
@@ -71,12 +74,14 @@ PLAIN_CALLS = {"mixed_gemm_plain": 0, "int8_gemm_plain": 0}
 #: calls outside the reference's kernel envelope (its dequantize formula)
 DEQUANT_CALLS = {"mixed_gemm": 0, "int8_gemm": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the 2-byte activation types, which take the bf16 kernels' paths
+_HALF_TYPES = (torch.bfloat16, torch.float16)
 # the kernels' (rows, columns) per block and resident blocks per SM, for
 # the split-K choice (csrc): Dec for M <= 16 (8 warps on 128 columns, at
 # most 128 registers a thread and two blocks per SM for one n8 tile of x
-# rows, M <= 8; one block for two); above, WgSmem for bf16 x (128 rows up
-# to M = 128, else 256) and MmaSmem for f32 x
+# rows, M <= 8; one block for two); above, WgSmem for bf16 or f16 x (128
+# rows up to M = 128, else 256) and MmaSmem for f32 x
 _SMALL_M = 16
 _DECODE_COLS = 128
 _MMA_TILE = (128, 128, 2)
@@ -325,8 +330,8 @@ def _stream(device: torch.device) -> int:
 
 def _check_x(name: str, x2: torch.Tensor) -> None:
     if x2.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name} takes bfloat16 or float32 activations, got "
-                        f"{x2.dtype}")
+        raise TypeError(f"{name} takes bfloat16, float16 or float32 "
+                        f"activations, got {x2.dtype}")
     if not x2.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
 
@@ -365,7 +370,8 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
 
 
 def _mixed_tile(M: int, bf16: bool):
-    """(rows, columns, blocks per SM) of the M > 16 kernel for M rows."""
+    """(rows, columns, blocks per SM) of the M > 16 kernel for M rows
+    (``bf16``: 2-byte x, bf16 or f16, on the wgmma kernel)."""
     if not bf16:
         return _MMA_TILE
     return (128 if M <= 128 else 256), 128, 1
@@ -440,7 +446,7 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0 or N == 0:
         return out
-    bf16 = x2.dtype == torch.bfloat16
+    bf16 = x2.dtype in _HALF_TYPES  # the wgmma kernel above 16 rows
     decode = M <= _SMALL_M
     sms = _sm_count(x2.device)
     # the decode kernel's blocks, or the split count above 16 rows
@@ -448,16 +454,20 @@ def _mixed_gemm_cuda(x2: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
         mixed_gemm_splits(M, N, K // qw.group, sms, bf16)
     stream = _stream(x2.device)
     # the partial sums of shared tiles (decode: two segments a block, M rows
-    # of 128 columns) or of the K-splits, one buffer per call from the
-    # caching allocator on the launch stream: calls from several threads on
-    # one stream never share it, and it is reused only after this call's sum
+    # of 128 columns) or of the K-splits, then f16 x rounded to bf16 above
+    # 16 rows (M * K, from a 16-byte boundary): one buffer per call from
+    # the caching allocator on the launch stream: calls from several
+    # threads on one stream never share it, and it is reused only after
+    # this call's sum
     ws = tickets = None
-    if splits > 1:
-        ws = torch.empty(2 * splits * M * _DECODE_COLS if decode
-                         else splits * M * N, dtype=torch.float32,
+    sums = 0 if splits == 1 else (2 * splits * M * _DECODE_COLS if decode
+                                  else splits * M * N)
+    x_bf16 = 0 if decode or x2.dtype != torch.float16 else -(-M * K // 2)
+    if sums or x_bf16:
+        ws = torch.empty(-(-sums // 4) * 4 + x_bf16, dtype=torch.float32,
                          device=x2.device)
-        if decode:
-            tickets = _tickets(x2.device, stream, -(-N // _DECODE_COLS))
+    if decode and splits > 1:
+        tickets = _tickets(x2.device, stream, -(-N // _DECODE_COLS))
     lib = build.load()
     err = lib.ds_mixed_gemm(
         _DTYPE_CODES[x2.dtype], qw.bits, x2.data_ptr(), qw.codes.data_ptr(),
@@ -491,7 +501,7 @@ def int8_gemm_quantized(xc: torch.Tensor, xs: torch.Tensor,
                         ) -> torch.Tensor:
     """The W8A8 kernels on CUDA activations already quantized by
     :func:`quantize_activations_rowwise` (codes (M, K) int8, scales
-    (M, K/group) f32); the result in ``dtype`` (bf16 or f32)."""
+    (M, K/group) f32); the result in ``dtype`` (bf16, f16 or f32)."""
     if xc.device.type != "cuda":
         raise ValueError(f"int8_gemm_quantized: the kernel needs CUDA "
                          f"tensors, got {xc.device}")
@@ -500,8 +510,8 @@ def int8_gemm_quantized(xc: torch.Tensor, xs: torch.Tensor,
     if xc.dtype != torch.int8 or xs.dtype != torch.float32 or tuple(
             xs.shape) != (M, K // qw.group) or dtype not in _DTYPE_CODES:
         raise TypeError("int8_gemm_quantized takes int8 codes (M, K), "
-                        "float32 scales (M, K/group) and a bfloat16 or "
-                        "float32 output dtype")
+                        "float32 scales (M, K/group) and a bfloat16, "
+                        "float16 or float32 output dtype")
     if not xc.is_contiguous():
         raise ValueError("int8_gemm: x codes must be contiguous")
     _check_weight("int8_gemm", qw, xc.device)

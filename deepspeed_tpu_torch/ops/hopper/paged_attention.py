@@ -13,7 +13,7 @@ Each entry has the reference's signature and layouts:
   positions <= its own and < ``chunk_start[s] + chunk_len[s]``; rows
   >= ``chunk_len[s]`` give zeros.
 
-On CUDA tensors a wrapper checks dtype (bf16 or f32), shapes, devices,
+On CUDA tensors a wrapper checks dtype (bf16, f16 or f32), shapes, devices,
 contiguity and (caches) 16-byte alignment, launches its hand-written kernel
 from ``csrc/paged_attention.cu`` on the current stream, and raises on
 anything the kernel does not take — it never falls back.  Decode is
@@ -21,10 +21,11 @@ split-KV: each chain is cut into splits of :func:`decode_split` positions
 (fixed by ``max_blocks * block_size``, never by ``context_lens``, so a
 call never waits on the device), one block each, merged in split order
 through an f32 workspace by a second kernel of the same call.  Prefill
-dispatches on dtype: bf16 runs ``paged_prefill_tc_kernel`` on the tensor
-cores (64-key tiles gathered through the block table, any block size),
-f32 the CUDA-core ``paged_prefill_kernel`` (one staged K/V block per
-step).  On CPU tensors a wrapper runs the plain PyTorch version
+dispatches on dtype: bf16 and f16 run ``paged_prefill_tc_kernel`` on the
+tensor cores (64-key tiles gathered through the block table, any block
+size; f16 splits p into f16 hi/lo after a multiply by 2^14), f32 the
+CUDA-core ``paged_prefill_kernel`` (one staged K/V block per step).  On
+CPU tensors a wrapper runs the plain PyTorch version
 (``decode_attention_plain`` / ``prefill_attention_plain``), which is also
 the kernels' oracle on the card.
 """
@@ -42,7 +43,7 @@ LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
 #: calls of each plain version (the CPU path and the kernels' oracle)
 PLAIN_CALLS = {"decode_attention_plain": 0, "prefill_attention_plain": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)  # the kernels' instantiations (csrc: ds_paged_*)
 #: the same launches by head dim: (kernel, D) -> launches
 LAUNCHES_BY_HEAD_DIM = {(name, d): 0 for name in LAUNCHES for d in _HEAD_DIMS}
@@ -127,10 +128,24 @@ def decode_split(positions: int) -> int:
     return _SPLIT_UNIT * max(1, -(-per // _SPLIT_UNIT))
 
 
+def kernels_cover(dtype: torch.dtype, H: int, KV: int, D: int) -> bool:
+    """Whether the card's kernels have an instantiation for attention in
+    ``dtype`` with H query heads over KV kv heads of head dim D."""
+    return (dtype in _DTYPE_CODES and D in _HEAD_DIMS and KV > 0
+            and H % KV == 0 and H // KV in _GROUPS)
+
+
+def coverage() -> str:
+    """What the card's kernels take, for a refusal's message."""
+    names = ", ".join(str(dt).replace("torch.", "") for dt in _DTYPE_CODES)
+    return (f"dtypes {names}, head dims {_HEAD_DIMS} and "
+            f"{'/'.join(map(str, _GROUPS))} query heads per kv head")
+
+
 def _check_common(q, k_cache, v_cache, int_args, H, D):
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged attention kernels take bfloat16 or float32, "
-                        f"got {q.dtype}")
+        raise TypeError(f"paged attention kernels take bfloat16, float16 or "
+                        f"float32, got {q.dtype}")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError("q, k_cache and v_cache must share one dtype, got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
@@ -224,8 +239,9 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_start,
             or tuple(chunk_len.shape) != (S,):
         raise ValueError("block_tables must be (S, MB), chunk_start and "
                          f"chunk_len (S,) for S={S}")
-    # the f32 kernel stages one whole K and V block; the bf16 kernel walks
-    # 64-key tiles gathered through the block table, whatever the block size
+    # the f32 kernel stages one whole K and V block; the bf16 and f16 kernel
+    # walks 64-key tiles gathered through the block table, whatever the
+    # block size
     smem = 2 * BS * D * q.element_size()
     if q.dtype == torch.float32 and smem > _MAX_SMEM:
         raise ValueError(f"a K and a V block take {smem} bytes of shared "

@@ -157,8 +157,10 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
         tfa._check(q, kv, kv, mask)
     assert tfa._check(q.half(), kv.half(), kv.half(), mask)[-2] == 64
-    with pytest.raises(TypeError, match="f16 forward takes no bias"):
-        tfa._check_bias(q.half(), torch.zeros((1, 8)), None, 1, 8, 8, 4)
+    with pytest.raises(TypeError, match="float16 or float32 for a "
+                       "torch.float16 forward"):
+        tfa._check_bias(q.half(), torch.zeros((1, 8), dtype=torch.float64),
+                        None, 1, 8, 8, 4)
     q, kv = q.float(), kv.float()
     with pytest.raises(ValueError, match="head dim"):
         tfa._check(q[..., :48], kv[..., :48], kv[..., :48], mask)

@@ -27,8 +27,13 @@ pytestmark = pytest.mark.cuda
 
 # per dtype (atol, rtol): f32 differs from the plain version only in
 # summation order; a bf16 output element may round one ulp (2**-7 of its
-# size) the other way
-TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 1e-2)}
+# size) the other way, an f16 one one ulp (2**-10 of its size: 2e-3 covers
+# it where the element lies just under a power of two)
+TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 1e-2),
+             torch.float16: (1e-4, 2e-3)}
+# the serving kernels' dtypes on the card
+PAGED_DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
+                    ids=["f32", "bf16", "f16"])
 
 
 @pytest.fixture
@@ -60,8 +65,7 @@ def _inputs(seed, H, KV, D, BS, dtype, device):
              dev(length, False)))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("H,KV,D", [(8, 8, 64), (8, 2, 128), (32, 8, 128),
                                     (8, 1, 64)])
 def test_kernels_match_plain(cuda_device, dtype, H, KV, D):
@@ -83,8 +87,7 @@ def test_kernels_match_plain(cuda_device, dtype, H, KV, D):
                             "paged_prefill_attention": 1}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("H,KV,D", [(32, 8, 128), (8, 1, 64), (8, 8, 128)])
 def test_split_kv_decode_matches_plain(cuda_device, dtype, H, KV, D):
     """Chains of 2048 positions (BS = 64, MB = 32: 16 splits of 128), at
@@ -114,8 +117,7 @@ def test_split_kv_decode_matches_plain(cuda_device, dtype, H, KV, D):
     assert tpa.LAUNCHES["paged_decode_attention"] == 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("BS", [8, 16, 64, 128])
 @pytest.mark.parametrize("H,KV,D", [(8, 8, 64), (8, 4, 128), (32, 8, 128),
                                     (8, 1, 64)],
@@ -168,8 +170,8 @@ def test_decode_makes_no_host_sync(cuda_device):
 
 
 def test_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
-    dec, pre = _inputs(1, 8, 2, 128, 16, torch.float16, cuda_device)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
+    dec, pre = _inputs(1, 8, 2, 128, 16, torch.float64, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
         tpa.paged_decode_attention(*dec)
     dec, pre = _inputs(1, 8, 2, 128, 16, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -378,9 +380,11 @@ def test_flash_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
                                     cuda_device, {})
     with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
         tfa.flash_fwd(q, k, v, am, 0.125)
-    with pytest.raises(TypeError, match="f16 forward takes no bias"):
+    with pytest.raises(TypeError, match="bias_kv must be torch.float16 or "
+                       "float32 for a torch.float16 forward"):
         tfa.flash_fwd(q.half(), k.half(), v.half(), am, 0.125,
-                      bias_kv=torch.zeros((1, 64), device=cuda_device))
+                      bias_kv=torch.zeros((1, 64), dtype=torch.float64,
+                                          device=cuda_device))
     q, k, v = q.float(), k.float(), v.float()
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
@@ -482,6 +486,46 @@ def test_flash_fwd_bias_matches_plain(cuda_device, dtype, bias_dtype, D, L):
     assert tfa.BIAS_LAUNCHES == {"flash_fwd_bias": 3}
 
 
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.float16],
+                         ids=["bias_f32", "bias_f16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("L", BIAS_L)
+def test_flash_fwd_f16_bias_matches_plain(cuda_device, bias_dtype, D, L):
+    """The f16 forward with its biases (f16 or f32; the bias unit's f16
+    instantiations): a masked key sits at -1e4, OpenFold's mask value in
+    low precision (-1e9 is -inf in f16), so the padded sequence's scores
+    keep their q.k terms and its o is held to the plain version only."""
+    B, H = 4, 4
+    q, k, v, bias_kv, bias_qk = _bias_inputs(
+        0, B, L, H, H, D, torch.float16, torch.float32, cuda_device, 2)
+    bias_kv = bias_kv.clamp(min=-1e4).to(bias_dtype)
+    bias_qk = bias_qk.to(bias_dtype)
+    am = tfa.AttnMask(causal=False)
+    tfa.reset_counts()
+    for b1, b2 in ((bias_kv, bias_qk), (bias_kv, None), (None, bias_qk)):
+        if b1 is None:
+            _check_bias_fwd(q, k, v, am, b1, b2, torch.float16)
+            continue
+        # the padded sequence (batch 1): every score sits near -1e4, where
+        # f32's spacing is 2**-10 on both sides, so each p carries a
+        # relative error up to 1e4 * 2**-24 and o may move by twice that
+        # times max |v|; the other sequences are held to the f16 limit
+        scale = 1.0 / D ** 0.5
+        o, lse = tfa.flash_fwd(q, k, v, am, scale, b1, b2)
+        o_p, lse_p = tfa.flash_fwd_plain(q, k, v, am, scale, b1, b2)
+        rest = [0, 2, 3]
+        _close(o[rest], o_p[rest], torch.float16, "o")
+        torch.testing.assert_close(
+            o[1].float(), o_p[1].float(), rtol=2e-3,
+            atol=2 * 1e4 * 2.0 ** -24 * v[1].float().abs().max().item(),
+            msg="o of the padded sequence")
+        torch.testing.assert_close(lse, lse_p, atol=1e-4,
+                                   rtol=BIAS_LSE_RTOL)
+    assert tfa.LAUNCHES == {"flash_fwd": 3, "flash_bwd_dkdv": 0,
+                            "flash_bwd_dq": 0}
+    assert tfa.BIAS_LAUNCHES == {"flash_fwd_bias": 3}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ["causal", "window_mid_tile",
@@ -564,34 +608,35 @@ def _mixed_close(got, want, dtype, what):
     """Both sides sum the same exact bf16 products in f32: f32 output,
     summation order only (1e-5 of the largest output; one dropped 256-row
     group moves outputs by ~50% of their size); bf16 output, one output ulp
-    (2**-7 of an element's size) on top."""
+    (2**-7 of an element's size) on top; f16 output, one f16 ulp (2e-3 of
+    its size)."""
     want = want.float()
-    rtol = 0.0 if dtype == torch.float32 else 1e-2
+    rtol = TOLERANCE[dtype][1]
     torch.testing.assert_close(got.float(), want, rtol=rtol,
                                atol=1e-5 * want.abs().max().item(), msg=what)
 
 
 def _mixed_launched(bits, M, dtype):
     """One launch, of the kernel that takes M rows and x's dtype:
-    mixed_gemm_decode_kernel at M <= 16, the wgmma kernel for bf16 x
-    above."""
+    mixed_gemm_decode_kernel at M <= 16, the wgmma kernel for bf16 or f16
+    x above."""
     name = tmg._KERNEL_NAMES[bits]
     assert tmg.LAUNCHES[name] == 1
     assert tmg.DECODE_LAUNCHES[name] == int(M <= 16)
-    assert tmg.WGMMA_LAUNCHES[name] == int(dtype == torch.bfloat16
+    assert tmg.WGMMA_LAUNCHES[name] == int(dtype != torch.float32
                                            and M > 16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("M", [1, 2, 8, 9, 15, 16, 17, 37, 64, 255, 256,
                                300])
 @pytest.mark.parametrize("bits", [8, 4, 6])
 def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
     """M <= 16 runs the decode kernel (one n8 tile of x rows up to M = 8,
-    two above); bf16 x at M > 16 the wgmma kernel (TMA copies; 128- and
-    256-row blocks, ragged last ones), f32 x at M > 16 the mma.sync
-    kernel; N = 96 leaves a ragged column block."""
+    two above); bf16 or f16 x at M > 16 the wgmma kernel (TMA copies;
+    128- and 256-row blocks, ragged last ones; f16 x rounded to bf16 by the
+    same entry's pass first), f32 x at M > 16 the mma.sync kernel; N = 96
+    leaves a ragged column block."""
     for N in (96, 1024):
         x, qw = _mixed_inputs(M + N, M, MG_K, N, bits, dtype, cuda_device)
         tmg.reset_counts()
@@ -603,26 +648,28 @@ def test_mixed_gemm_matches_plain(cuda_device, bits, M, dtype):
         assert tmg.DEQUANT_CALLS["mixed_gemm"] == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("splits", [1, 3, 7])
 @pytest.mark.parametrize("M", [2, 8, 9, 15, 16, 256])
 def test_mixed_gemm_split_k_matches_plain(cuda_device, monkeypatch, M,
-                                          splits):
-    """Seven K-groups shared by 1, 3 (2 + 2 + 3) or 7 splits, both bf16
+                                          splits, dtype):
+    """Seven K-groups shared by 1, 3 (2 + 2 + 3) or 7 splits, both 2-byte
     kernels: the wgmma kernel's K-splits, and the decode kernel's blocks
     (8 tiles x splits blocks, each an equal share of the tiles' 112 steps:
     whole tiles, shares of 37 1/3 steps that straddle tiles, or 16), whose
     last block of a tile adds the shares' sums; the partial sums add up,
-    and each call leaves the stream's tickets at zero for the next."""
+    and each call leaves the stream's tickets at zero for the next.  f16 x
+    at M = 256 puts its bf16 copy in the workspace after the sums."""
     monkeypatch.setattr(tmg, "mixed_gemm_splits", lambda *a: splits)
     monkeypatch.setattr(tmg, "decode_blocks",
                         lambda M, N, *a: -(-N // 128) * splits)
     for bits in (8, 4, 6):
         x, qw = _mixed_inputs(splits + bits, M, 7 * MG_GROUP, 1024, bits,
-                              torch.bfloat16, cuda_device)
+                              dtype, cuda_device)
         tmg.reset_counts()
         _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
-                     torch.bfloat16, f"bits={bits} splits={splits}")
-        _mixed_launched(bits, M, torch.bfloat16)
+                     dtype, f"bits={bits} splits={splits}")
+        _mixed_launched(bits, M, dtype)
     torch.cuda.synchronize()
     for buf in tmg._TICKETS.values():
         assert not buf.any().item()
@@ -666,8 +713,7 @@ def test_mixed_gemm_split_k_from_two_threads(cuda_device):
             _mixed_close(got, want, torch.bfloat16, f"thread {i} call {j}")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("bits,K,N", [(8, 99, 33), (4, 200, 50),
                                       (6, 96, 40), (8, 96, 64),
                                       (4, 96, 64)],
@@ -679,14 +725,22 @@ def test_mixed_gemm_unaligned_shapes_match_plain(cuda_device, bits, K, N,
     rows and columns not 16-byte aligned (the decode kernel loads their
     codes byte by byte, x by elements at odd K), or aligned with a group
     that 64-deep K-tiles do not divide (the wgmma kernel's threads copy
-    these, not TMA), a partial last K tile (K-step at the decode rows)."""
-    for M in (2, 5, 9, 15, 16, 40):
+    these, not TMA), a partial last K tile (K-step at the decode rows).
+    M = 41 also from an x one element past a 16-byte boundary (f16 x: the
+    rounding pass's element-wise path, and a tail past its 8-wide chunks)."""
+    for M in (2, 5, 9, 15, 16, 40, 41):
         x, qw = _mixed_inputs(K + M, M, K, N, bits, dtype, cuda_device)
         assert tmg.mixed_gemm_on_kernel_path(qw) and qw.group == K
-        tmg.reset_counts()
-        _mixed_close(tmg.mixed_gemm(x, qw), tmg.mixed_gemm_plain(x, qw),
-                     dtype, f"bits={bits} K={K} M={M}")
-        _mixed_launched(bits, M, dtype)
+        xs = [x]
+        if M == 41:
+            xs.append(torch.empty(x.numel() + 1, dtype=dtype,
+                                  device=cuda_device)[1:].view(x.shape))
+            xs[1].copy_(x)
+        for xi in xs:
+            tmg.reset_counts()
+            _mixed_close(tmg.mixed_gemm(xi, qw), tmg.mixed_gemm_plain(x, qw),
+                         dtype, f"bits={bits} K={K} M={M}")
+            _mixed_launched(bits, M, dtype)
 
 
 def test_mixed_gemm_split_k_on_two_streams(cuda_device):
@@ -715,8 +769,7 @@ def test_mixed_gemm_split_k_on_two_streams(cuda_device):
             _mixed_close(got, want, torch.bfloat16, f"stream {i} call {j}")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("M", [1, 8, 37, 256])
 def test_int8_gemm_matches_plain_exactly(cuda_device, M, dtype):
     """The kernel sums each group's int8 products exactly and rescales
@@ -731,8 +784,7 @@ def test_int8_gemm_matches_plain_exactly(cuda_device, M, dtype):
         assert tmg.LAUNCHES["int8_gemm"] == 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("M", [8, 16, 17, 64, 256, 300])
 def test_int8_kernels_bit_exact_and_dispatched(cuda_device, M, dtype):
     """int8_gemm_mma_kernel (M <= 16, and N off TMA's 16-byte rows) and
@@ -794,8 +846,8 @@ def test_int8_kernels_raise_on_groups_they_do_not_take(cuda_device):
 def test_mixed_gemm_wrappers_raise_on_cuda_input_they_do_not_take(
         cuda_device):
     x, qw = _mixed_inputs(0, 8, 512, 128, 4, torch.float32, cuda_device)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        tmg.mixed_gemm(x.half(), qw)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        tmg.mixed_gemm(x.double(), qw)
     with pytest.raises(ValueError, match="contiguous"):
         tmg.mixed_gemm(x.t().contiguous().t(), qw)
     with pytest.raises(TypeError, match="codes"):
@@ -856,8 +908,7 @@ def _gmm_problem(seed, T, E, K, N, tile_m, dtype, device, transposed=False):
     return lhs, rhs, tgroup, sizes, used
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("tile_m", [16, 64, 48])
 @pytest.mark.parametrize("transposed", [False, True], ids=["nk", "kn_t"])
 def test_grouped_matmul_matches_plain(cuda_device, dtype, tile_m,
@@ -886,12 +937,15 @@ def test_grouped_matmul_matches_plain(cuda_device, dtype, tile_m,
             rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
 @pytest.mark.parametrize("tile_m", [64, 128])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_grouped_matmul_wgmma_matches_plain(cuda_device, seed, tile_m):
+def test_grouped_matmul_wgmma_matches_plain(cuda_device, seed, tile_m,
+                                            dtype):
     """grouped_matmul_wgmma_kernel at random routings: one expert of more
     than 256 rows (two chunks), an empty expert, K and N off the 64-deep
-    K-tiles and 128-wide column blocks; within TOL_BF16 of the plain
+    K-tiles and 128-wide column blocks; within an output ulp of the plain
     version, the all-padding tail zero, the same numbers without a used
     count (the last expert then also walks the zero tail)."""
     gen = torch.Generator(device=cuda_device).manual_seed(seed)
@@ -902,17 +956,16 @@ def test_grouped_matmul_wgmma_matches_plain(cuda_device, seed, tile_m):
         ef[ef == (seed + 1) % E] = (seed + 2) % E  # an empty expert
         pos, tgroup, sizes, M_pad, used = tgm.tile_aligned_layout(
             ef, E, T, tile_m, with_used_tiles=True)
-        lhs = torch.zeros((M_pad, K), device=cuda_device,
-                          dtype=torch.bfloat16)
+        lhs = torch.zeros((M_pad, K), device=cuda_device, dtype=dtype)
         lhs[pos.long()] = torch.randn((T, K), generator=gen,
-                                      device=cuda_device).bfloat16()
+                                      device=cuda_device).to(dtype)
         rhs = (torch.randn((E, K, N), generator=gen, device=cuda_device)
-               / K ** 0.5).bfloat16()
+               / K ** 0.5).to(dtype)
         tgm.reset_counts()
         got = tgm.grouped_matmul(lhs, rhs, tgroup, sizes, tile_m=tile_m,
                                  num_used_tiles=used)
         want = tgm.grouped_matmul_plain(lhs, rhs, tgroup, tile_m)
-        _mixed_close(got, want, torch.bfloat16, f"T={T} seed={seed}")
+        _mixed_close(got, want, dtype, f"T={T} seed={seed}")
         assert not got[int(used.item()) * tile_m:].any()
         assert tgm.LAUNCHES == {"grouped_matmul": 1}
         assert tgm.WGMMA_LAUNCHES == {"grouped_matmul": 1}
@@ -925,8 +978,9 @@ def test_grouped_matmul_wrapper_raises_on_cuda_input_it_does_not_take(
         cuda_device):
     lhs, rhs, tgroup, sizes, _ = _gmm_problem(0, 16, 4, 64, 64, 16,
                                               torch.bfloat16, cuda_device)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        tgm.grouped_matmul(lhs.half(), rhs.half(), tgroup, sizes, tile_m=16)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        tgm.grouped_matmul(lhs.double(), rhs.double(), tgroup, sizes,
+                           tile_m=16)
     with pytest.raises(ValueError, match="multiples of 8"):
         tgm.grouped_matmul(lhs[:, :60].contiguous(),
                            rhs[:, :60].contiguous(), tgroup, sizes,
@@ -1011,7 +1065,9 @@ def test_dropless_decode_makes_no_host_sync(cuda_device):
 
 @pytest.mark.parametrize("p_dtype,g_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)])
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.float16, torch.float32), (torch.float32, torch.float16),
+    (torch.float16, torch.float16)])
 @pytest.mark.parametrize("n,offset", [(1, 0), (4099, 0), (70001, 1)],
                          ids=["one", "ragged", "misaligned"])
 def test_fused_adamw_matches_plain(cuda_device, p_dtype, g_dtype, n,
@@ -1035,8 +1091,11 @@ def test_fused_adamw_matches_plain(cuda_device, p_dtype, g_dtype, n,
     assert tfo.LAUNCHES == {"fused_adamw": 1}
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
-        torch.testing.assert_close(a.float(), b.float(), rtol=0,
-                                   atol=1e-6 * b.float().abs().max().item())
+        # f16 p: an f32 p' one ulp apart may round to the other f16
+        # neighbour (one f16 ulp, 2**-10 of its size)
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=2e-3 if a.dtype == torch.float16
+            else 0, atol=1e-6 * b.float().abs().max().item())
 
 
 def test_fused_adamw_tree_one_launch(cuda_device):
@@ -1082,8 +1141,7 @@ def test_memory_hierarchy_five_stages(cuda_device, dtype):
         assert out["identical_continuations"] == "9 of 9"
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **PAGED_DTYPES)
 @pytest.mark.parametrize("D,Qp", [(64, 40), (64, 256), (128, 5)],
                          ids=["draft_d64", "draft_d64_qp256", "verify_qp5"])
 def test_paged_kernels_at_draft_and_verify_shapes(cuda_device, dtype, D, Qp):
@@ -1157,20 +1215,22 @@ def test_small_model_speculative_card_matches_cpu(cuda_device):
     assert set(out) == {"draft", "self_draft", "self_draft_adapters"}
 
 
-def test_v1_quantized_launch_counts(cuda_device):
-    """``chip_smoke.py``'s v1 W8A16 gate at a small bf16 width: one quantized
-    ``generate`` launches the mixed GEMM once per projection, layer and
-    forward, the prefill (M = B * T) on ``mixed_gemm_wgmma_kernel``, the
-    decodes (M = B) on ``mixed_gemm_decode_kernel``, with no plain or
-    envelope call; tokens in the vocab, a second run equal."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_v1_quantized_launch_counts(cuda_device, dtype):
+    """``chip_smoke.py``'s v1 W8A16 gate at a small width, bf16 and fp16:
+    one quantized ``generate`` launches the mixed GEMM once per projection,
+    layer and forward, the prefill (M = B * T) on
+    ``mixed_gemm_wgmma_kernel``, the decodes (M = B) on
+    ``mixed_gemm_decode_kernel``, with no plain or envelope call; tokens in
+    the vocab, a second run equal."""
     import chip_smoke
 
     cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
-                        num_heads=4, num_kv_heads=2, dtype="bfloat16",
+                        num_heads=4, num_kv_heads=2, dtype=dtype,
                         vocab_size=1024)
     params = tt.init_params(cfg, torch.Generator(
         device=cuda_device).manual_seed(0), device=cuda_device)
-    icfg = {"dtype": "bfloat16", "quantize_bits": 8,
+    icfg = {"dtype": dtype, "quantize_bits": 8,
             "max_seq_len": chip_smoke.V1_PROMPT + chip_smoke.NEW_TOKENS}
     _, _, toks, _, counts = chip_smoke.v1_run(
         torch, cfg, params, icfg, chip_smoke.v1_prompts(cfg.vocab_size),
@@ -1180,6 +1240,46 @@ def test_v1_quantized_launch_counts(cuda_device):
     assert got["mixed_gemm_decode"] == chip_smoke.PROJECTIONS * \
         cfg.num_layers * (chip_smoke.NEW_TOKENS - 1)
     assert toks.shape[1] == chip_smoke.V1_PROMPT + chip_smoke.NEW_TOKENS
+
+
+def test_fp16_engines_small(cuda_device):
+    """``chip_smoke.py``'s fp16 serving phase at a small width (head dim 64,
+    GQA; a small dropless MoE): fp16 plain, W8A16, W4A16 and W6A16 v2
+    engines with exact B4/B5/B6 launches and first-token logits against an
+    f32 engine's, W8A8 with f16 output on one layer, the v1 engine fp16
+    W8A16 against v2, and dropless MoE fp16 with exact B8 launches."""
+    import chip_smoke
+
+    small = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                 num_kv_heads=2, dtype="float16")
+    cfg = tt.get_config("tiny", vocab_size=1024, **small)
+    moe = tt.get_config("tiny-moe", moe_routing="dropless", **small)
+    # 64 tokens a mixed step route 128 assignments over 4 experts: tile_m
+    # 64, the wgmma kernel, as Mixtral's 256-token steps
+    v2 = te.V2Config(max_tokens_per_step=64, max_seqs=4, block_size=16,
+                     num_blocks=64, max_blocks_per_seq=8, dtype="float16")
+    out = chip_smoke.run_fp16_engines(
+        torch, tpa, tmg, tgm, "card", cfg=cfg, moe_cfg=moe,
+        prompt_lens=(5, 40, 17, 70), v1_shape=(4, 24), v2=v2)
+    for key in ("fp16", "fp16_w8a16"):
+        assert out[key]["first_logits_rel_vs_f32"] <= \
+            chip_smoke.TOL_LOGITS_F16_QUANT_REL
+    assert out["fp16_w8a16"]["launches"]["mixed_gemm_int8_wgmma"] > 0
+    assert out["fp16_dropless_moe"]["launches"]["grouped_matmul_wgmma"] > 0
+    assert out["int8_gemm_path_f16"]["launches"] == 2 * chip_smoke.PROJECTIONS
+
+
+def test_small_f16_models_and_adam_path_card_match_cpu(cuda_device):
+    """``chip_smoke.py``'s small f16 checks: plain, W8A16 and dropless MoE
+    f16 models card vs CPU (first-step logits within
+    TOL_LOGITS_F16_REL), and ``fused_adamw_flat`` on f16 parameters, one
+    launch a step, card vs CPU."""
+    import chip_smoke
+
+    out = chip_smoke.small_f16_agreement(torch, tpa, tmg, tgm)
+    assert set(out) == {"plain", "w8a16", "dropless_moe"}
+    path = chip_smoke.fused_adam_f16_path(torch, tfo, tt)
+    assert path["launches"] == 3
 
 
 def test_v1_small_models_card_match_cpu(cuda_device):

@@ -181,10 +181,10 @@ def test_prefill_single_row_equals_decode():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    q = torch.zeros((2, 4, 64), dtype=torch.float16)
-    kc = torch.zeros((8, 16, 2, 64), dtype=torch.float16)
+    q = torch.zeros((2, 4, 64), dtype=torch.float64)
+    kc = torch.zeros((8, 16, 2, 64), dtype=torch.float64)
     ints = {"block_tables": torch.zeros((2, 4), dtype=torch.int32)}
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
         tpa._check_common(q, kc, kc, ints, 4, 64)
     q, kc = q.float(), kc.float()
     with pytest.raises(ValueError, match="head dim"):
@@ -212,6 +212,7 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert [s.name for s in build.SOURCES] == ["paged_attention.cu",
                                                "flash_attention.cu",
                                                "flash_attention_bias.cu",
+                                               "flash_attention_bias_f16.cu",
                                                "flash_attention_f16.cu",
                                                "mixed_gemm.cu",
                                                "grouped_matmul.cu",
@@ -240,10 +241,12 @@ def test_build_is_from_source_and_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_source_names_what_it_replaces():
-    paged, flash, flash_bias, flash_f16, mixed, grouped, adam = (
-        s.read_text() for s in build.SOURCES)
+    paged, flash, flash_bias, flash_bias_f16, flash_f16, mixed, grouped, \
+        adam = (s.read_text() for s in build.SOURCES)
     assert '#include "flash_attention.cu"' in flash_bias
     assert "DS_FLASH_BIAS_UNIT 1" in flash_bias
+    assert '#include "flash_attention.cu"' in flash_bias_f16
+    assert "DS_FLASH_BIAS_UNIT 2" in flash_bias_f16
     assert '#include "flash_attention.cu"' in flash_f16
     assert "DS_FLASH_F16_UNIT 1" in flash_f16
     assert "_decode_kernel" in paged and "_prefill_kernel" in paged
@@ -272,21 +275,27 @@ def test_kernel_source_names_what_it_replaces():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 prefill kernel's tensor-core arithmetic, emulated on the CPU
+# the bf16 and f16 prefill kernel's tensor-core arithmetic, emulated on the
+# CPU
 # ---------------------------------------------------------------------------
 
 PREFILL_TILE = 64  # keys per tile of paged_prefill_tc_kernel
 LOG2E = 1.0 / math.log(2.0)
+HALF_P = 2.0 ** 14  # the f16 kernel's factor on p (csrc: kHalfP)
 
 
 def _emulate_tc_prefill(q, k_cache, v_cache, bt, start, length, split):
-    """paged_prefill_tc_kernel's arithmetic: per (sequence, kv head) the
-    query vectors (row, head in group) walk 64-key tiles whose rows are
-    gathered through the block table (zeros past the chunk's end), S = Q
-    K^T summed in f32 from bf16 products, an online softmax in the log2
-    domain (a vector keeps key c iff c <= min(start + row, end - 1), rows
-    past the chunk keep none), O += P V with P split into bf16 hi + lo
-    (``split``) or rounded to bf16 alone, o = acc / l in bf16."""
+    """paged_prefill_tc_kernel's arithmetic at the inputs' dtype (bf16 or
+    f16): per (sequence, kv head) the query vectors (row, head in group)
+    walk 64-key tiles whose rows are gathered through the block table
+    (zeros past the chunk's end), S = Q K^T summed in f32 from exact
+    products, an online softmax in the log2 domain (a vector keeps key c
+    iff c <= min(start + row, end - 1), rows past the chunk keep none), O
+    += P V with P split into hi + lo of the dtype (``split``) or rounded to
+    it alone, o = acc / l in the dtype.  In f16, p is multiplied by 2^14
+    before the split, and l with it."""
+    dt = q.dtype
+    p_scale = HALF_P if dt == torch.float16 else 1.0
     S, Qp, H, D = q.shape
     BS, KV = k_cache.shape[1], k_cache.shape[2]
     G, MB = H // KV, bt.shape[1]
@@ -317,27 +326,26 @@ def _emulate_tc_prefill(q, k_cache, v_cache, bt, start, length, split):
             m_new = torch.maximum(m, x.max(-1).values)
             m_use = torch.where(m_new == -math.inf, 0.0, m_new)
             alpha = torch.exp2(m - m_use)
-            p = torch.where(keep, torch.exp2(x - m_use[..., None]), 0.0)
+            p = torch.where(keep, torch.exp2(x - m_use[..., None]), 0.0) \
+                * p_scale
             l = l * alpha + p.sum(-1)
             acc = acc * alpha[..., None]
-            hi = p.to(torch.bfloat16).float()
-            parts = (hi, (p - hi).to(torch.bfloat16).float()) if split \
-                else (hi,)
+            hi = p.to(dt).float()
+            parts = (hi, (p - hi).to(dt).float()) if split else (hi,)
             for part in parts:
                 acc = acc + part @ vt.transpose(0, 1)
             m = m_new
         o = torch.where((l > 0)[..., None],
                         acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
         out[s] = o.reshape(KV, Qp, G, D).transpose(0, 1).reshape(Qp, H, D)
-    return out.to(torch.bfloat16)
+    return out.to(dt)
 
 
-@pytest.fixture(scope="module")
-def smoke_prefill():
+def _smoke_prefill_case(dtype):
     """chip_smoke's prefill check on the CPU: its shape (H = 32, KV = 8, D =
     128, block 64, chains of 2048 positions), chunk starts and lengths,
-    bf16 inputs from a numpy seed, and the plain version's output (one
-    sequence at a time, to bound the scores' memory)."""
+    inputs in ``dtype`` from a numpy seed, and the plain version's output
+    (one sequence at a time, to bound the scores' memory)."""
     import chip_smoke as cs
 
     rng = np.random.default_rng(0)
@@ -346,7 +354,7 @@ def smoke_prefill():
 
     def bf16(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(torch.bfloat16)
+            np.float32)).to(dtype)
 
     kc, vc = bf16(NB, cs.BS, cs.KV, cs.D), bf16(NB, cs.BS, cs.KV, cs.D)
     q = bf16(S, Qp, cs.H, cs.D)
@@ -358,6 +366,25 @@ def smoke_prefill():
         q[s:s + 1], kc, vc, bt[s:s + 1], start[s:s + 1], length[s:s + 1])
         for s in range(S)])
     return cs, (q, kc, vc, bt, start, length), ref
+
+
+@pytest.fixture(scope="module")
+def smoke_prefill():
+    return _smoke_prefill_case(torch.bfloat16)
+
+
+def test_tc_prefill_f16_split_after_2_14_meets_the_smoke_limit():
+    """The f16 kernel's arithmetic (p times 2^14, then split into f16 hi +
+    lo; l carries the factor) at the same shape and seed in f16 meets
+    chip_smoke's f16 limit against the plain version, and padding rows are
+    exactly zero."""
+    cs, args, ref = _smoke_prefill_case(torch.float16)
+    got = _emulate_tc_prefill(*args, split=True)
+    assert got.dtype == torch.float16
+    cs.compare_f16(got, ref, "emulated f16 prefill")
+    assert cs.f16_excess(got, ref)[1] < 0
+    for s, n in enumerate(cs.PREFILL_LEN):
+        assert not got[s, n:].any()
 
 
 def test_tc_prefill_hi_lo_split_meets_the_smoke_limit(smoke_prefill):
