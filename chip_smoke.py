@@ -183,9 +183,32 @@ In order it prints:
    dropless Mixtral-8x7B at MOE_LAYERS layers (exact B8 launches), small
    f16 models card against CPU and ``fused_adamw_flat`` on f16
    parameters; the phase's seconds;
-16. a JSON line with every kernel's numbers (the f16 rows with
-   ``"dtype": "float16"`` and their launches on the fp16 paths);
-17. last, ``{"ok": true, "device": {...}}``.
+16. ZeRO-Offload / ZeRO-Infinity (each number beside the card's name,
+   power limit and the host's MemTotal): llama3-8b at full width (the
+   training phase's model and batch) with ``offload_optimizer: cpu`` at
+   the deepest of 32, 16 and 8 layers whose host bytes (16 a parameter)
+   plus 10 GB fit in MemAvailable, a warm-up and 3 timed steps, then on
+   the same engine with ``delayed_update`` a step that applies nothing and
+   3 timed ones (finite falling losses, ``applied_lr``, exact B1-B3 launches,
+   no plain call; step ms, tokens/s, MFU, device peak GB, the card's
+   fwd+bwd alone, host update, D2H and H2D ms, host and page-locked GB);
+   the streamed engine (``offload_param``, the whole stack) at that depth
+   for a step and a forward (the stack page-locked on the host and never
+   on the card, 2L stream-ins a step, the loss falls; device peak against
+   the optimizer-offload engine's); the NVMe tiers (moments and f32 master
+   under ``build/``) at 2 layers for 2 steps (read / write GB/s); ZenFlow
+   at 8 layers for 4 steps (hot-step against flush-step ms, cold bytes
+   exact against plain offload's, compact state bytes); a small f32 model offloaded (plain, delayed,
+   streamed) card against CPU and against the on-device engine;
+   ``cpu_checkpointing`` at full width over 2 layers (loss and gradients
+   against ``nothing_saveable``'s, peak GB of each); a ``ds_io`` read and
+   write sweep of 256 MB on ``build/``; the host's AdamW on a 512 MB leaf,
+   plain PyTorch against the offloaded optimizer's one-pass loop (ns an
+   element); the phase's seconds by part;
+17. a JSON line with every kernel's numbers (the f16 rows with
+   ``"dtype": "float16"`` and their launches on the fp16 paths; the flash
+   rows also ``launches_offload``, on the optimizer-offload steps);
+18. last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -204,6 +227,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -1935,6 +1959,613 @@ def training_engine_line(te: dict) -> str:
             f"{ck['fast']['save_gb_s']:.3f} load {ck['fast']['load_gb_s']:.3f}"
             f" GB/s, async returned in {ck['async']['return_s']:.2f} s | "
             f"optimizer step ms x{CKPT_LAYERS}: {opt}")
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-Offload / ZeRO-Infinity: host optimizer, streaming, NVMe, ZenFlow
+# ---------------------------------------------------------------------------
+
+# llama3-8b with the training cell's model and batch, as deep as the host
+# allows: OFFLOAD_HOST_B bytes of host memory a parameter (f32 master, m, v
+# and the f32 gradient buffer) plus OFFLOAD_HOST_MARGIN must fit in
+# MemAvailable; the streamed engine adds its bf16 layer stack
+OFFLOAD_DEPTHS = (32, 16, 8)
+OFFLOAD_HOST_B, OFFLOAD_HOST_MARGIN = 16, 10e9
+OFFLOAD_WARMUP, OFFLOAD_TIMED = 1, 3
+NVME_LAYERS, NVME_STEPS = CKPT_LAYERS, 2
+ZENFLOW_LAYERS, ZENFLOW_RATIO, ZENFLOW_INTERVAL, ZENFLOW_STEPS = 8, 0.1, 4, 4
+OFFLOAD_DIR = os.path.join("build", "offload_smoke")
+DS_IO_MB = 256
+TOL_OFFLOAD = 1e-5  # small f32 model: offloaded vs on-device, on the card
+
+
+def meminfo() -> dict:
+    """MemTotal and MemAvailable of ``/proc/meminfo``, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def llama_cfg(layers: int, **over):
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    return tfm.get_config("llama3-8b", num_layers=layers,
+                          param_dtype="bfloat16", attn_impl="flash", **over)
+
+
+def offload_engine(torch, cfg, zero: dict, extra: dict = None):
+    """The training phase's engine (bf16, flash, tiled loss, AdamW at lr
+    1e-4, micro-batch FB) on ``cfg`` with ``zero`` as its
+    ``zero_optimization`` at stage 0."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=tfm.param_dtype(cfg))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+            p, b, cfg, tile_size=TILE), params=params),
+        config={"train_micro_batch_size_per_gpu": FB,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+                "zero_optimization": {"stage": 0, **zero},
+                "steps_per_print": 10_000, **(extra or {})})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return engine
+
+
+def offload_batch(engine, cfg):
+    import numpy as np
+
+    return engine.place_batch({"input_ids": np.random.default_rng(
+        SEED).integers(0, cfg.vocab_size, size=(
+            engine.train_batch_size, FS)).astype(np.int32)})
+
+
+def close_engine(torch, engine) -> None:
+    """Drop an offloaded engine's page-locked host memory (the caller drops
+    the engine, then waits in ``settle_host_memory``)."""
+    if engine.offloaded_optimizer is not None:
+        engine.offloaded_optimizer.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def settle_host_memory(need: float = 0.0, limit_s: float = 120.0) -> float:
+    """MemAvailable in bytes once it reaches ``need``, or (``need`` 0) once
+    it stops rising: the H100 machine hands freed host memory back over
+    seconds (16 GiB took ~4 s, measured on one H100 machine)."""
+    gc.collect()
+    t0, last = time.perf_counter(), meminfo()["MemAvailable"]
+    while time.perf_counter() - t0 < limit_s and (not need or last < need):
+        time.sleep(1.0 if need else 2.0)
+        now = meminfo()["MemAvailable"]
+        if not need and now - last < 0.5e9:
+            return now
+        last = now
+    return last
+
+
+def run_steps(torch, fa, engine, placed, steps: int, layers: int,
+              what: str) -> dict:
+    """``steps`` steps of ``engine`` on one batch, each timed to the card's
+    end: losses (finite), exact B1-B3 launches (2L / L / L a step, no
+    plain call), device peak GB, stream-ins and the host optimizer's
+    phases of the last step."""
+    from deepspeed_tpu_torch.runtime.zero import param_offload as tpo
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    tpo.reset_counts()
+    times, losses, applied = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = engine.train_batch(placed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+        applied.append(m.get("applied_lr"))
+    L = layers
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dq": L * steps}
+    launches, plain = dict(fa.LAUNCHES), dict(fa.PLAIN_CALLS)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: a loss is not finite: {losses}")
+    if launches != want or any(plain.values()):
+        fail(f"{what}: flash launches {launches}, want {want}; plain "
+             f"{plain}")
+    opt = engine.offloaded_optimizer
+    return {"step_ms": times, "losses": losses, "applied_lr": applied,
+            "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "stream_ins": tpo.COUNTS["stream_in"],
+            "host_ms": opt.read_timings() if opt is not None else {}}
+
+
+def offload_depth(cfg_of, per_param: float, avail: int) -> int:
+    for layers in OFFLOAD_DEPTHS:
+        if per_param * cfg_of(layers).num_params() + OFFLOAD_HOST_MARGIN \
+                <= avail:
+            return layers
+    fail(f"offload: even {OFFLOAD_DEPTHS[-1]} layers need more host memory "
+         f"than MemAvailable {avail / 1e9:.2f} GB")
+
+
+def optimizer_offload(torch, fa, cfg_of=llama_cfg, card: str = "") -> dict:
+    """(a) ``offload_optimizer: cpu`` on llama3-8b at the deepest of
+    OFFLOAD_DEPTHS the host holds: OFFLOAD_WARMUP + OFFLOAD_TIMED plain
+    steps, the card's forward and backward alone, then ``delayed_update``
+    on the same engine (its first step applies nothing, then
+    OFFLOAD_TIMED steps that each apply the previous one's update while the
+    card runs); gates on finite losses that fall, ``applied_lr`` and exact
+    B1-B3 launches.  One engine for both: building one pins 16 B of host
+    memory a parameter, 39-49 s at 16 layers on the H100 machine's host."""
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    mem = meminfo()
+    mem["MemAvailable"] = settle_host_memory()
+    layers = offload_depth(cfg_of, OFFLOAD_HOST_B, mem["MemAvailable"])
+    cfg = cfg_of(layers)
+    out = {"card": card, "mem_total_gb": mem["MemTotal"] / 1e9,
+           "mem_available_gb": mem["MemAvailable"] / 1e9, "layers": layers,
+           "params": cfg.num_params(),
+           "host_bytes_need_gb": OFFLOAD_HOST_B * cfg.num_params() / 1e9}
+    tokens_per_step = FB * (FS - 1)
+    flops_per_token = 6 * cfg.num_params(include_embed=False) \
+        + 12 * cfg.num_layers * cfg.hidden_size * FS
+    peak = get_accelerator().peak_tflops("bfloat16") * 1e12
+    t0 = time.perf_counter()
+    engine = offload_engine(torch, cfg, {"offload_optimizer": {
+        "device": "cpu"}})
+    out["init_s"] = time.perf_counter() - t0
+    placed = offload_batch(engine, cfg)
+    opt = engine.offloaded_optimizer
+    out.update(host_tensor_gb=opt.arena.tensor_bytes / 1e9,
+               host_pinned_gb=opt.arena.pinned_bytes / 1e9)
+    for mode in ("plain", "delayed"):
+        # delayed_update as its config sets it: the engine's schedule flag
+        engine._delayed_update = mode == "delayed"
+        run = run_steps(torch, fa, engine, placed, OFFLOAD_WARMUP
+                        + OFFLOAD_TIMED, layers, f"offload {mode}")
+        losses = run["losses"]
+        if mode == "plain":
+            if not losses[-1] < losses[0]:
+                fail(f"offload plain: the loss did not fall: {losses}")
+            # the card's half alone: forward, backward, f32 sums, norm
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = engine._grad_step(placed.placed)
+            torch.cuda.synchronize()
+            run["device_ms"] = (time.perf_counter() - t1) * 1e3
+            del grads
+            first = losses[0]
+        else:
+            if run["applied_lr"][0] is not None or \
+                    run["applied_lr"][1] is None:
+                fail(f"offload delayed: applied_lr {run['applied_lr']}")
+            if not losses[-1] < first:
+                fail(f"offload delayed: the loss did not fall: {losses}")
+        step = statistics.median(run["step_ms"][OFFLOAD_WARMUP:])
+        tps = tokens_per_step / (step / 1e3)
+        run.update(step_ms_timed=step, tokens_per_s=tps,
+                   mfu=tps * flops_per_token / peak)
+        out[mode] = run
+    out["launches"] = out["plain"]["launches"]
+    del placed, opt
+    close_engine(torch, engine)  # the delayed update's last one is dropped
+    return out
+
+
+def param_offload(torch, fa, layers: int, ref_peak_gb: float,
+                  cfg_of=llama_cfg) -> dict:
+    """(b) ``offload_param: cpu`` (every leaf of the stack, threshold 0) at
+    (a)'s depth: the layer leaves are page-locked host tensors and no
+    leaf of the stack is on the card between steps; L forward + L
+    recompute stream-ins a step; the loss falls; the card's peak against
+    (a)'s."""
+    from deepspeed_tpu_torch.runtime.zero import param_offload as tpo
+
+    cfg = cfg_of(layers)
+    need = (OFFLOAD_HOST_B + 2) * cfg.num_params() + OFFLOAD_HOST_MARGIN
+    avail = settle_host_memory(need)
+    if need > avail:
+        fail(f"param offload: {need / 1e9:.2f} GB of host memory needed at "
+             f"{layers} layers, {avail / 1e9:.2f} available")
+    engine = offload_engine(torch, cfg, {
+        "offload_param": {"device": "cpu"},
+        "stage3_param_persistence_threshold": 0})
+    stack = [engine._leaves[j] for j, path in enumerate(engine._paths)
+             if path.startswith("layers/")]
+    if not stack or not all(tpo.is_page_locked(t) for t in stack):
+        fail("param offload: a layer leaf is not a page-locked host tensor")
+    placed = offload_batch(engine, cfg)
+    run = run_steps(torch, fa, engine, placed, 1, layers, "param offload")
+    if any(t.device.type != "cpu" for t in stack):
+        fail("param offload: a leaf of the stack is on the card")
+    if run["stream_ins"] != 2 * layers:
+        fail(f"param offload: {run['stream_ins']} stream-ins, want "
+             f"{2 * layers} (L forward + L recompute a step)")
+    # the loss after the update, one forward over the same batch (L more
+    # stream-ins, no host update)
+    tpo.reset_counts()
+    after = engine.eval_batch(placed)["loss"]
+    if tpo.COUNTS["stream_in"] != layers or not after < run["losses"][0]:
+        fail(f"param offload: eval after the step streamed "
+             f"{tpo.COUNTS['stream_in']} layers, loss {run['losses'][0]} -> "
+             f"{after}")
+    opt = engine.offloaded_optimizer
+    run.update(layers=layers, peak_mem_gb_optimizer_offload=ref_peak_gb,
+               loss_after=after, step_ms_timed=run["step_ms"][0],
+               host_tensor_gb=opt.arena.tensor_bytes / 1e9,
+               host_pinned_gb=opt.arena.pinned_bytes / 1e9)
+    del placed, stack, opt
+    close_engine(torch, engine)
+    return run
+
+
+def nvme_tiers(torch, fa, cfg_of=llama_cfg, layers: int = NVME_LAYERS
+               ) -> dict:
+    """(c) the NVMe tiers under ``build/``: the moments (``offload_
+    optimizer: nvme``) and the f32 master (``offload_param: nvme``), at
+    ``layers`` layers for NVME_STEPS steps; then one timed read and write
+    of each tier."""
+    import shutil
+
+    cfg = cfg_of(layers)
+    settle_host_memory(OFFLOAD_HOST_B * cfg.num_params()
+                       + OFFLOAD_HOST_MARGIN)
+    path = os.path.join(OFFLOAD_DIR, "nvme")
+    shutil.rmtree(path, ignore_errors=True)
+    engine = offload_engine(torch, cfg, {
+        "offload_optimizer": {"device": "nvme", "nvme_path": path},
+        "offload_param": {"device": "nvme", "nvme_path": path}})
+    placed = offload_batch(engine, cfg)
+    run = run_steps(torch, fa, engine, placed, NVME_STEPS, layers,
+                    "nvme offload")
+    opt = engine.offloaded_optimizer
+    opt.drain()
+    state_bytes = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path) if f.endswith(".bin"))
+    master_dir = os.path.join(path, "master")
+    master_bytes = sum(os.path.getsize(os.path.join(master_dir, f))
+                       for f in os.listdir(master_dir))
+    t0 = time.perf_counter()
+    opt.prefetch()
+    opt.swap_in()
+    opt._master_in()
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt.swap_out_async()
+    opt._master_out()
+    opt.drain()
+    write_s = time.perf_counter() - t0
+    nbytes = state_bytes + master_bytes
+    run.update(layers=layers, state_gb=state_bytes / 1e9,
+               master_gb=master_bytes / 1e9,
+               read_gb_s=nbytes / read_s / 1e9,
+               write_gb_s=nbytes / write_s / 1e9)
+    del placed, opt
+    close_engine(torch, engine)
+    shutil.rmtree(path, ignore_errors=True)
+    return run
+
+
+def zenflow_run(torch, fa, cfg_of=llama_cfg, layers: int = ZENFLOW_LAYERS,
+                steps: int = ZENFLOW_STEPS) -> dict:
+    """(d) ZenFlow (topk_ratio ZENFLOW_RATIO, update_interval
+    ZENFLOW_INTERVAL) at ``layers`` layers: hot-step against flush-step
+    ms, ``cold_bytes_transferred`` against the gradient bytes that plain
+    offload moves, and the compact state's bytes."""
+    cfg = cfg_of(layers)
+    settle_host_memory(OFFLOAD_HOST_B * cfg.num_params()
+                       + OFFLOAD_HOST_MARGIN)
+    engine = offload_engine(torch, cfg, {"offload_optimizer": {
+        "device": "cpu"}}, {"zenflow": {
+            "enabled": True, "topk_ratio": ZENFLOW_RATIO,
+            "update_interval": ZENFLOW_INTERVAL}})
+    placed = offload_batch(engine, cfg)
+    run = run_steps(torch, fa, engine, placed, steps, layers, "zenflow")
+    zf = engine.zenflow_optimizer
+    grad_bytes = sum(p.numel() * 4 for p in engine._leaves)
+    flushes = steps // ZENFLOW_INTERVAL
+    if zf.cold_bytes_transferred != flushes * grad_bytes:
+        fail(f"zenflow: {zf.cold_bytes_transferred} cold bytes, want "
+             f"{flushes} flushes of {grad_bytes}")
+    if not run["losses"][-1] < run["losses"][0]:
+        fail(f"zenflow: the loss did not fall: {run['losses']}")
+    flush_steps = [i for i in range(steps) if (i + 1) % ZENFLOW_INTERVAL == 0]
+    hot = [t for i, t in enumerate(run["step_ms"])
+           if i not in flush_steps and i > 0]
+    compact = sum(t.numel() * t.element_size() for t in zf._hot_master)
+    compact += sum(t.numel() * t.element_size()
+                   for lst in zf.optimizer._leaf_state() for t in lst
+                   if t is not None)
+    run.update(layers=layers, hot_step_ms=statistics.median(hot),
+               flush_step_ms=statistics.median(
+                   [run["step_ms"][i] for i in flush_steps]),
+               cold_bytes_transferred=zf.cold_bytes_transferred,
+               plain_offload_grad_bytes=steps * grad_bytes,
+               compact_state_gb=compact / 1e9)
+    del placed, zf
+    close_engine(torch, engine)
+    return run
+
+
+def small_offload_agreement(torch, fa) -> dict:
+    """(e) the small f32 model of ``small_training_agreement``, 3 steps:
+    each offloaded engine on the card against the same engine on the CPU
+    (TOL_TRAIN), and the offloaded engine against the on-device one on the
+    card (TOL_OFFLOAD)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.runtime.optimizers import leaves
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("tiny", hidden_size=256, intermediate_size=512,
+                         num_heads=4, num_kv_heads=2, dtype="float32",
+                         param_dtype="float32", attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
+        4, cfg.max_seq_len)).astype(np.int32)} for _ in range(3)]
+
+    def train(zero, dev):
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+                p, b, cfg, tile_size=64), params=params), config={
+                "train_micro_batch_size_per_gpu": 4,
+                "optimizer": {"type": "adamw", "params": {
+                    "lr": 1e-4, "weight_decay": 0.01}},
+                "gradient_clipping": 1.0, "steps_per_print": 10_000,
+                "zero_optimization": {"stage": 0, **zero}}, device=dev)
+        fa.reset_counts()
+        losses = [engine.train_batch(b)["loss"] for b in batches]
+        if engine.offload_enabled and engine._delayed_update:
+            engine.flush_delayed_update()
+        if dev == "cuda" and (not all(fa.LAUNCHES.values())
+                              or any(fa.PLAIN_CALLS.values())):
+            fail(f"small offload {zero}: the card run did not go through "
+                 f"the kernels: {fa.LAUNCHES} {fa.PLAIN_CALLS}")
+        out = (losses, [p.detach().cpu().float() for p in
+                        leaves(engine.params)])
+        if engine.offloaded_optimizer is not None:
+            engine.offloaded_optimizer.close()
+        return out
+
+    def diff(a, b):
+        return (max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0])),
+                max((x - y).abs().max().item() for x, y in zip(a[1], b[1])))
+
+    on_card = train({}, "cuda")
+    out = {}
+    for name, zero in (
+            ("optimizer", {"offload_optimizer": {"device": "cpu"}}),
+            ("delayed", {"offload_optimizer": {"device": "cpu",
+                                               "delayed_update": True}}),
+            ("param", {"offload_param": {"device": "cpu"},
+                       "stage3_param_persistence_threshold": 0})):
+        card, cpu = train(zero, "cuda"), train(zero, "cpu")
+        loss_rel, param_diff = diff(card, cpu)
+        if not loss_rel <= TOL_TRAIN or not param_diff <= TOL_TRAIN:
+            fail(f"small offload {name}: card vs CPU losses differ by "
+                 f"{loss_rel} (relative), parameters by {param_diff}")
+        row = {"loss_max_rel_diff": loss_rel,
+               "param_max_abs_diff": param_diff}
+        if name != "delayed":  # the delayed run is one update behind
+            loss_rel, param_diff = diff(card, on_card)
+            if not loss_rel <= TOL_OFFLOAD or not param_diff <= TOL_OFFLOAD:
+                fail(f"small offload {name}: offloaded vs on-device on the "
+                     f"card differ by {loss_rel} (losses, relative), "
+                     f"{param_diff} (parameters)")
+            row.update(vs_device_loss_rel=loss_rel,
+                       vs_device_param_abs=param_diff)
+        out[name] = row
+    return out
+
+
+def cpu_checkpointing_run(torch, fa, cfg_of=llama_cfg,
+                          layers: int = CKPT_LAYERS) -> dict:
+    """(f) ``cpu_checkpointing`` at full width over ``layers`` layers: each
+    layer through ``checkpointing.checkpoint`` (its tagged ``attn_out`` and
+    ``mlp_out`` feed only residual adds, so the host keeps what a backward
+    reads of them: nothing); loss and gradients held to the model's
+    ``nothing_saveable`` within TOL_BF16, peak GB and host bytes beside
+    it."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime import config as tconfig
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as tck
+    from deepspeed_tpu_torch.runtime.optimizers import leaves
+    from deepspeed_tpu_torch.sequence.tiled_compute import (
+        tiled_logits_loss, tiled_loss_fn)
+
+    cfg = cfg_of(layers)
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=tfm.param_dtype(cfg))
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    batch = {"input_ids": torch.from_numpy(np.random.default_rng(
+        SEED).integers(0, cfg.vocab_size, size=(FB, FS)).astype(
+            np.int32)).cuda()}
+    host_cfg = tconfig.ActivationCheckpointingConfig(cpu_checkpointing=True)
+    attn_fn = tfm.resolve_attention(cfg.attn_impl)
+
+    def cpu_loss():
+        labels, mask = tfm.shift_labels(batch)
+        x = tfm.embed_tokens(params, batch["input_ids"].long(), cfg)
+        cos, sin = tfm.rope_table(FS, cfg.rot_dim, cfg.rope_theta, x.device)
+        for i in range(cfg.num_layers):
+            lp = tfm.layer_params(params, i)
+            keys = list(lp)
+
+            def layer(h, *parts, i=i, keys=keys):
+                return tfm.layer_forward(h, dict(zip(keys, parts)), cfg,
+                                         cos, sin, attn_fn, i=i)
+
+            x = tck.checkpoint(layer, x, *lp.values(), cfg=host_cfg)
+        x = tfm._norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        w, tied, hb = tfm.lm_head(params, cfg, x.dtype)
+        nll, _ = tiled_logits_loss(x, w, labels, TILE, mask=mask,
+                                   transpose_head=tied, head_bias=hb)
+        return nll / mask.sum().clamp(min=1.0)
+
+    runs = {}
+    for name, fn in (("nothing_saveable",
+                      lambda: tiled_loss_fn(params, batch, cfg,
+                                            tile_size=TILE)[0]),
+                     ("cpu_checkpointing", cpu_loss)):
+        fn()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(tck.HOST_SAVED)
+        t0 = time.perf_counter()
+        loss = fn()
+        grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        runs[name] = {"loss": loss.detach(), "grads": grads,
+                      "fwd_bwd_ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "host_saved_gb": (tck.HOST_SAVED["bytes"]
+                                        - before["bytes"]) / 1e9,
+                      "host_saved_tensors": tck.HOST_SAVED["tensors"]
+                      - before["tensors"]}
+    ref, got = runs["nothing_saveable"], runs["cpu_checkpointing"]
+    compare(got["loss"], ref["loss"], TOL_BF16, "cpu_checkpointing loss")
+    err = max(compare(g, r, TOL_BF16, "cpu_checkpointing gradient")
+              for g, r in zip(got["grads"], ref["grads"]))
+    out = {"layers": layers, "max_abs_err_grads": err}
+    for name, r in runs.items():
+        out[name] = {k: v for k, v in r.items() if k not in ("loss",
+                                                           "grads")}
+    del params, flat, runs, ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_io_sweep(size_mb: int = DS_IO_MB) -> dict:
+    """(g) ``nvme/ds_io`` read and write sweeps of ``size_mb`` on
+    ``build/``: the best point of each and the aio block it generates."""
+    from deepspeed_tpu_torch.nvme import ds_io
+
+    path = os.path.join(OFFLOAD_DIR, "io")
+    out = {}
+    for op in ("read", "write"):
+        res = ds_io.run_sweep(path, op=op, size_mb=size_mb,
+                              block_sizes=(1 << 20, 4 << 20),
+                              queue_depths=(8, 32), thread_counts=(1, 4))
+        if not res:
+            fail(f"ds_io {op} sweep: every point failed")
+        out[op] = {"best_gb_s": res[0].gbps, "points": len(res),
+                   "aio": ds_io.generate_aio_config(res)["aio"]}
+    return out
+
+
+def host_adam_times(torch, n: int = 1 << 27) -> dict:
+    """The host's AdamW on one f32 leaf of ``n`` elements (a 512 MB
+    leaf), ns an element: the plain PyTorch update (``runtime/
+    optimizers.py``, 14 passes) against the one-pass loop the offloaded
+    optimizer runs (``ops/cpu_adam.py``)."""
+    from deepspeed_tpu_torch.ops import cpu_adam
+    from deepspeed_tpu_torch.runtime.optimizers import Adam, Optimizer
+
+    gen = torch.Generator().manual_seed(SEED)
+    p = [torch.randn(n, generator=gen)]
+    g = [torch.randn(n, generator=gen)]
+    out = {"n": n}
+    for name, step in (("plain", Optimizer.step),
+                       ("one_pass", cpu_adam.adam_step)):
+        opt = Adam(1e-4, weight_decay=0.1, mask=[True])
+        opt.init(p)
+        step(opt, p, g)  # the moments' pages and the threads warm
+        t0 = time.perf_counter()
+        step(opt, p, g)
+        out[f"{name}_ns"] = (time.perf_counter() - t0) / n * 1e9
+    return out
+
+
+def run_offload_phase(torch, fa, card: str, cfg_of=llama_cfg) -> dict:
+    """ZeRO-Offload / ZeRO-Infinity on the card, (a)-(g).  The streamed
+    engine (b) needs the most host memory, so it runs after the smaller
+    engines, while the host takes (a)'s memory back; ``seconds`` holds
+    each part's."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, secs = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        secs[name] = time.perf_counter() - t
+
+    part("optimizer", optimizer_offload, torch, fa, cfg_of, card)
+    part("zenflow", zenflow_run, torch, fa, cfg_of)
+    part("nvme", nvme_tiers, torch, fa, cfg_of)
+    part("param", param_offload, torch, fa, out["optimizer"]["layers"],
+         out["optimizer"]["plain"]["peak_mem_gb"], cfg_of)
+    part("small", small_offload_agreement, torch, fa)
+    part("cpu_checkpointing", cpu_checkpointing_run, torch, fa, cfg_of)
+    part("ds_io", ds_io_sweep)
+    part("host_adam", host_adam_times, torch)
+    out["part_seconds"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def offload_line(off: dict, card: str) -> str:
+    a, b, c, d = (off[k] for k in ("optimizer", "param", "nvme", "zenflow"))
+    f, g, h = off["cpu_checkpointing"], off["ds_io"], off["host_adam"]
+    pl, dl = a["plain"], a["delayed"]
+    hm = pl["host_ms"]
+    return (f"offload phase ({card}, MemTotal {a['mem_total_gb']:.2f} GB, "
+            f"{off['seconds']:.1f} s): llama3-8b trained at {a['layers']} "
+            f"layers with optimizer offload ({a['host_bytes_need_gb']:.2f} GB"
+            f" of host tensors needed, MemAvailable "
+            f"{a['mem_available_gb']:.2f} GB): step {pl['step_ms_timed']:.2f}"
+            f" ms, {pl['tokens_per_s']:.2f} tokens/s, MFU {pl['mfu']:.4f}, "
+            f"device peak {pl['peak_mem_gb']:.2f} GB, card fwd+bwd "
+            f"{pl['device_ms']:.2f} ms, host update {hm['update_ms']:.2f} ms,"
+            f" D2H {hm['d2h_ms']:.2f} ms, H2D {hm['h2d_ms']:.2f} ms, host "
+            f"tensors {a['host_tensor_gb']:.2f} GB page-locked "
+            f"{a['host_pinned_gb']:.2f} GB, engine built in "
+            f"{a['init_s']:.1f} s | delayed_update step "
+            f"{dl['step_ms_timed']:.2f} ms (max(device, host) "
+            f"{max(pl['device_ms'], hm['update_ms']):.2f}, sum "
+            f"{pl['device_ms'] + hm['update_ms']:.2f}) | param offload x"
+            f"{b['layers']}: step {b['step_ms_timed']:.2f} ms, device peak "
+            f"{b['peak_mem_gb']:.2f} GB (optimizer offload "
+            f"{b['peak_mem_gb_optimizer_offload']:.2f}), stream-ins "
+            f"{b['stream_ins']} | nvme x{c['layers']}: step "
+            f"{statistics.median(c['step_ms']):.2f} ms, read "
+            f"{c['read_gb_s']:.3f} GB/s write {c['write_gb_s']:.3f} GB/s "
+            f"({c['state_gb'] + c['master_gb']:.2f} GB) | zenflow x"
+            f"{d['layers']}: hot step {d['hot_step_ms']:.2f} ms, flush step "
+            f"{d['flush_step_ms']:.2f} ms, cold bytes "
+            f"{d['cold_bytes_transferred'] / 1e9:.2f} GB of "
+            f"{d['plain_offload_grad_bytes'] / 1e9:.2f}, compact state "
+            f"{d['compact_state_gb']:.3f} GB | cpu_checkpointing x"
+            f"{f['layers']}: peak {f['cpu_checkpointing']['peak_mem_gb']:.2f}"
+            f" GB (nothing_saveable {f['nothing_saveable']['peak_mem_gb']:.2f}"
+            f"), {f['cpu_checkpointing']['host_saved_gb']:.3f} GB on the "
+            f"host | ds_io {DS_IO_MB} MB: read {g['read']['best_gb_s']:.3f} "
+            f"write {g['write']['best_gb_s']:.3f} GB/s | host AdamW on "
+            f"{h['n']} elements: plain {h['plain_ns']:.3f} ns an element, "
+            f"one pass {h['one_pass_ns']:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -6181,7 +6812,12 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    # the host Adam (g++) builds beside the kernels (nvcc)
+    from deepspeed_tpu_torch.ops import cpu_adam
+    host_build = threading.Thread(target=cpu_adam.build)
+    host_build.start()
     secs, log = build.build()
+    host_build.join()
     print(f"build: {secs:.2f} s")
     kernel = ""
     for line in log.splitlines():
@@ -6413,6 +7049,12 @@ def main() -> None:
         f16[k] for k in ("paged", "mixed_gemm", "grouped_matmul",
                          "fused_adamw", "evoformer", "engines", "small",
                          "fused_adamw_path"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    offload = run_offload_phase(torch, fa, card)
+    print(f"offload ({card}): " + json.dumps(offload))
+    print(offload_line(offload, card))
+    offload_launches = offload["optimizer"]["launches"]
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
                      "fused_adamw": adam_tree["launches"],
                      "flash_fwd_bias": evo["launches"]})
@@ -6434,7 +7076,8 @@ def main() -> None:
               "paged_f16": paged16, "mixed_gemm_f16": gemm16,
               "grouped_matmul_f16": gmm16, "fused_adamw_f16": adam16,
               "evoformer_f16": evo16, "fp16_engines": fp16,
-              "small_f16": small16, "fused_adamw_f16_path": adam16_path}
+              "small_f16": small16, "fused_adamw_f16_path": adam16_path,
+              "offload": offload}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
@@ -6518,6 +7161,8 @@ def main() -> None:
                    else {}),
                 **{x: k[x] for x in ("launches_w8a16", "launches_moe")
                    if x in k},
+                **({"launches_offload": offload_launches[k["name"]]}
+                   if k["name"] in offload_launches and not half else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -25,6 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from ..accelerator import resolve_device
+from ..runtime.activation_checkpointing.checkpointing import \
+    checkpoint_name
+from ..runtime.zero.param_offload import maybe_stream_in
 from ..ops.hopper.mixed_gemm import (QuantizedWeight, mixed_gemm,
                                      mixed_gemm_frozen)
 
@@ -627,6 +630,51 @@ def _checkpointed(fn, policy: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
+# ZeRO-Infinity parameter streaming (the reference's maybe_stream_in in its
+# layer body): each segment below copies its part of layer i in itself, so
+# that a checkpointed segment's recompute streams the layer again instead
+# of keeping every layer's device copy alive across the backward
+
+
+def attention_segment(h: torch.Tensor, lp: Dict[str, Any],
+                      cfg: TransformerConfig, cos, sin,
+                      attn_fn: AttentionFn, i: int = 0) -> torch.Tensor:
+    """Layer ``i``'s attention half on h: norm, attention, output
+    projection (the reference's ``attn_out``, before the residual)."""
+    lp = maybe_stream_in({"ln1": lp["ln1"], "attn": lp["attn"]}, i)
+    a_in = _norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+    return _attention_block(a_in, lp["attn"], cfg, cos, sin, attn_fn)
+
+
+def mlp_segment(h: torch.Tensor, lp: Dict[str, Any], cfg: TransformerConfig,
+                moe_fn: Optional[Callable] = None, i: int = 0
+                ) -> torch.Tensor:
+    """Layer ``i``'s feed-forward half on h: norm and MLP or MoE block (the
+    reference's ``mlp_out``, before the residual)."""
+    lp = maybe_stream_in({k: v for k, v in lp.items()
+                          if k not in ("ln1", "attn")}, i)
+    m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+    return ffn_block(m_in, lp, cfg, moe_fn)
+
+
+def layer_forward(h: torch.Tensor, lp: Dict[str, Any],
+                  cfg: TransformerConfig, cos, sin, attn_fn: AttentionFn,
+                  moe_fn: Optional[Callable] = None, i: int = 0
+                  ) -> torch.Tensor:
+    """Decoder layer ``i`` on h (the reference's ``layer_body``), with
+    ``attn_out`` and ``mlp_out`` tagged as the reference tags them
+    (``checkpoint_name``: ``cpu_checkpointing`` keeps them on the host)."""
+    lp = maybe_stream_in(lp, i)
+    attn_out = checkpoint_name(
+        attention_segment(h, lp, cfg, cos, sin, attn_fn, i), "attn_out")
+    if cfg.parallel_residual:
+        return h + attn_out + checkpoint_name(
+            mlp_segment(h, lp, cfg, moe_fn, i), "mlp_out")
+    h = h + attn_out
+    return h + checkpoint_name(mlp_segment(h, lp, cfg, moe_fn, i),
+                               "mlp_out")
+
+
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                    cfg: TransformerConfig,
                    attn_fn: Optional[AttentionFn] = None,
@@ -650,26 +698,20 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     if cfg.position == "rope":
         cos, sin = rope_table(S, cfg.rot_dim, cfg.rope_theta, x.device)
 
-    def attn(h, lp):  # -> attn_out
-        a_in = _norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
-        return _attention_block(a_in, lp["attn"], cfg, cos, sin, attn_fn)
+    def attn(h, lp, i):  # -> attn_out
+        return attention_segment(h, lp, cfg, cos, sin, attn_fn, i)
 
-    def mlp(h, lp):  # -> mlp_out
-        m_in = _norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-        return ffn_block(m_in, lp, cfg, moe_fn)
+    def mlp(h, lp, i):  # -> mlp_out
+        return mlp_segment(h, lp, cfg, moe_fn, i)
 
-    def layer(h, lp):
-        attn_out = attn(h, lp)
-        if cfg.parallel_residual:
-            return h + attn_out + mlp(h, lp)
-        h = h + attn_out
-        return h + mlp(h, lp)
+    def layer(h, lp, i):
+        return layer_forward(h, lp, cfg, cos, sin, attn_fn, moe_fn, i)
 
-    def mlp_residual(h, lp):  # the post-attention segment of save_attn
-        return h + mlp(h, lp)
+    def mlp_residual(h, lp, i):  # the post-attention segment of save_attn
+        return h + mlp(h, lp, i)
 
-    def parallel_rest(h, attn_out, lp):
-        return h + attn_out + mlp(h, lp)
+    def parallel_rest(h, attn_out, lp, i):
+        return h + attn_out + mlp(h, lp, i)
 
     policy = _remat_policy(cfg.remat_policy)
     if policy == "everything" or not torch.is_grad_enabled():
@@ -680,20 +722,20 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
         rest_c = _checkpointed(
             parallel_rest if cfg.parallel_residual else mlp_residual, policy)
 
-        def step(h, lp):
-            attn_out = attn_c(h, lp)  # kept: the segment's output
+        def step(h, lp, i):
+            attn_out = attn_c(h, lp, i)  # kept: the segment's output
             if policy == "save_attn_mlp":
                 if cfg.parallel_residual:
-                    return h + attn_out + mlp_c(h, lp)
+                    return h + attn_out + mlp_c(h, lp, i)
                 h = h + attn_out
-                return h + mlp_c(h, lp)
+                return h + mlp_c(h, lp, i)
             if cfg.parallel_residual:
-                return rest_c(h, attn_out, lp)
-            return rest_c(h + attn_out, lp)
+                return rest_c(h, attn_out, lp, i)
+            return rest_c(h + attn_out, lp, i)
     else:
         step = _checkpointed(layer, policy)
     for i in range(cfg.num_layers):
-        x = step(x, layer_params(params, i))
+        x = step(x, layer_params(params, i), i)
     return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
 

@@ -759,6 +759,17 @@ def _load_native(engine, ckpt_dir: str, load_optimizer_states: bool
     if load_optimizer_states:
         flat_opt = _load_tree_flat(
             os.path.join(ckpt_dir, "optimizer.safetensors"))
+    # a delayed update's pending gradients predate the load: applying them
+    # to the restored parameters would corrupt the restore
+    if getattr(engine, "_pending", False):
+        engine._pending, engine._pending_lr = False, None
     engine.load_state_from(flat_params, flat_opt, meta, ckpt_dir)
+    if getattr(engine, "offloaded_optimizer", None) is not None:
+        # the f32 master from the loaded parameters: a stale master would
+        # overwrite them at the next step
+        engine.offloaded_optimizer.reset_master(engine._leaves)
+        if engine.zenflow_optimizer is not None:
+            # stale hot columns and cold sums must not land on the restore
+            engine.zenflow_optimizer.reset_after_load()
     logger.info(f"loaded checkpoint {ckpt_dir} (step {meta['step']})")
     return ckpt_dir, meta.get("client_state", {})

@@ -6,16 +6,20 @@ config written for the JAX package loads here and a typo still raises
 :class:`ConfigError`.  The training slice reads the batch spine
 (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``), ``bf16``, ``fp16`` (the dynamic loss
-scaler), ``optimizer``, ``scheduler``, ``zero_optimization.stage`` (0),
+scaler), ``optimizer``, ``scheduler``, ``zero_optimization.stage`` (0)
+with ``offload_optimizer`` / ``offload_param`` (cpu or nvme) and
+``stage3_param_persistence_threshold``, ``aio``, ``zenflow``,
 ``gradient_clipping``, ``sanity_checks``, ``checkpoint`` (the ``native``
 and ``fast`` engines), ``seed`` and ``steps_per_print``.  ``data_types``,
 ``remat`` and ``activation_checkpointing`` are parsed and validated and, as
 in the reference, read by no engine code (the model's ``remat_policy``
-and ``runtime/activation_checkpointing`` carry the policies).  Any other
-key set to a value other than its default raises ``NotImplementedError``
-naming the ROADMAP item it arrives with, as do ZeRO stages 1-3, the
-``orbax`` checkpoint engine (multi-host), universal checkpoints and the
-activation-checkpointing options that offload or partition.
+and ``runtime/activation_checkpointing`` carry the policies,
+``cpu_checkpointing`` included).  The offload combinations the reference
+engine rejects raise its ``ConfigError`` word for word.  Any other key set
+to a value other than its default raises ``NotImplementedError`` naming
+the ROADMAP item it arrives with, as do ZeRO stages 1-3, the ``orbax``
+checkpoint engine (multi-host), universal checkpoints and
+``partition_activations``.
 
 Batch-size arithmetic is the reference's, verbatim:
 
@@ -82,6 +86,16 @@ class SchedulerConfig(DSConfigModel):
     params: Dict[str, Any] = field(default_factory=dict)
 
 
+#: the reference's ``OffloadDeviceEnum``
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+def _check_offload_device(section: str, device: str) -> None:
+    if device not in OFFLOAD_DEVICES:
+        raise ConfigError(f"{section}.device must be one of "
+                          f"{list(OFFLOAD_DEVICES)}, got {device!r}")
+
+
 @dataclass
 class OffloadParamConfig(DSConfigModel):
     device: str = "none"
@@ -90,6 +104,13 @@ class OffloadParamConfig(DSConfigModel):
     buffer_size: int = 100_000_000
     max_in_cpu: int = 1_000_000_000
     pin_memory: bool = True
+
+    @property
+    def device_str(self) -> str:
+        return self.device
+
+    def validate(self) -> None:
+        _check_offload_device("offload_param", self.device)
 
 
 @dataclass
@@ -103,6 +124,13 @@ class OffloadOptimizerConfig(DSConfigModel):
     fast_init: bool = False
     ratio: float = 1.0
     delayed_update: bool = False
+
+    @property
+    def device_str(self) -> str:
+        return self.device
+
+    def validate(self) -> None:
+        _check_offload_device("offload_optimizer", self.device)
 
 
 @dataclass
@@ -380,7 +408,6 @@ _LATER = {
     "moe": "A13 (multi-GPU, MoE)",
     "sequence_parallel": "A13 (multi-GPU)",
     "tensor_parallel": "A13 (multi-GPU)",
-    "aio": "A14 (offload)",
     "tensorboard": "A14 (training periphery)",
     "wandb": "A14 (training periphery)",
     "comet": "A14 (training periphery)",
@@ -393,8 +420,7 @@ _LATER = {
     "elasticity": "A14 (training periphery)",
     "autotuning": "A14 (training periphery)",
     "gradient_compression": "A13 (multi-GPU)",
-    "zenflow": "A14 (offload)",
-    "peft": "A14 (PEFT / LoRA training)",
+    "peft": "A14 part 2 (PEFT / LoRA training)",
 }
 
 
@@ -475,7 +501,9 @@ class DeepSpeedTPUConfig(DSConfigModel):
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for every key this slice does not
-        run that is set to other than its default."""
+        run that is set to other than its default, and the reference's
+        ``ConfigError`` for the offload combinations it rejects."""
+        self._check_offload()
         default = DeepSpeedTPUConfig()
         for key, item in _LATER.items():
             if getattr(self, key) != getattr(default, key):
@@ -489,11 +517,12 @@ class DeepSpeedTPUConfig(DSConfigModel):
                 f"zero_optimization.stage={zero.stage}: ZeRO stages 1-3 "
                 "shard state across GPUs and arrive with ROADMAP.md A13 "
                 "(multi-GPU); the port runs stage 0")
-        if zero.offload_param is not None or zero.offload_optimizer is not None:
-            raise NotImplementedError(
-                "zero_optimization offload_param / offload_optimizer arrive "
-                "with ROADMAP.md A14 (offload)")
-        rest = dataclasses.replace(zero, stage=0)
+        # offload runs at stage 0 on one device; every other key tunes the
+        # multi-GPU reduction
+        rest = dataclasses.replace(
+            zero, stage=0, offload_param=None, offload_optimizer=None,
+            stage3_param_persistence_threshold=ZeroConfig(
+            ).stage3_param_persistence_threshold)
         if rest != ZeroConfig():
             changed = sorted(
                 f.name for f in dataclasses.fields(ZeroConfig)
@@ -501,6 +530,50 @@ class DeepSpeedTPUConfig(DSConfigModel):
             raise NotImplementedError(
                 f"zero_optimization keys {changed} tune the multi-GPU "
                 "reduction and arrive with ROADMAP.md A13 (multi-GPU)")
+
+    @property
+    def optimizer_offloaded(self) -> bool:
+        off = self.zero_optimization.offload_optimizer
+        return off is not None and off.device_str != "none"
+
+    @property
+    def param_offloaded(self) -> bool:
+        off = self.zero_optimization.offload_param
+        return off is not None and off.device_str != "none"
+
+    def _check_offload(self) -> None:
+        """The reference engine's rejections of offload combinations
+        (``deepspeed_tpu/runtime/engine.py``), word for word: PEFT with
+        offload or ZenFlow, fp16 with either offload, ZenFlow without the
+        optimizer offload or with parameter offload."""
+        off_o, off_p = self.optimizer_offloaded, self.param_offloaded
+        if self.peft.lora.enabled:
+            if off_o or off_p:
+                raise ConfigError(
+                    "peft.lora + offload_optimizer/offload_param is not "
+                    "supported: the host fp32 master-weight path cannot "
+                    "carry frozen quantized-code leaves, and adapter state "
+                    "is small enough to stay device-resident")
+            if self.zenflow.enabled:
+                raise ConfigError("peft.lora + zenflow is not supported "
+                                  "(zenflow is an offload schedule)")
+        fp16 = self.fp16.enabled is True
+        if off_p and fp16:
+            raise ConfigError(
+                "fp16 + offload_param is not supported; use bf16")
+        # parameters off the device imply the host optimizer
+        offload = off_o or off_p
+        if offload and fp16:
+            raise ConfigError(
+                "fp16 + offload_optimizer is not supported; use bf16")
+        if self.zenflow.enabled and not offload:
+            raise ConfigError(
+                "zenflow requires offload_optimizer (it is a stall-free "
+                "*offload* schedule; reference zenflow_stage_1_and_2.py)")
+        if self.zenflow.enabled and off_p:
+            raise ConfigError(
+                "zenflow + offload_param is not supported (the hot-column "
+                "scatter needs device-resident params)")
 
     def _check_training_sections(self) -> None:
         """Validate the A12 sections the port accepts, and refuse their
@@ -525,11 +598,6 @@ class DeepSpeedTPUConfig(DSConfigModel):
             raise ConfigError(f"checkpoint.tag_validation must be Ignore, "
                               f"Warn or Fail, got {ckpt.tag_validation!r}")
         ac = self.activation_checkpointing
-        if ac.cpu_checkpointing:
-            raise NotImplementedError(
-                "activation_checkpointing.cpu_checkpointing offloads the "
-                "saved residuals to host memory; it arrives with ROADMAP.md "
-                "A14 (offload)")
         if ac.partition_activations:
             raise NotImplementedError(
                 "activation_checkpointing.partition_activations shards the "

@@ -29,22 +29,40 @@ a non-finite loss or grad norm unless the step overflowed (one device: no
 replicas to compare).  ``save_checkpoint`` / ``load_checkpoint`` write and
 read the reference's layout (``runtime/checkpoint/engine.py``).
 
-Data parallelism, ZeRO 1-3, offload, wire compression of gradients and
-PEFT are later items of ROADMAP.md; the config refuses them out loud.
+ZeRO-Offload / ZeRO-Infinity (``zero_optimization.offload_optimizer`` /
+``offload_param``, the reference's ``engine.py:254-298``, ``:1154-1269``):
+the card runs the forward, the backward and the f32 accumulation over
+``gas`` and the gradient norm (``_grad_step``); the f32 master and the
+optimizer's update live on the host (``runtime/zero/offload.py``, an NVMe
+tier behind it), and the updated parameters are copied back.  With
+``offload_param`` the stacked layer leaves live in host memory and stream
+to the card one layer at a time (``runtime/zero/param_offload.py``).
+``delayed_update`` applies step N-1's update on the host while the card
+runs step N (the parameters are written back behind step N's work on the
+compute stream); ``zenflow`` updates the top-k columns on the card and
+flushes the rest through the host optimizer (``runtime/zenflow.py``).
+``offload_states`` / ``reload_states`` evict the optimizer state or the
+parameters to host memory between phases (the reference's
+``engine.py:1641-1730``).
+
+Data parallelism, ZeRO 1-3, wire compression of gradients and PEFT are
+later items of ROADMAP.md; the config refuses them out loud.
 """
 
 from __future__ import annotations
 
 import collections.abc
+import contextlib
 import dataclasses
 import logging
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..accelerator import get_accelerator, resolve_device
-from .config import DeepSpeedTPUConfig, ResolvedBatchConfig
+from .config import (DeepSpeedTPUConfig, OffloadOptimizerConfig,
+                     ResolvedBatchConfig)
 from .config_utils import ConfigError
 from .loss_scaler import (LossScaleState, grads_finite, init_loss_scale,
                           scale_loss, unscale_grads, update_loss_scale)
@@ -135,11 +153,41 @@ class TrainingEngine:
         self.batch_config: ResolvedBatchConfig = \
             config.resolve_batch_config(1)
 
-        # the engine owns its parameters: fresh copies on its device
-        self.params = _map(model.params, lambda p: p.detach().to(
-            self.device, copy=True).requires_grad_(True))
+        # offload mode: parameters off the card imply the host optimizer
+        zero = config.zero_optimization
+        self.param_offload_enabled = config.param_offloaded
+        self.offload_enabled = (config.optimizer_offloaded
+                                or self.param_offload_enabled)
+        self.offloaded_optimizer = None
+        self.zenflow_optimizer = None
+        self._streamer = None
+        self._delayed_update = False
+        self._pending = False  # a delayed update's gradients are staged
+        self._pending_lr: Optional[float] = None
+        self._offloaded_states: Dict[str, bool] = {}
+        self._host = None
+        stream_mask = None
+        if self.offload_enabled:
+            from .zero.param_offload import (HostArena, offload_mask,
+                                             resolve_threshold)
+
+            self._host = HostArena(self.device)
+            if self.param_offload_enabled:
+                stream_mask = leaves(offload_mask(
+                    model.params, min_numel=resolve_threshold(
+                        zero.stage3_param_persistence_threshold)))
+
+        # the engine owns its parameters: fresh copies on its device (the
+        # streamed layer leaves in host memory, in their own dtype)
+        flat_in = leaves(model.params)
+        streamed = stream_mask or [False] * len(flat_in)
+        own = iter([self._host.copy_of(p) if s else p.detach().to(
+            self.device, copy=True).requires_grad_(True)
+            for p, s in zip(flat_in, streamed)])
+        self.params = _map(model.params, lambda p: next(own))
         self._leaves: List[torch.Tensor] = leaves(self.params)
         self._paths: List[str] = leaf_paths(self.params)
+        self._streamed = [j for j, s in enumerate(streamed) if s]
         # keep the spec without the caller's tensors, so that a caller who
         # drops them frees their memory (an 8B model's 4.5 GB on the card)
         self.model = dataclasses.replace(model, params=None)
@@ -151,7 +199,10 @@ class TrainingEngine:
             wd_mask = leaves(default_weight_decay_mask(self.params))
         self.optimizer = create_optimizer(config.optimizer, self.lr_schedule,
                                           wd_mask)
-        self.optimizer.init(self._leaves)
+        if self.offload_enabled:
+            self._init_offload(wd_mask)
+        else:
+            self.optimizer.init(self._leaves)
         self.step_count = 0
         self.global_steps = 0
         self.fp16_enabled = config.fp16.enabled is True
@@ -173,6 +224,47 @@ class TrainingEngine:
                     "gas=%d", self.device, self.train_batch_size,
                     self.train_micro_batch_size_per_device,
                     self.gradient_accumulation_steps)
+
+    def _init_offload(self, wd_mask) -> None:
+        """The host optimizer (an NVMe tier behind it), the layer streamer
+        and ZenFlow, as the reference engine builds them."""
+        from .zero.offload import OffloadedOptimizer
+        from .zero.param_offload import LayerStreamer
+
+        config = self.config
+        zero = config.zero_optimization
+        off = zero.offload_optimizer if config.optimizer_offloaded \
+            else OffloadOptimizerConfig(device="cpu")
+        clip = config.gradient_clipping if config.gradient_clipping and \
+            config.gradient_clipping > 0 else 0.0
+        opt = self.offloaded_optimizer = OffloadedOptimizer(
+            self.optimizer, self._leaves, off, aio=config.aio,
+            param_cfg=zero.offload_param, paths=self._paths, clip=clip,
+            device=self.device, arena=self._host)
+        self._delayed_update = bool(off.delayed_update)
+        if self._streamed:
+            st = self._streamer = LayerStreamer(
+                {j: self._leaves[j] for j in self._streamed}, self.device,
+                self._host)
+            st.grads = {j: opt.grads[j] for j in self._streamed}
+            if self._delayed_update:
+                # step N's streamed gradients land beside step N-1's, which
+                # the host is still applying
+                st.grads = {j: self._host.empty(opt.grads[j].shape,
+                                                torch.float32)
+                            for j in self._streamed}
+        if config.zenflow.enabled:
+            from .zenflow import ZenFlowOptimizer
+
+            self.zenflow_optimizer = ZenFlowOptimizer(
+                create_optimizer(config.optimizer, self.lr_schedule,
+                                 wd_mask), config.zenflow, host_opt=opt,
+                clip=clip)
+            if self._delayed_update:
+                logger.warning(
+                    "zenflow already removes the per-step offload stall; "
+                    "ignoring delayed_update")
+                self._delayed_update = False
 
     # ------------------------------------------------------------------
     # data placement
@@ -214,9 +306,12 @@ class TrainingEngine:
 
     def train_batch(self, batch: Any) -> LazyMetrics:
         """One global-batch step: forward, backward, update."""
+        self.reload_states()  # states evicted by offload_states come back
         if not isinstance(batch, PlacedBatch):
             batch = self.place_batch(batch)
         placed = batch.placed
+        if self.offload_enabled:
+            return self._finish(self._train_batch_offloaded(placed))
         gas = self.batch_config.gradient_accumulation_steps
         rng = self._step_rng()
         fp16 = self.fp16_enabled
@@ -265,13 +360,16 @@ class TrainingEngine:
                     torch.int32)
         del grads
         self.step_count += 1
-        self.global_steps += 1
         dev = self.device
         metrics["grad_norm"] = grad_norm
         metrics["loss_scale"] = ls.scale
         metrics["lr"] = torch.as_tensor(lr, dtype=torch.float32, device=dev)
         metrics["overflow"] = (~finite).float() if fp16 else \
             torch.zeros((), device=dev)
+        return self._finish(metrics)
+
+    def _finish(self, metrics: Dict[str, torch.Tensor]) -> LazyMetrics:
+        self.global_steps += 1
         out = LazyMetrics(metrics)
         if self.config.sanity_checks:
             self._run_sanity_checks(out)
@@ -281,6 +379,124 @@ class TrainingEngine:
                         self.global_steps, out["loss"], out["lr"],
                         out["grad_norm"])
         return out
+
+    # ------------------------------------------------------------------
+    # offload mode
+    # ------------------------------------------------------------------
+
+    def _streaming(self):
+        return self._streamer if self._streamer is not None \
+            else contextlib.nullcontext()
+
+    def _grad_step(self, placed: Dict[str, torch.Tensor]):
+        """The device half of the offloaded step (reference
+        ``_build_grad_step``): forward and backward of every micro-batch,
+        the f32 gradients summed and divided by ``gas``, and their global
+        norm.  Returns (the gradients, None for a streamed leaf: its
+        gradient is in the host buffer; the mean metrics; the norm)."""
+        gas = self.batch_config.gradient_accumulation_steps
+        rng = self._step_rng()
+        st = self._streamer
+        streamed = set(self._streamed)
+        want = [p for j, p in enumerate(self._leaves) if j not in streamed]
+        if st is not None:
+            want.append(st.anchor)
+        grads: Optional[List[torch.Tensor]] = None
+        msum: Dict[str, torch.Tensor] = {}
+        with self._streaming():
+            for i in range(gas):
+                if st is not None:
+                    st.begin(i)
+                mb = {k: v[i] for k, v in placed.items()}
+                loss, metrics = self.model.loss_fn(self.params, mb, rng)
+                g = torch.autograd.grad(loss, want, allow_unused=True)
+                if st is not None:
+                    g = g[:-1]
+                    st.accumulate()
+                g = [torch.zeros_like(p, dtype=torch.float32) if gi is None
+                     else gi.float() for gi, p in zip(g, want)]
+                if grads is None:
+                    grads = g
+                else:
+                    for a, b in zip(grads, g):
+                        a.add_(b)
+                for k, m in metrics.items():
+                    m = torch.as_tensor(m, device=self.device).detach().float()
+                    msum[k] = msum[k] + m if k in msum else m
+        with torch.no_grad():
+            if gas > 1:
+                for g in grads:
+                    g.div_(float(gas))
+            metrics = {k: m / gas for k, m in msum.items()}
+            grad_norm = global_norm(grads)
+            if st is not None:
+                if gas > 1:  # the host holds the streamed sums
+                    host = [st.grads[j] for j in self._streamed]
+                    for h in host:
+                        h.div_(float(gas))
+                    sq = torch.tensor(float(sum(
+                        torch.linalg.vector_norm(h).double() ** 2
+                        for h in host)), device=self.device)
+                else:
+                    sq = st.sq
+                grad_norm = torch.sqrt(grad_norm * grad_norm + sq)
+            full: List[Optional[torch.Tensor]] = []
+            it = iter(grads)
+            for j in range(len(self._leaves)):
+                full.append(None if j in streamed else next(it))
+        return full, metrics, grad_norm
+
+    def _stage(self, grads, grad_norm) -> None:
+        """Queue the gradients' copies into the host optimizer's buffers
+        (a delayed update's streamed buffers trade places first)."""
+        opt = self.offloaded_optimizer
+        st = self._streamer
+        if st is not None and self._delayed_update:
+            for j in self._streamed:
+                opt.grads[j], st.grads[j] = st.grads[j], opt.grads[j]
+        opt.stage_grads(grads, grad_norm)
+
+    def _train_batch_offloaded(self, placed) -> Dict[str, torch.Tensor]:
+        """Reference ``_train_batch_offloaded``."""
+        lr = self.get_lr()  # before the count moves: the lr of this update
+        grads, metrics, grad_norm = self._grad_step(placed)
+        opt = self.offloaded_optimizer
+        # the device work is queued, not done: NVMe reads overlap it
+        opt.prefetch()
+        applied_lr = None
+        if self.zenflow_optimizer is not None:
+            self.zenflow_optimizer.step(self._leaves, grads)
+        elif self._delayed_update:
+            # the host applies step N-1 while the card runs step N; the
+            # parameters go back behind step N's work on the compute stream
+            if self._pending:
+                applied_lr = self._pending_lr
+                opt.step(out=self._leaves)
+            self._stage(grads, grad_norm)
+            self._pending, self._pending_lr = True, lr
+        else:
+            self._stage(grads, grad_norm)
+            opt.step(out=self._leaves)
+        del grads
+        self.step_count += 1
+        dev = self.device
+        metrics["grad_norm"] = torch.as_tensor(grad_norm, device=dev)
+        metrics["lr"] = torch.tensor(lr, dtype=torch.float32, device=dev)
+        if applied_lr is not None:
+            # the metrics describe this batch; the update just applied was
+            # the previous batch's, at its own lr
+            metrics["applied_lr"] = torch.tensor(
+                applied_lr, dtype=torch.float32, device=dev)
+        return metrics
+
+    def flush_delayed_update(self) -> None:
+        """Apply the pending (one step late) update, if any.  Eval and save
+        call it; so should the end of training, or the last batch's
+        gradients are dropped."""
+        if not self._pending:
+            return
+        self.offloaded_optimizer.step(out=self._leaves)
+        self._pending, self._pending_lr = False, None
 
     def _run_sanity_checks(self, out: LazyMetrics) -> None:
         """``sanity_checks`` (reference ``_run_sanity_checks``): a
@@ -297,12 +513,15 @@ class TrainingEngine:
 
     def eval_batch(self, batch: Any) -> Dict[str, float]:
         """The loss function's metrics over the whole batch, no update."""
+        # eval needs the parameters only: evicted optimizer state stays
+        self.reload_states(include=("lp_params",))
+        self.flush_delayed_update()
         placed = batch.placed if isinstance(batch, PlacedBatch) \
             else self._place(batch)
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in placed.items()}
         loss_fn = self.model.eval_fn or self.model.loss_fn
-        with torch.no_grad():
+        with torch.no_grad(), self._streaming():
             _, metrics = loss_fn(self.params, flat, self._step_rng())
         return dict(LazyMetrics(dict(metrics)))
 
@@ -342,7 +561,11 @@ class TrainingEngine:
         """The optimizer state under the reference's paths (the engine's
         ``optax.chain`` index first)."""
         pre = self._opt_prefix()
-        return {pre + k: v for k, v in self.optimizer.state_flat(
+        opt = self.optimizer
+        if self.offloaded_optimizer is not None:
+            # saved from the host (read back from NVMe when paged there)
+            opt = self.offloaded_optimizer.state_for_checkpoint()
+        return {pre + k: v for k, v in opt.state_flat(
             self._paths, self.device).items()}
 
     @torch.no_grad()
@@ -367,7 +590,10 @@ class TrainingEngine:
             flat = {k[len(pre):]: v for k, v in flat_opt.items()
                     if k.startswith(pre)}
             try:
-                self.optimizer.load_state_flat(flat, self._paths)
+                if self.offloaded_optimizer is not None:
+                    self.offloaded_optimizer.load_state(flat, self._paths)
+                else:
+                    self.optimizer.load_state_flat(flat, self._paths)
             except KeyError as e:
                 raise ValueError(
                     f"optimizer state in {where} does not match the "
@@ -389,6 +615,10 @@ class TrainingEngine:
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[Dict] = None) -> str:
+        self.flush_delayed_update()
+        if self.zenflow_optimizer is not None:
+            # mid-interval cold gradients must not be dropped by the save
+            self.zenflow_optimizer.flush(self._leaves)
         from .checkpoint.engine import save_checkpoint as _save
 
         return _save(self, save_dir, tag=tag, client_state=client_state or {})
@@ -402,3 +632,84 @@ class TrainingEngine:
         return _load(self, load_dir, tag=tag,
                      load_optimizer_states=load_optimizer_states,
                      fallback=fallback)
+
+    # -- phase-alternation state offload (reference: offload_states /
+    # reload_states; an RLHF rollout evicts the optimizer state to free
+    # the card for the KV cache, then reloads it before the next update) --
+
+    _OFFLOADABLE = ("optim_states", "lp_params")
+
+    def offload_states(self, include: Optional[Sequence[str]] = None,
+                       device: str = "cpu", pin_memory: bool = True,
+                       non_blocking: bool = False) -> None:
+        """Evict engine state to host memory between phases.
+
+        ``include`` is a subset of {"optim_states", "lp_params"} (default:
+        the optimizer state; evicting the parameters too means nothing runs
+        until :meth:`reload_states`).  The device tensors are dropped, so
+        the card's memory is freed.  Under ``offload_optimizer`` the
+        optimizer already lives on the host and "optim_states" does
+        nothing.  Idempotent; ``train_batch`` reloads by itself."""
+        if device != "cpu":
+            raise ConfigError(f"offload_states supports device='cpu', "
+                              f"got {device!r}")
+        include = set(include) if include is not None else {"optim_states"}
+        unknown = include - set(self._OFFLOADABLE)
+        if unknown:
+            raise ConfigError(
+                f"offload_states: unknown state types {sorted(unknown)}; "
+                f"valid: {self._OFFLOADABLE}")
+        self.flush_delayed_update()
+        pin = pin_memory and self.device.type == "cuda"
+
+        def to_host(t):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            h.copy_(t.detach(), non_blocking=non_blocking)
+            return h
+
+        done = self._offloaded_states
+        if ("optim_states" in include and "optim_states" not in done
+                and self.offloaded_optimizer is None):
+            for lst in self.optimizer._leaf_state():
+                for i, t in enumerate(lst):
+                    if t is not None and t.device != torch.device("cpu"):
+                        lst[i] = to_host(t)
+            done["optim_states"] = True
+        if "lp_params" in include and "lp_params" not in done:
+            with torch.no_grad():
+                for p in self._leaves:
+                    if p.device != torch.device("cpu"):
+                        p.data = to_host(p)
+            done["lp_params"] = True
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        if done:
+            logger.info("offloaded states to host: %s", sorted(done))
+
+    def reload_states(self, non_blocking: bool = False,
+                      include: Optional[Sequence[str]] = None) -> None:
+        """Put the states :meth:`offload_states` evicted back on the
+        device (``include`` a subset: eval needs the parameters, not the
+        optimizer state).  Idempotent."""
+        done = self._offloaded_states
+        if not done:
+            return
+        wanted = set(include) if include is not None else set(done)
+        streamed = set(self._streamed)
+        if "optim_states" in done and "optim_states" in wanted:
+            for lst in self.optimizer._leaf_state():
+                for i, t in enumerate(lst):
+                    if t is not None:
+                        lst[i] = t.to(self.device, non_blocking=non_blocking)
+            del done["optim_states"]
+        if "lp_params" in done and "lp_params" in wanted:
+            with torch.no_grad():
+                for j, p in enumerate(self._leaves):
+                    if j not in streamed:
+                        p.data = p.data.to(self.device,
+                                           non_blocking=non_blocking)
+            del done["lp_params"]
+
+    @property
+    def states_offloaded(self) -> bool:
+        return bool(self._offloaded_states)

@@ -1528,3 +1528,90 @@ def test_train_checkpoint_round_trip_on_gpu(cuda_device, tmp_path):
         assert torch.equal(a, b)
     for b in batches[2:]:
         assert eng.train_batch(b)["loss"] == fresh.train_batch(b)["loss"]
+
+
+def _small_bf16_cfg(layers):
+    return tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                         num_heads=4, num_kv_heads=2, num_layers=layers,
+                         attn_impl="flash", dtype="bfloat16",
+                         param_dtype="bfloat16")
+
+
+def test_offload_phase_small(cuda_device):
+    """``chip_smoke.py``'s offload phase at a small width: optimizer offload
+    plain and delayed, the streamed engine, the NVMe tiers, ZenFlow,
+    ``cpu_checkpointing`` and the small f32 agreement, with their gates."""
+    import chip_smoke
+
+    a = chip_smoke.optimizer_offload(torch, tfa, _small_bf16_cfg, "test")
+    assert a["layers"] == chip_smoke.OFFLOAD_DEPTHS[0]
+    assert a["plain"]["host_ms"]["update_ms"] > 0
+    b = chip_smoke.param_offload(torch, tfa, 4, a["plain"]["peak_mem_gb"],
+                                 _small_bf16_cfg)
+    assert b["stream_ins"] == 2 * 4 and b["loss_after"] < b["losses"][0]
+    c = chip_smoke.nvme_tiers(torch, tfa, _small_bf16_cfg)
+    assert c["read_gb_s"] > 0 and c["write_gb_s"] > 0
+    d = chip_smoke.zenflow_run(torch, tfa, _small_bf16_cfg)
+    assert d["cold_bytes_transferred"] * chip_smoke.ZENFLOW_INTERVAL == \
+        d["plain_offload_grad_bytes"]
+    f = chip_smoke.cpu_checkpointing_run(torch, tfa, _small_bf16_cfg)
+    assert f["max_abs_err_grads"] >= 0.0
+    assert set(chip_smoke.small_offload_agreement(torch, tfa)) == {
+        "optimizer", "delayed", "param"}
+
+
+def test_streamed_engine_keeps_the_stack_on_the_host(cuda_device):
+    """``offload_param``: the stack's leaves are page-locked host tensors,
+    the card's peak is below the resident engine's by at least the stack's
+    bf16 bytes, and the losses equal the resident offload engine's."""
+    from deepspeed_tpu_torch.runtime.zero import param_offload as tpo
+
+    rng = np.random.default_rng(3)
+    batches = [{"input_ids": rng.integers(0, 256, (4, 512)).astype(
+        np.int32)} for _ in range(3)]
+    out = {}
+    for name, zero in (("resident", {"offload_optimizer": {"device": "cpu"}}),
+                       ("streamed", {"offload_param": {"device": "cpu"},
+                                     "stage3_param_persistence_threshold":
+                                         0})):
+        eng, cfg = _small_engine(cuda_device, {
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "zero_optimization": {"stage": 0, **zero}},
+            dtype="bfloat16", param_dtype="bfloat16", num_layers=8)
+        stack = [t for t, p in zip(eng._leaves, eng._paths)
+                 if p.startswith("layers/")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [eng.train_batch(b)["loss"] for b in batches]
+        out[name] = (losses, torch.cuda.max_memory_allocated(),
+                     sum(t.numel() * t.element_size() for t in stack))
+        if name == "streamed":
+            assert all(tpo.is_page_locked(t) for t in stack)
+        eng.offloaded_optimizer.close()
+    assert out["streamed"][0] == out["resident"][0]
+    assert out["streamed"][1] < out["resident"][1] - out["resident"][2]
+
+
+def test_offload_states_frees_the_card(cuda_device):
+    """``offload_states`` moves the optimizer state and the parameters to
+    page-locked host memory and frees the card; ``train_batch`` reloads
+    them, and the run goes on as an uninterrupted one, bit for bit."""
+    cfg = {"optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    eng, mcfg = _small_engine(cuda_device, cfg)
+    ref, _ = _small_engine(cuda_device, cfg)
+    rng = np.random.default_rng(4)
+    batches = [{"input_ids": rng.integers(0, mcfg.vocab_size, (4, 64)).astype(
+        np.int32)} for _ in range(4)]
+    for b in batches[:2]:
+        assert eng.train_batch(b)["loss"] == ref.train_batch(b)["loss"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng.offload_states(include=("optim_states", "lp_params"))
+    assert all(t.is_pinned() for t in eng._leaves)
+    assert torch.cuda.memory_allocated() < before - sum(
+        t.numel() * t.element_size() for t in eng._leaves)
+    for b in batches[2:]:
+        assert eng.train_batch(b)["loss"] == ref.train_batch(b)["loss"]
+    assert not eng.states_offloaded
+    for a, b in zip(eng._leaves, ref._leaves):
+        assert torch.equal(a, b)

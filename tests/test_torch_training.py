@@ -9,7 +9,8 @@ numpy-seeded inputs in f32 with the reference's weights converted by
 - three ``train_batch`` steps at gas 1 and 2 with weight decay, clipping
   and WarmupLR: loss, grad_norm and lr within 1e-5 relative per step, final
   parameters within 1e-5;
-- the config: typos, the batch arithmetic's errors, refused sections.
+- the config: typos, the batch arithmetic's errors, refused sections,
+  and the sections that run.
 
 The JAX engine runs on a one-device mesh so that both engines see the same
 global batch and the same per-step metrics."""
@@ -400,12 +401,8 @@ def test_config_matches_reference_contract():
     for cfg, item in [({"checkpoint": {"engine": "orbax"}}, "A13"),
                       ({"checkpoint": {"load_universal": True}}, "A14"),
                       ({"activation_checkpointing": {
-                          "cpu_checkpointing": True}}, "A14"),
-                      ({"activation_checkpointing": {
                           "partition_activations": True}}, "A13"),
                       ({"zero_optimization": {"stage": 1}}, "A13"),
-                      ({"zero_optimization": {"offload_optimizer": {
-                          "device": "cpu"}}}, "A14"),
                       ({"zero_optimization": {"overlap_comm": True}}, "A13"),
                       ({"pipeline": {"stages": 2}}, "A13"),
                       ({"peft": {"lora": {"enabled": True}}}, "A14"),
@@ -413,8 +410,11 @@ def test_config_matches_reference_contract():
         c = tconfig.load_config(cfg)
         with pytest.raises(NotImplementedError, match=item):
             c.check_supported()
-    # the training engine's sections run (A12)
+    # the training engine's sections run (A12, and A14's offload)
     for cfg in ({"fp16": {"enabled": True}}, {"sanity_checks": True},
+                {"activation_checkpointing": {"cpu_checkpointing": True}},
+                {"zero_optimization": {"offload_optimizer": {
+                    "device": "cpu"}}},
                 {"checkpoint": {"async_save": True, "engine": "fast"}},
                 {"remat": {"policy": "save_attn"}},
                 {"activation_checkpointing": {"policy": "dots"}},
