@@ -19,7 +19,8 @@ In order it prints:
    model's head dim (D = 64, H = 32, KV = 8), and the prefill kernel at a
    speculative verify's k + 1 = 5 query positions per row (D = 128); then
    warm decode tokens/s of the plain, draft-model, self-draft and adapter
-   engines at llama3-8b, each from three processes of its own
+   engines at llama3-8b's width (16 of its 32 layers), each from three
+   processes of its own
    (``--spec-rates``);
 4. the engine: ``InferenceEngineV2`` at full llama3-8b width and depth with
    random bf16 weights from a seed, serving 8 requests (SplitFuse prefill,
@@ -74,8 +75,9 @@ In order it prints:
    policies (fwd + bwd ms, peak GB, B1-B3 launches per policy, gradients
    against ``nothing_saveable``'s), the seven other optimizers card vs
    CPU on the small model, checkpoints at full width and 2 layers
-   (native + sha256 and fast: save, load bit for bit, equal resumed
-   losses; an async save; the fallback past a truncated tag; GB/s), and
+   (an async native save with sha256 and a fast one: the fast tag loaded
+   bit for bit, equal resumed losses; the async tag holds the state at its
+   save, loaded past the truncated fast tag; GB/s), and
    each optimizer's step at full width;
 7. the mixed GEMM (W8A16 / W4A16 / W6A16) and W8A8 kernels against their
    plain versions at llama3-8b's four projection shapes, at M = 8 (a decode
@@ -161,7 +163,7 @@ In order it prints:
    when it resumes, no worker left after the drain); disaggregated
    prefill/decode replicas (both classes routed, a 1000-token prefix
    handed off bit for bit, the decode replica prefilling only the tail,
-   its first-token logits against a cache-off engine); a rolling swap at 8
+   its first-token logits against a cache-off engine); a rolling swap at 2
    layers (publish, a halted rollout rolled back, a swap under 8 streams);
    fleet adapter register / retire over HTTP against merged weights; and
    ``serving/bench.py`` (the mixed-GEMM sweep at llama3-8b's projections
@@ -183,11 +185,32 @@ In order it prints:
    dropless Mixtral-8x7B at MOE_LAYERS layers (exact B8 launches), small
    f16 models card against CPU and ``fused_adamw_flat`` on f16
    parameters; the phase's seconds;
-16. ZeRO-Offload / ZeRO-Infinity (each number beside the card's name,
+16. PEFT / LoRA training: (a) QLoRA llama3-8b at full width and all 32
+   layers (an int4 base of group 512 quantized on the card layer by layer,
+   r 64, alpha 16, the seven projections, f32 adapters; bf16, flash,
+   remat, ``tiled_loss_fn(512)``, 4 x 2048, AdamW), 2 warm-up and 5 timed
+   steps: step ms, tokens/s, MFU, device peak GB, base, adapter and
+   optimizer-state bytes, the engine's build seconds; gates: B6
+   (``mixed_gemm_wgmma_kernel``) exactly 2 x 7 x L launches a step and
+   B1-B3 2L / L / L, no plain or off-envelope call, the loss falls, the
+   frozen leaves bit for bit, gradients and optimizer state for the
+   adapters alone; (b) int8, fp6, fp8 and dense bases at 2 layers, the
+   adapters' gradients with B6 against B6's plain version and one step
+   each (fp8 and dense launch no B6); (c) B6 alone at the step's M = 8192
+   at the four projection shapes, bits 4, 8 and 6: against its plain
+   version, kernel / plain / library / bound ms and the backward's dx ms;
+   (d) an adapter-only checkpoint of (a): save and load seconds and bytes
+   against a full checkpoint's computed bytes, two resumed steps equal to
+   the uninterrupted run's; (e) the merged export at 2 layers served by
+   the v2 engine beside the unmerged LoRA tree (first-token logits within
+   5e-2 of max |logit|, continuations counted); (f) a small f32 QLoRA
+   model card against CPU; the phase's seconds by part;
+17. ZeRO-Offload / ZeRO-Infinity (each number beside the card's name,
    power limit and the host's MemTotal): llama3-8b at full width (the
    training phase's model and batch) with ``offload_optimizer: cpu`` at
-   the deepest of 32, 16 and 8 layers whose host bytes (16 a parameter)
-   plus 10 GB fit in MemAvailable, a warm-up and 3 timed steps, then on
+   4 layers (OFFLOAD_DEPTHS, cut for the smoke's time; it fails where the
+   host bytes, 16 a parameter, plus 10 GB do not fit MemAvailable), a
+   warm-up and 3 timed steps, then on
    the same engine with ``delayed_update`` a step that applies nothing and
    3 timed ones (finite falling losses, ``applied_lr``, exact B1-B3 launches,
    no plain call; step ms, tokens/s, MFU, device peak GB, the card's
@@ -196,8 +219,8 @@ In order it prints:
    for a step and a forward (the stack page-locked on the host and never
    on the card, 2L stream-ins a step, the loss falls; device peak against
    the optimizer-offload engine's); the NVMe tiers (moments and f32 master
-   under ``build/``) at 2 layers for 2 steps (read / write GB/s); ZenFlow
-   at 8 layers for 4 steps (hot-step against flush-step ms, cold bytes
+   under ``build/``) at 2 layers for a step (read / write GB/s); ZenFlow
+   at 4 layers for 4 steps (hot-step against flush-step ms, cold bytes
    exact against plain offload's, compact state bytes); a small f32 model offloaded (plain, delayed,
    streamed) card against CPU and against the on-device engine;
    ``cpu_checkpointing`` at full width over 2 layers (loss and gradients
@@ -205,10 +228,14 @@ In order it prints:
    write sweep of 256 MB on ``build/``; the host's AdamW on a 512 MB leaf,
    plain PyTorch against the offloaded optimizer's one-pass loop (ns an
    element); the phase's seconds by part;
-17. a JSON line with every kernel's numbers (the f16 rows with
+18. a JSON line with every kernel's numbers (the f16 rows with
    ``"dtype": "float16"`` and their launches on the fp16 paths; the flash
-   rows also ``launches_offload``, on the optimizer-offload steps);
-18. last, ``{"ok": true, "device": {...}}``.
+   rows also ``launches_offload``, on the optimizer-offload steps; B6 at
+   M = 8192 with ``launches_peft``, on the peft phase's steps);
+19. last, ``{"ok": true, "device": {...}}``.
+
+Each phase's wall seconds stand on a line of their own, ``phase NAME: S
+s``.
 
 Any failure exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository beside it, it fails at once.
@@ -372,6 +399,20 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+
+
+class PhaseClock:
+    """Wall seconds of the smoke's phases: ``clock(name)`` prints the
+    seconds since the previous call on a line of its own."""
+
+    def __init__(self):
+        self.last, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+        print(f"phase {name}: {self.seconds[name]:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1495,13 +1536,16 @@ def run_training(torch, fa, profile: bool) -> dict:
 
 
 def small_training_agreement(torch, fa, cfg=None, kernels=None,
-                             optimizer=None) -> dict:
+                             optimizer=None, peft=None) -> dict:
     """A small llama-shaped f32 model (head dim 64, GQA, flash attention;
     ``cfg`` when given) trained 3 steps on the card (kernels) and on the
     CPU (plain versions) from the same weights: losses within TOL_TRAIN
     relative, final parameters within TOL_TRAIN.  ``kernels``: more kernel
     modules whose launches the card run must show, with no plain call;
-    ``optimizer``: the optimizer section (AdamW by default)."""
+    ``optimizer``: the optimizer section (AdamW by default); ``peft``: a
+    ``peft.lora`` section (each engine wraps the same weights, drawn from
+    the config's seed on its own device: the tree is wrapped on the CPU
+    first, and both engines take it)."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -1517,6 +1561,12 @@ def small_training_agreement(torch, fa, cfg=None, kernels=None,
     mods = [fa, *(kernels or ())]
     params = tfm.init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu", dtype=torch.float32)
+    if peft is not None:
+        from deepspeed_tpu_torch.linear.config import LoRAConfig
+        from deepspeed_tpu_torch.linear.optimized_linear import apply_lora
+
+        params = apply_lora(params, torch.Generator().manual_seed(SEED + 1),
+                            LoRAConfig.from_dict(peft))
     rng = np.random.default_rng(SEED)
     batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
         4, cfg.max_seq_len)).astype(np.int32)} for _ in range(3)]
@@ -1531,7 +1581,8 @@ def small_training_agreement(torch, fa, cfg=None, kernels=None,
                 # CPU's f32 rounding of g shows up in proportion to lr
                 "optimizer": optimizer or {"type": "adamw", "params": {
                     "lr": 1e-4, "weight_decay": 0.01}},
-                "gradient_clipping": 1.0, "steps_per_print": 10_000},
+                "gradient_clipping": 1.0, "steps_per_print": 10_000,
+                **({"peft": {"lora": peft}} if peft else {})},
             device=dev)
         for mod in mods:
             mod.reset_counts()
@@ -1759,14 +1810,15 @@ def dir_bytes(path: str) -> int:
 
 def checkpoint_roundtrips(torch) -> dict:
     """Checkpoints at full width, CKPT_LAYERS layers (bf16 parameters,
-    AdamW): 2 steps, a native save with sha256, a load into a fresh engine
-    (parameters and optimizer state bit for bit), 2 more steps on both
-    with equal losses; the same through the ``fast`` engine; an async save
-    whose files hold the state at save time although a step ran during
-    the write, which is also the tag the load falls back to past a
-    truncated newer one.
-    Save and load GB/s and seconds (the disk under the checkout; reads
-    warm)."""
+    AdamW), two writers and two loads into one directory: 2 steps, then an
+    async native save with sha256, whose files hold the state at save time
+    although a step ran during the write; a newer tag from the ``fast``
+    writer, loaded (verified, bit for bit) into a fresh engine, 2 more
+    steps on both with equal losses; then that tag truncated, past which a
+    native engine falls back to the async one and resumes as the run did
+    after it.  Save and load GB/s and seconds (the disk under the
+    checkout; reads warm).  Each writer saves once and each tag loads
+    once: a load runs the same code whichever engine wrote the tag."""
     import shutil
 
     import numpy as np
@@ -1794,85 +1846,89 @@ def checkpoint_roundtrips(torch) -> dict:
     def state(eng):
         return list(eng._leaves) + list(eng.optimizer_state_flat().values())
 
-    def same(a, b, what):
-        sa, sb = state(a), state(b)
-        if len(sa) != len(sb) or not all(
-                x.dtype == y.dtype and torch.equal(x, y)
-                for x, y in zip(sa, sb)):
-            fail(f"checkpoints: {what}: the loaded state is not the saved "
-                 "state bit for bit")
-        if a.get_global_step() != b.get_global_step():
-            fail(f"checkpoints: {what}: step {b.get_global_step()} != "
-                 f"{a.get_global_step()}")
+    def loss(eng, i):
+        return eng.train_batch(batches[i])["loss"]
 
     rng = np.random.default_rng(SEED + 9)
     a = new()
     batches = [a.place_batch({"input_ids": rng.integers(
         0, cfg.vocab_size, size=(FB, FS)).astype(np.int32)})
-        for _ in range(8)]
+        for _ in range(5)]
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     out = {"layers": CKPT_LAYERS}
-    for i in range(2):
-        a.train_batch(batches[i])
-    for mode, ckpt, resume in (("native", {"integrity": "sha256"}, (2, 3)),
-                               ("fast", {"engine": "fast",
-                                         "integrity": "sha256"}, (4,))):
-        d = os.path.join(CKPT_DIR, mode)
-        a.config.checkpoint.engine = ckpt.get("engine", "native")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = a.save_checkpoint(d)
-        t1 = time.perf_counter()
-        b = new(**ckpt)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        b.load_checkpoint(d)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        same(a, b, mode)
-        la = [a.train_batch(batches[i])["loss"] for i in resume]
-        lb = [b.train_batch(batches[i])["loss"] for i in resume]
-        if la != lb:
-            fail(f"checkpoints ({mode}): resumed losses {lb} != the "
-                 f"uninterrupted run's {la}")
-        gb = dir_bytes(path) / 1e9
-        out[mode] = {"gb": gb, "save_s": t1 - t0, "save_gb_s": gb / (t1 - t0),
-                     "load_s": t3 - t2, "load_gb_s": gb / (t3 - t2),
-                     "resumed_losses": lb, "losses_equal": True}
-        del b
-        torch.cuda.empty_cache()
-        shutil.rmtree(d)
-    # async: the snapshot is taken before save_checkpoint returns; then a
-    # truncated newer tag in the same directory, past which the load falls
-    # back to the async one
-    d = os.path.join(CKPT_DIR, "async")
-    a.config.checkpoint.engine = "native"
+    losses = [loss(a, i) for i in range(2)]
+    # native, async: the snapshot is taken before save_checkpoint returns
     a.config.checkpoint.async_save = True
-    a.config.checkpoint.integrity = "none"
+    a.config.checkpoint.integrity = "sha256"
     at_save, step_at_save = bit_sums(torch, state(a)), a.get_global_step()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    a.save_checkpoint(d)
+    native = a.save_checkpoint(CKPT_DIR)
     t1 = time.perf_counter()
-    a.train_batch(batches[5])  # in place, while the thread writes
+    losses.append(loss(a, 2))  # in place, while the thread writes
     ce.wait_for_async_saves()
     t2 = time.perf_counter()
+    gb = dir_bytes(native) / 1e9
+    out["async"] = {"return_s": t1 - t0, "until_written_s": t2 - t0,
+                    "step_during_write": True}
+    # fast: a newer tag, loaded into a fresh engine
     a.config.checkpoint.async_save = False
-    newest = a.save_checkpoint(d)
-    model = os.path.join(newest, "model.safetensors")
+    a.config.checkpoint.engine = "fast"
+    t0 = time.perf_counter()
+    fast = a.save_checkpoint(CKPT_DIR)
+    t1 = time.perf_counter()
+    b = new(engine="fast", integrity="sha256")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    path, _ = b.load_checkpoint(CKPT_DIR)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sa, sb = state(a), state(b)
+    if path != fast or len(sa) != len(sb) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(sa, sb)):
+        fail(f"checkpoints (fast): loaded {path}, not the saved state of "
+             f"{fast} bit for bit")
+    if a.get_global_step() != b.get_global_step():
+        fail(f"checkpoints (fast): step {b.get_global_step()} != "
+             f"{a.get_global_step()}")
+    del sa, sb
+    la = [loss(a, i) for i in (3, 4)]
+    lb = [loss(b, i) for i in (3, 4)]
+    if la != lb:
+        fail(f"checkpoints (fast): resumed losses {lb} != the uninterrupted "
+             f"run's {la}")
+    fgb = dir_bytes(fast) / 1e9
+    out["fast"] = {"gb": fgb, "save_s": t1 - t0, "save_gb_s": fgb / (t1 - t0),
+                   "load_s": t3 - t2, "load_gb_s": fgb / (t3 - t2),
+                   "resumed_losses": lb, "losses_equal": True}
+    del b
+    torch.cuda.empty_cache()
+    # the fast tag truncated: the load falls back to the async native tag,
+    # which holds the state at its save and resumes as the run did
+    model = os.path.join(fast, "model.safetensors")
     with open(model, "rb+") as f:
         f.truncate(os.path.getsize(model) // 2)
     c = new(integrity="none")
-    path, _ = c.load_checkpoint(d)
-    if not path.endswith(f"global_step{step_at_save}") or \
-            c.get_global_step() != step_at_save:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, _ = c.load_checkpoint(CKPT_DIR)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if path != native or c.get_global_step() != step_at_save:
         fail(f"checkpoints: the load did not fall back past the truncated "
-             f"tag {newest} ({path})")
+             f"tag {fast} ({path})")
     if bit_sums(torch, state(c)) != at_save:
         fail("checkpoints (async): the loaded state is not the state at "
              "save time")
-    out["async"] = {"return_s": t1 - t0, "until_written_s": t2 - t0,
-                    "step_during_write": True}
-    out["fallback"] = {"truncated": os.path.basename(newest),
+    lc = [loss(c, i) for i in (2, 3)]
+    if lc != [losses[2], la[0]]:
+        fail(f"checkpoints (native): resumed losses {lc} != the "
+             f"uninterrupted run's {[losses[2], la[0]]}")
+    out["native"] = {"gb": gb, "save_s": out["async"]["until_written_s"],
+                     "save_gb_s": gb / out["async"]["until_written_s"],
+                     "load_s": t1 - t0, "load_gb_s": gb / (t1 - t0),
+                     "resumed_losses": lc, "losses_equal": True}
+    out["fallback"] = {"truncated": os.path.basename(fast),
                        "loaded": os.path.basename(path)}
     del c, a, batches
     torch.cuda.empty_cache()
@@ -1954,8 +2010,8 @@ def training_engine_line(te: dict) -> str:
             f"{fp['loss_scales'][0]:.0f} -> {fp['final_loss_scale']:.0f}, "
             f"peak {fp['peak_mem_gb']:.2f} GB | remat (fwd+bwd): {remat} | "
             f"checkpoints x{ck['layers']}: native {ck['native']['gb']:.2f} "
-            f"GB save {ck['native']['save_gb_s']:.3f} GB/s load "
-            f"{ck['native']['load_gb_s']:.3f} GB/s, fast save "
+            f"GB async save written at {ck['native']['save_gb_s']:.3f} GB/s,"
+            f" fallback load {ck['native']['load_gb_s']:.3f} GB/s, fast save "
             f"{ck['fast']['save_gb_s']:.3f} load {ck['fast']['load_gb_s']:.3f}"
             f" GB/s, async returned in {ck['async']['return_s']:.2f} s | "
             f"optimizer step ms x{CKPT_LAYERS}: {opt}")
@@ -1968,12 +2024,18 @@ def training_engine_line(te: dict) -> str:
 # llama3-8b with the training cell's model and batch, as deep as the host
 # allows: OFFLOAD_HOST_B bytes of host memory a parameter (f32 master, m, v
 # and the f32 gradient buffer) plus OFFLOAD_HOST_MARGIN must fit in
-# MemAvailable; the streamed engine adds its bf16 layer stack
-OFFLOAD_DEPTHS = (32, 16, 8)
+# MemAvailable; the streamed engine adds its bf16 layer stack.  Cut to 4
+# layers, with ZenFlow's, and the NVMe tiers to one step, to keep the smoke
+# in its time limit (16 layers, the host's deepest, took the phase 182.4 s,
+# 32-49 s of it page-faulting 64 GB of host tensors; 8 layers 157.1-176.7
+# s, of which the optimizer-offload engine 43.3 s, ZenFlow's 35.5, the
+# streamed one 36.7 and the NVMe one 48.2 at two steps; NVIDIA H100 80GB
+# HBM3, 700 W)
+OFFLOAD_DEPTHS = (4,)
 OFFLOAD_HOST_B, OFFLOAD_HOST_MARGIN = 16, 10e9
 OFFLOAD_WARMUP, OFFLOAD_TIMED = 1, 3
-NVME_LAYERS, NVME_STEPS = CKPT_LAYERS, 2
-ZENFLOW_LAYERS, ZENFLOW_RATIO, ZENFLOW_INTERVAL, ZENFLOW_STEPS = 8, 0.1, 4, 4
+NVME_LAYERS, NVME_STEPS = CKPT_LAYERS, 1
+ZENFLOW_LAYERS, ZENFLOW_RATIO, ZENFLOW_INTERVAL, ZENFLOW_STEPS = 4, 0.1, 4, 4
 OFFLOAD_DIR = os.path.join("build", "offload_smoke")
 DS_IO_MB = 256
 TOL_OFFLOAD = 1e-5  # small f32 model: offloaded vs on-device, on the card
@@ -2566,6 +2628,575 @@ def offload_line(off: dict, card: str) -> str:
             f"write {g['write']['best_gb_s']:.3f} GB/s | host AdamW on "
             f"{h['n']} elements: plain {h['plain_ns']:.3f} ns an element, "
             f"one pass {h['one_pass_ns']:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# PEFT / LoRA training: QLoRA at full depth, B6 under autograd
+# ---------------------------------------------------------------------------
+
+# (a) QLoRA on llama3-8b at full width and depth: the reference's LoRA
+# defaults (r 64, alpha 16, the seven projections) over an int4 base of
+# group 512; the training cell's settings otherwise.  The adapters are
+# drawn in f32 (the base's codes are the same from an f32 or bf16 weight):
+# a bf16 A of ~2**-6 would drop updates under its ulp, 2**-13.  lr 2e-4:
+# the QLoRA paper's for 7B / 13B models
+PEFT_LAYERS, PEFT_WARMUP, PEFT_STEPS = 32, 2, 5
+PEFT_LORA = {"enabled": True, "lora_r": 64, "lora_alpha": 16.0,
+             "quantize_base": True,
+             "quantization": {"q_bits": 4, "mantissa_bits": 0,
+                              "group_size": 512}}
+PEFT_LR = 2e-4
+PEFT_RESUMED = 2  # (d): steps after the adapter-only checkpoint's load
+PEFT_DIR = os.path.join("build", "peft_smoke")
+# (b): the other bases at CKPT_LAYERS layers, one step each; int8 and fp6
+# run B6 and hold the adapters' gradients against B6's plain version
+PEFT_BASES = {"int8": (8, 0), "fp6": (6, 2), "fp8": (8, 3), "dense": None}
+# (b)'s gradients, B6 against its plain version.  The two forwards differ
+# only where an f32 sum of the same exact bf16 products rounds to the other
+# bf16 neighbour, but from such a flip on, every bf16 rounding of the
+# backward (2**-8 an operation) falls elsewhere: measured on an NVIDIA
+# H100 80GB HBM3 at 700 W, every adapter's gradient differed from the plain
+# version's by 0.97-1.18e-2 of its norm at 2 layers, int8 and fp6 alike,
+# the loss by 4e-6 of itself, while B6 and cuBLAS on the dequantized weight
+# gave the same gradients bit for bit.  The limit is 5e-2 of the norm, 4x
+# that noise; a dropped K-group (one of 8 of a projection) moves the
+# projection's output, and its gradients, by ~1/8.  The loss: 1e-4
+PEFT_GRAD_REL = 5e-2
+PEFT_LOSS_REL = 1e-4
+# (c): B6 at the training step's rows
+B6_TRAIN_M = FB * FS
+B6_TRAIN_BITS = {"mixed_gemm_int4": 4, "mixed_gemm_int8": 8,
+                 "mixed_gemm_fp6": 6}
+B6_TRAIN_GROUP = 512
+# (e): the merged export's serving check, prompts of the engine phase's
+# lengths cut to four, PEFT_NEW greedy tokens each
+PEFT_PROMPTS, PEFT_NEW = PROMPT_LENS[::2], 8
+
+
+def peft_lora_cfg(base):
+    """The PEFT phase's ``peft.lora`` section over ``base`` ((q_bits,
+    mantissa_bits), or None for a dense base)."""
+    lora = dict(PEFT_LORA)
+    if base is None:
+        lora["quantize_base"] = False
+    else:
+        lora["quantization"] = dict(lora["quantization"], q_bits=base[0],
+                                    mantissa_bits=base[1])
+    return lora
+
+
+def qlora_tree(torch, cfg, lora: dict, seed: int = SEED):
+    """Seeded llama3-8b weights at ``cfg``'s depth as a LoRA tree built on
+    the card one layer at a time (the bf16 layer is drawn, quantized and
+    dropped, so the whole bf16 tree never exists beside its codes), the
+    adapters in f32.  Returns (tree, seconds)."""
+    import dataclasses as dc
+
+    from deepspeed_tpu_torch.linear.config import LoRAConfig
+    from deepspeed_tpu_torch.linear.optimized_linear import (
+        init_lora_weight, tree_map)
+    from deepspeed_tpu_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    lcfg = LoRAConfig.from_dict(lora)
+    one = dc.replace(cfg, num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L = cfg.num_layers
+    stacked = None
+    for i in range(L):
+        p = tfm.init_params(one, gen, device="cuda",
+                            dtype=tfm.param_dtype(cfg))
+        layer = p.pop("layers")
+        if i == 0:
+            rest = p
+        for grp in ("attn", "mlp"):
+            for k in lcfg.target_modules:
+                if k in layer[grp]:
+                    layer[grp][k] = init_lora_weight(
+                        gen, layer[grp][k].float(), lcfg)
+        if stacked is None:  # (L, ...) of every leaf
+            stacked = tree_map(lambda t: t.new_empty((L,) + t.shape[1:]),
+                               layer)
+        tree_map(lambda s, t: s[i].copy_(t[0]), stacked, layer)
+        del layer, p
+    rest["layers"] = stacked
+    torch.cuda.synchronize()
+    return rest, time.perf_counter() - t0
+
+
+def peft_engine(cfg, tree, lora: dict):
+    """The PEFT engine (bf16, flash, tiled loss, AdamW at PEFT_LR, micro-batch
+    FB) on ``tree``, which already holds the LoRA nodes."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    return deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+            p, b, cfg, tile_size=TILE), params=tree),
+        config={"train_micro_batch_size_per_gpu": FB,
+                "optimizer": {"type": "adamw", "params": {"lr": PEFT_LR}},
+                "zero_optimization": {"stage": 0}, "peft": {"lora": lora},
+                "steps_per_print": 10_000})[0]
+
+
+def frozen_state(torch, engine) -> tuple:
+    """(the frozen leaves, their bit sums: 1-byte codes viewed as int32)."""
+    from deepspeed_tpu_torch.linear.optimized_linear import ADAPTER_LEAF_KEYS
+
+    frozen = [p for p, path in zip(engine._all_leaves, engine._all_paths)
+              if path.split("/")[-1] not in ADAPTER_LEAF_KEYS]
+    return frozen, bit_sums(torch, [
+        t.view(torch.int32) if t.element_size() == 1 else t for t in frozen])
+
+
+def check_adapters_only(torch, engine, what: str) -> dict:
+    """Gradients and optimizer state exist for the LoRA factors alone:
+    the trainable leaves are exactly the ``lora_a`` / ``lora_b`` leaves,
+    every other leaf takes no gradient and has none, and every optimizer
+    state leaf names an adapter."""
+    from deepspeed_tpu_torch.linear.optimized_linear import ADAPTER_LEAF_KEYS
+
+    adapters = [p for p in engine._all_paths
+                if p.split("/")[-1] in ADAPTER_LEAF_KEYS]
+    frozen, _ = frozen_state(torch, engine)
+    state = engine.optimizer_state_flat()
+    bad = [k for k in state if k.split("/")[-1] not in ADAPTER_LEAF_KEYS
+           and not k.endswith("count")]
+    if engine._paths != adapters or any(
+            p.requires_grad or p.grad is not None for p in frozen) or bad:
+        fail(f"{what}: a frozen leaf trains or has state (trainable "
+             f"{len(engine._paths)} of {len(adapters)} adapter leaves; "
+             f"state of {bad[:3]})")
+    nbytes = [sum(t.numel() * t.element_size() for t in ts)
+              for ts in (engine._leaves, frozen, state.values())]
+    return {"adapter_gb": nbytes[0] / 1e9, "frozen_gb": nbytes[1] / 1e9,
+            "optimizer_state_gb": nbytes[2] / 1e9}
+
+
+def peft_qlora(torch, fa, mg) -> dict:
+    """(a) and (d): QLoRA llama3-8b at PEFT_LAYERS layers, PEFT_WARMUP +
+    PEFT_STEPS steps on one batch (exact B6 wgmma and B1-B3 launches, no
+    plain or off-envelope call, falling loss, codes and scales bit for bit,
+    adapters alone trained); then an adapter-only checkpoint, PEFT_RESUMED
+    steps, its load and the same steps again (equal losses)."""
+    import shutil
+
+    import numpy as np
+
+    cfg = llama_cfg(PEFT_LAYERS)
+    tree, build_s = qlora_tree(torch, cfg, PEFT_LORA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = peft_engine(cfg, tree, PEFT_LORA)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not engine.peft_enabled:
+        fail("peft: the engine did not take the LoRA tree")
+    base = check_adapters_only(torch, engine, "peft")
+    frozen, sums = frozen_state(torch, engine)
+    placed = engine.place_batch({"input_ids": np.random.default_rng(
+        SEED).integers(0, cfg.vocab_size, size=(
+            engine.train_batch_size, FS)).astype(np.int32)})
+    steps = PEFT_WARMUP + PEFT_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    mg.reset_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(placed)["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    L = cfg.num_layers
+    launches = {**fa.LAUNCHES, **{f"{k}_wgmma": v for k, v in
+                                  mg.WGMMA_LAUNCHES.items()}}
+    # B6: each of the seven projections in the forward and again in the
+    # remat recompute; B1 forward and recompute, B2, B3 once a layer
+    want_b6 = 2 * PROJECTIONS * L * steps
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dq": L * steps}
+    got_fa = {k: fa.LAUNCHES[k] for k in want}
+    if got_fa != want or any(fa.PLAIN_CALLS.values()):
+        fail(f"peft: flash launches {got_fa}, want {want}; plain "
+             f"{fa.PLAIN_CALLS}")
+    if (mg.LAUNCHES["mixed_gemm_int4"] != want_b6
+            or mg.WGMMA_LAUNCHES["mixed_gemm_int4"] != want_b6
+            or any(v for k, v in mg.LAUNCHES.items()
+                   if k != "mixed_gemm_int4")
+            or any(mg.PLAIN_CALLS.values())
+            or any(mg.DEQUANT_CALLS.values())):
+        fail(f"peft: B6 launches {mg.LAUNCHES} (wgmma {mg.WGMMA_LAUNCHES}),"
+             f" want {want_b6} int4 on mixed_gemm_wgmma_kernel; plain "
+             f"{mg.PLAIN_CALLS}, off-envelope {mg.DEQUANT_CALLS}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"peft: the loss did not fall on a fixed batch: {losses}")
+    if frozen_state(torch, engine)[1] != sums:
+        fail("peft: a frozen leaf (codes, scales, embedding, norms) "
+             "changed")
+    check_adapters_only(torch, engine, "peft after the steps")
+    dt = statistics.median(times[PEFT_WARMUP:]) / 1e3
+    tokens = engine.train_batch_size * (FS - 1)
+    # per token: the frozen base's forward and dx (4 N), the adapters'
+    # forward, dx and dW (6 N_adapter), attention as the training cell
+    n_base = cfg.num_params(include_embed=False)
+    n_adapter = sum(p.numel() for p in engine._leaves)
+    flops_per_token = 4 * n_base + 6 * n_adapter \
+        + 12 * L * cfg.hidden_size * FS
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    peak = get_accelerator().peak_tflops("bfloat16") * 1e12
+    out = {"model": "llama3-8b", "layers": L, "lora": PEFT_LORA,
+           "lr": PEFT_LR, "tree_build_s": build_s, "engine_init_s": init_s,
+           "losses": losses, "step_ms": times, "step_ms_timed": dt * 1e3,
+           "tokens_per_s": tokens / dt,
+           "mfu": tokens / dt * flops_per_token / peak,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "adapter_params": n_adapter, **base, "launches": launches,
+           "launches_per_step": {k: v // steps for k, v in launches.items()},
+           "frozen_bits_equal": True}
+    # (d): an adapter-only checkpoint; the steps after it, then its load
+    # and the same steps again
+    shutil.rmtree(PEFT_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = engine.save_checkpoint(PEFT_DIR)
+    save_s = time.perf_counter() - t0
+    after = [engine.train_batch(placed)["loss"] for _ in range(PEFT_RESUMED)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.load_checkpoint(PEFT_DIR)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed = [engine.train_batch(placed)["loss"]
+               for _ in range(PEFT_RESUMED)]
+    if resumed != after:
+        fail(f"peft: resumed losses {resumed} != the uninterrupted run's "
+             f"{after}")
+    files = sorted(os.listdir(path))
+    if "model.safetensors" in files or "adapter_model.safetensors" \
+            not in files:
+        fail(f"peft: the checkpoint is not adapter-only: {files}")
+    gb = dir_bytes(path) / 1e9
+    full_gb = (base["adapter_gb"] + base["frozen_gb"]
+               + base["optimizer_state_gb"])
+    out["checkpoint"] = {"gb": gb, "full_gb_computed": full_gb,
+                         "save_s": save_s, "load_s": load_s,
+                         "save_gb_s": gb / save_s, "load_gb_s": gb / load_s,
+                         "files": files, "losses_after": after,
+                         "losses_resumed": resumed}
+    shutil.rmtree(PEFT_DIR, ignore_errors=True)
+    del engine, placed, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class _PlainFrozen:
+    """``mixed_gemm_frozen`` with B6's plain version in the forward (the
+    same backward): the oracle of (b)'s gradients; ``library``: cuBLAS on
+    the dequantized bf16 weight instead."""
+
+    def __init__(self, torch, mg, library: bool = False):
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, qw):
+                ctx.qw = qw
+                if library:
+                    return x @ mg.dequantize_gemm_weight(qw).to(x.dtype)
+                x2 = x.reshape(-1, x.shape[-1])
+                return mg.mixed_gemm_plain(x2, qw).reshape(
+                    *x.shape[:-1], qw.out_features)
+
+            @staticmethod
+            def backward(ctx, g):
+                w = mg.dequantize_gemm_weight(ctx.qw).to(g.dtype)
+                return g @ w.transpose(-1, -2), None
+
+        self.apply = Fn.apply
+
+    def __call__(self, x, qw):
+        return self.apply(x, qw)
+
+
+def peft_bases(torch, fa, mg) -> dict:
+    """(b): int8, fp6, fp8 and dense bases at CKPT_LAYERS layers.  For the
+    B6 bases the adapters' gradients of one batch (B6) against the same
+    with B6's plain version (within the bf16 gradient limit); then one
+    engine step each, B6 launched exactly 2 x 7 x L times for int8 / fp6
+    and never for fp8 and dense."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.linear import optimized_linear as tl
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = llama_cfg(CKPT_LAYERS)
+    batch = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(FB, FS)).astype(np.int32)
+    out = {}
+    for name, fmt in PEFT_BASES.items():
+        lora = peft_lora_cfg(fmt)
+        tree, _ = qlora_tree(torch, cfg, lora, SEED + 1)
+        # give the adapters a real contribution: B from the seed
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        for grp in ("attn", "mlp"):
+            for node in tree["layers"][grp].values():
+                if isinstance(node, tl.LoRAWeight):
+                    node.lora_b.normal_(0.0, 1e-2, generator=gen)
+        engine = peft_engine(cfg, tree, lora)
+        del tree
+        rec = {"base": name}
+        b6 = fmt in ((8, 0), (6, 2))
+        if b6:
+            tokens = torch.from_numpy(batch).cuda()
+
+            def grads(frozen=None):
+                kernel_fn = tl.mixed_gemm_frozen
+                tl.mixed_gemm_frozen = frozen or kernel_fn
+                try:
+                    loss, _ = tiled_loss_fn(engine.params, {
+                        "input_ids": tokens}, cfg, tile_size=TILE)
+                    return loss.item(), torch.autograd.grad(
+                        loss, engine._leaves)
+                finally:
+                    tl.mixed_gemm_frozen = kernel_fn
+
+            mg.reset_counts()
+            loss_k, got = grads()
+            n_kernel = sum(mg.WGMMA_LAUNCHES.values())
+            loss_p, ref = grads(_PlainFrozen(torch, mg))
+            _, lib = grads(_PlainFrozen(torch, mg, library=True))
+            if n_kernel != 2 * PROJECTIONS * CKPT_LAYERS:
+                fail(f"peft {name}: {n_kernel} B6 launches in one forward "
+                     f"and backward, want {2 * PROJECTIONS * CKPT_LAYERS}")
+
+            def rel(a, b):
+                return max(((x - y).norm() / y.norm()).item()
+                           for x, y in zip(a, b))
+
+            rec.update(loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
+                       grads_rel_norm_err=rel(got, ref),
+                       grads_rel_norm_err_library=rel(got, lib),
+                       library_rel_norm_err=rel(lib, ref))
+            if not (rec["grads_rel_norm_err"] <= PEFT_GRAD_REL
+                    and rec["loss_rel_err"] <= PEFT_LOSS_REL):
+                fail(f"peft {name}: with B6 the adapters' gradients differ "
+                     f"from B6's plain version's by "
+                     f"{rec['grads_rel_norm_err']} of their norm (limit "
+                     f"{PEFT_GRAD_REL}), the loss by {rec['loss_rel_err']} "
+                     f"(limit {PEFT_LOSS_REL})")
+            del got, ref, lib
+        mg.reset_counts()
+        fa.reset_counts()
+        loss = engine.train_batch({"input_ids": batch})["loss"]
+        n = sum(mg.LAUNCHES.values())
+        want = 2 * PROJECTIONS * CKPT_LAYERS if b6 else 0
+        if n != want or any(mg.PLAIN_CALLS.values()) or not math.isfinite(
+                loss):
+            fail(f"peft {name}: {n} B6 launches in one step, want {want} "
+                 f"(plain {mg.PLAIN_CALLS}); loss {loss}")
+        rec.update(loss=loss, b6_launches=n, launches=dict(mg.LAUNCHES),
+                   **check_adapters_only(torch, engine, f"peft {name}"))
+        out[name] = rec
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def b6_training_rows(torch, mg, flush) -> list:
+    """(c): B6 at the training step's M = FB * FS rows, at llama3-8b's four
+    projection shapes, bits 4, 8 and 6 (group B6_TRAIN_GROUP), bf16 x:
+    held against its plain version (TOL_BF16); kernel, plain, library
+    (``torch.matmul`` by the dequantized weight, as row 6; also with the
+    dequantization) and bound ms, and the backward's dx (dequantize, then
+    ``torch.matmul`` by its transpose)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = []
+    M = B6_TRAIN_M
+    for shape_name, (K, N) in GEMM_SHAPES.items():
+        w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+        x = torch.randn((M, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        g = torch.randn((M, N), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for name, bits in B6_TRAIN_BITS.items():
+            qw = mg.quantize_gemm_weight(w, bits=bits, group=B6_TRAIN_GROUP)
+            if not mg.mixed_gemm_on_kernel_path(qw):
+                fail(f"{name} {shape_name} M={M}: off the kernel path")
+            before = mg.WGMMA_LAUNCHES[name]
+            out = mg.mixed_gemm_frozen(x, qw)
+            if mg.WGMMA_LAUNCHES[name] != before + 1:
+                fail(f"{name} {shape_name} M={M}: not on "
+                     "mixed_gemm_wgmma_kernel")
+            ref = mg.mixed_gemm_plain(x, qw)
+            torch.cuda.synchronize()
+            err = compare(out, ref, TOL_BF16, f"{name} {shape_name} M={M}")
+            del out, ref
+            w_lib = mg.dequantize_gemm_weight(qw).to(torch.bfloat16)
+            code_bytes = qw.codes.numel() + qw.scales.numel() * 4
+            b_ms, b_by = bound(code_bytes + M * K * 2 + M * N * 2,
+                               2 * M * K * N)
+            rows.append({
+                "name": name, "shape": shape_name, "K": K, "N": N, "M": M,
+                "group": B6_TRAIN_GROUP, "kernel": "mixed_gemm_wgmma_kernel",
+                "splits": mg.mixed_gemm_splits(
+                    M, N, K // B6_TRAIN_GROUP,
+                    torch.cuda.get_device_properties(0).multi_processor_count),
+                "max_abs_err": err, "max_abs_err_f32": None,
+                "ms": time_ms(lambda: mg.mixed_gemm(x, qw), torch, flush,
+                              iters=10),
+                "plain_ms": time_ms(lambda: mg.mixed_gemm_plain(x, qw),
+                                    torch, flush, iters=3, warmup=1),
+                "library_ms": time_ms(lambda: torch.matmul(x, w_lib), torch,
+                                      flush, iters=10),
+                "library_dequant_ms": time_ms(lambda: torch.matmul(
+                    x, mg.dequantize_gemm_weight(qw).to(torch.bfloat16)),
+                    torch, flush, iters=10),
+                "bwd_dx_ms": time_ms(lambda: g @ mg.dequantize_gemm_weight(
+                    qw).to(torch.bfloat16).transpose(-1, -2), torch, flush,
+                    iters=10),
+                "bound_ms": b_ms, "bound_by": b_by})
+            del qw, w_lib
+        del w, x, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def peft_merged_export(torch, mg) -> dict:
+    """(e): the int4 QLoRA tree at CKPT_LAYERS layers with seeded adapters
+    (B random), exported merged (``export_merged_weights``) and served by
+    the v2 engine beside the unmerged LoRA tree: first-token logits within
+    TOL_SPEC_LOGITS_REL of max |logit| per request, greedy continuations
+    counted; the unmerged engine runs B6 on its LoRA bases."""
+    import shutil
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
+    from deepspeed_tpu_torch.linear import optimized_linear as tl
+    from deepspeed_tpu_torch.runtime.checkpoint import engine as ce
+
+    cfg = llama_cfg(CKPT_LAYERS)
+    tree, _ = qlora_tree(torch, cfg, PEFT_LORA, SEED + 5)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for grp in ("attn", "mlp"):
+        for node in tree["layers"][grp].values():
+            if isinstance(node, tl.LoRAWeight):
+                node.lora_b.normal_(0.0, 1e-2, generator=gen)
+    engine = peft_engine(cfg, tree, PEFT_LORA)
+    del tree
+    shutil.rmtree(PEFT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = engine.export_merged_weights(PEFT_DIR)
+    export_s = time.perf_counter() - t0
+    merged = ce.load_merged_params(path, tl.merge_lora_weights(
+        engine.params))
+    if tl.has_lora(merged):
+        fail("peft export: the merged tree still holds LoRA nodes")
+    prompts = [list(np.random.default_rng(SEED + i).integers(
+        0, cfg.vocab_size, n)) for i, n in enumerate(PEFT_PROMPTS)]
+    scfg = dataclasses.replace(cfg, dtype="bfloat16")
+    res = {}
+    lora = tl.tree_map(lambda t: t.detach(), engine.params)
+    for kind, params in (("merged", merged), ("lora", lora)):
+        mg.reset_counts()
+        eng = InferenceEngineV2(scfg, params, spec_v2())
+        first = first_token_logits(torch, eng, prompts)
+        uids = [eng.put(p, max_new_tokens=PEFT_NEW) for p in prompts]
+        done = eng.generate_all()
+        res[kind] = (first, [done[u][len(p):] for u, p in zip(uids, prompts)],
+                     sum(mg.LAUNCHES.values()))
+        del eng
+        free_cache(torch)
+    rel = [logits_rel(a, b) for a, b in zip(res["lora"][0],
+                                            res["merged"][0])]
+    if not max(rel) <= TOL_SPEC_LOGITS_REL:
+        fail(f"peft export: first-token logits of the LoRA tree differ "
+             f"from the merged weights' by {rel} of max |logit|")
+    if not res["lora"][2] > 0 or res["merged"][2]:
+        fail(f"peft export: B6 launches lora {res['lora'][2]}, merged "
+             f"{res['merged'][2]}")
+    same = sum(a == b for a, b in zip(res["lora"][1], res["merged"][1]))
+    gb = dir_bytes(path) / 1e9
+    shutil.rmtree(PEFT_DIR, ignore_errors=True)
+    del engine, merged, lora
+    free_cache(torch)
+    return {"layers": CKPT_LAYERS, "export_s": export_s, "export_gb": gb,
+            "first_logits_rel": rel, "b6_launches_lora": res["lora"][2],
+            "continuations_identical": same, "requests": len(prompts)}
+
+
+def small_peft_agreement(torch, fa) -> dict:
+    """(f): a small f32 llama-shaped model with an int4 LoRA base, three
+    PEFT steps on the card and on the CPU (``small_training_agreement``:
+    TOL_TRAIN); f32 x dequantizes the base, as the reference does."""
+    lora = dict(PEFT_LORA, lora_r=8,
+                quantization=dict(PEFT_LORA["quantization"], group_size=64))
+    return small_training_agreement(torch, fa, peft=lora)
+
+
+def run_peft_phase(torch, fa, mg) -> dict:
+    t0 = time.perf_counter()
+    free_cache(torch)
+    out, secs = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        secs[name] = time.perf_counter() - t
+        print(f"peft {name} ({secs[name]:.1f} s): "
+              + json.dumps(out[name], default=str), flush=True)
+
+    part("qlora", peft_qlora, torch, fa, mg)
+    part("bases", peft_bases, torch, fa, mg)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    part("b6", b6_training_rows, torch, mg, flush)
+    del flush
+    part("export", peft_merged_export, torch, mg)
+    part("small", small_peft_agreement, torch, fa)
+    out["part_seconds"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def peft_line(pf: dict, card: str) -> str:
+    a, ck, e = pf["qlora"], pf["qlora"]["checkpoint"], pf["export"]
+    b6 = "; ".join(
+        f"{r['name'][11:]} {r['shape']} {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, with dequant "
+        f"{r['library_dequant_ms']:.4f}, bound {r['bound_ms']:.4f} "
+        f"{r['bound_by']}, dx {r['bwd_dx_ms']:.4f})" for r in pf["b6"])
+    bases = ", ".join(
+        f"{k} loss {v['loss']:.4f} B6 {v['b6_launches']}"
+        + (f" grads vs plain {v['grads_rel_norm_err']:.3e} (norm; vs "
+           f"cuBLAS {v['grads_rel_norm_err_library']:.3e})"
+           if "grads_rel_norm_err" in v else "")
+        for k, v in pf["bases"].items())
+    return (f"peft phase ({card}, {pf['seconds']:.1f} s): QLoRA llama3-8b "
+            f"x{a['layers']} (int4 base, r 64): step "
+            f"{a['step_ms_timed']:.2f} ms, {a['tokens_per_s']:.2f} tokens/s,"
+            f" MFU {a['mfu']:.4f}, device peak {a['peak_mem_gb']:.2f} GB, "
+            f"base {a['frozen_gb']:.2f} GB, adapters {a['adapter_gb']:.3f} "
+            f"GB ({a['adapter_params']} params), optimizer state "
+            f"{a['optimizer_state_gb']:.3f} GB, tree {a['tree_build_s']:.1f}"
+            f" s, engine {a['engine_init_s']:.1f} s, B6 a step "
+            f"{a['launches_per_step']['mixed_gemm_int4_wgmma']}, losses "
+            f"{a['losses'][0]:.4f} -> {a['losses'][-1]:.4f} | adapter-only "
+            f"checkpoint {ck['gb']:.3f} GB (full {ck['full_gb_computed']:.2f}"
+            f" GB computed) save {ck['save_s']:.2f} s load {ck['load_s']:.2f}"
+            f" s | x{CKPT_LAYERS}: {bases} | export {e['export_s']:.1f} s "
+            f"{e['export_gb']:.2f} GB, logits rel "
+            f"{max(e['first_logits_rel']):.3e}, continuations "
+            f"{e['continuations_identical']}/{e['requests']} | small card vs "
+            f"CPU {pf['small']['loss_max_rel_diff']:.2e} | B6 at M="
+            f"{B6_TRAIN_M}: {b6}")
 
 
 # ---------------------------------------------------------------------------
@@ -4273,8 +4904,8 @@ def run_spec_phase(torch, pa, params, card: str, cfg=None,
     from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
     from deepspeed_tpu_torch.linear.spec_heads import init_spec_heads
     from deepspeed_tpu_torch.models import transformer as tfm
-    from deepspeed_tpu_torch.runtime.checkpoint.engine import \
-        merge_adapter_pack
+    from deepspeed_tpu_torch.linear.optimized_linear import (
+        graft_adapter_pack, merge_lora_weights)
     from deepspeed_tpu_torch.serving.adapters import AdapterRegistry
 
     cfg = cfg or tfm.get_config("llama3-8b")
@@ -4401,7 +5032,8 @@ def run_spec_phase(torch, pa, params, card: str, cfg=None,
             vs["merged"] = {}
             for a in lanes[1:]:
                 rows = [i for i, b in enumerate(ids) if b == a]
-                m_params = merge_adapter_pack(params, reg.get_pack(a))
+                m_params = merge_lora_weights(graft_adapter_pack(
+                    params, reg.get_pack(a)))
                 m_eng = InferenceEngineV2(cfg, m_params, spec_v2())
                 merged = spec_run(torch, m_eng, prompts)
                 done(m_eng)
@@ -5264,13 +5896,23 @@ def small_serving_agreement(torch, pa) -> dict:
 # second spawn never starts while the first is still coming up.  Every
 # other autoscaler knob keeps the reference's default.
 FLEET_DEBOUNCE_S = 25.0
+# the stage's lease TTL, half the reference's 10 s default, to keep the smoke
+# in its time limit: the SIGKILL and SIGSTOP parts each wait out a lease,
+# and the SIGKILL part half a lease more (the lease still outlives the 5 s
+# heartbeat timeout that declares a silent worker down)
+FLEET_LEASE_S = 5.0
 FLEET_LOAD_S = 300.0  # the load's budget to scale the fleet up
 HANDOFF_LEN = 1000  # the prompt whose prefix the prefill replica hands off
-ROLLOUT_LAYERS = 8  # the rolling swap's depth: a 5.6 GB checkpoint
+# the rolling swap's depth, cut from 8 to CKPT_LAYERS to keep the smoke in
+# its time limit: at 8 layers (a 4.54 GB checkpoint) the publish and the two
+# rollouts took 39.6 s of the fleet phase's 239.0 (NVIDIA H100 80GB HBM3,
+# 700 W)
+ROLLOUT_LAYERS = CKPT_LAYERS
 ROLLOUT_STREAMS = 8  # streams in flight while the fleet rolls
 ADAPTER_ARGV = ["--adapter_slots", "8", "--adapter_rank", "16"]
 BENCH_GEMM_MS = (1, 8, 16, 256)
 BENCH_RATES = "2,8"
+BENCH_DURATION_S = 4.0  # each rate's offered load (the bench's default 8)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
@@ -5370,6 +6012,7 @@ def fleet_remote_stage(torch, args, argv, traffic_lens) -> dict:
     cfg = ServingConfig(num_replicas=1, replica_transport="remote",
                         max_queue=64, autoscale_min=1, autoscale_max=2,
                         scale_up_debounce_s=FLEET_DEBOUNCE_S,
+                        lease_ttl_s=FLEET_LEASE_S,
                         spawn_timeout_s=SERVE_SPAWN_S)
     worker_argv = engine_argv_from_args(args) + serving_argv_from_config(cfg)
     pool = ReplicaPool.build_remote(worker_argv, cfg)
@@ -5994,14 +6637,14 @@ def fleet_adapter_stage(torch, argv, traffic_lens, rank: int) -> dict:
     /v1/adapters`` registers one of ``adapter_packs``' seeded packs
     (published with ``publish_adapter``) on both; requests naming it, one
     at a time, have first-token logits within TOL_SPEC_LOGITS_REL of max
-    |logit| of an engine on ``merge_adapter_pack`` weights, and past that
+    |logit| of an engine on the pack's merged weights, and past that
     limit from the base engine's; after ``retire`` a request naming it is
     refused (400)."""
     import shutil
 
     from deepspeed_tpu_torch.inference.v2.engine import InferenceEngineV2
-    from deepspeed_tpu_torch.runtime.checkpoint.engine import \
-        merge_adapter_pack
+    from deepspeed_tpu_torch.linear.optimized_linear import (
+        graft_adapter_pack, merge_lora_weights)
     from deepspeed_tpu_torch.serving import ReplicaPool, ServingConfig
     from deepspeed_tpu_torch.serving.adapters import (load_adapter_pack,
                                                       publish_adapter)
@@ -6049,8 +6692,9 @@ def fleet_adapter_stage(torch, argv, traffic_lens, rank: int) -> dict:
                    for u in pr.first if u not in s]
             (pr, u), = new
             served.append(pr.first[u][1])
-        merged = InferenceEngineV2(mcfg, merge_adapter_pack(
-            params, load_adapter_pack(ckpt, mcfg, rank)), v2)
+        merged = InferenceEngineV2(mcfg, merge_lora_weights(
+            graft_adapter_pack(params, load_adapter_pack(ckpt, mcfg, rank))),
+            v2)
         ref = first_token_logits(torch, merged, prompts)
         del merged
         base = first_token_logits(torch, InferenceEngineV2(mcfg, params, v2),
@@ -6090,7 +6734,8 @@ def fleet_bench_stage(torch, mg, argv, gemm_shapes) -> dict:
     the absolute one taken of the largest output: the sweep's weights are
     unit normal) of dequantize-then-matmul in the kernel's numerics (its
     max error against the timed bf16 fallback is reported);
-    then ``--mode serving --rates BENCH_RATES`` against a server
+    then ``--mode serving --rates BENCH_RATES`` (BENCH_DURATION_S each)
+    against a server
     subprocess on ``argv``, results written under ``build/``: no request
     failed."""
     import io
@@ -6134,6 +6779,7 @@ def fleet_bench_stage(torch, mg, argv, gemm_shapes) -> dict:
     path = os.path.join(BUILD_DIR, "fleet_bench.json")
     with contextlib.redirect_stdout(io.StringIO()):
         rc = bench.main(["--mode", "serving", "--rates", BENCH_RATES,
+                         "--duration_s", str(BENCH_DURATION_S),
                          "--replicas", "1", "--server_args", " ".join(argv),
                          "--out", path])
     with open(path) as f:
@@ -6807,6 +7453,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    clock = PhaseClock()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -6819,6 +7466,7 @@ def main() -> None:
     secs, log = build.build()
     host_build.join()
     print(f"build: {secs:.2f} s")
+    clock("build")
     kernel = ""
     for line in log.splitlines():
         if line.startswith("== "):  # a source and its seconds
@@ -6855,9 +7503,11 @@ def main() -> None:
           f"{verify_b4['bound_ms']:.5f} ({verify_b4['bound_by']})")
     gc.collect()
     torch.cuda.empty_cache()
+    clock("paged kernels")
     rates = spec_rates_over_processes(torch)
     print(f"decode tokens/s over {SPEC_RATE_PROCS} processes ({card}): "
           + json.dumps(rates))
+    clock("spec rates")
 
     keep = {}
     engine = run_engine(torch, pa, args.profile, keep)
@@ -6865,12 +7515,15 @@ def main() -> None:
     print("engine: " + json.dumps(engine))
     small = small_model_agreement(torch)
     print("small model card vs CPU: " + json.dumps(small))
+    clock("engine")
     params = keep.pop("params")
     hier = run_hierarchy_phase(torch, pa, params, card)
     print("hierarchy: " + json.dumps(hier))
     print(hierarchy_line(hier))
+    clock("hierarchy")
     spec = run_spec_phase(torch, pa, params, card)
     print("speculative decoding and adapters: " + json.dumps(spec))
+    clock("speculative")
     gc.collect()
     torch.cuda.empty_cache()
     v1 = run_v1_phase(torch, mg, params, card)
@@ -6888,6 +7541,7 @@ def main() -> None:
     small_hier = small_hierarchy_agreement(torch, pa)
     print("small model hierarchy, card vs CPU vs cache-off: "
           + json.dumps(small_hier))
+    clock("v1 and small models")
     gc.collect()
     torch.cuda.empty_cache()
     serving = run_serving_phase(torch, pa, card)
@@ -6896,10 +7550,12 @@ def main() -> None:
     small_serving = small_serving_agreement(torch, pa)
     print("small model served over HTTP, card vs CPU: "
           + json.dumps(small_serving))
+    clock("serving")
     gc.collect()
     torch.cuda.empty_cache()
     fleet = run_fleet_phase(torch, pa, mg, card)
     print(fleet_line(fleet))
+    clock("fleet")
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flash = check_flash(torch, fa, flush)
@@ -6924,11 +7580,13 @@ def main() -> None:
               f"{k['overflow_infs']}) kernel_ms {k['ms']:.4f} plain_ms "
               f"{k['plain_ms']:.4f} library_ms {k['library_ms']:.4f} (fp16 "
               f"SDPA) bound_ms {k['bound_ms']:.5f} ({k['bound_by']})")
+    clock("flash kernels")
     training = run_training(torch, fa, args.profile)
     launches.update(training["launches"])
     print("training: " + json.dumps(training))
     small_train = small_training_agreement(torch, fa)
     print("small training card vs CPU: " + json.dumps(small_train))
+    clock("training")
     gc.collect()
     torch.cuda.empty_cache()
     train_engine = run_training_engine_phase(torch, fa)
@@ -6936,6 +7594,7 @@ def main() -> None:
         k["launches"] = train_engine["fp16"]["launches"][k["name"]]
     print(f"training engine ({card}): " + json.dumps(train_engine))
     print(training_engine_line(train_engine))
+    clock("training engine")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6955,6 +7614,7 @@ def main() -> None:
     print("quantized engine: " + json.dumps(quant))
     small_quant = [small_model_agreement(torch, bits) for bits in (8, 4, 6)]
     print("small quantized model card vs CPU: " + json.dumps(small_quant))
+    clock("mixed GEMM and quantized engine")
     # mixed-GEMM launches by row count: a decode body's M = 8 calls run
     # mixed_gemm_decode_kernel, a mixed step's (M > 16)
     # mixed_gemm_wgmma_kernel;
@@ -7002,6 +7662,7 @@ def main() -> None:
         torch, fa, cfg=small_moe_cfg(tfm, "dropless", param_dtype="float32",
                                      attn_impl="flash"), kernels=[gm])
     print("small MoE training card vs CPU: " + json.dumps(small_moe_train))
+    clock("grouped GEMM and MoE")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7017,6 +7678,7 @@ def main() -> None:
           f"{adam['bound_ms']:.5f} ({adam['bound_by']})")
     adam_tree = fused_adam_tree_path(torch, fo, tfm)
     print("fused_adamw_tree: " + json.dumps(adam_tree))
+    clock("fused AdamW")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7041,6 +7703,7 @@ def main() -> None:
               f"({k['bound_by']}) evoformer fwd+bwd ms {k['fwd_bwd_ms']:.4f}")
     sparse = run_sparse(torch, fa, sa)
     print("sparse attention: " + json.dumps(sparse))
+    clock("evoformer and sparse")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7051,9 +7714,15 @@ def main() -> None:
                          "fused_adamw_path"))
     gc.collect()
     torch.cuda.empty_cache()
+    clock("fp16")
+    peft = run_peft_phase(torch, fa, mg)
+    print(f"peft ({card}): " + json.dumps(peft))
+    print(peft_line(peft, card))
+    clock("peft")
     offload = run_offload_phase(torch, fa, card)
     print(f"offload ({card}): " + json.dumps(offload))
     print(offload_line(offload, card))
+    clock("offload")
     offload_launches = offload["optimizer"]["launches"]
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
                      "fused_adamw": adam_tree["launches"],
@@ -7077,7 +7746,8 @@ def main() -> None:
               "grouped_matmul_f16": gmm16, "fused_adamw_f16": adam16,
               "evoformer_f16": evo16, "fp16_engines": fp16,
               "small_f16": small16, "fused_adamw_f16_path": adam16_path,
-              "offload": offload}
+              "offload": offload, "peft": peft,
+              "phase_seconds": clock.seconds}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
                "paged_prefill_attention": "paged_attention.cu",
@@ -7159,8 +7829,8 @@ def main() -> None:
                    else {"launches_fleet": fleet_launches[k["name"], k["M"]]}
                    if (k["name"], k.get("M")) in fleet_launches and not half
                    else {}),
-                **{x: k[x] for x in ("launches_w8a16", "launches_moe")
-                   if x in k},
+                **{x: k[x] for x in ("launches_w8a16", "launches_moe",
+                                     "launches_peft") if x in k},
                 **({"launches_offload": offload_launches[k["name"]]}
                    if k["name"] in offload_launches and not half else {}),
                 "max_abs_err": k["max_abs_err"],
@@ -7204,9 +7874,21 @@ def main() -> None:
     for k in rows16:
         if not k["launches"] > 0:
             fail(f"{k['name']} f16: no launch on its fp16 path")
+    # B6 at the training step's rows (the peft phase): int4 on its QLoRA
+    # main path, int8 and fp6 on its other bases' steps
+    peft_b6 = {"mixed_gemm_int4":
+               peft["qlora"]["launches"]["mixed_gemm_int4_wgmma"],
+               **{n: peft["bases"][b]["launches"][n] for n, b in (
+                   ("mixed_gemm_int8", "int8"), ("mixed_gemm_fp6", "fp6"))}}
+    rows_peft = [dict(k, launches=peft_b6[k["name"]],
+                      launches_peft=peft_b6[k["name"]])
+                 for k in peft["b6"] if k["shape"] == "w_gate/w_in"]
+    for k in rows_peft:
+        if not k["launches"] > 0:
+            fail(f"{k['name']} M={k['M']}: no launch on the peft path")
     line = {"kernels": [row(k) for k in
                         kernels + draft_kernels + flash + flash16 + [evo_row]
-                        + at_shape + [adam] + rows16]}
+                        + at_shape + [adam] + rows16 + rows_peft]}
     result.update(line)
     if args.out:
         with open(args.out, "w") as f:

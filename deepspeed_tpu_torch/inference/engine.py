@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..linear.optimized_linear import has_lora, tree_map
 from ..models import transformer as tfm
 from ..ops.hopper.mixed_gemm import QuantizedWeight
 
@@ -55,28 +56,20 @@ def _inference_config(config) -> InferenceConfig:
     return icfg
 
 
-def _is_leaf_tensor(node) -> bool:
-    return isinstance(node, (torch.Tensor, QuantizedWeight))
+def _place_leaf(leaf, device: torch.device):
+    if not isinstance(leaf, (torch.Tensor, QuantizedWeight)):
+        raise TypeError(f"parameter leaf of type {type(leaf).__name__} is "
+                        "not a tensor")
+    return leaf.to(device)
 
 
 def _place_tree(node, device: torch.device):
     """Every leaf on ``device`` in its own dtype (the reference's
-    ``device_put``: weights are cast per call, in ``_lin``); a tensor
-    already there is the same tensor, so an engine built on another
-    engine's parameters shares them."""
-    if isinstance(node, dict):
-        return {k: _place_tree(v, device) for k, v in node.items()}
-    if not _is_leaf_tensor(node):
-        raise NotImplementedError(
-            f"parameter leaf of type {type(node).__name__}: LoRA weights in "
-            "a parameter tree arrive with PEFT (ROADMAP.md A14)")
-    return node.to(device)
-
-
-def _has_foreign_leaf(node) -> bool:
-    if isinstance(node, dict):
-        return any(_has_foreign_leaf(v) for v in node.values())
-    return not _is_leaf_tensor(node)
+    ``device_put``: weights are cast per call, in ``_lin``), LoRA nodes
+    and quantized bases included; a tensor already there is the same
+    tensor, so an engine built on another engine's parameters shares
+    them."""
+    return tree_map(lambda t: _place_leaf(t, device), node)
 
 
 def _kv_cache_init(cfg: tfm.TransformerConfig, batch: int, max_len: int,
@@ -187,8 +180,11 @@ class InferenceEngine:
                 "or 'dropless' (dataclasses.replace(cfg, moe_routing=...))")
         self.model_config = dataclasses.replace(model_config,
                                                 dtype=icfg.dtype)
-        if icfg.quantize_bits and _has_foreign_leaf(params):
-            # the mixed-GEMM path knows no LoRA nodes: merge first
+        if has_lora(params) and icfg.quantize_bits:
+            # unmerged LoRA serving keeps the (possibly already-quantized)
+            # base + adapters as they are; the mixed-GEMM WxA16 path does
+            # not know LoRAWeight nodes — merge first for a quantized
+            # artifact (reference inference/engine.py:171-181)
             raise ValueError(
                 "quantize_bits with an unmerged LoRA tree is not supported: "
                 "export merged weights (engine.export_merged_weights) and "

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from ...accelerator import resolve_device
+from ...linear.optimized_linear import LoRAWeight, QuantizedBaseWeight
 from ...linear.spec_heads import init_spec_heads
 from ...models import transformer as tfm
 from ...observability.recorder import recorder
@@ -85,6 +86,7 @@ from ...ops.hopper import paged_attention as paged
 from ...ops.hopper.paged_attention import (paged_decode_attention,
                                            paged_prefill_attention)
 from ...utils import faults
+from ...utils.tree_io import node_items
 from ..quantization import quantize_on_host
 from .coldstore import ColdStore
 from .paging import BlockPager, deserialize_block, serialize_block
@@ -460,25 +462,33 @@ _F32_LEAVES = ("router", "coef")
 
 
 def _structure(node):
-    """A parameter tree's nesting and leaf kinds, for ``swap_params``."""
-    if isinstance(node, dict):
-        return {k: _structure(v) for k, v in node.items()}
-    return type(node).__name__
+    """A parameter tree's nesting and leaf kinds, for ``swap_params`` (a
+    LoRA node and its quantized base nest as dicts do)."""
+    items = node_items(node)
+    if items is None:
+        return type(node).__name__
+    return (type(node).__name__, {k: _structure(v) for k, v in items})
 
 
 def _cast_tree(node, device: torch.device, dtype: torch.dtype, key=None):
     """Every tensor of the tree on ``device`` in ``dtype`` (the MoE router
-    and PR-MoE coefficient in f32); a :class:`QuantizedWeight` moves with
-    its codes and scales uncast."""
+    and PR-MoE coefficient in f32); a :class:`QuantizedWeight` or a LoRA
+    node's quantized base moves with its codes and scales uncast.  An
+    unmerged LoRA tree is served as the reference's v2 serves it: each
+    LoRA projection runs ``lora_forward`` (a dense base and the factors
+    cast once here, where the reference casts them per call)."""
     if isinstance(node, dict):
         return {k: _cast_tree(v, device, dtype, k) for k, v in node.items()}
-    if isinstance(node, QuantizedWeight):
+    if isinstance(node, (QuantizedWeight, QuantizedBaseWeight)):
         return node.to(device)
+    if isinstance(node, LoRAWeight):
+        return dataclasses.replace(
+            node, base=_cast_tree(node.base, device, dtype),
+            lora_a=_cast_tree(node.lora_a, device, dtype),
+            lora_b=_cast_tree(node.lora_b, device, dtype))
     if not isinstance(node, torch.Tensor):
-        raise NotImplementedError(
-            f"parameter leaf of type {type(node).__name__}: LoRA weights "
-            "in served parameters arrive with PEFT (ROADMAP.md A14); serve "
-            "adapters through adapter_slots")
+        raise TypeError(f"parameter leaf of type {type(node).__name__} is "
+                        "not a tensor")
     return node.to(device=device,
                    dtype=torch.float32 if key in _F32_LEAVES else dtype)
 

@@ -28,6 +28,8 @@ from ..accelerator import resolve_device
 from ..runtime.activation_checkpointing.checkpointing import \
     checkpoint_name
 from ..runtime.zero.param_offload import maybe_stream_in
+from ..linear.optimized_linear import (LoRAWeight, QuantizedBaseWeight,
+                                       lora_forward, tree_map)
 from ..ops.hopper.mixed_gemm import (QuantizedWeight, mixed_gemm,
                                      mixed_gemm_frozen)
 
@@ -264,10 +266,8 @@ def _leaf_to_torch(leaf, device: torch.device,
                    dtype: Optional[torch.dtype]) -> torch.Tensor:
     """One array as a tensor on ``device``, cast to ``dtype`` (None: kept)."""
     if not (hasattr(leaf, "shape") and hasattr(leaf, "dtype")):
-        raise NotImplementedError(
-            f"parameter leaf of type {type(leaf).__name__} is not a plain "
-            "array: LoRA weights in a parameter tree arrive with PEFT "
-            "(ROADMAP.md A14); serving adapters go through adapter_slots")
+        raise TypeError(f"parameter leaf of type {type(leaf).__name__} is "
+                        "not an array")
     arr = np.ascontiguousarray(np.asarray(leaf))
     if not arr.flags.writeable:  # torch tensors must own writable memory
         arr = arr.copy()
@@ -278,21 +278,40 @@ def _leaf_to_torch(leaf, device: torch.device,
     return t.to(device=device, dtype=dtype)
 
 
+#: the fields of the reference's quantized-base node (``linear/
+#: optimized_linear.py`` ``QuantizedBaseWeight``) and of its LoRA node
+_QBW_FIELDS = ("codes", "scales", "q_bits", "mantissa_bits", "group_size",
+               "inner_shape", "layout")
+_LORA_FIELDS = ("base", "lora_a", "lora_b", "scaling")
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                     device: Any = "cuda", dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, Any]:
     """The reference's parameter pytree (nested dicts of arrays: numpy, or
     anything ``np.asarray`` reads) as the port's parameters: the same
     nested layout, each leaf a tensor in ``dtype`` (default: the compute
-    dtype) on ``device``.  A quantized node of the reference (recognised by
-    its fields ``codes, scales, bits, group, k``) becomes a
-    :class:`QuantizedWeight` whose codes and scales keep their dtypes."""
+    dtype) on ``device``.  The reference's nodes, recognised by their
+    fields, become the port's: a mixed-GEMM weight (``codes, scales, bits,
+    group, k``) a :class:`QuantizedWeight`, a quantized base a
+    :class:`QuantizedBaseWeight` (codes and scales keep their dtypes; fp8
+    codes are the reference's uint8 bytes), a LoRA weight a
+    :class:`LoRAWeight` (its dense base and factors in ``dtype``)."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if all(hasattr(node, f) for f in _LORA_FIELDS):
+            return LoRAWeight(conv(node.base), conv(node.lora_a),
+                              conv(node.lora_b), float(node.scaling))
+        if all(hasattr(node, f) for f in _QBW_FIELDS):
+            return QuantizedBaseWeight(
+                _leaf_to_torch(node.codes, dev, None),
+                _leaf_to_torch(node.scales, dev, None), int(node.q_bits),
+                int(node.mantissa_bits), int(node.group_size),
+                tuple(int(d) for d in node.inner_shape), str(node.layout))
         if all(hasattr(node, f) for f in _QW_FIELDS):
             return QuantizedWeight(_leaf_to_torch(node.codes, dev, None),
                                    _leaf_to_torch(node.scales, dev, None),
@@ -409,16 +428,16 @@ def embed_tokens(params, token_ids: torch.Tensor, cfg: TransformerConfig,
 def _lin(x: torch.Tensor, p: Dict[str, Any], w_key: str, b_key: str
          ) -> torch.Tensor:
     w = p[w_key]
-    if isinstance(w, QuantizedWeight):  # W8A16/W4A16/W6A16 mixed GEMM
+    if isinstance(w, LoRAWeight):  # frozen (maybe quantized) base + LoRA
+        y = lora_forward(x, w)
+    elif isinstance(w, QuantizedWeight):  # W8A16/W4A16/W6A16 mixed GEMM
         # the autograd wrapper only where a gradient can flow
         y = mixed_gemm_frozen(x, w) if torch.is_grad_enabled() \
             else mixed_gemm(x, w)
     elif isinstance(w, torch.Tensor):
         y = x @ w.to(x.dtype)
     else:
-        raise NotImplementedError(
-            f"{w_key} is a {type(w).__name__}: LoRA weights in a parameter "
-            "tree arrive with PEFT (ROADMAP.md A14)")
+        raise TypeError(f"{w_key} is a {type(w).__name__}, not a weight")
     if b_key in p:
         y = y + p[b_key].to(x.dtype)
     return y
@@ -461,12 +480,9 @@ def ffn_block(x: torch.Tensor, lp: Dict[str, Any], cfg: TransformerConfig,
 
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s slice of the stacked ``params["layers"]`` (views; a
-    :class:`QuantizedWeight` slices its codes and scales)."""
-    def take(node):
-        if isinstance(node, dict):
-            return {k: take(v) for k, v in node.items()}
-        return node[i]
-    return take(params["layers"])
+    :class:`QuantizedWeight` slices its codes and scales, a LoRA node each
+    of its children, so a quantized base's per-layer codes are 2-D)."""
+    return tree_map(lambda t: t[i], params["layers"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,21 @@
-"""Code packing and minifloat (FP6 e3m2) coding for the mixed GEMM — the
-port of the part of ``deepspeed_tpu/ops/quantizer.py`` that
-``ops/hopper/mixed_gemm.py`` needs: int4 nibble packing, the minifloat
-encode / decode, and the FP6 4-codes-in-3-bytes packing.
+"""Code packing, minifloat (FP6 e3m2) coding and the block-scaled codecs —
+the port of the part of ``deepspeed_tpu/ops/quantizer.py`` that
+``ops/hopper/mixed_gemm.py`` and a LoRA layer's quantized frozen base
+(``linear/optimized_linear.py``) need: int4 nibble packing, the minifloat
+encode / decode, the FP6 4-codes-in-3-bytes packing, and the flat
+block-scaled int8 / int4, fp8 e4m3 and fp6 quantizers with their decodes.
 
 Every function computes the reference's integers and floats exactly:
-``quantize_gemm_weight`` gives the reference's codes bit for bit.  The
-blockwise, fp8, fp12, stochastic-rounding and compressed all-reduce
-quantizers arrive with the collectives and offload items (``ROADMAP.md``
-A13, A14).
+``quantize_gemm_weight`` and the block quantizers give the reference's
+codes bit for bit.  The fp12, stochastic-rounding and compressed
+all-reduce quantizers arrive with the collectives item (``ROADMAP.md``
+A13).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -102,3 +105,117 @@ def unpack_fp6(packed: torch.Tensor) -> torch.Tensor:
     c3 = (b2 >> 2) & 63
     out = torch.stack([c0, c1, c2, c3], dim=-1)
     return out.reshape(*packed.shape[:-1], -1)
+
+
+# ---------------------------------------------------------------------------
+# flat block-scaled codecs (the reference's quantize_blockwise, quantize_fp8,
+# quantize_minifloat and their decodes)
+# ---------------------------------------------------------------------------
+
+
+def _block_reshape(x: torch.Tensor, block_size: int
+                   ) -> Tuple[torch.Tensor, int]:
+    """x flattened, zero-padded to whole blocks, as (nblocks, block_size)."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block_size
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, block_size), pad
+
+
+def _block_scales(blocks: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Each block's absmax over ``qmax``, 1 for an all-zero block."""
+    scale = blocks.abs().amax(dim=1, keepdim=True) / qmax
+    return torch.where(scale == 0.0, 1.0, scale)
+
+
+def _crop(flat: torch.Tensor, shape: Optional[Sequence[int]],
+          dtype: torch.dtype) -> torch.Tensor:
+    if shape is not None:
+        flat = flat[:math.prod(shape)].reshape(tuple(shape))
+    return flat.to(dtype)
+
+
+def quantize_blockwise(x: torch.Tensor, bits: int = 8, block_size: int = 256
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric block quantization of x's flat values → (codes int8
+    (nblocks, block_size), or two int4 codes a byte for ``bits=4``; f32
+    scales (nblocks,))."""
+    if bits not in (8, 4):
+        raise ValueError(f"quantize_blockwise takes bits 8 or 4, got {bits}")
+    blocks, _ = _block_reshape(x.to(torch.float32), block_size)
+    qmax = (1 << (bits - 1)) - 1  # 127 / 7
+    scale = _block_scales(blocks, qmax)
+    codes = torch.clamp(torch.round(blocks / scale), -qmax - 1,
+                        qmax).to(torch.int8)
+    if bits == 4:
+        codes = pack_int4(codes[:, 0::2], codes[:, 1::2])
+    return codes, scale[:, 0]
+
+
+def dequantize_blockwise(codes: torch.Tensor, scales: torch.Tensor,
+                         bits: int = 8, block_size: int = 256,
+                         shape: Optional[Sequence[int]] = None,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The values :func:`quantize_blockwise` coded (the first
+    ``prod(shape)`` of them in ``shape``, when given), in ``dtype``."""
+    if bits not in (8, 4):
+        raise ValueError(f"dequantize_blockwise takes bits 8 or 4, got "
+                         f"{bits}")
+    if bits == 4:
+        lo, hi = unpack_int4(codes)
+        codes = torch.stack([lo, hi], dim=-1).reshape(codes.shape[0], -1)
+    out = codes.to(torch.float32) * scales[:, None]
+    return _crop(out.reshape(-1), shape, dtype)
+
+
+#: e4m3's largest finite value: a block's absmax maps onto it
+FP8_MAX = float(torch.finfo(torch.float8_e4m3fn).max)  # 448
+
+
+def quantize_fp8(x: torch.Tensor, block_size: int = 256
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-scaled fp8 e4m3 → (codes ``torch.float8_e4m3fn`` (nblocks,
+    block_size), f32 scales (nblocks,)); each block's absmax maps to 448,
+    and the cast rounds to nearest even, as the reference's."""
+    blocks, _ = _block_reshape(x.to(torch.float32), block_size)
+    scale = _block_scales(blocks, FP8_MAX)
+    return (blocks / scale).to(torch.float8_e4m3fn), scale[:, 0]
+
+
+def dequantize_fp8(codes: torch.Tensor, scales: torch.Tensor,
+                   shape: Optional[Sequence[int]] = None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """fp8 codes times their block's scale, as int8 blocks are."""
+    return dequantize_blockwise(codes.to(torch.float32), scales, bits=8,
+                                block_size=codes.shape[1], shape=shape,
+                                dtype=dtype)
+
+
+def _check_minifloat(bits: int) -> None:
+    if bits != 6:
+        raise ValueError(f"the port's minifloat codec is fp6 (bits=6), got "
+                         f"bits={bits}; fp12 arrives with ROADMAP.md A13")
+
+
+def quantize_minifloat(x: torch.Tensor, bits: int = 6, block_size: int = 256
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-scaled fp6 e3m2 → (packed uint8 (nblocks, 3 block_size / 4),
+    f32 scales (nblocks,)); each block's absmax maps to the format's max
+    (28)."""
+    _check_minifloat(bits)
+    if block_size % 4:
+        raise ValueError(f"fp6 packs 4 codes in 3 bytes: block_size "
+                         f"{block_size} is not a multiple of 4")
+    blocks, _ = _block_reshape(x.to(torch.float32), block_size)
+    scale = _block_scales(blocks, minifloat_max(3, 2))
+    return pack_fp6(minifloat_encode(blocks / scale, 3, 2)), scale[:, 0]
+
+
+def dequantize_minifloat(packed: torch.Tensor, scales: torch.Tensor,
+                         bits: int = 6,
+                         shape: Optional[Sequence[int]] = None,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    _check_minifloat(bits)
+    vals = minifloat_decode(unpack_fp6(packed), 3, 2) * scales[:, None]
+    return _crop(vals.reshape(-1), shape, dtype)

@@ -53,9 +53,14 @@ Fault sites (``utils/faults.py``): ``ckpt.write.model``,
 The commit primitives (``_write_manifest``, ``_commit_dir``,
 ``verify_checkpoint``) also back the serving cold tier
 (``inference/v2/coldstore.py``) and the adapter registry
-(``serving/adapters.py``); :func:`export_merged_weights` folds a registry
-adapter into the base weights (the export of a training run's own LoRA
-weights arrives with A14).
+(``serving/adapters.py``); :func:`export_merged_weights` folds a PEFT
+run's own LoRA nodes, or a registry adapter, into the base weights.
+
+PEFT (``peft.lora``): a save writes ``adapter_model.safetensors`` (the
+``lora_a`` / ``lora_b`` leaves) in place of ``model.safetensors`` and
+``"peft_adapter_only": true``; a load splices it over the engine's frozen
+base.  An adapter-only checkpoint into a plain engine, or a full one into
+a PEFT engine, raises the reference's errors.
 """
 
 from __future__ import annotations
@@ -78,7 +83,8 @@ from ...observability.recorder import recorder
 from ...observability.trace import tracer
 from ...utils import faults
 from ...utils.logging import logger
-from ...utils.tree_io import ST_DTYPES, host_array
+from ...utils.tree_io import (ST_DTYPES, host_array, node_fields,
+                               node_items, node_replace)
 
 _LATEST = "latest"
 _MANIFEST = "manifest.json"
@@ -305,13 +311,14 @@ _ST_ORDER = ("U64", "I64", "F64", "F32", "U32", "I32", "BF16", "F16", "U16",
 
 def flatten_with_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
     """{slash/joined/path: leaf} of a nested dict (or list) tree, in the
-    reference's flatten order (dict keys sorted)."""
-    if isinstance(tree, dict):
-        items = sorted(tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
-        return {prefix: tree}
+    reference's flatten order (dict keys sorted; a LoRA node's children
+    ``.../lora_a``, a quantized base's ``.../base/codes``); a ``None`` leaf
+    (a frozen leaf of ``trainable_subtree``) is absent, as in the
+    reference."""
+    items = sorted(tree.items()) if isinstance(tree, dict) else \
+        node_items(tree)
+    if items is None:
+        return {} if tree is None else {prefix: tree}
     flat: Dict[str, Any] = {}
     for k, v in items:
         flat.update(flatten_with_paths(v, f"{prefix}/{k}" if prefix
@@ -398,77 +405,62 @@ def _unflatten_like(template: Any, flat: Dict[str, Any],
         return type(template)(
             _unflatten_like(v, flat, f"{prefix}/{i}" if prefix else str(i))
             for i, v in enumerate(template))
+    fields = node_fields(template)
+    if fields:
+        return node_replace(template, [
+            _unflatten_like(getattr(template, f), flat,
+                            f"{prefix}/{f}" if prefix else f)
+            for f in fields])
     if prefix not in flat:
         raise KeyError(f"checkpoint missing tensor {prefix!r}")
     return flat[prefix]
 
 
-def merge_adapter_pack(params: Any, pack: Dict[str, Any]) -> Any:
-    """A plain parameter tree with an adapter pack folded in: each targeted
-    layer-stacked projection ``W (L, K, N)`` becomes ``W + A @ B`` (summed
-    in f32, cast back to W's dtype; the pack's scaling is already in
-    ``B``).  Every other leaf is shared with ``params``."""
-    pack = dict(pack)
-    found = set()
-
-    def walk(node):
-        out = {}
-        for k, v in node.items():
-            if isinstance(v, dict):
-                out[k] = walk(v)
-            elif k in pack and isinstance(v, torch.Tensor) and v.dim() >= 2:
-                a, b = (torch.as_tensor(x) for x in pack[k])
-                if tuple(v.shape) != (a.shape[0], a.shape[1], b.shape[2]):
-                    raise ValueError(
-                        f"adapter pack target {k!r} wants a weight of shape "
-                        f"{(a.shape[0], a.shape[1], b.shape[2])}, tree has "
-                        f"{tuple(v.shape)}")
-                delta = torch.einsum("lkr,lrn->lkn", a.float().to(v.device),
-                                     b.float().to(v.device))
-                out[k] = (v.float() + delta).to(v.dtype)
-                found.add(k)
-            else:
-                out[k] = v
-        return out
-
-    merged = walk(params)
-    missing = set(pack) - found
-    if missing:
-        raise ValueError(f"adapter pack targets {sorted(missing)} not found "
-                         "in the parameter tree")
-    return merged
-
-
 def export_merged_weights(engine, save_dir: str, tag: str = "merged",
                           adapter_id: Optional[str] = None,
                           adapters: Any = None) -> str:
-    """Fold a registry adapter into the serving engine's base weights and
-    write the result as a plain full-model safetensors file: the artifact
-    a tenant takes to a dedicated deployment.  ``adapters`` is the
-    :class:`~deepspeed_tpu_torch.serving.adapters.AdapterRegistry` that
-    holds ``adapter_id`` (its pack carries the scaling in ``lora_b``).
-    Returns ``<save_dir>/<tag>``, holding ``model.safetensors`` and
+    """Fold LoRA adapters into their (dequantized) base weights and write
+    the result as a plain full-model safetensors file, the serving artifact
+    (reference: the same function, ``:808-860``).  The exported tree has a
+    never-LoRA'd model's structure, so the inference engines and any
+    full-checkpoint tooling read it (:func:`load_merged_params`).  The
+    adapters come from
+
+    * the engine's own LoRA nodes (a PEFT training run; default), or
+    * ``adapter_id`` in ``adapters``, a serving
+      :class:`~deepspeed_tpu_torch.serving.adapters.AdapterRegistry`: its
+      pack is grafted onto the engine's plain tree with ``scaling=1.0``
+      (a registry pack carries the scaling in ``lora_b``).
+
+    The merge runs where the parameters lie (the reference's, on the
+    host).  Returns ``<save_dir>/<tag>``, holding ``model.safetensors`` and
     ``engine_state.json``."""
+    from ...linear.optimized_linear import (graft_adapter_pack, has_lora,
+                                            merge_lora_weights)
+
     params = getattr(engine, "params", None)
     if params is None:
-        raise ValueError("export_merged_weights: engine has no params")
-    if adapter_id is None:
-        raise NotImplementedError(
-            "exporting a training run's own LoRA weights arrives with PEFT "
-            "(ROADMAP.md A14); pass adapter_id and the AdapterRegistry")
-    if adapters is None:
-        raise ValueError("export_merged_weights: adapter_id needs the "
-                         "AdapterRegistry in `adapters`")
-    merged = merge_adapter_pack(params, adapters.get_pack(adapter_id))
+        raise ValueError("export_merged_weights: engine has neither "
+                         "state.params nor params")
+    if adapter_id is not None:
+        if adapters is None:
+            raise ValueError("export_merged_weights: adapter_id needs the "
+                             "AdapterRegistry in `adapters`")
+        params = graft_adapter_pack(params, adapters.get_pack(adapter_id),
+                                    scaling=1.0)
+    elif not has_lora(params):
+        raise ValueError(
+            "export_merged_weights: engine has no LoRA adapters")
+    with torch.no_grad():
+        merged = merge_lora_weights(params)
     out_dir = os.path.join(save_dir, tag)
-    os.makedirs(out_dir, exist_ok=True)
-    _save_tree(merged, os.path.join(out_dir, "model.safetensors"))
-    from ... import __version__
-
-    with open(os.path.join(out_dir, "engine_state.json"), "w") as f:
-        json.dump({"merged_lora": True, "merged_adapter_id": adapter_id,
-                   "framework_version": __version__}, f, indent=2)
-    logger.info(f"exported merged adapter {adapter_id} -> {out_dir}")
+    with _SAVE_LOCK:
+        os.makedirs(out_dir, exist_ok=True)
+        _save_tree(merged, os.path.join(out_dir, "model.safetensors"))
+        with open(os.path.join(out_dir, "engine_state.json"), "w") as f:
+            json.dump({"merged_lora": True, "merged_adapter_id": adapter_id,
+                       "framework_version": _version()}, f, indent=2)
+    logger.info(f"exported merged LoRA weights -> {out_dir}")
     return out_dir
 
 
@@ -509,6 +501,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     # callers believe they have more durable checkpoints than they do
     tag = tag or f"global_step{engine.step_count}"
     ckpt_dir = os.path.join(save_dir, tag)
+    peft = bool(getattr(engine, "peft_enabled", False))
     ls = engine.loss_scale
     meta = {
         "step": int(engine.step_count),
@@ -522,16 +515,23 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "world_size": 1,
         "client_state": client_state or {},
         "framework_version": _version(),
-        "peft_adapter_only": False,
+        "peft_adapter_only": peft,
     }
-    params = flatten_with_paths(engine.params)
+    # PEFT: an adapter-only checkpoint (the reference's, ``:358-402``): the
+    # frozen base is rebuilt from the original weights, so only the
+    # trainable leaves (lora_a / lora_b) are written, and the optimizer
+    # state is the adapters' by construction
+    params = (dict(zip(engine._paths, engine._leaves)) if peft
+              else flatten_with_paths(engine.params))
     opt = engine.optimizer_state_flat()
     if cfg.async_save:
         params, opt = _host_copy(params), _host_copy(opt)
     tmp_dir = ckpt_dir + _TMP_SUFFIX
 
     def _write_trees():
-        model_path = os.path.join(tmp_dir, "model.safetensors")
+        model_path = os.path.join(
+            tmp_dir, "adapter_model.safetensors" if peft
+            else "model.safetensors")
         opt_path = os.path.join(tmp_dir, "optimizer.safetensors")
         faults.maybe_fail("ckpt.write.model")
         if cfg.engine == "fast":
@@ -750,11 +750,20 @@ def _load_native(engine, ckpt_dir: str, load_optimizer_states: bool
     with open(os.path.join(ckpt_dir, "engine_state.json")) as f:
         meta = json.load(f)
     _validate_tag(engine, meta)
-    if meta.get("peft_adapter_only"):
-        raise ValueError(
-            f"{ckpt_dir} is an adapter-only (PEFT) checkpoint; PEFT "
-            "training arrives with ROADMAP.md A14")
-    flat_params = _load_tree_flat(os.path.join(ckpt_dir, "model.safetensors"))
+    adapter_only = bool(meta.get("peft_adapter_only"))
+    if adapter_only:
+        if not getattr(engine, "peft_enabled", False):
+            raise ValueError(
+                f"{ckpt_dir} is an adapter-only (PEFT) checkpoint — it holds "
+                "lora_a/lora_b only; load it into an engine with peft.lora "
+                "enabled over the same base model")
+        # the restored adapters go over the engine's frozen base, which
+        # never round-trips through the file
+        flat_params = _load_tree_flat(
+            os.path.join(ckpt_dir, "adapter_model.safetensors"))
+    else:
+        flat_params = _load_tree_flat(
+            os.path.join(ckpt_dir, "model.safetensors"))
     flat_opt = None
     if load_optimizer_states:
         flat_opt = _load_tree_flat(
@@ -763,7 +772,8 @@ def _load_native(engine, ckpt_dir: str, load_optimizer_states: bool
     # to the restored parameters would corrupt the restore
     if getattr(engine, "_pending", False):
         engine._pending, engine._pending_lr = False, None
-    engine.load_state_from(flat_params, flat_opt, meta, ckpt_dir)
+    engine.load_state_from(flat_params, flat_opt, meta, ckpt_dir,
+                           adapter_only=adapter_only)
     if getattr(engine, "offloaded_optimizer", None) is not None:
         # the f32 master from the loaded parameters: a stale master would
         # overwrite them at the next step

@@ -35,6 +35,7 @@ import os
 from dataclasses import field
 from typing import Any, Dict, List, Optional, Union
 
+from ..linear.config import LoRAConfig, PEFTConfig, QuantizationConfig  # noqa: F401
 from .config_utils import (AUTO, ConfigError, DSConfigModel,
                            check_int_or_auto, is_auto)
 
@@ -365,31 +366,6 @@ class ZenFlowConfig(DSConfigModel):
     overlap_step: bool = True
 
 
-@dataclass
-class QuantizationConfig(DSConfigModel):
-    q_bits: int = 8
-    mantissa_bits: int = 3
-    group_size: int = 512
-
-
-@dataclass
-class LoRAConfig(DSConfigModel):
-    enabled: bool = False
-    lora_r: int = 64
-    lora_alpha: float = 16.0
-    base_weight_sharding: int = 1
-    target_modules: List[str] = field(default_factory=lambda: [
-        "wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate"])
-    quantize_base: bool = False
-    quantization: QuantizationConfig = field(
-        default_factory=QuantizationConfig)
-
-
-@dataclass
-class PEFTConfig(DSConfigModel):
-    lora: LoRAConfig = field(default_factory=LoRAConfig)
-
-
 # ---------------------------------------------------------------------------
 # root
 # ---------------------------------------------------------------------------
@@ -420,7 +396,6 @@ _LATER = {
     "elasticity": "A14 (training periphery)",
     "autotuning": "A14 (training periphery)",
     "gradient_compression": "A13 (multi-GPU)",
-    "peft": "A14 part 2 (PEFT / LoRA training)",
 }
 
 
@@ -541,22 +516,35 @@ class DeepSpeedTPUConfig(DSConfigModel):
         off = self.zero_optimization.offload_param
         return off is not None and off.device_str != "none"
 
+    def check_peft(self) -> None:
+        """The reference engine's rejections of PEFT combinations
+        (``deepspeed_tpu/runtime/engine.py:194-215``), word for word, for a
+        config whose ``peft.lora`` is enabled or whose model tree already
+        has LoRA nodes: offload, ZenFlow and ``zero_quantized_weights``
+        (``gradient_compression`` is refused as ROADMAP.md A13's)."""
+        if self.optimizer_offloaded or self.param_offloaded:
+            raise ConfigError(
+                "peft.lora + offload_optimizer/offload_param is not "
+                "supported: the host fp32 master-weight path cannot "
+                "carry frozen quantized-code leaves, and adapter state "
+                "is small enough to stay device-resident")
+        if self.zenflow.enabled:
+            raise ConfigError("peft.lora + zenflow is not supported "
+                              "(zenflow is an offload schedule)")
+        if self.zero_optimization.zero_quantized_weights:
+            raise ConfigError(
+                "peft.lora + zero_quantized_weights is not supported "
+                "(the frozen base is already stored quantized; qwZ "
+                "would re-quantize the stage-3 gathers of int codes)")
+
     def _check_offload(self) -> None:
         """The reference engine's rejections of offload combinations
         (``deepspeed_tpu/runtime/engine.py``), word for word: PEFT with
-        offload or ZenFlow, fp16 with either offload, ZenFlow without the
-        optimizer offload or with parameter offload."""
+        offload or ZenFlow (:meth:`check_peft`), fp16 with either offload,
+        ZenFlow without the optimizer offload or with parameter offload."""
         off_o, off_p = self.optimizer_offloaded, self.param_offloaded
         if self.peft.lora.enabled:
-            if off_o or off_p:
-                raise ConfigError(
-                    "peft.lora + offload_optimizer/offload_param is not "
-                    "supported: the host fp32 master-weight path cannot "
-                    "carry frozen quantized-code leaves, and adapter state "
-                    "is small enough to stay device-resident")
-            if self.zenflow.enabled:
-                raise ConfigError("peft.lora + zenflow is not supported "
-                                  "(zenflow is an offload schedule)")
+            self.check_peft()
         fp16 = self.fp16.enabled is True
         if off_p and fp16:
             raise ConfigError(

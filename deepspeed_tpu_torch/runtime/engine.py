@@ -45,8 +45,17 @@ flushes the rest through the host optimizer (``runtime/zenflow.py``).
 parameters to host memory between phases (the reference's
 ``engine.py:1641-1730``).
 
-Data parallelism, ZeRO 1-3, wire compression of gradients and PEFT are
-later items of ROADMAP.md; the config refuses them out loud.
+PEFT (``peft.lora``, the reference's ``engine.py:171-237``): the
+targeted projections become ``linear/optimized_linear.LoRAWeight`` nodes
+(drawn from ``config.seed``, unless the tree has them already), with a
+dense or quantized frozen base; only ``lora_a`` / ``lora_b`` take
+gradients, optimizer state and checkpoint space (``peft_enabled``, an
+adapter-only ``adapter_model.safetensors``), and
+:meth:`TrainingEngine.export_merged_weights` folds them into the base for
+serving.  Embeddings, norms and bases are copied once and never change.
+
+Data parallelism, ZeRO 1-3 and wire compression of gradients are later
+items of ROADMAP.md; the config refuses them out loud.
 """
 
 from __future__ import annotations
@@ -61,6 +70,8 @@ import numpy as np
 import torch
 
 from ..accelerator import get_accelerator, resolve_device
+from ..linear.optimized_linear import apply_lora, has_lora, trainable_mask
+from ..utils.tree_io import tree_map
 from .config import (DeepSpeedTPUConfig, OffloadOptimizerConfig,
                      ResolvedBatchConfig)
 from .config_utils import ConfigError
@@ -134,12 +145,6 @@ class PlacedBatch:
     placed: Dict[str, torch.Tensor]
 
 
-def _map(tree: Any, fn: Callable) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 class TrainingEngine:
     """Reference: ``DeepSpeedEngine`` / the JAX package's
     ``TrainingEngine``, on one GPU (or the CPU when asked)."""
@@ -152,6 +157,24 @@ class TrainingEngine:
         self.accelerator = get_accelerator()
         self.batch_config: ResolvedBatchConfig = \
             config.resolve_batch_config(1)
+
+        # PEFT (reference engine.py:171-215): the targeted projections
+        # become LoRA nodes, drawn from the config's seed, unless the tree
+        # has them already; only their factors train
+        params = model.params
+        lora_cfg = config.peft.lora
+        if lora_cfg.enabled and not has_lora(params):
+            gen = torch.Generator(device=leaves(params)[0].device)
+            params = apply_lora(params, gen.manual_seed(config.seed),
+                                lora_cfg)
+        self.peft_enabled = has_lora(params)
+        if self.peft_enabled:
+            config.check_peft()
+        self._trainable_mask = trainable_mask(params) if self.peft_enabled \
+            else None
+        flat_in = leaves(params)
+        trainable = leaves(self._trainable_mask) if self.peft_enabled \
+            else [True] * len(flat_in)
 
         # offload mode: parameters off the card imply the host optimizer
         zero = config.zero_optimization
@@ -174,19 +197,26 @@ class TrainingEngine:
             self._host = HostArena(self.device)
             if self.param_offload_enabled:
                 stream_mask = leaves(offload_mask(
-                    model.params, min_numel=resolve_threshold(
+                    params, min_numel=resolve_threshold(
                         zero.stage3_param_persistence_threshold)))
 
         # the engine owns its parameters: fresh copies on its device (the
-        # streamed layer leaves in host memory, in their own dtype)
-        flat_in = leaves(model.params)
+        # streamed layer leaves in host memory, in their own dtype); a
+        # frozen leaf is copied once and takes no gradient
         streamed = stream_mask or [False] * len(flat_in)
         own = iter([self._host.copy_of(p) if s else p.detach().to(
-            self.device, copy=True).requires_grad_(True)
-            for p, s in zip(flat_in, streamed)])
-        self.params = _map(model.params, lambda p: next(own))
-        self._leaves: List[torch.Tensor] = leaves(self.params)
-        self._paths: List[str] = leaf_paths(self.params)
+            self.device, copy=True).requires_grad_(t)
+            for p, s, t in zip(flat_in, streamed, trainable)])
+        self.params = tree_map(lambda p: next(own), params)
+        del params, flat_in
+        self._all_leaves: List[torch.Tensor] = leaves(self.params)
+        self._all_paths: List[str] = leaf_paths(self.params)
+        # the leaves that train: gradients, optimizer state and checkpoints
+        # cover these (under PEFT the LoRA factors alone)
+        self._leaves: List[torch.Tensor] = [
+            p for p, t in zip(self._all_leaves, trainable) if t]
+        self._paths: List[str] = [
+            p for p, t in zip(self._all_paths, trainable) if t]
         self._streamed = [j for j, s in enumerate(streamed) if s]
         # keep the spec without the caller's tensors, so that a caller who
         # drops them frees their memory (an 8B model's 4.5 GB on the card)
@@ -196,7 +226,11 @@ class TrainingEngine:
         self.lr_schedule = create_scheduler(config.scheduler, base_lr=base_lr)
         wd_mask = None
         if config.optimizer.params.get("weight_decay", 0.0):
-            wd_mask = leaves(default_weight_decay_mask(self.params))
+            # over the trainable leaves only (reference: the mask of the
+            # trainable template)
+            wd_mask = [m for m, t in zip(
+                leaves(default_weight_decay_mask(self.params)), trainable)
+                if t]
         self.optimizer = create_optimizer(config.optimizer, self.lr_schedule,
                                           wd_mask)
         if self.offload_enabled:
@@ -571,15 +605,21 @@ class TrainingEngine:
     @torch.no_grad()
     def load_state_from(self, flat_params: Dict[str, torch.Tensor],
                         flat_opt: Optional[Dict[str, torch.Tensor]],
-                        meta: Dict[str, Any], where: str = "") -> None:
+                        meta: Dict[str, Any], where: str = "",
+                        adapter_only: bool = False) -> None:
         """Restore from a checkpoint's flat trees and engine meta: each
-        parameter in place (in the engine's dtype), the optimizer state
-        (``flat_opt``; None keeps the engine's), the step counts and the
-        loss scale.  The step's generator derives from the restored step
-        (the reference's ``rng`` key is not used)."""
-        for path, p in zip(self._paths, self._leaves):
+        parameter in place (in the engine's dtype; ``adapter_only``: the
+        trainable leaves alone, over the engine's frozen base), the
+        optimizer state (``flat_opt``; None keeps the engine's), the step
+        counts and the loss scale.  The step's generator derives from the
+        restored step (the reference's ``rng`` key is not used)."""
+        paths, targets = (self._paths, self._leaves) if adapter_only else \
+            (self._all_paths, self._all_leaves)
+        # the first missing tensor in the reference's (sorted) order
+        for path in sorted(paths):
             if path not in flat_params:
                 raise KeyError(f"checkpoint missing tensor {path!r}")
+        for path, p in zip(paths, targets):
             src = flat_params[path]
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{path}: checkpoint shape "
@@ -633,6 +673,16 @@ class TrainingEngine:
                      load_optimizer_states=load_optimizer_states,
                      fallback=fallback)
 
+    def export_merged_weights(self, save_dir: str, tag: str = "merged"
+                              ) -> str:
+        """PEFT serving export: every LoRA node folded into its base and
+        written as a plain full-model checkpoint
+        (``checkpoint/engine.export_merged_weights``)."""
+        self.flush_delayed_update()
+        from .checkpoint.engine import export_merged_weights as _export
+
+        return _export(self, save_dir, tag=tag)
+
     # -- phase-alternation state offload (reference: offload_states /
     # reload_states; an RLHF rollout evicts the optimizer state to free
     # the card for the KV cache, then reloads it before the next update) --
@@ -677,7 +727,7 @@ class TrainingEngine:
             done["optim_states"] = True
         if "lp_params" in include and "lp_params" not in done:
             with torch.no_grad():
-                for p in self._leaves:
+                for p in self._all_leaves:
                     if p.device != torch.device("cpu"):
                         p.data = to_host(p)
             done["lp_params"] = True
@@ -704,7 +754,7 @@ class TrainingEngine:
             del done["optim_states"]
         if "lp_params" in done and "lp_params" in wanted:
             with torch.no_grad():
-                for j, p in enumerate(self._leaves):
+                for j, p in enumerate(self._all_leaves):
                     if j not in streamed:
                         p.data = p.data.to(self.device,
                                            non_blocking=non_blocking)

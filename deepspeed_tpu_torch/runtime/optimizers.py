@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from ..utils.tree_io import node_items, node_rebuild
 from .config import OptimizerConfig
 from .config_utils import ConfigError
 
@@ -57,28 +58,34 @@ Schedule = Union[float, Callable[[int], float]]
 
 
 def leaves(tree: Any) -> List[Any]:
-    """The leaves of a nested-dict tree, in key order."""
-    if isinstance(tree, dict):
-        return [x for key in tree for x in leaves(tree[key])]
-    return [tree]
+    """The leaves of a parameter tree, in key order (a node object's
+    children in its field order: ``utils/tree_io.node_items``)."""
+    items = node_items(tree)
+    if items is None:
+        return [tree]
+    return [x for _, v in items for x in leaves(v)]
 
 
 def leaf_paths(tree: Any, prefix: str = "") -> List[str]:
-    """The slash-joined path of each of :func:`leaves`' leaves."""
-    if isinstance(tree, dict):
-        return [p for key in tree
-                for p in leaf_paths(tree[key],
-                                    f"{prefix}/{key}" if prefix else key)]
-    return [prefix]
+    """The slash-joined path of each of :func:`leaves`' leaves (a LoRA
+    node's: ``.../wq/lora_a``, ``.../wq/base/codes``)."""
+    items = node_items(tree)
+    if items is None:
+        return [prefix]
+    return [p for key, v in items
+            for p in leaf_paths(v, f"{prefix}/{key}" if prefix else key)]
 
 
 def default_weight_decay_mask(params: Any) -> Any:
     """Decay matrices; skip norms, biases and scales (the reference's
-    rule, on the same nested-dict layout)."""
+    rule, on the same nested-dict layout and paths; a node object's mask
+    is the node with booleans for children)."""
 
     def build(node, path):
-        if isinstance(node, dict):
-            return {k: build(v, f"{path}/{k}") for k, v in node.items()}
+        items = node_items(node)
+        if items is not None:
+            return node_rebuild(node, [build(v, f"{path}/{k}")
+                                       for k, v in items])
         name = path.lower()
         if any(s in name for s in ("ln", "norm", "bias", "scale")):
             return False

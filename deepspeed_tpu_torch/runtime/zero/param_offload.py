@@ -49,9 +49,6 @@ import torch
 COUNTS = {"stream_in": 0}
 
 _PAGE = 4096
-# a host allocation this large is an mmap of its own (glibc's threshold is
-# at most 32 MiB), so page-locking its pages locks nobody else's
-_OWN_PAGES = 64 << 20
 
 
 def reset_counts() -> None:
@@ -75,15 +72,17 @@ class HostArena:
     """Host tensors for the offload tiers, page-locked when ``device`` is a
     CUDA device.
 
-    Each buffer is registered with ``cudaHostRegister`` at its exact size
-    (rounded to pages): PyTorch's pinned allocator caches by power-of-two
-    size class, which would round a 3.8 GB leaf up to 4.3 GB.  A buffer of
-    64 MiB or more is locked where it lies (:meth:`adopt`), a smaller one
-    is an anonymous mapping of its own.  :attr:`tensor_bytes` counts
-    the tensors' bytes, :attr:`pinned_bytes` the page-locked bytes behind
-    them.  A failed
-    registration raises; nothing falls back to pageable memory on the
-    card.  The buffers are unregistered when the arena is released or
+    Each buffer is an anonymous mapping of its own, registered with
+    ``cudaHostRegister`` at its exact size (rounded to pages): PyTorch's
+    pinned allocator caches by power-of-two size class, which would round
+    a 3.8 GB leaf up to 4.3 GB.  No buffer is locked where the host
+    allocator put it: malloc may carve even a 64 MiB tensor out of freed
+    heap chunks, and its first and last pages are then shared with other
+    allocations, which a registration rounded to pages would lock (and
+    overlap with a neighbour's).  :attr:`tensor_bytes` counts the tensors'
+    bytes, :attr:`pinned_bytes` the page-locked bytes behind them.  A
+    failed registration raises; nothing falls back to pageable memory on
+    the card.  The buffers are unregistered when the arena is released or
     collected."""
 
     def __init__(self, device: Any):
@@ -100,8 +99,6 @@ class HostArena:
         shape = tuple(shape)
         itemsize = torch.empty((), dtype=dtype).element_size()
         nbytes = int(np.prod(shape, dtype=np.int64)) * itemsize
-        if nbytes >= _OWN_PAGES:
-            return self.adopt(torch.empty(shape, dtype=dtype))
         self.tensor_bytes += nbytes
         if not self.pin or nbytes == 0:
             return torch.empty(shape, dtype=dtype)
@@ -113,18 +110,12 @@ class HostArena:
         return raw[:nbytes].view(dtype).view(shape)
 
     def adopt(self, t: torch.Tensor) -> torch.Tensor:
-        """Page-lock a host tensor where it lies, when it owns its pages
-        (an allocation of at least 64 MiB is a mapping of its own); a
-        smaller one is copied into an arena buffer."""
-        nbytes = t.numel() * t.element_size()
-        if nbytes < _OWN_PAGES:
-            return self.copy_of(t)
-        self.tensor_bytes += nbytes
-        if self.pin:
-            lo = t.data_ptr() // _PAGE * _PAGE
-            hi = (t.data_ptr() + nbytes + _PAGE - 1) // _PAGE * _PAGE
-            self._register(t, lo, hi - lo)
-        return t
+        """``t`` in arena memory: itself off the card, else a page-locked
+        copy."""
+        if not self.pin:
+            self.tensor_bytes += t.numel() * t.element_size()
+            return t
+        return self.copy_of(t)
 
     def _register(self, owner: torch.Tensor, ptr: int, span: int) -> None:
         rc = torch.cuda.cudart().cudaHostRegister(ptr, span, 0)

@@ -1131,8 +1131,8 @@ def run_adapter_bench(seed: int = 0, requests: int = 32,
     against a dedicated **always-merged** engine for its adapter — the
     deployment you'd run without multi-adapter serving: one engine per
     tenant with the adapter folded into the weights
-    (``runtime/checkpoint/engine.merge_adapter_pack``, the registry-pack
-    export path) — and base-labeled requests against the plain base
+    (``linear/optimized_linear.graft_adapter_pack`` then
+    ``merge_lora_weights``, the registry-pack export path) — and base-labeled requests against the plain base
     engine.  ``token_mismatches`` counts requests whose streams differ;
     the ``adapters-smoke`` SLO table gates it at zero alongside promote
     p95, resident-adapter count, hit rate, and the leak check.
@@ -1148,7 +1148,8 @@ def run_adapter_bench(seed: int = 0, requests: int = 32,
                                        adapter_target_shapes)
     from ..models import transformer as tfm
     from ..observability import replay as rp
-    from ..runtime.checkpoint.engine import merge_adapter_pack
+    from ..linear.optimized_linear import (graft_adapter_pack,
+                                           merge_lora_weights)
     from .adapters import load_adapter_pack, publish_adapter
     from .balancer import ReplicaPool
     from .config import ServingConfig
@@ -1253,7 +1254,8 @@ def run_adapter_bench(seed: int = 0, requests: int = 32,
         else:
             pack = load_adapter_pack(ckpts[adapter_id], model_cfg,
                                      adapter_rank)
-            params = merge_adapter_pack(base_params, pack)
+            params = merge_lora_weights(graft_adapter_pack(base_params,
+                                                           pack))
             eng = InferenceEngineV2(base_eng.model_cfg, params, v2_plain,
                                     device=device)
         dpool = ReplicaPool.build(lambda: eng, _dc.replace(cfg))

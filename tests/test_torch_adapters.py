@@ -29,6 +29,7 @@ from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu.runtime.checkpoint import engine as jck
 from deepspeed_tpu.serving import adapters as jad
 from deepspeed_tpu_torch.inference.v2 import engine as te
+from deepspeed_tpu_torch.linear import optimized_linear as tlin
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.runtime.checkpoint import engine as tck
 from deepspeed_tpu_torch.serving import adapters as tad
@@ -93,8 +94,8 @@ def dedicated(model):
 
     def tokens(i, prompt, n=6):
         if i not in engines:
-            p = tparams if i is None else tck.merge_adapter_pack(
-                tparams, _make_pack(tcfg, i))
+            p = tparams if i is None else tlin.merge_lora_weights(
+                tlin.graft_adapter_pack(tparams, _make_pack(tcfg, i)))
             engines[i] = te.InferenceEngineV2(tcfg, p, te.V2Config(**PLAIN),
                                               device="cpu")
         eng = engines[i]
@@ -455,7 +456,8 @@ def test_swap_params_and_rollback(model):
     (the tokens of an engine built on them); a tree of another structure
     is refused; rollback restores the old weights."""
     _, _, tcfg, tparams = model
-    new = tck.merge_adapter_pack(tparams, _make_pack(tcfg, 2))
+    new = tlin.merge_lora_weights(tlin.graft_adapter_pack(
+        tparams, _make_pack(tcfg, 2)))
     eng = te.InferenceEngineV2(tcfg, tparams, te.V2Config(**PLAIN),
                                device="cpu")
     fresh = te.InferenceEngineV2(tcfg, new, te.V2Config(**PLAIN),

@@ -1615,3 +1615,82 @@ def test_offload_states_frees_the_card(cuda_device):
     assert not eng.states_offloaded
     for a, b in zip(eng._leaves, ref._leaves):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# PEFT: B6 inside a training step, and a small QLoRA model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [4, 8, 6])
+def test_b6_at_training_rows_through_frozen_gemm(cuda_device, bits):
+    """``mixed_gemm_frozen`` at a training step's M = 4 x 2048 rows (bf16
+    x, group 512): the forward on ``mixed_gemm_wgmma_kernel`` against the
+    plain version, and the x-gradient (the dequantized weight's transpose,
+    as the reference's backward) against the same formula in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    M, K, N = 8192, 4096, 1024
+    w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+    qw = tmg.quantize_gemm_weight(w, bits=bits, group=512)
+    assert tmg.mixed_gemm_on_kernel_path(qw)
+    x = torch.randn((M, K), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    g = torch.randn((M, N), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    name = {4: "mixed_gemm_int4", 8: "mixed_gemm_int8",
+            6: "mixed_gemm_fp6"}[bits]
+    tmg.reset_counts()
+    y = tmg.mixed_gemm_frozen(x, qw)
+    assert tmg.WGMMA_LAUNCHES[name] == 1 and not any(
+        tmg.PLAIN_CALLS.values())
+    atol, rtol = TOLERANCE[torch.bfloat16]
+    torch.testing.assert_close(y.float(), tmg.mixed_gemm_plain(
+        x.detach(), qw).float(), atol=atol, rtol=rtol)
+    (gx,) = torch.autograd.grad(y, x, g)
+    want = g.float() @ tmg.dequantize_gemm_weight(qw).to(
+        torch.bfloat16).float().t()
+    err = (gx.float() - want).abs().max().item()
+    assert err <= 1e-2 * want.abs().max().item()  # bf16 output, f32 sums
+    assert qw.codes.grad is None
+
+
+def test_qlora_small_model_card_vs_cpu(cuda_device):
+    """``chip_smoke.py``'s peft agreement: a small f32 model with an int4
+    LoRA base, three PEFT steps card vs CPU within TOL_TRAIN; then the
+    same model in bf16 with a group-512 base, one step on the card: B6 on
+    every projection in the forward and the remat recompute, no plain
+    call, the codes unchanged and the adapters alone trained."""
+    import chip_smoke
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.linear import optimized_linear as tl
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+
+    small = chip_smoke.small_peft_agreement(torch, tfa)
+    assert small["loss_max_rel_diff"] <= chip_smoke.TOL_TRAIN
+    cfg = tt.get_config("tiny", hidden_size=512, intermediate_size=1024,
+                        num_heads=4, num_kv_heads=2, attn_impl="flash",
+                        dtype="bfloat16", param_dtype="bfloat16")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.bfloat16)
+    lora = dict(chip_smoke.PEFT_LORA, lora_r=8)
+    eng = deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tt.loss_fn(p, b, cfg),
+                        params=params),
+        config={"train_micro_batch_size_per_gpu": 4,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                "peft": {"lora": lora}, "steps_per_print": 10_000},
+        device=cuda_device)[0]
+    codes = [p.clone() for p, path in zip(eng._all_leaves, eng._all_paths)
+             if path.endswith("codes")]
+    assert codes and all(p.endswith(tl.ADAPTER_LEAF_KEYS)
+                         for p in eng._paths)
+    tmg.reset_counts()
+    batch = {"input_ids": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)}
+    losses = [eng.train_batch(batch)["loss"] for _ in range(3)]
+    assert tmg.WGMMA_LAUNCHES["mixed_gemm_int4"] == \
+        3 * 2 * chip_smoke.PROJECTIONS * cfg.num_layers
+    assert not any(tmg.PLAIN_CALLS.values()) and losses[-1] < losses[0]
+    after = [p for p, path in zip(eng._all_leaves, eng._all_paths)
+             if path.endswith("codes")]
+    assert all(torch.equal(a, b) for a, b in zip(codes, after))

@@ -677,9 +677,14 @@ def test_offload_config_runs_and_later_items_refuse():
         tconfig.load_config({"zero_optimization": {
             "stage": 2, "offload_optimizer": {"device": "cpu"}}}
         ).check_supported()
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
-        tconfig.load_config({"peft": {"lora": {"enabled": True}}}
-                            ).check_supported()
+    # PEFT runs (tests/test_torch_peft.py); with offload, the reference's
+    # ConfigError
+    tconfig.load_config({"peft": {"lora": {"enabled": True}}}
+                        ).check_supported()
+    with pytest.raises(ConfigError, match="peft.lora \\+ offload"):
+        tconfig.load_config({"peft": {"lora": {"enabled": True}},
+                             "zero_optimization": {"offload_optimizer": {
+                                 "device": "cpu"}}}).check_supported()
     with pytest.raises(ConfigError, match="must be one of"):
         tconfig.load_config({"zero_optimization": {"offload_optimizer": {
             "device": "gpu"}}})

@@ -405,13 +405,13 @@ def test_config_matches_reference_contract():
                       ({"zero_optimization": {"stage": 1}}, "A13"),
                       ({"zero_optimization": {"overlap_comm": True}}, "A13"),
                       ({"pipeline": {"stages": 2}}, "A13"),
-                      ({"peft": {"lora": {"enabled": True}}}, "A14"),
                       ({"gradient_compression": {"enabled": True}}, "A13")]:
         c = tconfig.load_config(cfg)
         with pytest.raises(NotImplementedError, match=item):
             c.check_supported()
-    # the training engine's sections run (A12, and A14's offload)
+    # the training engine's sections run (A12, and A14's offload and PEFT)
     for cfg in ({"fp16": {"enabled": True}}, {"sanity_checks": True},
+                {"peft": {"lora": {"enabled": True}}},
                 {"activation_checkpointing": {"cpu_checkpointing": True}},
                 {"zero_optimization": {"offload_optimizer": {
                     "device": "cpu"}}},

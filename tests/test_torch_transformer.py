@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from deepspeed_tpu.models import transformer as jt
+from deepspeed_tpu_torch.linear.optimized_linear import LoRAWeight
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.moe.sharded_moe import sharded_moe_block
 
@@ -151,7 +152,12 @@ def test_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="A13"):
         sharded_moe_block(torch.zeros(1, 2, 64), {}, tt.get_config(
             "tiny-moe"))
-    # quantized weights are served now (tests/test_torch_mixed_gemm.py);
-    # LoRA weights still wait for the adapter slice
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    # quantized weights are served (tests/test_torch_mixed_gemm.py), and
+    # LoRA weights run (tests/test_torch_peft.py): base + scaling * x A B
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(2, 4, generator=gen), torch.randn(4, 3, generator=gen)
+    a, b = torch.randn(4, 2, generator=gen), torch.randn(2, 3, generator=gen)
+    got = tt._lin(x, {"w": LoRAWeight(w, a, b, 0.5)}, "w", "b")
+    torch.testing.assert_close(got, x @ w + 0.5 * (x @ a) @ b)
+    with pytest.raises(TypeError, match="not a weight"):
         tt._lin(torch.zeros(2, 4), {"w": object()}, "w", "b")
