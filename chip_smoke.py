@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--out results.json]
     python3 chip_smoke.py --spec-rates   # one process's decode rates
+    python3 chip_smoke.py --zero-phase   # the ZeRO phase's child alone
 
 In order it prints:
 
@@ -228,11 +229,35 @@ In order it prints:
    write sweep of 256 MB on ``build/``; the host's AdamW on a 512 MB leaf,
    plain PyTorch against the offloaded optimizer's one-pass loop (ns an
    element); the phase's seconds by part;
-18. a JSON line with every kernel's numbers (the f16 rows with
+18. ZeRO stages 1-3 (``--zero-phase``, a child process: a
+   ``torch.distributed`` world of one over NCCL that ends with it; each
+   number beside the card's name and power limit, and labelled a world of
+   one): llama3-8b at full width with ZERO_LAYERS of its 32 layers (the
+   training phase's bf16, flash, remat, ``tiled_loss_fn(512)``, 4 x 2048,
+   AdamW) at stages 0, 1, 2 and 3, one engine alive at a time, each from
+   the same seeded weights and batch for ZERO_STEPS steps: step ms,
+   tokens/s, peak GB and the NCCL kernels' device ms (stages 1-3: one
+   more step under ``torch.profiler``); gates: each stage's losses within ZERO_LOSS_REL
+   of stage 0's, B1-B3 2L / L / L launches a step, no plain call, the
+   comms logger's counts exactly the stage's (stage 1: a bucket's all-
+   reduce, the metrics' all-reduce and a bucket's all-gather; stage 2:
+   reduce-scatter buckets; stage 3: the top leaves' gather and each
+   layer's in forward and in the remat recompute, a reduce-scatter per
+   layer and for the top in backward, the buckets' all-reduce over dp),
+   stage 3's peak at most stage 0's plus two layers' and the top leaves'
+   gathered bytes; then at ZERO_EXTRA_LAYERS layers qwZ at stage 3
+   (int8 codes and f32 scales gathered: the all-gather bytes under 0.6 of
+   the bf16 gather's, the first loss within 1e-2 of the unquantized
+   one), qgZ and 1-bit (from step 2) at stage 2 (the first step's loss
+   equal to plain stage 2's, the later ones within 5e-2, int8
+   all-gathers / all-to-alls in the logger), and a stage-3 checkpoint loaded into a
+   stage-1 engine (equal eval loss); the phase's seconds;
+19. a JSON line with every kernel's numbers (the f16 rows with
    ``"dtype": "float16"`` and their launches on the fp16 paths; the flash
-   rows also ``launches_offload``, on the optimizer-offload steps; B6 at
-   M = 8192 with ``launches_peft``, on the peft phase's steps);
-19. last, ``{"ok": true, "device": {...}}``.
+   rows also ``launches_offload``, on the optimizer-offload steps, and
+   ``launches_zero``, on the ZeRO phase's stage-3 steps; B6 at M = 8192
+   with ``launches_peft``, on the peft phase's steps);
+20. last, ``{"ok": true, "device": {...}}``.
 
 Each phase's wall seconds stand on a line of their own, ``phase NAME: S
 s``.
@@ -251,6 +276,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -298,6 +324,16 @@ F16_MAX = 65504.0
 # flash training shape (bench.py's micro-batch and sequence, llama3-8b heads)
 FB, FS = 4, 2048
 TRAIN_LAYERS, TRAIN_WARMUP, TRAIN_STEPS, TILE = 8, 2, 5, 512
+# the ZeRO phase: depth and steps of the stage runs (the training cell's
+# depth), depth of the extras (cut from 2 to 1 for the smoke's time: the
+# whole smoke ran 1061 s on an H100 machine slower than the last one)
+ZERO_LAYERS, ZERO_STEPS, ZERO_EXTRA_LAYERS = 8, 3, 1
+# a ZeRO stage's step losses against stage 0's on the same weights and
+# batch, relative: at a world of
+# one every collective sums one rank, so the stages differ from stage 0
+# only where f32 sums run in another order (the gradient norm; stage 3's
+# f32 gradient buffers), well under bf16's 2**-8 rounding of a loss
+ZERO_LOSS_REL = 1e-3
 TOL_TRAIN = 1e-4  # small f32 training, card vs CPU: loss rel, params abs
 # the training engine's phase: fp16 with a dynamic loss scale started high
 # enough that the first steps overflow, each overflow halving it
@@ -1565,8 +1601,9 @@ def small_training_agreement(torch, fa, cfg=None, kernels=None,
         from deepspeed_tpu_torch.linear.config import LoRAConfig
         from deepspeed_tpu_torch.linear.optimized_linear import apply_lora
 
-        params = apply_lora(params, torch.Generator().manual_seed(SEED + 1),
-                            LoRAConfig.from_dict(peft))
+        params, _ = apply_lora(params, None,
+                               torch.Generator().manual_seed(SEED + 1),
+                               LoRAConfig.from_dict(peft))
     rng = np.random.default_rng(SEED)
     batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
         4, cfg.max_seq_len)).astype(np.int32)} for _ in range(3)]
@@ -7414,6 +7451,311 @@ def serving_line(sv: dict) -> str:
             f"killed worker {c['respawn_s']:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# ZeRO stages 1-3 (a child process: an NCCL world of one)
+# ---------------------------------------------------------------------------
+
+
+def _zero_engine(torch, layers: int, stage: int, zero=None, optimizer=None,
+                 extra=None):
+    """llama3-8b at full width, ``layers`` deep, from the training phase's
+    seeded bf16 weights, at ZeRO ``stage`` (the world of one
+    ``initialize`` sets up)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    cfg = tfm.get_config("llama3-8b", num_layers=layers,
+                         param_dtype="bfloat16", attn_impl="flash")
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=tfm.param_dtype(cfg))
+    config = {"train_micro_batch_size_per_gpu": FB,
+              "optimizer": optimizer or {"type": "adamw",
+                                         "params": {"lr": 1e-4}},
+              "zero_optimization": {"stage": stage, **(zero or {})},
+              "steps_per_print": 10_000, **(extra or {})}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+            p, b, cfg, tile_size=TILE), params=params,
+            param_axes=tfm.param_axes(cfg)), config=config)
+    del params
+    torch.cuda.empty_cache()
+    return engine, cfg
+
+
+def _zero_batch(cfg):
+    import numpy as np
+
+    return {"input_ids": np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(FB, FS)).astype(np.int32)}
+
+
+def _nccl_device_ms(torch, prof) -> float:
+    """Device ms of the NCCL kernels in a ``torch.profiler`` run."""
+    ms = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "nccl" in ev.key.lower():
+            us = getattr(ev, "self_device_time_total", None)
+            ms += (ev.self_cuda_time_total if us is None else us) / 1e3
+    return ms
+
+
+def _zero_expected_counts(engine, steps: int) -> dict:
+    """The comms logger's counts ``steps`` steps of ``engine`` make (gas
+    1): what its plans and the model's depth give."""
+    dp = "('dp', 'fsdp')"
+    stage = engine.zero_stage
+    if stage >= 3:
+        depth = engine._full_shapes[engine._paths.index(
+            "layers/ln1/scale")][0]
+        groups = {"dp": 0, dp: 0}
+        for axes, _ in engine._s3_buckets:
+            groups["dp" if axes == "dp" else dp] += 1
+        want = {"all_gather@fsdp": steps * (1 + 2 * depth),
+                "reduce_scatter@fsdp": steps * (1 + depth),
+                "all_reduce@dp": steps * groups["dp"],
+                f"all_reduce@{dp}": steps * (groups[dp] + 1)}
+        return {k: v for k, v in want.items() if v}
+    plan = engine._bucket_plan
+    scatter = sum(1 for b in plan.buckets if b.scatter)
+    want = {f"all_reduce@{dp}": steps * (len(plan.buckets) - scatter + 1),
+            f"reduce_scatter@{dp}": steps * scatter}
+    if engine._gather_plan is not None:
+        want[f"all_gather@{dp}"] = steps * sum(
+            1 for b in engine._gather_plan.buckets if b.scatter)
+    return {k: v for k, v in want.items() if v}
+
+
+def zero_phase_child(torch) -> dict:
+    """The ZeRO phase's body (``--zero-phase``): see the module docstring,
+    item 18.  Fails out loud on any gate; returns the numbers."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.hopper import build
+    from deepspeed_tpu_torch.ops.hopper import flash_attention as fa
+
+    build.build()
+    comm.init_distributed(verbose=False)  # NCCL, a world of one
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"zero: backend {dist.get_backend()}, world "
+             f"{dist.get_world_size()}; want nccl, 1")
+    comm.configure(enabled=True)
+    log = comm.get_comms_logger()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "layers": ZERO_LAYERS, "steps": ZERO_STEPS}
+    t_phase = time.perf_counter()
+
+    # (a) stages 0-3 at ZERO_LAYERS
+    for stage in (0, 1, 2, 3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine, cfg = _zero_engine(torch, ZERO_LAYERS, stage)
+        build_s = time.perf_counter() - t0
+        placed = engine.place_batch(_zero_batch(cfg))
+        fa.reset_counts()
+        log.reset()
+        losses, times = [], []
+        for _ in range(ZERO_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(engine.train_batch(placed)["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        launches, plain = dict(fa.LAUNCHES), dict(fa.PLAIN_CALLS)
+        counts = log.counts()
+        nbytes = {k: r.total_bytes for k, r in log.stats.items()}
+        peak = torch.cuda.max_memory_allocated()
+        nccl_ms = 0.0  # stage 0 issues no collective
+        if stage:
+            from torch.profiler import ProfilerActivity
+
+            # both activities: with CUDA's alone this torch reports no
+            # kernel (measured on one H100)
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                engine.train_batch(placed)
+                torch.cuda.synchronize()
+            nccl_ms = _nccl_device_ms(torch, prof)
+            if not nccl_ms > 0:
+                fail(f"zero stage {stage}: the profiler shows no NCCL "
+                     "kernel")
+        L, n = cfg.num_layers, ZERO_STEPS
+        want = {"flash_fwd": 2 * L * n, "flash_bwd_dkdv": L * n,
+                "flash_bwd_dq": L * n}
+        if launches != want:
+            fail(f"zero stage {stage}: flash launches {launches}, want "
+                 f"{want}")
+        if any(plain.values()):
+            fail(f"zero stage {stage}: a plain attention version ran: "
+                 f"{plain}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"zero stage {stage}: a loss is not finite: {losses}")
+        want_counts = {} if stage == 0 else _zero_expected_counts(engine, n)
+        if counts != want_counts:
+            fail(f"zero stage {stage}: collectives {counts}, want "
+                 f"{want_counts}")
+        step_s = statistics.mean(times[1:])
+        res = {"losses": losses, "build_s": build_s,
+               "step_ms": step_s * 1e3,
+               "tokens_per_s": FB * (FS - 1) / step_s,
+               "peak_gb": peak / 1e9, "nccl_device_ms": nccl_ms,
+               "counts": counts, "bytes": nbytes,
+               "launches_per_step": {k: v // n for k, v in launches.items()}}
+        if stage >= 3:
+            g = engine._gatherer
+            shapes = dict(zip(engine._paths, engine._full_shapes))
+            layer = sum(2 * math.prod(s[1:]) for p, s in shapes.items()
+                        if p.startswith("layers/"))
+            top = sum(2 * math.prod(s) for p, s in shapes.items()
+                      if not p.startswith("layers/"))
+            res.update(layer_gathered_bytes=layer, top_gathered_bytes=top,
+                       peak_live_gathered_bytes=g.peak_live_bytes,
+                       shard_report=engine.shard_report())
+        out[f"stage{stage}"] = res
+        del engine, placed
+    s0 = out["stage0"]
+    for stage in (1, 2, 3):
+        for k, (a, b) in enumerate(zip(s0["losses"],
+                                       out[f"stage{stage}"]["losses"])):
+            if abs(b - a) > ZERO_LOSS_REL * abs(a):
+                fail(f"zero stage {stage} step {k}: loss {b} against stage "
+                     f"0's {a} (limit {ZERO_LOSS_REL} relative)")
+    s3 = out["stage3"]
+    limit = s0["peak_gb"] * 1e9 + 2 * s3["layer_gathered_bytes"] + \
+        s3["top_gathered_bytes"]
+    if s3["peak_gb"] * 1e9 > limit:
+        fail(f"zero stage 3: peak {s3['peak_gb']:.2f} GB past stage 0's "
+             f"{s0['peak_gb']:.2f} GB + two layers and the top leaves "
+             f"gathered ({limit / 1e9:.2f} GB)")
+    if s3["peak_live_gathered_bytes"] > 2 * s3["layer_gathered_bytes"] + \
+            s3["top_gathered_bytes"]:
+        fail(f"zero stage 3: {s3['peak_live_gathered_bytes']} gathered "
+             "bytes alive at once, more than two layers and the top leaves")
+    out["seconds_stages"] = time.perf_counter() - t_phase
+
+    # (b) at ZERO_EXTRA_LAYERS: qwZ at stage 3, qgZ and 1-bit at stage 2
+    def steps(stage, zero=None, extra=None, n=3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, cfg = _zero_engine(torch, ZERO_EXTRA_LAYERS, stage, zero=zero,
+                                   extra=extra)
+        placed = engine.place_batch(_zero_batch(cfg))
+        log.reset()
+        losses = [engine.train_batch(placed)["loss"] for _ in range(n)]
+        stats = {k: (r.count, r.total_bytes) for k, r in log.stats.items()}
+        del engine, placed
+        return losses, stats
+
+    t0 = time.perf_counter()
+    plain3, st3 = steps(3, n=1)
+    qwz, stq = steps(3, zero={"zero_quantized_weights": True}, n=1)
+    if abs(qwz[0] - plain3[0]) > 1e-2 * abs(plain3[0]):
+        fail(f"zero qwZ: first loss {qwz[0]} against {plain3[0]}")
+    if not stq["all_gather@fsdp"][1] < 0.6 * st3["all_gather@fsdp"][1]:
+        fail(f"zero qwZ: gathered {stq['all_gather@fsdp'][1]} bytes, the "
+             f"bf16 gathers {st3['all_gather@fsdp'][1]}")
+    plain2, st2 = steps(2, n=3)
+    qgz, stg = steps(2, n=3, zero={"zero_quantized_gradients": True})
+    onebit, sto = steps(2, n=3, extra={"gradient_compression": {
+        "enabled": True, "freeze_step": 1}})
+    # qgZ's int8 codes and scales ride all-gathers beside the parameters'
+    # (plain stage 2's) from step 1; 1-bit's signs ride all-to-alls from
+    # step 2, whose update the third loss is the first to see
+    for name, ls, st, key in (
+            ("qgZ", qgz, stg, "all_gather@('dp', 'fsdp')"),
+            ("1-bit", onebit, sto, "all_to_all@('dp', 'fsdp')")):
+        if abs(ls[0] - plain2[0]) > ZERO_LOSS_REL * abs(plain2[0]) or any(
+                abs(a - b) > 5e-2 * abs(b) for a, b in zip(ls[1:],
+                                                           plain2[1:])):
+            fail(f"zero {name}: losses {ls} against plain stage 2's "
+                 f"{plain2}")
+        if not st.get(key, (0, 0))[0] > st2.get(key, (0, 0))[0]:
+            fail(f"zero {name}: {key} {st.get(key)} against plain stage "
+                 f"2's {st2.get(key)}")
+    out["extras"] = {"layers": ZERO_EXTRA_LAYERS, "stage3": plain3,
+                     "qwz": qwz, "qwz_gather_bytes": stq["all_gather@fsdp"][1],
+                     "bf16_gather_bytes": st3["all_gather@fsdp"][1],
+                     "stage2": plain2, "qgz": qgz, "onebit": onebit,
+                     "qgz_collectives": stg, "onebit_collectives": sto}
+
+    # (c) a stage-3 checkpoint loaded into a stage-1 engine (SGD: one f32
+    # trace a parameter; the fast writer, no digests)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sgd = {"type": "sgd", "params": {"lr": 1e-3}}
+    fast = {"checkpoint": {"engine": "fast", "integrity": "none"}}
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "ckpt_zero")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        a, cfg = _zero_engine(torch, ZERO_EXTRA_LAYERS, 3, optimizer=sgd,
+                              extra=fast)
+        batch = _zero_batch(cfg)
+        a.train_batch(batch)
+        t = time.perf_counter()
+        a.save_checkpoint(ckpt)
+        save_s = time.perf_counter() - t
+        ev_a = a.eval_batch(batch)["loss"]
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        b, _ = _zero_engine(torch, ZERO_EXTRA_LAYERS, 1, optimizer=sgd,
+                            extra=fast)
+        t = time.perf_counter()
+        # the eval needs the parameters alone: the SGD trace stays unread
+        b.load_checkpoint(ckpt, load_optimizer_states=False)
+        load_s = time.perf_counter() - t
+        ev_b = b.eval_batch(batch)["loss"]
+        del b
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if abs(ev_b - ev_a) > 1e-6 * abs(ev_a):
+        fail(f"zero checkpoint: stage 1 eval loss {ev_b} after loading "
+             f"stage 3's {ev_a}")
+    out["checkpoint"] = {"eval_stage3": ev_a, "eval_stage1_loaded": ev_b,
+                         "save_s": save_s, "load_s": load_s}
+    out["seconds_extras"] = time.perf_counter() - t0
+    out["launches_zero"] = dict(out["stage3"]["launches_per_step"])
+    dist.destroy_process_group()
+    return out
+
+
+def run_zero_phase(torch, card: str) -> dict:
+    """:func:`zero_phase_child` in a process of its own (its process group
+    ends with it); a failure there fails the smoke."""
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--zero-phase"],
+        capture_output=True, text=True, timeout=900)
+    sys.stderr.write(res.stderr[-4000:])
+    if res.returncode != 0:
+        fail(f"the ZeRO phase's process exited {res.returncode}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def zero_line(z: dict, card: str) -> str:
+    parts = []
+    for s in range(4):
+        r = z[f"stage{s}"]
+        parts.append(f"stage {s} {r['step_ms']:.2f} ms a step, "
+                     f"{r['tokens_per_s']:.2f} tokens/s, peak "
+                     f"{r['peak_gb']:.2f} GB, NCCL {r['nccl_device_ms']:.3f} "
+                     "device ms")
+    e = z["extras"]
+    return (f"ZeRO ({card}; a world of one over NCCL; llama3-8b at "
+            f"{z['layers']} layers, {z['steps']} steps a stage): "
+            + "; ".join(parts) + f"; losses within {ZERO_LOSS_REL} of stage "
+            f"0's; at {e['layers']} layers qwZ gathers {e['qwz_gather_bytes']}"
+            f" bytes against {e['bf16_gather_bytes']} bf16, checkpoint "
+            f"stage 3 -> 1 eval loss {z['checkpoint']['eval_stage1_loaded']}"
+            f" = {z['checkpoint']['eval_stage3']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7421,6 +7763,10 @@ def main() -> None:
                     "dropless MoE engines and one more training step with "
                     "torch.profiler and print where the device time goes")
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--zero-phase", action="store_true",
+                    help="run the ZeRO phase's body (an NCCL world of one) "
+                    "and print its results as a JSON line (the main run "
+                    "starts this process itself)")
     ap.add_argument("--spec-rates", action="store_true",
                     help="print one process's warm decode tokens/s of the "
                     "plain, speculative and adapter engines as a JSON line "
@@ -7434,6 +7780,10 @@ def main() -> None:
     if args.spec_rates:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(spec_rates(torch)))
+        return
+    if args.zero_phase:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(zero_phase_child(torch)))
         return
     try:
         from deepspeed_tpu_torch.models import transformer as tfm
@@ -7723,6 +8073,14 @@ def main() -> None:
     print(f"offload ({card}): " + json.dumps(offload))
     print(offload_line(offload, card))
     clock("offload")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = run_zero_phase(torch, card)
+    print(f"zero ({card}): " + json.dumps(zero))
+    print(zero_line(zero, card))
+    clock("zero")
+    zero_launches = {k: v * ZERO_STEPS for k, v in
+                     zero["launches_zero"].items()}
     offload_launches = offload["optimizer"]["launches"]
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
                      "fused_adamw": adam_tree["launches"],
@@ -7746,7 +8104,7 @@ def main() -> None:
               "grouped_matmul_f16": gmm16, "fused_adamw_f16": adam16,
               "evoformer_f16": evo16, "fp16_engines": fp16,
               "small_f16": small16, "fused_adamw_f16_path": adam16_path,
-              "offload": offload, "peft": peft,
+              "offload": offload, "peft": peft, "zero": zero,
               "phase_seconds": clock.seconds}
 
     sources = {"paged_decode_attention": "paged_attention.cu",
@@ -7833,6 +8191,8 @@ def main() -> None:
                                      "launches_peft") if x in k},
                 **({"launches_offload": offload_launches[k["name"]]}
                    if k["name"] in offload_launches and not half else {}),
+                **({"launches_zero": zero_launches[k["name"]]}
+                   if k["name"] in zero_launches and not half else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

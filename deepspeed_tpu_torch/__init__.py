@@ -76,7 +76,7 @@ CUDA kernels; those are built from ``csrc/`` at their first launch.
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 __version__ = "0.1.0"
 
@@ -106,24 +106,41 @@ def initialize(model: Any = None,
                config: Union[str, Dict, Any, None] = None,
                config_params: Union[str, Dict, None] = None,
                model_params: Any = None, param_axes: Any = None,
-               loss_fn: Any = None, device: Any = "cuda"
+               loss_fn: Any = None, device: Any = "cuda", topo: Any = None,
+               dist_init_required: Optional[bool] = None
                ) -> Tuple[Any, Any, None, Any]:
     """Create a training engine (reference: ``deepspeed_tpu.initialize``).
     Returns ``(engine, optimizer, None, lr_schedule)``.  ``model`` is a
     :class:`~deepspeed_tpu_torch.runtime.engine.ModelSpec`, or pass
     ``loss_fn`` and ``model_params``.  The engine runs on the card unless
-    ``device="cpu"`` is asked for."""
+    ``device="cpu"`` is asked for.
+
+    A config that needs a data-parallel world (ZeRO stage 1-3, qgZ, 1-bit
+    compression) or a torchrun environment (``$WORLD_SIZE``) sets up the
+    ``torch.distributed`` world first (``comm.init_distributed``: NCCL on
+    the card, gloo on the CPU; a world of one without the environment);
+    ``dist_init_required`` forces that either way."""
+    import os
+
+    from . import comm
     from .runtime.config import load_config
     from .runtime.engine import ModelSpec, TrainingEngine
 
     cfg = load_config(config if config is not None else config_params)
+    zero = cfg.zero_optimization
+    if dist_init_required is None:
+        dist_init_required = (zero.stage >= 1 or "WORLD_SIZE" in os.environ
+                              or zero.zero_quantized_gradients
+                              or cfg.gradient_compression.enabled)
+    if dist_init_required:
+        comm.init_distributed(device=device, verbose=False)
     if not isinstance(model, ModelSpec):
         if loss_fn is None or model_params is None:
             raise ValueError(
                 "pass model=ModelSpec(...) or loss_fn= and model_params=")
         model = ModelSpec(loss_fn=loss_fn, params=model_params,
                           param_axes=param_axes)
-    engine = TrainingEngine(model, cfg, device=device)
+    engine = TrainingEngine(model, cfg, device=device, topo=topo)
     return engine, engine.optimizer, None, engine.lr_schedule
 
 

@@ -10,7 +10,8 @@ from .config import (DEFAULT_TARGET_MODULES, LoRAConfig, PEFTConfig,
                      QuantizationConfig)
 from .optimized_linear import (ADAPTER_LEAF_KEYS, LoRAWeight, OptimizedLinear,
                                QuantizedBaseWeight, adapter_only_flat,
-                               apply_lora, graft_adapter_pack, has_lora,
+                               apply_lora, expand_axes_for_lora,
+                               graft_adapter_pack, has_lora,
                                init_lora_weight, lora_forward,
                                merge_lora_weights, merge_trainable,
                                quantize_base_weight, trainable_mask,
@@ -32,6 +33,7 @@ __all__ = [
     "ADAPTER_LEAF_KEYS", "DEFAULT_TARGET_MODULES", "LoRAConfig",
     "LoRAWeight", "OptimizedLinear", "PEFTConfig", "QuantizationConfig",
     "QuantizedBaseWeight", "adapter_only_flat", "apply_lora",
+    "expand_axes_for_lora",
     "apply_spec_heads", "graft_adapter_pack", "greedy_rollouts",
     "has_lora", "init_lora_weight", "init_spec_heads", "lora_forward",
     "merge_lora_weights", "merge_trainable", "quantize_base_weight",

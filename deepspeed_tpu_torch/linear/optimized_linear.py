@@ -337,30 +337,97 @@ def _wrappable(k: str, v: Any, targets) -> bool:
     return (k in targets and isinstance(v, torch.Tensor) and v.dim() >= 2)
 
 
-def apply_lora(params: Any, generator: torch.Generator, cfg: LoRAConfig
-               ) -> Any:
+#: leading axes of a stacked weight that its LoRA factors keep
+_STACK_AXES = ("layers", "expert")
+
+
+def _axes_for_node(node: LoRAWeight, w_axes, base_weight_sharding: int
+                   ) -> LoRAWeight:
+    """Logical axes for a LoRA node, derived from the wrapped weight's
+    axes (the reference's ``_axes_for_node``).
+
+    ``base_weight_sharding == 1`` (the reference default) strips the base's
+    non-stack axes so the frozen copy replicates (or is picked up by the
+    stage-3 fsdp fallback); any other value keeps the original axes.  The
+    factors keep the base's in/out axis on their full-rank side and leave
+    the rank-``r`` side unsharded; a quantized base keeps its stack axes
+    alone (its code grid is not the (K, N) plane)."""
+    ndim = node.lora_a.dim()
+    if not (isinstance(w_axes, tuple) and len(w_axes) == ndim):
+        w_axes = (None,) * ndim
+    lead, in_ax, out_ax = w_axes[:-2], w_axes[-2], w_axes[-1]
+    stack_lead = tuple(ax if ax in _STACK_AXES else None for ax in lead)
+    if base_weight_sharding == 1:
+        base_axes = stack_lead + (None, None)
+    else:
+        base_axes = w_axes
+    if isinstance(node.base, QuantizedBaseWeight):
+        q = node.base
+        base_axes = QuantizedBaseWeight(
+            stack_lead + (None,) * (q.codes.dim() - len(stack_lead)),
+            stack_lead + (None,) * (q.scales.dim() - len(stack_lead)),
+            q.q_bits, q.mantissa_bits,
+            q.group_size, tuple(q.inner_shape), q.layout)
+    return LoRAWeight(base_axes,
+                      stack_lead + (in_ax, None),
+                      stack_lead + (None, out_ax),
+                      node.scaling)
+
+
+def apply_lora(params: Any, axes: Any, generator: torch.Generator,
+               cfg: LoRAConfig) -> Tuple[Any, Any]:
     """Swap every targeted projection of a parameter tree for a LoRA node
-    (drawn from ``generator`` in tree order).  The ``moe`` subtree is left
-    as it is: its expert weights go through the grouped GEMM, not the
-    dense projection.  (The reference also returns the expanded logical
-    axes; they arrive with ``param_axes``, ROADMAP.md A13.)"""
+    (drawn from ``generator`` in tree order).  Returns ``(params', axes')``
+    transformed together, as the reference's does, so the sharding rules'
+    prefix matching keeps working (``axes`` may be None).  The ``moe``
+    subtree is left as it is: its expert weights go through the grouped
+    GEMM, not the dense projection."""
     if not isinstance(params, dict):
         raise TypeError("apply_lora expects the dict parameter tree of "
                         "models/transformer.py (or an HF-converted tree)")
     targets = set(cfg.target_modules)
 
-    def walk(p):
-        out = {}
+    def walk(p, a):
+        new_p = {}
+        new_a = {} if isinstance(a, dict) else a
         for k, v in p.items():
+            sub_a = a.get(k) if isinstance(a, dict) else a
             if isinstance(v, dict):
-                out[k] = v if k == "moe" else walk(v)
+                rp, ra = (v, sub_a) if k == "moe" else walk(v, sub_a)
             elif _wrappable(k, v, targets):
-                out[k] = init_lora_weight(generator, v, cfg)
+                rp = init_lora_weight(generator, v, cfg)
+                ra = _axes_for_node(
+                    rp, sub_a if isinstance(sub_a, tuple) else None,
+                    cfg.base_weight_sharding)
             else:
-                out[k] = v
-        return out
+                rp, ra = v, sub_a
+            new_p[k] = rp
+            if isinstance(new_a, dict):
+                new_a[k] = ra
+        return new_p, new_a
 
-    return walk(params)
+    return walk(params, axes)
+
+
+def expand_axes_for_lora(axes: Any, params: Any,
+                         base_weight_sharding: int = 1) -> Any:
+    """Post-pass for ``param_axes(cfg, params=…)`` on a tree that already
+    holds LoRA nodes: wherever ``params`` has a :class:`LoRAWeight` and
+    ``axes`` still the original weight's plain tuple, expand it."""
+    if not isinstance(params, dict) or not isinstance(axes, dict):
+        return axes
+    out = {}
+    for k, a in axes.items():
+        p = params.get(k)
+        if isinstance(p, LoRAWeight) and not isinstance(a, LoRAWeight):
+            out[k] = _axes_for_node(p, a if isinstance(a, tuple) else None,
+                                    base_weight_sharding)
+        elif isinstance(a, dict):
+            out[k] = expand_axes_for_lora(a, p if isinstance(p, dict) else {},
+                                          base_weight_sharding)
+        else:
+            out[k] = a
+    return out
 
 
 def graft_adapter_pack(params: Any, pack: Any, scaling: float = 1.0) -> Any:

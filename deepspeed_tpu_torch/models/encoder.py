@@ -11,8 +11,8 @@ The same three differences from the decoders as the reference:
 Parameters keep the reference's pytree layout (per-layer weights stacked
 on a leading ``layers`` axis), so :func:`params_from_jax` converts leaf for
 leaf.  The attention is a plain ``einsum``/softmax, as the reference's is
-XLA (no Pallas kernel).  ``param_axes`` is sharding metadata and arrives
-with multi-GPU (ROADMAP.md A13).
+XLA (no Pallas kernel).  :func:`param_axes` gives the logical axes the
+ZeRO sharding rules read (``runtime/zero/sharding.py``).
 """
 
 from __future__ import annotations
@@ -108,6 +108,42 @@ def init_params(cfg: EncoderConfig, generator: torch.Generator,
         },
         "pooler": {"w": dense((h, h), h), "b": zeros(h)},
     }
+
+
+def param_axes(cfg: EncoderConfig,
+               params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Logical axes for the ZeRO/TP sharding rules (the reference's):
+    encoders shard like decoders (heads/mlp → tp, vocab rows → tp, layers
+    stacked).  Pass ``params`` to prune the optional heads (pooler / mlm)
+    the converted model does not carry."""
+    ln = {"scale": ("layers", "embed"), "bias": ("layers", "embed")}
+    axes = {
+        "embed": {"tokens": ("vocab", "embed"), "position": ("seq", "embed"),
+                  "token_type": (None, "embed")},
+        "embed_norm": {"scale": ("embed",), "bias": ("embed",)},
+        "layers": {
+            "attn": {
+                "wq": ("layers", "embed", "heads"), "bq": ("layers", "heads"),
+                "wk": ("layers", "embed", "heads"), "bk": ("layers", "heads"),
+                "wv": ("layers", "embed", "heads"), "bv": ("layers", "heads"),
+                "wo": ("layers", "heads", "embed"), "bo": ("layers", "embed"),
+            },
+            "ln_attn": dict(ln),
+            "mlp": {
+                "w_in": ("layers", "embed", "mlp"), "b_in": ("layers", "mlp"),
+                "w_out": ("layers", "mlp", "embed"),
+                "b_out": ("layers", "embed"),
+            },
+            "ln_mlp": dict(ln),
+        },
+        "mlm": {"w": ("embed", "embed"), "b": ("embed",),
+                "norm": {"scale": ("embed",), "bias": ("embed",)},
+                "decoder_bias": ("vocab",)},
+        "pooler": {"w": ("embed", "embed"), "b": ("embed",)},
+    }
+    if params is not None:
+        axes = {k: v for k, v in axes.items() if k in params}
+    return axes
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: EncoderConfig,

@@ -259,6 +259,83 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
+def param_axes(cfg: TransformerConfig, params: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
+    """Logical-axes tree matching :func:`init_params` (the reference's
+    ``param_axes``), read by the ZeRO sharding rules
+    (``runtime/zero/sharding.py``).  Pass ``params`` for converted trees
+    that carry linear biases (their leaves get axes) or LoRA nodes (their
+    axes are expanded, ``linear/optimized_linear.expand_axes_for_lora``)."""
+    from ..linear.optimized_linear import expand_axes_for_lora
+
+    ln = {"scale": ("layers", "embed")}
+    if cfg.norm == "layernorm":
+        ln = {"scale": ("layers", "embed"), "bias": ("layers", "embed")}
+    layer: Dict[str, Any] = {
+        "attn": {
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+        },
+        "ln1": dict(ln),
+        "ln2": dict(ln),
+    }
+    if cfg.num_experts > 0:
+        moe = {
+            "router": ("layers", "embed", None),
+            "w_in": ("layers", "expert", "embed", "mlp"),
+            "w_out": ("layers", "expert", "mlp", "embed"),
+        }
+        if cfg.activation == "silu":
+            moe["w_gate"] = ("layers", "expert", "embed", "mlp")
+        if cfg.moe_use_residual:
+            moe["res_w_in"] = ("layers", "embed", "mlp")
+            moe["res_w_out"] = ("layers", "mlp", "embed")
+            if cfg.activation == "silu":
+                moe["res_w_gate"] = ("layers", "embed", "mlp")
+            moe["coef"] = ("layers", "embed", None)
+        layer["moe"] = moe
+    else:
+        mlp = {"w_in": ("layers", "embed", "mlp"),
+               "w_out": ("layers", "mlp", "embed")}
+        if cfg.is_gated_mlp:
+            mlp["w_gate"] = ("layers", "embed", "mlp")
+        layer["mlp"] = mlp
+
+    fn = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        fn["bias"] = ("embed",)
+    axes: Dict[str, Any] = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "layers": layer,
+        "final_norm": fn,
+    }
+    if cfg.position == "learned":
+        axes["embed"]["position"] = ("seq", "embed")
+    if cfg.embed_norm:
+        axes["embed_norm"] = {"scale": ("embed",), "bias": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = {"w": ("embed", "vocab")}
+        if params is not None and "b" in params.get("lm_head", {}):
+            axes["lm_head"]["b"] = ("vocab",)
+
+    if params is not None:  # add axes for optional bias leaves
+        bias_axes = {
+            "bq": ("layers", "heads"), "bk": ("layers", "kv_heads"),
+            "bv": ("layers", "kv_heads"), "bo": ("layers", "embed"),
+            "b_gate": ("layers", "mlp"), "b_in": ("layers", "mlp"),
+            "b_out": ("layers", "embed"),
+        }
+        for blk in ("attn", "mlp"):
+            have = params.get("layers", {}).get(blk, {})
+            for key, ax in bias_axes.items():
+                if key in have and key not in layer.get(blk, {}):
+                    layer.setdefault(blk, {})[key] = ax
+        axes = expand_axes_for_lora(axes, params)
+    return axes
+
+
 _QW_FIELDS = ("codes", "scales", "bits", "group", "k")
 
 

@@ -7,9 +7,10 @@ block-scaled int8 / int4, fp8 e4m3 and fp6 quantizers with their decodes.
 
 Every function computes the reference's integers and floats exactly:
 ``quantize_gemm_weight`` and the block quantizers give the reference's
-codes bit for bit.  The fp12, stochastic-rounding and compressed
-all-reduce quantizers arrive with the collectives item (``ROADMAP.md``
-A13).
+codes bit for bit.  The data-parallel part (ROADMAP.md A13): the FP12
+(e5m6) 2-codes-in-3-bytes packing, ``compressed_all_reduce`` (ZeRO++ qgZ,
+over the ``comm`` facade's groups) and ``quantize_stochastic`` (its
+uniform draws from a torch generator).
 """
 
 from __future__ import annotations
@@ -192,30 +193,112 @@ def dequantize_fp8(codes: torch.Tensor, scales: torch.Tensor,
                                 dtype=dtype)
 
 
-def _check_minifloat(bits: int) -> None:
-    if bits != 6:
-        raise ValueError(f"the port's minifloat codec is fp6 (bits=6), got "
-                         f"bits={bits}; fp12 arrives with ROADMAP.md A13")
+def pack_fp12(codes: torch.Tensor) -> torch.Tensor:
+    """(..., 2k) 12-bit codes → (..., 3k) uint8 (the reference's 2:3
+    pack)."""
+    c = codes.to(torch.int32).reshape(*codes.shape[:-1], -1, 2)
+    c0, c1 = c.unbind(-1)
+    out = torch.stack([c0 & 255, ((c0 >> 8) & 15) | ((c1 & 15) << 4),
+                       (c1 >> 4) & 255], dim=-1)
+    return out.reshape(*codes.shape[:-1], -1).to(torch.uint8)
+
+
+def unpack_fp12(packed: torch.Tensor) -> torch.Tensor:
+    """(..., 3k) bytes → (..., 2k) 12-bit codes, int32."""
+    b = packed.to(torch.int32).reshape(*packed.shape[:-1], -1, 3)
+    b0, b1, b2 = b.unbind(-1)
+    c0 = b0 | ((b1 & 15) << 8)
+    c1 = ((b1 >> 4) & 15) | (b2 << 4)
+    out = torch.stack([c0, c1], dim=-1)
+    return out.reshape(*packed.shape[:-1], -1)
+
+
+#: bits -> (exponent bits, mantissa bits, pack, unpack, codes a pack unit)
+_MINIFLOAT_FMT = {6: (3, 2, pack_fp6, unpack_fp6, 4),
+                  12: (5, 6, pack_fp12, unpack_fp12, 2)}
+
+
+def _minifloat_fmt(bits: int):
+    if bits not in _MINIFLOAT_FMT:
+        raise ValueError(f"minifloat bits must be 6 (e3m2) or 12 (e5m6), "
+                         f"got {bits}")
+    return _MINIFLOAT_FMT[bits]
 
 
 def quantize_minifloat(x: torch.Tensor, bits: int = 6, block_size: int = 256
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Block-scaled fp6 e3m2 → (packed uint8 (nblocks, 3 block_size / 4),
-    f32 scales (nblocks,)); each block's absmax maps to the format's max
-    (28)."""
-    _check_minifloat(bits)
-    if block_size % 4:
-        raise ValueError(f"fp6 packs 4 codes in 3 bytes: block_size "
-                         f"{block_size} is not a multiple of 4")
+    """Block-scaled fp6 e3m2 or fp12 e5m6 → (packed uint8 (nblocks,
+    block_size · bits / 8), f32 scales (nblocks,)); each block's absmax maps
+    to the format's max."""
+    ebits, mbits, pack, _, per = _minifloat_fmt(bits)
+    if block_size % per:
+        raise ValueError(f"fp{bits} packs {per} codes at a time: block_size "
+                         f"{block_size} is not a multiple of {per}")
     blocks, _ = _block_reshape(x.to(torch.float32), block_size)
-    scale = _block_scales(blocks, minifloat_max(3, 2))
-    return pack_fp6(minifloat_encode(blocks / scale, 3, 2)), scale[:, 0]
+    scale = _block_scales(blocks, minifloat_max(ebits, mbits))
+    return pack(minifloat_encode(blocks / scale, ebits, mbits)), scale[:, 0]
 
 
 def dequantize_minifloat(packed: torch.Tensor, scales: torch.Tensor,
                          bits: int = 6,
                          shape: Optional[Sequence[int]] = None,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    _check_minifloat(bits)
-    vals = minifloat_decode(unpack_fp6(packed), 3, 2) * scales[:, None]
+    ebits, mbits, _, unpack, _ = _minifloat_fmt(bits)
+    vals = minifloat_decode(unpack(packed), ebits, mbits) * scales[:, None]
     return _crop(vals.reshape(-1), shape, dtype)
+
+
+def quantization_error(x: torch.Tensor, bits: int = 8,
+                       block_size: int = 256) -> torch.Tensor:
+    codes, scales = quantize_blockwise(x, bits, block_size)
+    y = dequantize_blockwise(codes, scales, bits, block_size, shape=x.shape,
+                             dtype=torch.float32)
+    return (y - x.to(torch.float32)).abs().max()
+
+
+# ---------------------------------------------------------------------------
+# compressed collectives (ZeRO++ qgZ): quantize → all_gather → dequantize
+# ---------------------------------------------------------------------------
+
+
+def compressed_all_reduce(x: torch.Tensor, axis_name, bits: int = 8,
+                          block_size: int = 256, topo=None) -> torch.Tensor:
+    """All-reduce with int8 payload compression (the reference's qgZ, its
+    ``quant_reduce.cu`` role): quantize locally, all-gather the codes and
+    the block scales (8/32 of the f32 volume), dequantize every rank's
+    payload and sum (one quantization error, not log(P) accumulated ones).
+    Returns a new tensor of x's shape and dtype."""
+    from ..comm import all_gather
+
+    codes, scales = quantize_blockwise(x, bits, block_size)
+    all_codes = all_gather(codes, axis_name, tiled=False, topo=topo)
+    all_scales = all_gather(scales, axis_name, tiled=False, topo=topo)
+    summed = None
+    for c, s in zip(all_codes.unbind(0), all_scales.unbind(0)):
+        part = dequantize_blockwise(c, s, bits, block_size, shape=x.shape,
+                                    dtype=torch.float32)
+        summed = part if summed is None else summed.add_(part)
+    return summed.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# stochastic-rounding quantizer (training-grade)
+# ---------------------------------------------------------------------------
+
+
+def quantize_stochastic(x: torch.Tensor, seed: int = 0, block_size: int = 256
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 block quantization with stochastic rounding — unbiased, for
+    gradient compression: each value rounds up with the probability of its
+    fraction.  The uniform draws come from a torch generator seeded with
+    ``seed`` (the reference's from a JAX key: the same law, other
+    numbers)."""
+    blocks, _ = _block_reshape(x.to(torch.float32), block_size)
+    scale = _block_scales(blocks, 127.0)
+    scaled = blocks / scale
+    floor = torch.floor(scaled)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    u = torch.rand(scaled.shape, generator=gen, device=x.device)
+    rounded = floor + (u < scaled - floor).to(torch.float32)
+    codes = torch.clamp(rounded, -128, 127).to(torch.int8)
+    return codes, scale[:, 0]

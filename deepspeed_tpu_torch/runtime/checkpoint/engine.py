@@ -1,7 +1,12 @@
 """Checkpoint save/load — the port of
 ``deepspeed_tpu/runtime/checkpoint/engine.py`` (the ``native`` and
-``fast`` engines; ``orbax``, the multi-host engine, arrives with
-ROADMAP.md A13).
+``fast`` engines; ``orbax``, the multi-host engine, arrives with a later
+part of ROADMAP.md A13).  On a data-parallel world the files hold whole
+tensors, as the reference's do (``_full_host_tree``): a save gathers the
+stage-3 shards and the sharded optimizer state (collectives every rank
+runs), rank 0 writes, and every rank meets at a barrier; a load slices
+each tensor to the loading engine's shards, so a checkpoint moves between
+stages and worlds.
 
 The layout is the reference's, file for file and key for key, so a
 checkpoint of either package loads into the other:
@@ -511,8 +516,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "loss_scale_hysteresis": int(ls.hysteresis),
         "rng": [0, (engine.config.seed * 1_000_003 + engine.step_count)
                 % (2 ** 32)],
-        "zero_stage": 0,
-        "world_size": 1,
+        "zero_stage": int(getattr(engine, "zero_stage", 0)),
+        "world_size": int(engine.topo.world_size) if hasattr(engine, "topo")
+        else 1,
         "client_state": client_state or {},
         "framework_version": _version(),
         "peft_adapter_only": peft,
@@ -521,11 +527,16 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     # frozen base is rebuilt from the original weights, so only the
     # trainable leaves (lora_a / lora_b) are written, and the optimizer
     # state is the adapters' by construction
-    params = (dict(zip(engine._paths, engine._leaves)) if peft
-              else flatten_with_paths(engine.params))
+    # whole tensors: stage-3 shards and sharded optimizer state are
+    # gathered (collectives: every rank runs this part)
+    params = engine.checkpoint_params()
     opt = engine.optimizer_state_flat()
+    # 1-bit wire-compression residuals are optimizer-coupled engine state:
+    # they ride in their own file, one row per rank (reference :390-407)
+    onebit = engine.onebit_residuals_flat()
     if cfg.async_save:
         params, opt = _host_copy(params), _host_copy(opt)
+        onebit = _host_copy(onebit) if onebit is not None else None
     tmp_dir = ckpt_dir + _TMP_SUFFIX
 
     def _write_trees():
@@ -533,6 +544,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             tmp_dir, "adapter_model.safetensors" if peft
             else "model.safetensors")
         opt_path = os.path.join(tmp_dir, "optimizer.safetensors")
+        if onebit is not None:
+            _save_tree(onebit,
+                       os.path.join(tmp_dir, "onebit_residuals.safetensors"))
         faults.maybe_fail("ckpt.write.model")
         if cfg.engine == "fast":
             _save_trees_fast([(params, model_path), (opt, opt_path)])
@@ -565,7 +579,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             recorder.record_event("ckpt/commit", tag=tag, dir=ckpt_dir)
             _prune_old(save_dir, cfg.keep_n_latest, latest_tag=tag)
 
-    if cfg.async_save:
+    from ... import comm
+
+    # only rank 0 writes; every rank reaches the barrier below
+    if comm.get_rank() == 0 and cfg.async_save:
         def _runner():
             try:
                 _do_save()
@@ -579,8 +596,12 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         t = threading.Thread(target=_runner, daemon=False)
         t.start()
         _async_threads.append(t)
-    else:
+    elif comm.get_rank() == 0:
         _do_save()
+    if not cfg.async_save and comm.get_world_size() > 1:
+        # the other ranks must not see a half-written checkpoint (an
+        # immediate load on shared storage)
+        comm.barrier("dstpu_ckpt_saved")
     return ckpt_dir
 
 
@@ -736,10 +757,11 @@ def _validate_tag(engine, meta: Dict) -> None:
     mode = engine.config.checkpoint.tag_validation.lower()
     if mode == "ignore":
         return
-    if meta.get("zero_stage") != 0:
+    stage = getattr(engine, "zero_stage", 0)
+    if meta.get("zero_stage") != stage:
         msg = (f"checkpoint zero_stage={meta.get('zero_stage')} != "
-               "engine zero_stage=0 (universal layout: load proceeds; "
-               "optimizer sharding is recomputed)")
+               f"engine zero_stage={stage} (universal layout: load "
+               "proceeds; optimizer sharding is recomputed)")
         if mode == "fail":
             raise ValueError(msg)
         logger.warning(msg)
@@ -774,6 +796,10 @@ def _load_native(engine, ckpt_dir: str, load_optimizer_states: bool
         engine._pending, engine._pending_lr = False, None
     engine.load_state_from(flat_params, flat_opt, meta, ckpt_dir,
                            adapter_only=adapter_only)
+    if getattr(engine, "_onebit_wres", None):
+        res_path = os.path.join(ckpt_dir, "onebit_residuals.safetensors")
+        engine.load_onebit_residuals(_load_tree_flat(res_path)
+                                     if os.path.exists(res_path) else None)
     if getattr(engine, "offloaded_optimizer", None) is not None:
         # the f32 master from the loaded parameters: a stale master would
         # overwrite them at the next step

@@ -16,10 +16,11 @@ The reference's ``onebit_adam`` is an optax chain:
 The port runs the same arithmetic in place, with f32 residuals and
 moments, and names its state with the chain's optax paths
 (``0/residual/...``, ``0/step``, ``1/count``, ``1/mu/...``, ``1/nu/...``,
-then the schedule's count), so checkpoints cross packages.  The wire
-compression of the reference's data-parallel engine
-(``gradient_compression``) needs more than one device and arrives with
-ROADMAP.md A13.
+then the schedule's count), so checkpoints cross packages.  With
+``compress_gradients=False`` (the engine compresses the gradient on the
+data-parallel wire, ``gradient_compression``, ``ops/onebit.py``) the first
+stage is dropped, as in the reference: compressing twice would square the
+error, and the state paths shift down by one.
 """
 
 from __future__ import annotations
@@ -37,13 +38,14 @@ def compress_decompress(g: torch.Tensor) -> torch.Tensor:
 
 
 class OneBitAdam(Optimizer):
-    """The reference's ``onebit_adam`` (``compress_gradients=True``, the
-    single-device form)."""
+    """The reference's ``onebit_adam``."""
 
     def __init__(self, learning_rate: Schedule, weight_decay: float = 0.0,
                  freeze_step: int = 100, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, mask: Optional[List[bool]] = None):
+                 eps: float = 1e-8, mask: Optional[List[bool]] = None,
+                 compress_gradients: bool = True):
         super().__init__(learning_rate)
+        self.compress_gradients = compress_gradients
         self.weight_decay, self.freeze_step = weight_decay, freeze_step
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mask = mask
@@ -53,23 +55,33 @@ class OneBitAdam(Optimizer):
 
     def init(self, params) -> None:
         self.count = 0
-        self.residual, self.mu, self.nu = (_zeros(params), _zeros(params),
-                                           _zeros(params))
+        self.mu, self.nu = _zeros(params), _zeros(params)
+        self.residual = _zeros(params) if self.compress_gradients else []
         if self.mask is None:
             self.mask = [True] * len(params)
 
     def _state(self):
         # the compression stage's step and Adam's count are separate
         # leaves in the reference, always equal: both advance every update
-        sched = "3" if self.weight_decay else "2"
-        return {"0/residual/{}": self.residual, "0/step": self.count,
-                "1/count": self.count, "1/mu/{}": self.mu,
-                "1/nu/{}": self.nu, f"{sched}/count": self.count}
+        first = 1 if self.compress_gradients else 0
+        sched = first + (2 if self.weight_decay else 1)
+        state = {f"{first}/count": self.count, f"{first}/mu/{{}}": self.mu,
+                 f"{first}/nu/{{}}": self.nu, f"{sched}/count": self.count}
+        if self.compress_gradients:
+            state = {"0/residual/{}": self.residual, "0/step": self.count,
+                     **state}
+        return state
 
     def _update(self, i, p, g, count, lr) -> None:
         b1, b2, fs = self.b1, self.b2, self.freeze_step
-        r, mu, nu = self.residual[i], self.mu[i], self.nu[i]
-        if isinstance(count, torch.Tensor):  # the fp16 engine's device count
+        mu, nu = self.mu[i], self.nu[i]
+        r = self.residual[i] if self.compress_gradients else None
+        if r is None:
+            frozen = count + 1 > fs
+            c2 = 1.0 - b2 ** (torch.clamp(count + 1, max=fs)
+                              if isinstance(count, torch.Tensor)
+                              else min(count + 1, fs))
+        elif isinstance(count, torch.Tensor):  # the fp16 engine's device count
             corrected = g + r
             q = compress_decompress(corrected)
             compress = count >= fs

@@ -10,16 +10,24 @@ scaler), ``optimizer``, ``scheduler``, ``zero_optimization.stage`` (0)
 with ``offload_optimizer`` / ``offload_param`` (cpu or nvme) and
 ``stage3_param_persistence_threshold``, ``aio``, ``zenflow``,
 ``gradient_clipping``, ``sanity_checks``, ``checkpoint`` (the ``native``
-and ``fast`` engines), ``seed`` and ``steps_per_print``.  ``data_types``,
-``remat`` and ``activation_checkpointing`` are parsed and validated and, as
-in the reference, read by no engine code (the model's ``remat_policy``
-and ``runtime/activation_checkpointing`` carry the policies,
-``cpu_checkpointing`` included).  The offload combinations the reference
+and ``fast`` engines), ``seed`` and ``steps_per_print``; and the
+data-parallel world (ROADMAP.md A13, part 1): ``zero_optimization.stage``
+1-3 with every ``ZeroConfig`` key (the bucket sizes, ``mics_shard_size``,
+``zero_quantized_weights``, ``zero_quantized_gradients``; the keys no
+reference code reads, such as ``zero_hpz_partition_size`` or
+``stage3_prefetch_bucket_size``, are taken and unread), ``mesh``
+(``data_parallel_size``, ``fsdp_size``), ``gradient_compression``, and
+``comms_logger``, ``prescale_gradients``, ``gradient_predivide_factor``
+and ``sparse_gradients``, which the reference reads nowhere either.
+``data_types``, ``remat`` and ``activation_checkpointing`` are parsed and
+validated and, as in the reference, read by no engine code (the model's
+``remat_policy`` and ``runtime/activation_checkpointing`` carry the
+policies, ``cpu_checkpointing`` included).  The offload combinations the reference
 engine rejects raise its ``ConfigError`` word for word.  Any other key set
 to a value other than its default raises ``NotImplementedError`` naming
-the ROADMAP item it arrives with, as do ZeRO stages 1-3, the ``orbax``
-checkpoint engine (multi-host), universal checkpoints and
-``partition_activations``.
+the ROADMAP item it arrives with, as do offload at stages 1-3, mesh axes
+other than dp / fsdp, the ``orbax`` checkpoint engine (multi-host),
+universal checkpoints and ``partition_activations``.
 
 Batch-size arithmetic is the reference's, verbatim:
 
@@ -375,11 +383,7 @@ class ZenFlowConfig(DSConfigModel):
 _LATER = {
     "wall_clock_breakdown": "A14 (training periphery)",
     "dump_state": "A14 (training periphery)",
-    "prescale_gradients": "A13 (multi-GPU)",
-    "gradient_predivide_factor": "A13 (multi-GPU)",
-    "sparse_gradients": "A13 (multi-GPU)",
     "memory_breakdown": "A14 (training periphery)",
-    "mesh": "A13 (multi-GPU)",
     "pipeline": "A13 (multi-GPU)",
     "moe": "A13 (multi-GPU, MoE)",
     "sequence_parallel": "A13 (multi-GPU)",
@@ -390,12 +394,10 @@ _LATER = {
     "csv_monitor": "A14 (training periphery)",
     "flops_profiler": "A14 (training periphery)",
     "trace_profiler": "A14 (training periphery)",
-    "comms_logger": "A13 (multi-GPU)",
     "data_efficiency": "A14 (training periphery)",
     "compression_training": "A14 (training periphery)",
     "elasticity": "A14 (training periphery)",
     "autotuning": "A14 (training periphery)",
-    "gradient_compression": "A13 (multi-GPU)",
 }
 
 
@@ -486,25 +488,78 @@ class DeepSpeedTPUConfig(DSConfigModel):
                     f"config key {key!r} is not ported yet; it arrives with "
                     f"ROADMAP.md {item}")
         self._check_training_sections()
+        self._check_mesh()
+        self._check_zero()
+
+    def _check_mesh(self) -> None:
+        """The data-parallel axes run; the others arrive with later parts
+        of A13."""
+        m = self.mesh
+        for key in ("pipeline_parallel_size", "expert_parallel_size",
+                    "sequence_parallel_size", "tensor_parallel_size"):
+            if getattr(m, key) != 1:
+                raise NotImplementedError(
+                    f"mesh.{key}={getattr(m, key)}: pipeline, expert, "
+                    "sequence and tensor parallelism arrive with later parts "
+                    "of ROADMAP.md A13 (multi-GPU); this slice runs the "
+                    "data-parallel axes (data_parallel_size, fsdp_size)")
+
+    def _check_zero(self) -> None:
+        """The reference engine's rejections of the wire-compression and
+        qwZ combinations (``deepspeed_tpu/runtime/engine.py:302-353``),
+        word for word, then the refusal of offload at stages 1-3."""
         zero = self.zero_optimization
-        if zero.stage != 0:
+        stage = zero.stage
+        offload = self.optimizer_offloaded or self.param_offloaded
+        if zero.zero_quantized_gradients:
+            if offload:
+                raise ConfigError(
+                    "zero_quantized_gradients + offload_optimizer is not "
+                    "supported yet (the offloaded grad step has no compressed-"
+                    "reduction wiring)")
+            if stage >= 3:
+                raise ConfigError(
+                    "zero_quantized_gradients requires stage <= 2 (params must "
+                    "be replicated across the dp axes for the manual reduction)")
+        if zero.zero_quantized_weights:
+            if stage < 3:
+                raise ConfigError(
+                    "zero_quantized_weights (qwZ) requires stage 3 — below "
+                    "stage 3 params are replicated and there is no weight "
+                    "all-gather to quantize")
+            if offload:
+                raise ConfigError(
+                    "zero_quantized_weights + offload_optimizer is not "
+                    "supported")
+        if self.gradient_compression.enabled:
+            if offload:
+                raise ConfigError(
+                    "gradient_compression + offload_optimizer is not supported")
+            if self.fp16.enabled is True:
+                raise ConfigError(
+                    "gradient_compression requires bf16/fp32: error-feedback "
+                    "residuals live in the loss-scaled domain, so a dynamic "
+                    "scale change (or one overflow poisoning them with NaN) "
+                    "breaks the compensation — use bf16")
+            if zero.zero_quantized_gradients:
+                raise ConfigError(
+                    "gradient_compression and zero_quantized_gradients are "
+                    "both wire-compression schemes — enable one")
+            if stage >= 3:
+                raise ConfigError(
+                    "gradient_compression requires stage <= 2 (params must be "
+                    "replicated across the dp axes for the manual reduction)")
+        if stage >= 1 and (offload or self.zenflow.enabled):
             raise NotImplementedError(
-                f"zero_optimization.stage={zero.stage}: ZeRO stages 1-3 "
-                "shard state across GPUs and arrive with ROADMAP.md A13 "
-                "(multi-GPU); the port runs stage 0")
-        # offload runs at stage 0 on one device; every other key tunes the
-        # multi-GPU reduction
-        rest = dataclasses.replace(
-            zero, stage=0, offload_param=None, offload_optimizer=None,
-            stage3_param_persistence_threshold=ZeroConfig(
-            ).stage3_param_persistence_threshold)
-        if rest != ZeroConfig():
-            changed = sorted(
-                f.name for f in dataclasses.fields(ZeroConfig)
-                if getattr(rest, f.name) != getattr(ZeroConfig(), f.name))
+                f"zero_optimization.stage={stage} with offload_optimizer / "
+                "offload_param / zenflow: offload at stages 1-3 arrives with "
+                "a later part of ROADMAP.md A13 (multi-GPU); offload runs at "
+                "stage 0")
+        if stage >= 3 and self.peft.lora.enabled:
             raise NotImplementedError(
-                f"zero_optimization keys {changed} tune the multi-GPU "
-                "reduction and arrive with ROADMAP.md A13 (multi-GPU)")
+                "peft.lora at zero_optimization.stage=3 (the frozen base "
+                "sharded and gathered per layer) arrives with a later part "
+                "of ROADMAP.md A13 (multi-GPU); PEFT runs at stages 0-2")
 
     @property
     def optimizer_offloaded(self) -> bool:
@@ -520,8 +575,8 @@ class DeepSpeedTPUConfig(DSConfigModel):
         """The reference engine's rejections of PEFT combinations
         (``deepspeed_tpu/runtime/engine.py:194-215``), word for word, for a
         config whose ``peft.lora`` is enabled or whose model tree already
-        has LoRA nodes: offload, ZenFlow and ``zero_quantized_weights``
-        (``gradient_compression`` is refused as ROADMAP.md A13's)."""
+        has LoRA nodes: offload, ZenFlow, ``gradient_compression`` and
+        ``zero_quantized_weights``."""
         if self.optimizer_offloaded or self.param_offloaded:
             raise ConfigError(
                 "peft.lora + offload_optimizer/offload_param is not "
@@ -531,6 +586,11 @@ class DeepSpeedTPUConfig(DSConfigModel):
         if self.zenflow.enabled:
             raise ConfigError("peft.lora + zenflow is not supported "
                               "(zenflow is an offload schedule)")
+        if self.gradient_compression.enabled:
+            raise ConfigError(
+                "peft.lora + gradient_compression is not supported: "
+                "adapter gradients are tiny, wire compression would "
+                "cost more in error-feedback state than it saves")
         if self.zero_optimization.zero_quantized_weights:
             raise ConfigError(
                 "peft.lora + zero_quantized_weights is not supported "

@@ -1,5 +1,4 @@
-"""The training engine, single device, ZeRO stage 0 — the port of
-``deepspeed_tpu/runtime/engine.py``.
+"""The training engine — the port of ``deepspeed_tpu/runtime/engine.py``.
 
 One ``train_batch`` runs the reference's step (``engine.py:775-844``,
 ``:1039-1143``) eagerly: for each of the ``gas`` micro-batches, the loss
@@ -54,8 +53,24 @@ adapter-only ``adapter_model.safetensors``), and
 :meth:`TrainingEngine.export_merged_weights` folds them into the base for
 serving.  Embeddings, norms and bases are copied once and never change.
 
-Data parallelism, ZeRO 1-3 and wire compression of gradients are later
-items of ROADMAP.md; the config refuses them out loud.
+Data parallelism and ZeRO stages 1-3 (ROADMAP.md A13 part 1; the
+reference's ``engine.py:139-161``, ``:217-430``, ``:689-1143``): one
+process per GPU under ``torch.distributed`` (``comm.init_distributed``),
+the mesh's ``dp`` × ``fsdp`` ranks each taking its rows of every
+micro-batch.  The engine builds the reference's topology (MiCS, stage 3's
+dp → fsdp fold), the parameter and optimizer sharding rules
+(``runtime/zero/sharding.py``) and the bucket plans
+(``runtime/coalesce.py``), and issues each collective itself
+(``_train_batch_dp``): stage 1 all-reduces the gradients by bucket and
+all-gathers each rank's updated optimizer shard; stage 2 reduce-scatters
+them onto those shards; stage 3 holds every parameter as a shard and
+gathers a layer segment where the model uses it (``runtime/zero/
+stage3.py``); qgZ, 1-bit (``gradient_compression``) and qwZ compress the
+traffic.  The metrics, the gradient norm's sum of squares and the fp16
+overflow count ride one all-reduce, so every rank skips together.
+Collectives are the same calls at a world of one as at a world of N:
+where the stage's axes hold one rank, the shard dims are those a two-way
+axis would give (``_layout_topology``; ROADMAP.md C11).
 """
 
 from __future__ import annotations
@@ -69,8 +84,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import get_accelerator, resolve_device
 from ..linear.optimized_linear import apply_lora, has_lora, trainable_mask
+from ..parallel.topology import MeshTopology, RuleTopology, set_topology
+from ..utils.logging import log_dist
 from ..utils.tree_io import tree_map
 from .config import (DeepSpeedTPUConfig, OffloadOptimizerConfig,
                      ResolvedBatchConfig)
@@ -81,8 +99,17 @@ from .lr_schedules import create_scheduler
 from .optimizers import (clip_by_global_norm, create_optimizer,
                          default_weight_decay_mask, global_norm, leaf_paths,
                          leaves)
+from .zero.sharding import (rules_for_optimizer, rules_for_params,
+                            shard_accounting, sharding_for_tree)
+
+#: the axes of the data-parallel world (batch and optimizer shards)
+DP_AXES = ("dp", "fsdp")
 
 logger = logging.getLogger(__name__)
+
+#: optimizers whose update reads whole-leaf statistics (LAMB's trust
+#: ratio, Adafactor's factored moments, Muon's orthogonalization)
+_WHOLE_LEAF_OPTIMIZERS = ("lamb", "fusedlamb", "adafactor", "muon")
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -147,29 +174,45 @@ class PlacedBatch:
 
 class TrainingEngine:
     """Reference: ``DeepSpeedEngine`` / the JAX package's
-    ``TrainingEngine``, on one GPU (or the CPU when asked)."""
+    ``TrainingEngine``: one per process, on its GPU (or the CPU when
+    asked), over the data-parallel world's ``topo`` (default: the config's
+    mesh over the ``torch.distributed`` world, or this process alone)."""
 
     def __init__(self, model: ModelSpec, config: DeepSpeedTPUConfig,
-                 device: Any = "cuda"):
+                 device: Any = "cuda", topo: Optional[MeshTopology] = None):
         config.check_supported()
         self.config = config
         self.device = resolve_device(device)
         self.accelerator = get_accelerator()
+        zero = config.zero_optimization
+        stage = self.zero_stage = zero.stage
+
+        # topology (reference engine.py:139-161): MiCS shards parameters
+        # within groups of mics_shard_size; stage 3 folds dp into fsdp
+        self.topo = topo if topo is not None else self._build_topology()
+        set_topology(self.topo)
+        W = self.topo.dp_world_size
         self.batch_config: ResolvedBatchConfig = \
-            config.resolve_batch_config(1)
+            config.resolve_batch_config(W)
 
         # PEFT (reference engine.py:171-215): the targeted projections
         # become LoRA nodes, drawn from the config's seed, unless the tree
         # has them already; only their factors train
-        params = model.params
+        params, axes = model.params, model.param_axes
         lora_cfg = config.peft.lora
         if lora_cfg.enabled and not has_lora(params):
             gen = torch.Generator(device=leaves(params)[0].device)
-            params = apply_lora(params, gen.manual_seed(config.seed),
-                                lora_cfg)
+            params, axes = apply_lora(params, axes,
+                                      gen.manual_seed(config.seed), lora_cfg)
         self.peft_enabled = has_lora(params)
         if self.peft_enabled:
             config.check_peft()
+            if stage >= 3:
+                raise NotImplementedError(
+                    "LoRA nodes at zero_optimization.stage=3 (the frozen "
+                    "base sharded and gathered per layer) arrive with a "
+                    "later part of ROADMAP.md A13 (multi-GPU); PEFT runs at "
+                    "stages 0-2")
         self._trainable_mask = trainable_mask(params) if self.peft_enabled \
             else None
         flat_in = leaves(params)
@@ -177,7 +220,6 @@ class TrainingEngine:
             else [True] * len(flat_in)
 
         # offload mode: parameters off the card imply the host optimizer
-        zero = config.zero_optimization
         self.param_offload_enabled = config.param_offloaded
         self.offload_enabled = (config.optimizer_offloaded
                                 or self.param_offload_enabled)
@@ -190,6 +232,31 @@ class TrainingEngine:
         self._offloaded_states: Dict[str, bool] = {}
         self._host = None
         stream_mask = None
+
+        # the data-parallel step (explicit collectives): every ZeRO stage
+        # >= 1, any world of more than one rank, and the wire-compression
+        # schemes; stage 0 alone on one device keeps the plain step
+        self.qgz = bool(zero.zero_quantized_gradients)
+        self.qwz = bool(zero.zero_quantized_weights)
+        self.onebit_enabled = bool(config.gradient_compression.enabled)
+        self._dp = stage >= 1 or W > 1 or self.qgz or self.onebit_enabled
+        if self._dp and not comm.is_initialized():
+            raise RuntimeError(
+                f"zero_optimization.stage={stage} on a data-parallel world "
+                f"of {W} runs under torch.distributed: call "
+                "deepspeed_tpu_torch.comm.init_distributed() first "
+                "(deepspeed_tpu_torch.initialize does)")
+        if self._dp and self.offload_enabled:
+            raise NotImplementedError(
+                "offload on a data-parallel world arrives with a later part "
+                "of ROADMAP.md A13 (multi-GPU); offload runs on one device")
+        if self._dp and W > 1 and config.optimizer.type.lower().replace(
+                "_", "") in _WHOLE_LEAF_OPTIMIZERS:
+            raise NotImplementedError(
+                f"optimizer {config.optimizer.type!r} reads whole-leaf "
+                "statistics (norms, factored moments) that a sharded leaf "
+                "would need collectives for; it arrives at ZeRO stages 1-3 "
+                "with a later part of ROADMAP.md A13 (multi-GPU)")
         if self.offload_enabled:
             from .zero.param_offload import (HostArena, offload_mask,
                                              resolve_threshold)
@@ -200,13 +267,35 @@ class TrainingEngine:
                     params, min_numel=resolve_threshold(
                         zero.stage3_param_persistence_threshold)))
 
+        # sharding rules (reference engine.py:217-236): the parameters'
+        # and the optimizer state's specs from the logical axes
+        topo = self.topo
+        self.param_rules = rules_for_params(stage, topo)
+        self.opt_rules = rules_for_optimizer(stage, topo)
+        self.param_shardings = sharding_for_tree(params, axes,
+                                                 self.param_rules, topo)
+        self.opt_param_shardings = sharding_for_tree(params, axes,
+                                                     self.opt_rules, topo)
+        self._full_shapes = [tuple(p.shape) for p in flat_in]
+        self._init_layouts(params, axes, flat_in, trainable)
+
         # the engine owns its parameters: fresh copies on its device (the
-        # streamed layer leaves in host memory, in their own dtype); a
-        # frozen leaf is copied once and takes no gradient
+        # streamed layer leaves in host memory, in their own dtype; at
+        # stage 3 this rank's shard of each); a frozen leaf is copied once
+        # and takes no gradient
         streamed = stream_mask or [False] * len(flat_in)
-        own = iter([self._host.copy_of(p) if s else p.detach().to(
-            self.device, copy=True).requires_grad_(t)
-            for p, s, t in zip(flat_in, streamed, trainable)])
+        s3 = stage >= 3
+
+        def own_copy(j, p, s, t):
+            if s:
+                return self._host.copy_of(p)
+            if s3 and self._p_dims[j] is not None:
+                p = self._local(p, self._p_dims[j], self._p_n)
+            return p.detach().to(self.device, copy=True).contiguous() \
+                .requires_grad_(t and not s3)
+
+        own = iter([own_copy(j, p, s, t) for j, (p, s, t) in
+                    enumerate(zip(flat_in, streamed, trainable))])
         self.params = tree_map(lambda p: next(own), params)
         del params, flat_in
         self._all_leaves: List[torch.Tensor] = leaves(self.params)
@@ -220,7 +309,7 @@ class TrainingEngine:
         self._streamed = [j for j, s in enumerate(streamed) if s]
         # keep the spec without the caller's tensors, so that a caller who
         # drops them frees their memory (an 8B model's 4.5 GB on the card)
-        self.model = dataclasses.replace(model, params=None)
+        self.model = dataclasses.replace(model, params=None, param_axes=axes)
 
         base_lr = config.optimizer.params.get("lr", 1e-3)
         self.lr_schedule = create_scheduler(config.scheduler, base_lr=base_lr)
@@ -231,10 +320,13 @@ class TrainingEngine:
             wd_mask = [m for m, t in zip(
                 leaves(default_weight_decay_mask(self.params)), trainable)
                 if t]
-        self.optimizer = create_optimizer(config.optimizer, self.lr_schedule,
-                                          wd_mask)
+        self.optimizer = create_optimizer(
+            config.optimizer, self.lr_schedule, wd_mask,
+            wire_compression=self.onebit_enabled)
         if self.offload_enabled:
             self._init_offload(wd_mask)
+        elif self._dp:
+            self._init_data_parallel()
         else:
             self.optimizer.init(self._leaves)
         self.step_count = 0
@@ -254,10 +346,219 @@ class TrainingEngine:
             self.loss_scale = init_loss_scale(static_scale=1.0,
                                               device=self.device)
             self.skipped_steps = 0
-        logger.info("engine ready: zero_stage=0 device=%s batch=%d micro=%d "
-                    "gas=%d", self.device, self.train_batch_size,
-                    self.train_micro_batch_size_per_device,
-                    self.gradient_accumulation_steps)
+        log_dist(f"engine ready: zero_stage={stage} topo={topo} "
+                 f"batch={self.train_batch_size} "
+                 f"micro={self.train_micro_batch_size_per_device} "
+                 f"gas={self.gradient_accumulation_steps} "
+                 f"dtype={config.compute_dtype} device={self.device}")
+        if stage >= 3:
+            rep = self.shard_report()
+            log_dist(
+                f"ZeRO-3 shard accounting: {rep['sharded_fraction']:.1%} of "
+                f"{rep['total_bytes'] / 2**20:.1f} MiB param bytes removed "
+                f"per device ({rep['per_device_bytes'] / 2**20:.1f} MiB local)")
+            fsdp_n = topo.size("fsdp")
+            expected = 1.0 - 1.0 / max(fsdp_n, 1)
+            if fsdp_n > 1 and rep["sharded_fraction"] < 0.5 * expected:
+                logger.warning(
+                    "ZeRO-3 is sharding only %.1f%% of param bytes (expected "
+                    "~%.1f%% at fsdp=%d) — large replicated leaves: %s. "
+                    "Check logical-axes annotations / dim divisibility.",
+                    100 * rep["sharded_fraction"], 100 * expected, fsdp_n,
+                    rep["replicated_leaves"][:5])
+
+    # ------------------------------------------------------------------
+    # data parallelism: topology, layouts, plans
+    # ------------------------------------------------------------------
+
+    def _build_topology(self) -> MeshTopology:
+        """The reference's mesh resolution with its ZeRO folds (MiCS:
+        fsdp = mics_shard_size; stage 3: dp folded into fsdp)."""
+        from .config import MeshConfig
+
+        config = self.config
+        mesh_cfg = config.mesh
+        zero = config.zero_optimization
+        mics = zero.mics_shard_size
+        if zero.stage >= 3 and mics > 0:
+            mesh_cfg = dataclasses.replace(
+                mesh_cfg, fsdp_size=mics, data_parallel_size="auto")
+        elif zero.stage >= 3:
+            from .config_utils import is_auto
+
+            if is_auto(mesh_cfg.fsdp_size) or int(mesh_cfg.fsdp_size) == 1:
+                mesh_cfg = dataclasses.replace(
+                    mesh_cfg, fsdp_size="auto", data_parallel_size=1)
+        assert isinstance(mesh_cfg, MeshConfig)
+        return MeshTopology.from_config(mesh_cfg,
+                                        device_type=self.device.type)
+
+    def _layout_topology(self, axes: Sequence[str]):
+        """The topology the shard dims are read from: the real one, or —
+        where the axes a stage shards over hold one rank — one whose fsdp
+        axis has two, so that a world of one holds (whole) shards on the
+        same dims as a world of two and runs the stage's collectives over
+        groups of one."""
+        topo = self.topo
+        if topo.axis_size(tuple(axes)) > 1:
+            return topo
+        return RuleTopology({**topo.axis_sizes, "fsdp": 2})
+
+    def _init_layouts(self, params, axes, flat_in, trainable) -> None:
+        """Each leaf's shard dim: ``_p_dims`` (all leaves; stage 3: the dim
+        split over ``fsdp`` into ``_p_n`` shards) and ``_o_dims``
+        (trainable leaves; stages 1-2: the dim of the optimizer state split
+        over the data-parallel world into ``_o_n``)."""
+        from .coalesce import shard_dims_for
+        from .zero.qwz import _fsdp_dim
+
+        stage = self.zero_stage
+        n_all = len(flat_in)
+        self._p_dims: List[Optional[int]] = [None] * n_all
+        self._o_dims: List[Optional[int]] = [None] * sum(trainable)
+        self._p_n = self.topo.size("fsdp")
+        self._o_n = self.topo.dp_world_size
+        if not self._dp:
+            return
+        paths = leaf_paths(params)
+        if stage >= 3:
+            lt = self._layout_topology(("fsdp",))
+            specs = leaves(sharding_for_tree(params, axes, self.param_rules,
+                                             lt))
+            for j, sh in enumerate(specs):
+                d = _fsdp_dim(sh.spec)
+                # a stacked layer leaf is gathered a layer at a time: one
+                # split on its layers axis stays whole (replicated)
+                if d < 0 or (d == 0 and paths[j].startswith("layers/")):
+                    continue
+                self._p_dims[j] = d
+        elif stage >= 1:
+            lt = self._layout_topology(DP_AXES)
+            sh = [s for s, t in zip(leaves(sharding_for_tree(
+                params, axes, self.opt_rules, lt)), trainable) if t]
+            shapes = [p for p, t in zip(flat_in, trainable) if t]
+            self._o_dims = shard_dims_for(
+                shapes, sh, DP_AXES, {ax: lt.size(ax) for ax in DP_AXES})
+
+    def _local(self, x: torch.Tensor, d: Optional[int], n: int,
+               axes=("fsdp",)) -> torch.Tensor:
+        """This rank's slice (its index on ``axes``) of the whole ``x``
+        along ``d`` (a view)."""
+        if d is None:
+            return x
+        k = comm.axis_index(axes, topo=self.topo)
+        size = x.shape[d] // n
+        return x.narrow(d, k * size, size)
+
+    def _init_data_parallel(self) -> None:
+        """The optimizer over this rank's shards, the gradient bucket plans
+        (reference engine.py:355-401), the parameter gather plan
+        (:403-430), the stage-3 gatherer and the 1-bit residuals."""
+        from .coalesce import (plan_buckets, resolve_allgather_numel,
+                               resolve_bucket_numel)
+
+        zero = self.config.zero_optimization
+        W = self.topo.dp_world_size
+        cap = resolve_bucket_numel(zero)
+        self.reduce_bucket_numel = cap
+        cap = cap if cap > 0 else 1  # 0: one collective per leaf
+        meta = torch.device("meta")
+        self._bucket_plan = self._wire_plan = self._gather_plan = None
+        self._gatherer = None
+        if self.zero_stage >= 3:
+            from .zero.stage3 import ShardGatherer
+
+            # the f32 gradient buffers lie in the buckets of two plans,
+            # each bucket one contiguous tensor reduced in place after the
+            # backward: the shards' over dp (they were reduce-scattered
+            # over fsdp in backward), the replicated leaves' over the world
+            bufs: List[Optional[torch.Tensor]] = [None] * len(self._leaves)
+            self._s3_buckets = []
+            for axes, whole in (("dp", False), (DP_AXES, True)):
+                idx = [j for j, d in enumerate(self._p_dims)
+                       if (d is None) == whole]
+                plan = plan_buckets([torch.empty(self._leaves[j].shape,
+                                                 device=meta) for j in idx],
+                                    cap)
+                for b in plan.buckets:
+                    flat = torch.zeros(b.numel, dtype=torch.float32,
+                                       device=self.device)
+                    self._s3_buckets.append((axes, flat))
+                    for slot in b.slots:
+                        bufs[idx[slot.leaf]] = flat[
+                            slot.offset:slot.offset + slot.size].view(
+                                slot.shape)
+            self._grad_bufs = bufs
+            self._gatherer = ShardGatherer(
+                self._leaves, self._p_dims, self._full_shapes, bufs,
+                [p.startswith("layers/") for p in self._paths], self._p_n,
+                "fsdp", self.topo, qwz=self.qwz)
+            self.optimizer.init(self._leaves)
+            return
+        grad_shapes = [torch.empty(p.shape, device=meta)
+                       for p in self._leaves]
+        shard_dims = self._o_dims if self.zero_stage >= 2 else None
+        self._bucket_plan = plan_buckets(grad_shapes, cap, world=W,
+                                         shard_dims=shard_dims)
+        self._wire_plan = plan_buckets(grad_shapes, cap)
+        st = self._bucket_plan.stats()
+        log_dist(
+            f"gradient coalescing: {st['num_leaves']} leaves -> "
+            f"{st['num_buckets']} bucket(s) "
+            f"({st['scatter_buckets']} reduce-scatter), cap="
+            f"{self.reduce_bucket_numel} elements")
+        # the optimizer updates this rank's slice of each sharded leaf (a
+        # view of the replicated parameter); the gather plan puts the
+        # updated slices back together
+        self._opt_params = [self._local(p, d, self._o_n, axes=DP_AXES)
+                            for p, d in zip(self._leaves, self._o_dims)]
+        self.optimizer.init(self._opt_params)
+        gather_numel = resolve_allgather_numel(zero)
+        if self.zero_stage in (1, 2):
+            gp = plan_buckets(
+                [torch.empty(p.shape, dtype=p.dtype, device=meta)
+                 for p in self._leaves], gather_numel if gather_numel > 0
+                else 1, world=W, shard_dims=self._o_dims)
+            if any(b.scatter for b in gp.buckets):
+                self._gather_plan = gp
+                gst = gp.stats()
+                log_dist(
+                    f"param-gather coalescing: {gst['num_leaves']} leaves -> "
+                    f"{gst['scatter_buckets']} fused all-gather bucket(s), "
+                    f"cap={gather_numel} elements")
+        if self.onebit_enabled:
+            self._init_onebit()
+
+    # ---- 1-bit wire compression (reference engine.py:689-751) -----------
+    _ONEBIT_MIN_NUMEL = 2048  # buckets below this all-reduce exactly
+    _ONEBIT_BLOCK = 2048      # scale-block length (multiple of 8)
+
+    def _onebit_freeze_step(self) -> int:
+        """Warmup before compression engages: a 1-bit optimizer's own
+        freeze_step (variance freeze and wire compression flip together),
+        else gradient_compression's."""
+        name = self.config.optimizer.type.lower().replace("_", "")
+        if name in ("onebitadam", "zerooneadam", "onebitlamb"):
+            return int(self.config.optimizer.params.get("freeze_step", 100))
+        return int(self.config.gradient_compression.freeze_step)
+
+    def _init_onebit(self) -> None:
+        """This rank's error-feedback residuals, one pair per bucket of
+        ``_wire_plan`` (empty for buckets small enough to reduce exactly):
+        the worker's over the padded bucket, the server's over its chunk."""
+        from ..ops.onebit import residual_shapes
+
+        W = self.topo.dp_world_size
+
+        def zeros(numel, slot):
+            n = residual_shapes(numel, W, self._ONEBIT_BLOCK)[slot] \
+                if numel >= self._ONEBIT_MIN_NUMEL else 0
+            return torch.zeros((n,), dtype=torch.float32, device=self.device)
+
+        self._onebit_wres = [zeros(b.numel, 0)
+                             for b in self._wire_plan.buckets]
+        self._onebit_sres = [zeros(b.numel, 1)
+                             for b in self._wire_plan.buckets]
 
     def _init_offload(self, wd_mask) -> None:
         """The host optimizer (an NVMe tier behind it), the layer streamer
@@ -304,9 +605,17 @@ class TrainingEngine:
     # data placement
     # ------------------------------------------------------------------
 
-    def _place(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _place(self, batch: Dict[str, Any], local: bool = True
+               ) -> Dict[str, torch.Tensor]:
+        """The global batch as ``(gas, micro, ...)`` on the device; on a
+        data-parallel world (``local``) this rank's rows of each
+        micro-batch only (the reference shards that dim over dp × fsdp,
+        row-major)."""
         gas = self.batch_config.gradient_accumulation_steps
         tb = self.batch_config.train_batch_size
+        W = self.topo.dp_world_size
+        r = comm.axis_index(DP_AXES, topo=self.topo) if self._dp and local \
+            else None
 
         def place(x):
             t = torch.as_tensor(np.asarray(x)) if not isinstance(
@@ -314,7 +623,11 @@ class TrainingEngine:
             if t.shape[0] != tb:
                 raise ConfigError(f"batch leading dim {t.shape[0]} != "
                                   f"train_batch_size {tb}")
-            t = t.reshape((gas, tb // gas) + tuple(t.shape[1:]))
+            rest = tuple(t.shape[1:])
+            if r is not None:
+                t = t.reshape((gas, W, tb // gas // W) + rest)[:, r]
+            else:
+                t = t.reshape((gas, tb // gas) + rest)
             return t.to(self.device, non_blocking=True)
 
         return {k: place(v) for k, v in batch.items()}
@@ -346,8 +659,32 @@ class TrainingEngine:
         placed = batch.placed
         if self.offload_enabled:
             return self._finish(self._train_batch_offloaded(placed))
-        gas = self.batch_config.gradient_accumulation_steps
+        if self._dp:
+            return self._finish(self._train_batch_dp(placed))
         rng = self._step_rng()
+        fp16 = self.fp16_enabled
+        ls = self.loss_scale
+        grads, msum = self._micro_batch_grads(placed, rng)
+        gas = self.batch_config.gradient_accumulation_steps
+        with torch.no_grad():
+            if gas > 1:
+                for g in grads:
+                    g.div_(float(gas))
+            metrics = {k: m / gas for k, m in msum.items()}
+            finite = None
+            if fp16:
+                grads = unscale_grads(grads, ls)
+                finite = grads_finite(grads)
+            grad_norm = global_norm(grads)
+            lr = self._apply_update(self._leaves, grads, grad_norm, finite)
+        del grads
+        return self._finish(self._step_metrics(metrics, grad_norm, ls, lr,
+                                               finite))
+
+    def _micro_batch_grads(self, placed, rng):
+        """Forward and backward of every micro-batch: the f32 gradients of
+        the trainable leaves summed over them, and the summed metrics."""
+        gas = self.batch_config.gradient_accumulation_steps
         fp16 = self.fp16_enabled
         ls = self.loss_scale
         grads: Optional[List[torch.Tensor]] = None
@@ -365,42 +702,217 @@ class TrainingEngine:
             else:
                 for a, b in zip(grads, g):
                     a.add_(b)
-            for k, m in metrics.items():
-                m = torch.as_tensor(m, device=self.device).detach().float()
-                msum[k] = msum[k] + m if k in msum else m
-        with torch.no_grad():
-            if gas > 1:
-                for g in grads:
-                    g.div_(float(gas))
-            metrics = {k: m / gas for k, m in msum.items()}
-            finite = None
-            if fp16:
-                grads = unscale_grads(grads, ls)
-                finite = grads_finite(grads)
-            grad_norm = global_norm(grads)
-            clip = self.config.gradient_clipping
-            if clip and clip > 0:
-                clip_by_global_norm(grads, grad_norm, clip)
-            # lr(step - skipped): the optimizer's count is that difference
-            lr = self.optimizer.lr(self.optimizer.count)
-            self.optimizer.step(self._leaves, grads, finite=finite)
-            if fp16:
-                fp = self.config.fp16
-                self.loss_scale = update_loss_scale(
-                    ls, finite, loss_scale_window=fp.loss_scale_window,
-                    min_scale=fp.min_loss_scale, hysteresis=fp.hysteresis,
-                    dynamic=fp.dynamic_loss_scale)
-                self.skipped_steps = self.skipped_steps + (~finite).to(
-                    torch.int32)
-        del grads
+            self._sum_metrics(msum, metrics)
+        return grads, msum
+
+    def _sum_metrics(self, msum: Dict[str, torch.Tensor], metrics) -> None:
+        for k, m in metrics.items():
+            m = torch.as_tensor(m, device=self.device).detach().float()
+            msum[k] = msum[k] + m if k in msum else m
+
+    def _apply_update(self, params, grads, grad_norm, finite) -> Any:
+        """Clip, step the optimizer (skipping where not ``finite``) and the
+        loss scale; returns the lr the update applied."""
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            clip_by_global_norm(grads, grad_norm, clip)
+        # lr(step - skipped): the optimizer's count is that difference
+        lr = self.optimizer.lr(self.optimizer.count)
+        self.optimizer.step(params, grads, finite=finite)
+        if finite is not None:
+            fp = self.config.fp16
+            self.loss_scale = update_loss_scale(
+                self.loss_scale, finite,
+                loss_scale_window=fp.loss_scale_window,
+                min_scale=fp.min_loss_scale, hysteresis=fp.hysteresis,
+                dynamic=fp.dynamic_loss_scale)
+            self.skipped_steps = self.skipped_steps + (~finite).to(
+                torch.int32)
+        return lr
+
+    def _step_metrics(self, metrics, grad_norm, ls, lr, finite
+                      ) -> Dict[str, torch.Tensor]:
         self.step_count += 1
         dev = self.device
         metrics["grad_norm"] = grad_norm
         metrics["loss_scale"] = ls.scale
         metrics["lr"] = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        metrics["overflow"] = (~finite).float() if fp16 else \
+        metrics["overflow"] = (~finite).float() if finite is not None else \
             torch.zeros((), device=dev)
-        return self._finish(metrics)
+        return metrics
+
+    # ------------------------------------------------------------------
+    # the data-parallel step (ZeRO 0-3 over dp × fsdp)
+    # ------------------------------------------------------------------
+
+    def _train_batch_dp(self, placed) -> Dict[str, torch.Tensor]:
+        """The reference's explicit data-parallel step
+        (``engine.py:775-1143``), each collective issued here: this rank's
+        rows of every micro-batch through forward and backward (stage 3:
+        the layers gathered per segment, the gradients reduce-scattered in
+        backward), the gradients reduced by bucket (stage 1: all-reduced;
+        stage 2: reduce-scattered onto the optimizer's shards; qgZ / 1-bit:
+        compressed), the metrics, the gradient sum of squares and the fp16
+        overflow count summed in ONE all-reduce, the global norm and
+        clipping over shards, the optimizer's update of this rank's shards
+        (skipped on every rank together on overflow), and at stages 1-2 the
+        updated shards all-gathered by bucket."""
+        from .coalesce import psum_scalars
+
+        gas = self.batch_config.gradient_accumulation_steps
+        rng = self._step_rng()
+        fp16 = self.fp16_enabled
+        ls = self.loss_scale
+        W = self.topo.dp_world_size
+        if self.zero_stage >= 3:
+            msum: Dict[str, torch.Tensor] = {}
+            g3 = self._gatherer
+            for _, flat in self._s3_buckets:
+                flat.zero_()
+            with g3:
+                for i in range(gas):
+                    mb = {k: v[i] for k, v in placed.items()}
+                    loss, metrics = self.model.loss_fn(
+                        g3.gather_tree(self.params), mb, rng)
+                    if fp16:
+                        loss = scale_loss(loss, ls)
+                    torch.autograd.grad(loss, [g3.anchor], allow_unused=True)
+                    del loss
+                    self._sum_metrics(msum, metrics)
+            params = self._leaves
+        else:
+            grads, msum = self._micro_batch_grads(placed, rng)
+            params = self._opt_params
+        with torch.no_grad():
+            if self.zero_stage >= 3:
+                local, sq = self._reduce_stage3()
+            else:
+                local, sq = self._reduce_buckets(grads)
+                del grads
+            bad = torch.zeros((), dtype=torch.float32, device=self.device)
+            if fp16:
+                bad = (~grads_finite(local)).float()
+            metrics = {k: m / gas for k, m in msum.items()}
+            metrics, tot = psum_scalars(metrics, DP_AXES, 1.0 / W,
+                                        extra=torch.stack([sq, bad]),
+                                        topo=self.topo)
+            if gas > 1:
+                for g in local:
+                    g.div_(float(gas))
+            grad_norm = torch.sqrt(tot[0]) / gas
+            finite = None
+            if fp16:
+                local = unscale_grads(local, ls)
+                finite = tot[1] == 0
+                grad_norm = grad_norm / ls.scale
+            lr = self._apply_update(params, local, grad_norm, finite)
+            del local
+            if self._gather_plan is not None:
+                self._gather_params()
+        return self._step_metrics(metrics, grad_norm, ls, lr, finite)
+
+    def _reduce_buckets(self, grads: List[torch.Tensor]):
+        """Stages 0-2: the gradients reduced through the bucket plan (or
+        the wire plan, compressed) → (this rank's part of each, aligned
+        with the optimizer's parameters; the weighted sum of squares)."""
+        from .coalesce import reduce_bucketed
+
+        W = float(self.topo.dp_world_size)
+        sqs: List[torch.Tensor] = []
+
+        def exact(b, f):
+            r = comm.all_reduce(f.div_(W), DP_AXES, topo=self.topo)
+            # replicated: every rank holds the full bucket
+            sqs.append(r.square().sum() / W)
+            return r
+
+        def scatter(b, f):
+            r = comm.reduce_scatter(f.div_(W), DP_AXES, topo=self.topo)
+            # scattered: each rank owns a disjoint 1/W chunk
+            sqs.append(r.square().sum())
+            return r
+
+        onebit = (self.onebit_enabled and
+                  self.global_steps >= self._onebit_freeze_step())
+        if onebit or self.qgz:
+            plan = self._wire_plan
+            index = {id(b): i for i, b in enumerate(plan.buckets)}
+
+            def wire(b, f):
+                if self.qgz:
+                    from ..ops.quantizer import compressed_all_reduce
+
+                    r = compressed_all_reduce(f.div_(W), DP_AXES,
+                                              topo=self.topo)
+                else:
+                    r = self._onebit_bucket(index[id(b)], f)
+                sqs.append(r.square().sum() / W)
+                return r
+
+            red = reduce_bucketed(plan, grads, wire)
+        else:
+            plan = self._bucket_plan
+            red = reduce_bucketed(plan, grads, exact, scatter)
+        scattered = {s.leaf for b in plan.buckets if b.scatter
+                     for s in b.slots}
+        local = [g if j in scattered else
+                 self._local(g, d, self._o_n, axes=DP_AXES)
+                 for j, (g, d) in enumerate(zip(red, self._o_dims))]
+        return local, torch.stack(sqs).sum()
+
+    def _onebit_bucket(self, bi: int, flat: torch.Tensor) -> torch.Tensor:
+        """One bucket through the 1-bit two-phase scheme (its mean), or an
+        exact mean for a bucket below ``_ONEBIT_MIN_NUMEL``."""
+        from ..ops.onebit import onebit_all_reduce
+
+        W = self.topo.dp_world_size
+        w, s = self._onebit_wres[bi], self._onebit_sres[bi]
+        if w.numel() == 0:
+            return comm.all_reduce(flat.div_(W), DP_AXES, topo=self.topo)
+        # the primitive computes the mean itself
+        r, self._onebit_wres[bi], self._onebit_sres[bi] = onebit_all_reduce(
+            flat, w, s, DP_AXES, W, self._ONEBIT_BLOCK, topo=self.topo)
+        return r
+
+    def _reduce_stage3(self):
+        """Stage 3, after the backward: each gradient bucket all-reduced in
+        place — the shards' (already reduce-scattered over fsdp) over dp,
+        the replicated leaves' over the whole world → (the gradient
+        buffers, the weighted sum of squares)."""
+        W = float(self.topo.dp_world_size)
+        for axes, flat in self._s3_buckets:
+            comm.all_reduce(flat.div_(W), axes, topo=self.topo)
+        dp = float(self.topo.size("dp"))
+        sq = torch.stack([g.square().sum() / (dp if d is not None else W)
+                          for g, d in zip(self._grad_bufs, self._p_dims)]
+                         ).sum()
+        return self._grad_bufs, sq
+
+    def _gather_params(self) -> None:
+        """Stages 1-2: the updated shards all-gathered by bucket into the
+        replicated parameters (reference ``_coalesced_gather_fn``)."""
+        from .coalesce import unflatten_bucket_shard_major
+
+        W = self.topo.dp_world_size
+        for b in self._gather_plan.buckets:
+            if not b.scatter:
+                continue
+            # this rank's row: its slice of every member, the shard-major
+            # layout; the all-gather rebuilds the full buffer in one call
+            row = torch.cat([self._opt_params[s.leaf].reshape(-1)
+                             for s in b.slots])
+            full = comm.all_gather(row, DP_AXES, topo=self.topo)
+            for i, v in unflatten_bucket_shard_major(b, full, W):
+                self._leaves[i].copy_(v)
+
+    def shard_report(self) -> Dict[str, Any]:
+        """Per-param sharded-byte accounting
+        (``zero.sharding.shard_accounting``) of the whole tree's shapes
+        under the parameter shardings."""
+        shapes = iter([torch.empty(s, dtype=p.dtype, device="meta")
+                       for s, p in zip(self._full_shapes, self._all_leaves)])
+        return shard_accounting(tree_map(lambda _: next(shapes),
+                                         self.params), self.param_shardings)
 
     def _finish(self, metrics: Dict[str, torch.Tensor]) -> LazyMetrics:
         self.global_steps += 1
@@ -546,17 +1058,31 @@ class TrainingEngine:
                         "data or numerics corruption upstream of the update")
 
     def eval_batch(self, batch: Any) -> Dict[str, float]:
-        """The loss function's metrics over the whole batch, no update."""
+        """The loss function's metrics over the whole batch, no update (on
+        a data-parallel world every rank evaluates the whole host batch,
+        so the metrics are the reference's global ones; at stage 3 the
+        layers are gathered as in training)."""
         # eval needs the parameters only: evicted optimizer state stays
         self.reload_states(include=("lp_params",))
         self.flush_delayed_update()
         placed = batch.placed if isinstance(batch, PlacedBatch) \
-            else self._place(batch)
+            else self._place(batch, local=False)
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in placed.items()}
         loss_fn = self.model.eval_fn or self.model.loss_fn
-        with torch.no_grad(), self._streaming():
-            _, metrics = loss_fn(self.params, flat, self._step_rng())
+        g3 = getattr(self, "_gatherer", None)
+        with torch.no_grad(), (g3 or self._streaming()):
+            if g3 is None:
+                params = self.params
+            else:
+                # the reference quantizes (qwZ) the training gathers only
+                qwz, g3.qwz = g3.qwz, False
+                params = g3.gather_tree(self.params)
+            try:
+                _, metrics = loss_fn(params, flat, self._step_rng())
+            finally:
+                if g3 is not None:
+                    g3.qwz = qwz
         return dict(LazyMetrics(dict(metrics)))
 
     # -- state accessors (reference: engine property surface) -----------
@@ -591,16 +1117,108 @@ class TrainingEngine:
         clip = self.config.gradient_clipping
         return "1/" if clip and clip > 0 else "0/"
 
+    # the files hold whole tensors (the reference's ``_full_host_tree``);
+    # memory holds this rank's shards: (dim, shards, axes) of each
+
+    def _param_layout(self, j: int):
+        if self._dp and self.zero_stage >= 3:
+            return self._p_dims[j], self._p_n, ("fsdp",)
+        return None, 1, None
+
+    def _state_layout(self, j: int):
+        if not self._dp:
+            return None, 1, None
+        if self.zero_stage >= 3:
+            return self._p_dims[j], self._p_n, ("fsdp",)
+        return self._o_dims[j], self._o_n, DP_AXES
+
+    def _whole(self, t: torch.Tensor, layout) -> torch.Tensor:
+        d, _, axes = layout
+        if d is None:
+            return t
+        return comm.all_gather(t.contiguous(), axes, axis=d, topo=self.topo)
+
+    def _state_key_leaf(self) -> Dict[str, int]:
+        """{optimizer state path: trainable leaf index}."""
+        out = {}
+        for key, val in self.optimizer._state().items():
+            if isinstance(val, list):
+                for j, path in enumerate(self._paths):
+                    out[key.format(path)] = j
+        return out
+
+    def checkpoint_params(self) -> Dict[str, torch.Tensor]:
+        """{path: whole tensor} to save (PEFT: the trainable leaves); at
+        stage 3 each leaf's shards all-gathered in turn into host memory
+        (a collective: every rank calls it)."""
+        if self.peft_enabled:
+            return dict(zip(self._paths, self._leaves))
+        if not (self._dp and self.zero_stage >= 3):
+            from .checkpoint.engine import flatten_with_paths
+
+            return flatten_with_paths(self.params)
+        return {path: self._whole(t, self._param_layout(j)).cpu()
+                for j, (path, t) in enumerate(zip(self._all_paths,
+                                                  self._all_leaves))}
+
     def optimizer_state_flat(self) -> Dict[str, torch.Tensor]:
         """The optimizer state under the reference's paths (the engine's
-        ``optax.chain`` index first)."""
+        ``optax.chain`` index first), sharded state gathered whole (a
+        collective on a data-parallel world)."""
         pre = self._opt_prefix()
         opt = self.optimizer
         if self.offloaded_optimizer is not None:
             # saved from the host (read back from NVMe when paged there)
             opt = self.offloaded_optimizer.state_for_checkpoint()
-        return {pre + k: v for k, v in opt.state_flat(
-            self._paths, self.device).items()}
+        flat = opt.state_flat(self._paths, self.device)
+        if self._dp:
+            where = self._state_key_leaf()
+            flat = {k: self._whole(v, self._state_layout(where[k]))
+                    if k in where else v for k, v in flat.items()}
+        return {pre + k: v for k, v in flat.items()}
+
+    def onebit_residuals_flat(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The 1-bit residuals in the reference's layout (``worker/<b>``,
+        ``server/<b>``: one row per rank), or None without 1-bit."""
+        if not getattr(self, "_onebit_wres", None):
+            return None
+        flat = {}
+        for name, res in (("worker", self._onebit_wres),
+                          ("server", self._onebit_sres)):
+            for b, t in enumerate(res):
+                flat[f"{name}/{b}"] = comm.all_gather(
+                    t, DP_AXES, tiled=False, topo=self.topo)
+        return flat
+
+    @torch.no_grad()
+    def load_onebit_residuals(self, flat: Optional[Dict[str, Any]]) -> None:
+        """This rank's rows of saved residuals; zeros (with the
+        reference's warnings) when absent or from another world."""
+        if not getattr(self, "_onebit_wres", None):
+            return
+        r = comm.axis_index(DP_AXES, topo=self.topo)
+        W = self.topo.dp_world_size
+        pairs = [(name, b, t) for name, res in (("worker", self._onebit_wres),
+                                                ("server", self._onebit_sres))
+                 for b, t in enumerate(res)]
+        ok = flat is not None and all(
+            f"{name}/{b}" in flat and tuple(flat[f"{name}/{b}"].shape)
+            == (W,) + tuple(t.shape) for name, b, t in pairs)
+        if flat is None:
+            logger.warning(
+                "checkpoint has no onebit_residuals.safetensors — 1-bit "
+                "error-feedback restarts from zero (one-shot gradient-bias "
+                "transient on resume)")
+        elif not ok:
+            logger.warning(
+                "onebit residual shapes in the checkpoint do not match "
+                "this engine's dp world — residuals restart from zero "
+                "(the per-worker feedback is topology-bound)")
+        for name, b, t in pairs:
+            if ok:
+                t.copy_(torch.as_tensor(flat[f"{name}/{b}"])[r])
+            else:
+                t.zero_()
 
     @torch.no_grad()
     def load_state_from(self, flat_params: Dict[str, torch.Tensor],
@@ -608,27 +1226,47 @@ class TrainingEngine:
                         meta: Dict[str, Any], where: str = "",
                         adapter_only: bool = False) -> None:
         """Restore from a checkpoint's flat trees and engine meta: each
-        parameter in place (in the engine's dtype; ``adapter_only``: the
-        trainable leaves alone, over the engine's frozen base), the
-        optimizer state (``flat_opt``; None keeps the engine's), the step
-        counts and the loss scale.  The step's generator derives from the
-        restored step (the reference's ``rng`` key is not used)."""
-        paths, targets = (self._paths, self._leaves) if adapter_only else \
-            (self._all_paths, self._all_leaves)
+        parameter in place (in the engine's dtype; this rank's shard of it
+        at stage 3; ``adapter_only``: the trainable leaves alone, over the
+        engine's frozen base), the optimizer state (``flat_opt``, sliced to
+        this rank's shards; None keeps the engine's), the step counts and
+        the loss scale.  The files hold whole tensors, so a checkpoint of
+        any stage and world loads at any other.  The step's generator
+        derives from the restored step (the reference's ``rng`` key is not
+        used)."""
+        if adapter_only:
+            paths, targets = self._paths, self._leaves
+            pos = {id(t): j for j, t in enumerate(self._all_leaves)}
+            index = [pos[id(t)] for t in targets]
+        else:
+            paths, targets = self._all_paths, self._all_leaves
+            index = list(range(len(targets)))
         # the first missing tensor in the reference's (sorted) order
         for path in sorted(paths):
             if path not in flat_params:
                 raise KeyError(f"checkpoint missing tensor {path!r}")
-        for path, p in zip(paths, targets):
+        for path, p, j in zip(paths, targets, index):
             src = flat_params[path]
-            if tuple(src.shape) != tuple(p.shape):
+            full = self._full_shapes[j]
+            if tuple(src.shape) != full:
                 raise ValueError(f"{path}: checkpoint shape "
-                                 f"{tuple(src.shape)} != {tuple(p.shape)}")
+                                 f"{tuple(src.shape)} != {full}")
+            d, n, axes = self._param_layout(j)
+            src = torch.as_tensor(src)
+            if d is not None:
+                src = self._local(src, d, n, axes=axes)
             p.copy_(src.to(p.device, p.dtype))
         if flat_opt is not None:
             pre = self._opt_prefix()
             flat = {k[len(pre):]: v for k, v in flat_opt.items()
                     if k.startswith(pre)}
+            if self._dp:
+                keyed = self._state_key_leaf()
+                for k, j in keyed.items():
+                    d, n, axes = self._state_layout(j)
+                    if k in flat and d is not None:
+                        flat[k] = self._local(torch.as_tensor(flat[k]), d, n,
+                                              axes=axes)
             try:
                 if self.offloaded_optimizer is not None:
                     self.offloaded_optimizer.load_state(flat, self._paths)

@@ -551,10 +551,13 @@ OPTIMIZERS = ("adam", "fusedadam", "cpuadam", "adamw", "fusedadamw", "lamb",
 
 
 def create_optimizer(cfg: OptimizerConfig, learning_rate: Schedule,
-                     weight_decay_mask: Optional[List[bool]] = None
-                     ) -> Optimizer:
+                     weight_decay_mask: Optional[List[bool]] = None,
+                     wire_compression: bool = False) -> Optimizer:
     """The base optimizer from config (reference: ``create_optimizer``);
-    its state paths are those of the reference's optax transformation."""
+    its state paths are those of the reference's optax transformation.
+    ``wire_compression``: the engine compresses gradients on the
+    data-parallel wire, so a 1-bit optimizer drops its own compression
+    stage."""
     name = cfg.type.lower().replace("_", "")
     p = cfg.params
     wd = p.get("weight_decay", 0.0)
@@ -591,7 +594,8 @@ def create_optimizer(cfg: OptimizerConfig, learning_rate: Schedule,
 
         return OneBitAdam(learning_rate, weight_decay=wd,
                           freeze_step=p.get("freeze_step", 100),
-                          mask=weight_decay_mask, **kw)
+                          mask=weight_decay_mask,
+                          compress_gradients=not wire_compression, **kw)
     raise ConfigError(f"unknown optimizer type {cfg.type!r}")
 
 

@@ -276,7 +276,8 @@ def test_port_imports_no_jax():
     with an adapter registry, dropless MoE, and with the whole memory
     hierarchy on: prefix cache, host pool, cold store, promote-ahead,
     restart rehydration, tracing), int8_gemm, a CPU
-    training step, a fused AdamW update, evoformer and block-sparse
+    training step, a ZeRO-3 (qwZ) step on a gloo world of one, a fused
+    AdamW update, evoformer and block-sparse
     attention, the op registry, the v1 and encoder engines through
     ``init_inference``, the serving front (an in-process pool behind the
     HTTP server, the SLO loader) and the fleet (remote registry,
@@ -367,6 +368,15 @@ def test_port_imports_no_jax():
         ids = np.random.default_rng(0).integers(0, 256, (2, 16))
         loss = engine.train_batch({"input_ids": ids})["loss"]
         assert np.isfinite(loss), loss
+        # ZeRO stage 3 on a gloo world of one (initialize sets it up)
+        z3, _, _, _ = deepspeed_tpu_torch.initialize(model=ModelSpec(
+            loss_fn=spec.loss_fn, params=params,
+            param_axes=tfm.param_axes(tcfg)), config={
+            "train_micro_batch_size_per_gpu": 2,
+            "zero_optimization": {"stage": 3, "zero_quantized_weights": True},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
+            device="cpu")
+        assert np.isfinite(z3.train_batch({"input_ids": ids})["loss"])
         from deepspeed_tpu_torch.ops import fused_optimizers as fo
         mcfg = tfm.get_config("tiny-moe", dtype="float32",
                               moe_routing="dropless")

@@ -1694,3 +1694,65 @@ def test_qlora_small_model_card_vs_cpu(cuda_device):
     after = [p for p, path in zip(eng._all_leaves, eng._all_paths)
              if path.endswith("codes")]
     assert all(torch.equal(a, b) for a, b in zip(codes, after))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO stages 1-3 on a world of one over NCCL (tests/torch_dist.py)
+# ---------------------------------------------------------------------------
+
+
+def test_zero_stages_on_an_nccl_world_of_one(cuda_device, tmp_path):
+    """A small f32 flash model at stages 0-3 (and qwZ) in a child process
+    whose world of one runs NCCL: each stage's losses and parameters
+    against stage 0's, the stages' collectives issued through NCCL."""
+    import importlib.util
+    import os
+
+    # by path: with --noconftest the tests directory is not a package
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist", os.path.join(os.path.dirname(__file__),
+                                   "torch_dist.py"))
+    torch_dist = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_dist)
+    launch = torch_dist.launch
+
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, dtype="float32",
+                        attn_impl="flash")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+
+    def np_tree(t):
+        return {k: np_tree(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.numpy()
+
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 256, (4, 64)).astype(np.int32)}
+               for _ in range(3)]
+    model = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                 num_kv_heads=2, dtype="float32", attn_impl="flash")
+    scenarios = [(name, dict(
+        kind="engine", preset="tiny", model=model, params=np_tree(params),
+        batches=batches, device="cuda", config={
+            "train_micro_batch_size_per_gpu": 4, "steps_per_print": 1000,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "zero_optimization": dict(stage=stage, **zero)}))
+        for name, stage, zero in (
+            ("s0", 0, {}), ("s1", 1, {}), ("s2", 2, {}), ("s3", 3, {}),
+            ("qwz", 3, {"zero_quantized_weights": True}))]
+    res = launch(1, scenarios, tmp_path, timeout=600, device="cuda")[0]
+    for name, _ in scenarios:
+        assert "error" not in res[name], res[name]["error"]
+    base = res["s0"]
+    assert base["counts"] == {}
+    for name in ("s1", "s2", "s3", "qwz"):
+        r = res[name]
+        assert r["backend"] == "nccl" and r["counts"]
+        tol = 1e-2 if name == "qwz" else 1e-5
+        for a, b in zip(base["steps"], r["steps"]):
+            np.testing.assert_allclose(b["loss"], a["loss"], rtol=tol)
+        if name != "qwz":
+            for key, w in base["params"].items():
+                np.testing.assert_allclose(r["params"][key], w, atol=1e-4,
+                                           rtol=0, err_msg=f"{name} {key}")
+    assert res["_modules"] == []

@@ -688,8 +688,17 @@ def test_offload_config_runs_and_later_items_refuse():
     with pytest.raises(ConfigError, match="must be one of"):
         tconfig.load_config({"zero_optimization": {"offload_optimizer": {
             "device": "gpu"}}})
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
     from deepspeed_tpu_torch.runtime import zero
 
-    for name in ("Init", "shard_pytree", "rules_for_params"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            getattr(zero, name)()
+    # the sharding names are ported now (A13); offload at stage >= 1 still
+    # refuses, above
+    topo = MeshTopology({"fsdp": 2}, devices=[0, 1])
+    assert zero.rules_for_params(3, topo).fsdp_fallback
+    with zero.Init(topo) as ctx:
+        shard = ctx.init_sharded(lambda: {"w": torch.ones(4, 6)},
+                                 {"w": ("embed", "mlp")})
+    assert shard["w"].shape == (2, 6)
+    assert zero.shard_pytree({"w": torch.ones(4, 6)}, {"w": (None, "embed")},
+                             zero.rules_for_params(3, topo),
+                             topo)["w"].shape == (4, 3)

@@ -374,7 +374,9 @@ def test_apply_lora_wraps_targets_and_skips_moe():
     lcfg = tlc.LoRAConfig(enabled=True, lora_r=4, quantize_base=True,
                           quantization=tlc.QuantizationConfig(
                               q_bits=8, mantissa_bits=0, group_size=64))
-    out = tl.apply_lora(params, torch.Generator().manual_seed(1), lcfg)
+    out, axes = tl.apply_lora(params, None, torch.Generator().manual_seed(1),
+                              lcfg)
+    assert axes is None  # no axes in, none out
     for k in ("wq", "wk", "wv", "wo"):
         node = out["layers"]["attn"][k]
         assert isinstance(node, tl.LoRAWeight)
@@ -387,7 +389,7 @@ def test_apply_lora_wraps_targets_and_skips_moe():
         assert 0.8 < std < 1.2  # A ~ N(0, 1/K)
     assert out["layers"]["moe"] is params["layers"]["moe"]
     with pytest.raises(TypeError, match="dict parameter tree"):
-        tl.apply_lora([1], torch.Generator(), lcfg)
+        tl.apply_lora([1], None, torch.Generator(), lcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +643,8 @@ def test_every_remat_policy_runs_the_lora_nodes(policy):
     params = tt.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu", dtype=torch.float32)
     lcfg = tlc.LoRAConfig(**_lora_cfg("int8", group=128))
-    tree = tl.apply_lora(params, torch.Generator().manual_seed(1), lcfg)
+    tree, _ = tl.apply_lora(params, None, torch.Generator().manual_seed(1),
+                            lcfg)
     gen = torch.Generator().manual_seed(2)
     tree = tl.tree_map(lambda t: t.normal_(0.0, 0.1, generator=gen)
                        if t.dim() == 3 and t.shape[1] == 4 else t, tree)

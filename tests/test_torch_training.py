@@ -402,15 +402,21 @@ def test_config_matches_reference_contract():
                       ({"checkpoint": {"load_universal": True}}, "A14"),
                       ({"activation_checkpointing": {
                           "partition_activations": True}}, "A13"),
-                      ({"zero_optimization": {"stage": 1}}, "A13"),
-                      ({"zero_optimization": {"overlap_comm": True}}, "A13"),
+                      ({"zero_optimization": {
+                          "stage": 1, "offload_optimizer": {
+                              "device": "cpu"}}}, "A13"),
+                      ({"mesh": {"tensor_parallel_size": 2}}, "A13"),
                       ({"pipeline": {"stages": 2}}, "A13"),
-                      ({"gradient_compression": {"enabled": True}}, "A13")]:
+                      ({"moe": {"enabled": True}}, "A13")]:
         c = tconfig.load_config(cfg)
         with pytest.raises(NotImplementedError, match=item):
             c.check_supported()
-    # the training engine's sections run (A12, and A14's offload and PEFT)
+    # the training engine's sections run (A12, A14's offload and PEFT, and
+    # A13's data-parallel world)
     for cfg in ({"fp16": {"enabled": True}}, {"sanity_checks": True},
+                {"zero_optimization": {"stage": 1}},
+                {"zero_optimization": {"overlap_comm": True}},
+                {"gradient_compression": {"enabled": True}},
                 {"peft": {"lora": {"enabled": True}}},
                 {"activation_checkpointing": {"cpu_checkpointing": True}},
                 {"zero_optimization": {"offload_optimizer": {
