@@ -246,12 +246,32 @@ In order it prints:
    layer and for the top in backward, the buckets' all-reduce over dp),
    stage 3's peak at most stage 0's plus two layers' and the top leaves'
    gathered bytes; then at ZERO_EXTRA_LAYERS layers qwZ at stage 3
-   (int8 codes and f32 scales gathered: the all-gather bytes under 0.6 of
-   the bf16 gather's, the first loss within 1e-2 of the unquantized
-   one), qgZ and 1-bit (from step 2) at stage 2 (the first step's loss
-   equal to plain stage 2's, the later ones within 5e-2, int8
-   all-gathers / all-to-alls in the logger), and a stage-3 checkpoint loaded into a
-   stage-1 engine (equal eval loss); the phase's seconds;
+   (over an fsdp axis of one rank it gathers the leaves unchanged, as the
+   reference's ``qwz_gather_leaf``: the first loss and the all-gathers'
+   bytes equal unquantized stage 3's; and its quantized gather called
+   on layer 0's shards of plain stage 3, int8 codes and f32 scales
+   through NCCL: each tensor within one int8 step of its largest block of
+   the bf16 slice, the bytes under 0.6 of the bf16 gather's), qgZ and
+   1-bit (from step 2) at
+   stage 2 (the first step's loss equal to plain stage 2's, the later
+   ones within 5e-2, int8 all-gathers / all-to-alls in the logger); then
+   the offload part at the offload phase's depth (its stage-0 losses and
+   streamed peak handed over as ``--baseline FILE``; the host's released
+   page-locked buffers kept for the next engine): optimizer offload at
+   stages 1-3 (ZERO_OFF_STEPS steps; stage 1 the offload phase's plain
+   steps and then its ``delayed_update`` steps, and the flush), ZeRO-
+   Infinity at stage 3 (the stack's shards page-locked, 2L stream-ins a
+   step, the device peak at most stage 0's streamed one plus a gathered
+   layer and the top leaves, one layer's H2D timed), ZenFlow at stages 2
+   and 3 (its cold sums and hot columns on the card),
+   ``offload_states`` / ``reload_states`` at stage 2 (equal eval, the
+   next step stage 0's), both NVMe tiers at stage 3 and its checkpoint
+   (parameters and SGD's trace) loaded by a stage-1 engine without
+   offload at ZERO_NVME_LAYERS (equal eval loss and state bit sums), and
+   QLoRA at stage 3 against stage 0 (the peft phase's recipe; B6 14 a
+   layer a step); gates: losses within ZERO_LOSS_REL of stage 0's, exact
+   B1-B3 (and B6) launches and collectives, the host bytes a rank holds
+   printed for each; each part's seconds;
 19. a JSON line with every kernel's numbers (the f16 rows with
    ``"dtype": "float16"`` and their launches on the fp16 paths; the flash
    rows also ``launches_offload``, on the optimizer-offload steps, and
@@ -282,6 +302,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 
 SEED = 0
 H, KV, D, BS = 32, 8, 128, 64  # llama3-8b attention
@@ -324,10 +345,18 @@ F16_MAX = 65504.0
 # flash training shape (bench.py's micro-batch and sequence, llama3-8b heads)
 FB, FS = 4, 2048
 TRAIN_LAYERS, TRAIN_WARMUP, TRAIN_STEPS, TILE = 8, 2, 5, 512
-# the ZeRO phase: depth and steps of the stage runs (the training cell's
-# depth), depth of the extras (cut from 2 to 1 for the smoke's time: the
-# whole smoke ran 1061 s on an H100 machine slower than the last one)
-ZERO_LAYERS, ZERO_STEPS, ZERO_EXTRA_LAYERS = 8, 3, 1
+# the ZeRO phase: depth and steps of the stage runs (cut from the training
+# cell's 8 layers to 4 to make room for the offload part: at 8 layers the
+# four stages took ~25 s of the phase's 45-65), depth of the extras (cut
+# from 2 to 1 for the smoke's time: the whole smoke ran 1061 s on an H100
+# machine slower than the last one)
+ZERO_LAYERS, ZERO_STEPS, ZERO_EXTRA_LAYERS = 4, 3, 1
+# the zero phase's offload part: the offload phase's depth, seed and batch
+# (its stage-0 engines' losses are the baseline, handed to the child as a
+# JSON file), ZERO_OFF_STEPS steps a stage; the NVMe tiers and the
+# checkpoint at ZERO_NVME_LAYERS under ZERO_OFF_DIR
+ZERO_OFF_STEPS, ZERO_NVME_LAYERS = 3, 1
+ZERO_OFF_DIR = os.path.join("build", "zero_offload")
 # a ZeRO stage's step losses against stage 0's on the same weights and
 # batch, relative: at a world of
 # one every collective sums one rank, so the stages differ from stage 0
@@ -343,11 +372,13 @@ FP16_MAX_STEPS, FP16_FINITE_AFTER, FP16_TIMED = 30, 4, 3
 REMAT_POLICIES = ("nothing_saveable", "everything", "dots_saveable",
                   "dots_with_no_batch_dims_saveable", "save_attn",
                   "save_attn_mlp")
-# checkpoints at full width, depth cut from 32 to 2 layers: bf16 params and
-# f32 moments, 9.62 GB a checkpoint (the preset ties its embeddings: 525 M
-# of its 961 M parameters); the optimizers' full-width step on the same
-# model
-CKPT_LAYERS = 2
+# checkpoints at full width, depth cut from 32 to 2 layers, then to 1 to
+# make room for the zero phase's offload part: bf16 params and f32
+# moments, 9.62 GB a checkpoint at 2 layers, whose four passes took 83 s of
+# the training engine phase's 112 (the preset ties its embeddings: 525 M
+# of its 961 M parameters at 2 layers, 743 M at 1); the optimizers'
+# full-width step on the same model
+CKPT_LAYERS = 1
 CKPT_DIR = os.path.join("build", "ckpt_smoke")
 # the other optimizers, card vs CPU on the small model (TOL_TRAIN): learning
 # rates at which one f32 rounding of a gradient near zero, which a sign
@@ -2597,6 +2628,65 @@ def host_adam_times(torch, n: int = 1 << 27) -> dict:
     return out
 
 
+#: span -> [(pointer, buffer)]: the page-locked host buffers released
+#: arenas left registered (``_keep_host_buffers``)
+_HOST_POOL: dict = {}
+
+
+def _keep_host_buffers(torch, on: bool = True) -> None:
+    """While on, the offload engines' host arenas (``runtime/zero/
+    param_offload.HostArena``, replaced by a subclass) take the page-locked
+    buffers that released arenas left, at the same span, and leave theirs
+    for the next: a phase that builds engine after engine of one model
+    pays the page faults and ``cudaHostRegister`` once.  Off: every kept
+    buffer unregistered and the library's arena back."""
+    from deepspeed_tpu_torch.runtime.zero import param_offload as tpo
+
+    base = getattr(tpo.HostArena, "smoke_base", tpo.HostArena)
+    if not on:
+        tpo.HostArena = base
+        pairs = [pair for kept in _HOST_POOL.values() for pair in kept]
+        _HOST_POOL.clear()
+        tpo._unregister([p for p, _ in pairs], [b for _, b in pairs])
+        return
+
+    class PooledArena(base):
+        smoke_base = base
+
+        def __init__(self, device):
+            super().__init__(device)
+            if self._finalizer is not None:
+                self._finalizer.detach()
+                self._finalizer = weakref.finalize(
+                    self, _pool_host_buffers, self._ptrs, self._keep)
+
+        def empty(self, shape, dtype):
+            shape = tuple(shape)
+            nbytes = math.prod(shape) * torch.empty(
+                (), dtype=dtype).element_size()
+            span = -(-nbytes // tpo._PAGE) * tpo._PAGE
+            kept = _HOST_POOL.get(span) if self.pin and nbytes else None
+            if not kept:
+                return super().empty(shape, dtype)
+            ptr, raw = kept.pop()
+            self.tensor_bytes += nbytes
+            self.pinned_bytes += span
+            self._ptrs.append(ptr)
+            self._keep.append(raw)
+            return raw[:nbytes].view(dtype).view(shape)
+
+    tpo.HostArena = PooledArena
+
+
+def _pool_host_buffers(ptrs: list, keep: list) -> None:
+    """A released (or collected) pooled arena's finalizer: its buffers
+    kept registered for the next arena."""
+    for ptr, raw in zip(ptrs, keep):
+        _HOST_POOL.setdefault(raw.numel(), []).append((ptr, raw))
+    ptrs.clear()
+    keep.clear()
+
+
 def run_offload_phase(torch, fa, card: str, cfg_of=llama_cfg) -> dict:
     """ZeRO-Offload / ZeRO-Infinity on the card, (a)-(g).  The streamed
     engine (b) needs the most host memory, so it runs after the smaller
@@ -2606,6 +2696,9 @@ def run_offload_phase(torch, fa, card: str, cfg_of=llama_cfg) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out, secs = {}, {}
+    # the engines of one model take the released page-locked buffers of
+    # the one before (registered once); all unregistered at the end
+    _keep_host_buffers(torch)
 
     def part(name, fn, *args):
         t = time.perf_counter()
@@ -2621,6 +2714,7 @@ def run_offload_phase(torch, fa, card: str, cfg_of=llama_cfg) -> dict:
     part("cpu_checkpointing", cpu_checkpointing_run, torch, fa, cfg_of)
     part("ds_io", ds_io_sweep)
     part("host_adam", host_adam_times, torch)
+    _keep_host_buffers(torch, False)
     out["part_seconds"] = secs
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -5928,11 +6022,15 @@ def small_serving_agreement(torch, pa) -> dict:
 # ---------------------------------------------------------------------------
 
 # the stage's own autoscaler debounce, which is also its cool-down after a
-# scale-up: above a cold worker's spawn (a torch import, a CUDA context and
-# 8B weights drawn on the card: 16.00-19.18 s to ready on an H100), so a
-# second spawn never starts while the first is still coming up.  Every
+# scale-up (the reference's default is 1 s): the load must hold for 5 s
+# before the fleet grows.  The autoscaler, as the reference's, counts the
+# healthy replicas alone against its ceiling, so a cold worker (a torch
+# import, a CUDA context and 8B weights drawn on the card: 16.00-19.18 s to
+# ready on an H100) would let a second spawn start once the cool-down
+# ended: the stage stops the autoscaler at its first scale-up instead (it
+# was 25 s, held above the spawn, until the smoke needed the time).  Every
 # other autoscaler knob keeps the reference's default.
-FLEET_DEBOUNCE_S = 25.0
+FLEET_DEBOUNCE_S = 5.0
 # the stage's lease TTL, half the reference's 10 s default, to keep the smoke
 # in its time limit: the SIGKILL and SIGSTOP parts each wait out a lease,
 # and the SIGKILL part half a lease more (the lease still outlives the 5 s
@@ -6114,6 +6212,9 @@ def fleet_remote_stage(torch, args, argv, traffic_lens) -> dict:
         out["scale_up_decision_s"] = wait_for(
             lambda: asc.decisions["up"] >= 1 or load["error"], FLEET_LOAD_S,
             "fleet (a): the load never scaled the fleet up")
+        # one scale-up is the part's: no second spawn while the first
+        # worker comes up, and (b)-(d) need both workers (no scale-down)
+        asc.stop()
         out["scale_up_ready_s"] = wait_for(
             lambda: len(pool.healthy_replicas()) == 2 or load["error"],
             SERVE_SPAWN_S, "fleet (a): the scaled-up worker never registered")
@@ -6124,7 +6225,6 @@ def fleet_remote_stage(torch, args, argv, traffic_lens) -> dict:
             SERVE_HTTP_S, "fleet (a): the scaled-up worker served nothing")
         stop.set()
         th.join(timeout=SERVE_HTTP_S)
-        asc.stop()  # (b)-(d) need both workers: no scale-down meanwhile
         if load["error"] or th.is_alive():
             fail(f"fleet (a): the load failed: {load['error']}")
         up = dict(pool.metrics.autoscale)
@@ -7529,16 +7629,421 @@ def _zero_expected_counts(engine, steps: int) -> dict:
     return {k: v for k, v in want.items() if v}
 
 
-def zero_phase_child(torch) -> dict:
+def zero_baseline(torch, fa, card: str) -> dict:
+    """The offload phase's stage-0 numbers the zero phase's offload part is
+    held against (the parent hands them over; a child run alone computes
+    them): losses of plain and then delayed steps on one engine, of
+    ZenFlow, and the streamed engine's device peak."""
+    a = optimizer_offload(torch, fa, llama_cfg, card)
+    z = zenflow_run(torch, fa, llama_cfg)
+    b = param_offload(torch, fa, a["layers"], a["plain"]["peak_mem_gb"])
+    return offload_baseline({"optimizer": a, "zenflow": z, "param": b})
+
+
+def offload_baseline(off: dict) -> dict:
+    a = off["optimizer"]
+    return {"layers": a["layers"], "plain": a["plain"]["losses"],
+            "delayed": a["delayed"]["losses"],
+            "delayed_applied_lr": a["delayed"]["applied_lr"],
+            "zenflow": off["zenflow"]["losses"],
+            "zenflow_layers": off["zenflow"]["layers"],
+            "param_peak_gb": off["param"]["peak_mem_gb"],
+            "param_layers": off["param"]["layers"]}
+
+
+def _against(losses, want, what: str) -> None:
+    """Each of ``losses`` within ZERO_LOSS_REL of ``want``'s."""
+    if len(losses) > len(want):
+        fail(f"{what}: {len(losses)} losses, {len(want)} to compare")
+    for k, (a, b) in enumerate(zip(want, losses)):
+        if not abs(b - a) <= ZERO_LOSS_REL * abs(a):
+            fail(f"{what} step {k}: loss {b} against stage 0's {a} (limit "
+                 f"{ZERO_LOSS_REL} relative)")
+
+
+def _host_bytes(engine) -> dict:
+    """The bytes this rank's host holds for the engine (its arena: the
+    f32 master, moments and gradient partitions, streamed shards, staging
+    buffers) and the page-locked bytes behind them."""
+    h = engine._host
+    return {"host_tensor_gb": h.tensor_bytes / 1e9,
+            "host_pinned_gb": h.pinned_bytes / 1e9}
+
+
+def _offload_counts(log, engine, steps: int, gathers: int, what: str):
+    """The comms logger's counts of ``steps`` offloaded steps: the stage's
+    (``_zero_expected_counts``), with ``gathers`` updates all-gathered at
+    stages 1-2 (a delayed update's first step applies none)."""
+    want = _zero_expected_counts(engine, steps)
+    key = "all_gather@('dp', 'fsdp')"
+    if key in want:
+        want[key] = want[key] // steps * gathers
+    got = log.counts()
+    if got != {k: v for k, v in want.items() if v}:
+        fail(f"{what}: collectives {got}, want {want}")
+    return got
+
+
+def _zero_qlora_engine(torch, cfg, tree, stage: int):
+    """The peft phase's QLoRA engine at ZeRO ``stage`` (the LoRA nodes'
+    expanded axes)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tfm
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    from deepspeed_tpu_torch.sequence.tiled_compute import tiled_loss_fn
+
+    return deepspeed_tpu_torch.initialize(
+        model=ModelSpec(loss_fn=lambda p, b, r: tiled_loss_fn(
+            p, b, cfg, tile_size=TILE), params=tree,
+            param_axes=tfm.param_axes(cfg, params=tree)),
+        config={"train_micro_batch_size_per_gpu": FB,
+                "optimizer": {"type": "adamw", "params": {"lr": PEFT_LR}},
+                "zero_optimization": {"stage": stage},
+                "peft": {"lora": PEFT_LORA}, "steps_per_print": 10_000})[0]
+
+
+def zero_offload_part(torch, fa, mg, log, base: dict) -> dict:
+    """The zero phase's offload part on its NCCL world of one (see the
+    module docstring, item 18): (a) optimizer offload at stages 1-3, (b)
+    ZeRO-Infinity, (c) ``delayed_update`` at stage 1, (d) ZenFlow at
+    stages 2 and 3, (e) both NVMe tiers at stage 3, (f) QLoRA at stage 3, (g)
+    ``offload_states`` at stage 2 and an offloaded stage-3 checkpoint
+    loaded at stage 1; the host's released page-locked buffers are kept
+    for the next engine (``_keep_host_buffers``).  Fails out loud on any
+    gate; returns the numbers and each part's seconds."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.runtime.zero import param_offload as tpo
+
+    _keep_host_buffers(torch)
+    L = base["layers"]
+    cpu = {"offload_optimizer": {"device": "cpu"}}
+    out, secs = {"layers": L}, {}
+    t_part = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+
+    def engine_for(layers, stage, zero, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        engine, cfg = _zero_engine(torch, layers, stage, zero=zero, **kw)
+        return engine, cfg, time.perf_counter() - t0
+
+    def close(engine):
+        close_engine(torch, engine)
+
+    # (a) optimizer offload at stages 1-3, each against stage 0's losses;
+    # stage 1 runs the offload phase's plain steps, then (c) its delayed
+    # ones on the same engine; stage 2 then evicts and reloads its
+    # parameters (g) and takes one more step
+    for stage in (1, 2, 3):
+        engine, cfg, build_s = engine_for(L, stage, cpu)
+        placed = engine.place_batch(_zero_batch(cfg))
+        n = len(base["plain"]) if stage == 1 else ZERO_OFF_STEPS
+        log.reset()
+        what = f"zero offload stage {stage}"
+        run = run_steps(torch, fa, engine, placed, n, L, what)
+        _against(run["losses"], base["plain"], what)
+        run.update(build_s=build_s, step_ms_timed=statistics.median(
+            run["step_ms"][1:]), counts=_offload_counts(
+                log, engine, n, n, what), **_host_bytes(engine))
+        if stage == 1:  # (c)
+            engine._delayed_update = True
+            log.reset()
+            dl = run_steps(torch, fa, engine, placed, len(base["delayed"]),
+                           L, "zero offload delayed (stage 1)")
+            _against(dl["losses"], base["delayed"],
+                     "zero offload delayed (stage 1)")
+            if dl["applied_lr"][0] is not None or None in \
+                    dl["applied_lr"][1:]:
+                fail(f"zero offload delayed: applied_lr {dl['applied_lr']}")
+            steps = len(dl["losses"])
+            dl["counts"] = _offload_counts(log, engine, steps, steps - 1,
+                                           "zero offload delayed (stage 1)")
+            engine.flush_delayed_update()
+            if engine._pending:
+                fail("zero offload delayed: the flush left an update "
+                     "pending")
+            dl["step_ms_timed"] = statistics.median(dl["step_ms"][1:])
+            out["delayed"] = dl
+        if stage == 2:  # (g): the parameters evicted and reloaded
+            ev0 = engine.eval_batch(placed)["loss"]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            engine.offload_states(include=("lp_params",))
+            freed = before - torch.cuda.memory_allocated()
+            params_bytes = sum(p.numel() * p.element_size()
+                               for p in engine._all_leaves)
+            if freed < params_bytes or not engine.states_offloaded:
+                fail(f"zero offload states: {freed} bytes freed, the "
+                     f"parameters hold {params_bytes}")
+            engine.reload_states()
+            ev1 = engine.eval_batch(placed)["loss"]
+            if ev1 != ev0:
+                fail(f"zero offload states: eval loss {ev1} after the "
+                     f"reload, {ev0} before")
+            step = engine.train_batch(placed)["loss"]
+            _against([step], base["plain"][n:n + 1],
+                     "zero offload states' next step")
+            out["states"] = {"eval": ev0, "freed_gb": freed / 1e9,
+                             "next_loss": step}
+        out[f"stage{stage}"] = run
+        del placed
+        close(engine)
+        del engine
+        done(f"stage{stage}")
+
+    # (b) ZeRO-Infinity: the stack's shards page-locked on the host,
+    # streamed in by the gathers
+    inf = {"offload_optimizer": {"device": "cpu"},
+           "offload_param": {"device": "cpu"},
+           "stage3_param_persistence_threshold": 0}
+    engine, cfg, build_s = engine_for(L, 3, inf)
+    stack = [engine._all_leaves[j] for j in engine._streamed]
+    if not stack or not all(tpo.is_page_locked(t) for t in stack):
+        fail("zero infinity: a streamed shard is not page-locked host "
+             "memory")
+    placed = engine.place_batch(_zero_batch(cfg))
+    log.reset()
+    run = run_steps(torch, fa, engine, placed, ZERO_OFF_STEPS, L,
+                    "zero infinity")
+    _against(run["losses"], base["plain"], "zero infinity")
+    counts = _offload_counts(log, engine, ZERO_OFF_STEPS, ZERO_OFF_STEPS,
+                             "zero infinity")
+    if run["stream_ins"] != 2 * L * ZERO_OFF_STEPS:
+        fail(f"zero infinity: {run['stream_ins']} stream-ins, want "
+             f"{2 * L * ZERO_OFF_STEPS} (L forward + L recompute a step)")
+    shapes = dict(zip(engine._paths, engine._full_shapes))
+    layer = sum(2 * math.prod(s[1:]) for p, s in shapes.items()
+                if p.startswith("layers/"))
+    top = sum(2 * math.prod(s) for p, s in shapes.items()
+              if not p.startswith("layers/"))
+    limit = base["param_peak_gb"] * 1e9 + layer + top
+    if base["param_layers"] != L or run["peak_mem_gb"] * 1e9 > limit:
+        fail(f"zero infinity: peak {run['peak_mem_gb']:.2f} GB past stage "
+             f"0's streamed {base['param_peak_gb']:.2f} GB + a gathered "
+             f"layer and the top leaves ({limit / 1e9:.2f} GB)")
+    # the H2D of one layer's shards, timed alone
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    copies = [t[0].to("cuda", non_blocking=True) for t in stack]
+    ev[1].record()
+    torch.cuda.synchronize()
+    h2d_ms = ev[0].elapsed_time(ev[1])
+    h2d_bytes = sum(c.numel() * c.element_size() for c in copies)
+    del copies
+    run.update(build_s=build_s, step_ms_timed=statistics.median(
+        run["step_ms"][1:]), counts=counts, limit_gb=limit / 1e9,
+        layer_gathered_bytes=layer, top_gathered_bytes=top,
+        h2d_layer_ms=h2d_ms, h2d_layer_bytes=h2d_bytes,
+        h2d_gb_s=h2d_bytes / h2d_ms / 1e6, **_host_bytes(engine))
+    out["infinity"] = run
+    del placed, stack
+    close(engine)
+    del engine
+    done("infinity")
+
+    # (d) ZenFlow at stages 2 and 3, the offload phase's settings: the
+    # selection, the hot update and the cold sums on the card
+    for stage in (2, 3):
+        what = f"zero zenflow (stage {stage})"
+        engine, cfg, build_s = engine_for(
+            base["zenflow_layers"], stage, cpu, extra={"zenflow": {
+                "enabled": True, "topk_ratio": ZENFLOW_RATIO,
+                "update_interval": ZENFLOW_INTERVAL}})
+        placed = engine.place_batch(_zero_batch(cfg))
+        log.reset()
+        n = len(base["zenflow"])
+        run = run_steps(torch, fa, engine, placed, n,
+                        base["zenflow_layers"], what)
+        _against(run["losses"], base["zenflow"], what)
+        zf = engine.zenflow_optimizer
+        on_card = [t.device.type == "cuda" for t in
+                   zf._cold_acc + zf._hot_master]
+        if not all(on_card):
+            fail(f"{what}: {on_card.count(False)} of ZenFlow's cold sums "
+                 "and hot masters off the card")
+        grad_bytes = sum(p.numel() * 4 for p in engine._leaves)
+        if zf.cold_bytes_transferred != n // ZENFLOW_INTERVAL * grad_bytes:
+            fail(f"{what}: {zf.cold_bytes_transferred} cold bytes, want "
+                 f"{n // ZENFLOW_INTERVAL} flushes of {grad_bytes}")
+        run.update(build_s=build_s, cold_bytes=zf.cold_bytes_transferred,
+                   hot_step_ms=statistics.median(run["step_ms"][1:-1]),
+                   flush_step_ms=run["step_ms"][-1],
+                   counts=_offload_counts(log, engine, n, n, what),
+                   **_host_bytes(engine))
+        out["zenflow" if stage == 2 else "zenflow3"] = run
+        del placed, zf
+        close(engine)
+        del engine
+        done("zenflow" if stage == 2 else "zenflow3")
+
+    # (e) both NVMe tiers at stage 3, one step; then (g) its checkpoint
+    # (parameters and SGD's f32 trace) loaded at stage 1 without offload
+    shutil.rmtree(ZERO_OFF_DIR, ignore_errors=True)
+    nvme_dir = os.path.join(ZERO_OFF_DIR, "nvme")
+    ckpt = os.path.join(ZERO_OFF_DIR, "ckpt")
+    os.makedirs(nvme_dir, exist_ok=True)
+    sgd = {"type": "sgd", "params": {"lr": 1e-3, "momentum": 0.9}}
+    fast = {"checkpoint": {"engine": "fast", "integrity": "none"}}
+    try:
+        engine, cfg, build_s = engine_for(
+            ZERO_NVME_LAYERS, 3, {
+                "offload_optimizer": {"device": "nvme",
+                                      "nvme_path": nvme_dir},
+                "offload_param": {"device": "nvme", "nvme_path": nvme_dir}},
+            optimizer=sgd, extra=fast)
+        placed = engine.place_batch(_zero_batch(cfg))
+        run = run_steps(torch, fa, engine, placed, 1, ZERO_NVME_LAYERS,
+                        "zero nvme (stage 3)")
+        files = sorted(os.listdir(nvme_dir))
+        if not any(f.startswith("opt_") for f in files) or \
+                "master" not in files:
+            fail(f"zero nvme: the tiers' files {files}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.save_checkpoint(ckpt)
+        save_s = time.perf_counter() - t
+        ev_a = engine.eval_batch(placed)["loss"]
+        state_a = [bit_sums(torch, [t])[0] for t in
+                   engine.optimizer_state_flat().values()]
+        run.update(build_s=build_s, files=files, **_host_bytes(engine))
+        out["nvme"] = run
+        del placed
+        close(engine)
+        del engine
+        done("nvme")
+        b, cfg, _ = engine_for(ZERO_NVME_LAYERS, 1, None, optimizer=sgd,
+                               extra=fast)
+        batch = _zero_batch(cfg)
+        # before the load: the first step's loss of (e), one forward
+        ev_init = b.eval_batch(batch)["loss"]
+        _against(out["nvme"]["losses"], [ev_init], "zero nvme (stage 3)")
+        t = time.perf_counter()
+        b.load_checkpoint(ckpt)
+        load_s = time.perf_counter() - t
+        ev_b = b.eval_batch(batch)["loss"]
+        state_b = [bit_sums(torch, [t])[0] for t in
+                   b.optimizer_state_flat().values()]
+        del b
+    finally:
+        shutil.rmtree(ZERO_OFF_DIR, ignore_errors=True)
+    if abs(ev_b - ev_a) > 1e-6 * abs(ev_a) or state_b != state_a:
+        fail(f"zero checkpoint: stage 1 eval loss {ev_b} after loading "
+             f"offloaded stage 3's {ev_a}; optimizer state bit sums "
+             f"equal: {state_b == state_a}")
+    out["checkpoint"] = {"eval_stage3": ev_a, "eval_stage1_loaded": ev_b,
+                         "save_s": save_s, "load_s": load_s,
+                         "layers": ZERO_NVME_LAYERS}
+    done("checkpoint")
+
+    # (f) QLoRA at stage 3 against stage 0, the peft phase's recipe
+    cfg = llama_cfg(L)
+    tree, _ = qlora_tree(torch, cfg, PEFT_LORA)
+    placed_np = _zero_batch(cfg)
+    qlora = {}
+    for stage in (0, 3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = _zero_qlora_engine(torch, cfg, tree, stage)
+        placed = engine.place_batch(placed_np)
+        mg.reset_counts()
+        what = f"zero qlora stage {stage}"
+        run = run_steps(torch, fa, engine, placed, ZERO_OFF_STEPS, L, what)
+        want_b6 = 2 * PROJECTIONS * L * ZERO_OFF_STEPS
+        if (mg.LAUNCHES["mixed_gemm_int4"] != want_b6
+                or mg.WGMMA_LAUNCHES["mixed_gemm_int4"] != want_b6
+                or any(v for k, v in mg.LAUNCHES.items()
+                       if k != "mixed_gemm_int4")
+                or any(mg.PLAIN_CALLS.values())
+                or any(mg.DEQUANT_CALLS.values())):
+            fail(f"{what}: B6 launches {mg.LAUNCHES} (wgmma "
+                 f"{mg.WGMMA_LAUNCHES}), want {want_b6} int4 on "
+                 f"mixed_gemm_wgmma_kernel; plain {mg.PLAIN_CALLS}, "
+                 f"off-envelope {mg.DEQUANT_CALLS}")
+        run["b6_launches"] = mg.LAUNCHES["mixed_gemm_int4"]
+        run["step_ms_timed"] = statistics.median(run["step_ms"][1:])
+        qlora[f"stage{stage}"] = run
+        del placed, engine
+    _against(qlora["stage3"]["losses"], qlora["stage0"]["losses"],
+             "zero qlora stage 3")
+    out["qlora"] = qlora
+    del tree
+    done("qlora")
+    _keep_host_buffers(torch, False)
+    out["part_seconds"] = secs
+    return out
+
+
+def _qwz_gather_probe(torch, engine, log) -> dict:
+    """qwZ's quantized gather (``runtime/zero/qwz.quantized_gather``) on
+    the card at llama3-8b width: layer 0's slices of a stage-3 engine's
+    stacked shards, quantized in the stack's blocks as the gatherer
+    quantizes them over an fsdp axis of more than one rank, int8 codes
+    and f32 scales through NCCL.  Each gathered tensor must lie within one
+    int8 step of its largest block (max |x| / 127: half a step of rounding
+    and bf16's) of the bf16 slice, and the bytes gathered under 0.6 of the
+    bf16 gather of the same slices.  Fails out loud."""
+    from deepspeed_tpu_torch.comm import all_gather
+    from deepspeed_tpu_torch.runtime.zero.qwz import quantized_gather
+
+    g = engine._gatherer
+    js = [j for j, d in enumerate(g.dims) if g.layered[j] and d is not None]
+    parts = [g.shards[j][0] for j in js]
+    with torch.no_grad():
+        log.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fulls = quantized_gather(
+            parts, [g.dims[j] - 1 for j in js], "fsdp", g.qwz_bits,
+            g.qwz_block, topo=engine.topo,
+            sources=[(g.shards[j].reshape(-1), 0) for j in js])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        qbytes = log.stats["all_gather@fsdp"].total_bytes
+        log.reset()
+        all_gather(torch.cat([p.reshape(-1) for p in parts]), "fsdp",
+                   topo=engine.topo)
+        bbytes = log.stats["all_gather@fsdp"].total_bytes
+        log.reset()
+        err = max((f.float() - p.float()).abs().max().item()
+                  for f, p in zip(fulls, parts))
+        limit = max(p.float().abs().max().item() for p in parts) / 127
+        worst = max(((f.float() - p.float()).abs().max()
+                     / p.float().abs().max()).item() * 127
+                    for f, p in zip(fulls, parts))
+    if [tuple(f.shape) for f in fulls] != [tuple(p.shape) for p in parts] \
+            or worst > 1.0:
+        fail(f"zero qwZ gather: shapes {[tuple(f.shape) for f in fulls]}, "
+             f"a tensor's max |err| at {worst:.3f} int8 steps of its "
+             "largest block (limit 1)")
+    if not qbytes < 0.6 * bbytes:
+        fail(f"zero qwZ gather: {qbytes} bytes gathered against bf16's "
+             f"{bbytes} (limit 0.6)")
+    return {"tensors": len(parts), "bytes": qbytes, "bf16_bytes": bbytes,
+            "max_abs_err": err, "limit": limit, "ms": ms}
+
+
+def zero_phase_child(torch, baseline: str = "") -> dict:
     """The ZeRO phase's body (``--zero-phase``): see the module docstring,
-    item 18.  Fails out loud on any gate; returns the numbers."""
+    item 18.  ``baseline``: the offload phase's stage-0 numbers as a JSON
+    file (none: computed here first).  Fails out loud on any gate; returns
+    the numbers."""
     import torch.distributed as dist
 
     from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import cpu_adam
     from deepspeed_tpu_torch.ops.hopper import build
     from deepspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deepspeed_tpu_torch.ops.hopper import mixed_gemm as mg
 
     build.build()
+    cpu_adam.build()
     comm.init_distributed(verbose=False)  # NCCL, a world of one
     if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
         fail(f"zero: backend {dist.get_backend()}, world "
@@ -7608,14 +8113,16 @@ def zero_phase_child(torch) -> dict:
                "counts": counts, "bytes": nbytes,
                "launches_per_step": {k: v // n for k, v in launches.items()}}
         if stage >= 3:
-            g = engine._gatherer
+            # (no name for the gatherer: it holds the engine's shards and
+            # gradient buffers, which later parts' device peaks would count)
             shapes = dict(zip(engine._paths, engine._full_shapes))
             layer = sum(2 * math.prod(s[1:]) for p, s in shapes.items()
                         if p.startswith("layers/"))
             top = sum(2 * math.prod(s) for p, s in shapes.items()
                       if not p.startswith("layers/"))
             res.update(layer_gathered_bytes=layer, top_gathered_bytes=top,
-                       peak_live_gathered_bytes=g.peak_live_bytes,
+                       peak_live_gathered_bytes=(
+                           engine._gatherer.peak_live_bytes),
                        shard_report=engine.shard_report())
         out[f"stage{stage}"] = res
         del engine, placed
@@ -7640,7 +8147,7 @@ def zero_phase_child(torch) -> dict:
     out["seconds_stages"] = time.perf_counter() - t_phase
 
     # (b) at ZERO_EXTRA_LAYERS: qwZ at stage 3, qgZ and 1-bit at stage 2
-    def steps(stage, zero=None, extra=None, n=3):
+    def steps(stage, zero=None, extra=None, n=3, probe=None):
         gc.collect()
         torch.cuda.empty_cache()
         engine, cfg = _zero_engine(torch, ZERO_EXTRA_LAYERS, stage, zero=zero,
@@ -7649,17 +8156,23 @@ def zero_phase_child(torch) -> dict:
         log.reset()
         losses = [engine.train_batch(placed)["loss"] for _ in range(n)]
         stats = {k: (r.count, r.total_bytes) for k, r in log.stats.items()}
+        if probe is not None:
+            out["qwz_gather"] = probe(engine)
         del engine, placed
         return losses, stats
 
     t0 = time.perf_counter()
-    plain3, st3 = steps(3, n=1)
+    plain3, st3 = steps(3, n=1, probe=lambda e: _qwz_gather_probe(
+        torch, e, log))
     qwz, stq = steps(3, zero={"zero_quantized_weights": True}, n=1)
-    if abs(qwz[0] - plain3[0]) > 1e-2 * abs(plain3[0]):
-        fail(f"zero qwZ: first loss {qwz[0]} against {plain3[0]}")
-    if not stq["all_gather@fsdp"][1] < 0.6 * st3["all_gather@fsdp"][1]:
-        fail(f"zero qwZ: gathered {stq['all_gather@fsdp'][1]} bytes, the "
-             f"bf16 gathers {st3['all_gather@fsdp'][1]}")
+    # over an fsdp axis of one rank qwZ gathers the leaves unchanged, as
+    # the reference's qwz_gather_leaf (ROADMAP.md C11)
+    if qwz[0] != plain3[0]:
+        fail(f"zero qwZ: first loss {qwz[0]} against unquantized stage "
+             f"3's {plain3[0]}")
+    if stq["all_gather@fsdp"] != st3["all_gather@fsdp"]:
+        fail(f"zero qwZ: gathers {stq['all_gather@fsdp']} (count, bytes), "
+             f"unquantized stage 3's {st3['all_gather@fsdp']}")
     plain2, st2 = steps(2, n=3)
     qgz, stg = steps(2, n=3, zero={"zero_quantized_gradients": True})
     onebit, sto = steps(2, n=3, extra={"gradient_compression": {
@@ -7679,59 +8192,45 @@ def zero_phase_child(torch) -> dict:
             fail(f"zero {name}: {key} {st.get(key)} against plain stage "
                  f"2's {st2.get(key)}")
     out["extras"] = {"layers": ZERO_EXTRA_LAYERS, "stage3": plain3,
-                     "qwz": qwz, "qwz_gather_bytes": stq["all_gather@fsdp"][1],
+                     "qwz": qwz, "qwz_gather": out.pop("qwz_gather"),
                      "bf16_gather_bytes": st3["all_gather@fsdp"][1],
                      "stage2": plain2, "qgz": qgz, "onebit": onebit,
                      "qgz_collectives": stg, "onebit_collectives": sto}
 
-    # (c) a stage-3 checkpoint loaded into a stage-1 engine (SGD: one f32
-    # trace a parameter; the fast writer, no digests)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sgd = {"type": "sgd", "params": {"lr": 1e-3}}
-    fast = {"checkpoint": {"engine": "fast", "integrity": "none"}}
-    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", "ckpt_zero")
-    shutil.rmtree(ckpt, ignore_errors=True)
-    try:
-        a, cfg = _zero_engine(torch, ZERO_EXTRA_LAYERS, 3, optimizer=sgd,
-                              extra=fast)
-        batch = _zero_batch(cfg)
-        a.train_batch(batch)
-        t = time.perf_counter()
-        a.save_checkpoint(ckpt)
-        save_s = time.perf_counter() - t
-        ev_a = a.eval_batch(batch)["loss"]
-        del a
-        gc.collect()
-        torch.cuda.empty_cache()
-        b, _ = _zero_engine(torch, ZERO_EXTRA_LAYERS, 1, optimizer=sgd,
-                            extra=fast)
-        t = time.perf_counter()
-        # the eval needs the parameters alone: the SGD trace stays unread
-        b.load_checkpoint(ckpt, load_optimizer_states=False)
-        load_s = time.perf_counter() - t
-        ev_b = b.eval_batch(batch)["loss"]
-        del b
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    if abs(ev_b - ev_a) > 1e-6 * abs(ev_a):
-        fail(f"zero checkpoint: stage 1 eval loss {ev_b} after loading "
-             f"stage 3's {ev_a}")
-    out["checkpoint"] = {"eval_stage3": ev_a, "eval_stage1_loaded": ev_b,
-                         "save_s": save_s, "load_s": load_s}
     out["seconds_extras"] = time.perf_counter() - t0
+
+    # the offload part, against the offload phase's stage-0 engines
+    t0 = time.perf_counter()
+    if baseline:
+        with open(baseline) as f:
+            base = json.load(f)
+    else:
+        base = zero_baseline(torch, fa, card_line())
+    out["seconds_baseline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["offload"] = zero_offload_part(torch, fa, mg, log, base)
+    out["offload"]["baseline"] = base
+    out["seconds_offload"] = time.perf_counter() - t0
     out["launches_zero"] = dict(out["stage3"]["launches_per_step"])
+    out["launches_zero_offload"] = dict(
+        out["offload"]["stage3"]["launches"])
+    out["launches_zero_qlora"] = {
+        "mixed_gemm_int4": out["offload"]["qlora"]["stage3"]["b6_launches"]}
     dist.destroy_process_group()
     return out
 
 
-def run_zero_phase(torch, card: str) -> dict:
+def run_zero_phase(torch, card: str, offload: dict) -> dict:
     """:func:`zero_phase_child` in a process of its own (its process group
-    ends with it); a failure there fails the smoke."""
+    ends with it), held against the offload phase's stage-0 numbers; a
+    failure there fails the smoke."""
+    path = os.path.join(BUILD_DIR, "zero_baseline.json")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(offload_baseline(offload), f)
     res = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--zero-phase"],
-        capture_output=True, text=True, timeout=900)
+        [sys.executable, os.path.abspath(__file__), "--zero-phase",
+         "--baseline", path], capture_output=True, text=True, timeout=900)
     sys.stderr.write(res.stderr[-4000:])
     if res.returncode != 0:
         fail(f"the ZeRO phase's process exited {res.returncode}")
@@ -7746,14 +8245,39 @@ def zero_line(z: dict, card: str) -> str:
                      f"{r['tokens_per_s']:.2f} tokens/s, peak "
                      f"{r['peak_gb']:.2f} GB, NCCL {r['nccl_device_ms']:.3f} "
                      "device ms")
-    e = z["extras"]
+    e, o = z["extras"], z["offload"]
+    off = []
+    for name in ("stage1", "stage2", "stage3", "infinity", "zenflow",
+                 "zenflow3"):
+        r = o[name]
+        step = (f"hot {r['hot_step_ms']:.2f} / flush "
+                f"{r['flush_step_ms']:.2f} ms a step" if "zenflow" in name
+                else f"{r['step_ms_timed']:.2f} ms a step")
+        off.append(f"{name} {step}, peak {r['peak_mem_gb']:.2f} GB, host "
+                   f"{r['host_tensor_gb']:.2f} GB (page-locked "
+                   f"{r['host_pinned_gb']:.2f})")
+    inf, q = o["infinity"], o["qlora"]
     return (f"ZeRO ({card}; a world of one over NCCL; llama3-8b at "
             f"{z['layers']} layers, {z['steps']} steps a stage): "
             + "; ".join(parts) + f"; losses within {ZERO_LOSS_REL} of stage "
-            f"0's; at {e['layers']} layers qwZ gathers {e['qwz_gather_bytes']}"
-            f" bytes against {e['bf16_gather_bytes']} bf16, checkpoint "
-            f"stage 3 -> 1 eval loss {z['checkpoint']['eval_stage1_loaded']}"
-            f" = {z['checkpoint']['eval_stage3']}")
+            f"0's; at {e['layers']} layers qwZ's first loss {e['qwz'][0]} = "
+            f"unquantized {e['stage3'][0]}, its quantized gather of a layer "
+            f"{e['qwz_gather']['bytes']} bytes against bf16's "
+            f"{e['qwz_gather']['bf16_bytes']}, max |err| "
+            f"{e['qwz_gather']['max_abs_err']:.3g} (limit "
+            f"{e['qwz_gather']['limit']:.3g}) | offload at {o['layers']} "
+            "layers, losses within "
+            f"{ZERO_LOSS_REL} of the offload phase's stage 0: "
+            + "; ".join(off) + f"; infinity H2D of a layer "
+            f"{inf['h2d_layer_ms']:.3f} ms ({inf['h2d_gb_s']:.2f} GB/s), "
+            f"peak limit {inf['limit_gb']:.2f} GB; delayed (stage 1) "
+            f"{o['delayed']['step_ms_timed']:.2f} ms a step; QLoRA stage 3 "
+            f"{q['stage3']['step_ms_timed']:.2f} ms against stage 0's "
+            f"{q['stage0']['step_ms_timed']:.2f}; nvme (stage 3, "
+            f"{ZERO_NVME_LAYERS} layer) {o['nvme']['step_ms'][0]:.2f} ms; "
+            f"offloaded stage-3 checkpoint -> stage 1 eval loss "
+            f"{o['checkpoint']['eval_stage1_loaded']} = "
+            f"{o['checkpoint']['eval_stage3']}")
 
 
 def main() -> None:
@@ -7767,6 +8291,9 @@ def main() -> None:
                     help="run the ZeRO phase's body (an NCCL world of one) "
                     "and print its results as a JSON line (the main run "
                     "starts this process itself)")
+    ap.add_argument("--baseline", help="with --zero-phase: the offload "
+                    "phase's stage-0 numbers as a JSON file (none: the "
+                    "child computes them first)")
     ap.add_argument("--spec-rates", action="store_true",
                     help="print one process's warm decode tokens/s of the "
                     "plain, speculative and adapter engines as a JSON line "
@@ -7783,7 +8310,7 @@ def main() -> None:
         return
     if args.zero_phase:
         torch.backends.cuda.matmul.allow_tf32 = False
-        print(json.dumps(zero_phase_child(torch)))
+        print(json.dumps(zero_phase_child(torch, args.baseline or "")))
         return
     try:
         from deepspeed_tpu_torch.models import transformer as tfm
@@ -8075,12 +8602,16 @@ def main() -> None:
     clock("offload")
     gc.collect()
     torch.cuda.empty_cache()
-    zero = run_zero_phase(torch, card)
+    zero = run_zero_phase(torch, card, offload)
     print(f"zero ({card}): " + json.dumps(zero))
     print(zero_line(zero, card))
+    for name, secs in zero["offload"]["part_seconds"].items():
+        print(f"  zero offload part {name}: {secs:.1f} s")
     clock("zero")
     zero_launches = {k: v * ZERO_STEPS for k, v in
                      zero["launches_zero"].items()}
+    zero_off_launches = {**zero["launches_zero_offload"],
+                         **zero["launches_zero_qlora"]}
     offload_launches = offload["optimizer"]["launches"]
     launches.update({"grouped_matmul": moe["launches"]["grouped_matmul"],
                      "fused_adamw": adam_tree["launches"],
@@ -8193,6 +8724,9 @@ def main() -> None:
                    if k["name"] in offload_launches and not half else {}),
                 **({"launches_zero": zero_launches[k["name"]]}
                    if k["name"] in zero_launches and not half else {}),
+                **({"launches_zero_offload": zero_off_launches[k["name"]]}
+                   if k["name"] in zero_off_launches and not half
+                   and k.get("M", B6_TRAIN_M) == B6_TRAIN_M else {}),
                 "max_abs_err": k["max_abs_err"],
                 "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -443,7 +443,8 @@ def export_merged_weights(engine, save_dir: str, tag: str = "merged",
     from ...linear.optimized_linear import (graft_adapter_pack, has_lora,
                                             merge_lora_weights)
 
-    params = getattr(engine, "params", None)
+    params = engine.whole_params() if hasattr(engine, "whole_params") \
+        else getattr(engine, "params", None)
     if params is None:
         raise ValueError("export_merged_weights: engine has neither "
                          "state.params nor params")
@@ -456,16 +457,24 @@ def export_merged_weights(engine, save_dir: str, tag: str = "merged",
     elif not has_lora(params):
         raise ValueError(
             "export_merged_weights: engine has no LoRA adapters")
-    with torch.no_grad():
-        merged = merge_lora_weights(params)
+    from ... import comm
+
     out_dir = os.path.join(save_dir, tag)
-    with _SAVE_LOCK:
-        os.makedirs(out_dir, exist_ok=True)
-        _save_tree(merged, os.path.join(out_dir, "model.safetensors"))
-        with open(os.path.join(out_dir, "engine_state.json"), "w") as f:
-            json.dump({"merged_lora": True, "merged_adapter_id": adapter_id,
-                       "framework_version": _version()}, f, indent=2)
-    logger.info(f"exported merged LoRA weights -> {out_dir}")
+    # the whole tensors are every rank's (stage 3 gathered them); rank 0
+    # merges and writes, and every rank waits for the files
+    if comm.get_rank() == 0:
+        with torch.no_grad():
+            merged = merge_lora_weights(params)
+        with _SAVE_LOCK:
+            os.makedirs(out_dir, exist_ok=True)
+            _save_tree(merged, os.path.join(out_dir, "model.safetensors"))
+            with open(os.path.join(out_dir, "engine_state.json"), "w") as f:
+                json.dump({"merged_lora": True,
+                           "merged_adapter_id": adapter_id,
+                           "framework_version": _version()}, f, indent=2)
+        logger.info(f"exported merged LoRA weights -> {out_dir}")
+    if comm.get_world_size() > 1:
+        comm.barrier("dstpu_export_merged")
     return out_dir
 
 
@@ -803,7 +812,7 @@ def _load_native(engine, ckpt_dir: str, load_optimizer_states: bool
     if getattr(engine, "offloaded_optimizer", None) is not None:
         # the f32 master from the loaded parameters: a stale master would
         # overwrite them at the next step
-        engine.offloaded_optimizer.reset_master(engine._leaves)
+        engine.offloaded_optimizer.reset_master(engine._parts)
         if engine.zenflow_optimizer is not None:
             # stale hot columns and cold sums must not land on the restore
             engine.zenflow_optimizer.reset_after_load()

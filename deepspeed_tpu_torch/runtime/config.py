@@ -507,7 +507,8 @@ class DeepSpeedTPUConfig(DSConfigModel):
     def _check_zero(self) -> None:
         """The reference engine's rejections of the wire-compression and
         qwZ combinations (``deepspeed_tpu/runtime/engine.py:302-353``),
-        word for word, then the refusal of offload at stages 1-3."""
+        word for word.  Offload, ZenFlow and PEFT run at every stage (their
+        own rejections are :meth:`_check_offload` and :meth:`check_peft`)."""
         zero = self.zero_optimization
         stage = zero.stage
         offload = self.optimizer_offloaded or self.param_offloaded
@@ -549,17 +550,6 @@ class DeepSpeedTPUConfig(DSConfigModel):
                 raise ConfigError(
                     "gradient_compression requires stage <= 2 (params must be "
                     "replicated across the dp axes for the manual reduction)")
-        if stage >= 1 and (offload or self.zenflow.enabled):
-            raise NotImplementedError(
-                f"zero_optimization.stage={stage} with offload_optimizer / "
-                "offload_param / zenflow: offload at stages 1-3 arrives with "
-                "a later part of ROADMAP.md A13 (multi-GPU); offload runs at "
-                "stage 0")
-        if stage >= 3 and self.peft.lora.enabled:
-            raise NotImplementedError(
-                "peft.lora at zero_optimization.stage=3 (the frozen base "
-                "sharded and gathered per layer) arrives with a later part "
-                "of ROADMAP.md A13 (multi-GPU); PEFT runs at stages 0-2")
 
     @property
     def optimizer_offloaded(self) -> bool:

@@ -70,7 +70,27 @@ traffic.  The metrics, the gradient norm's sum of squares and the fp16
 overflow count ride one all-reduce, so every rank skips together.
 Collectives are the same calls at a world of one as at a world of N:
 where the stage's axes hold one rank, the shard dims are those a two-way
-axis would give (``_layout_topology``; ROADMAP.md C11).
+axis would give (``_layout_topology``; ROADMAP.md C11); qwZ reads the real
+fsdp axis, so a world of one gathers unquantized leaves, as the
+reference's ``qwz_gather_leaf`` does.  At stage 3, and in any offloaded
+step, the reference evaluates the loss on the global batch: each rank
+weighs its loss by its share of the world's tokens (one all-reduce of each
+micro-batch's count, ``_global_weight``), so the averaged gradients and
+metrics are the global token mean's (ROADMAP.md C10).  PEFT's LoRA nodes
+run at every stage: at stage 3 the frozen bases are gathered per layer
+beside the factors, outside autograd.
+
+Offload on a data-parallel world (ROADMAP.md A13 part 2; the reference's
+``engine.py:254-298``, ``:1155-1262``): the step above through the
+bucketed reduction, then each rank's gradient partition to its host, the
+host update of that partition (``_offloaded_update``) and the updated
+partition back — all-gathered by bucket at stages 1-2, the resident shard
+itself at stage 3.  A rank's host holds its partition alone (``_parts``:
+the optimizer shard at stages 1-2, the parameter shard at stage 3).  With
+``offload_param`` at stage 3 (ZeRO-Infinity) the streamed leaves' shards
+live in page-locked host memory, stream to the card inside the stage-3
+gathers, and their gradients land in the host buffers.  ``delayed_update``
+and ZenFlow run over the partitions as they do at stage 0.
 """
 
 from __future__ import annotations
@@ -207,12 +227,6 @@ class TrainingEngine:
         self.peft_enabled = has_lora(params)
         if self.peft_enabled:
             config.check_peft()
-            if stage >= 3:
-                raise NotImplementedError(
-                    "LoRA nodes at zero_optimization.stage=3 (the frozen "
-                    "base sharded and gathered per layer) arrive with a "
-                    "later part of ROADMAP.md A13 (multi-GPU); PEFT runs at "
-                    "stages 0-2")
         self._trainable_mask = trainable_mask(params) if self.peft_enabled \
             else None
         flat_in = leaves(params)
@@ -226,6 +240,12 @@ class TrainingEngine:
         self.offloaded_optimizer = None
         self.zenflow_optimizer = None
         self._streamer = None
+        self._sink = None  # stage 3's streamed gradients to the host
+        # stage 3, offloaded: the gradients go to the host buffers in the
+        # backward — except under ZenFlow, whose hot update, selection and
+        # cold sums run on the card (so its gradients stay there)
+        self._host_grads = (stage >= 3 and self.offload_enabled
+                            and not config.zenflow.enabled)
         self._delayed_update = False
         self._pending = False  # a delayed update's gradients are staged
         self._pending_lr: Optional[float] = None
@@ -246,10 +266,12 @@ class TrainingEngine:
                 f"of {W} runs under torch.distributed: call "
                 "deepspeed_tpu_torch.comm.init_distributed() first "
                 "(deepspeed_tpu_torch.initialize does)")
-        if self._dp and self.offload_enabled:
+        if self._dp and self.param_offload_enabled and stage < 3:
             raise NotImplementedError(
-                "offload on a data-parallel world arrives with a later part "
-                "of ROADMAP.md A13 (multi-GPU); offload runs on one device")
+                f"offload_param at zero_optimization.stage={stage} on a "
+                "data-parallel world (whole layers in every rank's host "
+                "memory) arrives with a later part of ROADMAP.md A13 "
+                "(multi-GPU); ZeRO-Infinity streams stage 3's shards")
         if self._dp and W > 1 and config.optimizer.type.lower().replace(
                 "_", "") in _WHOLE_LEAF_OPTIMIZERS:
             raise NotImplementedError(
@@ -278,6 +300,11 @@ class TrainingEngine:
                                                      self.opt_rules, topo)
         self._full_shapes = [tuple(p.shape) for p in flat_in]
         self._init_layouts(params, axes, flat_in, trainable)
+        #: the all-leaf index of each trainable leaf
+        self._train_idx = [j for j, t in enumerate(trainable) if t]
+        # C10: the losses the reference evaluates on the global batch
+        self._global_loss = self._dp and W > 1 and (
+            stage >= 3 or self.offload_enabled)
 
         # the engine owns its parameters: fresh copies on its device (the
         # streamed layer leaves in host memory, in their own dtype; at
@@ -287,10 +314,10 @@ class TrainingEngine:
         s3 = stage >= 3
 
         def own_copy(j, p, s, t):
-            if s:
-                return self._host.copy_of(p)
             if s3 and self._p_dims[j] is not None:
                 p = self._local(p, self._p_dims[j], self._p_n)
+            if s:
+                return self._host.copy_of(p)
             return p.detach().to(self.device, copy=True).contiguous() \
                 .requires_grad_(t and not s3)
 
@@ -323,11 +350,11 @@ class TrainingEngine:
         self.optimizer = create_optimizer(
             config.optimizer, self.lr_schedule, wd_mask,
             wire_compression=self.onebit_enabled)
+        if self._dp:
+            self._init_data_parallel(init_optimizer=not self.offload_enabled)
         if self.offload_enabled:
             self._init_offload(wd_mask)
-        elif self._dp:
-            self._init_data_parallel()
-        else:
+        elif not self._dp:
             self.optimizer.init(self._leaves)
         self.step_count = 0
         self.global_steps = 0
@@ -450,10 +477,11 @@ class TrainingEngine:
         size = x.shape[d] // n
         return x.narrow(d, k * size, size)
 
-    def _init_data_parallel(self) -> None:
-        """The optimizer over this rank's shards, the gradient bucket plans
-        (reference engine.py:355-401), the parameter gather plan
-        (:403-430), the stage-3 gatherer and the 1-bit residuals."""
+    def _init_data_parallel(self, init_optimizer: bool = True) -> None:
+        """The optimizer over this rank's shards (unless the host's holds
+        them), the gradient bucket plans (reference engine.py:355-401),
+        the parameter gather plan (:403-430), the stage-3 gatherer and the
+        1-bit residuals."""
         from .coalesce import (plan_buckets, resolve_allgather_numel,
                                resolve_bucket_numel)
 
@@ -471,12 +499,15 @@ class TrainingEngine:
             # the f32 gradient buffers lie in the buckets of two plans,
             # each bucket one contiguous tensor reduced in place after the
             # backward: the shards' over dp (they were reduce-scattered
-            # over fsdp in backward), the replicated leaves' over the world
+            # over fsdp in backward), the replicated leaves' over the
+            # world; offloaded (ZenFlow aside), the buffers are the host's
+            # (``_init_offload``)
             bufs: List[Optional[torch.Tensor]] = [None] * len(self._leaves)
+            tdims = self._tp_dims
             self._s3_buckets = []
             for axes, whole in (("dp", False), (DP_AXES, True)):
-                idx = [j for j, d in enumerate(self._p_dims)
-                       if (d is None) == whole]
+                idx = [j for j, d in enumerate(tdims)
+                       if (d is None) == whole and not self._host_grads]
                 plan = plan_buckets([torch.empty(self._leaves[j].shape,
                                                  device=meta) for j in idx],
                                     cap)
@@ -489,11 +520,21 @@ class TrainingEngine:
                             slot.offset:slot.offset + slot.size].view(
                                 slot.shape)
             self._grad_bufs = bufs
+            # over every leaf: a frozen one (None) is gathered, not trained
+            grads: List[Optional[torch.Tensor]] = [None] * len(
+                self._all_leaves)
+            for j, b in zip(self._train_idx, bufs):
+                grads[j] = b
+            # qwZ reads the real fsdp axis: over one rank the reference
+            # gathers the leaves unchanged (ROADMAP.md C11)
             self._gatherer = ShardGatherer(
-                self._leaves, self._p_dims, self._full_shapes, bufs,
-                [p.startswith("layers/") for p in self._paths], self._p_n,
-                "fsdp", self.topo, qwz=self.qwz)
-            self.optimizer.init(self._leaves)
+                self._all_leaves, self._p_dims, self._full_shapes, grads,
+                [p.startswith("layers/") for p in self._all_paths],
+                self._p_n, "fsdp", self.topo,
+                qwz=self.qwz and self.topo.size("fsdp") > 1,
+                device=self.device)
+            if init_optimizer:
+                self.optimizer.init(self._leaves)
             return
         grad_shapes = [torch.empty(p.shape, device=meta)
                        for p in self._leaves]
@@ -510,9 +551,9 @@ class TrainingEngine:
         # the optimizer updates this rank's slice of each sharded leaf (a
         # view of the replicated parameter); the gather plan puts the
         # updated slices back together
-        self._opt_params = [self._local(p, d, self._o_n, axes=DP_AXES)
-                            for p, d in zip(self._leaves, self._o_dims)]
-        self.optimizer.init(self._opt_params)
+        self._bind_opt_params()
+        if init_optimizer:
+            self.optimizer.init(self._opt_params)
         gather_numel = resolve_allgather_numel(zero)
         if self.zero_stage in (1, 2):
             gp = plan_buckets(
@@ -528,6 +569,43 @@ class TrainingEngine:
                     f"cap={gather_numel} elements")
         if self.onebit_enabled:
             self._init_onebit()
+
+    def _bind_opt_params(self) -> None:
+        """Stages 0-2 on a data-parallel world: this rank's slice of each
+        trainable leaf, a view (bound again when the leaves move)."""
+        self._opt_params = [self._local(p, d, self._o_n, axes=DP_AXES)
+                            for p, d in zip(self._leaves, self._o_dims)]
+
+    @property
+    def _tp_dims(self) -> List[Optional[int]]:
+        """Stage 3: the shard dim of each trainable leaf."""
+        return [self._p_dims[j] for j in self._train_idx]
+
+    @property
+    def _parts(self) -> List[torch.Tensor]:
+        """This rank's partition of each trainable leaf — what its
+        optimizer (on the card or the host) updates: a slice of the leaf
+        at stages 0-2 on a data-parallel world, the shard at stage 3, the
+        leaf alone."""
+        if self._dp and self.zero_stage < 3:
+            return self._opt_params
+        return self._leaves
+
+    def _part_weights(self) -> List[float]:
+        """Each partition's weight in the world's sum of squares: 1 over
+        the ranks that hold the same values."""
+        W = self.topo.dp_world_size
+        return [(n if d is not None else 1) / W for d, n, _ in
+                map(self._state_layout, range(len(self._leaves)))]
+
+    def _part_norm(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of per-partition tensors (aligned with
+        :attr:`_parts`, on the card or the host): one all-reduce of the
+        weighted sum of squares."""
+        sq = torch.zeros(1, dtype=torch.float32, device=self.device)
+        for t, w in zip(tensors, self._part_weights()):
+            sq += (t.float().square().sum() * w).to(self.device)
+        return torch.sqrt(comm.all_reduce(sq, DP_AXES, topo=self.topo)[0])
 
     # ---- 1-bit wire compression (reference engine.py:689-751) -----------
     _ONEBIT_MIN_NUMEL = 2048  # buckets below this all-reduce exactly
@@ -561,8 +639,10 @@ class TrainingEngine:
                              for b in self._wire_plan.buckets]
 
     def _init_offload(self, wd_mask) -> None:
-        """The host optimizer (an NVMe tier behind it), the layer streamer
-        and ZenFlow, as the reference engine builds them."""
+        """The host optimizer (an NVMe tier behind it) over this rank's
+        partitions, the layer streamer (stage 3: the gradient sink of the
+        streamed shards) and ZenFlow, as the reference engine builds
+        them."""
         from .zero.offload import OffloadedOptimizer
         from .zero.param_offload import LayerStreamer
 
@@ -572,12 +652,34 @@ class TrainingEngine:
             else OffloadOptimizerConfig(device="cpu")
         clip = config.gradient_clipping if config.gradient_clipping and \
             config.gradient_clipping > 0 else 0.0
+        W = self.topo.dp_world_size
         opt = self.offloaded_optimizer = OffloadedOptimizer(
-            self.optimizer, self._leaves, off, aio=config.aio,
+            self.optimizer, self._parts, off, aio=config.aio,
             param_cfg=zero.offload_param, paths=self._paths, clip=clip,
-            device=self.device, arena=self._host)
+            device=self.device, arena=self._host,
+            rank=comm.get_rank() if self._dp and W > 1 else None,
+            norm_fn=self._part_norm if self._dp else None)
         self._delayed_update = bool(off.delayed_update)
-        if self._streamed:
+        self._sink = None
+        if self._dp and self._host_grads:
+            # every gradient lands in its host buffer in the backward (a
+            # delayed update's beside the ones being applied); the
+            # all-leaf indices are the trainable ones (PEFT + offload is
+            # refused)
+            sink = self._sink = LayerStreamer({}, self.device, self._host)
+            dp = self.topo.size("dp")
+            host = {}
+            for j, g in enumerate(opt.grads):
+                sink.grads[j] = g if not off.delayed_update \
+                    else self._host.empty(g.shape, torch.float32)
+                self._gatherer.grads[j] = sink.grads[j]
+                sharded = self._p_dims[j] is not None
+                axes = ("dp" if dp > 1 else None) if sharded else (
+                    DP_AXES if W > 1 else None)
+                host[j] = (axes, 1.0 / (dp if sharded else W))
+            self._gatherer.to_host(sink, host, W)
+            self._gatherer.streamed = set(self._streamed)
+        elif self._streamed:
             st = self._streamer = LayerStreamer(
                 {j: self._leaves[j] for j in self._streamed}, self.device,
                 self._host)
@@ -594,7 +696,10 @@ class TrainingEngine:
             self.zenflow_optimizer = ZenFlowOptimizer(
                 create_optimizer(config.optimizer, self.lr_schedule,
                                  wd_mask), config.zenflow, host_opt=opt,
-                clip=clip)
+                clip=clip, layout=[self._state_layout(j) for j in range(
+                    len(self._leaves))] if self._dp else None,
+                topo=self.topo, norm_fn=self._part_norm if self._dp
+                else None)
             if self._delayed_update:
                 logger.warning(
                     "zenflow already removes the per-step offload stall; "
@@ -657,10 +762,10 @@ class TrainingEngine:
         if not isinstance(batch, PlacedBatch):
             batch = self.place_batch(batch)
         placed = batch.placed
-        if self.offload_enabled:
-            return self._finish(self._train_batch_offloaded(placed))
         if self._dp:
             return self._finish(self._train_batch_dp(placed))
+        if self.offload_enabled:
+            return self._finish(self._train_batch_offloaded(placed))
         rng = self._step_rng()
         fp16 = self.fp16_enabled
         ls = self.loss_scale
@@ -691,7 +796,8 @@ class TrainingEngine:
         msum: Dict[str, torch.Tensor] = {}
         for i in range(gas):
             mb = {k: v[i] for k, v in placed.items()}
-            loss, metrics = self.model.loss_fn(self.params, mb, rng)
+            loss, metrics = self._global_weight(
+                *self.model.loss_fn(self.params, mb, rng))
             if fp16:
                 loss = scale_loss(loss, ls)
             g = torch.autograd.grad(loss, self._leaves, allow_unused=True)
@@ -704,6 +810,25 @@ class TrainingEngine:
                     a.add_(b)
             self._sum_metrics(msum, metrics)
         return grads, msum
+
+    def _global_weight(self, loss: torch.Tensor, metrics):
+        """ROADMAP.md C10: where the reference evaluates the loss on the
+        global batch (stage 3, any offloaded step), this rank's micro-batch
+        loss and accuracy weighed by ``local tokens · W / world tokens``
+        (one all-reduce of the count), and ``tokens`` the world's: the
+        ranks' average is then the global token mean.  Elsewhere, or
+        without a ``tokens`` metric, as they are."""
+        if not self._global_loss or "tokens" not in metrics:
+            return loss, metrics
+        local = torch.as_tensor(metrics["tokens"], device=self.device
+                                ).detach().float().reshape(1)
+        total = comm.all_reduce(local.clone(), DP_AXES, topo=self.topo)[0]
+        w = local[0] * self.topo.dp_world_size / total
+        metrics = dict(metrics, tokens=total)
+        for k in ("loss", "accuracy"):
+            if k in metrics:
+                metrics[k] = metrics[k] * w
+        return loss * w, metrics
 
     def _sum_metrics(self, msum: Dict[str, torch.Tensor], metrics) -> None:
         for k, m in metrics.items():
@@ -764,6 +889,7 @@ class TrainingEngine:
         fp16 = self.fp16_enabled
         ls = self.loss_scale
         W = self.topo.dp_world_size
+        lr0 = self.get_lr()  # an offloaded update's, before the count moves
         if self.zero_stage >= 3:
             msum: Dict[str, torch.Tensor] = {}
             g3 = self._gatherer
@@ -771,13 +897,16 @@ class TrainingEngine:
                 flat.zero_()
             with g3:
                 for i in range(gas):
+                    g3.begin(i)
                     mb = {k: v[i] for k, v in placed.items()}
-                    loss, metrics = self.model.loss_fn(
-                        g3.gather_tree(self.params), mb, rng)
+                    loss, metrics = self._global_weight(*self.model.loss_fn(
+                        g3.gather_tree(self.params), mb, rng))
                     if fp16:
                         loss = scale_loss(loss, ls)
                     torch.autograd.grad(loss, [g3.anchor], allow_unused=True)
                     del loss
+                    if self._sink is not None:
+                        self._sink.accumulate()
                     self._sum_metrics(msum, metrics)
             params = self._leaves
         else:
@@ -785,7 +914,7 @@ class TrainingEngine:
             params = self._opt_params
         with torch.no_grad():
             if self.zero_stage >= 3:
-                local, sq = self._reduce_stage3()
+                local, sq = self._reduce_stage3(gas)
             else:
                 local, sq = self._reduce_buckets(grads)
                 del grads
@@ -800,6 +929,8 @@ class TrainingEngine:
                 for g in local:
                     g.div_(float(gas))
             grad_norm = torch.sqrt(tot[0]) / gas
+            if self.offload_enabled:
+                return self._offloaded_update(lr0, local, metrics, grad_norm)
             finite = None
             if fp16:
                 local = unscale_grads(local, ls)
@@ -874,20 +1005,34 @@ class TrainingEngine:
             flat, w, s, DP_AXES, W, self._ONEBIT_BLOCK, topo=self.topo)
         return r
 
-    def _reduce_stage3(self):
+    def _reduce_stage3(self, gas: int):
         """Stage 3, after the backward: each gradient bucket all-reduced in
         place — the shards' (already reduce-scattered over fsdp) over dp,
         the replicated leaves' over the whole world → (the gradient
-        buffers, the weighted sum of squares)."""
+        buffers, the weighted sum of squares).  Offloaded, the buffers are
+        the host's, already reduced (``ShardGatherer.to_host``)."""
         W = float(self.topo.dp_world_size)
         for axes, flat in self._s3_buckets:
             comm.all_reduce(flat.div_(W), axes, topo=self.topo)
         dp = float(self.topo.size("dp"))
-        sq = torch.stack([g.square().sum() / (dp if d is not None else W)
-                          for g, d in zip(self._grad_bufs, self._p_dims)]
-                         ).sum()
-        return self._grad_bufs, sq
+        bufs = list(self._grad_bufs)
+        sqs = [g.square().sum() / (dp if d is not None else W)
+               for g, d in zip(bufs, self._tp_dims) if g is not None]
+        sink = self._sink
+        if sink is not None:
+            weights = self._gatherer._host
+            for j, g in sink.grads.items():
+                bufs[j] = g
+            if gas == 1:  # summed on the card as they were copied
+                sqs.append(self._gatherer.host_sq)
+            else:  # the host holds the sums (accumulate waited for them)
+                sqs.append(torch.tensor(float(sum(
+                    torch.linalg.vector_norm(g).double() ** 2
+                    * weights[j][1] for j, g in sink.grads.items())),
+                    dtype=torch.float32, device=self.device))
+        return bufs, torch.stack(sqs).sum()
 
+    @torch.no_grad()
     def _gather_params(self) -> None:
         """Stages 1-2: the updated shards all-gathered by bucket into the
         replicated parameters (reference ``_coalesced_gather_fn``)."""
@@ -994,35 +1139,54 @@ class TrainingEngine:
 
     def _stage(self, grads, grad_norm) -> None:
         """Queue the gradients' copies into the host optimizer's buffers
-        (a delayed update's streamed buffers trade places first)."""
+        (a delayed update's streamed buffers trade places first; a
+        gradient already in its host buffer is not copied)."""
         opt = self.offloaded_optimizer
-        st = self._streamer
+        st = self._streamer or self._sink
         if st is not None and self._delayed_update:
-            for j in self._streamed:
+            for j in st.grads:
                 opt.grads[j], st.grads[j] = st.grads[j], opt.grads[j]
-        opt.stage_grads(grads, grad_norm)
+        opt.stage_grads([None if g is b else g
+                         for g, b in zip(grads, opt.grads)], grad_norm)
+
+    def _after_update(self) -> None:
+        """Stages 1-2: the updated partitions all-gathered by bucket."""
+        if self._dp and self._gather_plan is not None:
+            self._gather_params()
 
     def _train_batch_offloaded(self, placed) -> Dict[str, torch.Tensor]:
         """Reference ``_train_batch_offloaded``."""
         lr = self.get_lr()  # before the count moves: the lr of this update
         grads, metrics, grad_norm = self._grad_step(placed)
+        return self._offloaded_update(lr, grads, metrics, grad_norm)
+
+    def _offloaded_update(self, lr, grads, metrics, grad_norm
+                          ) -> Dict[str, torch.Tensor]:
+        """The host half of an offloaded step over this rank's partitions
+        (``grads``, their f32 gradients; None or the host buffer itself
+        where a gradient is there already), the updated partitions back
+        (and all-gathered at stages 1-2)."""
         opt = self.offloaded_optimizer
+        parts = self._parts
         # the device work is queued, not done: NVMe reads overlap it
         opt.prefetch()
         applied_lr = None
         if self.zenflow_optimizer is not None:
-            self.zenflow_optimizer.step(self._leaves, grads)
+            self.zenflow_optimizer.step(parts, grads)
+            self._after_update()
         elif self._delayed_update:
             # the host applies step N-1 while the card runs step N; the
             # parameters go back behind step N's work on the compute stream
             if self._pending:
                 applied_lr = self._pending_lr
-                opt.step(out=self._leaves)
+                opt.step(out=parts)
+                self._after_update()
             self._stage(grads, grad_norm)
             self._pending, self._pending_lr = True, lr
         else:
             self._stage(grads, grad_norm)
-            opt.step(out=self._leaves)
+            opt.step(out=parts)
+            self._after_update()
         del grads
         self.step_count += 1
         dev = self.device
@@ -1041,7 +1205,8 @@ class TrainingEngine:
         gradients are dropped."""
         if not self._pending:
             return
-        self.offloaded_optimizer.step(out=self._leaves)
+        self.offloaded_optimizer.step(out=self._parts)
+        self._after_update()
         self._pending, self._pending_lr = False, None
 
     def _run_sanity_checks(self, out: LazyMetrics) -> None:
@@ -1126,17 +1291,24 @@ class TrainingEngine:
         return None, 1, None
 
     def _state_layout(self, j: int):
+        """(dim, shards, axes) of trainable leaf ``j``'s partition."""
         if not self._dp:
             return None, 1, None
         if self.zero_stage >= 3:
-            return self._p_dims[j], self._p_n, ("fsdp",)
+            return self._p_dims[self._train_idx[j]], self._p_n, ("fsdp",)
         return self._o_dims[j], self._o_n, DP_AXES
 
     def _whole(self, t: torch.Tensor, layout) -> torch.Tensor:
+        """``t`` gathered whole (a collective on the card's tensors: a host
+        partition goes through the card, and the result back to the
+        host)."""
         d, _, axes = layout
         if d is None:
             return t
-        return comm.all_gather(t.contiguous(), axes, axis=d, topo=self.topo)
+        host = t.device != self.device
+        w = comm.all_gather(t.to(self.device).contiguous(), axes, axis=d,
+                            topo=self.topo)
+        return w.cpu() if host else w
 
     def _state_key_leaf(self) -> Dict[str, int]:
         """{optimizer state path: trainable leaf index}."""
@@ -1152,7 +1324,9 @@ class TrainingEngine:
         stage 3 each leaf's shards all-gathered in turn into host memory
         (a collective: every rank calls it)."""
         if self.peft_enabled:
-            return dict(zip(self._paths, self._leaves))
+            return {path: self._whole(t, self._param_layout(j))
+                    for path, t, j in zip(self._paths, self._leaves,
+                                          self._train_idx)}
         if not (self._dp and self.zero_stage >= 3):
             from .checkpoint.engine import flatten_with_paths
 
@@ -1160,6 +1334,15 @@ class TrainingEngine:
         return {path: self._whole(t, self._param_layout(j)).cpu()
                 for j, (path, t) in enumerate(zip(self._all_paths,
                                                   self._all_leaves))}
+
+    def whole_params(self) -> Any:
+        """The parameter tree with whole tensors (at stage 3 each shard
+        all-gathered in turn: a collective); the tree itself elsewhere."""
+        if not (self._dp and self.zero_stage >= 3):
+            return self.params
+        whole = iter([self._whole(t, self._param_layout(j))
+                      for j, t in enumerate(self._all_leaves)])
+        return tree_map(lambda _: next(whole), self.params)
 
     def optimizer_state_flat(self) -> Dict[str, torch.Tensor]:
         """The optimizer state under the reference's paths (the engine's
@@ -1296,7 +1479,8 @@ class TrainingEngine:
         self.flush_delayed_update()
         if self.zenflow_optimizer is not None:
             # mid-interval cold gradients must not be dropped by the save
-            self.zenflow_optimizer.flush(self._leaves)
+            self.zenflow_optimizer.flush(self._parts)
+            self._after_update()
         from .checkpoint.engine import save_checkpoint as _save
 
         return _save(self, save_dir, tag=tag, client_state=client_state or {})
@@ -1368,6 +1552,9 @@ class TrainingEngine:
                 for p in self._all_leaves:
                     if p.device != torch.device("cpu"):
                         p.data = to_host(p)
+            if self._dp and self.zero_stage < 3:
+                # the slices' views would keep the card's copies alive
+                self._opt_params = None
             done["lp_params"] = True
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
@@ -1396,6 +1583,8 @@ class TrainingEngine:
                     if j not in streamed:
                         p.data = p.data.to(self.device,
                                            non_blocking=non_blocking)
+            if self._dp and self.zero_stage < 3:
+                self._bind_opt_params()  # the slices of the moved leaves
             del done["lp_params"]
 
     @property

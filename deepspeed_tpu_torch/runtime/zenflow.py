@@ -23,15 +23,27 @@ through the offloaded host optimizer once every ``update_interval`` steps
   boundary: the columns are picked again from the current gradients and
   the compact state starts fresh.
 
-The selection uses ``torch.topk``, whose order among equal energies is not
-``jax.lax.top_k``'s (lower index first); gradients without ties select the
-same columns.  The variable-batch ``lr_scale`` is refused with the data
-pipeline (ROADMAP.md A14), so the port's hot and cold steps take none.
+The selection is ``jax.lax.top_k``'s: the columns by energy, descending,
+the lower index first among equal energies (a stable sort; ``torch.topk``
+promises no order among ties).  The variable-batch ``lr_scale`` is refused
+with the data pipeline (ROADMAP.md A14), so the port's hot and cold steps
+take none.
+
+On a data-parallel world (ZeRO stages 1-3, ``runtime/engine.py``) the
+parameters and gradients are this rank's partitions (``layout[i]`` = (the
+split dim or None, the parts, the mesh axes)) and the hot columns are
+still the whole leaf's: where a partition splits the rows, the per-column
+sums of squares are all-reduced; where it splits the columns, the column
+energies are all-gathered, before the top-k.  Each rank then updates the
+hot columns it holds on the card and flushes its cold partition through
+its host optimizer; ``norm_fn`` is the global norm over every rank's
+partition (both clips read it), and :attr:`hot_columns` the whole leaf's
+selection (equal on every rank).
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,10 +55,6 @@ def _is_matrix(t: torch.Tensor) -> bool:
     return t.ndim >= 2
 
 
-def _k_for(t: torch.Tensor, ratio: float) -> int:
-    return max(1, int(t.shape[-1] * ratio))
-
-
 class ZenFlowOptimizer:
     """Selective device update plus an interval-flushed offloaded cold
     update.  ``step(params, grads)`` updates ``params`` (the engine's
@@ -54,13 +62,23 @@ class ZenFlowOptimizer:
     second instance of the engine's optimizer (``create_optimizer`` with
     the same settings) for the compact columns;
     ``host_opt`` the :class:`~.zero.offload.OffloadedOptimizer` that owns
-    the full master and state."""
+    the full master and state; ``layout`` / ``topo`` / ``norm_fn``
+    describe a data-parallel world's partitions (module docstring)."""
 
     def __init__(self, optimizer: Optimizer, cfg: ZenFlowConfig, host_opt,
-                 clip: float = 0.0):
+                 clip: float = 0.0,
+                 layout: Optional[Sequence[Tuple[Optional[int], int, Any]]]
+                 = None, topo: Any = None,
+                 norm_fn: Optional[Callable[[List[torch.Tensor]],
+                                            torch.Tensor]] = None):
         self.optimizer = optimizer
         self.cfg = cfg
         self.clip = float(clip or 0.0)
+        self.layout = layout
+        self.topo = topo
+        self.norm_fn = norm_fn or global_norm
+        #: each leaf's hot columns of the whole leaf, in top-k order
+        self.hot_columns: Optional[List[torch.Tensor]] = None
         self.update_interval = (4 if cfg.update_interval in (None, "auto")
                                 else int(cfg.update_interval))
         sel = cfg.select_interval
@@ -76,16 +94,41 @@ class ZenFlowOptimizer:
 
     # -- selection --------------------------------------------------------
 
+    def _energy(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's column energies from this rank's partition."""
+        from .. import comm
+
+        e = g.float().square().sum(tuple(range(g.ndim - 1)))
+        d, n, axes = self.layout[i] if self.layout else (None, 1, None)
+        if d is None or n == 1:
+            return e
+        if d == g.ndim - 1:  # the columns split: each rank's in order
+            return comm.all_gather(e.contiguous(), axes, topo=self.topo)
+        return comm.all_reduce(e, axes, topo=self.topo)
+
     def _select(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        out = []
-        for g in grads:
+        """This rank's hot columns of each partition (local indices);
+        :attr:`hot_columns` gets the whole leaves' selections."""
+        from .. import comm
+
+        out, whole = [], []
+        for i, g in enumerate(grads):
             if not _is_matrix(g):  # marker: the whole leaf is hot
                 out.append(torch.zeros((0,), dtype=torch.long,
                                        device=g.device))
+                whole.append(out[-1])
                 continue
-            energy = g.float().square().sum(tuple(range(g.ndim - 1)))
-            out.append(torch.topk(energy, _k_for(g, self.cfg.topk_ratio))
-                       .indices)
+            energy = self._energy(i, g)
+            k = max(1, int(energy.shape[0] * self.cfg.topk_ratio))
+            top = torch.sort(energy, descending=True, stable=True
+                             ).indices[:k]
+            whole.append(top)
+            d, n, axes = self.layout[i] if self.layout else (None, 1, None)
+            if d == g.ndim - 1 and n > 1:
+                lo = comm.axis_index(axes, topo=self.topo) * g.shape[-1]
+                top = top[(top >= lo) & (top < lo + g.shape[-1])] - lo
+            out.append(top)
+        self.hot_columns = whole
         return out
 
     @staticmethod
@@ -150,7 +193,7 @@ class ZenFlowOptimizer:
             self._reselect(params, grads)
         gc = [self._gather(g, i) for g, i in zip(grads, self._indices)]
         if self.clip > 0:
-            clip_by_global_norm(gc, global_norm(gc), self.clip)
+            clip_by_global_norm(gc, self.norm_fn(gc), self.clip)
         self.optimizer.step(self._hot_master, gc)
         self._put_back(params, self._indices, self._hot_master)
         for a, g, i in zip(self._cold_acc, grads, self._indices):

@@ -28,6 +28,14 @@ the counts too) through the AIO library, written behind after each update
 and read ahead by :meth:`prefetch` while the card computes.
 ``offload_param.device: nvme`` pages the f32 master (``master_{i}.bin``,
 :class:`~.param_offload.ParamSwapper`).
+
+On a data-parallel world (``runtime/engine.py``) each rank's optimizer
+holds its own partition only — the optimizer shard at stages 1-2, the
+parameter shard at stage 3 — so a rank's host bytes are 1/W of a world of
+one's; ``rank`` puts the rank in the NVMe tier's file names
+(``rank{r}_opt_{i}.bin``, ``rank{r}_master_{i}.bin``) and ``norm_fn``
+(the global norm over every rank's partition, a collective) takes the
+place of the local norm where :meth:`stage_grads` is given none.
 """
 
 from __future__ import annotations
@@ -35,13 +43,13 @@ from __future__ import annotations
 import os
 import tempfile
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from ...ops import cpu_adam
 from ...utils.logging import logger
-from ..optimizers import Optimizer
+from ..optimizers import Optimizer, global_norm
 from .param_offload import HostArena, ParamSwapper, host_view
 
 #: elements per host -> device staging chunk
@@ -66,9 +74,14 @@ class OffloadedOptimizer:
     def __init__(self, optimizer: Optimizer, params: List[torch.Tensor],
                  cfg: Any, aio: Any = None, param_cfg: Any = None,
                  paths: Optional[List[str]] = None, clip: float = 0.0,
-                 device: Any = None, arena: Optional[HostArena] = None):
+                 device: Any = None, arena: Optional[HostArena] = None,
+                 rank: Optional[int] = None,
+                 norm_fn: Optional[Callable[[List[torch.Tensor]],
+                                            torch.Tensor]] = None):
         self.optimizer = optimizer
         self.clip = float(clip or 0.0)
+        self.norm_fn = norm_fn or global_norm
+        self._file = "" if rank is None else f"rank{rank}_"
         self.device = torch.device(device) if device is not None \
             else params[0].device
         self.paths = paths or [str(i) for i in range(len(params))]
@@ -81,7 +94,8 @@ class OffloadedOptimizer:
         if self._param_nvme:
             mdir = os.path.join(param_cfg.nvme_path or _default_swap_dir(),
                                 "master")
-            self._mswap = ParamSwapper(mdir, aio_cfg=aio, prefix="master")
+            self._mswap = ParamSwapper(mdir, aio_cfg=aio,
+                                       prefix=f"{self._file}master")
         self._nvme = cfg.device_str == "nvme"
 
         # the f32 master (pageable when it pages to NVMe between steps)
@@ -159,7 +173,8 @@ class OffloadedOptimizer:
                 t = lst[i].contiguous()
                 lst[i] = None
             self._specs.append((tuple(t.shape), t.dtype))
-            self._aio.pwrite(os.path.join(self._swap_dir, f"opt_{n}.bin"),
+            self._aio.pwrite(os.path.join(self._swap_dir,
+                                          f"{self._file}opt_{n}.bin"),
                              host_view(t))
         self._swapped_out = True
 
@@ -172,8 +187,8 @@ class OffloadedOptimizer:
             if lst is None:
                 continue
             buf = torch.empty(shape, dtype=dtype)
-            req = self._aio.pread(
-                os.path.join(self._swap_dir, f"opt_{n}.bin"), host_view(buf))
+            req = self._aio.pread(os.path.join(
+                self._swap_dir, f"{self._file}opt_{n}.bin"), host_view(buf))
             self._mom_reads.append((req, buf, lst, i))
 
     def prefetch(self) -> None:
@@ -224,10 +239,8 @@ class OffloadedOptimizer:
                 buf.copy_(g, non_blocking=True)
         self._mark("d2h_end")
         if norm is None and self.clip > 0:
-            from ..optimizers import global_norm
-
-            norm = global_norm([g if g is not None else b
-                                for g, b in zip(grads, self.grads)])
+            norm = self.norm_fn([g if g is not None else b
+                                 for g, b in zip(grads, self.grads)])
         self._norm = norm
         if self.device.type == "cuda":
             self._grads_ready = torch.cuda.Event()
@@ -298,7 +311,12 @@ class OffloadedOptimizer:
             stream = torch.cuda.current_stream(self.device)
             slot = 0
             for i in on_card:
-                src, dst = self.master[i].view(-1), out[i].view(-1)
+                # a strided target (a partition's view of a leaf) takes
+                # the chunks through a contiguous buffer
+                whole = out[i] if out[i].is_contiguous() else \
+                    torch.empty(out[i].shape, dtype=out[i].dtype,
+                                device=out[i].device)
+                src, dst = self.master[i].view(-1), whole.view(-1)
                 stage = self._stage_buffers(dst.dtype)
                 for a in range(0, src.numel(), STAGE_ELEMS):
                     n = min(STAGE_ELEMS, src.numel() - a)
@@ -313,6 +331,8 @@ class OffloadedOptimizer:
                     ev.record(stream)
                     self._stage_events[key] = ev
                     slot ^= 1
+                if whole is not out[i]:
+                    out[i].copy_(whole)
         if on_host:
             if self.device.type == "cuda":
                 # the card may still be copying these parameters in

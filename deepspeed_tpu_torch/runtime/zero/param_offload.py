@@ -274,18 +274,20 @@ class LayerStreamer:
             put(tree, path, out)
         return tree
 
-    def sink(self, j: int, i: int, g: torch.Tensor) -> None:
+    def sink(self, j: int, i: Optional[int], g: torch.Tensor) -> None:
+        """Leaf ``j``'s gradient (layer ``i``'s slice of it; None: the
+        whole leaf) into its host buffer."""
         g = g.float()
         if self._mb == 0:
-            self.sq = self.sq + g.square().sum()
-            self.grads[j][i].copy_(g, non_blocking=True)
+            self.sq = self.sq + torch.linalg.vector_norm(g).square()
+            _part(self.grads[j], i).copy_(g, non_blocking=True)
         elif self.device.type == "cpu":
-            self.grads[j][i].add_(g)
+            _part(self.grads[j], i).add_(g)
         else:
             if j not in self.scratch:
                 self.scratch[j] = self.arena.empty(self.grads[j].shape,
                                                    torch.float32)
-            self.scratch[j][i].copy_(g, non_blocking=True)
+            _part(self.scratch[j], i).copy_(g, non_blocking=True)
 
     def accumulate(self) -> None:
         """After a later micro-batch's backward on the card: add its
@@ -295,6 +297,10 @@ class LayerStreamer:
         torch.cuda.current_stream(self.device).synchronize()
         for j, s in self.scratch.items():
             self.grads[j].add_(s)
+
+
+def _part(t: torch.Tensor, i: Optional[int]) -> torch.Tensor:
+    return t if i is None else t[i]
 
 
 def _root(t: torch.Tensor) -> torch.Tensor:

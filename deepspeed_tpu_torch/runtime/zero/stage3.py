@@ -30,6 +30,23 @@ all-reduces those buffers over the whole data-parallel world afterwards,
 and the shard buffers over ``dp``.  ``live_bytes`` / ``peak_live_bytes``
 count the gathered bytes alive at once; the comms logger
 (``comm.configure``) counts the collectives.
+
+A frozen leaf (``grads[j]`` None: a LoRA node's base, its codes and
+scales) is gathered outside autograd and takes no gradient.  The walk
+enters node objects (``utils/tree_io.node_items``), so a LoRA node's
+children are gathered where the layer uses them.
+
+Offload at stage 3: every trained leaf's gradient — reduce-scattered,
+then divided by the world's size and reduced over the rest of it — lands
+in its host buffer through ``sink`` (a
+:class:`~.param_offload.LayerStreamer`: the first micro-batch writes it,
+later ones add), so no f32 gradient buffer lives on the card; ``host_sq``
+is the weighted sum of squares of those gradients (first micro-batch).
+With ``offload_param`` (ZeRO-Infinity) a ``streamed`` shard lies in host
+memory (``runtime/zero/param_offload.HostArena``) and is copied to the
+card inside the gather (``param_offload.COUNTS["stream_in"]``: L forward
++ L recompute a step), so neither the stacked shards nor their gradients
+are ever whole on the card.
 """
 
 from __future__ import annotations
@@ -39,10 +56,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ...utils.tree_io import node_items, node_rebuild
 from ..coalesce import (Bucket, Slot, flatten_bucket_shard_major,
                         unflatten_bucket_shard, unflatten_bucket_shard_major)
 from . import param_offload
-from .param_offload import _copy_dicts, _root
+from .param_offload import _root
 
 
 class _Gather(torch.autograd.Function):
@@ -59,22 +77,37 @@ class _Gather(torch.autograd.Function):
         return (None, None, None, None) + (None,) * len(grads)
 
 
+def _rebuild(node: Any, path: tuple, new: Dict[tuple, Any]) -> Any:
+    """``node`` with the leaves at the paths of ``new`` replaced (a
+    module-level function: a recursive closure would hold the gathered
+    tensors in a reference cycle until the collector ran)."""
+    if path in new:
+        return new[path]
+    kids = None if isinstance(node, torch.Tensor) else node_items(node)
+    if not kids:
+        return node
+    return node_rebuild(node, [_rebuild(v, path + (k,), new)
+                               for k, v in kids])
+
+
 class ShardGatherer:
     """The stage-3 gathering state of one engine.
 
     ``shards[j]`` is leaf ``j``'s local shard (the whole leaf where
     ``dims[j]`` is None), split along ``dims[j]`` over the ``n`` ranks of
     ``axis``; ``full_shapes[j]`` its whole shape; ``grads[j]`` its f32
-    gradient buffer (the shard's shape); ``layered[j]``: the leaf is a
-    stacked layer leaf, gathered per layer at the hook."""
+    gradient buffer (the shard's shape; None: a frozen leaf, a host
+    buffer: set by :meth:`to_host`); ``layered[j]``: the leaf is a stacked
+    layer leaf, gathered per layer at the hook.  ``device`` is where the
+    gathers land (a shard in host memory is copied there)."""
 
     def __init__(self, shards: Sequence[torch.Tensor],
                  dims: Sequence[Optional[int]],
                  full_shapes: Sequence[Tuple[int, ...]],
-                 grads: Sequence[torch.Tensor], layered: Sequence[bool],
-                 n: int, axis: str = "fsdp", topo=None,
-                 qwz: bool = False, qwz_bits: int = 8,
-                 qwz_block: int = 256):
+                 grads: Sequence[Optional[torch.Tensor]],
+                 layered: Sequence[bool], n: int, axis: str = "fsdp",
+                 topo=None, qwz: bool = False, qwz_bits: int = 8,
+                 qwz_block: int = 256, device: Any = None):
         self.shards = list(shards)
         self.dims = list(dims)
         self.full_shapes = [tuple(s) for s in full_shapes]
@@ -82,11 +115,37 @@ class ShardGatherer:
         self.layered = list(layered)
         self.n, self.axis, self.topo = n, axis, topo
         self.qwz, self.qwz_bits, self.qwz_block = qwz, qwz_bits, qwz_block
-        self._index = {id(t): j for j, t in enumerate(self.shards)}
-        dev = self.shards[0].device if self.shards else torch.device("cpu")
-        self.anchor = torch.zeros((), device=dev, requires_grad=True)
+        self._index = {id(_root(t)): j for j, t in enumerate(self.shards)}
+        self.device = torch.device(device) if device is not None else (
+            self.shards[0].device if self.shards else torch.device("cpu"))
+        self.anchor = torch.zeros((), device=self.device, requires_grad=True)
         self.live_bytes = 0
         self.peak_live_bytes = 0
+        # offload: the leaves whose gradients go to host buffers -> (the
+        # axes a gradient is reduced over after the reduce-scatter, its
+        # weight in the sum of squares)
+        self.sink: Optional[param_offload.LayerStreamer] = None
+        self._host: Dict[int, Tuple[Any, float]] = {}
+        self.world = 1
+        self.host_sq: Optional[torch.Tensor] = None
+        #: the leaves whose shards lie in host memory (ZeRO-Infinity)
+        self.streamed: set = set()
+
+    def to_host(self, sink, leaves: Dict[int, Tuple[Any, float]],
+                world: int) -> None:
+        """Send the gradients of ``leaves`` ({leaf: (axes to reduce over
+        after the reduce-scatter, sum-of-squares weight)}) to
+        ``sink.grads[leaf]`` (host buffers), as means over ``world``
+        ranks."""
+        self.sink, self._host, self.world = sink, dict(leaves), world
+
+    def begin(self, micro_batch: int) -> None:
+        """Before each micro-batch's forward (ZeRO-Infinity's sink)."""
+        if self.sink is not None:
+            self.sink.begin(micro_batch)
+            if micro_batch == 0:
+                self.host_sq = torch.zeros((), dtype=torch.float32,
+                                           device=self.device)
 
     def __enter__(self) -> "ShardGatherer":
         self._prev, param_offload._ACTIVE = param_offload._ACTIVE, self
@@ -117,6 +176,10 @@ class ShardGatherer:
 
         out: List[Optional[torch.Tensor]] = [None] * len(js)
         groups: Dict[torch.dtype, List[int]] = {}
+        if any(j in self.streamed for j in js):
+            # ZeRO-Infinity: the host shards stream to the card here
+            param_offload.COUNTS["stream_in"] += 1
+            shards = [s.to(self.device, non_blocking=True) for s in shards]
         for m, (j, s) in enumerate(zip(js, shards)):
             if self.dims[j] is None:
                 out[m] = s.view_as(s)
@@ -140,6 +203,11 @@ class ShardGatherer:
                 fulls = [v for _, v in unflatten_bucket_shard_major(
                     bucket, flat, self.n)]
             for m, f in zip(ms, fulls):
+                if f.data_ptr() % 16:
+                    # a member at an odd offset of the gathered buffer
+                    # (1-byte codes after others): the mixed GEMM's copies
+                    # read 16-byte aligned rows
+                    f = f.clone()
                 nbytes = f.numel() * f.element_size()
                 self.live_bytes += nbytes
                 weakref.finalize(f, self._release, nbytes)
@@ -173,9 +241,13 @@ class ShardGatherer:
 
         groups: Dict[torch.dtype, List[int]] = {}
         for m, (j, g) in enumerate(zip(js, grads)):
-            buf = self.grads[j] if key is None else self.grads[j][key]
             if self.dims[j] is None:
-                if g is not None:
+                if g is None:
+                    continue
+                if j in self._host:
+                    self._sink(j, key, g.float())
+                else:
+                    buf = self.grads[j] if key is None else self.grads[j][key]
                     buf.add_(g)
                 continue
             dt = g.dtype if g is not None else self.shards[j].dtype
@@ -191,8 +263,26 @@ class ShardGatherer:
             del flat
             for m, v in unflatten_bucket_shard(bucket, local, self.n):
                 j = js[m]
+                if j in self._host:
+                    self._sink(j, key, v.float())
+                    continue
                 buf = self.grads[j] if key is None else self.grads[j][key]
                 buf.add_(v)
+
+    def _sink(self, j: int, key, g: torch.Tensor) -> None:
+        """A host-buffered leaf's gradient part: the mean over the world,
+        into its host buffer (``sink``)."""
+        from ...comm import all_reduce
+
+        axes, weight = self._host[j]
+        if self.world > 1:
+            g = g / self.world
+        if axes is not None:
+            all_reduce(g, axes, topo=self.topo)
+        if self.sink._mb == 0:  # (a norm: no temporary the leaf's size)
+            self.host_sq = self.host_sq + torch.linalg.vector_norm(
+                g).square() * weight
+        self.sink.sink(j, key, g)
 
     # -- the hooks ---------------------------------------------------------
 
@@ -200,27 +290,31 @@ class ShardGatherer:
         found: List[Tuple[tuple, int, torch.Tensor]] = []
 
         def walk(node, path):
-            if isinstance(node, dict):
-                for k, v in node.items():
-                    walk(v, path + (k,))
-            elif isinstance(node, torch.Tensor):
+            if isinstance(node, torch.Tensor):
                 j = match(node)
                 if j is not None:
                     found.append((path, j, node))
+                return
+            for k, v in node_items(node) or ():
+                walk(v, path + (k,))
 
         walk(tree, ())
         if not found:
             return tree
-        outs = _Gather.apply(self.anchor, self, key,
-                             tuple(j for _, j, _ in found),
-                             *(t for _, _, t in found))
-        tree = _copy_dicts(tree)
-        for (path, _, _), o in zip(found, outs):
-            node = tree
-            for k in path[:-1]:
-                node = node[k]
-            node[path[-1]] = o
-        return tree
+        trained = [f for f in found if self.grads[f[1]] is not None]
+        frozen = [f for f in found if self.grads[f[1]] is None]
+        new = {}
+        if trained:
+            outs = _Gather.apply(self.anchor, self, key,
+                                 tuple(j for _, j, _ in trained),
+                                 *(t for _, _, t in trained))
+            new.update({p: o for (p, _, _), o in zip(trained, outs)})
+        if frozen:
+            with torch.no_grad():
+                outs = self.gather([j for _, j, _ in frozen], key,
+                                   [t for _, _, t in frozen])
+            new.update({p: o for (p, _, _), o in zip(frozen, outs)})
+        return _rebuild(tree, (), new)
 
     def stream_in(self, tree: Dict[str, Any], i: int) -> Dict[str, Any]:
         """``maybe_stream_in``: layer ``i``'s slices of the stacked shards
@@ -236,7 +330,7 @@ class ShardGatherer:
         not a stacked layer leaf gathered whole (once), the layer stacks
         as their shards (gathered per layer at the hook)."""
         def match(t):
-            j = self._index.get(id(t))
+            j = self._index.get(id(_root(t)))
             return j if j is not None and not self.layered[j] else None
 
         return self._apply(params, None, match)

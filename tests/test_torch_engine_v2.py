@@ -276,7 +276,8 @@ def test_port_imports_no_jax():
     with an adapter registry, dropless MoE, and with the whole memory
     hierarchy on: prefix cache, host pool, cold store, promote-ahead,
     restart rehydration, tracing), int8_gemm, a CPU
-    training step, a ZeRO-3 (qwZ) step on a gloo world of one, a fused
+    training step, a ZeRO-3 (qwZ) step and an offloaded ZeRO-2 step on a
+    gloo world of one, a fused
     AdamW update, evoformer and block-sparse
     attention, the op registry, the v1 and encoder engines through
     ``init_inference``, the serving front (an in-process pool behind the
@@ -377,6 +378,16 @@ def test_port_imports_no_jax():
             "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
             device="cpu")
         assert np.isfinite(z3.train_batch({"input_ids": ids})["loss"])
+        z2 = deepspeed_tpu_torch.initialize(model=ModelSpec(
+            loss_fn=spec.loss_fn, params=params,
+            param_axes=tfm.param_axes(tcfg)), config={
+            "train_micro_batch_size_per_gpu": 2,
+            "zero_optimization": {"stage": 2,
+                                  "offload_optimizer": {"device": "cpu"}},
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
+            device="cpu")[0]
+        assert np.isfinite(z2.train_batch({"input_ids": ids})["loss"])
+        assert z2.offloaded_optimizer is not None
         from deepspeed_tpu_torch.ops import fused_optimizers as fo
         mcfg = tfm.get_config("tiny-moe", dtype="float32",
                               moe_routing="dropless")

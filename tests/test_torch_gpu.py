@@ -1704,7 +1704,10 @@ def test_qlora_small_model_card_vs_cpu(cuda_device):
 def test_zero_stages_on_an_nccl_world_of_one(cuda_device, tmp_path):
     """A small f32 flash model at stages 0-3 (and qwZ) in a child process
     whose world of one runs NCCL: each stage's losses and parameters
-    against stage 0's, the stages' collectives issued through NCCL."""
+    against stage 0's, the stages' collectives issued through NCCL; and
+    qwZ's quantized gather itself (int8 codes and f32 scales through
+    NCCL) within one int8 step of the bf16 tensors, in under 0.6 of the
+    bf16 gather's bytes."""
     import importlib.util
     import os
 
@@ -1740,6 +1743,10 @@ def test_zero_stages_on_an_nccl_world_of_one(cuda_device, tmp_path):
         for name, stage, zero in (
             ("s0", 0, {}), ("s1", 1, {}), ("s2", 2, {}), ("s3", 3, {}),
             ("qwz", 3, {"zero_quantized_weights": True}))]
+    whole = [rng.standard_normal((512, 1024)).astype(np.float32),
+             rng.standard_normal((1024, 256)).astype(np.float32)]
+    scenarios.append(("qwz_gather", dict(kind="qwz_gather", whole=whole,
+                                         dims=[1, 0], device="cuda")))
     res = launch(1, scenarios, tmp_path, timeout=600, device="cuda")[0]
     for name, _ in scenarios:
         assert "error" not in res[name], res[name]["error"]
@@ -1748,11 +1755,87 @@ def test_zero_stages_on_an_nccl_world_of_one(cuda_device, tmp_path):
     for name in ("s1", "s2", "s3", "qwz"):
         r = res[name]
         assert r["backend"] == "nccl" and r["counts"]
-        tol = 1e-2 if name == "qwz" else 1e-5
+        # qwZ over an fsdp axis of one rank gathers unquantized leaves, as
+        # the reference's qwz_gather_leaf (ROADMAP.md C11)
         for a, b in zip(base["steps"], r["steps"]):
-            np.testing.assert_allclose(b["loss"], a["loss"], rtol=tol)
-        if name != "qwz":
+            np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-5)
+        for key, w in base["params"].items():
+            np.testing.assert_allclose(r["params"][key], w, atol=1e-4,
+                                       rtol=0, err_msg=f"{name} {key}")
+    q = res["qwz_gather"]
+    for got, w in zip(q["gathered"], whole):
+        bf = torch.from_numpy(w).bfloat16().float().numpy()
+        assert got.shape == w.shape
+        assert np.abs(got - bf).max() <= np.abs(bf).max() / 127
+    assert 0 < q["bytes"] < 0.6 * q["plain_bytes"]
+    assert res["_modules"] == []
+
+
+def test_zero_offload_on_an_nccl_world_of_one(cuda_device, tmp_path):
+    """Offload on a data-parallel world of one over NCCL, a small f32
+    flash model: optimizer offload at stages 1-3, ZeRO-Infinity at stage 3
+    (the stack's shards page-locked, streamed in by the gathers, their
+    gradients copied out) and ZenFlow at stages 2 and 3 (its cold sums and
+    hot columns on the card), each against the on-device stage 0's losses
+    and parameters (ZenFlow's first loss); no two host buffers of an
+    engine overlap."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist", os.path.join(os.path.dirname(__file__),
+                                   "torch_dist.py"))
+    torch_dist = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_dist)
+
+    cfg = tt.get_config("tiny", hidden_size=256, intermediate_size=512,
+                        num_heads=4, num_kv_heads=2, dtype="float32",
+                        attn_impl="flash")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+
+    def np_tree(t):
+        return {k: np_tree(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.numpy()
+
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 256, (4, 64)).astype(np.int32)}
+               for _ in range(3)]
+    model = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                 num_kv_heads=2, dtype="float32", attn_impl="flash")
+    cpu = {"offload_optimizer": {"device": "cpu"}}
+    scenarios = [(name, dict(
+        kind="offload", preset="tiny", model=model, params=np_tree(params),
+        batches=batches, device="cuda", config={
+            "train_micro_batch_size_per_gpu": 4, "steps_per_print": 1000,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "zero_optimization": dict(stage=stage, **zero), **extra}))
+        for name, stage, zero, extra in (
+            ("s0", 0, {}, {}), ("s1", 1, cpu, {}), ("s2", 2, cpu, {}),
+            ("s3", 3, cpu, {}),
+            ("infinity", 3, dict(cpu, offload_param={"device": "cpu"},
+                                 stage3_param_persistence_threshold=0), {}),
+            ("zenflow", 2, cpu, {"zenflow": {"enabled": True,
+                                             "topk_ratio": 0.25}}),
+            ("zenflow3", 3, cpu, {"zenflow": {"enabled": True,
+                                              "topk_ratio": 0.25}}))]
+    res = torch_dist.launch(1, scenarios, tmp_path, timeout=600,
+                            device="cuda")[0]
+    for name, _ in scenarios:
+        assert "error" not in res[name], res[name]["error"]
+    base = res["s0"]
+    for name in ("s1", "s2", "s3", "infinity", "zenflow", "zenflow3"):
+        r = res[name]
+        assert r["overlaps"] == 0 and r["host_bytes"] > 0
+        zenflow = name.startswith("zenflow")
+        steps = r["steps"][:1] if zenflow else r["steps"]
+        for a, b in zip(base["steps"], steps):
+            np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-5)
+        if zenflow:
+            assert r["zenflow_on"] == ["cuda"], r["zenflow_on"]
+        else:
             for key, w in base["params"].items():
                 np.testing.assert_allclose(r["params"][key], w, atol=1e-4,
                                            rtol=0, err_msg=f"{name} {key}")
+    assert res["infinity"]["stream_in"] == 2 * 2 * 3  # L fwd + L recompute
     assert res["_modules"] == []

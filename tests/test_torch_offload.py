@@ -671,10 +671,20 @@ def test_offload_config_runs_and_later_items_refuse():
                 {"aio": {"block_size": 4096, "queue_depth": 4}},
                 {"zenflow": {"enabled": True}, "zero_optimization": {
                     "offload_optimizer": {"device": "cpu"}}},
-                {"activation_checkpointing": {"cpu_checkpointing": True}}):
+                {"activation_checkpointing": {"cpu_checkpointing": True}},
+                # offload and ZenFlow at stages 1-3 (A13 part 2)
+                {"zero_optimization": {
+                    "stage": 2, "offload_optimizer": {"device": "cpu"}}},
+                {"zenflow": {"enabled": True}, "zero_optimization": {
+                    "stage": 1, "offload_optimizer": {"device": "cpu"}}},
+                {"zero_optimization": {
+                    "stage": 3, "offload_optimizer": {"device": "nvme"},
+                    "offload_param": {"device": "nvme"}}}):
         tconfig.load_config(cfg).check_supported()
+    # tensor parallelism is a later part of A13, offloaded or not
     with pytest.raises(NotImplementedError, match="A13"):
-        tconfig.load_config({"zero_optimization": {
+        tconfig.load_config({"mesh": {"tensor_parallel_size": 2},
+                             "zero_optimization": {
             "stage": 2, "offload_optimizer": {"device": "cpu"}}}
         ).check_supported()
     # PEFT runs (tests/test_torch_peft.py); with offload, the reference's
@@ -691,8 +701,7 @@ def test_offload_config_runs_and_later_items_refuse():
     from deepspeed_tpu_torch.parallel.topology import MeshTopology
     from deepspeed_tpu_torch.runtime import zero
 
-    # the sharding names are ported now (A13); offload at stage >= 1 still
-    # refuses, above
+    # the sharding names are ported (A13)
     topo = MeshTopology({"fsdp": 2}, devices=[0, 1])
     assert zero.rules_for_params(3, topo).fsdp_fallback
     with zero.Init(topo) as ctx:

@@ -402,9 +402,6 @@ def test_config_matches_reference_contract():
                       ({"checkpoint": {"load_universal": True}}, "A14"),
                       ({"activation_checkpointing": {
                           "partition_activations": True}}, "A13"),
-                      ({"zero_optimization": {
-                          "stage": 1, "offload_optimizer": {
-                              "device": "cpu"}}}, "A13"),
                       ({"mesh": {"tensor_parallel_size": 2}}, "A13"),
                       ({"pipeline": {"stages": 2}}, "A13"),
                       ({"moe": {"enabled": True}}, "A13")]:
@@ -421,6 +418,11 @@ def test_config_matches_reference_contract():
                 {"activation_checkpointing": {"cpu_checkpointing": True}},
                 {"zero_optimization": {"offload_optimizer": {
                     "device": "cpu"}}},
+                # A13 part 2: offload and PEFT at stages 1-3
+                {"zero_optimization": {"stage": 1, "offload_optimizer": {
+                    "device": "cpu"}}},
+                {"peft": {"lora": {"enabled": True}},
+                 "zero_optimization": {"stage": 3}},
                 {"checkpoint": {"async_save": True, "engine": "fast"}},
                 {"remat": {"policy": "save_attn"}},
                 {"activation_checkpointing": {"policy": "dots"}},

@@ -1,7 +1,9 @@
 """ZeRO stages 1-3 on the port against the JAX package (ROADMAP.md A13,
 part 1): the sharding rules, bucket plans and logical axes exactly (host
 logic), and the training engine on gloo worlds of 1, 2 and 4
-(``tests/torch_dist.py``, spawned once per world size) against the
+(``tests/torch_dist.py``: groups of scenarios in process sets, each group
+and each reference run computed once in a test run, whichever xdist worker
+asks first) against the
 reference's engine on the matching ``jax.devices()[:n]`` sub-mesh — the
 same numpy-seeded weights and batches, three steps, losses to 1e-5 and
 parameters to 1e-4 — plus each stage against the port's own stage 0 at a
@@ -45,7 +47,7 @@ from deepspeed_tpu_torch.runtime.config_utils import ConfigError
 from deepspeed_tpu_torch.runtime.zero import sharding as tsh
 
 from tests.torch_cpu import one_torch_thread  # noqa: F401
-from tests.torch_dist import launch
+from tests.torch_dist import launch, shared
 
 LOSS_TOL = 1e-5
 PARAM_TOL = 1e-4
@@ -110,56 +112,73 @@ def _scenario(name, model, config):
                        batches=_batches()))
 
 
-@pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
-    """Every port run (one process set per world size, on a thread) and,
-    meanwhile, every reference run: ({name: per-rank results},
-    {case: (reference engine, its steps)})."""
-    import threading
-
-    by_world = {}
-    for name, (n, model, config) in CASES.items():
-        by_world.setdefault(n, []).append(_scenario(name, model, config))
-    for name, (save, load, export) in CKPT.items():
-        d = str(tmp_path_factory.mktemp(name))
-        by_world[2].append((name, dict(
-            kind="checkpoint", preset="tiny", model=XLA,
-            params=_weights(XLA), batches=_batches(seed=3), dir=d,
-            save_config=save, load_config=load, export=export)))
+#: the port's scenarios in process sets of their world's size, each run
+#: once for the whole test run: group -> (world, its scenarios' names)
+GROUPS = {
+    "s12": (2, ["stage1", "stage2"]),
+    "s3": (2, ["stage3", "qwz"]),
+    "wire": (2, ["qgz", "onebit"]),
+    "w4": (4, ["dp2xfsdp2_stage2", "mics"]),
+    "ckpt": (2, sorted(CKPT) + ["refuse_lamb", "refuse_param_offload"]),
     # world of one: each stage against stage 0
-    by_world[1] = [_scenario(f"w1_stage{s}", FLASH, _cfg(s))
-                   for s in (0, 1, 2, 3)]
-    by_world[2].append(("refuse_lamb", dict(
-        kind="engine", preset="tiny", model=XLA, params=_weights(XLA),
-        config=dict(_cfg(2), optimizer={"type": "lamb"}),
-        batches=_batches(1))))
-    by_world[2].append(("refuse_offload", dict(
-        kind="engine", preset="tiny", model=XLA, params=_weights(XLA),
-        config=_cfg(0, zero={"offload_optimizer": {"device": "cpu"}}),
-        batches=_batches(1))))
-    dirs = {n: tmp_path_factory.mktemp(f"world{n}") for n in by_world}
-    runs, errors = {}, []
+    "w1": (1, [f"w1_stage{s}" for s in (0, 1, 2, 3)]),
+}
+GROUP_OF = {n: g for g, (_, names) in GROUPS.items() for n in names}
 
-    def port():
-        try:
-            for n, scenarios in sorted(by_world.items()):
-                runs[n] = launch(n, scenarios, dirs[n])
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
 
-    t = threading.Thread(target=port)
-    t.start()
-    refs = {name: _reference(*case, eval_case=name in EVAL_CASES)
-            for name, case in CASES.items()}
-    t.join()
-    if errors:
-        raise errors[0]
-    out = {}
-    for n, res in runs.items():
-        for r in res:
-            for name, v in r.items():
-                out.setdefault(name, []).append(v)
-    return out, refs
+def _port_scenario(name, tmp_path_factory):
+    """The port's scenario ``name`` (a ``tests/torch_dist.py`` job)."""
+    if name in CASES:
+        return _scenario(name, *CASES[name][1:])
+    if name in CKPT:
+        save, load, export = CKPT[name]
+        return (name, dict(
+            kind="checkpoint", preset="tiny", model=XLA,
+            params=_weights(XLA), batches=_batches(seed=3),
+            dir=str(tmp_path_factory.mktemp(name)), save_config=save,
+            load_config=load, export=export))
+    if name.startswith("w1_stage"):
+        return _scenario(name, FLASH, _cfg(int(name[-1])))
+    config = dict(_cfg(2), optimizer={"type": "lamb"}) \
+        if name == "refuse_lamb" else _cfg(2, zero={
+            "offload_optimizer": {"device": "cpu"},
+            "offload_param": {"device": "cpu"}})
+    return (name, dict(kind="engine", preset="tiny", model=XLA,
+                       params=_weights(XLA), config=config,
+                       batches=_batches(1)))
+
+
+def _run_group(group, tmp_path_factory):
+    """{name: every rank's result} of ``group``'s process set, and the
+    modules its ranks loaded."""
+    world, names = GROUPS[group]
+    runs = launch(world, [_port_scenario(n, tmp_path_factory)
+                          for n in names],
+                  tmp_path_factory.mktemp(f"group_{group}"))
+    return {k: [r[k] for r in runs] for k in runs[0]}
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    """name -> every rank's result of the port's scenario ``name``; its
+    group runs once in the whole test run (``torch_dist.shared``), and
+    every group read is checked for ranks that imported JAX."""
+    def get(name):
+        res = shared(tmp_path_factory, f"zero_{GROUP_OF[name]}",
+                     lambda: _run_group(GROUP_OF[name], tmp_path_factory))
+        assert res["_modules"] == [[]] * len(res["_modules"])
+        return res[name]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """case -> the reference's (parameters, steps, shard report, eval) of
+    ``case``, once in the whole test run."""
+    return lambda case: shared(
+        tmp_path_factory, f"zero_ref_{case}",
+        lambda: _reference(*CASES[case], eval_case=case in EVAL_CASES))
 
 
 def _ok(results):
@@ -206,21 +225,16 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_engine_matches_reference(worlds, name):
-    world, model, config = CASES[name]
-    res = _ok(worlds[0][name])
-    want, steps, rep, ev = worlds[1][name]
-    stage3 = config["zero_optimization"]["stage"] >= 3
+def test_engine_matches_reference(port, ref, name):
+    res = _ok(port(name))
+    want, steps, rep, ev = ref(name)
     for r in res:  # every rank reports the same (replicated) metrics
         assert len(r["steps"]) == 3
         for k, (jm, tm) in enumerate(zip(steps, r["steps"])):
             assert set(tm) == set(jm)
-            if stage3:
-                # the reference's stage 3 evaluates the loss function on
-                # the global batch (GSPMD); its stages 1-2, as the port at
-                # every stage, average each rank's metrics: a sum-type
-                # metric differs by the world's size (ROADMAP.md C10)
-                tm = dict(tm, tokens=tm["tokens"] * world)
+            # stage 3 reports the global batch's tokens as the reference's
+            # does (ROADMAP.md C10), stages 1-2 each rank's average, as
+            # the reference's explicit data-parallel step does
             np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=LOSS_TOL,
                                        err_msg=f"loss@{k}")
             for key in ("grad_norm", "lr", "tokens", "loss_scale",
@@ -239,10 +253,10 @@ def test_engine_matches_reference(worlds, name):
                                    rtol=LOSS_TOL)
 
 
-def test_each_stage_matches_stage0_at_world_one(worlds):
-    base = _ok(worlds[0]["w1_stage0"])[0]
+def test_each_stage_matches_stage0_at_world_one(port):
+    base = _ok(port("w1_stage0"))[0]
     for s in (1, 2, 3):
-        r = _ok(worlds[0][f"w1_stage{s}"])[0]
+        r = _ok(port(f"w1_stage{s}"))[0]
         for k, (a, b) in enumerate(zip(base["steps"], r["steps"])):
             np.testing.assert_allclose(b["loss"], a["loss"], rtol=LOSS_TOL,
                                        err_msg=f"stage {s} step {k}")
@@ -256,11 +270,11 @@ def _layer_bytes(shapes):
                if k.startswith("layers/"))
 
 
-def test_collectives_per_stage(worlds):
+def test_collectives_per_stage(port):
     """The comms logger's counts of three steps at a world of one (gas 1,
     2 layers): every stage issues its collectives over groups of one."""
     L, steps = 2, 3
-    counts = {s: _ok(worlds[0][f"w1_stage{s}"])[0]["counts"]
+    counts = {s: _ok(port(f"w1_stage{s}"))[0]["counts"]
               for s in range(4)}
     assert counts[0] == {}
     dp = "('dp', 'fsdp')"
@@ -282,9 +296,9 @@ def test_collectives_per_stage(worlds):
                          f"all_reduce@{dp}": steps}
 
 
-def test_stage3_holds_shards_and_gathers_per_layer(worlds):
-    r2 = _ok(worlds[0]["stage3"])
-    full = _ok(worlds[0]["w1_stage3"])[0]
+def test_stage3_holds_shards_and_gathers_per_layer(port):
+    r2 = _ok(port("stage3"))
+    full = _ok(port("w1_stage3"))[0]
     total = sum(v.size * 4 for v in full["params"].values())
     assert full["resident"] == total
     shapes = {k: v.shape for k, v in full["params"].items()}
@@ -297,15 +311,15 @@ def test_stage3_holds_shards_and_gathers_per_layer(worlds):
         assert top + layer <= r["peak_live"] <= top + 2 * layer
     assert full["peak_live"] <= top + 2 * layer
     # qwZ gathers int8 codes and f32 block scales, not the weights
-    q = _ok(worlds[0]["qwz"])[0]
+    q = _ok(port("qwz"))[0]
     assert "all_gather@fsdp" in q["bytes"]
-    s3 = _ok(worlds[0]["stage3"])[0]
+    s3 = _ok(port("stage3"))[0]
     assert q["bytes"]["all_gather@fsdp"] < s3["bytes"]["all_gather@fsdp"] / 2
 
 
 @pytest.mark.parametrize("name", sorted(CKPT))
-def test_checkpoint_moves_between_stages(worlds, name):
-    res = _ok(worlds[0][name])
+def test_checkpoint_moves_between_stages(port, name):
+    res = _ok(port(name))
     for r in res:
         np.testing.assert_allclose(r["eval_loaded"]["loss"],
                                    r["eval_saved"]["loss"], rtol=1e-6)
@@ -326,16 +340,20 @@ def test_checkpoint_moves_between_stages(worlds, name):
             np.testing.assert_array_equal(fp32[k], v.astype(np.float32))
 
 
-def test_engine_refusals_on_a_world(worlds):
-    err = worlds[0]["refuse_lamb"][0]["error"]
+def test_engine_refusals_on_a_world(port):
+    err = port("refuse_lamb")[0]["error"]
     assert "NotImplementedError" in err and "A13" in err and "lamb" in err
-    err = worlds[0]["refuse_offload"][0]["error"]
+    # offload runs on a world (tests/test_torch_zero_offload.py);
+    # offload_param below stage 3 on one is a later part of A13
+    err = port("refuse_param_offload")[0]["error"]
     assert "NotImplementedError" in err and "A13" in err
+    assert "offload_param" in err
 
 
-def test_ranks_import_no_jax(worlds):
-    for r in worlds[0]["_modules"]:
-        assert r == []
+def test_ranks_import_no_jax(port):
+    """Every group's ranks import no JAX (the ``port`` fixture checks each
+    group a test reads); here the world of one's."""
+    assert _ok(port("w1_stage0"))
 
 
 # ---------------------------------------------------------------------------
@@ -586,12 +604,6 @@ def test_reference_config_errors_word_for_word(config):
 
 
 STILL_A13 = {
-    "offload_stage1": {"zero_optimization": {
-        "stage": 1, "offload_optimizer": {"device": "cpu"}}},
-    "param_offload_stage3": {"zero_optimization": {
-        "stage": 3, "offload_param": {"device": "cpu"}}},
-    "zenflow_stage2": {"zenflow": {"enabled": True}, "zero_optimization": {
-        "stage": 2, "offload_optimizer": {"device": "cpu"}}},
     "pipeline": {"pipeline": {"stages": 2}},
     "moe": {"moe": {"enabled": True}},
     "sequence_parallel": {"sequence_parallel": {"enabled": True}},
@@ -603,8 +615,6 @@ STILL_A13 = {
     "orbax": {"checkpoint": {"engine": "orbax"}},
     "partition_activations": {"activation_checkpointing": {
         "partition_activations": True}},
-    "peft_stage3": {"peft": {"lora": {"enabled": True}},
-                    "zero_optimization": {"stage": 3}},
 }
 
 
@@ -627,6 +637,13 @@ def test_remaining_a13_keys_refuse(name):
     {"gradient_compression": {"enabled": True},
      "comms_logger": {"enabled": True}, "prescale_gradients": True,
      "gradient_predivide_factor": 2.0, "sparse_gradients": True,
-     "mesh": {"data_parallel_size": 2, "fsdp_size": 2}}])
+     "mesh": {"data_parallel_size": 2, "fsdp_size": 2}},
+    # A13 part 2: offload, ZenFlow and PEFT at stages 1-3
+    {"zero_optimization": {"stage": 1, "offload_optimizer": {
+        "device": "cpu"}}},
+    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    {"zenflow": {"enabled": True}, "zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}}},
+    {"peft": {"lora": {"enabled": True}}, "zero_optimization": {"stage": 3}}])
 def test_data_parallel_keys_are_taken(config):
     tconfig.load_config(config).check_supported()

@@ -1,5 +1,6 @@
 """Rank body of the port's data-parallel CPU tests
-(``tests/test_torch_comm.py``, ``tests/test_torch_zero.py``).
+(``tests/test_torch_comm.py``, ``tests/test_torch_zero.py``,
+``tests/test_torch_zero_offload.py``).
 
 A test writes a job (a pickle of named scenarios: numpy weights, batches,
 configs) and :func:`launch` starts one process per rank running this file
@@ -8,7 +9,8 @@ port: xdist runs several workers at once), one torch thread each.  Each
 rank runs every scenario in order and pickles its results.  This file
 imports torch, numpy and the port only, so a rank never imports JAX or the
 JAX package; each rank reports the modules it loaded, and the tests check
-that list.
+that list.  :func:`shared` runs such a job (or a reference run) once for
+a whole pytest run, whichever xdist worker needs it first.
 """
 
 import os
@@ -57,6 +59,33 @@ def launch(world: int, scenarios, tmp_path, timeout: float = 240.0,
         with open(os.path.join(tmp, f"rank{r}_{world}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     return results
+
+
+def shared(tmp_path_factory, key: str, fn):
+    """``fn()``, computed once for the whole pytest run: the first process
+    to ask for ``key`` (an xdist worker, under ``-n``) computes it and
+    pickles it beside the run's temporary directories; one that asks
+    meanwhile waits for it (a file lock), and later ones read it.  A
+    result that raised is not kept: the next asker computes it again."""
+    import fcntl
+
+    base = tmp_path_factory.getbasetemp()
+    # the workers' temporary directories share the run's as their parent
+    root = (base.parent if os.environ.get("PYTEST_XDIST_WORKER")
+            else base) / "shared"
+    root.mkdir(exist_ok=True)
+    path = root / f"{key}.pkl"
+    with open(root / f"{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            value = fn()
+            tmp = root / f"{key}.tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump(value, f)
+            os.replace(tmp, path)
+            return value
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 # ---------------------------------------------------------------------------
@@ -140,12 +169,16 @@ def _engine(sc, params_np, config):
     from deepspeed_tpu_torch.runtime.engine import ModelSpec
     from deepspeed_tpu_torch.sequence import tiled_compute as ttc
 
+    from deepspeed_tpu_torch.linear.optimized_linear import has_lora
+
     cfg = tt.get_config(sc["preset"], **sc["model"])
     params = tt.params_from_jax(params_np, cfg, device="cpu",
                                 dtype=torch.float32)
+    # a tree with LoRA nodes takes their expanded axes
+    axes = tt.param_axes(cfg, params=params) if has_lora(params) else \
+        tt.param_axes(cfg)
     spec = ModelSpec(loss_fn=lambda p, b, r: ttc.tiled_loss_fn(
-        p, b, cfg, tile_size=16), params=params,
-        param_axes=tt.param_axes(cfg))
+        p, b, cfg, tile_size=16), params=params, param_axes=axes)
     eng, _, _, _ = deepspeed_tpu_torch.initialize(
         model=spec, config=config, device=sc.get("device", "cpu"))
     return eng
@@ -183,7 +216,9 @@ def engine(sc, rank):
 def checkpoint(sc, rank):
     """Train at one stage, save, load into an engine of another stage;
     report both engines' eval and one more step of each.  With
-    ``export``, rank 0 also runs the fp32 export of the checkpoint."""
+    ``export``, rank 0 also runs the fp32 export of the checkpoint; with
+    ``merged`` (a LoRA tree), the saving engine exports its merged weights
+    right after the save and rank 0 reports them and the files saved."""
     from deepspeed_tpu_torch import comm
 
     save_dir = os.path.join(sc["dir"], "ckpt")
@@ -191,6 +226,9 @@ def checkpoint(sc, rank):
     for b in sc["batches"][:2]:
         a.train_batch(b)
     a.save_checkpoint(save_dir)
+    merged = None
+    if sc.get("merged"):  # every rank gathers, rank 0 writes
+        merged = a.export_merged_weights(os.path.join(sc["dir"], "merged"))
     b_eng = _engine(sc, sc["params"], sc["load_config"])
     path, _ = b_eng.load_checkpoint(save_dir)
     out = {"path": path, "onebit_file": os.path.exists(os.path.join(
@@ -199,6 +237,11 @@ def checkpoint(sc, rank):
            "eval_loaded": b_eng.eval_batch(sc["batches"][2]),
            "step_saved": dict(a.train_batch(sc["batches"][2])),
            "step_loaded": dict(b_eng.train_batch(sc["batches"][2]))}
+    if merged is not None and rank == 0:
+        from safetensors.numpy import load_file
+
+        out["merged"] = load_file(os.path.join(merged, "model.safetensors"))
+        out["files"] = sorted(os.listdir(path))
     if sc.get("export") and rank == 0:
         from deepspeed_tpu_torch.checkpoint_utils import main as ck_main
 
@@ -211,8 +254,124 @@ def checkpoint(sc, rank):
     return out
 
 
+def _arena_ranges():
+    """Record every host buffer an engine's ``HostArena`` hands out (or
+    adopts) while it is built and runs: {"ranges": [(ptr, bytes, tensor)]}
+    and a function that restores the arena."""
+    from deepspeed_tpu_torch.runtime.zero import param_offload as po
+
+    log = {"ranges": []}
+    empty, adopt = po.HostArena.empty, po.HostArena.adopt
+
+    def rec(t):
+        if t.numel():
+            log["ranges"].append((t.data_ptr(), t.numel() * t.element_size(),
+                                  t))
+        return t
+
+    po.HostArena.empty = lambda self, shape, dtype: rec(
+        empty(self, shape, dtype))
+    # a page-locking arena adopts through ``empty``; another keeps the
+    # tensor it is given
+    po.HostArena.adopt = lambda self, t: adopt(self, t) if self.pin \
+        else rec(adopt(self, t))
+
+    def restore():
+        po.HostArena.empty, po.HostArena.adopt = empty, adopt
+
+    return log, restore
+
+
+def _overlaps(ranges) -> int:
+    """How many pairs of (ptr, bytes) ranges overlap."""
+    spans = sorted((p, p + n) for p, n, _ in ranges)
+    return sum(1 for (_, e), (b, _) in zip(spans, spans[1:]) if b < e)
+
+
+def offload(sc, rank):
+    """An offloaded engine on this world: each step's metrics and ZenFlow
+    hot columns (the whole leaves'), the parameters after (a pending
+    delayed update flushed first when ``flush``), the host bytes this
+    rank's arena holds, overlapping arena buffers (none may), the comms
+    counts, the stream-ins and an eval; with ``states``, the parameters
+    and optimizer state evicted and reloaded after the first step."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.zero import param_offload as po
+
+    comm.configure(enabled=True)
+    log, restore = _arena_ranges()
+    try:
+        eng = _engine(sc, sc["params"], sc["config"])
+        comm.get_comms_logger().reset()
+        po.reset_counts()
+        steps, hot = [], []
+        for k, b in enumerate(sc["batches"]):
+            steps.append(dict(eng.train_batch(b)))
+            z = eng.zenflow_optimizer
+            if z is not None:
+                hot.append({p: _np(h) for p, h in zip(eng._paths,
+                                                       z.hot_columns)})
+            if sc.get("states") and k == 0:
+                eng.offload_states(include=("optim_states", "lp_params"))
+                steps[-1]["_evicted"] = eng.states_offloaded
+                eng.reload_states()
+        counts = comm.get_comms_logger().counts()
+        stream_in = po.COUNTS["stream_in"]
+        if sc.get("flush"):
+            eng.flush_delayed_update()
+        z = eng.zenflow_optimizer
+        out = {"steps": steps, "hot": hot, "counts": counts,
+               "stream_in": stream_in,
+               # where ZenFlow's cold sums and hot columns live
+               "zenflow_on": sorted({t.device.type for t in
+                                     z._cold_acc + z._hot_master})
+               if z is not None else [],
+               "host_bytes": eng._host.tensor_bytes if eng._host else 0,
+               "overlaps": _overlaps(log["ranges"]),
+               "params": {k: _np(v) for k, v in
+                          eng.checkpoint_params().items()},
+               "eval": eng.eval_batch(sc["batches"][0]),
+               "files": sorted(os.listdir(sc["nvme"])) if sc.get("nvme")
+               else []}
+    finally:
+        restore()
+    return out
+
+
+def qwz_gather(sc, rank):
+    """qwZ's quantized gather (``runtime/zero/qwz.quantized_gather``) of
+    this rank's fsdp shard of each of ``whole`` (split on ``dims``) beside
+    the plain all-gather of the same shards: the gathered tensors and the
+    bytes each gather sent."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+    from deepspeed_tpu_torch.runtime.config import MeshConfig
+    from deepspeed_tpu_torch.runtime.zero.qwz import quantized_gather
+
+    dev = sc.get("device", "cpu")
+    topo = MeshTopology.from_config(MeshConfig(fsdp_size="auto",
+                                               data_parallel_size=1),
+                                    device_type=dev)
+    n, k = topo.size("fsdp"), comm.axis_index("fsdp", topo=topo)
+    shards = [torch.from_numpy(w).to(dev, torch.bfloat16).chunk(n, d)[k]
+              .contiguous() for w, d in zip(sc["whole"], sc["dims"])]
+    comm.configure(enabled=True)
+    log = comm.get_comms_logger()
+    log.reset()
+    fulls = quantized_gather(shards, sc["dims"], "fsdp", topo=topo)
+    qbytes = log.stats["all_gather@fsdp"].total_bytes
+    log.reset()
+    comm.all_gather(torch.cat([s.reshape(-1) for s in shards]), "fsdp",
+                    topo=topo)
+    return {"gathered": [_np(f) for f in fulls], "bytes": qbytes,
+            "plain_bytes": log.stats["all_gather@fsdp"].total_bytes}
+
+
 SCENARIOS = {"collectives": collectives, "wire": wire, "engine": engine,
-             "checkpoint": checkpoint}
+             "checkpoint": checkpoint, "offload": offload,
+             "qwz_gather": qwz_gather}
 
 
 def main(argv):
